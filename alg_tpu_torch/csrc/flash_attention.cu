@@ -1,83 +1,116 @@
-// Flash-attention forward over [B, H, S, 64], online softmax in base 2.
+// Flash-attention forward over [B, H, S, D], online softmax in base 2, for
+// one head dim D fixed at compile time. The build reads the next line and
+// makes one object per value, each with its own C entry point.
+//
+// build-variants: ALG_FLASH_HEAD_DIM=64,80,128
 //
 // Replaces the TPU kernel alg_tpu/ops/flash_attention.py:_fwd_kernel in the
-// variants the CogVideoX main path runs: dense, `stable` true (running max)
-// or false (bounded logits, no max), and an optional additive fp32 bias
-// [1|B, H, Sq, Sk] (T5's relative-position bias). Logits are
-// (q.k)·scale·log2e + bias·log2e and p = exp2(logit [- running max]).
+// variants the CogVideoX and Wan main paths run: dense, `stable` true
+// (running max) or false (bounded logits, no max), an optional additive fp32
+// bias [1|B, H, Sq, Sk] (T5's relative-position bias), an optional per-batch
+// key count kv_len [B] (UMT5's prefix mask), Sq != Sk (cross-attention).
+// Logits are (q.k)·scale·log2e + bias·log2e and p = exp2(logit [- running
+// max]).
 //
-// Design. One thread block per (b·h, tile of 128 queries); each thread owns
-// one query row and keeps its q row, the fp32 accumulator, the running
-// denominator and (stable) the running max in registers. The block walks the
-// key sequence in tiles of 64 keys staged in shared memory as fp32 (the loop
-// that takes the place of the TPU grid's sequential "arbitrary" axis), and
-// inside a tile in chunks of 16 keys: 16 logits, their exponentials, then
-// the P·V update. Every thread reads the same K/V element at a time, so the
-// shared-memory reads are broadcasts. Keys past Sk are zero-filled in shared
-// memory and masked to -inf, so they add nothing to numerator or
-// denominator; chunks that start past Sk are skipped. Query rows past Sq
-// compute on zeros and are not written. No host-side padding.
+// Design. One thread block of 128 threads per (b·h, tile of query rows). A
+// query row belongs to kLanes neighbouring lanes: one lane at D = 64, two at
+// D = 80 and 128, so that a lane's slice of the q row and of the fp32
+// accumulator (kD / kLanes values each) stays in registers. A lane owns
+// every kLanes-th group of four head-dim columns, so the lanes of a row read
+// neighbouring float4s of a shared-memory K/V row (no bank conflict). The
+// block walks the key sequence in tiles staged in shared memory as fp32 (64
+// keys, 32 at D = 128 to stay inside 48 KB; the loop that takes the place of
+// the TPU grid's sequential "arbitrary" axis), and inside a tile in chunks of
+// 16 keys: 16 partial logits per lane, summed over the row's lanes with one
+// shuffle each, their exponentials, then the P·V update of the lane's
+// columns. Every lane of a warp reads the same K/V row at a time, so the
+// shared-memory reads are broadcasts.
 //
-// Bound on the H100: tensor-core FLOPs (4·B·H·Sq·Sk·64 per call, 7.8 TFLOP
-// at [2,48,17776,64]). This first version runs on the CUDA cores in fp32
-// FMAs for both bf16 and fp32 inputs, so it sits far below the tensor-core
-// roof; mma/wgmma tiles, TMA staging and warp specialisation are later work.
+// Ragged edges. The key loop runs to n = min(Sk, kv_len[b]): keys in
+// [n, tile end) are zero-filled in shared memory and masked to -inf, so they
+// add nothing to numerator or denominator, and every visited chunk starts at
+// a valid key. n = 0 visits nothing and writes a zero row. A row whose
+// logits so far are all -inf (a bias of -inf) keeps its running max at -inf;
+// the exponentials then take 0 as the max, so they are 0 and not NaN. Query
+// rows past Sq compute on zeros and are not written. No host-side padding,
+// no host read of kv_len.
+//
+// Bound on the H100: tensor-core FLOPs (4·B·H·Sq·n·D per call). This
+// version runs on the CUDA cores in fp32 FMAs for both bf16 and fp32 inputs,
+// so it sits far below the tensor-core roof; mma/wgmma tiles, TMA staging
+// and warp specialisation are later work.
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
+#ifndef ALG_FLASH_HEAD_DIM
+#error "compile with -DALG_FLASH_HEAD_DIM=64, 80 or 128 (the build-variants line above)"
+#endif
+
+#define ALG_CAT_(a, b) a##b
+#define ALG_CAT(a, b) ALG_CAT_(a, b)
+
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kBlockQ = 128;  // query rows per block = threads per block
-constexpr int kBlockK = 64;   // keys per shared-memory tile
-constexpr int kChunk = 16;    // keys per logits/exp/P·V round
+constexpr int kD = ALG_FLASH_HEAD_DIM;       // head dim
+constexpr int kLanes = kD > 64 ? 2 : 1;      // lanes that share one query row
+constexpr int kDL = kD / kLanes;             // head-dim values a lane owns
+constexpr int kThreads = 128;                // threads per block
+constexpr int kBlockQ = kThreads / kLanes;   // query rows per block
+constexpr int kBlockK = kD > 80 ? 32 : 64;   // keys per shared-memory tile
+constexpr int kChunk = 16;                   // keys per logits/exp/P·V round
 constexpr float kLog2e = 1.4426950408889634f;
 
+static_assert(kD == 64 || kD == 80 || kD == 128, "head dims the port's models use");
+static_assert(kD % (4 * kLanes) == 0 && kBlockK % kChunk == 0, "tiling");
+static_assert(2 * kBlockK * kD * sizeof(float) <= 48 * 1024, "static shared-memory limit");
+
 template <typename T, bool kStable, bool kBias>
-__global__ void __launch_bounds__(kBlockQ)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ bias, long long bias_b_stride, T* __restrict__ out,
-                 int heads, int sq, int sk, float scale_log2) {
+                 const float* __restrict__ bias, long long bias_b_stride,
+                 const int* __restrict__ kv_len, T* __restrict__ out, int heads, int sq, int sk,
+                 float scale_log2) {
   __shared__ __align__(16) float ks[kBlockK][kD];
   __shared__ __align__(16) float vs[kBlockK][kD];
 
   const int bh = blockIdx.y;
-  const int row = blockIdx.x * kBlockQ + threadIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int part = threadIdx.x % kLanes;  // which of the row's lanes this is
+  const int row = blockIdx.x * kBlockQ + threadIdx.x / kLanes;
   const bool valid_row = row < sq;
+  const int n_keys = kv_len == nullptr ? sk : max(0, min(sk, kv_len[b]));
   const T* kp = k + (long long)bh * sk * kD;
   const T* vp = v + (long long)bh * sk * kD;
 
-  float qr[kD];
+  // local value d (a multiple of 4) sits at head-dim column d·kLanes + 4·part
+  float qr[kDL];
   if (valid_row) {
-    const T* qrow = q + ((long long)bh * sq + row) * kD;
+    const T* qrow = q + ((long long)bh * sq + row) * kD + 4 * part;
 #pragma unroll
-    for (int d = 0; d < kD; d += alg::Vec16<T>::N) alg::Vec16<T>::load(qrow + d, qr + d);
+    for (int d = 0; d < kDL; d += 4) alg::load4(qrow + d * kLanes, qr + d);
   } else {
 #pragma unroll
-    for (int d = 0; d < kD; ++d) qr[d] = 0.0f;
+    for (int d = 0; d < kDL; ++d) qr[d] = 0.0f;
   }
   const float* brow = nullptr;
-  if (kBias && valid_row) {
-    const int b = bh / heads, h = bh % heads;
-    brow = bias + b * bias_b_stride + ((long long)h * sq + row) * sk;
-  }
+  if (kBias && valid_row) brow = bias + b * bias_b_stride + ((long long)h * sq + row) * sk;
 
-  float acc[kD];
+  float acc[kDL];
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = 0.0f;
+  for (int d = 0; d < kDL; ++d) acc[d] = 0.0f;
   float m = -INFINITY;  // running max (stable only)
   float l = 0.0f;       // running denominator
 
   constexpr int kVec = alg::Vec16<T>::N;
   constexpr int kVecsPerTile = kBlockK * kD / kVec;
-  for (int k0 = 0; k0 < sk; k0 += kBlockK) {
+  for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
     __syncthreads();  // previous tile fully consumed
-    for (int i = threadIdx.x; i < kVecsPerTile; i += kBlockQ) {
+    for (int i = threadIdx.x; i < kVecsPerTile; i += kThreads) {
       const int r = i * kVec / kD, c = i * kVec % kD;
       float kb[kVec], vb[kVec];
-      if (k0 + r < sk) {
+      if (k0 + r < n_keys) {
         alg::Vec16<T>::load(kp + (long long)(k0 + r) * kD + c, kb);
         alg::Vec16<T>::load(vp + (long long)(k0 + r) * kD + c, vb);
       } else {
@@ -92,50 +125,57 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();
 
-    const int kn = min(kBlockK, sk - k0);
+    const int kn = min(kBlockK, n_keys - k0);
     for (int j0 = 0; j0 < kn; j0 += kChunk) {
       float s[kChunk];
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) s[jj] = 0.0f;
 #pragma unroll
-      for (int d = 0; d < kD; d += 4) {
+      for (int d = 0; d < kDL; d += 4) {
 #pragma unroll
         for (int jj = 0; jj < kChunk; ++jj) {
-          const float4 kv = *reinterpret_cast<const float4*>(&ks[j0 + jj][d]);
+          const float4 kv = *reinterpret_cast<const float4*>(&ks[j0 + jj][d * kLanes + 4 * part]);
           s[jj] = fmaf(qr[d], kv.x, s[jj]);
           s[jj] = fmaf(qr[d + 1], kv.y, s[jj]);
           s[jj] = fmaf(qr[d + 2], kv.z, s[jj]);
           s[jj] = fmaf(qr[d + 3], kv.w, s[jj]);
         }
       }
+      if (kLanes == 2) {
+        // both lanes of a row end with the same sums (a + b == b + a)
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) s[jj] += __shfl_xor_sync(0xffffffffu, s[jj], 1);
+      }
       float cmax = -INFINITY;
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
         const int key = k0 + j0 + jj;
         float t = s[jj] * scale_log2;
-        if (kBias && valid_row && key < sk) t += brow[key] * kLog2e;
-        s[jj] = key < sk ? t : -INFINITY;
+        if (kBias && valid_row && key < n_keys) t += brow[key] * kLog2e;
+        s[jj] = key < n_keys ? t : -INFINITY;
         cmax = fmaxf(cmax, s[jj]);
       }
+      float m_exp = 0.0f;  // the max the exponentials are taken against
       if (kStable) {
-        // the chunk holds at least one valid key, so cmax and m_new are finite
         const float m_new = fmaxf(m, cmax);
-        const float alpha = exp2f(m - m_new);  // 0 on the first chunk (m = -inf)
+        // all logits so far -inf (a bias of -inf): take 0, so that p = exp2(-inf) = 0
+        m_exp = m_new == -INFINITY ? 0.0f : m_new;
+        const float alpha = exp2f(m - m_exp);  // 0 while m = -inf
         l *= alpha;
 #pragma unroll
-        for (int d = 0; d < kD; ++d) acc[d] *= alpha;
+        for (int d = 0; d < kDL; ++d) acc[d] *= alpha;
         m = m_new;
       }
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
-        s[jj] = exp2f(kStable ? s[jj] - m : s[jj]);
+        s[jj] = exp2f(s[jj] - m_exp);
         l += s[jj];
       }
 #pragma unroll
-      for (int d = 0; d < kD; d += 4) {
+      for (int d = 0; d < kDL; d += 4) {
 #pragma unroll
         for (int jj = 0; jj < kChunk; ++jj) {
-          const float4 vv = *reinterpret_cast<const float4*>(&vs[j0 + jj][d]);
+          const float4 vv = *reinterpret_cast<const float4*>(&vs[j0 + jj][d * kLanes + 4 * part]);
           acc[d] = fmaf(s[jj], vv.x, acc[d]);
           acc[d + 1] = fmaf(s[jj], vv.y, acc[d + 1]);
           acc[d + 2] = fmaf(s[jj], vv.z, acc[d + 2]);
@@ -147,56 +187,58 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (!valid_row) return;
   const float inv = 1.0f / (l == 0.0f ? 1.0f : l);
-  T* orow = out + ((long long)bh * sq + row) * kD;
+  T* orow = out + ((long long)bh * sq + row) * kD + 4 * part;
 #pragma unroll
-  for (int d = 0; d < kD; d += 2) alg::store2(orow + d, acc[d] * inv, acc[d + 1] * inv);
+  for (int d = 0; d < kDL; d += 4)
+    alg::store4(orow + d * kLanes, acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
 }
 
 template <typename T, bool kStable, bool kBias>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   long long bias_b_stride, void* out, int batch, int heads, int sq, int sk,
-                   float scale, cudaStream_t stream) {
+                   long long bias_b_stride, const void* kv_len, void* out, int batch, int heads,
+                   int sq, int sk, float scale, cudaStream_t stream) {
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<T, kStable, kBias><<<grid, kBlockQ, 0, stream>>>(
+  flash_fwd_kernel<T, kStable, kBias><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), bias_b_stride, static_cast<T*>(out), heads, sq, sk,
-      scale * kLog2e);
+      static_cast<const float*>(bias), bias_b_stride, static_cast<const int*>(kv_len),
+      static_cast<T*>(out), heads, sq, sk, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* bias,
-                     long long bias_b_stride, void* out, int batch, int heads, int sq, int sk,
-                     float scale, bool stable, cudaStream_t st) {
+                     long long bias_b_stride, const void* kv_len, void* out, int batch, int heads,
+                     int sq, int sk, float scale, bool stable, cudaStream_t st) {
   if (bias != nullptr) {
-    return stable ? launch<T, true, true>(q, k, v, bias, bias_b_stride, out, batch, heads, sq, sk, scale, st)
-                  : launch<T, false, true>(q, k, v, bias, bias_b_stride, out, batch, heads, sq, sk, scale, st);
+    return stable ? launch<T, true, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, scale, st)
+                  : launch<T, false, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, scale, st);
   }
-  return stable ? launch<T, true, false>(q, k, v, bias, 0, out, batch, heads, sq, sk, scale, st)
-                : launch<T, false, false>(q, k, v, bias, 0, out, batch, heads, sq, sk, scale, st);
+  return stable ? launch<T, true, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, scale, st)
+                : launch<T, false, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, scale, st);
 }
 
 }  // namespace
 
-// q/out: [B, H, Sq, 64], k/v: [B, H, Sk, 64], contiguous, of `dtype`.
-// bias: null, or fp32 with element (b, h, i, j) at
+// alg_flash_attention_fwd_d<D>. q/out: [B, H, Sq, D], k/v: [B, H, Sk, D],
+// contiguous, of `dtype`. bias: null, or fp32 with element (b, h, i, j) at
 // b·bias_b_stride + (h·Sq + i)·Sk + j (bias_b_stride 0 broadcasts one
-// [H, Sq, Sk] bias over the batch). Returns the launch's cudaError_t.
-extern "C" int alg_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                       const void* bias, long long bias_b_stride, void* out,
-                                       int batch, int heads, int sq, int sk, int head_dim,
-                                       float scale, int stable, void* stream) {
-  if (head_dim != kD || batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 ||
-      (long long)batch * heads > 65535)
+// [H, Sq, Sk] bias over the batch). kv_len: null, or int32 [B] on the
+// device: batch row b attends to its first kv_len[b] keys (clamped to
+// [0, Sk]). Returns the launch's cudaError_t.
+extern "C" int ALG_CAT(alg_flash_attention_fwd_d, ALG_FLASH_HEAD_DIM)(
+    int dtype, const void* q, const void* k, const void* v, const void* bias,
+    long long bias_b_stride, const void* kv_len, void* out, int batch, int heads, int sq, int sk,
+    float scale, int stable, void* stream) {
+  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || (long long)batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case alg::kFloat32:
-      return (int)dispatch<float>(q, k, v, bias, bias_b_stride, out, batch, heads, sq, sk, scale,
-                                  stable != 0, st);
+      return (int)dispatch<float>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk,
+                                  scale, stable != 0, st);
     case alg::kBFloat16:
-      return (int)dispatch<__nv_bfloat16>(q, k, v, bias, bias_b_stride, out, batch, heads, sq, sk,
-                                          scale, stable != 0, st);
+      return (int)dispatch<__nv_bfloat16>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads,
+                                          sq, sk, scale, stable != 0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

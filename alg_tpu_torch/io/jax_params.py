@@ -1,17 +1,20 @@
 """Carry a JAX-package parameter tree into the port's modules.
 
 The tree is ``alg_tpu``'s nested dict of numpy arrays (after
-``jax.device_get``) for the CogVideoX DiT, the T5 encoder or the CogVideoX
-VAE. Module attribute names follow the tree's keys, so the mapping is by
-rule:
+``jax.device_get``) for the CogVideoX or Wan DiT, the T5 / UMT5 encoder, the
+CLIP vision tower or the CogVideoX or Wan VAE. Module attribute names follow
+the tree's keys, so the mapping is by rule:
 
   * the weight-stacked DiT ``blocks`` (leading layer axis) are unstacked into
-    ``blocks.<i>``; lists (T5 blocks, VAE stages and resnets) are indexed;
+    ``blocks.<i>``; lists (T5 blocks, CLIP layers, VAE stages and resnets)
+    are indexed; an empty dict (an affine-free norm) holds nothing;
   * ``kernel`` becomes ``weight``: ``[in, out]`` transposed to ``[out, in]``,
     DHWIO conv kernels to ``[out, in, D, H, W]``, HWIO to ``[out, in, H, W]``;
   * ``scale`` becomes ``weight``; ``bias`` stays;
-  * any other array leaf (T5 ``embed``, the shared ``relative_attention_bias``
-    table) is an embedding and becomes ``<name>.weight`` as it is.
+  * plain tables keep their name and layout: ``scale_shift_table``, the Wan
+    VAE's ``gamma``, CLIP's ``class_embedding`` and ``position_embedding``;
+  * any other array leaf (T5 ``embed``, a ``relative_attention_bias`` table)
+    is an embedding and becomes ``<name>.weight`` as it is.
 
 Missing or unused keys and shape mismatches raise.
 """
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 _KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_PLAIN_TABLES = ("scale_shift_table", "gamma", "class_embedding", "position_embedding")
 
 
 def _leaf(prefix: str, key: str, arr) -> Tuple[str, np.ndarray]:
@@ -37,6 +41,8 @@ def _leaf(prefix: str, key: str, arr) -> Tuple[str, np.ndarray]:
         return prefix + "weight", arr
     if key == "bias":
         return prefix + "bias", arr
+    if key in _PLAIN_TABLES:
+        return prefix + key, arr
     return prefix + key + ".weight", arr
 
 

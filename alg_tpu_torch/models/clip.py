@@ -1,0 +1,152 @@
+"""CLIP vision encoder (counterpart of ``alg_tpu/models/clip.py``, vision
+tower only; Wan's image encoder).
+
+transformers ``CLIPVisionModel``: a stride-``patch_size`` patch convolution
+without bias, a class token, learned position embeddings, a pre-LayerNorm and
+``num_hidden_layers`` pre-norm encoder layers. Wan conditions on
+``hidden_states[-2]``: the penultimate layer's output, without the final
+norm. Each layer's attention goes through the port's flash kernel (head dim
+80 in ViT-H). The text tower (causal attention) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+from torch import nn
+
+from alg_tpu_torch.models import layers as L
+from alg_tpu_torch.ops.attention import attention
+
+# OpenAI CLIP normalisation (CLIPImageProcessor defaults)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """Defaults = the laion ViT-H/14 tower that Wan2.1-I2V ships."""
+
+    hidden_size: int = 1280
+    intermediate_size: int = 5120
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "gelu"  # laion ViT-H; OpenAI models use quick_gelu
+
+
+def _act(name: str):
+    if name == "quick_gelu":
+        return lambda x: x * torch.sigmoid(1.702 * x)
+    if name == "gelu":
+        return L.gelu
+    if name == "gelu_new":
+        return L.gelu_tanh
+    raise ValueError(name)
+
+
+class _Attention(nn.Module):
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.q = nn.Linear(dim, dim, **kw)
+        self.k = nn.Linear(dim, dim, **kw)
+        self.v = nn.Linear(dim, dim, **kw)
+        self.out = nn.Linear(dim, dim, **kw)
+
+
+class _MLP(nn.Module):
+    def __init__(self, dim: int, inter: int, device=None, dtype=None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, inter, device=device, dtype=dtype)
+        self.fc2 = nn.Linear(inter, dim, device=device, dtype=dtype)
+
+
+class CLIPEncoderLayer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_heads = cfg.num_attention_heads
+        self.act = _act(cfg.hidden_act)
+        self.layer_norm1 = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
+        self.attn = _Attention(cfg.hidden_size, **kw)
+        self.layer_norm2 = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
+        self.mlp = _MLP(cfg.hidden_size, cfg.intermediate_size, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, dim = x.shape
+
+        def heads(t):
+            return t.view(b, s, self.num_heads, dim // self.num_heads).transpose(1, 2)
+
+        h = self.layer_norm1(x)
+        o = attention(heads(self.attn.q(h)), heads(self.attn.k(h)), heads(self.attn.v(h)))
+        x = x + self.attn.out(o.transpose(1, 2).reshape(b, s, dim))
+        h = self.layer_norm2(x)
+        return x + self.mlp.fc2(self.act(self.mlp.fc1(h)))
+
+
+class CLIPVisionModel(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.class_embedding = L.table((cfg.hidden_size,), 0.02, **kw)
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size, stride=cfg.patch_size, bias=False, **kw)
+        self.position_embedding = L.table((n_pos, cfg.hidden_size), 0.02, **kw)
+        self.pre_layrnorm = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)  # [sic], as in transformers
+        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg, **kw) for _ in range(cfg.num_hidden_layers))
+        self.post_layernorm = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)  # pooled output only: unused
+
+    def forward(self, pixel_values: torch.Tensor) -> List[torch.Tensor]:
+        """``pixel_values`` [B, 3, H, W] (CLIP-normalised) -> the hidden
+        states entering layer 0 and leaving every layer, each [B, 1 + N,
+        hidden]; index [-2] is the penultimate layer's output."""
+        b = pixel_values.shape[0]
+        patches = self.patch_embedding(pixel_values).flatten(2).transpose(1, 2)  # [B, N, hidden], row-major patches
+        cls = self.class_embedding.to(patches.dtype).expand(b, 1, -1)
+        h = torch.cat([cls, patches], dim=1) + self.position_embedding.to(patches.dtype)[None]
+        h = self.pre_layrnorm(h)
+        hidden_states = [h]
+        for layer in self.layers:
+            h = layer(h)
+            hidden_states.append(h)
+        return hidden_states
+
+
+def clip_preprocess(image, size: int = 224) -> np.ndarray:
+    """Image -> CLIP ``pixel_values`` fp32 [1, 3, size, size]: resize the
+    shortest edge (bicubic), centre crop, rescale, normalise
+    (CLIPImageProcessor defaults).
+
+    Takes a PIL image or an array ([H, W, C], [C, H, W] or [B, C, H, W], in
+    [0, 1], [-1, 1] or uint8 range); arrays go through PIL for the resize."""
+    from PIL import Image
+
+    if not isinstance(image, Image.Image):
+        arr = np.asarray(image, np.float32)
+        if arr.ndim == 4:
+            arr = arr[0]
+        if arr.ndim == 3 and arr.shape[0] in (1, 3):
+            arr = arr.transpose(1, 2, 0)
+        if arr.min() < -0.01:  # [-1, 1] convention
+            arr = arr / 2.0 + 0.5
+        if arr.max() <= 1.5:
+            arr = arr * 255.0
+        image = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+
+    w, h = image.size
+    scale = size / min(w, h)
+    image = image.resize((round(w * scale), round(h * scale)), resample=Image.BICUBIC)
+    w, h = image.size
+    left, top = (w - size) // 2, (h - size) // 2
+    image = image.crop((left, top, left + size, top + size))
+    arr = np.asarray(image.convert("RGB")).astype(np.float32) / 255.0
+    arr = (arr - np.array(CLIP_IMAGE_MEAN)) / np.array(CLIP_IMAGE_STD)
+    return arr.transpose(2, 0, 1)[None].astype(np.float32)

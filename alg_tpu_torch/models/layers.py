@@ -10,23 +10,29 @@ back once.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last dim: fp32 mean/var, fp32 affine, cast back."""
+def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim: fp32 mean/var, fp32 affine (none when
+    ``weight`` is None), cast back."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    if weight is not None:
+        y = y * weight.float() + bias.float()
+    return y.to(x.dtype)
 
 
 def t5_layer_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """T5 RMS norm: mean square in fp32, fp32 scale, cast back."""
+    """T5 RMS norm: mean square in fp32, fp32 scale, cast back. Also the JAX
+    package's ``rms_norm`` (Wan's q/k norm over the full inner dim)."""
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     return (y * weight.float()).to(x.dtype)
@@ -45,12 +51,17 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
 def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
-    """diffusers ``get_timestep_embedding`` as CogVideoX calls it
+    """diffusers ``get_timestep_embedding`` as CogVideoX and Wan call it
     (``flip_sin_to_cos=True``, ``downscale_freq_shift=0``): fp32
     ``[cos, sin]`` of ``t·exp(-log(10000)·i/half)``."""
     half = dim // 2
@@ -61,11 +72,13 @@ def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Te
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5, device=None, dtype=None):
+    """``affine=False`` holds no parameters (the JAX package's ``{}`` norm)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, affine: bool = True, device=None, dtype=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype)) if affine else None
 
     def forward(self, x):
         return layer_norm(x, self.weight, self.bias, self.eps)
@@ -118,12 +131,20 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(silu(self.linear_1(x)))
 
 
+def table(shape, init_std: float, device=None, dtype=None) -> nn.Parameter:
+    """A parameter that is a plain table (modulation table, class or
+    position embedding), drawn N(0, ``init_std``²) by :func:`init_random_`."""
+    p = nn.Parameter(torch.zeros(shape, device=device, dtype=dtype))
+    p.init_std = init_std
+    return p
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn like the JAX package's ``init_*`` functions
     (same distributions, not the same numbers): linear and conv weights
-    N(0, 1/fan_in), biases 0, norm scales 1, embeddings N(0, ``init_std``²).
-    ``generator`` must live on the parameters' device."""
+    N(0, 1/fan_in), biases 0, norm scales 1, embeddings and tables
+    N(0, ``init_std``²). ``generator`` must live on the parameters' device."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
@@ -131,8 +152,11 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, getattr(m, "init_std", 1.0), generator=generator)
-        elif isinstance(m, (LayerNorm, RMSNorm, GroupNorm)):
+        elif isinstance(m, (LayerNorm, RMSNorm, GroupNorm)) and m.weight is not None:
             m.weight.fill_(1.0)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
+    for p in module.parameters():
+        if hasattr(p, "init_std"):
+            p.normal_(0.0, p.init_std, generator=generator)
     return module

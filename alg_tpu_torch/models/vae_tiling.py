@@ -10,7 +10,7 @@ output size. Layout is channels-last ``[B, F, H, W, C]``.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -58,11 +58,14 @@ def tiled_decode(decode_fn: Callable[[torch.Tensor], torch.Tensor], z: torch.Ten
     return out[:, :, : h * spatial_scale, : w * spatial_scale]
 
 
-def auto_tile_encode(num_frames: int, h_px: int, w_px: int) -> bool:
-    """Encode-side tiling policy: tile only multi-frame clips past ~8 frames
-    of 480p (single-frame conditioning encodes stay untiled, because tiled
-    encode is not equal to untiled and the conditioning latents must match
-    the reference)."""
+def auto_tile_encode(num_frames: int, h_px: int, w_px: int, override: Optional[bool] = None) -> bool:
+    """Encode-side tiling policy. ``override`` is the pipeline's explicit
+    toggle: True or False wins outright. With None, tile only multi-frame
+    clips past ~8 frames of 480p (single-frame conditioning encodes stay
+    untiled, because tiled encode is not equal to untiled and the
+    conditioning latents must match the reference)."""
+    if override is not None:
+        return bool(override)
     return num_frames > 1 and num_frames * h_px * w_px > 8 * 480 * 720
 
 

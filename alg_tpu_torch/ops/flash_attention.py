@@ -3,17 +3,19 @@
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
 and runs :func:`attention_plain` for CPU tensors; any other device raises.
 The kernel replaces the TPU kernel
-``alg_tpu/ops/flash_attention.py:_fwd_kernel`` in its dense variants:
-``stable`` (running max) or not (bounded logits, the DiT's fast path), with
-an optional additive fp32 bias ``[1|B, H, Sq, Sk]`` broadcast over the
-batch (T5's relative-position bias). Causal masking, ``kv_len``, head dim
-128, the base-2 LSE residuals and the in-kernel qk prolog are not ported
-yet.
+``alg_tpu/ops/flash_attention.py:_fwd_kernel`` in its dense variants at head
+dims 64, 80 and 128: ``stable`` (running max) or not (bounded logits, the
+DiTs' fast path), Sq != Sk (cross-attention), an optional additive fp32 bias
+``[1|B, H, Sq, Sk]`` (T5's relative-position bias) and an optional per-batch
+key count ``kv_len`` ``[B]`` (UMT5's prefix mask). Causal masking, the base-2
+LSE residuals and the in-kernel qk prolog are not ported yet.
 
 The plain version mirrors ``alg_tpu/ops/attention.py:_xla_attention``:
-fp32 logits times ``scale`` plus ``bias``, an fp32 softmax, probabilities
-cast to the value dtype, then ``P·V``. The kernel keeps P in fp32, so in
-bf16 the two differ by the rounding of P and of the output.
+fp32 logits times ``scale`` plus ``bias``, keys at or past ``kv_len`` masked
+to -inf, an fp32 softmax, probabilities cast to the value dtype, then
+``P·V``. A row with no key left (``kv_len`` 0) comes out as zeros, as from
+the kernels. The kernel keeps P in fp32, so in bf16 the two differ by the
+rounding of P and of the output.
 """
 
 from __future__ import annotations
@@ -26,35 +28,41 @@ import torch
 
 from alg_tpu_torch.ops import _build
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 80, 128)  # the variants csrc/flash_attention.cu declares, one entry point each
 
 
-def attention_plain(q, k, v, scale: float, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def attention_plain(q, k, v, scale: float, bias: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense softmax attention over ``[B, H, S, D]`` with an fp32 softmax."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()
+    if kv_len is not None:
+        mask = torch.arange(k.shape[-2], device=k.device)[None, :] < kv_len[:, None]  # [B, Sk]
+        logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
+    if kv_len is not None:  # a fully masked row is 0/0 above
+        probs = probs.masked_fill((kv_len <= 0)[:, None, None, None], 0.0)
     return torch.matmul(probs.to(v.dtype), v)
 
 
 @functools.cache
-def _entry():
-    fn = _build.load().alg_flash_attention_fwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p] + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+def _entry(head_dim: int):
+    fn = getattr(_build.load(), f"alg_flash_attention_fwd_d{head_dim}")
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, bias):
+def _check(q, k, v, bias, kv_len=None):
     if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash kernel takes [B, H, S, {HEAD_DIM}], got q {tuple(q.shape)}")
-    b, h, sq, _ = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[-1] != HEAD_DIM:
+    if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes [B, H, S, D] with D in {HEAD_DIMS}, got q {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[-1] != d:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if sq == 0 or k.shape[2] == 0 or b * h > 65535:
         raise ValueError(f"flash kernel cannot take q {tuple(q.shape)}, k {tuple(k.shape)}")
@@ -66,24 +74,30 @@ def _check(q, k, v, bias):
             raise ValueError(f"flash bias: want float32 [1|{b}, {h}, {sq}, {k.shape[2]}], got "
                              f"{bias.dtype} {tuple(bias.shape)}")
         operands.append(bias)
+    if kv_len is not None:
+        if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,):
+            raise ValueError(f"flash kv_len: want int32 [{b}], got {kv_len.dtype} {tuple(kv_len.shape)}")
+        operands.append(kv_len)
     for t in operands:
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash operands must be contiguous, 16-byte aligned and on one device")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                    bias: Optional[torch.Tensor] = None, stable: bool = True) -> torch.Tensor:
-    """``softmax(q·kᵀ·scale + bias)·v`` over ``[B, H, S, 64]``.
+                    bias: Optional[torch.Tensor] = None, stable: bool = True,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``softmax(q·kᵀ·scale + bias)·v`` over ``[B, H, S, D]``, D in 64, 80,
+    128; batch row ``b`` attends to its first ``kv_len[b]`` keys only.
 
     ``stable=False`` skips the running max: exact in fp32 while
     |logit·log2e| stays well below 126, which trained DiT attention does.
     CPU tensors take the plain version; CUDA tensors the kernel, or raise."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, bias)
+        return attention_plain(q, k, v, scale, bias, kv_len)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    _check(q, k, v, bias)
-    b, h, sq, _ = q.shape
+    _check(q, k, v, bias, kv_len)
+    b, h, sq, d = q.shape
     out = torch.empty_like(q)
     bias_ptr, bias_b_stride = None, 0
     if bias is not None:
@@ -91,9 +105,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         bias_b_stride = 0 if bias.shape[0] == 1 else h * sq * k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry()(
+        rc = _entry(d)(
             _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_b_stride,
-            out.data_ptr(), b, h, sq, k.shape[2], HEAD_DIM, float(scale), int(stable), stream,
+            None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), b, h, sq, k.shape[2],
+            float(scale), int(stable), stream,
         )
     _build.check(rc, "flash-attention kernel")
     flash_attention.launches += 1

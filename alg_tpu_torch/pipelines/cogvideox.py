@@ -52,7 +52,7 @@ class CogVideoXPipeline:
     tokenize: Optional[Callable] = None
     scheduler_cfg: CogVideoXDDIMConfig = dataclasses.field(default_factory=CogVideoXDDIMConfig)
     dtype: torch.dtype = torch.float32
-    device: Union[str, torch.device] = "cpu"
+    device: Union[str, torch.device] = "cuda"
 
     @property
     def vae_dtype(self) -> torch.dtype:

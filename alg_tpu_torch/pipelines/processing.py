@@ -35,3 +35,19 @@ def postprocess_video(frames: np.ndarray) -> np.ndarray:
     """``[B, F, C, H, W]`` fp32 in [-1, 1] -> ``[B, F, H, W, C]`` in [0, 1]
     (the reference's ``output_type="np"``)."""
     return np.clip(frames / 2.0 + 0.5, 0.0, 1.0).transpose(0, 1, 3, 4, 2)
+
+
+def validate_attention_kwargs(attention_kwargs) -> None:
+    """The reference pipelines' ``attention_kwargs`` passthrough carries the
+    per-call LoRA ``scale`` to the attention processors. Here adapters are
+    merged into the weights before the run, so ``scale == 1.0`` (the
+    default, equal to merged weights) is accepted as a no-op; any other
+    value, or any other key, is refused rather than silently dropped."""
+    if attention_kwargs is None:
+        return
+    kw = dict(attention_kwargs)
+    scale = kw.pop("scale", None)
+    if kw:
+        raise ValueError(f"Unsupported attention_kwargs keys {sorted(kw)}; supported: ['scale']")
+    if scale is not None and scale != 1.0:
+        raise ValueError("attention_kwargs['scale'] != 1.0: apply the LoRA scale when merging the adapter")

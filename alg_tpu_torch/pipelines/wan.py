@@ -1,0 +1,362 @@
+"""Wan2.1-I2V sampler with adaptive low-pass guidance (counterpart of
+``alg_tpu/pipelines/wan.py``).
+
+Same semantics as the reference ``WanImageToVideoPipeline``:
+
+  * layout ``[B, C, F, h, w]``; frames coerced to 4k+1;
+  * conditioning = ``[mask (4 ch) ⧺ latent_cond (16 ch)]`` built from the
+    first frame (and an optional ``last_image``) with the mode of the VAE
+    posterior and the per-channel ``latents_mean``/``latents_std``
+    normalisation;
+  * latent-space ALG filters the whole 20-channel condition, mask channels
+    included (a quirk of the reference, kept);
+  * a step is 3-pass where the ALG strength is nonzero, with no shortcut for
+    the exponential schedule: ``[uncond(clean), uncond(filtered),
+    text(filtered)]`` combined as ``uncond_init + g·(text − uncond)``; the
+    other steps are 2-pass on the *clean* condition;
+  * UMT5 text encoding with the tokenizer's mask and the embeddings zeroed
+    past each prompt's length; CLIP-vision penultimate hidden states as the
+    image embeddings;
+  * UniPC steps over fp32 latents in a Python loop, then de-normalise and
+    VAE decode, tiled above 48×48 latents.
+
+``guidance_scale <= 1`` runs a single pass. The only noise drawn on this
+path is the initial latents, from one CPU ``torch.Generator``.
+
+Not ported yet (queued in ROADMAP.md): pixel-space ALG, the step cache,
+checkpoints, step observers and interruption, PIL frame output, sharded
+attention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import html
+import re
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from alg_tpu_torch.alg.matrices import apply_filter_matrices
+from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_lp_plan
+from alg_tpu_torch.core.rng import NoiseSource
+from alg_tpu_torch.models.clip import CLIPVisionModel, clip_preprocess
+from alg_tpu_torch.models.t5 import T5Encoder
+from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
+from alg_tpu_torch.models.wan.transformer import WanTransformer, wan_rope
+from alg_tpu_torch.models.wan.vae import WanVAE
+from alg_tpu_torch.pipelines import processing
+from alg_tpu_torch.schedulers.unipc import UniPCConfig, UniPCPlan, make_unipc_plan, unipc_init_state, unipc_step
+
+
+def prompt_clean(text: str) -> str:
+    """``ftfy.fix_text`` (where ftfy is installed), html unescape, whitespace
+    collapse: the reference's prompt cleaning."""
+    try:
+        import ftfy
+
+        text = ftfy.fix_text(text)
+    except ImportError:
+        pass
+    text = html.unescape(html.unescape(text))
+    return re.sub(r"\s+", " ", text).strip()
+
+
+@dataclasses.dataclass
+class WanPipeline:
+    """Modules on ``device`` plus the tokenizer hook.
+
+    ``tokenize``: ``(prompts, max_len) -> (ids, mask)``, int ``[B, max_len]``
+    each (the UMT5 tokenizer with max-length padding and truncation; ``mask``
+    is 1 over each prompt's tokens), injected so the pipeline needs no
+    tokenizer files. ``dtype`` is the DiT's activation dtype; the VAE and
+    the encoders run in the dtype of their own weights.
+
+    ``vae_encode_tiling``: True or False forces tiled or whole encoding of
+    the condition video; None tiles only clips large enough to be a memory
+    risk (``models/vae_tiling.auto_tile_encode``).
+
+    ``guidance_microbatch``: 0 runs a step's CFG/ALG passes as one batched
+    DiT forward; N > 0 runs them one after another in micro-batches of N
+    samples, which lowers the peak activation memory."""
+
+    transformer: WanTransformer
+    vae: WanVAE
+    t5: Optional[T5Encoder] = None
+    clip: Optional[CLIPVisionModel] = None
+    tokenize: Optional[Callable] = None
+    scheduler_cfg: UniPCConfig = dataclasses.field(default_factory=lambda: UniPCConfig(flow_shift=5.0))
+    dtype: torch.dtype = torch.float32
+    device: Union[str, torch.device] = "cuda"
+    vae_encode_tiling: Optional[bool] = None
+    guidance_microbatch: int = 0
+
+    @property
+    def vae_dtype(self) -> torch.dtype:
+        return next(self.vae.parameters()).dtype
+
+    # -- encoders ------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_prompt(self, prompt: Union[str, Sequence[str]], max_sequence_length: int = 512) -> torch.Tensor:
+        """UMT5 encode with the mask; each sample zeroed past its length."""
+        if self.tokenize is None or self.t5 is None:
+            raise ValueError("No tokenizer or UMT5 encoder; pass prompt_embeds instead")
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        ids, mask = self.tokenize([prompt_clean(p) for p in prompts], max_sequence_length)
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.long).to(self.device)
+        mask = torch.as_tensor(np.asarray(mask), dtype=torch.long).to(self.device)
+        embeds = self.t5(ids, mask)
+        keep = torch.arange(ids.shape[1], device=ids.device)[None, :] < mask.sum(dim=1)[:, None]
+        return embeds.masked_fill(~keep[..., None], 0.0).to(self.dtype)
+
+    @torch.no_grad()
+    def encode_image(self, image) -> torch.Tensor:
+        """CLIP-vision penultimate hidden states ``[B, 257, image_dim]``."""
+        if self.clip is None:
+            raise ValueError("No CLIP vision encoder; pass image_embeds instead")
+        pixels = torch.from_numpy(clip_preprocess(image, self.clip.cfg.image_size))
+        clip_dtype = next(self.clip.parameters()).dtype
+        return self.clip(pixels.to(self.device, clip_dtype))[-2].to(self.dtype)
+
+    # -- main entry ----------------------------------------------------------
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        image=None,
+        prompt: Optional[Union[str, Sequence[str]]] = None,
+        negative_prompt: Optional[Union[str, Sequence[str]]] = None,
+        height: int = 480,
+        width: int = 832,
+        num_frames: int = 81,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 5.0,
+        seed: int = 42,
+        noise_source: Optional[NoiseSource] = None,
+        latents: Optional[np.ndarray] = None,
+        prompt_embeds: Optional[torch.Tensor] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        image_embeds: Optional[torch.Tensor] = None,
+        last_image=None,
+        max_sequence_length: int = 512,
+        output_type: str = "np",
+        attention_kwargs: Optional[dict] = None,
+        use_low_pass_guidance: bool = False,
+        lp_filter_type: str = "none",
+        lp_filter_in_latent: bool = True,
+        lp_blur_sigma: float = 3.0,
+        lp_blur_kernel_size=0.1,
+        lp_resize_factor: float = 0.25,
+        lp_strength_schedule_type: str = "none",
+        schedule_blur_kernel_size: bool = False,
+        schedule_interval_start_time: float = 0.0,
+        schedule_interval_end_time: float = 1.0,
+        schedule_linear_start_weight: float = 1.0,
+        schedule_linear_end_weight: float = 0.0,
+        schedule_linear_end_time: float = 1.0,
+        schedule_exp_decay_rate: float = 5.0,
+    ):
+        """Generate a video; returns ``np`` frames ``[B, F, H, W, 3]`` in
+        [0, 1] or the final ``latent`` ``[B, C, F, h, w]``."""
+        processing.validate_attention_kwargs(attention_kwargs)
+        if height % 16 != 0 or width % 16 != 0:
+            raise ValueError(f"height and width must be divisible by 16 but are {height} and {width}.")
+        if prompt is None and prompt_embeds is None:
+            raise ValueError("Provide prompt or prompt_embeds.")
+        if prompt is not None and prompt_embeds is not None:
+            raise ValueError("Cannot forward both prompt and prompt_embeds.")
+        if prompt is not None and not isinstance(prompt, (str, list, tuple)):
+            raise ValueError(f"prompt must be str or list but is {type(prompt)}")
+        # the image is needed even with image_embeds given: the 20-channel
+        # mask + latent condition is VAE-encoded from its pixels
+        if image is None:
+            raise ValueError("Provide image (image_embeds only replaces the CLIP-vision embeds).")
+        if negative_prompt is not None and not isinstance(negative_prompt, (str, list, tuple)):
+            raise ValueError(f"negative_prompt must be str or list but is {type(negative_prompt)}")
+        if output_type not in ("np", "latent"):
+            raise ValueError(f"Unsupported output_type {output_type!r} (the port returns 'np' or 'latent')")
+        do_cfg = guidance_scale > 1.0
+        if use_low_pass_guidance and do_cfg and not lp_filter_in_latent:
+            raise NotImplementedError("pixel-space ALG (lp_filter_in_latent=False) is not ported yet")
+        noise = noise_source or NoiseSource(seed=seed)
+        vcfg = self.vae.cfg
+
+        # frames coerced to 4k + 1
+        tscale = vcfg.temporal_scale
+        if num_frames % tscale != 1:
+            num_frames = num_frames // tscale * tscale + 1
+        num_frames = max(num_frames, 1)
+        f_lat = (num_frames - 1) // tscale + 1
+        h_lat, w_lat = height // vcfg.spatial_scale, width // vcfg.spatial_scale
+
+        # text and image encoders
+        if prompt_embeds is None:
+            prompt_embeds = self.encode_prompt(prompt, max_sequence_length)
+        if do_cfg and negative_prompt_embeds is None:
+            neg = negative_prompt if negative_prompt is not None else ""
+            negative_prompt_embeds = self.encode_prompt(
+                [neg] * prompt_embeds.shape[0] if isinstance(neg, str) else neg, max_sequence_length)
+        batch_size = prompt_embeds.shape[0]
+        if image_embeds is None:
+            image_embeds = self.encode_image(image)
+
+        # initial noise [B, z, F_lat, h, w] fp32
+        if latents is None:
+            latents0 = noise.randn((batch_size, vcfg.z_dim, f_lat, h_lat, w_lat))
+        else:
+            latents0 = torch.as_tensor(np.asarray(latents, np.float32))
+        latents0 = latents0.to(self.device)
+
+        # condition: [mask (4) ⧺ normalised latent_cond (16)]
+        if not isinstance(image, np.ndarray):
+            image = processing.preprocess_image(image, height, width)
+        if last_image is not None and not isinstance(last_image, np.ndarray):
+            last_image = processing.preprocess_image(last_image, height, width)
+        condition = self._build_condition(np.asarray(image, np.float32), batch_size, num_frames, last_image)
+
+        sched_plan = make_unipc_plan(self.scheduler_cfg, num_inference_steps)
+        lp_cfg = LPConfig(
+            use_low_pass_guidance=use_low_pass_guidance and do_cfg,
+            lp_filter_type=lp_filter_type,
+            lp_filter_in_latent=lp_filter_in_latent,
+            lp_blur_sigma=lp_blur_sigma,
+            lp_blur_kernel_size=lp_blur_kernel_size,
+            lp_resize_factor=lp_resize_factor,
+            lp_strength_schedule_type=lp_strength_schedule_type,
+            schedule_blur_kernel_size=schedule_blur_kernel_size,
+            schedule_interval_start_time=schedule_interval_start_time,
+            schedule_interval_end_time=schedule_interval_end_time,
+            schedule_linear_start_weight=schedule_linear_start_weight,
+            schedule_linear_end_weight=schedule_linear_end_weight,
+            schedule_linear_end_time=schedule_linear_end_time,
+            schedule_exp_decay_rate=schedule_exp_decay_rate,
+        )
+        # Wan has no 2-pass shortcut for the exponential schedule
+        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, h_lat, w_lat, exp_shortcut=False)
+
+        latents_out = self._sample(latents0, condition, prompt_embeds, negative_prompt_embeds, image_embeds,
+                                   sched_plan, lp_plan, float(np.float32(guidance_scale)), do_cfg)
+        if output_type == "latent":
+            return latents_out.cpu().numpy()
+        video = self.decode_latents(latents_out)  # [B, C, F, H, W]
+        return processing.postprocess_video(video.permute(0, 2, 1, 3, 4).cpu().numpy())
+
+    # -- condition construction ------------------------------------------------
+
+    def _mask_block(self, batch_size: int, num_frames: int, h_lat: int, w_lat: int, has_last: bool) -> np.ndarray:
+        """``[B, 4, F_lat, h, w]``: ones on the conditioned pixel frames, the
+        first frame repeated 4 times, frames folded into channels by 4."""
+        t = self.vae.cfg.temporal_scale
+        mask = np.ones((batch_size, 1, num_frames, h_lat, w_lat), np.float32)
+        if has_last:
+            mask[:, :, 1:-1] = 0.0
+        else:
+            mask[:, :, 1:] = 0.0
+        mask = np.concatenate([np.repeat(mask[:, :, 0:1], t, axis=2), mask[:, :, 1:]], axis=2)  # [B, 1, F+3, h, w]
+        return mask.reshape(batch_size, -1, t, h_lat, w_lat).transpose(0, 2, 1, 3, 4)
+
+    def _encode_video_condition(self, video_bfchw: torch.Tensor) -> torch.Tensor:
+        """Mode of the VAE posterior, normalised by ``latents_mean``/``std``
+        -> ``[B, z, F', h, w]`` fp32. The full-length condition video (first
+        frame, then zeros) is the largest encode of a run, so it goes
+        through overlapping spatial tiles, one at a time, unless it is small."""
+        vcfg = self.vae.cfg
+        x = video_bfchw.permute(0, 1, 3, 4, 2).to(self.vae_dtype)  # BFHWC
+        if auto_tile_encode(x.shape[1], x.shape[2], x.shape[3], self.vae_encode_tiling):
+            (mean,) = tiled_encode(lambda xt: self.vae.encode(xt)[:1], x, vcfg.spatial_scale)
+        else:
+            mean = self.vae.encode(x)[0]
+        z = mean.float().permute(0, 4, 1, 2, 3)
+        lm = torch.tensor(vcfg.latents_mean, dtype=torch.float32, device=z.device).view(1, -1, 1, 1, 1)
+        ls = torch.tensor(vcfg.latents_std, dtype=torch.float32, device=z.device).view(1, -1, 1, 1, 1)
+        return (z - lm) / ls
+
+    def _build_condition(self, image: np.ndarray, batch_size: int, num_frames: int,
+                         last_image: Optional[np.ndarray]) -> torch.Tensor:
+        img = torch.from_numpy(image).to(self.device)[:, None]  # [B, 1, C, H, W]
+        frames = [img]
+        n_zero = num_frames - (1 if last_image is None else 2)
+        frames.append(img.new_zeros((img.shape[0], n_zero) + tuple(img.shape[2:])))
+        if last_image is not None:
+            frames.append(torch.from_numpy(np.asarray(last_image, np.float32)).to(self.device)[:, None])
+        latent_cond = self._encode_video_condition(torch.cat(frames, dim=1))
+        if latent_cond.shape[0] < batch_size:
+            latent_cond = latent_cond.repeat_interleave(batch_size, dim=0)
+        h_lat, w_lat = latent_cond.shape[3:]
+        mask = self._mask_block(batch_size, num_frames, h_lat, w_lat, last_image is not None)
+        return torch.cat([torch.from_numpy(mask).to(self.device), latent_cond], dim=1)  # [B, 20, F', h, w]
+
+    # -- sampler ---------------------------------------------------------------
+
+    def _dit(self, latent_in, cond_in, embeds, img_embeds, t: float, rope_cos, rope_sin) -> torch.Tensor:
+        x = torch.cat([latent_in, cond_in], dim=1).to(self.dtype)
+
+        def fwd(xb, eb, ib):
+            ts = torch.full((xb.shape[0],), t, dtype=torch.float32, device=xb.device)
+            return self.transformer(xb, ts, eb.to(self.dtype), None if ib is None else ib.to(self.dtype),
+                                    rope_cos, rope_sin).float()
+
+        n, mb = x.shape[0], int(self.guidance_microbatch or 0)
+        if 0 < mb < n and n % mb == 0:
+            return torch.cat([fwd(x[i:i + mb], embeds[i:i + mb], None if img_embeds is None else img_embeds[i:i + mb])
+                              for i in range(0, n, mb)])
+        return fwd(x, embeds, img_embeds)
+
+    def _sample(self, latents0, condition, prompt_embeds, negative_prompt_embeds, image_embeds,
+                sched_plan: UniPCPlan, lp_plan: LPPlan, g: float, do_cfg: bool) -> torch.Tensor:
+        alg = lp_plan.active
+        f_lat, h_lat, w_lat = latents0.shape[2:]
+        rope_cos, rope_sin = (torch.from_numpy(a).to(self.device)
+                              for a in wan_rope(self.transformer.cfg, f_lat, h_lat, w_lat))
+        if do_cfg:
+            embeds2 = torch.cat([negative_prompt_embeds, prompt_embeds])
+            embeds3 = torch.cat([negative_prompt_embeds, negative_prompt_embeds, prompt_embeds]) if alg else None
+        else:
+            embeds2, embeds3 = prompt_embeds, None
+        if alg:
+            m_h = torch.from_numpy(lp_plan.m_h).to(self.device)
+            m_w = torch.from_numpy(lp_plan.m_w).to(self.device)
+
+        def img(n):
+            return None if image_embeds is None else torch.cat([image_embeds] * n)
+
+        latents = latents0
+        state = unipc_init_state(sched_plan, latents0)
+        for seg in lp_plan.segments:
+            three_pass = seg.three_pass and do_cfg and alg
+            for i in range(seg.start, seg.stop):
+                t = float(sched_plan.timesteps[i])
+                if not do_cfg:  # ALG needs CFG: a single pass on the clean condition
+                    noise_pred = self._dit(latents, condition, embeds2, image_embeds, t, rope_cos, rope_sin)
+                elif three_pass:
+                    j = int(lp_plan.m_idx[i])
+                    cond = apply_filter_matrices(condition, m_h[j], m_w[j])
+                    pred = self._dit(torch.cat([latents] * 3), torch.cat([condition, cond, cond]), embeds3,
+                                     img(3), t, rope_cos, rope_sin)
+                    uncond_init, uncond, text = pred.chunk(3)
+                    noise_pred = uncond_init + g * (text - uncond)
+                else:
+                    # strength-0 steps condition on the clean condition
+                    pred = self._dit(torch.cat([latents] * 2), torch.cat([condition, condition]), embeds2,
+                                     img(2), t, rope_cos, rope_sin)
+                    uncond, text = pred.chunk(2)
+                    noise_pred = uncond + g * (text - uncond)
+                latents, state = unipc_step(sched_plan, i, noise_pred, latents, state)
+        return latents
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """De-normalise and VAE decode: ``[B, z, F', h, w]`` -> ``[B, C, F, H,
+        W]`` fp32 in [-1, 1], through overlapping tiles once the latent
+        exceeds 48 x 48."""
+        vcfg = self.vae.cfg
+        lm = torch.tensor(vcfg.latents_mean, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
+        ls = torch.tensor(vcfg.latents_std, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
+        z = (latents.float() * ls + lm).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
+        if z.shape[2] * z.shape[3] > 48 * 48:
+            frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale)
+        else:
+            frames = self.vae.decode(z)
+        return frames.permute(0, 4, 1, 2, 3).float()

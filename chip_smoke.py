@@ -7,22 +7,36 @@ Run from the repository root with no arguments::
 
 Phases, each of which must pass:
 
-  A. build: compile ``alg_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into
-     ``alg_tpu_torch/_build/`` (ops/_build.py) and print the build time and
-     the compiler's register/shared-memory report;
-  B. kernels: each CUDA kernel against its plain PyTorch version on the card,
-     in bf16 and fp32 (fp32 with TF32 off), at the shapes of the CogVideoX
-     main path; prints max|diff| beside the stated tolerance and the median
-     time of kernel and plain version;
-  C. slice: the full-width CogVideoX-5b-I2V pipeline (42-layer DiT and 24-layer
-     T5-XXL in bf16, VAE in fp32, random weights from a seed) driven once
-     through ``CogVideoXPipeline.__call__`` with the shipped ALG config at
-     9 frames, 480x720, 4 steps (2 three-pass, 2 two-pass); checks the
-     output shape, finiteness and the exact kernel launch counts, and prints
-     the time of each stage;
-  D. agreement: a small pipeline (head dim 64, two layers) run on the card
-     through the kernels and on the CPU through the plain versions, fp32 with
-     TF32 off; final latents within atol 2e-3, decoded frames above 40 dB.
+  A.  build: compile ``alg_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into
+      ``alg_tpu_torch/_build/`` (ops/_build.py; one nvcc process per compile
+      unit, side by side) and print the build time and the compiler's
+      register/shared-memory report;
+  B.  kernels: each CUDA kernel against its plain PyTorch version on the
+      card, in bf16 and fp32 (fp32 with TF32 off), at the shapes of the
+      CogVideoX and Wan main paths; prints max|diff| beside the stated
+      tolerance, the median time of kernel and plain version, the bound (the
+      least time the card could take: bytes over 3.35 TB/s or operations over
+      the peak rate of the type, whichever is larger) and, for attention, the
+      time of ``torch.nn.functional.scaled_dot_product_attention`` on the
+      same tensors, a yardstick that the port never calls;
+  C.  CogVideoX slice: the full-width CogVideoX-5b-I2V pipeline (42-layer DiT
+      and 24-layer T5-XXL in bf16, VAE in fp32, random weights from a seed)
+      driven once through ``CogVideoXPipeline.__call__`` with the shipped ALG
+      config at 9 frames, 480x720, 4 steps (2 three-pass, 2 two-pass); checks
+      the output shape, finiteness and the exact kernel launch counts, and
+      prints the time of each stage;
+  C2. Wan slice: the full-width Wan2.1-I2V-14B pipeline (40-layer DiT and
+      24-layer UMT5-XXL in bf16, CLIP ViT-H and VAE in fp32, random weights
+      from a seed) driven once through ``WanPipeline.__call__`` with the
+      shipped ALG settings at 9 frames, 480x832, 4 steps (2 three-pass, 2
+      two-pass), the prompt through ``encode_prompt`` with a prefix mask and
+      the CLIP tower's penultimate output as ``image_embeds``; same checks;
+  D.  agreement: a small CogVideoX pipeline (head dim 64, two layers) run on
+      the card through the kernels and on the CPU through the plain versions,
+      fp32 with TF32 off; final latents within atol 2e-3, decoded frames
+      above 40 dB;
+  D2. the same for a small Wan pipeline (DiT head dim 128, UMT5 with a mask,
+      CLIP head dim 80).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line, and as the last line
@@ -101,23 +115,45 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 # bf16: the kernel rounds once at the end where the plain version rounds
-# after each op (qk_prep) or rounds P to bf16 (attention) — up to about two
-# bf16 ulps at unit scale, hence atol 2e-2 plus rtol 1e-2 for larger values.
-# fp32: only the summation order differs (64-wide norms, up to 17,776-key
-# softmax sums), so a few fp32 ulps.
+# after each op (qk_prep, rope) or rounds P to bf16 (attention) — up to about
+# two bf16 ulps at unit scale, hence atol 2e-2 plus rtol 1e-2 for larger
+# values. fp32: only the summation order differs (64-wide norms, up to
+# 32,760-key softmax sums), so a few fp32 ulps.
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (2e-5, 1e-5)}
+# Attention averages over its keys, so its outputs are far below unit scale
+# (about 0.02 at 4,680 keys, 0.01 at 32,760): in bf16 the absolute part of
+# its tolerance is tied to the output's size, 5% of the reference's mean
+# magnitude and never above the 2e-2 of unit scale. One bf16 step of the
+# output stays inside the rtol; the rounding of P moves an output by under 1%
+# of its typical size, so a kernel that dropped or mis-weighted even 1% of
+# the keys would be out.
+FLASH_BF16_ATOL_SHARE = 0.05
 
 
 def tol_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def _report(records, name, dtype, shape, err, ok, tol, ms, plain_ms):
-    print(f"[B] {name:<22} {dtype:<8} {str(shape):<22} max|diff| {err:.3e} "
-          f"(atol {tol[0]:g}, rtol {tol[1]:g}) kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-          f"{'PASS' if ok else 'FAIL'}", flush=True)
-    records.append(dict(name=name, dtype=dtype, shape=list(shape), max_abs_err=err, ok=ok,
-                        ms=ms, plain_ms=plain_ms))
+# Published peaks of one H100 SXM (dense): device memory rate, and operations
+# per second by the type the inputs come in (fp32 outside the tensor cores).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def _bound(ops: float, nbytes: float, dtype: str):
+    """(least milliseconds the card could take, "bytes" | "operations")."""
+    ops_ms, bytes_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def _report(records, name, dtype, shape, err, ok, tol, ms, plain_ms, bound, library_ms=None, ref_size=None):
+    lib = "" if library_ms is None else f"  sdpa {library_ms:.3f} ms"
+    size = "" if ref_size is None else f", mean|ref| {ref_size:.3e}"
+    print(f"[B] {name:<22} {dtype:<8} {str(shape):<24} max|diff| {err:.3e} "
+          f"(atol {tol[0]:.3g}, rtol {tol[1]:g}{size}) kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  "
+          f"bound {bound[0]:.4f} ms ({bound[1]})  {'PASS' if ok else 'FAIL'}", flush=True)
+    records.append(dict(name=name, dtype=dtype, shape=list(shape), max_abs_err=err, ok=ok, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms))
 
 
 def _close(a, b, tol):
@@ -156,47 +192,102 @@ def _qk_case(records, shape, dtype, gen, text_len=226):
           f"(atol {id_tol[0]:g}, rtol {id_tol[1]:g}) {'PASS' if id_ok else 'FAIL'}")
     ms = _time_ms(lambda: qk_norm_rope(x, scale, bias, cos, sin, 1e-6))
     plain_ms = _time_ms(lambda: qk_norm_rope_plain(x, scale, bias, cos, sin, 1e-6))
-    _report(records, "qk_prep", tol_name(dtype), shape, err, ok and id_ok, tol, ms, plain_ms)
+    nbytes = 2 * x.numel() * x.element_size() + 4 * (cos.numel() + sin.numel() + scale.numel() + bias.numel())
+    bound = _bound(12 * x.numel(), nbytes, tol_name(dtype))  # about 12 operations a value, fp32 CUDA cores
+    _report(records, "qk_prep", tol_name(dtype), shape, err, ok and id_ok, tol, ms, plain_ms, bound)
 
 
-def _attn_case(records, name, shape_q, dtype, gen, scale, stable, with_bias=False, q_chunk=None):
-    """Kernel vs plain attention. ``q_chunk`` runs the plain version over
-    query chunks (per batch element) so its [H, chunk, Sk] logits fit."""
+def _rope_case(records, shape, dtype, gen, reps=5):
+    """Kernel vs plain on the view the Wan DiT passes: the [B, S, H, D]
+    projection seen as [B, H, S, D]."""
     import torch
+
+    from alg_tpu_torch.ops.rope import apply_rope_interleaved, rope_interleaved
+
+    b, h, s, d = shape
+    dev = "cuda"
+    x = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+    ang = torch.rand(s, d // 2, generator=gen, device=dev) * 6.28
+    cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+    sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
+    tol = TOL[tol_name(dtype)]
+    err, ok = _close(rope_interleaved(x, cos, sin), apply_rope_interleaved(x, cos, sin), tol)
+    ms = _time_ms(lambda: rope_interleaved(x, cos, sin), reps)
+    plain_ms = _time_ms(lambda: apply_rope_interleaved(x, cos, sin), reps)
+    nbytes = 2 * x.numel() * x.element_size() + 4 * (cos.numel() + sin.numel())
+    bound = _bound(3 * x.numel(), nbytes, tol_name(dtype))  # 2 multiplies and an add a value, fp32 CUDA cores
+    _report(records, "rope_interleaved", tol_name(dtype), shape, err, ok, tol, ms, plain_ms, bound)
+
+
+def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_bias=False, kv_len=None, reps=3):
+    """Kernel vs plain attention, and the time of one
+    ``scaled_dot_product_attention`` call on the same tensors (bias and
+    ``kv_len`` as its ``attn_mask``). The plain version, which holds the
+    fp32 logits, runs over query chunks (per batch element) of at most
+    2 GiB of logits. In bf16 the absolute tolerance follows the size of the
+    reference's values (``FLASH_BF16_ATOL_SHARE``), chunk by chunk; the
+    smallest one used is printed beside the reference's mean magnitude."""
+    import torch
+    import torch.nn.functional as F
 
     from alg_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
-    b, h, s, d = shape_q
+    b, h, sq, d = shape_q
+    sk = sq if sk is None else sk
     dev = "cuda"
-    q, k, v = (torch.randn(shape_q, generator=gen, device=dev).to(dtype) for _ in range(3))
-    bias = 0.5 * torch.randn((1, h, s, s), generator=gen, device=dev) if with_bias else None
+    q = torch.randn(shape_q, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, h, sk, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+    bias = 0.5 * torch.randn((1, h, sq, sk), generator=gen, device=dev) if with_bias else None
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
     tol = TOL[tol_name(dtype)]
+    q_chunk = max(1, min(sq, 2 ** 29 // (h * sk)))
 
     def kernel():
-        return flash_attention(q, k, v, scale, bias=bias, stable=stable)
+        return flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens)
 
     def plain_chunks():
-        if q_chunk is None:
-            yield (slice(None), slice(None)), attention_plain(q, k, v, scale, bias)
-            return
         for bi in range(b):
-            for i in range(0, s, q_chunk):
+            for i in range(0, sq, q_chunk):
                 sl = (slice(bi, bi + 1), slice(i, i + q_chunk))
                 bsl = None if bias is None else bias[:, :, i:i + q_chunk]
-                yield sl, attention_plain(q[sl[0], :, sl[1]], k[sl[0]], v[sl[0]], scale, bsl)
+                yield sl, attention_plain(q[sl[0], :, sl[1]], k[sl[0]], v[sl[0]], scale, bsl,
+                                          None if lens is None else lens[sl[0]])
 
     def plain():
         for _ in plain_chunks():
             pass
 
+    mask = None
+    if bias is not None or lens is not None:
+        mask = torch.zeros((b if lens is not None else 1, h, sq, sk), device=dev) if bias is None else bias
+        if lens is not None:
+            keep = torch.arange(sk, device=dev)[None, :] < lens[:, None]
+            mask = mask.masked_fill(~keep[:, None, None, :], float("-inf"))
+        mask = mask.to(dtype)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
     out = kernel()
-    err, ok = 0.0, True
+    err, ok, atol, sizes = 0.0, True, tol[0], []
     for (bs, qs), ref in plain_chunks():
-        e, o = _close(out[bs, :, qs], ref, tol)
-        err, ok = max(err, e), ok and o
-    ms = _time_ms(kernel, reps=3)
-    plain_ms = _time_ms(plain, reps=3)
-    _report(records, name, tol_name(dtype), shape_q, err, ok, tol, ms, plain_ms)
+        size = ref.float().abs().mean().item()
+        chunk_atol = min(tol[0], FLASH_BF16_ATOL_SHARE * size) if dtype == torch.bfloat16 else tol[0]
+        e, o = _close(out[bs, :, qs], ref, (chunk_atol, tol[1]))
+        err, ok, atol = max(err, e), ok and o, min(atol, chunk_atol)
+        sizes.append(size)
+    ms = _time_ms(kernel, reps=reps)
+    plain_ms = _time_ms(plain, reps=reps)
+    library_ms = _time_ms(library, reps=reps)  # a yardstick only: the port never calls it
+    # what this call's data needs: batch row b reads its first min(kv_len[b], Sk) keys and values and as
+    # many columns of the bias (one bias for all batch rows: the most any row needs); q and the output whole
+    kept = [sk] * b if kv_len is None else [min(n, sk) for n in kv_len]
+    nbytes = (2 * q.numel() + 2 * h * sum(kept) * d) * q.element_size() \
+        + (0 if bias is None else 4 * h * sq * max(kept)) + (0 if lens is None else 4 * b)
+    bound = _bound(4.0 * h * sq * sum(kept) * d, nbytes, tol_name(dtype))
+    shape = tuple(shape_q) if sk == sq else (b, h, f"{sq}->{sk}", d)
+    _report(records, name, tol_name(dtype), shape, err, ok, (atol, tol[1]), ms, plain_ms, bound, library_ms,
+            ref_size=statistics.fmean(sizes))
 
 
 def phase_kernels() -> list:
@@ -204,14 +295,35 @@ def phase_kernels() -> list:
 
     records = []
     gen = torch.Generator("cuda").manual_seed(0)
-    for dtype in (torch.bfloat16, torch.float32):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, fp32):
         _set_tf32(False, False)
+        # CogVideoX path
         for shape in ((2, 48, 4276, 64), (2, 48, 17776, 64)):
             _qk_case(records, shape, dtype, gen)
         _attn_case(records, "flash_t5_bias_stable", (1, 64, 226, 64), dtype, gen, 1.0, True, with_bias=True)
         _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False)
-        _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False, q_chunk=2048)
+        _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
+        # Wan path: 9 frames (S = 4,680) and the shipped 81 frames (S = 32,760)
+        for shape in ((2, 40, 4680, 128), (2, 40, 32760, 128)):
+            _rope_case(records, shape, dtype, gen)
+        _attn_case(records, "flash_wan_self", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False)
+        _attn_case(records, "flash_wan_self", (2, 40, 32760, 128), dtype, gen, 128 ** -0.5, False, reps=1)
+        _attn_case(records, "flash_wan_cross_text", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False, sk=512)
+        _attn_case(records, "flash_wan_cross_image", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False, sk=257)
+        _attn_case(records, "flash_umt5_bias_kvlen", (2, 64, 512, 64), dtype, gen, 1.0, True, with_bias=True,
+                   kv_len=[27, 1])
         torch.cuda.empty_cache()
+    # the other shapes phase C2 launches, in its dtype: a 3-pass step's batch of 3, and UMT5 one prompt
+    # at a time (the prompt's 27 tokens, the empty negative's 1)
+    _rope_case(records, (3, 40, 4680, 128), bf16, gen)
+    _attn_case(records, "flash_wan_self", (3, 40, 4680, 128), bf16, gen, 128 ** -0.5, False)
+    _attn_case(records, "flash_wan_cross_text", (3, 40, 4680, 128), bf16, gen, 128 ** -0.5, False, sk=512)
+    _attn_case(records, "flash_wan_cross_image", (3, 40, 4680, 128), bf16, gen, 128 ** -0.5, False, sk=257)
+    for n in (27, 1):
+        _attn_case(records, f"flash_umt5_bias_kvlen={n}", (1, 64, 512, 64), bf16, gen, 1.0, True, with_bias=True,
+                   kv_len=[n])
+    _attn_case(records, "flash_clip", (1, 16, 257, 80), fp32, gen, 80 ** -0.5, True)  # the tower runs in fp32
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel comparison(s) out of tolerance: {bad}")
@@ -219,7 +331,7 @@ def phase_kernels() -> list:
 
 
 # ---------------------------------------------------------------------------
-# C. the full-width slice through CogVideoXPipeline.__call__
+# C. the full-width slices through CogVideoXPipeline.__call__ and WanPipeline.__call__
 # ---------------------------------------------------------------------------
 
 PROMPT = "a red fox runs through fresh snow at dawn"
@@ -280,16 +392,15 @@ class _StageTimer:
 
         return timed
 
-    def hook_dit(self, dit):
+    def hook_dit(self, dit, seq_len):
+        """``seq_len(module, args)``: the DiT's sequence length for a forward's arguments."""
         import torch
 
         def pre(module, args):
             torch.cuda.synchronize()
             now = time.perf_counter()
             self.close_step(now)
-            x, text = args[0], args[1]  # [B, F, C, H, W], [B, S_text, D]
-            seq = text.shape[1] + x.shape[1] * x.shape[3] * x.shape[4] // module.cfg.patch_size ** 2
-            self._step = [f"denoise step ({x.shape[0]}-pass, S={seq})", now, None]
+            self._step = [f"denoise step ({args[0].shape[0]}-pass, S={seq_len(module, args)})", now, None]
 
         def post(module, args, out):
             torch.cuda.synchronize()
@@ -299,6 +410,23 @@ class _StageTimer:
 
     def count(self, prefix):
         return sum(1 for name, _, _ in self.rows if name.startswith(prefix))
+
+
+def _kernel_wrappers() -> dict:
+    from alg_tpu_torch.ops.flash_attention import flash_attention
+    from alg_tpu_torch.ops.qk_prep import qk_norm_rope
+    from alg_tpu_torch.ops.rope import rope_interleaved
+
+    return {"qk_prep": qk_norm_rope, "rope_interleaved": rope_interleaved, "flash_attention": flash_attention}
+
+
+def _reset_counts() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
 def _require_finite(latents, *_):
@@ -317,8 +445,6 @@ def phase_slice() -> dict:
     from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, CogVideoXTransformerConfig
     from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
     from alg_tpu_torch.models.t5 import T5Config, T5Encoder
-    from alg_tpu_torch.ops.flash_attention import flash_attention
-    from alg_tpu_torch.ops.qk_prep import qk_norm_rope
     from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 
     _set_tf32(False, True)  # PyTorch's defaults: fp32 matmuls in full fp32, cuDNN convs in TF32
@@ -341,17 +467,19 @@ def phase_slice() -> dict:
     pipe.encode_prompt = timer.wrap("T5 encode", pipe.encode_prompt)
     pipe.vae_encode_sample = timer.wrap("VAE encode + posterior draw", pipe.vae_encode_sample)
     pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_require_finite)
-    hooks = timer.hook_dit(dit)
+    # args: x [B, F, C, H, W], text [B, S_text, D]: the joint [text; video] stream
+    hooks = timer.hook_dit(dit, lambda m, a: a[1].shape[1] + a[0].shape[1] * a[0].shape[3] * a[0].shape[4]
+                           // m.cfg.patch_size ** 2)
     image = np.random.RandomState(0).uniform(-1, 1, (1, 3, 480, 720)).astype(np.float32)
 
     torch.cuda.reset_peak_memory_stats()
-    qk_norm_rope.launches = flash_attention.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     video = pipe(image=image, prompt=PROMPT, height=480, width=720, num_frames=9, output_type="np",
                  **_alg_kwargs())
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    counts = {"qk_prep": qk_norm_rope.launches, "flash_attention": flash_attention.launches}
+    counts = _read_counts()
     for h in hooks:
         h.remove()
 
@@ -362,7 +490,7 @@ def phase_slice() -> dict:
 
     dit_fwd, t5_enc = timer.count("denoise step"), timer.count("T5 encode")
     three, two = timer.count("denoise step (3-pass"), timer.count("denoise step (2-pass")
-    want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd,
+    want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0,
             "flash_attention": tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc}
     print(f"[C] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} T5 encodes)")
     if (dit_fwd, t5_enc, three, two) != (4, 2, 2, 2):
@@ -402,9 +530,124 @@ def _headline_forward(dit, gen) -> None:
           f"finite={bool(torch.isfinite(out).all())}", flush=True)
 
 
+def _seeded_tokenize_mask(vocab_size: int):
+    """UMT5 tokenizer stand-in: ``(ids, mask)``, each ``[len(prompts),
+    max_len]``; three seeded ids a word (at least one, as an end-of-sequence
+    token alone), zero-padded, with the prefix mask over them."""
+    import numpy as np
+
+    ids_of = _seeded_tokenize(vocab_size)
+
+    def tokenize(prompts, max_len):
+        lens = np.array([min(max_len, max(1, 3 * len(p.split()))) for p in prompts])
+        mask = (np.arange(max_len)[None, :] < lens[:, None]).astype(np.int64)
+        return ids_of(prompts, max_len) * mask, mask
+
+    return tokenize
+
+
+def phase_slice_wan() -> dict:
+    """Drive the full-width Wan pipeline once; return the kernel launch counts."""
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionModel
+    from alg_tpu_torch.models.t5 import UMT5_XXL, T5Encoder
+    from alg_tpu_torch.models.wan.transformer import WanTransformer, WanTransformerConfig
+    from alg_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+    from alg_tpu_torch.pipelines.wan import WanPipeline
+
+    _set_tf32(False, True)  # PyTorch's defaults: fp32 matmuls in full fp32, cuDNN convs in TF32
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    tcfg, ccfg, vcfg = WanTransformerConfig(), CLIPVisionConfig(), WanVAEConfig()
+    dit = L.init_random_(WanTransformer(tcfg, device=dev, dtype=torch.bfloat16), gen)
+    t5 = L.init_random_(T5Encoder(UMT5_XXL, device=dev, dtype=torch.bfloat16), gen)
+    clip = L.init_random_(CLIPVisionModel(ccfg, device=dev, dtype=torch.float32), gen)
+    vae = L.init_random_(WanVAE(vcfg, device=dev, dtype=torch.float32), gen)
+    torch.cuda.synchronize()
+    n = {name: sum(p.numel() for p in m.parameters())
+         for name, m in (("dit", dit), ("t5", t5), ("clip", clip), ("vae", vae))}
+    print(f"[C2] random init on the card in {time.perf_counter() - t0:.1f} s: DiT {n['dit'] / 1e9:.2f} B params "
+          f"(bf16), UMT5 {n['t5'] / 1e9:.2f} B (bf16), CLIP {n['clip'] / 1e6:.0f} M (fp32), VAE "
+          f"{n['vae'] / 1e6:.1f} M (fp32); {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+
+    pipe = WanPipeline(transformer=dit, vae=vae, t5=t5, clip=clip, tokenize=_seeded_tokenize_mask(UMT5_XXL.vocab_size),
+                       dtype=torch.bfloat16, device=dev)
+    timer = _StageTimer()
+    pipe.encode_prompt = timer.wrap("UMT5 encode", pipe.encode_prompt)
+    pipe._encode_video_condition = timer.wrap("VAE tiled encode of the condition video",
+                                              pipe._encode_video_condition)
+    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_require_finite)
+    clip_tower = timer.wrap("CLIP vision tower", lambda px: clip(px)[-2])
+    # args: x [B, C, F, h, w]
+    hooks = timer.hook_dit(dit, lambda m, a: a[0].shape[2] * a[0].shape[3] * a[0].shape[4]
+                           // (m.cfg.patch_size[0] * m.cfg.patch_size[1] * m.cfg.patch_size[2]))
+    rng = np.random.RandomState(0)
+    image = rng.uniform(-1, 1, (1, 3, 480, 832)).astype(np.float32)
+    pixels = torch.from_numpy(rng.randn(1, 3, ccfg.image_size, ccfg.image_size).astype(np.float32)).to(dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        image_embeds = clip_tower(pixels)  # the penultimate layer's output, [1, 257, 1280]
+    # shipped settings (down_up at 0.4, interval from 0, CFG 5.0); the interval's end is raised
+    # from 0.20 to 0.4 so that the 4 steps hold two 3-pass and two 2-pass steps
+    video = pipe(image=image, prompt=PROMPT, image_embeds=image_embeds, height=480, width=832, num_frames=9,
+                 output_type="np", **_alg_kwargs(guidance_scale=5.0, lp_resize_factor=0.4))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = _read_counts()
+    for h in hooks:
+        h.remove()
+
+    for name, ms, dit_ms in timer.rows:
+        print(f"[C2] {name:<40} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
+    print(f"[C2] CLIP tower + pipeline call total {total_s:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+
+    dit_fwd, t5_enc, clip_runs = timer.count("denoise step"), timer.count("UMT5 encode"), timer.count("CLIP")
+    three, two = timer.count("denoise step (3-pass, S=4680)"), timer.count("denoise step (2-pass, S=4680)")
+    want = {"qk_prep": 0, "rope_interleaved": 2 * tcfg.num_layers * dit_fwd,
+            "flash_attention": 3 * tcfg.num_layers * dit_fwd + UMT5_XXL.num_layers * t5_enc
+            + ccfg.num_hidden_layers * clip_runs}
+    print(f"[C2] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} UMT5 encodes, {clip_runs} CLIP run)")
+    if (dit_fwd, t5_enc, clip_runs, three, two) != (4, 2, 1, 2, 2):
+        raise AssertionError(f"stage counts: {dit_fwd} DiT forwards ({three} 3-pass, {two} 2-pass at S=4680), "
+                             f"{t5_enc} UMT5 encodes, {clip_runs} CLIP runs; want 4 (2, 2), 2, 1")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != {want}")
+    if video.shape != (1, 9, 480, 832, 3) or not np.isfinite(video).all():
+        raise AssertionError(f"output {video.shape}, finite={bool(np.isfinite(video).all())}")
+    print(f"[C2] output {video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: PASS", flush=True)
+    del dit, t5, clip, vae, pipe
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # D. the same path on the card (kernels) and on the CPU (plain versions)
 # ---------------------------------------------------------------------------
+
+
+def _compare_runs(tag, results, want_card) -> None:
+    """``results[dev] = (latents, frames in [0, 1], launch counts)``: the card
+    against the CPU, and the launch counts of both."""
+    import numpy as np
+
+    (lat_c, fr_c, n_c), (lat_g, fr_g, n_g) = results["cpu"], results["cuda"]
+    err = float(np.abs(lat_g - lat_c).max())
+    mse = float(np.mean((fr_g.astype(np.float64) - fr_c) ** 2))
+    psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    ok = err <= 2e-3 and psnr > 40.0 and not any(n_c.values()) and n_g == want_card
+    print(f"[{tag}] small pipeline, card (kernels) vs CPU (plain), fp32: latents max|diff| {err:.3e} (atol 2e-3), "
+          f"frames PSNR {psnr:.1f} dB (> 40), launches card {n_g} (want {want_card}) / CPU {n_c}: "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] card and CPU runs of the small pipeline disagree")
 
 
 def phase_agreement() -> None:
@@ -417,8 +660,6 @@ def phase_agreement() -> None:
     from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, CogVideoXTransformerConfig
     from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
     from alg_tpu_torch.models.t5 import T5Config, T5Encoder
-    from alg_tpu_torch.ops.flash_attention import flash_attention
-    from alg_tpu_torch.ops.qk_prep import qk_norm_rope
     from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 
     _set_tf32(False, False)
@@ -439,21 +680,58 @@ def phase_agreement() -> None:
         dit, t5, vae = (copy.deepcopy(m).to(dev) for m in mods)
         pipe = CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=_seeded_tokenize(t5cfg.vocab_size),
                                  device=dev)
-        qk_norm_rope.launches = flash_attention.launches = 0
+        _reset_counts()
         lat = pipe(**kw)
         frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
-        results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), qk_norm_rope.launches, flash_attention.launches)
-    (lat_c, fr_c, qk_c, fa_c), (lat_g, fr_g, qk_g, fa_g) = results["cpu"], results["cuda"]
-    err = float(np.abs(lat_g - lat_c).max())
-    mse = float(np.mean((fr_g.astype(np.float64) - fr_c) ** 2))
-    psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
-    # launches: 4 DiT forwards x 2 layers (2 qk_prep each) + 2 T5 encodes x 2 layers
-    ok = err <= 2e-3 and psnr > 40.0 and (qk_c, fa_c) == (0, 0) and (qk_g, fa_g) == (16, 12)
-    print(f"[D] small pipeline, card (kernels) vs CPU (plain), fp32: latents max|diff| {err:.3e} (atol 2e-3), "
-          f"frames PSNR {psnr:.1f} dB (> 40), launches card qk {qk_g} flash {fa_g} / CPU {qk_c} {fa_c}: "
-          f"{'PASS' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError("card and CPU runs of the small pipeline disagree")
+        results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+    # 4 DiT forwards x 2 layers (2 qk_prep each) + 2 T5 encodes x 2 layers
+    _compare_runs("D", results, {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12})
+
+
+def phase_agreement_wan() -> None:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionModel
+    from alg_tpu_torch.models.t5 import T5Config, T5Encoder
+    from alg_tpu_torch.models.wan.transformer import WanTransformer, WanTransformerConfig
+    from alg_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+    from alg_tpu_torch.pipelines.wan import WanPipeline
+
+    _set_tf32(False, False)
+    tcfg = WanTransformerConfig(num_attention_heads=2, attention_head_dim=128, in_channels=12, out_channels=4,
+                                num_layers=2, ffn_dim=64, freq_dim=16, text_dim=64, image_dim=160)
+    t5cfg = T5Config(vocab_size=128, d_model=64, d_kv=64, d_ff=128, num_layers=2, num_heads=2,
+                     relative_attention_num_buckets=8, relative_attention_max_distance=16,
+                     per_layer_relative_bias=True)
+    ccfg = CLIPVisionConfig(hidden_size=160, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2,
+                            image_size=56, patch_size=14)  # head dim 80, 17 tokens
+    vcfg = WanVAEConfig(base_dim=8, z_dim=4, dim_mult=(1, 2, 2, 2), num_res_blocks=1,
+                        latents_mean=(-0.5, -0.1, 0.2, 0.5), latents_std=(1.0, 1.3, 1.7, 2.0))
+    gen = torch.Generator("cpu").manual_seed(2)
+    mods = [L.init_random_(m, gen) for m in (WanTransformer(tcfg), T5Encoder(t5cfg), CLIPVisionModel(ccfg),
+                                             WanVAE(vcfg))]
+    rng = np.random.RandomState(2)
+    image = rng.uniform(-1, 1, (1, 3, 64, 64)).astype(np.float32)
+    pixels = torch.from_numpy(rng.randn(1, 3, 56, 56).astype(np.float32))
+    kw = _alg_kwargs(image=image, prompt=PROMPT, height=64, width=64, num_frames=9, max_sequence_length=32,
+                     guidance_scale=5.0, lp_resize_factor=0.4, output_type="latent")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        dit, t5, clip, vae = (copy.deepcopy(m).to(dev) for m in mods)
+        pipe = WanPipeline(transformer=dit, vae=vae, t5=t5, clip=clip, tokenize=_seeded_tokenize_mask(t5cfg.vocab_size),
+                           device=dev)
+        _reset_counts()
+        with torch.no_grad():
+            image_embeds = clip(pixels.to(dev))[-2]
+        lat = pipe(image_embeds=image_embeds, **kw)
+        frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
+        results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+    # 4 DiT forwards x 2 layers x (2 rope, 3 flash) + 2 UMT5 encodes x 2 layers + 2 CLIP layers
+    _compare_runs("D2", results, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 30})
 
 
 # ---------------------------------------------------------------------------
@@ -461,22 +739,28 @@ def phase_agreement() -> None:
 # ---------------------------------------------------------------------------
 
 
-# the phase-B case whose numbers go into each kernel's JSON record: the
-# shape the slice's 2-pass steps give it, in bf16
-_HEADLINE = {"qk_prep": ("qk_prep", [2, 48, 4276, 64]), "flash_attention": ("flash_dit", [2, 48, 4276, 64])}
-_SOURCES = {
-    "qk_prep": ("alg_tpu_torch/csrc/qk_prep.cu", "alg_tpu/ops/qk_prep.py:56"),
-    "flash_attention": ("alg_tpu_torch/csrc/flash_attention.cu", "alg_tpu/ops/flash_attention.py:98"),
+# For each kernel: its source, the TPU kernel it replaces, and the phase-B case
+# whose numbers go into its JSON record (the shape a 2-pass step of the slice
+# that runs it gives it, in bf16).
+_KERNELS = {
+    "qk_prep": ("alg_tpu_torch/csrc/qk_prep.cu", "alg_tpu/ops/qk_prep.py:56", "qk_prep", [2, 48, 4276, 64]),
+    "rope_interleaved": ("alg_tpu_torch/csrc/rope.cu", "alg_tpu/ops/qk_prep.py:134", "rope_interleaved",
+                         [2, 40, 4680, 128]),
+    "flash_attention": ("alg_tpu_torch/csrc/flash_attention.cu", "alg_tpu/ops/flash_attention.py:98",
+                        "flash_wan_self", [2, 40, 4680, 128]),
 }
 
 
-def _kernel_json(records, counts) -> dict:
+def _kernel_json(records, counts_by_path) -> dict:
+    """``counts_by_path``: {path name: launch counts of that path's run}."""
     out = []
-    for name, (case, shape) in _HEADLINE.items():
+    for name, (source, replaces, case, shape) in _KERNELS.items():
         rec = next(r for r in records if r["name"] == case and r["shape"] == shape and r["dtype"] == "bfloat16")
-        out.append({"name": name, "route": "cuda", "source": _SOURCES[name][0], "replaces": _SOURCES[name][1],
-                    "launches": counts[name], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                    "plain_ms": rec["plain_ms"], "at": f"bfloat16 {shape}"})
+        by_path = {path: counts[name] for path, counts in counts_by_path.items()}
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": sum(by_path.values()), "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                    "library_ms": rec["library_ms"], "at": f"bfloat16 {shape}", "launches_by_path": by_path})
     return {"kernels": out}
 
 
@@ -499,8 +783,15 @@ def main() -> int:
     try:
         phase_build()
         records = phase_kernels()
-        counts = phase_slice()
+        counts = {"cogvideox": phase_slice()}
+        counts["wan"] = phase_slice_wan()  # after the CogVideoX modules are freed
         phase_agreement()
+        phase_agreement_wan()
+        for path, kernels in (("cogvideox", ("qk_prep", "flash_attention")),
+                              ("wan", ("rope_interleaved", "flash_attention"))):
+            idle = [k for k in kernels if not counts[path][k]]
+            if idle:
+                raise AssertionError(f"the {path} path launched no {idle} kernel")
     except Exception:
         traceback.print_exc()
         return 1

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card against their plain PyTorch versions,
 at small ragged shapes that ``chip_smoke.py``'s main-path shapes do not
 reach: Sq != Sk, fewer keys than one 16-key chunk, a per-batch bias, a
-query tile that is mostly past Sq, a single row. Every test is marked
+query tile that is mostly past Sq, a single row, head dims 80 and 128,
+``kv_len`` of 0, 1 and Sk, rope at S = 1 and 300 on a transposed view.
+Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py -q
@@ -12,7 +14,9 @@ does not need.) Nothing here imports jax.
 Tolerances, as in ``chip_smoke.py``: fp32 with TF32 off, atol 2e-5 + rtol
 1e-5 (only the summation order differs); bf16, atol 2e-2 + rtol 1e-2 (the
 kernels round once at the end where the plain versions round after each
-op, or round the probabilities before P·V: about two bf16 ulps)."""
+op, or round the probabilities before P·V: about two bf16 ulps). Attention
+outputs shrink with the number of keys, so in bf16 the absolute part of
+their tolerance is 5% of the reference's mean magnitude, at most 2e-2."""
 
 import copy
 
@@ -22,6 +26,7 @@ import torch
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.ops import flash_attention as FA
 from alg_tpu_torch.ops import qk_prep as QK
+from alg_tpu_torch.ops import rope as RO
 
 pytestmark = pytest.mark.gpu
 
@@ -47,6 +52,13 @@ def _assert_close(out, ref, dtype):
     torch.testing.assert_close(out.float().cpu(), ref.float().cpu(), atol=atol, rtol=rtol)
 
 
+def _assert_close_flash(out, ref, dtype):
+    atol, rtol = TOL[dtype]
+    if dtype == torch.bfloat16:
+        atol = min(atol, 0.05 * ref.float().abs().mean().item())
+    torch.testing.assert_close(out.float().cpu(), ref.float().cpu(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("case", [
     dict(b=2, h=3, sq=300, sk=300, stable=False, bias=None),
     dict(b=2, h=3, sq=300, sk=300, stable=True, bias=None),
@@ -69,7 +81,83 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert FA.flash_attention.launches == before + 1
     assert out.shape == q.shape and out.dtype == dtype
-    _assert_close(out, FA.attention_plain(q, k, v, scale, bias), dtype)
+    _assert_close_flash(out, FA.attention_plain(q, k, v, scale, bias), dtype)
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=2, h=3, sq=300, sk=77, d=128, stable=False, bias=None, kv_len=None),
+    dict(b=2, h=3, sq=130, sk=257, d=128, stable=True, bias=None, kv_len=None),
+    dict(b=1, h=2, sq=200, sk=7, d=128, stable=False, bias=None, kv_len=None),
+    dict(b=1, h=4, sq=257, sk=257, d=80, stable=True, bias=None, kv_len=None),
+    dict(b=2, h=2, sq=70, sk=7, d=80, stable=False, bias=None, kv_len=None),
+    dict(b=3, h=2, sq=90, sk=100, d=64, stable=True, bias=None, kv_len=[0, 1, 100]),
+    dict(b=3, h=2, sq=90, sk=100, d=128, stable=False, bias=None, kv_len=[0, 1, 100]),
+    dict(b=3, h=2, sq=65, sk=70, d=80, stable=True, bias=None, kv_len=[70, 0, 33]),
+    dict(b=3, h=4, sq=70, sk=70, d=64, stable=True, bias="per_batch", kv_len=[70, 17, 1]),
+    dict(b=2, h=4, sq=70, sk=70, d=64, stable=True, bias="shared", kv_len=[64, 65]),
+    dict(b=2, h=2, sq=40, sk=150, d=128, stable=True, bias="per_batch", kv_len=[150, 31]),
+], ids=["d128-unstable-sk77", "d128-stable-sk257", "d128-sk7", "d80-stable-257", "d80-unstable-sk7",
+        "d64-kvlen-0-1-sk", "d128-kvlen-0-1-sk", "d80-kvlen", "d64-kvlen-per-batch-bias",
+        "d64-kvlen-shared-bias", "d128-kvlen-per-batch-bias"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_flash_kernel_head_dims_and_kv_len(cuda, case, dtype):
+    gen = torch.Generator().manual_seed(3)
+    b, h, sq, sk, d = case["b"], case["h"], case["sq"], case["sk"], case["d"]
+    q = _randn(gen, b, h, sq, d).to(cuda, dtype)
+    k, v = (_randn(gen, b, h, sk, d).to(cuda, dtype) for _ in range(2))
+    bias = None
+    if case["bias"] is not None:
+        bias = _randn(gen, b if case["bias"] == "per_batch" else 1, h, sq, sk, scale=2.0).to(cuda)
+    kv_len = None if case["kv_len"] is None else torch.tensor(case["kv_len"], dtype=torch.int32, device=cuda)
+    scale = 1.0 / 8 if bias is not None else d ** -0.5
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, scale, bias=bias, stable=case["stable"], kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all())
+    _assert_close_flash(out, FA.attention_plain(q, k, v, scale, bias, kv_len), dtype)
+    if kv_len is not None:
+        for i, n in enumerate(case["kv_len"]):
+            if n == 0:
+                assert not out[i].any()  # no key left: a zero row
+            if n == 1:
+                _assert_close(out[i], v[i, :, :1].expand_as(out[i]), dtype)
+
+
+def test_flash_kernel_stays_finite_on_rows_masked_by_the_bias(cuda):
+    """A bias of -inf over every key of a row, or over a whole 16-key chunk,
+    gives zeros or the softmax over the rest: never NaN (stable path)."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (_randn(gen, 1, 2, 40, 64).to(cuda) for _ in range(3))
+    bias = torch.zeros(1, 2, 40, 40, device=cuda)
+    bias[:, :, 3] = float("-inf")  # row 3 sees nothing
+    bias[:, :, 5, :16] = float("-inf")  # row 5: first chunk fully masked
+    out = FA.flash_attention(q, k, v, 0.125, bias=bias, stable=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and not out[:, :, 3].any()
+    ref = FA.attention_plain(q, k, v, 0.125, bias)
+    rows = [i for i in range(40) if i != 3]
+    _assert_close(out[:, :, rows], ref[:, :, rows], torch.float32)
+
+
+@pytest.mark.parametrize("s", [1, 300])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_rope_kernel_matches_plain(cuda, s, d, dtype):
+    """On the transposed view the models pass (the [B, S, H, D] projection
+    seen as [B, H, S, D]) and on a contiguous tensor."""
+    gen = torch.Generator().manual_seed(5)
+    base = _randn(gen, 2, s, 3, d).to(cuda, dtype)  # [B, S, H, D]
+    ang = torch.rand((s, d // 2), generator=gen) * 6.28
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(cuda)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(cuda)
+    for x in (base.transpose(1, 2), base.transpose(1, 2).contiguous()):
+        before = RO.rope_interleaved.launches
+        out = RO.rope_interleaved(x, cos, sin)
+        torch.cuda.synchronize()
+        assert RO.rope_interleaved.launches == before + 1
+        assert out.shape == x.shape and out.is_contiguous() and out.dtype == dtype
+        _assert_close(out, RO.apply_rope_interleaved(x, cos, sin), dtype)
 
 
 @pytest.mark.parametrize("s", [1, 300])
@@ -101,19 +189,26 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros(1, 2, 8, 64, device=cuda)
     ones, zeros = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
     tab = torch.ones(8, 64, device=cuda)
-    before = (FA.flash_attention.launches, QK.qk_norm_rope.launches)
+    before = (FA.flash_attention.launches, QK.qk_norm_rope.launches, RO.rope_interleaved.launches)
     with pytest.raises(TypeError):
         FA.flash_attention(q.half(), q.half(), q.half(), 0.125)
     with pytest.raises(ValueError):
         FA.flash_attention(torch.zeros(1, 8, 2, 64, device=cuda).transpose(1, 2), q, q, 0.125)
     with pytest.raises(ValueError):
-        wide = torch.zeros(1, 2, 8, 128, device=cuda)
+        wide = torch.zeros(1, 2, 8, 96, device=cuda)
         FA.flash_attention(wide, wide, wide, 0.125)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q, q, 0.125, kv_len=torch.tensor([8], device=cuda))  # int64
+    with pytest.raises(ValueError):
+        RO.rope_interleaved(torch.zeros(1, 2, 8, 12, device=cuda), torch.ones(8, 12, device=cuda),
+                            torch.zeros(8, 12, device=cuda))
+    with pytest.raises(TypeError):
+        RO.rope_interleaved(q.half(), tab, tab)
     with pytest.raises(TypeError):
         QK.qk_norm_rope(q.half(), ones, zeros, tab, tab, 1e-6)
     with pytest.raises(ValueError):
         QK.qk_norm_rope(q, ones, zeros, tab.half(), tab, 1e-6)
-    assert (FA.flash_attention.launches, QK.qk_norm_rope.launches) == before
+    assert (FA.flash_attention.launches, QK.qk_norm_rope.launches, RO.rope_interleaved.launches) == before
 
 
 def test_dit_forward_card_matches_cpu(cuda):

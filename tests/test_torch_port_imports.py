@@ -19,11 +19,15 @@ def _port_modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert "alg_tpu_torch.ops._build" in mods and "alg_tpu_torch.pipelines.cogvideox" in mods
+    assert {"alg_tpu_torch.ops.rope", "alg_tpu_torch.schedulers.unipc", "alg_tpu_torch.models.clip",
+            "alg_tpu_torch.models.wan.transformer", "alg_tpu_torch.models.wan.vae",
+            "alg_tpu_torch.pipelines.wan"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['yaml'] = None\n"
         "sys.modules['PIL'] = None\n"
+        "sys.modules['ftfy'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'alg_tpu' or k.startswith('alg_tpu.') for k in sys.modules), 'imported alg_tpu'\n"

@@ -5,7 +5,8 @@ CUDA kernels do not take.
 JAX side, as its own CPU tests run it: ``qk_norm_rope`` in Pallas interpret
 mode (``force="pallas", interpret=True``) and as the XLA composition
 (``force="xla"``); attention through ``_xla_attention`` (the Pallas flash
-kernel does not lower on the CPU). All fp32, atol 1e-5: the same ops in
+kernel does not lower on the CPU); ``rope_interleaved`` in Pallas interpret
+mode and as ``apply_rope_interleaved``. All fp32, atol 1e-5: the same ops in
 another order (64-wide norms, softmax sums over at most 300 keys)."""
 
 import numpy as np
@@ -16,13 +17,16 @@ import jax.numpy as jnp
 
 from alg_tpu.models import layers as JL
 from alg_tpu.ops.attention import _xla_attention
+from alg_tpu.models import rope as JR
 from alg_tpu.ops.qk_prep import qk_norm_rope as jax_qk_norm_rope
+from alg_tpu.ops.qk_prep import rope_interleaved as jax_rope_interleaved
 
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.ops import _build
 from alg_tpu_torch.ops import flash_attention as FA
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.qk_prep import qk_norm_rope
+from alg_tpu_torch.ops.rope import rope_interleaved
 
 ATOL = 1e-5
 
@@ -64,6 +68,30 @@ def test_qk_prep_identity_rows_equal_layer_norm():
     np.testing.assert_allclose(out[:, :, :40].numpy(), np.asarray(jax_ln)[:, :, :40], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,force", [(256, "pallas"), (300, "xla"), (1, "xla")],
+                         ids=["pallas-interpret", "xla-s300", "xla-s1"])
+def test_rope_interleaved_matches_jax(s, force, d):
+    """Against the Pallas kernel in interpret mode (S = 256: Mosaic's block
+    rule, not the function's) and against ``apply_rope_interleaved``."""
+    x, _, _, cos, sin = _qk_inputs(s, d=d)
+    ref = jax_rope_interleaved(jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin), force=force,
+                               interpret=force == "pallas")
+    out = rope_interleaved(*_t(x, cos, sin))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(JR.apply_rope_interleaved(jnp.asarray(x), cos, sin)),
+                               atol=ATOL, rtol=0)
+
+
+def test_rope_interleaved_takes_the_transposed_view():
+    """The models pass the [B, S, H, D] projection viewed as [B, H, S, D]."""
+    x, _, _, cos, sin = _qk_inputs(50, d=128)
+    X, C, S = _t(x, cos, sin)
+    view = X.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    assert torch.equal(rope_interleaved(view, C, S), rope_interleaved(X, C, S))
+
+
 def _attn_inputs(b, h, sq, sk, d, seed, with_bias):
     r = np.random.RandomState(seed)
     q, k, v = r.randn(b, h, sq, d), r.randn(b, h, sk, d), r.randn(b, h, sk, d)
@@ -87,6 +115,57 @@ def test_attention_plain_matches_xla_attention(case):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("case", [
+    dict(d=12, sq=40, sk=40, stable=True, with_bias=False, kv_len=[40, 13, 1]),
+    dict(d=80, sq=33, sk=57, stable=True, with_bias=False, kv_len=[57, 20, 3]),
+    dict(d=128, sq=40, sk=40, stable=False, with_bias=False, kv_len=[7, 40, 39]),
+    dict(d=64, sq=70, sk=70, stable=True, with_bias=True, kv_len=[70, 17, 1]),  # UMT5: bias + prompt lengths
+    dict(d=64, sq=70, sk=70, stable=False, with_bias=True, kv_len=[64, 65, 16]),
+    dict(d=80, sq=20, sk=30, stable=False, with_bias=True, kv_len=[30, 30, 30]),
+], ids=["d12", "d80-cross", "d128-unstable", "d64-bias-stable", "d64-bias-unstable", "d80-bias-full-len"])
+def test_attention_kv_len_matches_xla_attention(case):
+    """Keys at or past ``kv_len[b]`` add nothing, with and without a bias,
+    ``stable`` both ways (the plain version has one path for both)."""
+    d, sq, sk = case["d"], case["sq"], case["sk"]
+    q, k, v, bias = _attn_inputs(3, 2, sq, sk, d, 5, case["with_bias"])
+    scale = 1.0 / 8 if case["with_bias"] else d ** -0.5
+    kv_len = np.asarray(case["kv_len"], np.int32)
+    ref = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, kv_len=jnp.asarray(kv_len),
+                         bias=None if bias is None else jnp.asarray(bias))
+    out = attention(*_t(q, k, v), scale=scale, stable=case["stable"], kv_len=torch.from_numpy(kv_len),
+                    bias=None if bias is None else torch.from_numpy(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    # the first kv_len keys alone give the same rows
+    for i, n in enumerate(case["kv_len"]):
+        alone = attention(*_t(q[i:i + 1], k[i:i + 1, :, :n], v[i:i + 1, :, :n]), scale=scale,
+                          bias=None if bias is None else torch.from_numpy(bias[:, :, :, :n]))
+        np.testing.assert_allclose(out[i:i + 1].numpy(), alone.numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+def test_attention_kv_len_zero_gives_a_zero_row(with_bias):
+    """A batch row with no key left comes out as zeros (as from the flash
+    kernels; the XLA reference divides 0 by 0 there); the other rows match
+    the reference."""
+    q, k, v, bias = _attn_inputs(3, 2, 9, 11, 12, 6, with_bias)
+    kv_len = np.asarray([5, 0, 11], np.int32)
+    out = attention(*_t(q, k, v), kv_len=torch.from_numpy(kv_len),
+                    bias=None if bias is None else torch.from_numpy(bias))
+    assert bool(torch.isfinite(out).all()) and not out[1].any()
+    ref = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 12 ** -0.5, kv_len=jnp.asarray(kv_len),
+                         bias=None if bias is None else jnp.asarray(bias))
+    np.testing.assert_allclose(out[[0, 2]].numpy(), np.asarray(ref)[[0, 2]], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [12, 80, 128])
+def test_attention_head_dims_match_xla_attention(d):
+    q, k, v, _ = _attn_inputs(2, 3, 50, 37, d, 7, False)
+    ref = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), d ** -0.5)
+    for stable in (True, False):
+        out = attention(*_t(q, k, v), stable=stable)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
 def test_cpu_calls_launch_nothing():
     FA.flash_attention.launches = 0
     from alg_tpu_torch.ops import qk_prep
@@ -96,10 +175,13 @@ def test_cpu_calls_launch_nothing():
     qk_norm_rope(*_t(x, scale, bias, cos, sin), 1e-6)
     q = torch.zeros(1, 1, 8, 64)
     FA.flash_attention(q, q, q, 0.125)
+    rope_interleaved.launches = 0
+    rope_interleaved(*_t(x, cos, sin))
     assert FA.flash_attention.launches == 0 and qk_prep.qk_norm_rope.launches == 0
+    assert rope_interleaved.launches == 0
 
 
-@pytest.mark.parametrize("which", ["flash", "qk_prep"])
+@pytest.mark.parametrize("which", ["flash", "qk_prep", "rope"])
 def test_non_cpu_tensor_raises_instead_of_falling_back(which):
     """A tensor that is not on the CPU never takes the plain version: on a
     machine without CUDA the wrapper raises (here: a 'meta' tensor)."""
@@ -107,18 +189,30 @@ def test_non_cpu_tensor_raises_instead_of_falling_back(which):
     with pytest.raises(RuntimeError, match="no kernel for device"):
         if which == "flash":
             FA.flash_attention(meta, meta, meta, 0.125)
+        elif which == "rope":
+            rope_interleaved(meta, torch.ones(8, 64, device="meta"), torch.zeros(8, 64, device="meta"))
         else:
             qk_norm_rope(meta, torch.ones(64, device="meta"), torch.zeros(64, device="meta"),
                          torch.ones(8, 64, device="meta"), torch.zeros(8, 64, device="meta"), 1e-6)
 
 
-@pytest.mark.parametrize("bad", ["head_dim_128", "float16", "non_contiguous", "bias_shape", "bias_dtype", "kv_mismatch"])
+@pytest.mark.parametrize("bad", ["head_dim_128", "float16", "non_contiguous", "bias_shape", "bias_dtype", "kv_mismatch",
+                                 "head_dim_96", "kv_len_int64", "kv_len_shape"])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q = torch.zeros(2, 3, 16, 64)
     k = v = q
-    bias = None
-    if bad == "head_dim_128":
-        q = k = v = torch.zeros(2, 3, 16, 128)
+    bias = kv_len = None
+    if bad == "head_dim_128":  # served since the Wan slice, like 80: the check passes
+        for d in (80, 128):
+            wide = torch.zeros(2, 3, 16, d)
+            FA._check(wide, wide, wide, None)
+        q = k = v = torch.zeros(2, 3, 16, 256)
+    elif bad == "head_dim_96":
+        q = k = v = torch.zeros(2, 3, 16, 96)
+    elif bad == "kv_len_int64":
+        kv_len = torch.zeros(2, dtype=torch.int64)
+    elif bad == "kv_len_shape":
+        kv_len = torch.zeros(3, dtype=torch.int32)
     elif bad == "float16":
         q = k = v = q.half()
     elif bad == "non_contiguous":
@@ -130,7 +224,30 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "kv_mismatch":
         k = v = torch.zeros(2, 2, 16, 64)
     with pytest.raises((TypeError, ValueError)):
-        FA._check(q, k, v, bias)
+        FA._check(q, k, v, bias, kv_len)
+
+
+@pytest.mark.parametrize("bad", ["head_dim_12", "float16", "strided_last_dim", "table_shape", "table_dtype", "empty"])
+def test_rope_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    from alg_tpu_torch.ops import rope as RO
+
+    x, cos = torch.zeros(2, 3, 16, 64), torch.ones(16, 64)
+    RO._check(x, cos, cos)
+    RO._check(torch.zeros(2, 16, 3, 64).transpose(1, 2), cos, cos)  # the head-split view is taken as it is
+    if bad == "head_dim_12":
+        x, cos = torch.zeros(2, 3, 16, 12), torch.ones(16, 12)
+    elif bad == "float16":
+        x = x.half()
+    elif bad == "strided_last_dim":
+        x = torch.zeros(2, 3, 16, 128)[..., ::2]
+    elif bad == "table_shape":
+        cos = torch.ones(15, 64)
+    elif bad == "table_dtype":
+        cos = cos.double()
+    elif bad == "empty":
+        x, cos = torch.zeros(2, 3, 0, 64), torch.ones(0, 64)
+    with pytest.raises((TypeError, ValueError)):
+        RO._check(x, cos, cos)
 
 
 def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
@@ -140,7 +257,11 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     assert _build.library_path().name.startswith("libalg_kernels_")
-    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "qk_prep.cu"}
+    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "qk_prep.cu", "rope.cu"}
+    # flash_attention.cu declares its head dims in a ``// build-variants:`` line: one unit each
+    assert [(u[0], u[2]) for u in _build.compile_units()] == [
+        *((f"flash_attention.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",)) for d in FA.HEAD_DIMS),
+        ("qk_prep", ()), ("rope", ())]
     monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "missing.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()

@@ -59,17 +59,23 @@ def tiny_configs():
 
 
 def port_module(kind, jax_cfg, tree):
-    """The port's ``kind`` ("dit" | "vae" | "t5") module on the CPU in fp32,
-    loaded from the JAX tree through the weights bridge."""
+    """The port's ``kind`` ("dit" | "vae" | "t5" | "wan_dit" | "wan_vae" |
+    "clip") module on the CPU in fp32, loaded from the JAX tree through the
+    weights bridge."""
     from alg_tpu_torch.io.jax_params import load_jax_params
+    from alg_tpu_torch.models import clip, t5
     from alg_tpu_torch.models.cogvideox import transformer as T
     from alg_tpu_torch.models.cogvideox import vae as V
-    from alg_tpu_torch.models import t5
+    from alg_tpu_torch.models.wan import transformer as WT
+    from alg_tpu_torch.models.wan import vae as WV
 
     cls, cfg_cls = {
         "dit": (T.CogVideoXTransformer, T.CogVideoXTransformerConfig),
         "vae": (V.CogVideoXVAE, V.CogVideoXVAEConfig),
         "t5": (t5.T5Encoder, t5.T5Config),
+        "wan_dit": (WT.WanTransformer, WT.WanTransformerConfig),
+        "wan_vae": (WV.WanVAE, WV.WanVAEConfig),
+        "clip": (clip.CLIPVisionModel, clip.CLIPVisionConfig),
     }[kind]
     return load_jax_params(cls(port_cfg(cfg_cls, jax_cfg)), tree)
 
@@ -104,7 +110,71 @@ def build_pair():
     jpipe = JaxPipeline(transformer_cfg=tcfg, transformer_params=tp, vae_cfg=vcfg, vae_params=vp,
                         t5_cfg=t5cfg, t5_params=t5p, tokenize=tokenize_stub)
     tpipe = CogVideoXPipeline(transformer=port_module("dit", tcfg, tp), vae=port_module("vae", vcfg, vp),
-                              t5=port_module("t5", t5cfg, t5p), tokenize=tokenize_stub)
+                              t5=port_module("t5", t5cfg, t5p), tokenize=tokenize_stub, device="cpu")
+    return jpipe, tpipe
+
+
+def tiny_wan_configs(head_dim=12):
+    """``__graft_entry__._build_tiny_wan``'s DiT and VAE configs, a 2-layer
+    UMT5 (one bias table per block) as wide as the DiT's text dim and a
+    2-layer CLIP vision tower as wide as its image dim."""
+    from alg_tpu.models.clip import CLIPVisionConfig
+    from alg_tpu.models.t5 import T5Config
+    from alg_tpu.models.wan import WanTransformerConfig, WanVAEConfig
+
+    tcfg = WanTransformerConfig(num_attention_heads=4, attention_head_dim=head_dim, in_channels=12, out_channels=4,
+                                num_layers=2, ffn_dim=32, freq_dim=16, text_dim=8, image_dim=10)
+    vcfg = WanVAEConfig(base_dim=8, z_dim=4, dim_mult=(1, 2, 2, 2), num_res_blocks=1,
+                        latents_mean=tuple(float(x) for x in np.linspace(-0.5, 0.5, 4)),
+                        latents_std=tuple(float(x) for x in np.linspace(1.0, 2.0, 4)))
+    t5cfg = T5Config(vocab_size=64, d_model=8, d_kv=4, d_ff=16, num_layers=2, num_heads=3,
+                     relative_attention_num_buckets=8, relative_attention_max_distance=16,
+                     per_layer_relative_bias=True)
+    ccfg = CLIPVisionConfig(hidden_size=10, intermediate_size=20, num_hidden_layers=2, num_attention_heads=2,
+                            image_size=28, patch_size=14)
+    return tcfg, vcfg, t5cfg, ccfg
+
+
+def wan_trees(tcfg, vcfg, t5cfg, ccfg):
+    from alg_tpu.models.clip import init_clip_vision
+    from alg_tpu.models.t5 import init_t5_encoder
+    from alg_tpu.models.wan import init_wan_transformer, init_wan_vae
+
+    return (
+        random_tree(lambda k: init_wan_transformer(k, tcfg), 11),
+        random_tree(lambda k: init_wan_vae(k, vcfg), 12),
+        random_tree(lambda k: init_t5_encoder(k, t5cfg), 13),
+        random_tree(lambda k: init_clip_vision(k, ccfg), 14),
+    )
+
+
+def tokenize_mask_stub(prompts, max_len=512):
+    """Seeded ``(ids, mask)``, each ``[len(prompts), max_len]``: ids in
+    [0, 64), a prefix mask whose length depends on the prompt text (the
+    empty prompt gets one token, as a tokenizer's end-of-sequence)."""
+    ids = tokenize_stub(prompts, max_len)
+    lens = [min(max_len, 1 + len(p) % max_len) for p in prompts]
+    mask = (np.arange(max_len)[None, :] < np.asarray(lens)[:, None]).astype(np.int32)
+    return ids * mask, mask
+
+
+def build_wan_pair(**port_kwargs):
+    """(JAX Wan pipeline, port Wan pipeline) on the CPU in fp32 with
+    identical weights; UMT5 behind ``tokenize_mask_stub``, no CLIP tower
+    (callers pass ``image_embeds``)."""
+    from alg_tpu.pipelines import WanPipeline as JaxPipeline
+    from alg_tpu.schedulers import UniPCConfig as JaxUniPCConfig
+
+    from alg_tpu_torch.pipelines.wan import WanPipeline
+    from alg_tpu_torch.schedulers.unipc import UniPCConfig
+
+    tcfg, vcfg, t5cfg, ccfg = tiny_wan_configs()
+    tp, vp, t5p, _ = wan_trees(tcfg, vcfg, t5cfg, ccfg)
+    jpipe = JaxPipeline(transformer_cfg=tcfg, transformer_params=tp, vae_cfg=vcfg, vae_params=vp, t5_cfg=t5cfg,
+                        t5_params=t5p, tokenize=tokenize_mask_stub, scheduler_cfg=JaxUniPCConfig(flow_shift=5.0))
+    tpipe = WanPipeline(transformer=port_module("wan_dit", tcfg, tp), vae=port_module("wan_vae", vcfg, vp),
+                        t5=port_module("t5", t5cfg, t5p), tokenize=tokenize_mask_stub,
+                        scheduler_cfg=UniPCConfig(flow_shift=5.0), device="cpu", **port_kwargs)
     return jpipe, tpipe
 
 
