@@ -5,12 +5,14 @@
 // build-variants: ALG_FLASH_HEAD_DIM=64,80,128
 //
 // Replaces the TPU kernel alg_tpu/ops/flash_attention.py:_fwd_kernel in the
-// variants the CogVideoX and Wan main paths run: dense, `stable` true
-// (running max) or false (bounded logits, no max), an optional additive fp32
-// bias [1|B, H, Sq, Sk] (T5's relative-position bias), an optional per-batch
-// key count kv_len [B] (UMT5's prefix mask), Sq != Sk (cross-attention).
-// Logits are (q.k)·scale·log2e + bias·log2e and p = exp2(logit [- running
-// max]).
+// variants the CogVideoX, Wan and HunyuanVideo main paths run: dense,
+// `stable` true (running max) or false (bounded logits, no max), an optional
+// additive fp32 bias [1|B, H, Sq, Sk] (T5's relative-position bias), an
+// optional per-batch key count kv_len [B] (UMT5's, Llama's and the Hunyuan
+// DiT's prefix mask), Sq != Sk (cross-attention), and `causal` (Llama and the
+// CLIP text encoder): query i sees key j iff j <= i + (Sk - Sq). All of them
+// compose. Logits are (q.k)·scale·log2e + bias·log2e and p = exp2(logit
+// [- running max]).
 //
 // Design. One thread block of 128 threads per (b·h, tile of query rows). A
 // query row belongs to kLanes neighbouring lanes: one lane at D = 64, two at
@@ -26,16 +28,23 @@
 // columns. Every lane of a warp reads the same K/V row at a time, so the
 // shared-memory reads are broadcasts.
 //
-// Ragged edges. The key loop runs to n = min(Sk, kv_len[b]): keys in
-// [n, tile end) are zero-filled in shared memory and masked to -inf, so they
-// add nothing to numerator or denominator, and every visited chunk starts at
-// a valid key. n = 0 visits nothing and writes a zero row. A row whose
-// logits so far are all -inf (a bias of -inf) keeps its running max at -inf;
-// the exponentials then take 0 as the max, so they are 0 and not NaN. Query
-// rows past Sq compute on zeros and are not written. No host-side padding,
-// no host read of kv_len.
+// Ragged edges and masks. Every query row has a key limit: row i of batch b
+// sees keys j < min(Sk, kv_len[b], i + (Sk - Sq) + 1), the last term only
+// when causal (the offset is a run-time argument with a large sentinel for
+// "not causal": one integer min a row, no second set of template
+// instantiations). The block's key loop ends at the limit of its last row,
+// so a causal call skips the tiles and 16-key chunks that none of the block's
+// rows can see: about half the work when Sq = Sk. Causal blocks are taken in
+// descending row order, longest first. Keys in [block limit, tile end) are
+// zero-filled in shared memory; a key at or past a row's own limit is masked
+// to -inf, so it adds nothing to numerator or denominator. A row whose
+// logits so far are all -inf (an early row of a causal tile, a bias of -inf)
+// keeps its running max at -inf; the exponentials then take 0 as the max, so
+// they are 0 and not NaN. A row with no visible key at all (kv_len 0, or
+// Sq > Sk under causal) writes zeros. Query rows past Sq have limit 0 and
+// are not written. No host-side padding, no host read of kv_len.
 //
-// Bound on the H100: tensor-core FLOPs (4·B·H·Sq·n·D per call). This
+// Bound on the H100: tensor-core FLOPs (4·H·D·Σ visible keys per call). This
 // version runs on the CUDA cores in fp32 FMAs for both bf16 and fp32 inputs,
 // so it sits far below the tensor-core roof; mma/wgmma tiles, TMA staging
 // and warp specialisation are later work.
@@ -61,26 +70,35 @@ constexpr int kBlockQ = kThreads / kLanes;   // query rows per block
 constexpr int kBlockK = kD > 80 ? 32 : 64;   // keys per shared-memory tile
 constexpr int kChunk = 16;                   // keys per logits/exp/P·V round
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kNotCausal = 1 << 30;          // causal_offset of a call without the causal mask
 
 static_assert(kD == 64 || kD == 80 || kD == 128, "head dims the port's models use");
 static_assert(kD % (4 * kLanes) == 0 && kBlockK % kChunk == 0, "tiling");
 static_assert(2 * kBlockK * kD * sizeof(float) <= 48 * 1024, "static shared-memory limit");
 
+// Two blocks a multiprocessor: without the hint ptxas squeezes some instantiations into 168 registers
+// for a third block and spills q or the accumulator, which costs more than the third block gains.
 template <typename T, bool kStable, bool kBias>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, long long bias_b_stride,
                  const int* __restrict__ kv_len, T* __restrict__ out, int heads, int sq, int sk,
-                 float scale_log2) {
+                 int causal_offset, float scale_log2) {
   __shared__ __align__(16) float ks[kBlockK][kD];
   __shared__ __align__(16) float vs[kBlockK][kD];
 
   const int bh = blockIdx.y;
   const int b = bh / heads, h = bh % heads;
   const int part = threadIdx.x % kLanes;  // which of the row's lanes this is
-  const int row = blockIdx.x * kBlockQ + threadIdx.x / kLanes;
+  const bool causal = causal_offset != kNotCausal;
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // causal: longest blocks first
+  const int row = tile * kBlockQ + threadIdx.x / kLanes;
   const bool valid_row = row < sq;
   const int n_keys = kv_len == nullptr ? sk : max(0, min(sk, kv_len[b]));
+  // keys this row sees, and keys the block's last row sees (the block's loop bound)
+  const int last_row = min(sq, (tile + 1) * kBlockQ) - 1;
+  const int row_keys = !valid_row ? 0 : causal ? max(0, min(n_keys, row + causal_offset + 1)) : n_keys;
+  const int block_keys = causal ? max(0, min(n_keys, last_row + causal_offset + 1)) : n_keys;
   const T* kp = k + (long long)bh * sk * kD;
   const T* vp = v + (long long)bh * sk * kD;
 
@@ -105,12 +123,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   constexpr int kVec = alg::Vec16<T>::N;
   constexpr int kVecsPerTile = kBlockK * kD / kVec;
-  for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
+  for (int k0 = 0; k0 < block_keys; k0 += kBlockK) {
     __syncthreads();  // previous tile fully consumed
     for (int i = threadIdx.x; i < kVecsPerTile; i += kThreads) {
       const int r = i * kVec / kD, c = i * kVec % kD;
       float kb[kVec], vb[kVec];
-      if (k0 + r < n_keys) {
+      if (k0 + r < block_keys) {
         alg::Vec16<T>::load(kp + (long long)(k0 + r) * kD + c, kb);
         alg::Vec16<T>::load(vp + (long long)(k0 + r) * kD + c, vb);
       } else {
@@ -125,7 +143,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();
 
-    const int kn = min(kBlockK, n_keys - k0);
+    const int kn = min(kBlockK, block_keys - k0);
     for (int j0 = 0; j0 < kn; j0 += kChunk) {
       float s[kChunk];
 #pragma unroll
@@ -151,14 +169,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int jj = 0; jj < kChunk; ++jj) {
         const int key = k0 + j0 + jj;
         float t = s[jj] * scale_log2;
-        if (kBias && valid_row && key < n_keys) t += brow[key] * kLog2e;
-        s[jj] = key < n_keys ? t : -INFINITY;
+        if (kBias && key < row_keys) t += brow[key] * kLog2e;
+        s[jj] = key < row_keys ? t : -INFINITY;
         cmax = fmaxf(cmax, s[jj]);
       }
       float m_exp = 0.0f;  // the max the exponentials are taken against
       if (kStable) {
         const float m_new = fmaxf(m, cmax);
-        // all logits so far -inf (a bias of -inf): take 0, so that p = exp2(-inf) = 0
+        // all logits so far -inf (no visible key yet, a bias of -inf): take 0, so that p = exp2(-inf) = 0
         m_exp = m_new == -INFINITY ? 0.0f : m_new;
         const float alpha = exp2f(m - m_exp);  // 0 while m = -inf
         l *= alpha;
@@ -196,25 +214,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, bool kStable, bool kBias>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    long long bias_b_stride, const void* kv_len, void* out, int batch, int heads,
-                   int sq, int sk, float scale, cudaStream_t stream) {
+                   int sq, int sk, int causal_offset, float scale, cudaStream_t stream) {
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * heads);
   flash_fwd_kernel<T, kStable, kBias><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), bias_b_stride, static_cast<const int*>(kv_len),
-      static_cast<T*>(out), heads, sq, sk, scale * kLog2e);
+      static_cast<T*>(out), heads, sq, sk, causal_offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* bias,
                      long long bias_b_stride, const void* kv_len, void* out, int batch, int heads,
-                     int sq, int sk, float scale, bool stable, cudaStream_t st) {
+                     int sq, int sk, int causal_offset, float scale, bool stable, cudaStream_t st) {
   if (bias != nullptr) {
-    return stable ? launch<T, true, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, scale, st)
-                  : launch<T, false, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, scale, st);
+    return stable ? launch<T, true, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st)
+                  : launch<T, false, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st);
   }
-  return stable ? launch<T, true, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, scale, st)
-                : launch<T, false, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, scale, st);
+  return stable ? launch<T, true, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st)
+                : launch<T, false, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st);
 }
 
 }  // namespace
@@ -224,21 +242,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* bi
 // b·bias_b_stride + (h·Sq + i)·Sk + j (bias_b_stride 0 broadcasts one
 // [H, Sq, Sk] bias over the batch). kv_len: null, or int32 [B] on the
 // device: batch row b attends to its first kv_len[b] keys (clamped to
-// [0, Sk]). Returns the launch's cudaError_t.
+// [0, Sk]). causal != 0: query i also sees no key past i + (Sk - Sq).
+// Returns the launch's cudaError_t.
 extern "C" int ALG_CAT(alg_flash_attention_fwd_d, ALG_FLASH_HEAD_DIM)(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     long long bias_b_stride, const void* kv_len, void* out, int batch, int heads, int sq, int sk,
-    float scale, int stable, void* stream) {
+    float scale, int stable, int causal, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || (long long)batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int causal_offset = causal != 0 ? sk - sq : kNotCausal;
   switch (dtype) {
     case alg::kFloat32:
       return (int)dispatch<float>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk,
-                                  scale, stable != 0, st);
+                                  causal_offset, scale, stable != 0, st);
     case alg::kBFloat16:
       return (int)dispatch<__nv_bfloat16>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads,
-                                          sq, sk, scale, stable != 0, st);
+                                          sq, sk, causal_offset, scale, stable != 0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,20 +1,24 @@
 """Carry a JAX-package parameter tree into the port's modules.
 
 The tree is ``alg_tpu``'s nested dict of numpy arrays (after
-``jax.device_get``) for the CogVideoX or Wan DiT, the T5 / UMT5 encoder, the
-CLIP vision tower or the CogVideoX or Wan VAE. Module attribute names follow
-the tree's keys, so the mapping is by rule:
+``jax.device_get``) for the CogVideoX, Wan or HunyuanVideo DiT, the T5 /
+UMT5 encoder, the CLIP vision tower or text model, Llama or Llava, or one of
+the three VAEs. Module attribute names follow the tree's keys, so the
+mapping is by rule:
 
-  * the weight-stacked DiT ``blocks`` (leading layer axis) are unstacked into
-    ``blocks.<i>``; lists (T5 blocks, CLIP layers, VAE stages and resnets)
-    are indexed; an empty dict (an affine-free norm) holds nothing;
+  * the weight-stacked DiT containers (a dict named ``blocks``,
+    ``transformer_blocks`` or ``single_transformer_blocks`` whose leaves have
+    a leading layer axis) are unstacked into ``<name>.<i>``; lists (T5,
+    Llama and token-refiner blocks, CLIP layers, VAE stages and resnets) are
+    indexed; an empty dict (an affine-free norm) holds nothing;
   * ``kernel`` becomes ``weight``: ``[in, out]`` transposed to ``[out, in]``,
     DHWIO conv kernels to ``[out, in, D, H, W]``, HWIO to ``[out, in, H, W]``;
   * ``scale`` becomes ``weight``; ``bias`` stays;
   * plain tables keep their name and layout: ``scale_shift_table``, the Wan
     VAE's ``gamma``, CLIP's ``class_embedding`` and ``position_embedding``;
-  * any other array leaf (T5 ``embed``, a ``relative_attention_bias`` table)
-    is an embedding and becomes ``<name>.weight`` as it is.
+  * any other array leaf (T5's and Llama's ``embed``, CLIP text's
+    ``token_embedding``, a ``relative_attention_bias`` table) is an embedding
+    and becomes ``<name>.weight`` as it is.
 
 Missing or unused keys and shape mismatches raise.
 """
@@ -29,6 +33,7 @@ from torch import nn
 
 _KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _PLAIN_TABLES = ("scale_shift_table", "gamma", "class_embedding", "position_embedding")
+_STACKED = ("blocks", "transformer_blocks", "single_transformer_blocks")  # as dicts; the same names as lists are lists
 
 
 def _leaf(prefix: str, key: str, arr) -> Tuple[str, np.ndarray]:
@@ -50,10 +55,10 @@ def flatten_jax_tree(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]
     """(state-dict name, array in torch layout) for every leaf of ``tree``."""
     for key, val in tree.items():
         if isinstance(val, dict):
-            if key == "blocks":  # weight-stacked layers: leading axis is the layer
+            if key in _STACKED:  # weight-stacked layers: leading axis is the layer
                 n = len(next(iter(_leaves(val))))
                 for i in range(n):
-                    yield from flatten_jax_tree(_index(val, i), f"{prefix}blocks.{i}.")
+                    yield from flatten_jax_tree(_index(val, i), f"{prefix}{key}.{i}.")
             else:
                 yield from flatten_jax_tree(val, f"{prefix}{key}.")
         elif isinstance(val, (list, tuple)):

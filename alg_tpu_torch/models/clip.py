@@ -1,18 +1,23 @@
-"""CLIP vision encoder (counterpart of ``alg_tpu/models/clip.py``, vision
-tower only; Wan's image encoder).
+"""CLIP vision and text encoders (counterpart of ``alg_tpu/models/clip.py``).
 
-transformers ``CLIPVisionModel``: a stride-``patch_size`` patch convolution
-without bias, a class token, learned position embeddings, a pre-LayerNorm and
-``num_hidden_layers`` pre-norm encoder layers. Wan conditions on
-``hidden_states[-2]``: the penultimate layer's output, without the final
-norm. Each layer's attention goes through the port's flash kernel (head dim
-80 in ViT-H). The text tower (causal attention) is not ported yet.
+transformers ``CLIPVisionModel`` (Wan's image encoder, and the ViT-L/14-336
+tower inside HunyuanVideo's Llava): a stride-``patch_size`` patch
+convolution without bias, a class token, learned position embeddings, a
+pre-LayerNorm and ``num_hidden_layers`` pre-norm encoder layers. Both
+callers take ``hidden_states[-2]``: the penultimate layer's output, without
+the final norm. Each layer's attention goes through the port's flash kernel
+(head dim 80 in ViT-H, 64 in ViT-L).
+
+transformers ``CLIPTextModel`` (HunyuanVideo's pooled text encoder): token
+and position tables, the same encoder layers with causal attention (the
+flash kernel's ``causal`` at head dim 64), a final LayerNorm, and the pooled
+output taken at the first end-of-sequence token.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +43,21 @@ class CLIPVisionConfig:
     patch_size: int = 14
     layer_norm_eps: float = 1e-5
     hidden_act: str = "gelu"  # laion ViT-H; OpenAI models use quick_gelu
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """Defaults = the OpenAI ViT-L/14 text model that HunyuanVideo ships."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    eos_token_id: int = 49407
 
 
 def _act(name: str):
@@ -68,10 +88,12 @@ class _MLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig, device=None, dtype=None):
+    """One pre-norm layer of either tower; ``causal`` for the text model."""
+
+    def __init__(self, cfg, causal: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.num_heads = cfg.num_attention_heads
+        self.num_heads, self.causal = cfg.num_attention_heads, causal
         self.act = _act(cfg.hidden_act)
         self.layer_norm1 = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.attn = _Attention(cfg.hidden_size, **kw)
@@ -85,7 +107,7 @@ class CLIPEncoderLayer(nn.Module):
             return t.view(b, s, self.num_heads, dim // self.num_heads).transpose(1, 2)
 
         h = self.layer_norm1(x)
-        o = attention(heads(self.attn.q(h)), heads(self.attn.k(h)), heads(self.attn.v(h)))
+        o = attention(heads(self.attn.q(h)), heads(self.attn.k(h)), heads(self.attn.v(h)), causal=self.causal)
         x = x + self.attn.out(o.transpose(1, 2).reshape(b, s, dim))
         h = self.layer_norm2(x)
         return x + self.mlp.fc2(self.act(self.mlp.fc1(h)))
@@ -118,6 +140,30 @@ class CLIPVisionModel(nn.Module):
             h = layer(h)
             hidden_states.append(h)
         return hidden_states
+
+
+class CLIPTextModel(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.token_embedding.init_std = 0.02
+        self.position_embedding = L.table((cfg.max_position_embeddings, cfg.hidden_size), 0.02, **kw)
+        self.layers = nn.ModuleList(CLIPEncoderLayer(cfg, causal=True, **kw) for _ in range(cfg.num_hidden_layers))
+        self.final_layer_norm = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
+
+    def forward(self, input_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``input_ids`` [B, S] -> (last hidden state [B, S, hidden], pooled
+        [B, hidden]): the pooled row is the first position that holds
+        ``eos_token_id`` (position 0 where there is none)."""
+        s = input_ids.shape[1]
+        h = self.token_embedding(input_ids) + self.position_embedding[:s][None]
+        for layer in self.layers:
+            h = layer(h)
+        h = self.final_layer_norm(h)
+        eos_pos = torch.argmax((input_ids == self.cfg.eos_token_id).to(torch.int32), dim=1)
+        return h, h[torch.arange(h.shape[0], device=h.device), eos_pos]
 
 
 def clip_preprocess(image, size: int = 224) -> np.ndarray:

@@ -32,7 +32,9 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[t
 
 def t5_layer_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """T5 RMS norm: mean square in fp32, fp32 scale, cast back. Also the JAX
-    package's ``rms_norm`` (Wan's q/k norm over the full inner dim)."""
+    package's ``rms_norm`` with ``offset=0.0``, the same arithmetic: Wan's
+    q/k norm over the full inner dim, HunyuanVideo's per head over the head
+    dim, Llama's over the hidden size (``eps`` 1e-5)."""
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     return (y * weight.float()).to(x.dtype)
@@ -85,7 +87,7 @@ class LayerNorm(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """T5-style RMS norm (no bias, no mean subtraction)."""
+    """T5-style RMS norm over the last dim (no bias, no mean subtraction)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, device=None, dtype=None):
         super().__init__()
@@ -108,15 +110,16 @@ class GroupNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """``fc_out(gelu_tanh(fc_in(x)))``."""
+    """``fc_out(act(fc_in(x)))``, ``act`` the tanh GELU unless given."""
 
-    def __init__(self, dim: int, inner_dim: int, device=None, dtype=None):
+    def __init__(self, dim: int, inner_dim: int, act=gelu_tanh, device=None, dtype=None):
         super().__init__()
+        self.act = act
         self.fc_in = nn.Linear(dim, inner_dim, device=device, dtype=dtype)
         self.fc_out = nn.Linear(inner_dim, dim, device=device, dtype=dtype)
 
     def forward(self, x):
-        return self.fc_out(gelu_tanh(self.fc_in(x)))
+        return self.fc_out(self.act(self.fc_in(x)))
 
 
 class TimestepEmbedding(nn.Module):

@@ -1,9 +1,12 @@
 """Attention entry point (counterpart of ``alg_tpu/ops/attention.py:attention``).
 
-Every attention of the slices comes through here: the DiTs' dense self-
-and cross-attention (``stable=False``), T5's and UMT5's attention with the
+Every attention of the slices comes through here: the DiTs' self- and
+cross-attention (``stable=False``; the Hunyuan DiT's joint [video; text]
+sequence with ``kv_len``), T5's and UMT5's attention with the
 relative-position bias (``scale=1.0``, ``stable=True``; UMT5 with the
-prompt's ``kv_len``) and the CLIP vision tower's. The call goes to
+prompt's ``kv_len``), the CLIP vision towers', the Hunyuan token refiner's
+(``kv_len``), and the causal ones: Llama's (with ``kv_len``) and the CLIP
+text encoder's. The call goes to
 :func:`alg_tpu_torch.ops.flash_attention.flash_attention`, which picks the
 CUDA kernel or, for CPU tensors, the plain version.
 """
@@ -18,13 +21,14 @@ from alg_tpu_torch.ops.flash_attention import flash_attention
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
-              bias: Optional[torch.Tensor] = None, stable: bool = True,
-              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+              causal: bool = False, kv_len: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None, stable: bool = True) -> torch.Tensor:
     """Scaled dot-product attention over ``[B, H, S, D]``; ``scale``
-    defaults to ``D**-0.5``, ``bias`` is an additive fp32 logit bias
-    ``[1|B, H, Sq, Sk]``, ``kv_len`` an int32 ``[B]`` count of the keys each
-    batch row attends to (a prefix mask)."""
+    defaults to ``D**-0.5``, ``causal`` hides from query ``i`` the keys past
+    ``i + (Sk - Sq)``, ``kv_len`` is an int32 ``[B]`` count of the keys each
+    batch row attends to (a prefix mask), ``bias`` an additive fp32 logit
+    bias ``[1|B, H, Sq, Sk]``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale, bias=bias, stable=stable,
-                           kv_len=kv_len)
+                           kv_len=kv_len, causal=causal)

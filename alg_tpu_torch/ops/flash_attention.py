@@ -3,19 +3,23 @@
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
 and runs :func:`attention_plain` for CPU tensors; any other device raises.
 The kernel replaces the TPU kernel
-``alg_tpu/ops/flash_attention.py:_fwd_kernel`` in its dense variants at head
-dims 64, 80 and 128: ``stable`` (running max) or not (bounded logits, the
-DiTs' fast path), Sq != Sk (cross-attention), an optional additive fp32 bias
-``[1|B, H, Sq, Sk]`` (T5's relative-position bias) and an optional per-batch
-key count ``kv_len`` ``[B]`` (UMT5's prefix mask). Causal masking, the base-2
-LSE residuals and the in-kernel qk prolog are not ported yet.
+``alg_tpu/ops/flash_attention.py:_fwd_kernel`` at head dims 64, 80 and 128:
+``stable`` (running max) or not (bounded logits, the DiTs' fast path),
+Sq != Sk (cross-attention), an optional additive fp32 bias
+``[1|B, H, Sq, Sk]`` (T5's relative-position bias), an optional per-batch
+key count ``kv_len`` ``[B]`` (the prefix mask of UMT5, Llama, the Hunyuan
+token refiner and the Hunyuan DiT's joint [video; text] sequence) and
+``causal`` (Llama with ``kv_len`` at head dim 128, the CLIP text encoder at
+64): query i sees key j iff ``j <= i + (Sk - Sq)``. The options compose. The
+base-2 LSE residuals and the in-kernel qk prolog are not ported yet.
 
 The plain version mirrors ``alg_tpu/ops/attention.py:_xla_attention``:
-fp32 logits times ``scale`` plus ``bias``, keys at or past ``kv_len`` masked
-to -inf, an fp32 softmax, probabilities cast to the value dtype, then
-``P·V``. A row with no key left (``kv_len`` 0) comes out as zeros, as from
-the kernels. The kernel keeps P in fp32, so in bf16 the two differ by the
-rounding of P and of the output.
+fp32 logits times ``scale`` plus ``bias``, keys past the causal diagonal or
+at or past ``kv_len`` masked to -inf, an fp32 softmax, probabilities cast to
+the value dtype, then ``P·V``. A row with no visible key (``kv_len`` 0, or a
+causal row when Sq > Sk) comes out as zeros, as from the kernels on both
+machines; ``_xla_attention`` gives NaN there. The kernel keeps P in fp32, so
+in bf16 the two differ by the rounding of P and of the output.
 """
 
 from __future__ import annotations
@@ -32,17 +36,25 @@ HEAD_DIMS = (64, 80, 128)  # the variants csrc/flash_attention.cu declares, one 
 
 
 def attention_plain(q, k, v, scale: float, bias: Optional[torch.Tensor] = None,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dense softmax attention over ``[B, H, S, D]`` with an fp32 softmax."""
+                    kv_len: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
+    """Softmax attention over ``[B, H, S, D]`` with an fp32 softmax."""
+    sq, sk = q.shape[-2], k.shape[-2]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()
+    col = torch.arange(sk, device=k.device)
+    empty = None  # rows with no visible key, broadcastable to [B, 1, Sq, 1]
+    if causal:
+        row = torch.arange(sq, device=k.device)[:, None] + (sk - sq)
+        logits = logits.masked_fill(col[None, :] > row, float("-inf"))
+        empty = (row < 0)[None, None]
     if kv_len is not None:
-        mask = torch.arange(k.shape[-2], device=k.device)[None, :] < kv_len[:, None]  # [B, Sk]
-        logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+        logits = logits.masked_fill((col[None, :] >= kv_len[:, None])[:, None, None, :], float("-inf"))
+        no_keys = (kv_len <= 0)[:, None, None, None]
+        empty = no_keys if empty is None else empty | no_keys
     probs = torch.softmax(logits, dim=-1)
-    if kv_len is not None:  # a fully masked row is 0/0 above
-        probs = probs.masked_fill((kv_len <= 0)[:, None, None, None], 0.0)
+    if empty is not None:  # a fully masked row is 0/0 above
+        probs = probs.masked_fill(empty, 0.0)
     return torch.matmul(probs.to(v.dtype), v)
 
 
@@ -50,7 +62,7 @@ def attention_plain(q, k, v, scale: float, bias: Optional[torch.Tensor] = None,
 def _entry(head_dim: int):
     fn = getattr(_build.load(), f"alg_flash_attention_fwd_d{head_dim}")
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,15 +97,16 @@ def _check(q, k, v, bias, kv_len=None):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     bias: Optional[torch.Tensor] = None, stable: bool = True,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
     """``softmax(q·kᵀ·scale + bias)·v`` over ``[B, H, S, D]``, D in 64, 80,
-    128; batch row ``b`` attends to its first ``kv_len[b]`` keys only.
+    128; batch row ``b`` attends to its first ``kv_len[b]`` keys only, and
+    with ``causal`` query ``i`` to no key past ``i + (Sk - Sq)``.
 
     ``stable=False`` skips the running max: exact in fp32 while
     |logit·log2e| stays well below 126, which trained DiT attention does.
     CPU tensors take the plain version; CUDA tensors the kernel, or raise."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, bias, kv_len)
+        return attention_plain(q, k, v, scale, bias, kv_len, causal)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v, bias, kv_len)
@@ -108,7 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         rc = _entry(d)(
             _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_b_stride,
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), b, h, sq, k.shape[2],
-            float(scale), int(stable), stream,
+            float(scale), int(stable), int(causal), stream,
         )
     _build.check(rc, "flash-attention kernel")
     flash_attention.launches += 1

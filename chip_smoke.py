@@ -13,7 +13,10 @@ Phases, each of which must pass:
       register/shared-memory report;
   B.  kernels: each CUDA kernel against its plain PyTorch version on the
       card, in bf16 and fp32 (fp32 with TF32 off), at the shapes of the
-      CogVideoX and Wan main paths; prints max|diff| beside the stated
+      CogVideoX, Wan and HunyuanVideo main paths (the causal attention of
+      Llama and the CLIP text encoder among them, and one square causal call
+      beside its dense twin, which shows the skipped tiles); prints
+      max|diff| beside the stated
       tolerance, the median time of kernel and plain version, the bound (the
       least time the card could take: bytes over 3.35 TB/s or operations over
       the peak rate of the type, whichever is larger) and, for attention, the
@@ -31,12 +34,27 @@ Phases, each of which must pass:
       shipped ALG settings at 9 frames, 480x832, 4 steps (2 three-pass, 2
       two-pass), the prompt through ``encode_prompt`` with a prefix mask and
       the CLIP tower's penultimate output as ``image_embeds``; same checks;
+  C3. HunyuanVideo slice: the full-width HunyuanVideo-I2V pipeline (20 + 40
+      block DiT and Llava-Llama3-8B with its CLIP ViT-L/14-336 tower in bf16,
+      CLIP text and VAE in fp32, random weights from a seed) driven once
+      through ``HunyuanVideoPipeline.__call__`` with the shipped single-pass
+      ALG settings at 9 frames, 352x608, 4 steps (2 on the filtered first
+      frame, 2 on the clean one), the prompt through ``encode_prompt`` with
+      tokenizer and image-processor hooks; same checks; then one DiT forward
+      at the shipped 129 frames (33 latent frames);
   D.  agreement: a small CogVideoX pipeline (head dim 64, two layers) run on
       the card through the kernels and on the CPU through the plain versions,
       fp32 with TF32 off; final latents within atol 2e-3, decoded frames
       above 40 dB;
   D2. the same for a small Wan pipeline (DiT head dim 128, UMT5 with a mask,
-      CLIP head dim 80).
+      CLIP head dim 80);
+  D3. the same for a small HunyuanVideo pipeline (DiT and Llava head dim 128,
+      CLIP text head dim 64, through ``encode_prompt``, true CFG with ALG so
+      that 3- and 2-pass steps run).
+
+``python3 chip_smoke.py --dense-flash`` builds the kernels and times only the
+dense flash calls of phase B at head dims 64 and 128 (for comparing two
+trees on one card; it prints no result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line, and as the last line
@@ -63,6 +81,13 @@ def _card_line() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
+
+
+def _card_state() -> str:
+    """SM clock, power draw and temperature now: a long forward that ran at a lower clock shows here."""
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 and proc.stdout.strip() else "not read"
 
 
 def _time_ms(fn, reps: int = 5) -> float:
@@ -160,8 +185,8 @@ def _close(a, b, tol):
     import torch
 
     a, b = a.float(), b.float()
-    err = (a - b).abs().max().item()
-    return err, bool(torch.allclose(a, b, atol=tol[0], rtol=tol[1]))
+    diff = (a - b).abs()
+    return diff.max().item(), bool((diff <= tol[0] + tol[1] * b.abs()).all())  # tol[0]: a number or a tensor
 
 
 def _qk_case(records, shape, dtype, gen, text_len=226):
@@ -197,36 +222,51 @@ def _qk_case(records, shape, dtype, gen, text_len=226):
     _report(records, "qk_prep", tol_name(dtype), shape, err, ok and id_ok, tol, ms, plain_ms, bound)
 
 
-def _rope_case(records, shape, dtype, gen, reps=5):
-    """Kernel vs plain on the view the Wan DiT passes: the [B, S, H, D]
-    projection seen as [B, H, S, D]."""
+def _rope_case(records, shape, dtype, gen, reps=5, identity_suffix=None):
+    """Kernel vs plain on the view the Wan DiT passes, the [B, S, H, D]
+    projection seen as [B, H, S, D]; with ``identity_suffix`` on what the
+    Hunyuan DiT passes: a contiguous [B, H, S, D] whose last
+    ``identity_suffix`` rows (the text) have cos = 1, sin = 0."""
     import torch
 
     from alg_tpu_torch.ops.rope import apply_rope_interleaved, rope_interleaved
 
     b, h, s, d = shape
     dev = "cuda"
-    x = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
     ang = torch.rand(s, d // 2, generator=gen, device=dev) * 6.28
+    if identity_suffix is None:
+        x = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+    else:
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        ang[s - identity_suffix:] = 0.0
     cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
     sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
     tol = TOL[tol_name(dtype)]
-    err, ok = _close(rope_interleaved(x, cos, sin), apply_rope_interleaved(x, cos, sin), tol)
+    out = rope_interleaved(x, cos, sin)
+    err, ok = _close(out, apply_rope_interleaved(x, cos, sin), tol)
+    if identity_suffix is not None:  # identity rows come back as they went in
+        ok = ok and bool(torch.equal(out[:, :, s - identity_suffix:], x[:, :, s - identity_suffix:]))
     ms = _time_ms(lambda: rope_interleaved(x, cos, sin), reps)
     plain_ms = _time_ms(lambda: apply_rope_interleaved(x, cos, sin), reps)
     nbytes = 2 * x.numel() * x.element_size() + 4 * (cos.numel() + sin.numel())
     bound = _bound(3 * x.numel(), nbytes, tol_name(dtype))  # 2 multiplies and an add a value, fp32 CUDA cores
-    _report(records, "rope_interleaved", tol_name(dtype), shape, err, ok, tol, ms, plain_ms, bound)
+    name = "rope_interleaved" if identity_suffix is None else "rope_hunyuan_joint"
+    _report(records, name, tol_name(dtype), shape, err, ok, tol, ms, plain_ms, bound)
 
 
-def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_bias=False, kv_len=None, reps=3):
+def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_bias=False, kv_len=None,
+               causal=False, reps=3):
     """Kernel vs plain attention, and the time of one
-    ``scaled_dot_product_attention`` call on the same tensors (bias and
-    ``kv_len`` as its ``attn_mask``). The plain version, which holds the
+    ``scaled_dot_product_attention`` call on the same tensors (bias,
+    ``kv_len`` and a causal mask beside ``kv_len`` as its ``attn_mask``; a
+    causal mask alone as ``is_causal``). The plain version, which holds the
     fp32 logits, runs over query chunks (per batch element) of at most
-    2 GiB of logits. In bf16 the absolute tolerance follows the size of the
-    reference's values (``FLASH_BF16_ATOL_SHARE``), chunk by chunk; the
-    smallest one used is printed beside the reference's mean magnitude."""
+    2 GiB of logits; a causal chunk takes the keys up to its last row's
+    limit, which keeps the diagonal where it is. In bf16 the absolute
+    tolerance follows the size of the reference's values
+    (``FLASH_BF16_ATOL_SHARE``), chunk by chunk, and under the causal mask
+    row by row; the smallest one used is printed beside the reference's mean
+    magnitude."""
     import torch
     import torch.nn.functional as F
 
@@ -234,6 +274,8 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
 
     b, h, sq, d = shape_q
     sk = sq if sk is None else sk
+    if causal and sq > sk:
+        raise ValueError("the causal cases here have Sq <= Sk (every row sees a key)")
     dev = "cuda"
     q = torch.randn(shape_q, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((b, h, sk, d), generator=gen, device=dev).to(dtype) for _ in range(2))
@@ -241,17 +283,19 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
     tol = TOL[tol_name(dtype)]
     q_chunk = max(1, min(sq, 2 ** 29 // (h * sk)))
+    causal_kw = dict(causal=True) if causal else {}  # a dense call names no option of the causal variant
 
     def kernel():
-        return flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens)
+        return flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, **causal_kw)
 
     def plain_chunks():
         for bi in range(b):
             for i in range(0, sq, q_chunk):
                 sl = (slice(bi, bi + 1), slice(i, i + q_chunk))
-                bsl = None if bias is None else bias[:, :, i:i + q_chunk]
-                yield sl, attention_plain(q[sl[0], :, sl[1]], k[sl[0]], v[sl[0]], scale, bsl,
-                                          None if lens is None else lens[sl[0]])
+                n = min(sq, i + q_chunk) + sk - sq if causal else sk  # keys the chunk's last row may see
+                bsl = None if bias is None else bias[:, :, i:i + q_chunk, :n]
+                yield sl, attention_plain(q[sl[0], :, sl[1]], k[sl[0], :, :n], v[sl[0], :, :n], scale, bsl,
+                                          None if lens is None else lens[sl[0]], **causal_kw)
 
     def plain():
         for _ in plain_chunks():
@@ -259,35 +303,99 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
 
     mask = None
     if bias is not None or lens is not None:
-        mask = torch.zeros((b if lens is not None else 1, h, sq, sk), device=dev) if bias is None else bias
+        mask = torch.zeros((b if lens is not None else 1, 1, sq, sk), device=dev) if bias is None else bias
         if lens is not None:
             keep = torch.arange(sk, device=dev)[None, :] < lens[:, None]
             mask = mask.masked_fill(~keep[:, None, None, :], float("-inf"))
+        if causal:
+            hidden = torch.arange(sk, device=dev)[None, :] > torch.arange(sq, device=dev)[:, None] + (sk - sq)
+            mask = mask.masked_fill(hidden, float("-inf"))
         mask = mask.to(dtype)
 
     def library():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale,
+                                              is_causal=causal and mask is None)
 
     out = kernel()
     err, ok, atol, sizes = 0.0, True, tol[0], []
     for (bs, qs), ref in plain_chunks():
         size = ref.float().abs().mean().item()
-        chunk_atol = min(tol[0], FLASH_BF16_ATOL_SHARE * size) if dtype == torch.bfloat16 else tol[0]
+        if dtype != torch.bfloat16:
+            chunk_atol = tol[0]
+        elif causal:  # query i averages i + 1 + Sk - Sq values: the share of the size is taken row by row
+            chunk_atol = (FLASH_BF16_ATOL_SHARE * ref.float().abs().mean(dim=(1, 3), keepdim=True)).clamp(max=tol[0])
+        else:
+            chunk_atol = min(tol[0], FLASH_BF16_ATOL_SHARE * size)
         e, o = _close(out[bs, :, qs], ref, (chunk_atol, tol[1]))
-        err, ok, atol = max(err, e), ok and o, min(atol, chunk_atol)
+        err, ok, atol = max(err, e), ok and o, min(atol, float(torch.as_tensor(chunk_atol).min()))
         sizes.append(size)
     ms = _time_ms(kernel, reps=reps)
     plain_ms = _time_ms(plain, reps=reps)
     library_ms = _time_ms(library, reps=reps)  # a yardstick only: the port never calls it
     # what this call's data needs: batch row b reads its first min(kv_len[b], Sk) keys and values and as
-    # many columns of the bias (one bias for all batch rows: the most any row needs); q and the output whole
+    # many columns of the bias (one bias for all batch rows: the most any row needs); q and the output whole.
+    # Under the causal mask query i multiplies only with its first min(kept, i + Sk - Sq + 1) keys.
     kept = [sk] * b if kv_len is None else [min(n, sk) for n in kv_len]
     nbytes = (2 * q.numel() + 2 * h * sum(kept) * d) * q.element_size() \
         + (0 if bias is None else 4 * h * sq * max(kept)) + (0 if lens is None else 4 * b)
-    bound = _bound(4.0 * h * sq * sum(kept) * d, nbytes, tol_name(dtype))
+    pairs = sum(sum(min(n, i + sk - sq + 1) for i in range(sq)) if causal else sq * n for n in kept)
+    bound = _bound(4.0 * h * pairs * d, nbytes, tol_name(dtype))
     shape = tuple(shape_q) if sk == sq else (b, h, f"{sq}->{sk}", d)
     _report(records, name, tol_name(dtype), shape, err, ok, (atol, tol[1]), ms, plain_ms, bound, library_ms,
             ref_size=statistics.fmean(sizes))
+
+
+# The HunyuanVideo path's sequence lengths, as the pipeline's prompt bookkeeping gives them (phase C3
+# checks that its run has these): Llava sees the 359-token template row with the <image> token widened to
+# 576 positions; the DiT's text is every second image position and the 252 prompt positions left by the crop.
+HY_PROMPT_TOKENS = 27  # the tokenizer stand-in's length of PROMPT: three ids a word
+HY_LLAMA_LEN, HY_LLAMA_KEYS = 359 + 575, 103 + HY_PROMPT_TOKENS + 5 + 575
+HY_TEXT_LEN, HY_TEXT_KEYS = 288 + 252, 288 + HY_PROMPT_TOKENS + 1
+HY_VIDEO_TOKENS = {9: 3 * 22 * 38, 129: 33 * 22 * 38}  # frames -> tokens at 352 x 608
+
+
+def _hunyuan_kernel_cases(records, gen) -> None:
+    """The shapes phase C3 launches, in its dtypes, the joint call also in
+    fp32 and at the shipped 129 frames, and a square causal call beside the
+    same call without the mask."""
+    import torch
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    _set_tf32(False, False)
+    _attn_case(records, "flash_llama_causal_kvlen", (1, 32, HY_LLAMA_LEN, 128), bf16, gen, 128 ** -0.5, True,
+               kv_len=[HY_LLAMA_KEYS], causal=True, reps=5)
+    _attn_case(records, "flash_clip_text_causal", (1, 12, 77, 64), fp32, gen, 64 ** -0.5, True, causal=True, reps=5)
+    _attn_case(records, "flash_clip_l_vision", (1, 16, 577, 64), bf16, gen, 64 ** -0.5, True, reps=5)
+    _attn_case(records, "flash_hunyuan_refiner", (1, 24, HY_TEXT_LEN, 128), bf16, gen, 128 ** -0.5, True,
+               kv_len=[HY_TEXT_KEYS], reps=5)
+    for frames, dtypes in ((9, (bf16, fp32)), (129, (bf16,))):
+        s = HY_VIDEO_TOKENS[frames] + HY_TEXT_LEN
+        for dtype in dtypes:
+            _rope_case(records, (1, 24, s, 128), dtype, gen, identity_suffix=HY_TEXT_LEN)
+            _attn_case(records, "flash_hunyuan_joint", (1, 24, s, 128), dtype, gen, 128 ** -0.5, False,
+                       kv_len=[HY_VIDEO_TOKENS[frames] + HY_TEXT_KEYS], reps=3 if frames == 9 else 1)
+        torch.cuda.empty_cache()
+    for causal in (False, True, True, False):  # in turns
+        _attn_case(records, "flash_square_causal" if causal else "flash_square_dense", (1, 32, 4096, 128), bf16,
+                   gen, 128 ** -0.5, True, causal=causal, reps=5)
+    torch.cuda.empty_cache()
+
+
+def phase_dense_flash() -> None:
+    """Only the dense flash calls of phase B at head dims 64 and 128, for
+    timing two trees against each other on one card."""
+    import torch
+
+    records = []  # printed case by case; a comparison out of tolerance fails the phase
+    gen = torch.Generator("cuda").manual_seed(0)
+    _set_tf32(False, False)
+    for dtype in (torch.bfloat16, torch.float32):
+        _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False, reps=5)
+        _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
+        _attn_case(records, "flash_wan_self", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False, reps=5)
+    _attn_case(records, "flash_wan_self", (2, 40, 32760, 128), torch.bfloat16, gen, 128 ** -0.5, False, reps=1)
+    if not all(r["ok"] for r in records):
+        raise AssertionError("a dense flash comparison is out of tolerance")
 
 
 def phase_kernels() -> list:
@@ -324,6 +432,7 @@ def phase_kernels() -> list:
         _attn_case(records, f"flash_umt5_bias_kvlen={n}", (1, 64, 512, 64), bf16, gen, 1.0, True, with_bias=True,
                    kv_len=[n])
     _attn_case(records, "flash_clip", (1, 16, 257, 80), fp32, gen, 80 ** -0.5, True)  # the tower runs in fp32
+    _hunyuan_kernel_cases(records, gen)
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel comparison(s) out of tolerance: {bad}")
@@ -407,6 +516,23 @@ class _StageTimer:
             self._step[2] = (time.perf_counter() - self._step[1]) * 1e3
 
         return [dit.register_forward_pre_hook(pre), dit.register_forward_hook(post)]
+
+    def hook_module(self, name, module):
+        """Time every forward of ``module`` as a stage ``name``."""
+        import torch
+
+        start = []
+
+        def pre(_module, _args):
+            torch.cuda.synchronize()
+            start.append(time.perf_counter())
+            self.close_step(start[-1])
+
+        def post(_module, _args, _out):
+            torch.cuda.synchronize()
+            self.rows.append((name, (time.perf_counter() - start.pop()) * 1e3, None))
+
+        return [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
 
     def count(self, prefix):
         return sum(1 for name, _, _ in self.rows if name.startswith(prefix))
@@ -527,7 +653,7 @@ def _headline_forward(dit, gen) -> None:
         out = dit(x, emb, ts, cos, sin)
         torch.cuda.synchronize()
     print(f"[C] DiT forward at 49 frames (2-pass, B=2, S=17776): {(time.perf_counter() - t0) * 1e3:.1f} ms, "
-          f"finite={bool(torch.isfinite(out).all())}", flush=True)
+          f"finite={bool(torch.isfinite(out).all())}; card after it: {_card_state()}", flush=True)
 
 
 def _seeded_tokenize_mask(vocab_size: int):
@@ -626,6 +752,175 @@ def phase_slice_wan() -> dict:
     del dit, t5, clip, vae, pipe
     torch.cuda.empty_cache()
     return counts
+
+
+def _hunyuan_hooks(template, image_token, pad_token, vocab_low, vocab_high, clip_eos):
+    """Stand-ins for the Llava tokenizer, the CLIP tokenizer and the CLIP
+    image processor (the card's machine has no tokenizer files and no PIL).
+
+    ``tokenize_llama(texts, max_len) -> (ids, mask)`` lays a row out as the
+    Llava tokenizer lays out the chat template: ``crop_start`` head tokens
+    with the ``<image>`` token at ``image_emb_start`` and three double-return
+    tokens, three seeded ids a word of the prompt (at least one), the five
+    tokens of the assistant header, which end in the fourth double-return
+    token, then right padding. ``tokenize_clip(texts, max_len) -> ids``: one
+    seeded id a word, then the end-of-sequence id to the end of the row.
+    ``image_processor(image, size)``: seeded pixel values that differ from
+    image to image."""
+    import numpy as np
+
+    crop, drt = template["crop_start"], template["double_return_token_id"]
+    head, tail = template["template"].split("{}")
+
+    def words(text):
+        return len(text[len(head):len(text) - len(tail)].split())
+
+    def tokenize_llama(texts, max_len):
+        rows = []
+        for text in texts:
+            row = np.random.RandomState(sum(map(ord, text)) % 2 ** 31).randint(vocab_low, vocab_high, max_len)
+            row[row == drt] += 1
+            n_real = crop + min(max_len - crop - 5, max(1, 3 * words(text))) + 5
+            row[n_real:] = pad_token
+            row[template["image_emb_start"]] = image_token
+            row[[4, crop - 2, crop - 1, n_real - 1]] = drt
+            rows.append(row.astype(np.int64))
+        ids = np.stack(rows)
+        return ids, (ids != pad_token).astype(np.int64)
+
+    def tokenize_clip(texts, max_len):
+        rows = []
+        for text in texts:
+            row = np.random.RandomState(sum(map(ord, text)) % 2 ** 31 + 1).randint(0, clip_eos, max_len)
+            row[min(max_len - 1, 1 + len(text.split())):] = clip_eos
+            rows.append(row.astype(np.int64))
+        return np.stack(rows)
+
+    def image_processor(image, size):
+        seed = int(np.abs(np.asarray(image, np.float64)).sum() * 1e3) % 2 ** 31
+        return np.random.RandomState(seed).randn(1, 3, size, size).astype(np.float32)
+
+    return tokenize_llama, tokenize_clip, image_processor
+
+
+def phase_slice_hunyuan() -> dict:
+    """Drive the full-width HunyuanVideo pipeline once; return the kernel launch counts."""
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+    from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer, HunyuanVideoTransformerConfig
+    from alg_tpu_torch.models.hunyuan.vae import HunyuanVAE, HunyuanVAEConfig
+    from alg_tpu_torch.models.llama import LlavaConfig, LlavaModel
+    from alg_tpu_torch.pipelines.hunyuan import DEFAULT_PROMPT_TEMPLATE, HunyuanVideoPipeline
+
+    _set_tf32(False, True)  # PyTorch's defaults: fp32 matmuls in full fp32, cuDNN convs in TF32
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    tcfg, lcfg, ccfg, vcfg = HunyuanVideoTransformerConfig(), LlavaConfig(), CLIPTextConfig(), HunyuanVAEConfig()
+    dit = L.init_random_(HunyuanVideoTransformer(tcfg, device=dev, dtype=torch.bfloat16), gen)
+    llava = L.init_random_(LlavaModel(lcfg, device=dev, dtype=torch.bfloat16), gen)
+    clip = L.init_random_(CLIPTextModel(ccfg, device=dev, dtype=torch.float32), gen)
+    vae = L.init_random_(HunyuanVAE(vcfg, device=dev, dtype=torch.float32), gen)
+    torch.cuda.synchronize()
+    n = {name: sum(p.numel() for p in m.parameters())
+         for name, m in (("dit", dit), ("llava", llava), ("clip", clip), ("vae", vae))}
+    print(f"[C3] random init on the card in {time.perf_counter() - t0:.1f} s: DiT {n['dit'] / 1e9:.2f} B params "
+          f"(bf16), Llava {n['llava'] / 1e9:.2f} B (bf16), CLIP text {n['clip'] / 1e6:.0f} M (fp32), VAE "
+          f"{n['vae'] / 1e6:.1f} M (fp32); {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+
+    tok_llama, tok_clip, image_processor = _hunyuan_hooks(
+        DEFAULT_PROMPT_TEMPLATE, lcfg.image_token_index, lcfg.pad_token_id, 1000, 100000, ccfg.eos_token_id)
+    pipe = HunyuanVideoPipeline(transformer=dit, vae=vae, llava=llava, clip=clip, tokenize_llama=tok_llama,
+                                tokenize_clip=tok_clip, image_processor=image_processor, dtype=torch.bfloat16,
+                                device=dev)
+    timer = _StageTimer()
+    hooks = timer.hook_module("Llava (CLIP-L tower, projector, 32 Llama layers)", llava)
+    hooks += timer.hook_module("CLIP text", clip)
+    vae.encode = timer.wrap("VAE encode of the image", vae.encode)
+    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_require_finite)
+    text_keys = []
+    # args: x [B, C, F, h, w], timestep, text [B, S_text, D], text mask [B, S_text]: the joint [video; text] stream
+    hooks += timer.hook_dit(dit, lambda m, a: (text_keys.append(int(a[3].sum())), a[2].shape[1] + a[0].shape[2]
+                                               * a[0].shape[3] * a[0].shape[4] // m.cfg.patch_size ** 2)[1])
+    image = np.random.RandomState(0).uniform(-1, 1, (1, 3, 352, 608)).astype(np.float32)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    # shipped settings (latent down_up at 0.625, interval from 0, distilled guidance 6.0, no true CFG, so one
+    # pass a step); the interval's end is raised from 0.04 to 0.4 so that 2 of the 4 steps take the filtered
+    # first-frame latent and 2 the clean one
+    video = pipe(image=image, prompt=PROMPT, height=352, width=608, num_frames=9, output_type="np",
+                 true_cfg_scale=1.0, i2v_stable=True, **_alg_kwargs(negative_prompt=None, lp_resize_factor=0.625))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = _read_counts()
+    for h in hooks:
+        h.remove()
+
+    for name, ms, dit_ms in timer.rows:
+        print(f"[C3] {name:<50} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
+    print(f"[C3] pipeline call total {total_s:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+
+    s_joint = HY_VIDEO_TOKENS[9] + HY_TEXT_LEN
+    dit_fwd, llava_runs, clip_runs = timer.count("denoise step"), timer.count("Llava"), timer.count("CLIP text")
+    one = timer.count(f"denoise step (1-pass, S={s_joint})")
+    blocks = tcfg.num_layers + tcfg.num_single_layers
+    want = {"qk_prep": 0, "rope_interleaved": 2 * blocks * dit_fwd,
+            "flash_attention": (tcfg.num_refiner_layers + blocks) * dit_fwd
+            + (lcfg.text.num_hidden_layers + lcfg.vision.num_hidden_layers) * llava_runs
+            + ccfg.num_hidden_layers * clip_runs}
+    print(f"[C3] launches {counts} (want {want}: {dit_fwd} DiT forwards, {llava_runs} Llava run, {clip_runs} CLIP "
+          f"text run); valid text positions a forward {text_keys} (phase B: {HY_TEXT_KEYS} of {HY_TEXT_LEN})")
+    if (dit_fwd, one, llava_runs, clip_runs) != (4, 4, 1, 1) or text_keys != [HY_TEXT_KEYS] * 4:
+        raise AssertionError(f"stage counts: {dit_fwd} DiT forwards ({one} 1-pass at S={s_joint}), {llava_runs} "
+                             f"Llava runs, {clip_runs} CLIP text runs, text keys {text_keys}; want 4 (4), 1, 1, "
+                             f"{HY_TEXT_KEYS}")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != {want}")
+    if video.shape != (1, 9, 352, 608, 3) or not np.isfinite(video).all():
+        raise AssertionError(f"output {video.shape}, finite={bool(np.isfinite(video).all())}")
+    print(f"[C3] output {video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: PASS", flush=True)
+
+    del llava, clip, vae, pipe
+    torch.cuda.empty_cache()
+    _headline_forward_hunyuan(dit, gen)
+    del dit
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _headline_forward_hunyuan(dit, gen) -> None:
+    """Time one single-pass DiT forward at the shipped config's 129 frames
+    (33 latent frames of 44 x 76, S = 27,588 + 540) on random inputs, once:
+    the kernels are warm from the pipeline call."""
+    import torch
+
+    from alg_tpu_torch.models.hunyuan.transformer import hunyuan_rope
+
+    cfg, dev = dit.cfg, gen.device
+    x = torch.randn((1, cfg.in_channels, 33, 44, 76), generator=gen, device=dev).to(torch.bfloat16)
+    text = torch.randn((1, HY_TEXT_LEN, cfg.text_embed_dim), generator=gen, device=dev).to(torch.bfloat16)
+    pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16)
+    mask = (torch.arange(HY_TEXT_LEN, device=dev)[None, :] < HY_TEXT_KEYS).to(torch.int32)
+    cos, sin = (torch.from_numpy(a).to(dev) for a in hunyuan_rope(cfg, 33, 44, 76))
+    ts, guidance = torch.full((1,), 999.0, device=dev), torch.full((1,), 6000.0, device=dev)
+    _reset_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dit(x, ts, text, mask, pooled, guidance, cos, sin)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(out).all())
+    print(f"[C3] DiT forward at 129 frames (1-pass, B=1, S={HY_VIDEO_TOKENS[129] + HY_TEXT_LEN}): {ms:.1f} ms, "
+          f"launches {_read_counts()}, finite={finite}; card after it: {_card_state()}", flush=True)
+    if not finite or out.shape != x.shape:
+        raise AssertionError(f"headline forward: output {tuple(out.shape)}, finite={finite}")
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +1029,61 @@ def phase_agreement_wan() -> None:
     _compare_runs("D2", results, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 30})
 
 
+def phase_agreement_hunyuan() -> None:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, CLIPVisionConfig
+    from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer, HunyuanVideoTransformerConfig
+    from alg_tpu_torch.models.hunyuan.vae import HunyuanVAE, HunyuanVAEConfig
+    from alg_tpu_torch.models.llama import LlamaConfig, LlavaConfig, LlavaModel
+    from alg_tpu_torch.pipelines.hunyuan import HunyuanVideoPipeline
+
+    _set_tf32(False, False)
+    tcfg = HunyuanVideoTransformerConfig(in_channels=4, out_channels=4, num_attention_heads=2, attention_head_dim=128,
+                                         num_layers=1, num_single_layers=1, num_refiner_layers=1, mlp_ratio=2.0,
+                                         text_embed_dim=256, pooled_projection_dim=128)
+    lcfg = LlavaConfig(
+        text=LlamaConfig(vocab_size=128, hidden_size=256, intermediate_size=128, num_hidden_layers=3,
+                         num_attention_heads=2, num_key_value_heads=1, rope_theta=10000.0),  # head dim 128, GQA
+        vision=CLIPVisionConfig(hidden_size=128, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2,
+                                image_size=28, patch_size=14, hidden_act="quick_gelu"),  # head dim 64, 5 tokens
+        image_token_index=120, pad_token_id=0)
+    ccfg = CLIPTextConfig(vocab_size=64, hidden_size=128, intermediate_size=64, num_hidden_layers=2,
+                          num_attention_heads=2, max_position_embeddings=16, eos_token_id=63)  # head dim 64
+    vcfg = HunyuanVAEConfig(block_out_channels=(8, 16, 16, 16), latent_channels=4, layers_per_block=1,
+                            norm_num_groups=4)
+    # the chat template cut to the small Llava: an 8-token head, the image block (2 x 2 patches) at [5, 9)
+    template = {"template": "{}", "crop_start": 8, "image_emb_start": 5, "image_emb_end": 9, "image_emb_len": 4,
+                "double_return_token_id": 7}
+    tok_llama, tok_clip, image_processor = _hunyuan_hooks(template, lcfg.image_token_index, lcfg.pad_token_id,
+                                                          10, 100, ccfg.eos_token_id)
+    gen = torch.Generator("cpu").manual_seed(3)
+    mods = [L.init_random_(m, gen) for m in (HunyuanVideoTransformer(tcfg), LlavaModel(lcfg), CLIPTextModel(ccfg),
+                                             HunyuanVAE(vcfg))]
+    image = np.random.RandomState(3).uniform(-1, 1, (1, 3, 64, 64)).astype(np.float32)
+    # true CFG with ALG: 2 three-pass steps, then 2 two-pass; the empty negative prompt goes through
+    # encode_prompt against a black image (1 prompt token, the rest of the row padding)
+    kw = _alg_kwargs(image=image, prompt="a red fox runs", negative_prompt="", height=64, width=64, num_frames=9,
+                     true_cfg_scale=2.0, lp_resize_factor=0.625, prompt_template=template, max_sequence_length=20,
+                     output_type="latent")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        dit, llava, clip, vae = (copy.deepcopy(m).to(dev) for m in mods)
+        pipe = HunyuanVideoPipeline(transformer=dit, vae=vae, llava=llava, clip=clip, tokenize_llama=tok_llama,
+                                    tokenize_clip=tok_clip, image_processor=image_processor, device=dev)
+        _reset_counts()
+        lat = pipe(**kw)
+        frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
+        results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+    # 4 DiT forwards x (1 refiner + 1 double + 1 single block; rope on q and k of the last two)
+    # + 2 prompt encodes x (3 Llama + 2 CLIP vision + 2 CLIP text layers)
+    _compare_runs("D3", results, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 26})
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -749,6 +1099,10 @@ _KERNELS = {
     "flash_attention": ("alg_tpu_torch/csrc/flash_attention.cu", "alg_tpu/ops/flash_attention.py:98",
                         "flash_wan_self", [2, 40, 4680, 128]),
 }
+# Other variants of a kernel whose phase-B numbers ride along in its record ("also"): the causal calls
+# and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches.
+_ALSO = {"flash_attention": ("flash_llama_causal_kvlen", "flash_clip_text_causal", "flash_hunyuan_joint"),
+         "rope_interleaved": ("rope_hunyuan_joint",)}
 
 
 def _kernel_json(records, counts_by_path) -> dict:
@@ -757,10 +1111,13 @@ def _kernel_json(records, counts_by_path) -> dict:
     for name, (source, replaces, case, shape) in _KERNELS.items():
         rec = next(r for r in records if r["name"] == case and r["shape"] == shape and r["dtype"] == "bfloat16")
         by_path = {path: counts[name] for path, counts in counts_by_path.items()}
+        also = [{key: r[key] for key in ("name", "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+                for case_name in _ALSO.get(name, ()) for r in records if r["name"] == case_name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": sum(by_path.values()), "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                    "library_ms": rec["library_ms"], "at": f"bfloat16 {shape}", "launches_by_path": by_path})
+                    "library_ms": rec["library_ms"], "at": f"bfloat16 {shape}", "launches_by_path": by_path, "also": also})
     return {"kernels": out}
 
 
@@ -780,15 +1137,29 @@ def main() -> int:
         return 2
 
     print(_card_line(), flush=True)
+    if sys.argv[1:] == ["--dense-flash"]:
+        try:
+            phase_build()
+            phase_dense_flash()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     try:
         phase_build()
         records = phase_kernels()
         counts = {"cogvideox": phase_slice()}
         counts["wan"] = phase_slice_wan()  # after the CogVideoX modules are freed
+        counts["hunyuan"] = phase_slice_hunyuan()  # after the Wan modules are freed
         phase_agreement()
         phase_agreement_wan()
+        phase_agreement_hunyuan()
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention")),
-                              ("wan", ("rope_interleaved", "flash_attention"))):
+                              ("wan", ("rope_interleaved", "flash_attention")),
+                              ("hunyuan", ("rope_interleaved", "flash_attention"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

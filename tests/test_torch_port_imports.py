@@ -21,7 +21,9 @@ def test_every_module_imports_with_jax_blocked():
     assert "alg_tpu_torch.ops._build" in mods and "alg_tpu_torch.pipelines.cogvideox" in mods
     assert {"alg_tpu_torch.ops.rope", "alg_tpu_torch.schedulers.unipc", "alg_tpu_torch.models.clip",
             "alg_tpu_torch.models.wan.transformer", "alg_tpu_torch.models.wan.vae",
-            "alg_tpu_torch.pipelines.wan"} <= set(mods)
+            "alg_tpu_torch.pipelines.wan", "alg_tpu_torch.alg.hunyuan_size", "alg_tpu_torch.models.llama",
+            "alg_tpu_torch.schedulers.flow_match_euler", "alg_tpu_torch.models.hunyuan.transformer",
+            "alg_tpu_torch.models.hunyuan.vae", "alg_tpu_torch.pipelines.hunyuan"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -166,6 +166,61 @@ def test_attention_head_dims_match_xla_attention(d):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("case", [
+    dict(d=12, sq=40, sk=40, stable=True, with_bias=False, kv_len=None),
+    dict(d=64, sq=77, sk=77, stable=True, with_bias=False, kv_len=None),  # CLIP text
+    dict(d=128, sq=50, sk=50, stable=True, with_bias=False, kv_len=[50, 31, 1]),  # Llama: causal + prompt lengths
+    dict(d=128, sq=50, sk=50, stable=False, with_bias=False, kv_len=[50, 31, 1]),
+    dict(d=64, sq=33, sk=57, stable=True, with_bias=False, kv_len=None),  # Sq < Sk: the offset Sk - Sq
+    dict(d=12, sq=33, sk=57, stable=False, with_bias=False, kv_len=[57, 30, 25]),
+    dict(d=64, sq=70, sk=70, stable=True, with_bias=True, kv_len=None),
+    dict(d=128, sq=20, sk=30, stable=False, with_bias=True, kv_len=[30, 11, 12]),
+], ids=["d12", "d64-clip-text", "d128-kvlen-stable", "d128-kvlen-unstable", "d64-offset", "d12-offset-kvlen",
+        "d64-bias", "d128-offset-bias-kvlen"])
+def test_attention_causal_matches_xla_attention(case):
+    """Query i sees key j iff j <= i + (Sk - Sq); the mask composes with
+    ``kv_len``, a bias and both ``stable`` settings. Every row sees a key."""
+    d, sq, sk = case["d"], case["sq"], case["sk"]
+    q, k, v, bias = _attn_inputs(3, 2, sq, sk, d, 8, case["with_bias"])
+    scale = 1.0 / 8 if case["with_bias"] else d ** -0.5
+    kv_len = None if case["kv_len"] is None else np.asarray(case["kv_len"], np.int32)
+    ref = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, causal=True,
+                         kv_len=None if kv_len is None else jnp.asarray(kv_len),
+                         bias=None if bias is None else jnp.asarray(bias))
+    out = attention(*_t(q, k, v), scale=scale, causal=True, stable=case["stable"],
+                    kv_len=None if kv_len is None else torch.from_numpy(kv_len),
+                    bias=None if bias is None else torch.from_numpy(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    # row i alone, over the keys it sees, gives the same row
+    for i in (0, sq // 2, sq - 1):
+        n = min(i + sk - sq + 1, sk if kv_len is None else int(kv_len[1]))
+        alone = attention(*_t(q[1:2, :, i:i + 1], k[1:2, :, :n], v[1:2, :, :n]), scale=scale,
+                          bias=None if bias is None else torch.from_numpy(bias[:, :, i:i + 1, :n]))
+        np.testing.assert_allclose(out[1:2, :, i:i + 1].numpy(), alone.numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("stable", [True, False], ids=["stable", "unstable"])
+def test_attention_causal_rows_without_a_visible_key_are_zero(stable):
+    """Sq > Sk hides every key from the first Sq - Sk rows, and ``kv_len`` 0
+    from a whole batch row. On such rows the port follows the Pallas body
+    (``alg_tpu/ops/flash_attention.py``: a zero denominator writes zeros), not
+    ``_xla_attention``, whose softmax over all -inf is NaN there. The other
+    rows are held to ``_xla_attention``."""
+    sq, sk, d = 40, 25, 64
+    q, k, v, _ = _attn_inputs(3, 2, sq, sk, d, 9, False)
+    kv_len = np.asarray([25, 0, 7], np.int32)
+    ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), d ** -0.5, causal=True,
+                                    kv_len=jnp.asarray(kv_len)))
+    out = attention(*_t(q, k, v), causal=True, stable=stable, kv_len=torch.from_numpy(kv_len)).numpy()
+    hidden = np.zeros((3, sq), bool)
+    hidden[:, : sq - sk] = True  # rows above the diagonal's start
+    hidden[1] = True  # no key at all
+    assert np.isfinite(out).all() and np.isnan(ref[hidden[:, None].repeat(2, 1)]).all()
+    assert not out[hidden[:, None].repeat(2, 1)].any()
+    seen = ~hidden[:, None].repeat(2, 1)
+    np.testing.assert_allclose(out[seen], ref[seen], atol=ATOL, rtol=0)
+
+
 def test_cpu_calls_launch_nothing():
     FA.flash_attention.launches = 0
     from alg_tpu_torch.ops import qk_prep

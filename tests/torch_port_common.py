@@ -14,8 +14,15 @@ import jax
 
 
 def port_cfg(port_cls, jax_cfg):
-    """The port's config dataclass with the JAX config's values."""
-    return port_cls(**{f.name: getattr(jax_cfg, f.name) for f in dataclasses.fields(port_cls)})
+    """The port's config dataclass with the JAX config's values (a nested
+    config, as Llava's text and vision ones, becomes the port's class too)."""
+    kw = {}
+    for f in dataclasses.fields(port_cls):
+        val = getattr(jax_cfg, f.name)
+        if dataclasses.is_dataclass(val):
+            val = port_cfg(type(getattr(port_cls(), f.name)), val)
+        kw[f.name] = val
+    return port_cls(**kw)
 
 
 def random_tree(init_fn, seed):
@@ -60,10 +67,13 @@ def tiny_configs():
 
 def port_module(kind, jax_cfg, tree):
     """The port's ``kind`` ("dit" | "vae" | "t5" | "wan_dit" | "wan_vae" |
-    "clip") module on the CPU in fp32, loaded from the JAX tree through the
-    weights bridge."""
+    "clip" | "clip_text" | "llama" | "llava" | "hunyuan_dit" | "hunyuan_vae")
+    module on the CPU in fp32, loaded from the JAX tree through the weights
+    bridge."""
     from alg_tpu_torch.io.jax_params import load_jax_params
-    from alg_tpu_torch.models import clip, t5
+    from alg_tpu_torch.models import clip, llama, t5
+    from alg_tpu_torch.models.hunyuan import transformer as HT
+    from alg_tpu_torch.models.hunyuan import vae as HV
     from alg_tpu_torch.models.cogvideox import transformer as T
     from alg_tpu_torch.models.cogvideox import vae as V
     from alg_tpu_torch.models.wan import transformer as WT
@@ -76,6 +86,11 @@ def port_module(kind, jax_cfg, tree):
         "wan_dit": (WT.WanTransformer, WT.WanTransformerConfig),
         "wan_vae": (WV.WanVAE, WV.WanVAEConfig),
         "clip": (clip.CLIPVisionModel, clip.CLIPVisionConfig),
+        "clip_text": (clip.CLIPTextModel, clip.CLIPTextConfig),
+        "llama": (llama.LlamaModel, llama.LlamaConfig),
+        "llava": (llama.LlavaModel, llama.LlavaConfig),
+        "hunyuan_dit": (HT.HunyuanVideoTransformer, HT.HunyuanVideoTransformerConfig),
+        "hunyuan_vae": (HV.HunyuanVAE, HV.HunyuanVAEConfig),
     }[kind]
     return load_jax_params(cls(port_cfg(cfg_cls, jax_cfg)), tree)
 
@@ -175,6 +190,103 @@ def build_wan_pair(**port_kwargs):
     tpipe = WanPipeline(transformer=port_module("wan_dit", tcfg, tp), vae=port_module("wan_vae", vcfg, vp),
                         t5=port_module("t5", t5cfg, t5p), tokenize=tokenize_mask_stub,
                         scheduler_cfg=UniPCConfig(flow_shift=5.0), device="cpu", **port_kwargs)
+    return jpipe, tpipe
+
+
+# -- HunyuanVideo ----------------------------------------------------------------
+
+HY_IMG, HY_PAD, HY_DRT = 60, 0, 7  # the tiny Llava's <image>, pad and double-return token ids
+# a prompt template cut to the tiny Llava: a 4-token head, the image block at [5, 9) (28/14 = 2 x 2 patches)
+HY_TEMPLATE = {"template": "{}", "crop_start": 4, "image_emb_start": 5, "image_emb_end": 9, "image_emb_len": 4,
+               "double_return_token_id": HY_DRT}
+
+
+def tiny_hunyuan_configs(**dit_over):
+    """``__graft_entry__._build_tiny_hunyuan``'s DiT and VAE configs, a
+    3-layer Llava (GQA 2 heads / 1 kv head, a 2-layer CLIP tower) as wide as
+    the DiT's text dim and a 2-layer CLIP text model as wide as its pooled
+    dim."""
+    from alg_tpu.models.clip import CLIPTextConfig, CLIPVisionConfig
+    from alg_tpu.models.hunyuan import HunyuanVAEConfig, HunyuanVideoTransformerConfig
+    from alg_tpu.models.llama import LlamaConfig, LlavaConfig
+
+    tcfg = HunyuanVideoTransformerConfig(**{**dict(
+        in_channels=4, out_channels=4, num_attention_heads=4, attention_head_dim=8, num_layers=1,
+        num_single_layers=1, num_refiner_layers=1, mlp_ratio=2.0, text_embed_dim=12, pooled_projection_dim=6,
+        rope_axes_dim=(2, 4, 2)), **dit_over})
+    vcfg = HunyuanVAEConfig(block_out_channels=(8, 16, 16, 16), latent_channels=4, layers_per_block=1,
+                            norm_num_groups=4)
+    lcfg = LlavaConfig(
+        text=LlamaConfig(vocab_size=128, hidden_size=12, intermediate_size=24, num_hidden_layers=3,
+                         num_attention_heads=2, num_key_value_heads=1, rope_theta=10000.0, rms_norm_eps=1e-6),
+        vision=CLIPVisionConfig(hidden_size=8, intermediate_size=16, num_hidden_layers=2, num_attention_heads=2,
+                                image_size=28, patch_size=14, hidden_act="quick_gelu"),
+        image_token_index=HY_IMG, pad_token_id=HY_PAD)
+    ccfg = CLIPTextConfig(vocab_size=64, hidden_size=6, intermediate_size=12, num_hidden_layers=2,
+                          num_attention_heads=2, max_position_embeddings=10, eos_token_id=63)
+    return tcfg, vcfg, lcfg, ccfg
+
+
+def hunyuan_trees(tcfg, vcfg, lcfg, ccfg):
+    from alg_tpu.models.clip import init_clip_text
+    from alg_tpu.models.hunyuan import init_hunyuan_transformer, init_hunyuan_vae
+    from alg_tpu.models.llama import init_llava
+
+    return (
+        random_tree(lambda k: init_hunyuan_transformer(k, tcfg), 31),
+        random_tree(lambda k: init_hunyuan_vae(k, vcfg), 32),
+        random_tree(lambda k: init_llava(k, lcfg), 33),
+        random_tree(lambda k: init_clip_text(k, ccfg), 34),
+    )
+
+
+def tokenize_llama_stub(prompts, max_len):
+    """Seeded ``(ids, mask)``, each ``[len(prompts), max_len]``, laid out as
+    the Llava tokenizer lays out the template: one ``<image>`` token at
+    position 5, four double-return tokens (the last two before the end),
+    right padding; the length depends on the prompt text."""
+    rows = []
+    for p in prompts:
+        row = np.random.RandomState(sum(map(ord, p)) + 5).randint(10, 50, size=max_len).astype(np.int64)
+        n_real = min(max_len, 18 + len(p) % 5)
+        row[n_real:] = HY_PAD
+        row[5] = HY_IMG
+        row[[2, 9, 14, n_real - 2]] = HY_DRT
+        rows.append(row)
+    ids = np.stack(rows)
+    return ids, (ids != HY_PAD).astype(np.int64)
+
+
+def tokenize_clip_stub(prompts, max_len=77):
+    """Seeded CLIP ids ``[len(prompts), max_len]`` in [0, 63) with the
+    end-of-sequence id 63 in the middle of the row and again at its end."""
+    rows = []
+    for p in prompts:
+        row = np.random.RandomState(sum(map(ord, p)) + 9).randint(0, 63, size=max_len).astype(np.int32)
+        row[[2 + len(p) % (max_len - 3), max_len - 1]] = 63
+        rows.append(row)
+    return np.stack(rows)
+
+
+def build_hunyuan_pair(with_encoders=False, **dit_over):
+    """(JAX Hunyuan pipeline, port Hunyuan pipeline) on the CPU in fp32 with
+    identical weights; ``with_encoders`` adds the tiny Llava and CLIP text
+    model behind the tokenizer stubs (else callers pass prompt embeds)."""
+    from alg_tpu.pipelines import HunyuanVideoPipeline as JaxPipeline
+
+    from alg_tpu_torch.pipelines.hunyuan import HunyuanVideoPipeline
+
+    tcfg, vcfg, lcfg, ccfg = tiny_hunyuan_configs(**dit_over)
+    tp, vp, lp, cp = hunyuan_trees(tcfg, vcfg, lcfg, ccfg)
+    jkw, tkw = {}, {}
+    if with_encoders:
+        jkw = dict(llava_cfg=lcfg, llava_params=lp, clip_cfg=ccfg, clip_params=cp,
+                   tokenize_llama=tokenize_llama_stub, tokenize_clip=tokenize_clip_stub)
+        tkw = dict(llava=port_module("llava", lcfg, lp), clip=port_module("clip_text", ccfg, cp),
+                   tokenize_llama=tokenize_llama_stub, tokenize_clip=tokenize_clip_stub)
+    jpipe = JaxPipeline(transformer_cfg=tcfg, transformer_params=tp, vae_cfg=vcfg, vae_params=vp, **jkw)
+    tpipe = HunyuanVideoPipeline(transformer=port_module("hunyuan_dit", tcfg, tp),
+                                 vae=port_module("hunyuan_vae", vcfg, vp), device="cpu", **tkw)
     return jpipe, tpipe
 
 
