@@ -44,6 +44,13 @@
 // Sq > Sk under causal) writes zeros. Query rows past Sq have limit 0 and
 // are not written. No host-side padding, no host read of kv_len.
 //
+// Residuals (the `return_residuals` variant of the TPU kernel, what the
+// backward kernels in flash_attention_bwd.cu and a ring merge need): with a
+// non-null `lse` pointer each row also writes the base-2 log-sum-exp of its
+// scaled, biased, masked logits, log2(l) plus the running max when stable,
+// -inf for a row with no visible key. It is one run-time pointer test at the
+// final write; a null pointer is the inference call as it was.
+//
 // Bound on the H100: tensor-core FLOPs (4·H·D·Σ visible keys per call). This
 // version runs on the CUDA cores in fp32 FMAs for both bf16 and fp32 inputs,
 // so it sits far below the tensor-core roof; mma/wgmma tiles, TMA staging
@@ -82,8 +89,8 @@ template <typename T, bool kStable, bool kBias>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, long long bias_b_stride,
-                 const int* __restrict__ kv_len, T* __restrict__ out, int heads, int sq, int sk,
-                 int causal_offset, float scale_log2) {
+                 const int* __restrict__ kv_len, T* __restrict__ out, float* __restrict__ lse,
+                 int heads, int sq, int sk, int causal_offset, float scale_log2) {
   __shared__ __align__(16) float ks[kBlockK][kD];
   __shared__ __align__(16) float vs[kBlockK][kD];
 
@@ -209,30 +216,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int d = 0; d < kDL; d += 4)
     alg::store4(orow + d * kLanes, acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
+  if (lse != nullptr && part == 0) {
+    // l is taken against the running max when stable (0 while that is -inf), against 0 otherwise
+    const float base = (kStable && m != -INFINITY) ? m : 0.0f;
+    lse[(long long)bh * sq + row] = l == 0.0f ? -INFINITY : base + log2f(l);
+  }
 }
 
 template <typename T, bool kStable, bool kBias>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   long long bias_b_stride, const void* kv_len, void* out, int batch, int heads,
-                   int sq, int sk, int causal_offset, float scale, cudaStream_t stream) {
+                   long long bias_b_stride, const void* kv_len, void* out, void* lse, int batch,
+                   int heads, int sq, int sk, int causal_offset, float scale, cudaStream_t stream) {
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * heads);
   flash_fwd_kernel<T, kStable, kBias><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), bias_b_stride, static_cast<const int*>(kv_len),
-      static_cast<T*>(out), heads, sq, sk, causal_offset, scale * kLog2e);
+      static_cast<T*>(out), static_cast<float*>(lse), heads, sq, sk, causal_offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* bias,
-                     long long bias_b_stride, const void* kv_len, void* out, int batch, int heads,
-                     int sq, int sk, int causal_offset, float scale, bool stable, cudaStream_t st) {
+                     long long bias_b_stride, const void* kv_len, void* out, void* lse, int batch,
+                     int heads, int sq, int sk, int causal_offset, float scale, bool stable,
+                     cudaStream_t st) {
   if (bias != nullptr) {
-    return stable ? launch<T, true, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st)
-                  : launch<T, false, true>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st);
+    return stable ? launch<T, true, true>(q, k, v, bias, bias_b_stride, kv_len, out, lse, batch, heads, sq, sk, causal_offset, scale, st)
+                  : launch<T, false, true>(q, k, v, bias, bias_b_stride, kv_len, out, lse, batch, heads, sq, sk, causal_offset, scale, st);
   }
-  return stable ? launch<T, true, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st)
-                : launch<T, false, false>(q, k, v, bias, 0, kv_len, out, batch, heads, sq, sk, causal_offset, scale, st);
+  return stable ? launch<T, true, false>(q, k, v, bias, 0, kv_len, out, lse, batch, heads, sq, sk, causal_offset, scale, st)
+                : launch<T, false, false>(q, k, v, bias, 0, kv_len, out, lse, batch, heads, sq, sk, causal_offset, scale, st);
 }
 
 }  // namespace
@@ -242,23 +255,24 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* bi
 // b·bias_b_stride + (h·Sq + i)·Sk + j (bias_b_stride 0 broadcasts one
 // [H, Sq, Sk] bias over the batch). kv_len: null, or int32 [B] on the
 // device: batch row b attends to its first kv_len[b] keys (clamped to
-// [0, Sk]). causal != 0: query i also sees no key past i + (Sk - Sq).
+// [0, Sk]). causal != 0: query i also sees no key past i + (Sk - Sq). lse:
+// null, or fp32 [B, H, Sq] that receives each row's base-2 log-sum-exp.
 // Returns the launch's cudaError_t.
 extern "C" int ALG_CAT(alg_flash_attention_fwd_d, ALG_FLASH_HEAD_DIM)(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
-    long long bias_b_stride, const void* kv_len, void* out, int batch, int heads, int sq, int sk,
-    float scale, int stable, int causal, void* stream) {
+    long long bias_b_stride, const void* kv_len, void* out, void* lse, int batch, int heads, int sq,
+    int sk, float scale, int stable, int causal, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || (long long)batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int causal_offset = causal != 0 ? sk - sq : kNotCausal;
   switch (dtype) {
     case alg::kFloat32:
-      return (int)dispatch<float>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads, sq, sk,
-                                  causal_offset, scale, stable != 0, st);
+      return (int)dispatch<float>(q, k, v, bias, bias_b_stride, kv_len, out, lse, batch, heads, sq,
+                                  sk, causal_offset, scale, stable != 0, st);
     case alg::kBFloat16:
-      return (int)dispatch<__nv_bfloat16>(q, k, v, bias, bias_b_stride, kv_len, out, batch, heads,
-                                          sq, sk, causal_offset, scale, stable != 0, st);
+      return (int)dispatch<__nv_bfloat16>(q, k, v, bias, bias_b_stride, kv_len, out, lse, batch,
+                                          heads, sq, sk, causal_offset, scale, stable != 0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

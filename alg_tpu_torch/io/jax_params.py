@@ -21,6 +21,9 @@ mapping is by rule:
     and becomes ``<name>.weight`` as it is.
 
 Missing or unused keys and shape mismatches raise.
+
+LoRA adapter trees need no mapping: the port keys and lays them out as the
+JAX package does (:func:`load_jax_lora`, :func:`lora_to_jax`).
 """
 
 from __future__ import annotations
@@ -98,3 +101,18 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
             arr = arr.astype(np.float32)
         dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
     return module
+
+
+def load_jax_lora(tree, device="cpu", requires_grad: bool = True):
+    """A JAX-package LoRA tree (``alg_tpu.training.init_lora_params``, as
+    numpy) as the port's adapters: same keys (``"blocks/attn/to_q"``) and
+    layouts (``A [L, in, r]``, ``B [L, r, out]``), fp32 leaf tensors on
+    ``device`` that require a gradient."""
+    return {path: {name: torch.tensor(np.asarray(arr, dtype=np.float32), device=device,
+                                      requires_grad=requires_grad) for name, arr in ab.items()}
+            for path, ab in tree.items()}
+
+
+def lora_to_jax(loras):
+    """The port's adapters as the numpy tree the JAX package takes."""
+    return {path: {name: t.detach().float().cpu().numpy() for name, t in ab.items()} for path, ab in loras.items()}

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from alg_tpu_torch.core.remat import run_block
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
@@ -94,7 +95,7 @@ class AdaNormZero(nn.Module):
 
     def __init__(self, time_dim: int, dim: int, eps: float, device=None, dtype=None):
         super().__init__()
-        self.linear = nn.Linear(time_dim, 6 * dim, device=device, dtype=dtype)
+        self.linear = L.Linear(time_dim, 6 * dim, device=device, dtype=dtype)
         self.norm = L.LayerNorm(dim, eps, device=device, dtype=dtype)
 
     def forward(self, hidden, encoder, temb):
@@ -109,10 +110,10 @@ class JointAttention(nn.Module):
         super().__init__()
         dim, hd = cfg.inner_dim, cfg.attention_head_dim
         kw = dict(device=device, dtype=dtype)
-        self.to_q = nn.Linear(dim, dim, **kw)
-        self.to_k = nn.Linear(dim, dim, **kw)
-        self.to_v = nn.Linear(dim, dim, **kw)
-        self.to_out = nn.Linear(dim, dim, **kw)
+        self.to_q = L.Linear(dim, dim, **kw)
+        self.to_k = L.Linear(dim, dim, **kw)
+        self.to_v = L.Linear(dim, dim, **kw)
+        self.to_out = L.Linear(dim, dim, **kw)
         self.norm_q = L.LayerNorm(hd, cfg.qk_norm_eps, **kw)
         self.norm_k = L.LayerNorm(hd, cfg.qk_norm_eps, **kw)
         self.nh, self.hd = cfg.num_attention_heads, hd
@@ -160,16 +161,16 @@ class CogVideoXTransformer(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.patch_embed = nn.ModuleDict({
             # conv2d with stride = kernel = p, as a linear over flattened patches
-            "proj": nn.Linear(cfg.in_channels * p * p, dim, **kw),
-            "text_proj": nn.Linear(cfg.text_embed_dim, dim, **kw),
+            "proj": L.Linear(cfg.in_channels * p * p, dim, **kw),
+            "text_proj": L.Linear(cfg.text_embed_dim, dim, **kw),
         })
         self.time_embedding = L.TimestepEmbedding(dim, cfg.time_embed_dim, **kw)
         self.norm_final = L.LayerNorm(dim, cfg.norm_eps, **kw)
         self.norm_out = nn.ModuleDict({
-            "linear": nn.Linear(cfg.time_embed_dim, 2 * dim, **kw),
+            "linear": L.Linear(cfg.time_embed_dim, 2 * dim, **kw),
             "norm": L.LayerNorm(dim, cfg.norm_eps, **kw),
         })
-        self.proj_out = nn.Linear(dim, p * p * cfg.out_channels, **kw)
+        self.proj_out = L.Linear(dim, p * p * cfg.out_channels, **kw)
         self.blocks = nn.ModuleList(CogVideoXBlock(cfg, **kw) for _ in range(cfg.num_layers))
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
@@ -196,7 +197,7 @@ class CogVideoXTransformer(nn.Module):
         rs = torch.cat([rope_sin.new_zeros(text_len, d), rope_sin.float()]).contiguous()
 
         for blk in self.blocks:
-            video, text = blk(video, text, temb, rc, rs)
+            video, text = run_block(blk, video, text, temb, rc, rs)
 
         video = self.norm_final(torch.cat([text, video], dim=1))[:, text_len:]
         shift, scale = self.norm_out["linear"](L.silu(temb)).chunk(2, dim=-1)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from alg_tpu_torch.core.remat import run_block
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
@@ -126,10 +127,10 @@ class _RefinerAttention(nn.Module):
     def __init__(self, dim: int, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.to_q = nn.Linear(dim, dim, **kw)
-        self.to_k = nn.Linear(dim, dim, **kw)
-        self.to_v = nn.Linear(dim, dim, **kw)
-        self.to_out = nn.Linear(dim, dim, **kw)
+        self.to_q = L.Linear(dim, dim, **kw)
+        self.to_k = L.Linear(dim, dim, **kw)
+        self.to_v = L.Linear(dim, dim, **kw)
+        self.to_out = L.Linear(dim, dim, **kw)
 
 
 class RefinerBlock(_Heads):
@@ -145,7 +146,7 @@ class RefinerBlock(_Heads):
         self.attn = _RefinerAttention(dim, **kw)
         self.norm2 = L.LayerNorm(dim, 1e-6, **kw)
         self.ff = L.MLP(dim, int(dim * cfg.mlp_ratio), act=L.silu, **kw)
-        self.ada = nn.Linear(dim, 2 * dim, **kw)
+        self.ada = L.Linear(dim, 2 * dim, **kw)
 
     def forward(self, x, temb, kv_len):
         gate_msa, gate_mlp = _chunks(self.ada(L.silu(temb)), 2)
@@ -164,7 +165,7 @@ class TokenRefiner(nn.Module):
         super().__init__()
         dim = cfg.inner_dim
         kw = dict(device=device, dtype=dtype)
-        self.input_embedder = nn.Linear(cfg.text_embed_dim, dim, **kw)
+        self.input_embedder = L.Linear(cfg.text_embed_dim, dim, **kw)
         self.t_embedder = L.TimestepEmbedding(256, dim, **kw)
         self.c_embedder = L.TimestepEmbedding(cfg.text_embed_dim, dim, **kw)
         self.blocks = nn.ModuleList(RefinerBlock(cfg, **kw) for _ in range(cfg.num_refiner_layers))
@@ -192,17 +193,17 @@ class _JointAttention(nn.Module):
     def __init__(self, dim: int, head_dim: int, text_stream: bool, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.to_q = nn.Linear(dim, dim, **kw)
-        self.to_k = nn.Linear(dim, dim, **kw)
-        self.to_v = nn.Linear(dim, dim, **kw)
+        self.to_q = L.Linear(dim, dim, **kw)
+        self.to_k = L.Linear(dim, dim, **kw)
+        self.to_v = L.Linear(dim, dim, **kw)
         self.norm_q = L.RMSNorm(head_dim, 1e-6, **kw)
         self.norm_k = L.RMSNorm(head_dim, 1e-6, **kw)
         if text_stream:
-            self.to_out = nn.Linear(dim, dim, **kw)
-            self.add_q_proj = nn.Linear(dim, dim, **kw)
-            self.add_k_proj = nn.Linear(dim, dim, **kw)
-            self.add_v_proj = nn.Linear(dim, dim, **kw)
-            self.to_add_out = nn.Linear(dim, dim, **kw)
+            self.to_out = L.Linear(dim, dim, **kw)
+            self.add_q_proj = L.Linear(dim, dim, **kw)
+            self.add_k_proj = L.Linear(dim, dim, **kw)
+            self.add_v_proj = L.Linear(dim, dim, **kw)
+            self.to_add_out = L.Linear(dim, dim, **kw)
             self.norm_added_q = L.RMSNorm(head_dim, 1e-6, **kw)
             self.norm_added_k = L.RMSNorm(head_dim, 1e-6, **kw)
 
@@ -213,8 +214,8 @@ class DoubleBlock(_Heads):
         dim, mlp = cfg.inner_dim, int(cfg.inner_dim * cfg.mlp_ratio)
         kw = dict(device=device, dtype=dtype)
         self.nh, self.hd = cfg.num_attention_heads, cfg.attention_head_dim
-        self.norm1_linear = nn.Linear(dim, 6 * dim, **kw)
-        self.norm1_context_linear = nn.Linear(dim, 6 * dim, **kw)
+        self.norm1_linear = L.Linear(dim, 6 * dim, **kw)
+        self.norm1_context_linear = L.Linear(dim, 6 * dim, **kw)
         self.attn = _JointAttention(dim, self.hd, True, **kw)
         self.ff = L.MLP(dim, mlp, **kw)
         self.ff_context = L.MLP(dim, mlp, **kw)
@@ -253,10 +254,10 @@ class SingleBlock(_Heads):
         dim, mlp = cfg.inner_dim, int(cfg.inner_dim * cfg.mlp_ratio)
         kw = dict(device=device, dtype=dtype)
         self.nh, self.hd = cfg.num_attention_heads, cfg.attention_head_dim
-        self.norm_linear = nn.Linear(dim, 3 * dim, **kw)
+        self.norm_linear = L.Linear(dim, 3 * dim, **kw)
         self.attn = _JointAttention(dim, self.hd, False, **kw)
-        self.proj_mlp = nn.Linear(dim, mlp, **kw)
-        self.proj_out = nn.Linear(dim + mlp, dim, **kw)
+        self.proj_mlp = L.Linear(dim, mlp, **kw)
+        self.proj_out = L.Linear(dim + mlp, dim, **kw)
 
     def forward(self, x, temb, temb_tr, kv_len, rope_cos, rope_sin, first_len):
         s, sc, g = _chunks(self.norm_linear(L.silu(temb)), 3)
@@ -293,7 +294,7 @@ class _TimeTextEmbed(nn.Module):
 class _NormOut(nn.Module):
     def __init__(self, dim: int, device=None, dtype=None):
         super().__init__()
-        self.linear = nn.Linear(dim, 2 * dim, device=device, dtype=dtype)
+        self.linear = L.Linear(dim, 2 * dim, device=device, dtype=dtype)
 
 
 class HunyuanVideoTransformer(nn.Module):
@@ -303,11 +304,11 @@ class HunyuanVideoTransformer(nn.Module):
         dim = cfg.inner_dim
         p, pt = cfg.patch_size, cfg.patch_size_t
         kw = dict(device=device, dtype=dtype)
-        self.x_embedder = nn.Linear(cfg.in_channels * pt * p * p, dim, **kw)
+        self.x_embedder = L.Linear(cfg.in_channels * pt * p * p, dim, **kw)
         self.context_embedder = TokenRefiner(cfg, **kw)
         self.time_text_embed = _TimeTextEmbed(cfg, **kw)
         self.norm_out = _NormOut(dim, **kw)  # AdaLayerNormContinuous (no affine norm)
-        self.proj_out = nn.Linear(dim, pt * p * p * cfg.out_channels, **kw)
+        self.proj_out = L.Linear(dim, pt * p * p * cfg.out_channels, **kw)
         self.transformer_blocks = nn.ModuleList(DoubleBlock(cfg, **kw) for _ in range(cfg.num_layers))
         self.single_transformer_blocks = nn.ModuleList(SingleBlock(cfg, **kw) for _ in range(cfg.num_single_layers))
 
@@ -355,10 +356,10 @@ class HunyuanVideoTransformer(nn.Module):
                             torch.zeros((seq_t, hd), dtype=torch.float32, device=dev)]).contiguous()
 
         for blk in self.transformer_blocks:
-            x, text = blk(x, text, temb, temb_tr, kv_len, rc, rs, first_len)
+            x, text = run_block(blk, x, text, temb, temb_tr, kv_len, rc, rs, first_len)
         joint = torch.cat([x, text], dim=1)
         for blk in self.single_transformer_blocks:
-            joint = blk(joint, temb, temb_tr, kv_len, rc, rs, first_len)
+            joint = run_block(blk, joint, temb, temb_tr, kv_len, rc, rs, first_len)
         x = joint[:, :seq_v]
 
         # output head: the modulation's first half is the scale

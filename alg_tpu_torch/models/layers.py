@@ -73,6 +73,30 @@ def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Te
     return F.pad(out, (0, 1)) if dim % 2 == 1 else out
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that can carry an attached (unmerged) low-rank adapter,
+    as ``alg_tpu/models/layers.py:linear`` reads ``lora_A``/``lora_B``:
+    ``y += ((x.float() @ A) @ B).to(y.dtype)`` with ``A`` [in, r] and ``B``
+    [r, out] (already times the LoRA scale); the products run in fp32 whatever
+    dtype the adapters arrive in (bf16 under ``compute_dtype``).
+
+    The adapter lives in two buffers that are None, and so absent from the
+    state dict, except while ``training.lora.attach_lora`` substitutes them
+    through ``torch.func.functional_call``. The DiTs build their linears from
+    this class; the frozen encoders keep ``nn.Linear``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None, dtype=None):
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
+        self.register_buffer("lora_A", None, persistent=False)
+        self.register_buffer("lora_B", None, persistent=False)
+
+    def forward(self, x):
+        y = F.linear(x, self.weight, self.bias)
+        if self.lora_A is not None:
+            y = y + ((x.float() @ self.lora_A.float()) @ self.lora_B.float()).to(y.dtype)
+        return y
+
+
 class LayerNorm(nn.Module):
     """``affine=False`` holds no parameters (the JAX package's ``{}`` norm)."""
 
@@ -115,8 +139,8 @@ class MLP(nn.Module):
     def __init__(self, dim: int, inner_dim: int, act=gelu_tanh, device=None, dtype=None):
         super().__init__()
         self.act = act
-        self.fc_in = nn.Linear(dim, inner_dim, device=device, dtype=dtype)
-        self.fc_out = nn.Linear(inner_dim, dim, device=device, dtype=dtype)
+        self.fc_in = Linear(dim, inner_dim, device=device, dtype=dtype)
+        self.fc_out = Linear(inner_dim, dim, device=device, dtype=dtype)
 
     def forward(self, x):
         return self.fc_out(self.act(self.fc_in(x)))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from alg_tpu_torch.core.remat import run_block
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
@@ -88,15 +89,15 @@ class WanAttention(nn.Module):
         dim = cfg.inner_dim
         kw = dict(device=device, dtype=dtype)
         self.nh, self.hd = cfg.num_attention_heads, cfg.attention_head_dim
-        self.to_q = nn.Linear(dim, dim, **kw)
-        self.to_k = nn.Linear(dim, dim, **kw)
-        self.to_v = nn.Linear(dim, dim, **kw)
-        self.to_out = nn.Linear(dim, dim, **kw)
+        self.to_q = L.Linear(dim, dim, **kw)
+        self.to_k = L.Linear(dim, dim, **kw)
+        self.to_v = L.Linear(dim, dim, **kw)
+        self.to_out = L.Linear(dim, dim, **kw)
         self.norm_q = L.RMSNorm(dim, cfg.eps, **kw)
         self.norm_k = L.RMSNorm(dim, cfg.eps, **kw)
         if image_stream:
-            self.add_k_proj = nn.Linear(dim, dim, **kw)
-            self.add_v_proj = nn.Linear(dim, dim, **kw)
+            self.add_k_proj = L.Linear(dim, dim, **kw)
+            self.add_v_proj = L.Linear(dim, dim, **kw)
             self.norm_added_k = L.RMSNorm(dim, cfg.eps, **kw)
 
     def forward(self, q_in, kv_in, rope_cos=None, rope_sin=None, extra_kv=None):
@@ -150,8 +151,8 @@ class WanBlock(nn.Module):
 class _TextEmbedder(nn.Module):
     def __init__(self, text_dim: int, dim: int, device=None, dtype=None):
         super().__init__()
-        self.linear_1 = nn.Linear(text_dim, dim, device=device, dtype=dtype)
-        self.linear_2 = nn.Linear(dim, dim, device=device, dtype=dtype)
+        self.linear_1 = L.Linear(text_dim, dim, device=device, dtype=dtype)
+        self.linear_2 = L.Linear(dim, dim, device=device, dtype=dtype)
 
     def forward(self, x):
         return self.linear_2(L.gelu_tanh(self.linear_1(x)))
@@ -162,8 +163,8 @@ class _ImageEmbedder(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = L.LayerNorm(image_dim, 1e-5, **kw)
-        self.ff_in = nn.Linear(image_dim, image_dim, **kw)
-        self.ff_out = nn.Linear(image_dim, dim, **kw)
+        self.ff_in = L.Linear(image_dim, image_dim, **kw)
+        self.ff_out = L.Linear(image_dim, dim, **kw)
         self.norm2 = L.LayerNorm(dim, 1e-5, **kw)
 
     def forward(self, x):
@@ -176,7 +177,7 @@ class _ConditionEmbedder(nn.Module):
         dim = cfg.inner_dim
         kw = dict(device=device, dtype=dtype)
         self.time_embedder = L.TimestepEmbedding(cfg.freq_dim, dim, **kw)
-        self.time_proj = nn.Linear(dim, 6 * dim, **kw)
+        self.time_proj = L.Linear(dim, 6 * dim, **kw)
         self.text_embedder = _TextEmbedder(cfg.text_dim, dim, **kw)
         if cfg.image_dim is not None:
             self.image_embedder = _ImageEmbedder(cfg.image_dim, dim, **kw)
@@ -190,10 +191,10 @@ class WanTransformer(nn.Module):
         pt, ph, pw = cfg.patch_size
         kw = dict(device=device, dtype=dtype)
         # conv3d with stride = kernel = patch, as a linear over flattened patches
-        self.patch_embedding = nn.Linear(cfg.in_channels * pt * ph * pw, dim, **kw)
+        self.patch_embedding = L.Linear(cfg.in_channels * pt * ph * pw, dim, **kw)
         self.condition_embedder = _ConditionEmbedder(cfg, **kw)
         self.scale_shift_table = L.table((2, dim), dim ** -0.5, **kw)
-        self.proj_out = nn.Linear(dim, pt * ph * pw * cfg.out_channels, **kw)
+        self.proj_out = L.Linear(dim, pt * ph * pw * cfg.out_channels, **kw)
         self.blocks = nn.ModuleList(WanBlock(cfg, **kw) for _ in range(cfg.num_layers))
 
     def forward(self, hidden_states: torch.Tensor, timestep: torch.Tensor, encoder_hidden_states: torch.Tensor,
@@ -225,7 +226,7 @@ class WanTransformer(nn.Module):
         rc = None if rope_cos is None else rope_cos.float().contiguous()
         rs = None if rope_sin is None else rope_sin.float().contiguous()
         for blk in self.blocks:
-            x = blk(x, temb6, text, img, rc, rs)
+            x = run_block(blk, x, temb6, text, img, rc, rs)
 
         # output head: shift/scale from temb (not silu'd) plus the table, added in fp32
         head = self.scale_shift_table.float()[None] + temb.float()[:, None]

@@ -6,9 +6,14 @@ sequence with ``kv_len``), T5's and UMT5's attention with the
 relative-position bias (``scale=1.0``, ``stable=True``; UMT5 with the
 prompt's ``kv_len``), the CLIP vision towers', the Hunyuan token refiner's
 (``kv_len``), and the causal ones: Llama's (with ``kv_len``) and the CLIP
-text encoder's. The call goes to
+text encoder's. A call that needs no gradient goes straight to
 :func:`alg_tpu_torch.ops.flash_attention.flash_attention`, which picks the
-CUDA kernel or, for CPU tensors, the plain version.
+CUDA kernel or, for CPU tensors, the plain version, and launches exactly
+what an inference call launches. A call with an input that requires a
+gradient goes through
+:class:`alg_tpu_torch.ops.flash_attention_bwd.FlashAttentionFunction`: the
+same forward kernel with its LSE output, and the dq and dkv kernels in the
+backward (the counterpart of the JAX package's ``_pallas_diff``).
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ from typing import Optional
 
 import torch
 
+from alg_tpu_torch.ops._autograd import needs_grad
 from alg_tpu_torch.ops.flash_attention import flash_attention
+from alg_tpu_torch.ops.flash_attention_bwd import FlashAttentionFunction
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
@@ -30,5 +37,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional
     bias ``[1|B, H, Sq, Sk]``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale, bias=bias, stable=stable,
-                           kv_len=kv_len, causal=causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if needs_grad(q, k, v, bias):
+        return FlashAttentionFunction.apply(q, k, v, kv_len, bias, scale, causal, stable)
+    return flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=kv_len, causal=causal)

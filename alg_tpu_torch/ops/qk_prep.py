@@ -11,6 +11,13 @@ The kernel rounds once, after the rotation, where the plain version rounds
 after each multiply-add: in bf16 the two differ by up to about two bf16
 ulps (atol 2e-2 at unit scale). Identity rows (cos 1, sin 0), which the DiT
 uses over the text prefix, reduce to the LayerNorm output in both.
+
+The call is differentiable. On a CUDA tensor that needs a gradient the
+forward is still the kernel, and the backward differentiates the plain
+composition on the saved inputs, as the JAX package does
+(``alg_tpu/ops/qk_prep.py:_qk_prep_diff_bwd``: its backward is XLA, not a
+kernel): gradients for ``x``, ``scale`` and ``bias``, and for the tables only
+if they require one.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops import _build
+from alg_tpu_torch.ops._autograd import needs_grad, plain_vjp
 
 HEAD_DIM = 64
 
@@ -59,6 +67,20 @@ def _check(x, scale, bias, cos, sin):
         raise ValueError("qk_prep got an empty tensor")
 
 
+class _QkNormRopeFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, cos, sin, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale, bias, cos, sin)
+        return _launch(x, scale, bias, cos, sin, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        eps = ctx.eps
+        return plain_vjp(lambda *t: qk_norm_rope_plain(*t, eps), ctx.saved_tensors, ctx.needs_input_grad[:5],
+                         grad_out) + (None,)
+
+
 def qk_norm_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, eps: float) -> torch.Tensor:
     """Per-head LayerNorm (affine ``scale``/``bias`` [64]) then RoPE with
@@ -70,6 +92,12 @@ def qk_norm_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, cos: 
         return qk_norm_rope_plain(x, scale, bias, cos, sin, eps)
     if x.device.type != "cuda":
         raise RuntimeError(f"qk_norm_rope: no kernel for device {x.device}")
+    if needs_grad(x, scale, bias, cos, sin):
+        return _QkNormRopeFunction.apply(x, scale, bias, cos, sin, eps)
+    return _launch(x, scale, bias, cos, sin, eps)
+
+
+def _launch(x, scale, bias, cos, sin, eps):
     _check(x, scale, bias, cos, sin)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -16,6 +16,11 @@ The kernel rounds once, after the rotation, where the plain version rounds
 after each multiply and after the add: in bf16 the two differ by up to about
 two bf16 ulps (atol 2e-2 + rtol 1e-2). In fp32 they differ by the fused
 multiply-add (a few ulps).
+
+The call is differentiable. On a CUDA tensor that needs a gradient the
+forward is still the kernel, and the backward differentiates the plain
+version on the saved inputs, as the JAX package does
+(``alg_tpu/ops/qk_prep.py:_rope_diff_bwd``: XLA, not a kernel).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from alg_tpu_torch.models.rope import apply_rope_interleaved
 from alg_tpu_torch.ops import _build
+from alg_tpu_torch.ops._autograd import needs_grad, plain_vjp
 
 
 @functools.cache
@@ -57,6 +63,17 @@ def _check(x, cos, sin):
             raise ValueError("rope tables must be contiguous, 16-byte aligned and on x's device")
 
 
+class _RopeFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(x, cos, sin)
+        return _launch(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return plain_vjp(apply_rope_interleaved, ctx.saved_tensors, ctx.needs_input_grad, grad_out)
+
+
 def rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """``x·cos + rot(x)·sin`` with rot: (x0, x1) -> (-x1, x0) on each pair;
     ``x`` [B, H, S, D] (any strides with a unit last stride), ``cos``/``sin``
@@ -67,6 +84,12 @@ def rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> t
         return apply_rope_interleaved(x, cos, sin)
     if x.device.type != "cuda":
         raise RuntimeError(f"rope_interleaved: no kernel for device {x.device}")
+    if needs_grad(x, cos, sin):
+        return _RopeFunction.apply(x, cos, sin)
+    return _launch(x, cos, sin)
+
+
+def _launch(x, cos, sin):
     _check(x, cos, sin)
     b, h, s, d = x.shape
     out = torch.empty((b, h, s, d), dtype=x.dtype, device=x.device)

@@ -1,0 +1,283 @@
+"""Fine-tuning entry point (counterpart of ``alg_tpu/train_cli.py``).
+
+LoRA (default) or full fine-tuning of one of the three DiT families on
+latent batches: a directory of per-example ``.npz`` files with the loss's
+batch keys (``training/losses.py``, without the batch axis), or
+``--synthetic N`` random examples shaped by the model config and the
+config's ``generation`` section.
+
+    python -m alg_tpu_torch.train_cli --config configs/cogvideox_alg.yaml --random_init --synthetic 8 --steps 20 --remat --compute_dtype bfloat16 --output adapters.npz
+
+Only ``--random_init`` runs so far: full-size random weights from the seed,
+made on the device. Loading a checkpoint waits for ROADMAP A8 and raises.
+LoRA adapters are saved as a peft-layout ``.npz`` that ``io.lora.merge_lora_*``
+merges; a full fine-tune saves a path-keyed parameter ``.npz``
+(``training.train.load_params_npz``). With ``--checkpoint_dir`` the run
+saves its state every ``--save_every`` steps and ``--resume`` continues from
+the newest one with the same data order and the same draws.
+
+:func:`run` is the body, callable with an already parsed config (a dict
+with ``model`` and ``generation`` sections) and, for tests, an already built
+DiT. Not ported yet: quantized bases (``--quantize``), the sharded and
+pipelined steps (``--dp/--tp/--pp``), the validation split and the profiler
+trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+FAMILIES = ("cogvideox", "wan", "hunyuan")
+
+
+def family_of(model_path: str) -> str:
+    """Model family by substring of ``model.path``, as the JAX package's ``RunConfig.family``."""
+    lowered = model_path.lower()
+    for family in FAMILIES:
+        if family in lowered:
+            return family
+    raise ValueError(f"Cannot infer model family from path {model_path!r}")
+
+
+def random_init_transformer(family: str, dtype: torch.dtype, device, seed: int):
+    """The family's DiT at its published size with random weights from ``seed``, made on ``device``."""
+    from alg_tpu_torch.models import layers as L
+
+    if family == "cogvideox":
+        from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer as Cls
+        from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformerConfig as Cfg
+    elif family == "wan":
+        from alg_tpu_torch.models.wan.transformer import WanTransformer as Cls, WanTransformerConfig as Cfg
+    elif family == "hunyuan":
+        from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer as Cls
+        from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformerConfig as Cfg
+    else:
+        raise ValueError(family)
+    gen = torch.Generator(device).manual_seed(seed)
+    return L.init_random_(Cls(Cfg(), device=device, dtype=dtype), gen)
+
+
+def synth_examples(family: str, tcfg, n: int, gen: dict, seed: int) -> list:
+    """Random latent-space examples shaped by the model config and the
+    ``generation`` section (VAE factors 8 in space, 4 in time)."""
+    height, width = int(gen.get("height") or 32), int(gen.get("width") or 32)
+    frames, max_seq = int(gen.get("num_frames") or 5), int(gen.get("max_sequence_length") or 16)
+    f, h, w = (frames - 1) // 4 + 1, height // 8, width // 8
+    rng = np.random.RandomState(seed)
+    c = tcfg.out_channels
+
+    def randn(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    out = []
+    for _ in range(n):
+        if family == "cogvideox":
+            out.append({"latents": randn(f, c, h, w), "image_latents": randn(f, tcfg.in_channels - c, h, w),
+                        "encoder_hidden_states": randn(max_seq, tcfg.text_embed_dim)})
+        elif family == "wan":
+            ex = {"latents": randn(c, f, h, w), "condition": randn(tcfg.in_channels - c, f, h, w),
+                  "encoder_hidden_states": randn(max_seq, tcfg.text_dim)}
+            if tcfg.image_dim is not None:
+                ex["encoder_hidden_states_image"] = randn(5, tcfg.image_dim)
+            out.append(ex)
+        else:
+            out.append({"latents": randn(c, f, h, w), "image_latents": randn(c, 1, h, w),
+                        "encoder_hidden_states": randn(max_seq, tcfg.text_embed_dim),
+                        "encoder_attention_mask": np.ones(max_seq, np.int32),
+                        "pooled_projections": randn(tcfg.pooled_projection_dim)})
+    return out
+
+
+def build_loss(model, family: str, geom, compute_dtype, shift: Optional[float], guidance_scale: float):
+    """The family's loss closed over the rope tables for the data's latent geometry ``(f, h, w)``."""
+    from alg_tpu_torch.training import losses
+
+    f, h, w = geom
+    if family == "cogvideox":
+        from alg_tpu_torch.models.cogvideox.transformer import cogvideox_rope
+
+        cos, sin = cogvideox_rope(model.cfg, h * 8, w * 8, f)
+        return losses.make_cogvideox_vpred_loss(model, rope_cos=cos, rope_sin=sin, compute_dtype=compute_dtype)
+    if family == "wan":
+        from alg_tpu_torch.models.wan.transformer import wan_rope
+
+        cos, sin = wan_rope(model.cfg, f, h, w)
+        return losses.make_wan_flow_loss(model, shift=5.0 if shift is None else shift, rope_cos=cos, rope_sin=sin,
+                                         compute_dtype=compute_dtype)
+    from alg_tpu_torch.models.hunyuan.transformer import hunyuan_rope
+
+    cos, sin = hunyuan_rope(model.cfg, f, h, w)
+    return losses.make_hunyuan_flow_loss(model, shift=7.0 if shift is None else shift, guidance_scale=guidance_scale,
+                                         rope_cos=cos, rope_sin=sin, compute_dtype=compute_dtype)
+
+
+def memory_batches(examples, batch_size: int, steps: int, seed: int, start: int = 0):
+    """Shuffled epochs over in-memory examples, stacked into host batches;
+    ``start`` skips batches, so a resumed run keeps the data order."""
+    rng = np.random.RandomState(seed)
+    order: list = []
+    for step in range(steps):
+        while len(order) < batch_size:
+            epoch = list(range(len(examples)))
+            rng.shuffle(epoch)
+            order.extend(epoch)
+        idx, order = order[:batch_size], order[batch_size:]
+        if step >= start:
+            yield {k: np.stack([examples[i][k] for i in idx]) for k in examples[0]}
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="alg_tpu_torch fine-tuning (LoRA or full)")
+    p.add_argument("--config", type=str, required=True, help="run-style YAML (model and generation sections)")
+    p.add_argument("--data", type=str, default=None, help="directory of per-example .npz files")
+    p.add_argument("--synthetic", type=int, default=0, help="train on N random examples instead of --data")
+    p.add_argument("--random_init", action="store_true", help="full-size random weights instead of a checkpoint")
+    p.add_argument("--mode", choices=("lora", "full"), default="lora")
+    p.add_argument("--rank", type=int, default=16, help="LoRA rank")
+    p.add_argument("--lora_scale", type=float, default=1.0, help="alpha/rank scale")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--grad_clip", type=float, default=1.0)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--accum", type=int, default=1, help="gradient accumulation micro-steps")
+    p.add_argument("--remat", action="store_true", help="checkpoint DiT blocks")
+    p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32")
+    p.add_argument("--shift", type=float, default=None, help="flow-matching timestep shift (default: the family's)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--output", type=str, required=True, help=".npz output (peft adapters | parameter tree)")
+    p.add_argument("--checkpoint_dir", type=str, default=None, help="save and resume training state here")
+    p.add_argument("--save_every", type=int, default=500)
+    p.add_argument("--keep", type=int, default=3, help="checkpoints retained (0 = all)")
+    p.add_argument("--resume", action="store_true", help="resume from the newest checkpoint in --checkpoint_dir")
+    p.add_argument("--ema_decay", type=float, default=0.0, help="EMA decay; the EMA is exported when set")
+    p.add_argument("--prefetch", type=int, default=2, help="host-side batch prefetch depth (0 = off)")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def run(config: dict, args, transformer=None) -> dict:
+    """Train as ``args`` (a :func:`make_parser` namespace) says over the
+    parsed ``config``; ``transformer`` replaces the full-size random DiT.
+    Returns ``{"losses", "trainable", "steps"}``."""
+    from alg_tpu_torch.core.config import resolve_dtype
+    from alg_tpu_torch.training import checkpoint as C
+    from alg_tpu_torch.training.data import LatentDataset, prefetch, to_device
+    from alg_tpu_torch.training.lora import FAMILY_PEFT, init_lora_params, make_lora_loss, to_peft_state
+    from alg_tpu_torch.training.train import TrainConfig, make_train_step, save_params_npz, tree_leaves
+
+    model_cfg, gen_cfg = config.get("model", {}), dict(config.get("generation") or {})
+    family = family_of(model_cfg["path"])
+    device = torch.device(args.device)
+    if transformer is None:
+        if not args.random_init:
+            raise NotImplementedError("training from a checkpoint directory is not ported yet (ROADMAP A8): "
+                                      "pass --random_init")
+        transformer = random_init_transformer(family, resolve_dtype(model_cfg.get("dtype", "bfloat16")), device,
+                                              args.seed)
+    transformer = transformer.to(device).requires_grad_(False)
+    logger.info("%s DiT, %.2f B parameters, %s mode", family,
+                sum(p.numel() for p in transformer.parameters()) / 1e9, args.mode)
+
+    dataset = examples = None
+    if args.synthetic:
+        examples = synth_examples(family, transformer.cfg, args.synthetic, gen_cfg, args.seed)
+        first = examples[0]
+    elif args.data:
+        dataset = LatentDataset(args.data)
+        first = dataset.example(0)
+    else:
+        raise ValueError("one of --data or --synthetic is required")
+    lat = first["latents"].shape
+    geom = (lat[0], lat[2], lat[3]) if family == "cogvideox" else (lat[1], lat[2], lat[3])
+    # float32 over a bf16 base casts the base up inside the loss, as JAX's promotion would: PyTorch's linears
+    # do not mix dtypes
+    compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    guidance = gen_cfg.get("guidance_scale")
+    loss_fn = build_loss(transformer, family, geom, compute_dtype, args.shift, 6.0 if guidance is None else float(guidance))
+    tc = TrainConfig(learning_rate=args.lr, weight_decay=args.weight_decay, grad_clip=args.grad_clip,
+                     accum_steps=args.accum, remat=args.remat)
+
+    base = dict(transformer.named_parameters())
+    if args.mode == "lora":
+        prefixes, peft_paths = FAMILY_PEFT[family]
+        trainable = init_lora_params(torch.Generator(device).manual_seed(args.seed), base, rank=args.rank,
+                                     prefixes=prefixes)
+        frozen = (base,)
+        step, opt = make_train_step(make_lora_loss(loss_fn, None, scale=args.lora_scale, attach=True), tc)
+        logger.info("LoRA: rank %d over %d modules", args.rank, len(trainable))
+    else:
+        trainable, frozen = {name: p.detach().clone() for name, p in base.items()}, ()
+        step, opt = make_train_step(loss_fn, tc)
+    for leaf in tree_leaves(trainable):
+        leaf.requires_grad_()
+    opt_state = opt.init(trainable)
+
+    ema = C.init_ema(trainable) if args.ema_decay else None
+    ema_fn = C.make_ema_update(args.ema_decay) if args.ema_decay else None
+    start = 0
+    if args.resume:
+        if not args.checkpoint_dir:
+            raise ValueError("--resume requires --checkpoint_dir")
+        path = C.latest_checkpoint(args.checkpoint_dir)
+        if path is not None:
+            start, trainable, opt_state, r_ema = C.load_train_state(path, trainable, opt_state, ema)
+            ema = r_ema if r_ema is not None else ema
+            logger.info("Resumed from %s (step %d)", path, start)
+
+    if dataset is not None:
+        batch_iter = dataset.batches(args.batch_size, args.steps, args.seed, start=start)
+    else:
+        batch_iter = memory_batches(examples, args.batch_size, args.steps, args.seed, start=start)
+    batch_iter = prefetch(batch_iter, args.prefetch, device) if args.prefetch else (
+        to_device(b, device) for b in batch_iter)
+
+    losses, t0 = [], time.perf_counter()
+    for i, batch in enumerate(batch_iter, start=start):
+        draws = torch.Generator(device).manual_seed(args.seed * 1_000_003 + i)  # a step's draws depend on its index only
+        trainable, opt_state, m = step(trainable, opt_state, batch, draws, *frozen)
+        if ema_fn is not None:
+            ema = ema_fn(ema, trainable)
+        losses.append(float(m["loss"]))
+        if not np.isfinite(losses[-1]):
+            raise RuntimeError(f"non-finite loss at step {i + 1}")
+        if (i - start) % args.log_every == 0 or i == args.steps - 1:
+            logger.info("step %d/%d  loss %.5f  grad_norm %.4f  (%.2f s/step)", i + 1, args.steps, losses[-1],
+                        float(m["grad_norm"]), (time.perf_counter() - t0) / (i + 1 - start))
+        if args.checkpoint_dir and ((i + 1) % args.save_every == 0 or i + 1 == args.steps):
+            os.makedirs(args.checkpoint_dir, exist_ok=True)
+            C.save_train_state(C.checkpoint_path(args.checkpoint_dir, i + 1), i + 1, trainable, opt_state, ema)
+            C.prune_checkpoints(args.checkpoint_dir, args.keep)
+
+    export = ema if ema is not None else trainable
+    if args.mode == "lora":
+        np.savez(args.output, **to_peft_state(export, FAMILY_PEFT[family][1]))
+    else:
+        save_params_npz(args.output, export)
+    logger.info("Saved %s to %s", "peft adapters" if args.mode == "lora" else "the parameter tree", args.output)
+    return {"losses": losses, "trainable": trainable, "steps": start + len(losses)}
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s - %(levelname)s - %(message)s", stream=sys.stdout)
+    args = make_parser().parse_args(argv)
+    import yaml
+
+    with open(args.config, "r") as f:
+        config = yaml.safe_load(f)
+    run(config, args)
+
+
+if __name__ == "__main__":
+    main()

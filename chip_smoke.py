@@ -22,6 +22,14 @@ Phases, each of which must pass:
       the peak rate of the type, whichever is larger) and, for attention, the
       time of ``torch.nn.functional.scaled_dot_product_attention`` on the
       same tensors, a yardstick that the port never calls;
+      then the training kernels: the forward's LSE output against the plain
+      residual version, and the dq and dkv backward kernels against their
+      plain versions, at the attention shapes a training step of each family
+      gives them (CogVideoX at 9 and 49 frames, Wan self and cross,
+      HunyuanVideo's joint call with ``kv_len``, a square causal call, one
+      call with ``kv_len`` 0 in a batch row), with the backward time of
+      ``scaled_dot_product_attention`` under autograd as the yardstick (its
+      forward on inputs that require a gradient for the LSE call);
   C.  CogVideoX slice: the full-width CogVideoX-5b-I2V pipeline (42-layer DiT
       and 24-layer T5-XXL in bf16, VAE in fp32, random weights from a seed)
       driven once through ``CogVideoXPipeline.__call__`` with the shipped ALG
@@ -51,6 +59,25 @@ Phases, each of which must pass:
   D3. the same for a small HunyuanVideo pipeline (DiT and Llava head dim 128,
       CLIP text head dim 64, through ``encode_prompt``, true CFG with ALG so
       that 3- and 2-pass steps run).
+
+  E.  training slice: the full-width CogVideoX-5b DiT (bf16, frozen, random
+      weights from a seed) with rank-8 LoRA adapters attached to the block
+      linears (fp32 adapters and AdamW state), remat on, synthetic batch of
+      one: 3 train steps at 9 frames (S = 4,276) and 1 at 49 frames (S =
+      17,776) through ``make_cogvideox_vpred_loss`` -> ``make_lora_loss`` ->
+      ``make_train_step``; checks finite loss and gradient norm, that every
+      adapter moved, that the base weights did not, and the exact kernel
+      launch counts of a step; then the same recipe through the training
+      entry point, ``alg_tpu_torch.train_cli.run`` over a parsed config on
+      its defaults for the card (its own full-width random DiT, synthetic
+      9-frame examples prefetched to the device, bf16 compute, 3 steps, a
+      checkpoint, the peft export, and ``--resume`` for a fourth step), with
+      the same launch counts a step;
+  E2. agreement: a small CogVideoX LoRA run of 3 steps on the card through
+      the kernels and on the CPU through the plain versions, fp32 with TF32
+      off; losses within rtol 1e-4, adapters within atol 1e-4 (AdamW eps
+      1e-4), and, with no optimizer between, the gradients of one loss at
+      adapters with A and B nonzero within 1e-4 of each leaf's largest value.
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only the
 dense flash calls of phase B at head dims 64 and 128 (for comparing two
@@ -381,6 +408,181 @@ def _hunyuan_kernel_cases(records, gen) -> None:
     torch.cuda.empty_cache()
 
 
+# The forward's LSE: base-2 units; kernel and plain version sum the same fp32 logits (from the same bf16
+# or fp32 inputs) in another order, so one absolute bound serves both dtypes.
+LSE_ATOL = 1e-4
+
+
+def _attn_bwd_case(records, name, shape_q, dtype, gen, scale, stable=False, sk=None, kv_len=None, causal=False,
+                   reps=3):
+    """The training kernels on one attention shape: the forward's LSE output
+    against the plain residual version, and the dq and dkv kernels against
+    their plain versions, all over query chunks of at most 2 GiB of logits as
+    in :func:`_attn_case` (dk and dv summed over the chunks in fp32). The
+    yardstick for dq + dkv together is the backward of one
+    ``scaled_dot_product_attention`` call under autograd, on the same
+    tensors. In bf16 the absolute tolerance of a gradient follows the size of
+    the reference's values (``FLASH_BF16_ATOL_SHARE``), row by row under the
+    causal mask; the yardstick for the LSE call is that call's forward on
+    inputs that require a gradient. Records ``<name>`` prefixed flash_lse_,
+    flash_bwd_dq_ and flash_bwd_dkv_."""
+    import torch
+    import torch.nn.functional as F
+
+    from alg_tpu_torch.ops.flash_attention import attention_plain_residuals, flash_attention
+    from alg_tpu_torch.ops.flash_attention_bwd import (flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+                                                       flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+                                                       row_delta)
+
+    b, h, sq, d = shape_q
+    sk = sq if sk is None else sk
+    dev = "cuda"
+    q, do = (torch.randn(shape_q, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, h, sk, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    tol = TOL[tol_name(dtype)]
+    q_chunk = max(1, min(sq, 2 ** 29 // (h * sk)))
+    chunks = [(slice(bi, bi + 1), slice(i, min(sq, i + q_chunk))) for bi in range(b) for i in range(0, sq, q_chunk)]
+
+    def keys_of(qs):  # keys a causal chunk's last row may see: cutting there keeps the diagonal where it is
+        return max(0, qs.stop + sk - sq) if causal else sk
+
+    def forward():
+        return flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal, return_residuals=True)
+
+    def plain_forward():
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        for bs, qs in chunks:
+            n = keys_of(qs)
+            if n == 0:
+                lse[bs, :, qs] = float("-inf")
+                continue
+            lse[bs, :, qs] = attention_plain_residuals(q[bs, :, qs], k[bs, :, :n], v[bs, :, :n], scale, None,
+                                                       None if lens is None else lens[bs], causal)[1]
+        return lse
+
+    out, lse = forward()
+    ref_lse = plain_forward()
+    finite = torch.isfinite(ref_lse)
+    lse_err = (lse[finite] - ref_lse[finite]).abs().max().item() if bool(finite.any()) else 0.0
+    lse_ok = lse_err <= LSE_ATOL and bool(torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)))
+    delta = row_delta(out, do)
+
+    def plain_dq():
+        dq = torch.empty_like(q)
+        for bs, qs in chunks:
+            n = keys_of(qs)
+            if n == 0:
+                dq[bs, :, qs] = 0
+                continue
+            dq[bs, :, qs] = flash_attention_bwd_dq_plain(
+                q[bs, :, qs], k[bs, :, :n], v[bs, :, :n], do[bs, :, qs], lse[bs, :, qs], delta[bs, :, qs], scale,
+                causal, None if lens is None else lens[bs])
+        return dq
+
+    def plain_dkv():
+        dk, dv = (torch.zeros(k.shape, dtype=torch.float32, device=dev) for _ in range(2))
+        for bs, qs in chunks:
+            n = keys_of(qs)
+            if n == 0:
+                continue
+            # fp32 copies of k and v, so that the chunks' parts add up in fp32
+            pk, pv = flash_attention_bwd_dkv_plain(
+                q[bs, :, qs], k[bs, :, :n].float(), v[bs, :, :n].float(), do[bs, :, qs], lse[bs, :, qs],
+                delta[bs, :, qs], scale, causal, None if lens is None else lens[bs])
+            dk[bs, :, :n] += pk
+            dv[bs, :, :n] += pv
+        return dk.to(dtype), dv.to(dtype)
+
+    def close(got, ref):
+        # never tighter than the fp32 bound: where a gradient cancels (a query with one visible key has
+        # ds = dp - delta = 0 in exact arithmetic) the reference is rounding noise and its size says nothing
+        size, floor = ref.float().abs().mean().item(), TOL["float32"][0]
+        if dtype != torch.bfloat16:
+            atol = tol[0]
+        elif causal:
+            atol = (FLASH_BF16_ATOL_SHARE * ref.float().abs().mean(dim=(1, 3), keepdim=True)).clamp(floor, tol[0])
+        else:
+            atol = max(floor, min(tol[0], FLASH_BF16_ATOL_SHARE * size))
+        err, ok = _close(got, ref, (atol, tol[1]))
+        return err, ok and bool(torch.isfinite(got).all()), float(torch.as_tensor(atol).min()), size
+
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal, lens)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal, lens)
+    torch.cuda.synchronize()
+    dq_err, dq_ok, dq_atol, dq_size = close(dq, plain_dq())
+    ref_dk, ref_dv = plain_dkv()
+    dk_err, dk_ok, dk_atol, dk_size = close(dk, ref_dk)
+    dv_err, dv_ok, dv_atol, dv_size = close(dv, ref_dv)
+    del ref_dk, ref_dv
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    mask = None
+    if lens is not None:
+        keep = torch.arange(sk, device=dev)[None, :] < lens[:, None]
+        mask = torch.zeros((b, 1, sq, sk), device=dev).masked_fill(~keep[:, None, None, :], float("-inf"))
+        if causal:
+            hidden = torch.arange(sk, device=dev)[None, :] > torch.arange(sq, device=dev)[:, None] + (sk - sq)
+            mask = mask.masked_fill(hidden, float("-inf"))
+        mask = mask.to(dtype)
+    def library_forward():  # on inputs that require grad it keeps its log-sum-exp for the backward, as the LSE call does
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale,
+                                              is_causal=causal and mask is None)
+
+    lib_out = library_forward()
+
+    def library():  # the backward alone, as dq + dkv are
+        return torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True)
+
+    lse_ms = _time_ms(forward, reps)
+    fwd_ms = _time_ms(lambda: flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal), reps)
+    lse_plain_ms = _time_ms(plain_forward, reps)
+    dq_ms = _time_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal, lens), reps)
+    dkv_ms = _time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal, lens), reps)
+    dq_plain_ms, dkv_plain_ms = _time_ms(plain_dq, reps), _time_ms(plain_dkv, reps)
+    library_ms = _time_ms(library, reps)
+    del lib_out
+    library_fwd_ms = _time_ms(library_forward, reps)
+
+    # what this call's data needs (see _attn_case): dq three products over the visible pairs, dkv four
+    kept = [sk] * b if kv_len is None else [min(n, sk) for n in kv_len]
+    pairs = sum(sum(max(0, min(n, i + sk - sq + 1)) for i in range(sq)) if causal else sq * n for n in kept)
+    es, rows = q.element_size(), 2 * 4 * b * h * sq + (0 if lens is None else 4 * b)  # lse and delta, kv_len
+    kv_bytes = h * sum(kept) * d * es
+    name_dt = tol_name(dtype)
+    shape = tuple(shape_q) if sk == sq else (b, h, f"{sq}->{sk}", d)
+    print(f"[B] {name}: forward without the LSE {fwd_ms:.3f} ms, with it {lse_ms:.3f} ms (sdpa's forward under "
+          f"autograd {library_fwd_ms:.3f} ms); sdpa backward {library_ms:.3f} ms beside dq + dkv "
+          f"{dq_ms + dkv_ms:.3f} ms")
+    _report(records, "flash_lse_" + name, name_dt, shape, lse_err, lse_ok, (LSE_ATOL, 0.0), lse_ms, lse_plain_ms,
+            _bound(4.0 * h * pairs * d, 2 * q.numel() * es + 2 * kv_bytes + rows // 2, name_dt), library_fwd_ms)
+    _report(records, "flash_bwd_dq_" + name, name_dt, shape, dq_err, dq_ok, (dq_atol, tol[1]), dq_ms, dq_plain_ms,
+            _bound(6.0 * h * pairs * d, 3 * q.numel() * es + 2 * kv_bytes + rows, name_dt), library_ms,
+            ref_size=dq_size)
+    _report(records, "flash_bwd_dkv_" + name, name_dt, shape, max(dk_err, dv_err), dk_ok and dv_ok,
+            (min(dk_atol, dv_atol), tol[1]), dkv_ms, dkv_plain_ms,
+            _bound(8.0 * h * pairs * d, 2 * q.numel() * es + 4 * kv_bytes + rows, name_dt), library_ms,
+            ref_size=min(dk_size, dv_size))
+
+
+def _training_kernel_cases(records, gen) -> None:
+    """The attention shapes of a training step (batch of one) of each family."""
+    import torch
+
+    _set_tf32(False, False)
+    s_hy = HY_VIDEO_TOKENS[9] + HY_TEXT_LEN
+    for dtype in (torch.bfloat16, torch.float32):
+        _attn_bwd_case(records, "dit", (1, 48, 4276, 64), dtype, gen, 64 ** -0.5)
+        _attn_bwd_case(records, "dit", (1, 48, 17776, 64), dtype, gen, 64 ** -0.5, reps=1)
+        _attn_bwd_case(records, "wan_self", (1, 40, 4680, 128), dtype, gen, 128 ** -0.5)
+        _attn_bwd_case(records, "wan_cross_text", (1, 40, 4680, 128), dtype, gen, 128 ** -0.5, sk=512)
+        _attn_bwd_case(records, "hunyuan_joint", (1, 24, s_hy, 128), dtype, gen, 128 ** -0.5,
+                       kv_len=[HY_VIDEO_TOKENS[9] + HY_TEXT_KEYS])
+        _attn_bwd_case(records, "square_causal", (1, 32, 4096, 128), dtype, gen, 128 ** -0.5, stable=True, causal=True)
+        _attn_bwd_case(records, "kvlen_zero_row", (2, 8, 515, 64), dtype, gen, 64 ** -0.5, kv_len=[0, 300])
+        torch.cuda.empty_cache()
+
+
 def phase_dense_flash() -> None:
     """Only the dense flash calls of phase B at head dims 64 and 128, for
     timing two trees against each other on one card."""
@@ -433,6 +635,7 @@ def phase_kernels() -> list:
                    kv_len=[n])
     _attn_case(records, "flash_clip", (1, 16, 257, 80), fp32, gen, 80 ** -0.5, True)  # the tower runs in fp32
     _hunyuan_kernel_cases(records, gen)
+    _training_kernel_cases(records, gen)
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel comparison(s) out of tolerance: {bad}")
@@ -539,20 +742,32 @@ class _StageTimer:
 
 
 def _kernel_wrappers() -> dict:
+    """{kernel name: (wrapper, name of its launch count)}. The forward kernel
+    with its LSE output is counted twice: as a launch of the forward kernel
+    and as one that wrote the residual."""
     from alg_tpu_torch.ops.flash_attention import flash_attention
+    from alg_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from alg_tpu_torch.ops.qk_prep import qk_norm_rope
     from alg_tpu_torch.ops.rope import rope_interleaved
 
-    return {"qk_prep": qk_norm_rope, "rope_interleaved": rope_interleaved, "flash_attention": flash_attention}
+    return {"qk_prep": (qk_norm_rope, "launches"), "rope_interleaved": (rope_interleaved, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_lse": (flash_attention, "residual_launches"),
+            "flash_attention_bwd_dq": (flash_attention_bwd_dq, "launches"),
+            "flash_attention_bwd_dkv": (flash_attention_bwd_dkv, "launches")}
+
+
+# what a path that takes no gradient leaves at zero
+_NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 def _reset_counts() -> None:
-    for fn in _kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in _kernel_wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _kernel_wrappers().items()}
 
 
 def _require_finite(latents, *_):
@@ -617,7 +832,7 @@ def phase_slice() -> dict:
     dit_fwd, t5_enc = timer.count("denoise step"), timer.count("T5 encode")
     three, two = timer.count("denoise step (3-pass"), timer.count("denoise step (2-pass")
     want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0,
-            "flash_attention": tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc}
+            "flash_attention": tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc, **_NO_TRAINING}
     print(f"[C] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} T5 encodes)")
     if (dit_fwd, t5_enc, three, two) != (4, 2, 2, 2):
         raise AssertionError(f"stage counts: {dit_fwd} DiT forwards ({three} 3-pass, {two} 2-pass), "
@@ -739,7 +954,7 @@ def phase_slice_wan() -> dict:
     three, two = timer.count("denoise step (3-pass, S=4680)"), timer.count("denoise step (2-pass, S=4680)")
     want = {"qk_prep": 0, "rope_interleaved": 2 * tcfg.num_layers * dit_fwd,
             "flash_attention": 3 * tcfg.num_layers * dit_fwd + UMT5_XXL.num_layers * t5_enc
-            + ccfg.num_hidden_layers * clip_runs}
+            + ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING}
     print(f"[C2] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} UMT5 encodes, {clip_runs} CLIP run)")
     if (dit_fwd, t5_enc, clip_runs, three, two) != (4, 2, 1, 2, 2):
         raise AssertionError(f"stage counts: {dit_fwd} DiT forwards ({three} 3-pass, {two} 2-pass at S=4680), "
@@ -873,7 +1088,7 @@ def phase_slice_hunyuan() -> dict:
     want = {"qk_prep": 0, "rope_interleaved": 2 * blocks * dit_fwd,
             "flash_attention": (tcfg.num_refiner_layers + blocks) * dit_fwd
             + (lcfg.text.num_hidden_layers + lcfg.vision.num_hidden_layers) * llava_runs
-            + ccfg.num_hidden_layers * clip_runs}
+            + ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING}
     print(f"[C3] launches {counts} (want {want}: {dit_fwd} DiT forwards, {llava_runs} Llava run, {clip_runs} CLIP "
           f"text run); valid text positions a forward {text_keys} (phase B: {HY_TEXT_KEYS} of {HY_TEXT_LEN})")
     if (dit_fwd, one, llava_runs, clip_runs) != (4, 4, 1, 1) or text_keys != [HY_TEXT_KEYS] * 4:
@@ -937,6 +1152,7 @@ def _compare_runs(tag, results, want_card) -> None:
     err = float(np.abs(lat_g - lat_c).max())
     mse = float(np.mean((fr_g.astype(np.float64) - fr_c) ** 2))
     psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    want_card = {**want_card, **_NO_TRAINING}
     ok = err <= 2e-3 and psnr > 40.0 and not any(n_c.values()) and n_g == want_card
     print(f"[{tag}] small pipeline, card (kernels) vs CPU (plain), fp32: latents max|diff| {err:.3e} (atol 2e-3), "
           f"frames PSNR {psnr:.1f} dB (> 40), launches card {n_g} (want {want_card}) / CPU {n_c}: "
@@ -1085,6 +1301,257 @@ def phase_agreement_hunyuan() -> None:
 
 
 # ---------------------------------------------------------------------------
+# E. the training slice: CogVideoX-5b LoRA steps through the kernels and their backward
+# ---------------------------------------------------------------------------
+
+
+def _cog_train_batch(cfg, frames_latent, gen, dtype):
+    import torch
+
+    dev = gen.device
+    shape = (1, frames_latent, cfg.out_channels, 60, 90)  # 480 x 720
+    return {"latents": torch.randn(shape, generator=gen, device=dev).to(dtype),
+            "image_latents": torch.randn(shape, generator=gen, device=dev).to(dtype),
+            "encoder_hidden_states": torch.randn((1, cfg.max_text_seq_length, cfg.text_embed_dim), generator=gen,
+                                                 device=dev).to(dtype)}
+
+
+def _train_step_launches(layers: int) -> dict:
+    """Kernel launches of one CogVideoX LoRA step with remat: every block runs
+    its forward twice (PyTorch's checkpoint keeps autograd on in the first
+    pass, so both write the LSE), then its two backward kernels once."""
+    return {"qk_prep": 4 * layers, "rope_interleaved": 0, "flash_attention": 2 * layers,
+            "flash_attention_lse": 2 * layers, "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers}
+
+
+def phase_train_entry() -> dict:
+    """The training entry point, ``train_cli.run`` over a parsed config, on its
+    defaults for the card: the full-width random DiT (bf16), synthetic 9-frame
+    examples prefetched to the device, rank-8 LoRA with remat and bf16
+    compute, 3 steps, a checkpoint, the peft export; then ``--resume`` for a
+    fourth step. Returns the launch counts of both runs together."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch import train_cli
+    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformerConfig
+
+    _set_tf32(False, True)
+    config = {"model": {"path": "THUDM/CogVideoX-5b-I2V", "dtype": "bfloat16"},
+              "generation": {"height": 480, "width": 720, "num_frames": 9, "max_sequence_length": 226}}
+    layers = CogVideoXTransformerConfig().num_layers
+    want_step = _train_step_launches(layers)
+    total = {name: 0 for name in want_step}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path, ckpt = os.path.join(tmp, "adapters.npz"), os.path.join(tmp, "ckpt")
+        common = ["--config", "-", "--random_init", "--synthetic", "2", "--rank", "8", "--remat", "--compute_dtype",
+                  "bfloat16", "--weight_decay", "0.01", "--seed", "0", "--checkpoint_dir", ckpt, "--save_every", "3",
+                  "--output", out_path]
+        losses = []
+        for steps, extra in ((3, []), (4, ["--resume"])):
+            args = train_cli.make_parser().parse_args(common + ["--steps", str(steps)] + extra)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = train_cli.run(config, args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _read_counts()
+            ran = len(out["losses"])
+            losses += out["losses"]
+            print(f"[E] train_cli.run {' '.join(['--steps', str(steps)] + extra)}: {ran} step(s) in {seconds:.1f} s "
+                  f"with the DiT's set-up, losses {out['losses']}, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {counts}", flush=True)
+            want = {name: n * ran for name, n in want_step.items()}
+            if out["steps"] != steps or ran != (3 if not extra else 1) or counts != want:
+                raise AssertionError(f"train_cli.run took {ran} steps to step {out['steps']} with launches {counts}, "
+                                     f"want {want}")
+            if not all(np.isfinite(out["losses"])) or any(str(t.device) == "cpu" for ab in out["trainable"].values()
+                                                          for t in ab.values()):
+                raise AssertionError("train_cli.run: a loss is not finite or an adapter is not on the card")
+            for name in total:
+                total[name] += counts[name]
+            del out
+            torch.cuda.empty_cache()
+        saved = sorted(os.listdir(ckpt))
+        with np.load(out_path) as z:
+            state = {k: z[k] for k in z.files}
+        b_moved = all(np.abs(v).max() > 0 for k, v in state.items() if k.endswith("lora_B.weight"))
+        shapes_ok = all(v.shape[0 if k.endswith("lora_A.weight") else 1] == 8 and np.isfinite(v).all()
+                        for k, v in state.items())
+        ok = len(state) == 2 * 6 * layers and b_moved and shapes_ok and saved == ["step_00000003.npz",
+                                                                                  "step_00000004.npz"]
+        print(f"[E] train_cli.run: peft file of {len(state)} arrays (want {2 * 6 * layers}), every lora_B moved: "
+              f"{b_moved}, rank and finiteness: {shapes_ok}, checkpoints {saved}: {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("train_cli.run: the exported adapters or the checkpoints are not as expected")
+    return total
+
+
+def phase_train() -> dict:
+    """Full-width CogVideoX-5b LoRA train steps; returns the launch counts of the whole run."""
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.cogvideox.transformer import (CogVideoXTransformer, CogVideoXTransformerConfig,
+                                                            cogvideox_rope)
+    from alg_tpu_torch.training.lora import DEFAULT_TARGETS, init_lora_params, make_lora_loss
+    from alg_tpu_torch.training.losses import make_cogvideox_vpred_loss
+    from alg_tpu_torch.training.train import TrainConfig, make_train_step, tree_leaves
+
+    _set_tf32(False, True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    cfg = CogVideoXTransformerConfig()
+    t0 = time.perf_counter()
+    dit = L.init_random_(CogVideoXTransformer(cfg, device=dev, dtype=torch.bfloat16), gen).requires_grad_(False)
+    base = dict(dit.named_parameters())
+    frozen = {name: p.clone() for name, p in base.items()}
+    loras = init_lora_params(gen, base, rank=8, targets=DEFAULT_TARGETS, prefixes=("blocks",))
+    for leaf in tree_leaves(loras):
+        leaf.requires_grad_()
+    n_lora = sum(leaf.numel() for leaf in tree_leaves(loras))
+    torch.cuda.synchronize()
+    print(f"[E] DiT {sum(p.numel() for p in base.values()) / 1e9:.2f} B params (bf16, frozen) and {len(loras)} "
+          f"stacked rank-8 adapters, {n_lora / 1e6:.1f} M values (fp32), on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
+          f"(a second copy of the base among it, for the check below)", flush=True)
+
+    tc = TrainConfig(learning_rate=1e-4, weight_decay=0.01, grad_clip=1.0, remat=True)
+    layers = cfg.num_layers
+    want_step = _train_step_launches(layers)
+    total = {name: 0 for name in want_step}
+    opt_state = None
+    for frames_latent, steps in ((3, 3), (13, 1)):
+        cos, sin = cogvideox_rope(cfg, 480, 720, frames_latent)
+        loss = make_lora_loss(make_cogvideox_vpred_loss(dit, rope_cos=cos, rope_sin=sin), None, scale=1.0,
+                              attach=True)
+        step, opt = make_train_step(loss, tc)
+        opt_state = opt.init(loras) if opt_state is None else opt_state
+        seq = cfg.max_text_seq_length + frames_latent * 1350
+        for i in range(steps):
+            batch = _cog_train_batch(cfg, frames_latent, gen, torch.bfloat16)
+            before = [leaf.detach().clone() for leaf in tree_leaves(loras)]
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loras, opt_state, metrics = step(loras, opt_state, batch, gen, base)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = _read_counts()
+            loss_v, norm_v = float(metrics["loss"]), float(metrics["grad_norm"])
+            moved = [not torch.equal(a, b.detach()) for a, b in zip(before, tree_leaves(loras))]
+            print(f"[E] step at S={seq} ({1 + 4 * (frames_latent - 1)} frames): {ms:.1f} ms, loss {loss_v:.5f}, "
+                  f"grad_norm {norm_v:.5f}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
+                  f"launches {counts}; card after it: {_card_state()}", flush=True)
+            if not (loss_v == loss_v and norm_v == norm_v and abs(loss_v) != float("inf") and norm_v > 0.0
+                    and abs(norm_v) != float("inf")):
+                raise AssertionError(f"loss {loss_v} or grad_norm {norm_v} is not a finite positive number")
+            if counts != want_step:
+                raise AssertionError(f"kernel launches of a step {counts} != {want_step}")
+            # B starts at 0, so the first step's gradient reaches only B; from then on A moves too
+            b_moved = [m for (path, leaf), m in zip(_lora_leaf_names(loras), moved) if leaf == "B"]
+            if not all(b_moved) or (int(opt_state["count"]) > 1 and not all(moved)):
+                raise AssertionError(f"adapters that did not move: {moved.count(False)} of {len(moved)}")
+            for name in total:
+                total[name] += counts[name]
+    same = all(torch.equal(p, frozen[name]) for name, p in base.items())
+    no_grad = all(p.grad is None for p in base.values())
+    print(f"[E] base weights bit-identical after {int(opt_state['count'])} steps: {same}; no gradient stored on "
+          f"them: {no_grad}: {'PASS' if same and no_grad else 'FAIL'}", flush=True)
+    if not (same and no_grad):
+        raise AssertionError("the frozen base changed or received a gradient")
+    del dit, base, frozen, loras, opt_state
+    torch.cuda.empty_cache()
+    return total
+
+
+def _lora_leaf_names(loras) -> list:
+    from alg_tpu_torch.training.train import tree_leaves_with_path
+
+    return [tuple(path.rsplit("/", 1)) for path, _ in tree_leaves_with_path(loras)]
+
+
+def phase_train_agreement() -> None:
+    """A small CogVideoX LoRA run on the card (kernels) and on the CPU (plain versions)."""
+    import copy
+
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.cogvideox.transformer import (CogVideoXTransformer, CogVideoXTransformerConfig,
+                                                            cogvideox_rope)
+    from alg_tpu_torch.training.lora import init_lora_params, make_lora_loss
+    from alg_tpu_torch.training.losses import make_cogvideox_vpred_loss
+    from alg_tpu_torch.core.remat import remat_blocks
+    from alg_tpu_torch.training.train import (TrainConfig, make_train_step, tree_leaves, tree_leaves_with_path,
+                                              tree_map)
+
+    _set_tf32(False, False)
+    cfg = CogVideoXTransformerConfig(num_attention_heads=2, attention_head_dim=64, in_channels=8, out_channels=4,
+                                     time_embed_dim=32, text_embed_dim=64, num_layers=2, sample_height=8,
+                                     sample_width=8, max_text_seq_length=8)
+    gen = torch.Generator("cpu").manual_seed(4)
+    model = L.init_random_(CogVideoXTransformer(cfg), gen).requires_grad_(False)
+    loras0 = init_lora_params(gen, dict(model.named_parameters()), rank=4, prefixes=("blocks",))
+    cos, sin = cogvideox_rope(cfg, 64, 64, 3)  # 3 latent frames of 8 x 8: 48 video tokens, 8 text tokens
+    batches, draws = [], []
+    for _ in range(3):
+        batches.append({"latents": torch.randn((2, 3, 4, 8, 8), generator=gen),
+                        "image_latents": torch.randn((2, 3, 4, 8, 8), generator=gen),
+                        "encoder_hidden_states": torch.randn((2, 8, 64), generator=gen)})
+        draws.append({"t": torch.randint(0, 1000, (2,), generator=gen), "noise": torch.randn((2, 3, 4, 8, 8), generator=gen)})
+    # where the gradients are compared: B is 0 at the start and A's gradient with it, so give B values
+    point = tree_map(lambda t: t.clone(), loras0)
+    for path, leaf in tree_leaves_with_path(point):
+        if path.endswith("/B"):
+            leaf.detach().copy_(0.05 * torch.randn(leaf.shape, generator=gen))
+    # eps 1e-4: AdamW's update is sign-like (lr·g/(|g| + eps)), so with the default 1e-8 an element whose
+    # gradient is rounding noise would move by up to lr in a direction that differs between the two runs
+    tc = TrainConfig(learning_rate=1e-2, weight_decay=0.01, grad_clip=1.0, eps=1e-4, remat=True)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        dit = copy.deepcopy(model).to(dev)
+        loras = tree_map(lambda t: t.clone().to(dev).requires_grad_(), loras0)
+        loss = make_lora_loss(make_cogvideox_vpred_loss(dit, rope_cos=cos, rope_sin=sin),
+                              dict(dit.named_parameters()), scale=2.0, attach=True)
+        step, opt = make_train_step(loss, tc)
+        state, losses = opt.init(loras), []
+        _reset_counts()
+        for batch, draw in zip(batches, draws):
+            loras, state, m = step(loras, state, {k: v.to(dev) for k, v in batch.items()},
+                                   {k: v.to(dev) for k, v in draw.items()})
+            losses.append(float(m["loss"]))
+        counts = _read_counts()
+        at = tree_map(lambda t: t.clone().to(dev).requires_grad_(), point)
+        with remat_blocks(True):
+            value = loss(at, {k: v.to(dev) for k, v in batches[0].items()}, {k: v.to(dev) for k, v in draws[0].items()})
+        grads = [g.cpu() for g in torch.autograd.grad(value, tree_leaves(at))]
+        runs[dev] = (losses, [leaf.detach().cpu() for leaf in tree_leaves(loras)], counts, grads)
+    (l_c, p_c, n_c, g_c), (l_g, p_g, n_g, g_g) = runs["cpu"], runs["cuda"]
+    grad_err = max(float((a - b).abs().max() / a.abs().max()) for a, b in zip(g_c, g_g))
+    grads_live = all(bool(a.abs().max() > 0) for a in g_c)
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_c, l_g))
+    err = max(float((a - b).abs().max()) for a, b in zip(p_c, p_g))
+    moved = all(bool(leaf.abs().max() > 0) for leaf in p_g)
+    # 3 steps x 2 layers, each block forward run twice under remat
+    want = {"qk_prep": 24, "rope_interleaved": 0, "flash_attention": 12, "flash_attention_lse": 12,
+            "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 6}
+    ok = (loss_err <= 1e-4 and err <= 1e-4 and moved and not any(n_c.values()) and n_g == want and grads_live
+          and grad_err <= 1e-4)
+    print(f"[E2] small LoRA run of 3 steps, card (kernels) vs CPU (plain), fp32: losses {l_g} vs {l_c}, max rel diff "
+          f"{loss_err:.3e} (rtol 1e-4), adapters max|diff| {err:.3e} (atol 1e-4), launches card {n_g} (want {want}) "
+          f"/ CPU {n_c}; gradients of one loss at nonzero A and B, max|diff| over a leaf's max|ref| {grad_err:.3e} "
+          f"(bound 1e-4, every leaf's gradient nonzero: {grads_live}): {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("[E2] card and CPU runs of the small LoRA training disagree")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1098,11 +1565,22 @@ _KERNELS = {
                          [2, 40, 4680, 128]),
     "flash_attention": ("alg_tpu_torch/csrc/flash_attention.cu", "alg_tpu/ops/flash_attention.py:98",
                         "flash_wan_self", [2, 40, 4680, 128]),
+    # the training kernels, at the shape the 49-frame CogVideoX train step gives them
+    "flash_attention_lse": ("alg_tpu_torch/csrc/flash_attention.cu", "alg_tpu/ops/flash_attention.py:98",
+                            "flash_lse_dit", [1, 48, 17776, 64]),
+    "flash_attention_bwd_dq": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:89",
+                               "flash_bwd_dq_dit", [1, 48, 17776, 64]),
+    "flash_attention_bwd_dkv": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:144",
+                                "flash_bwd_dkv_dit", [1, 48, 17776, 64]),
 }
 # Other variants of a kernel whose phase-B numbers ride along in its record ("also"): the causal calls
 # and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches.
+_TRAIN_SHAPES = ("dit", "wan_self", "wan_cross_text", "hunyuan_joint", "square_causal")
 _ALSO = {"flash_attention": ("flash_llama_causal_kvlen", "flash_clip_text_causal", "flash_hunyuan_joint"),
-         "rope_interleaved": ("rope_hunyuan_joint",)}
+         "rope_interleaved": ("rope_hunyuan_joint",),
+         "flash_attention_lse": tuple("flash_lse_" + n for n in _TRAIN_SHAPES),
+         "flash_attention_bwd_dq": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
+         "flash_attention_bwd_dkv": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES)}
 
 
 def _kernel_json(records, counts_by_path) -> dict:
@@ -1113,7 +1591,7 @@ def _kernel_json(records, counts_by_path) -> dict:
         by_path = {path: counts[name] for path, counts in counts_by_path.items()}
         also = [{key: r[key] for key in ("name", "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}
-                for case_name in _ALSO.get(name, ()) for r in records if r["name"] == case_name]
+                for case_name in _ALSO.get(name, ()) for r in records if r["name"] == case_name and r is not rec]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": sum(by_path.values()), "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -1157,9 +1635,15 @@ def main() -> int:
         phase_agreement()
         phase_agreement_wan()
         phase_agreement_hunyuan()
+        counts["train_cogvideox"] = phase_train()
+        for name, n in phase_train_entry().items():
+            counts["train_cogvideox"][name] += n
+        phase_train_agreement()
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention")),
                               ("wan", ("rope_interleaved", "flash_attention")),
-                              ("hunyuan", ("rope_interleaved", "flash_attention"))):
+                              ("hunyuan", ("rope_interleaved", "flash_attention")),
+                              ("train_cogvideox", ("qk_prep", "flash_attention", "flash_attention_lse",
+                                                   "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

@@ -4,8 +4,11 @@ reach: Sq != Sk, fewer keys than one 16-key chunk, a per-batch bias, a
 query tile that is mostly past Sq, a single row, head dims 80 and 128,
 ``kv_len`` of 0, 1 and Sk, causal masks (Sq = Sk, Sq < Sk, Sq > Sk with its
 zero rows, with ``kv_len`` and a per-batch bias), rope at S = 1 and 300 on
-a transposed view, and small DiTs, a Llama and a CLIP text model card
-against CPU.
+a transposed view, small DiTs, a Llama and a CLIP text model card against
+CPU, and the training kernels: the forward's LSE output and the dq and dkv
+backward kernels at ragged shapes (Sq = 1, Sk = 1, ``kv_len`` 0/1/Sk, causal
+with Sq > Sk, three head dims), the autograd graph that the three kernel
+wrappers keep on the card, and a small LoRA train step card against CPU.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -341,3 +344,203 @@ def test_llama_and_clip_text_card_match_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
     torch.testing.assert_close(out_h.cpu(), ref_h, atol=1e-4, rtol=0)
     torch.testing.assert_close(out_p.cpu(), ref_p, atol=1e-4, rtol=0)
+
+
+# -- training kernels: the forward's LSE output, dq and dkv ----------------------------------
+
+
+def _assert_close_grad(out, ref, dtype):
+    """As ``_assert_close_flash``, but never tighter than the fp32 bound:
+    where a gradient cancels (with one visible key ds = dp - delta is 0 in
+    exact arithmetic) the reference is rounding noise and its size says
+    nothing."""
+    atol, rtol = TOL[dtype]
+    if dtype == torch.bfloat16:
+        atol = max(TOL[torch.float32][0], min(atol, 0.05 * ref.float().abs().mean().item()))
+    torch.testing.assert_close(out.float().cpu(), ref.float().cpu(), atol=atol, rtol=rtol)
+
+
+BWD_CASES = {
+    # name: (b, h, sq, sk, causal, kv_len, stable)
+    "ragged-331x203": (2, 3, 331, 203, False, None, False),
+    "one-query": (2, 2, 1, 77, False, None, True),
+    "one-key": (1, 2, 50, 1, False, None, True),
+    "kv_len-0-1-sk": (3, 2, 130, 97, False, [0, 1, 97], False),
+    "causal-square-150": (1, 2, 150, 150, True, None, True),
+    "causal-sq-lt-sk": (2, 2, 67, 160, True, [160, 90], True),
+    "causal-sq-gt-sk": (1, 3, 140, 45, True, None, False),  # its first 95 rows see no key
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_lse_and_backward_kernels_match_plain(cuda, case, d, dtype):
+    """The LSE within 1e-4 (base-2 units) with -inf on the same rows; dq, dk
+    and dv within the attention tolerance above, exactly 0 where no key or no
+    query reaches."""
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+    b, h, sq, sk, causal, kv_len, stable = BWD_CASES[case]
+    gen = torch.Generator().manual_seed(1)
+    q, do = (_randn(gen, b, h, sq, d).to(cuda, dtype) for _ in range(2))
+    k, v = (_randn(gen, b, h, sk, d).to(cuda, dtype) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    before = (FA.flash_attention.residual_launches, FB.flash_attention_bwd_dq.launches,
+              FB.flash_attention_bwd_dkv.launches)
+    out, lse = FA.flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal, return_residuals=True)
+    assert torch.equal(out, FA.flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal))
+    ref_out, ref_lse = FA.attention_plain_residuals(q, k, v, scale, None, lens, causal)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    seen = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-4, rtol=0)
+    assert not out[~seen].any()
+
+    got = FB.flash_attention_bwd(q, k, v, out, lse, do, scale, causal, lens)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention.residual_launches, FB.flash_attention_bwd_dq.launches,
+            FB.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref = FB.flash_attention_bwd_plain(q, k, v, out, lse, do, scale, causal, lens)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        _assert_close_grad(g, r, dtype)
+    assert not got[0][~seen].any()  # a row without keys: dq = 0
+    if kv_len is not None:
+        dead = torch.arange(sk, device=cuda)[None, :] >= lens[:, None]  # [B, Sk]: keys past kv_len
+        for g in got[1:]:
+            assert not g.transpose(1, 2)[dead].any()
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+    q, k, v, do = (torch.randn(1, 2, 9, 64, device=cuda) for _ in range(4))
+    out, lse = FA.flash_attention(q, k, v, 0.125, return_residuals=True)
+    delta = FB.row_delta(out, do)
+    with pytest.raises(ValueError):
+        FB.flash_attention_bwd_dq(q, k, v, do, lse.double(), delta, 0.125)
+    with pytest.raises(ValueError):
+        FB.flash_attention_bwd_dkv(q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2), lse, delta, 0.125)
+    with pytest.raises(TypeError):
+        FB.flash_attention_bwd_dq(q.half(), k.half(), v.half(), do.half(), lse, delta, 0.125)
+    with pytest.raises(RuntimeError):  # the bare kernel wrapper records no graph and says so
+        FA.flash_attention(q.requires_grad_(), k, v, 0.125)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_cuda_inputs_that_require_grad_get_a_grad_fn_from_all_three_wrappers(cuda, dtype):
+    """The three kernel wrappers keep the autograd graph on the card, and
+    their gradients agree with autograd through the plain versions."""
+    from alg_tpu_torch.models.rope import apply_rope_interleaved
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+    from alg_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator().manual_seed(2)
+    s, d = 75, 64
+    ang = torch.rand(s, d // 2, generator=gen) * 6.28
+    cos, sin = (f(ang).repeat_interleave(2, -1).contiguous().to(cuda) for f in (torch.cos, torch.sin))
+    x = _randn(gen, 2, 3, s, d).to(cuda, dtype).requires_grad_()
+    scale = (1.0 + 0.1 * _randn(gen, d)).to(cuda).requires_grad_()
+    bias = (0.1 * _randn(gen, d)).to(cuda).requires_grad_()
+    g = _randn(gen, 2, 3, s, d).to(cuda, dtype)
+
+    launched = QK.qk_norm_rope.launches
+    y = QK.qk_norm_rope(x, scale, bias, cos, sin, 1e-6)
+    assert y.grad_fn is not None and QK.qk_norm_rope.launches == launched + 1
+    got = torch.autograd.grad(y, (x, scale, bias), g)
+    ref = torch.autograd.grad(QK.qk_norm_rope_plain(x, scale, bias, cos, sin, 1e-6), (x, scale, bias), g)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)  # the backward is the plain composition's own
+
+    xt = _randn(gen, 2, s, 3, d).to(cuda, dtype).transpose(1, 2).requires_grad_()  # a strided view, as Wan passes it
+    launched = RO.rope_interleaved.launches
+    y = RO.rope_interleaved(xt, cos, sin)
+    assert y.grad_fn is not None and RO.rope_interleaved.launches == launched + 1
+    got, = torch.autograd.grad(y, (xt,), g)
+    ref, = torch.autograd.grad(apply_rope_interleaved(xt, cos, sin), (xt,), g)
+    assert torch.equal(got, ref)
+
+    q, k, v = (_randn(gen, 2, 3, s, d).to(cuda, dtype).requires_grad_() for _ in range(3))
+    lens = torch.tensor([s, 40], dtype=torch.int32, device=cuda)
+    counts = (FA.flash_attention.launches, FA.flash_attention.residual_launches, FB.flash_attention_bwd_dq.launches)
+    o = attention(q, k, v, kv_len=lens, stable=False)
+    assert o.grad_fn is not None
+    assert (FA.flash_attention.launches, FA.flash_attention.residual_launches) == (counts[0] + 1, counts[1] + 1)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    assert FB.flash_attention_bwd_dq.launches == counts[2] + 1
+    ref = torch.autograd.grad(FA.attention_plain(q, k, v, d ** -0.5, None, lens), (q, k, v), g)
+    for a, r in zip(got, ref):
+        _assert_close_grad(a, r, dtype)
+    # without a gradient: the same single launch as before, no residual, no graph
+    counts = (FA.flash_attention.launches, FA.flash_attention.residual_launches)
+    with torch.no_grad():
+        assert attention(q, k, v, kv_len=lens).grad_fn is None
+    assert attention(q.detach(), k.detach(), v.detach(), kv_len=lens).grad_fn is None
+    assert (FA.flash_attention.launches, FA.flash_attention.residual_launches) == (counts[0] + 2, counts[1])
+
+
+def test_attention_with_bias_differentiates_on_the_card(cuda):
+    from alg_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (_randn(gen, 1, 2, 33, 64).to(cuda).requires_grad_() for _ in range(3))
+    bias = _randn(gen, 1, 2, 33, 33).to(cuda).requires_grad_()
+    g = _randn(gen, 1, 2, 33, 64).to(cuda)
+    o = attention(q, k, v, scale=1.0, bias=bias)
+    got = torch.autograd.grad(o, (q, k, v, bias), g)
+    ref = torch.autograd.grad(FA.attention_plain(q, k, v, 1.0, bias), (q, k, v, bias), g)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)  # the recompute VJP through the plain version
+
+
+def test_lora_train_step_card_matches_cpu(cuda):
+    """Two LoRA steps on a small Wan DiT (head dim 128, rope and cross
+    attention through the kernels and their backward), remat on: card
+    against CPU, fp32, losses rtol 1e-4, adapters atol 1e-4; then the
+    gradients of one loss, card against CPU."""
+    from alg_tpu_torch.models.wan.transformer import WanTransformer, WanTransformerConfig, wan_rope
+    from alg_tpu_torch.training.lora import init_lora_params, make_lora_loss
+    from alg_tpu_torch.training.losses import make_wan_flow_loss
+    from alg_tpu_torch.core.remat import remat_blocks
+    from alg_tpu_torch.training.train import TrainConfig, make_train_step, tree_leaves, tree_map, tree_unflatten
+
+    cfg = WanTransformerConfig(num_attention_heads=2, attention_head_dim=128, in_channels=12, out_channels=4,
+                               num_layers=2, ffn_dim=64, freq_dim=16, text_dim=64, image_dim=160)
+    gen = torch.Generator().manual_seed(5)
+    model = L.init_random_(WanTransformer(cfg), gen).requires_grad_(False)
+    loras0 = init_lora_params(gen, dict(model.named_parameters()), rank=4, prefixes=("blocks",))
+    cos, sin = wan_rope(cfg, 3, 8, 8)
+    batch = {"latents": _randn(gen, 2, 4, 3, 8, 8), "condition": _randn(gen, 2, 8, 3, 8, 8),
+             "encoder_hidden_states": _randn(gen, 2, 9, 64), "encoder_hidden_states_image": _randn(gen, 2, 5, 160)}
+    draws = {"sigma": torch.rand(2, generator=gen), "noise": _randn(gen, 2, 4, 3, 8, 8)}
+    runs = {}
+    for dev in ("cpu", cuda):
+        dit = copy.deepcopy(model).to(dev)
+        loras = tree_map(lambda t: t.clone().to(dev).requires_grad_(), loras0)
+        loss = make_lora_loss(make_wan_flow_loss(dit, rope_cos=cos, rope_sin=sin), dict(dit.named_parameters()),
+                              scale=2.0, attach=True)
+        # eps 1e-4: AdamW's update is sign-like (lr·g/(|g| + eps)); with the default 1e-8 an element whose
+        # gradient is rounding noise moves by up to lr in a direction that differs between card and CPU
+        step, opt = make_train_step(loss, TrainConfig(learning_rate=1e-2, eps=1e-4, remat=True))
+        state, losses = opt.init(loras), []
+        for _ in range(2):
+            loras, state, m = step(loras, state, {n: t.to(dev) for n, t in batch.items()},
+                                   {n: t.to(dev) for n, t in draws.items()})
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = (losses, [leaf.detach().cpu() for leaf in tree_leaves(loras)], loss)
+    (l_c, p_c, loss_c), (l_g, p_g, loss_g) = runs["cpu"], runs[str(cuda)]
+    torch.testing.assert_close(torch.tensor(l_g), torch.tensor(l_c), rtol=1e-4, atol=0)
+    for a, b in zip(p_g, p_c):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    # with no optimizer (and no eps) between: the gradients of one loss at the CPU run's adapters, where A
+    # and B are both nonzero, within 1e-4 of each leaf's largest value
+    grads = {}
+    for dev, loss in (("cpu", loss_c), (cuda, loss_g)):
+        at = tree_map(lambda t: t.clone().to(dev).requires_grad_(), tree_unflatten(loras0, p_c))
+        with remat_blocks(True):
+            value = loss(at, {n: t.to(dev) for n, t in batch.items()}, {n: t.to(dev) for n, t in draws.items()})
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(value, tree_leaves(at))]
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        assert float(b.abs().max()) > 0
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)

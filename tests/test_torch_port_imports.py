@@ -23,16 +23,21 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.models.wan.transformer", "alg_tpu_torch.models.wan.vae",
             "alg_tpu_torch.pipelines.wan", "alg_tpu_torch.alg.hunyuan_size", "alg_tpu_torch.models.llama",
             "alg_tpu_torch.schedulers.flow_match_euler", "alg_tpu_torch.models.hunyuan.transformer",
-            "alg_tpu_torch.models.hunyuan.vae", "alg_tpu_torch.pipelines.hunyuan"} <= set(mods)
+            "alg_tpu_torch.models.hunyuan.vae", "alg_tpu_torch.pipelines.hunyuan",
+            "alg_tpu_torch.ops.flash_attention_bwd", "alg_tpu_torch.core.remat", "alg_tpu_torch.io.lora",
+            "alg_tpu_torch.training.losses", "alg_tpu_torch.training.lora", "alg_tpu_torch.training.train",
+            "alg_tpu_torch.training.checkpoint", "alg_tpu_torch.training.data"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['optax'] = None\n"
         "sys.modules['yaml'] = None\n"
         "sys.modules['PIL'] = None\n"
         "sys.modules['ftfy'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'alg_tpu' or k.startswith('alg_tpu.') for k in sys.modules), 'imported alg_tpu'\n"
+        "assert sys.modules.get('optax') is None, 'imported optax'\n"
         "print('ok', len(sys.modules))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

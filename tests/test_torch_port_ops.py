@@ -312,10 +312,12 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     assert _build.library_path().name.startswith("libalg_kernels_")
-    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "qk_prep.cu", "rope.cu"}
-    # flash_attention.cu declares its head dims in a ``// build-variants:`` line: one unit each
+    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "flash_attention_bwd.cu", "qk_prep.cu",
+                                                      "rope.cu"}
+    # the flash sources declare their head dims in a ``// build-variants:`` line: one unit each
     assert [(u[0], u[2]) for u in _build.compile_units()] == [
         *((f"flash_attention.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",)) for d in FA.HEAD_DIMS),
+        *((f"flash_attention_bwd.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",)) for d in FA.HEAD_DIMS),
         ("qk_prep", ()), ("rope", ())]
     monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "missing.so")
     with pytest.raises(RuntimeError, match="nvcc not found"):
