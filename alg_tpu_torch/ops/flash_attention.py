@@ -1,7 +1,9 @@
 """Flash-attention forward: the CUDA kernel and its plain PyTorch version.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
-and runs :func:`attention_plain` for CPU tensors; any other device raises.
+``flash_attention`` launches ``csrc/flash_attention.cu`` (with a qk prolog
+``csrc/flash_attention_prolog.cu``; both are thin units over the body in
+``csrc/flash_attention.cuh``) for CUDA tensors and runs
+:func:`attention_plain` for CPU tensors; any other device raises.
 The kernel replaces the TPU kernel
 ``alg_tpu/ops/flash_attention.py:_fwd_kernel`` at head dims 64, 80 and 128:
 ``stable`` (running max) or not (bounded logits, the DiTs' fast path),
@@ -14,7 +16,20 @@ token refiner and the Hunyuan DiT's joint [video; text] sequence) and
 ``return_residuals=True`` also returns the base-2 row log-sum-exp of the
 scaled, biased, masked logits, fp32 ``[B, H, Sq]``, ``-inf`` on a row with no
 visible key: what the backward kernels (``ops/flash_attention_bwd``) and a
-ring merge need. The in-kernel qk prolog is not ported yet.
+ring merge need.
+
+The qk prolog (``qk_norm``, ``rope_cos``/``rope_sin``, ``prolog_k``; the JAX
+package's names) applies a per-head LayerNorm or RMS norm over D (fp32
+statistics, fp32 affine, cast back to the activation dtype) and then
+interleaved RoPE (tables cast to the activation dtype) to q and, unless
+``prolog_k=False``, to k, inside the attention kernel: on the q rows once and
+on every K tile. It composes with every option above. Its plain version is
+:func:`apply_prolog_plain` (counterpart of
+``alg_tpu/ops/attention.py:_apply_prolog_xla``) followed by the plain
+attention. The kernel rounds the norm's result, the tables, each product of
+the rotation and their sum to the activation dtype, as the plain version's
+ops in that dtype do, so in bf16 the two feed the same q and k into the
+products but for a norm result on a rounding tie.
 
 ``flash_attention`` itself records no autograd graph; differentiable calls go
 through :func:`alg_tpu_torch.ops.attention.attention`.
@@ -39,11 +54,14 @@ from typing import Optional
 
 import torch
 
+from alg_tpu_torch.models import layers as L
+from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops import _build
 from alg_tpu_torch.ops._autograd import needs_grad
 
 HEAD_DIMS = (64, 80, 128)  # the variants csrc/flash_attention.cu declares, one entry point each
 LOG2E = 1.4426950408889634
+NORM_CODE = {None: 0, "layer": 1, "rms": 2}  # the prolog's norm modes (csrc/flash_attention.cuh, struct Prolog)
 
 
 def mask_logits(logits, kv_len: Optional[torch.Tensor] = None, causal: bool = False):
@@ -95,12 +113,41 @@ def attention_plain_residuals(q, k, v, scale: float, bias: Optional[torch.Tensor
     return out, (m_safe + torch.log2(l))[..., 0]  # log2(0) = -inf
 
 
+def apply_prolog_plain(q, k, prolog: dict, prolog_k: bool = True):
+    """``(q, k)`` through the qk prolog in PyTorch ops: the per-head norm
+    ``prolog["norm"]`` (``"layer"``, ``"rms"`` or None; ``eps``, affines
+    ``q_scale``/``q_bias``/``k_scale``/``k_bias`` ``[D]``, the biases
+    LayerNorm's only; ``eps`` defaults to 1e-6) with fp32 statistics and a cast back, then interleaved
+    RoPE with the ``[S, D]`` tables ``cos``/``sin`` (absent: no RoPE) in the
+    activation dtype. ``prolog_k=False`` leaves k as it came. Differentiable."""
+    mode, eps = prolog.get("norm"), prolog.get("eps", 1e-6)
+    if mode not in NORM_CODE:
+        raise ValueError(f"unknown prolog norm {mode!r}")
+
+    def transform(x, scale, bias):
+        if mode == "layer":
+            x = L.layer_norm(x, scale, bias, eps)
+        elif mode == "rms":
+            x = L.t5_layer_norm(x, scale, eps)
+        if prolog.get("cos") is not None:
+            n = x.shape[-2]
+            x = R.apply_rope_interleaved(x, prolog["cos"][:n], prolog["sin"][:n])
+        return x
+
+    q = transform(q, prolog.get("q_scale"), prolog.get("q_bias"))
+    return q, (transform(k, prolog.get("k_scale"), prolog.get("k_bias")) if prolog_k else k)
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong] + [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float, _INT, _INT]
+
+
 @functools.cache
-def _entry(head_dim: int):
-    fn = getattr(_build.load(), f"alg_flash_attention_fwd_d{head_dim}")
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _entry(head_dim: int, prolog: bool = False):
+    """The C entry point of a head dim: the plain forward's, or the one with the qk prolog."""
+    fn = getattr(_build.load(), f"alg_flash_attention_{'prolog_' if prolog else ''}fwd_d{head_dim}")
+    fn.argtypes = _FWD_ARGTYPES + ([_INT, ctypes.c_float] + [_PTR] * 6 + [_INT] if prolog else []) + [_PTR]
+    fn.restype = _INT
     return fn
 
 
@@ -132,28 +179,77 @@ def _check(q, k, v, bias, kv_len=None):
             raise ValueError("flash operands must be contiguous, 16-byte aligned and on one device")
 
 
+def _check_prolog(q, prolog: dict, prolog_k: bool):
+    """Raise on a prolog the kernel does not take; return its tensors in the entry point's order."""
+    mode, d, sq = prolog["norm"], q.shape[-1], q.shape[2]
+    rope = prolog["cos"] is not None
+    if rope != (prolog["sin"] is not None):
+        raise ValueError("flash prolog: rope_cos and rope_sin come together")
+    wanted = []
+    for name, needed in (("q_scale", mode is not None), ("q_bias", mode == "layer"),
+                         ("k_scale", mode is not None and prolog_k), ("k_bias", mode == "layer" and prolog_k)):
+        t = prolog[name] if needed else None
+        if needed and (t is None or t.dtype != torch.float32 or tuple(t.shape) != (d,)):
+            raise ValueError(f"flash prolog {name}: want float32 [{d}], got "
+                             f"{None if t is None else (t.dtype, tuple(t.shape))}")
+        wanted.append(t)
+    for name in ("cos", "sin"):
+        t = prolog[name]
+        if rope and (t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] < sq or t.shape[1] != d):
+            raise ValueError(f"flash prolog {name}: want float32 [S >= {sq}, {d}], got {t.dtype} {tuple(t.shape)}")
+        wanted.append(t)
+    for t in wanted:
+        if t is not None and (t.device != q.device or not t.is_contiguous() or t.data_ptr() % 8):
+            raise ValueError("flash prolog operands must be contiguous, 8-byte aligned and on the device of q")
+    return wanted
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     bias: Optional[torch.Tensor] = None, stable: bool = True,
                     kv_len: Optional[torch.Tensor] = None, causal: bool = False,
-                    return_residuals: bool = False):
+                    return_residuals: bool = False, qk_norm: Optional[str] = None, norm_eps: float = 1e-6,
+                    q_norm_scale: Optional[torch.Tensor] = None, q_norm_bias: Optional[torch.Tensor] = None,
+                    k_norm_scale: Optional[torch.Tensor] = None, k_norm_bias: Optional[torch.Tensor] = None,
+                    rope_cos: Optional[torch.Tensor] = None, rope_sin: Optional[torch.Tensor] = None,
+                    prolog_k: bool = True):
     """``softmax(q·kᵀ·scale + bias)·v`` over ``[B, H, S, D]``, D in 64, 80,
     128; batch row ``b`` attends to its first ``kv_len[b]`` keys only, and
     with ``causal`` query ``i`` to no key past ``i + (Sk - Sq)``. With
     ``return_residuals`` the result is ``(out, lse)``, ``lse`` the fp32
     ``[B, H, Sq]`` base-2 log-sum-exp of the scaled logits.
 
+    ``qk_norm`` (``"layer"`` or ``"rms"``, with ``norm_eps`` and the fp32
+    ``[D]`` affines) and ``rope_cos``/``rope_sin`` (fp32 ``[S, D]``,
+    self-attention only) are the qk prolog, applied to q and, unless
+    ``prolog_k=False``, to k inside the kernel (see the module docstring).
+
     ``stable=False`` skips the running max: exact in fp32 while
     |logit·log2e| stays well below 126, which trained DiT attention does.
     CPU tensors take the plain version; CUDA tensors the kernel, or raise.
     No autograd graph is recorded here (see ``ops/attention.py``)."""
+    if qk_norm not in NORM_CODE:
+        raise ValueError(f"qk_norm must be 'layer' or 'rms', got {qk_norm!r}")
+    if rope_cos is not None and q.shape[2] != k.shape[2]:
+        raise ValueError("fused RoPE assumes self-attention (Sq == Sk)")
+    prolog = None
+    if qk_norm is not None or rope_cos is not None or rope_sin is not None:
+        prolog = {"norm": qk_norm, "eps": norm_eps, "q_scale": q_norm_scale, "q_bias": q_norm_bias,
+                  "k_scale": k_norm_scale, "k_bias": k_norm_bias, "cos": rope_cos, "sin": rope_sin}
     if q.device.type == "cpu":
+        if prolog is not None:
+            q, k = apply_prolog_plain(q, k, prolog, prolog_k)
         if return_residuals:
             return attention_plain_residuals(q, k, v, scale, bias, kv_len, causal)
         return attention_plain(q, k, v, scale, bias, kv_len, causal)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v, bias, kv_len)
-    if needs_grad(q, k, v, bias):
+    prolog_args = ()
+    if prolog is not None:
+        tensors = _check_prolog(q, prolog, prolog_k)
+        prolog_args = (NORM_CODE[qk_norm], float(norm_eps), *(None if t is None else t.data_ptr() for t in tensors),
+                       int(prolog_k))
+    if needs_grad(q, k, v, bias, *(() if prolog is None else tensors)):
         raise RuntimeError("flash_attention records no autograd graph: call ops.attention.attention, which "
                            "differentiates through the backward kernels")
     b, h, sq, d = q.shape
@@ -165,14 +261,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         bias_b_stride = 0 if bias.shape[0] == 1 else h * sq * k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry(d)(
+        rc = _entry(d, prolog is not None)(
             _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_b_stride,
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, h, sq, k.shape[2],
-            float(scale), int(stable), int(causal), stream,
+            float(scale), int(stable), int(causal), *prolog_args, stream,
         )
     _build.check(rc, "flash-attention kernel")
     flash_attention.launches += 1
+    if prolog is not None:
+        flash_attention.prolog_launches += 1
     if return_residuals:
         flash_attention.residual_launches += 1
         return out, lse
@@ -181,3 +279,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
 flash_attention.launches = 0  # every launch of the forward kernel
 flash_attention.residual_launches = 0  # those of them that also wrote the LSE
+flash_attention.prolog_launches = 0  # those of them that ran the qk prolog

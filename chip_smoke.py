@@ -30,35 +30,60 @@ Phases, each of which must pass:
       call with ``kv_len`` 0 in a batch row), with the backward time of
       ``scaled_dot_product_attention`` under autograd as the yardstick (its
       forward on inputs that require a gradient for the LSE call);
+      then the int8 attention kernel against ``flash_attention_int8_plain``,
+      bf16 and fp32 inputs, modes "qk" and "full", at the self-attention
+      shapes of the three DiTs at 9 frames and at the shipped lengths (the
+      Hunyuan ones with ``kv_len``) and with ``kv_len`` 0 in a batch row, on
+      DiT-like inputs, with its drift against exact attention beside the JAX
+      package's bounds, its bound, the quantizers' time, the bf16 flash kernel
+      and ``scaled_dot_product_attention`` on the same tensors, and "full"
+      mode again with ``block_k`` equal to the kernel's key tile; then the
+      flash kernel's qk prolog (five combinations of norm, RoPE, ``stable``
+      and ``prolog_k``) against ``apply_prolog_plain`` and the plain
+      attention, beside the unfused sequence the DiTs run today;
   C.  CogVideoX slice: the full-width CogVideoX-5b-I2V pipeline (42-layer DiT
       and 24-layer T5-XXL in bf16, VAE in fp32, random weights from a seed)
       driven once through ``CogVideoXPipeline.__call__`` with the shipped ALG
       config at 9 frames, 480x720, 4 steps (2 three-pass, 2 two-pass); checks
       the output shape, finiteness and the exact kernel launch counts, and
-      prints the time of each stage;
+      prints the time of each stage; then the same call under
+      ``set_attention_int8("qk")`` and ``("full")`` (42 int8 launches a DiT
+      forward and no bf16 flash launch from the DiT), with each step's time
+      beside the bf16 run's and the drift of the final latents against it;
   C2. Wan slice: the full-width Wan2.1-I2V-14B pipeline (40-layer DiT and
       24-layer UMT5-XXL in bf16, CLIP ViT-H and VAE in fp32, random weights
       from a seed) driven once through ``WanPipeline.__call__`` with the
       shipped ALG settings at 9 frames, 480x832, 4 steps (2 three-pass, 2
       two-pass), the prompt through ``encode_prompt`` with a prefix mask and
       the CLIP tower's penultimate output as ``image_embeds``; same checks;
+      then the same call under int8 "qk" (40 int8 and 80 bf16 flash launches
+      a DiT forward: the two cross-attentions stay where they were);
   C3. HunyuanVideo slice: the full-width HunyuanVideo-I2V pipeline (20 + 40
       block DiT and Llava-Llama3-8B with its CLIP ViT-L/14-336 tower in bf16,
       CLIP text and VAE in fp32, random weights from a seed) driven once
       through ``HunyuanVideoPipeline.__call__`` with the shipped single-pass
       ALG settings at 9 frames, 352x608, 4 steps (2 on the filtered first
       frame, 2 on the clean one), the prompt through ``encode_prompt`` with
-      tokenizer and image-processor hooks; same checks; then one DiT forward
+      tokenizer and image-processor hooks; same checks; then the same call
+      under int8 "full" (60 int8 launches a DiT forward with ``kv_len`` at
+      head dim 128, 2 bf16 ones for the token refiner); then one DiT forward
       at the shipped 129 frames (33 latent frames);
+  C4. the qk prolog's path: no model passes a prolog, so its path is the
+      entry point, ``attention(..., stable=False, prolog={...})``, on bf16
+      tensors of the CogVideoX 9-frame shape (LayerNorm + RoPE) and the
+      Hunyuan 9-frame joint shape with ``kv_len`` (RMS norm + RoPE), held
+      against the unfused sequence, with exact launch counts;
   D.  agreement: a small CogVideoX pipeline (head dim 64, two layers) run on
       the card through the kernels and on the CPU through the plain versions,
       fp32 with TF32 off; final latents within atol 2e-3, decoded frames
-      above 40 dB;
+      above 40 dB; then the same under int8 "qk" and "full" (frames above
+      40 dB, latents within 1e-1 at the largest and 1e-2 on the mean: rounding
+      ties fall differently in the two runs, see ``INT8_LATENT_MAX``);
   D2. the same for a small Wan pipeline (DiT head dim 128, UMT5 with a mask,
       CLIP head dim 80);
   D3. the same for a small HunyuanVideo pipeline (DiT and Llava head dim 128,
       CLIP text head dim 64, through ``encode_prompt``, true CFG with ALG so
-      that 3- and 2-pass steps run).
+      that 3- and 2-pass steps run), and again under int8 "full".
 
   E.  training slice: the full-width CogVideoX-5b DiT (bf16, frozen, random
       weights from a seed) with rank-8 LoRA adapters attached to the block
@@ -84,7 +109,11 @@ dense flash calls of phase B at head dims 64 and 128 (for comparing two
 trees on one card; it prints no result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
-before the last line, and as the last line
+before the last line (one entry a kernel; the int8 kernel and the flash
+kernel's qk-prolog variant, which is a compile unit of its own, have entries
+of their own; ``launches_by_path`` names the run each count comes from, the
+int8 runs of the three pipelines among them; ``also`` carries the other
+shapes and modes), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, without that line, if there is no CUDA device, the port
 cannot be imported, or any phase fails.
@@ -583,6 +612,261 @@ def _training_kernel_cases(records, gen) -> None:
         torch.cuda.empty_cache()
 
 
+# Published int8 tensor-core rate of one H100 SXM (dense), for the int8 products' bounds.
+PEAK_INT8_OPS_PER_S = 1979e12
+# The int8 kernel against its plain version. fp32 inputs, "qk": the same codes and scales, only the order of
+# the fp32 sums differs. "full": a P code on a rounding tie may flip (one code is 1/127 of a row's largest
+# p), so the mean and the largest difference are bounded, as in the JAX package's own tests. bf16 inputs: the
+# bf16 attention tolerance above (in "qk" mode the kernel keeps P in fp32 where the plain version rounds it).
+INT8_QK_TOL = (2e-5, 2e-5)
+INT8_FULL_MEAN, INT8_FULL_MAX = 1e-5, 2e-3
+# The JAX package's bounds on the drift of int8 attention against exact attention, over the exact output's
+# rms, on DiT-like inputs: (mean, max) by mode, the wider of its D = 64 and D = 128 bounds. A record here.
+INT8_DRIFT_BOUNDS = {False: (2e-2, 1.5e-1), True: (3e-2, 3e-1)}
+
+
+def _dit_like_qkv(shape, dtype, gen):
+    """q and k with unit-norm rows times sqrt(D), as after a per-head norm, a
+    common-mode offset on k (what the mean-centring removes), normal v."""
+    import torch
+
+    b, h, s, d = shape
+    q, k = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+    q, k = (t / t.norm(dim=-1, keepdim=True) * d ** 0.5 for t in (q, k))
+    k = k + 3.0 * torch.randn((b, h, 1, d), generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=False):
+    """The int8 kernel at one shape: bf16 and fp32 inputs, both modes, each
+    against ``flash_attention_int8_plain`` on the card (taken over groups of
+    batch·heads, one block of query rows at a time), with its drift against exact
+    fp32 attention, its bound (QKᵀ at the int8 rate plus P·V at the bf16 rate
+    in "qk" mode or the int8 rate in "full" mode, or the bytes of q, k, v and
+    the output if that is more), the quantizers' own time (they run inside
+    every call), the bf16 flash kernel and ``scaled_dot_product_attention`` in
+    bf16 on the same tensors. The plain version's time is that of the one run
+    that is compared. ``tile_block`` also times "full" mode with ``block_k``
+    equal to the kernel's key tile, where a key block is staged once."""
+    import torch
+    import torch.nn.functional as F
+
+    from alg_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+    from alg_tpu_torch.ops.flash_attention_int8 import (KEY_TILE, flash_attention_int8, flash_attention_int8_plain,
+                                                        quantize_qk_int8, quantize_v_int8)
+
+    b, h, s, d = shape
+    scale = d ** -0.5
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    kept = [s] * b if kv_len is None else [min(n, s) for n in kv_len]
+    pairs = sum(s * n for n in kept)
+    group = max(1, min(h, 2 ** 19 // s))  # heads a plain call takes: [group, 512, S] fp32 logits (1 GiB) and a few like it
+    bf16_ms = sdpa_ms = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _dit_like_qkv(shape, dtype, gen)
+        name_dt = tol_name(dtype)
+        if dtype == torch.bfloat16:
+            mask = None
+            if lens is not None:
+                keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+                mask = torch.zeros((b, 1, s, s), device="cuda").masked_fill(~keep[:, None, None, :],
+                                                                             float("-inf")).to(dtype)
+            bf16_ms = _time_ms(lambda: flash_attention(q, k, v, scale, stable=False, kv_len=lens), reps)
+            sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), reps)
+            del mask
+        # exact attention in fp32 on the same values, for the drift, kept on the card as the inputs' dtype allows
+        exact = torch.empty(shape, dtype=torch.float32, device="cuda")
+        q_chunk = max(1, min(s, 2 ** 28 // (group * s)))
+        for bi in range(b):
+            for h0 in range(0, h, group):
+                sl = (slice(bi, bi + 1), slice(h0, h0 + group))
+                kf, vf = k[sl].float(), v[sl].float()
+                for i in range(0, s, q_chunk):
+                    exact[sl][:, :, i:i + q_chunk] = attention_plain(q[sl][:, :, i:i + q_chunk].float(), kf, vf, scale,
+                                                                     None, None if lens is None else lens[bi:bi + 1])
+        rms = exact.pow(2).mean().sqrt().item()
+        quant_qk_ms = _time_ms(lambda: quantize_qk_int8(q, k, scale, 512, 1024, lens), reps)
+        quant_v_ms = _time_ms(lambda: quantize_v_int8(v, lens), reps)
+        for pv_int8 in (False, True):
+            mode = "full" if pv_int8 else "qk"
+            out = flash_attention_int8(q, k, v, scale, pv_int8=pv_int8, kv_len=lens)
+            torch.cuda.synchronize()
+            ok = bool(torch.isfinite(out).all())
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref = flash_attention_int8_plain(q, k, v, scale, pv_int8=pv_int8, kv_len=lens)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            size = ref.float().abs().mean().item()
+            diff = (out.float() - ref.float()).abs()
+            err, err_mean = diff.max().item(), diff.mean().item()
+            if dtype == torch.bfloat16:
+                tol = (min(TOL["bfloat16"][0], FLASH_BF16_ATOL_SHARE * size), TOL["bfloat16"][1])
+                ok = ok and bool((diff <= tol[0] + tol[1] * ref.float().abs()).all())
+            elif not pv_int8:
+                tol = INT8_QK_TOL
+                ok = ok and bool((diff <= tol[0] + tol[1] * ref.abs()).all())
+            else:
+                tol = (INT8_FULL_MAX, 0.0)
+                ok = ok and err < INT8_FULL_MAX and err_mean < INT8_FULL_MEAN
+            del ref, diff
+            drift = (out.float() - exact).abs()
+            drift_mean, drift_max = drift.mean().item() / rms, drift.max().item() / rms
+            del drift
+            ms = _time_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8, kv_len=lens), reps)
+            ops_ms = (2.0 * h * pairs * d / PEAK_INT8_OPS_PER_S
+                      + 2.0 * h * pairs * d / (PEAK_INT8_OPS_PER_S if pv_int8 else PEAK_OPS_PER_S["bfloat16"])) * 1e3
+            nbytes = (2 * q.numel() + 2 * h * sum(kept) * d) * q.element_size() + (0 if lens is None else 4 * b)
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            bound = (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+            quant_ms = quant_qk_ms + (quant_v_ms if pv_int8 else 0.0)
+            limits = INT8_DRIFT_BOUNDS[pv_int8]
+            print(f"[B] int8 {mode:<4} {tag:<14} {name_dt:<8} {str(shape):<22} mean|diff| {err_mean:.3e}; "
+                  f"drift against exact attention over its rms: mean {drift_mean:.3e} (reference's bound "
+                  f"{limits[0]:g}), max {drift_max:.3e} ({limits[1]:g}); quantizers {quant_ms:.3f} ms of the "
+                  f"kernel's time; bf16 flash kernel on the same tensors in bf16 {bf16_ms:.3f} ms", flush=True)
+            _report(records, f"flash_int8_{mode}_{tag}", name_dt, shape, err, ok, tol, ms, plain_ms, bound, sdpa_ms,
+                    ref_size=size)
+            records[-1].update(drift_mean=drift_mean, drift_max=drift_max, quantizers_ms=quant_ms, bf16_flash_ms=bf16_ms)
+        if tile_block:
+            tile_ms = _time_ms(lambda: flash_attention_int8(q, k, v, scale, block_k=KEY_TILE, pv_int8=True,
+                                                            kv_len=lens), reps)
+            tile_out = flash_attention_int8(q, k, v, scale, block_k=KEY_TILE, pv_int8=True, kv_len=lens)
+            tile_drift = (tile_out.float() - exact).abs()
+            print(f"[B] int8 full {tag:<14} {name_dt:<8} {str(shape):<22} with block_k = {KEY_TILE} (one staging a "
+                  f"key block): kernel {tile_ms:.3f} ms beside {ms:.3f} ms at block_k = 1024; drift mean "
+                  f"{tile_drift.mean().item() / rms:.3e}, max {tile_drift.max().item() / rms:.3e}", flush=True)
+            records.append(dict(name=f"flash_int8_full_bk{KEY_TILE}_{tag}", dtype=name_dt, shape=list(shape),
+                                max_abs_err=None, ok=bool(torch.isfinite(tile_out).all()), ms=tile_ms, plain_ms=None,
+                                bound_ms=bound[0], bound_by=bound[1], library_ms=sdpa_ms))
+            del tile_out, tile_drift
+        del q, k, v, exact, out
+        torch.cuda.empty_cache()
+
+
+def _int8_kernel_cases(records, gen) -> None:
+    """The int8 kernel at the self-attention shapes of the three DiTs, at 9
+    frames and at the shipped lengths, and one call with ``kv_len`` 0 in a
+    batch row."""
+    _set_tf32(False, False)
+    _int8_shape_cases(records, "dit", (2, 48, 4276, 64), gen, tile_block=True)
+    _int8_shape_cases(records, "dit", (2, 48, 17776, 64), gen, reps=1, tile_block=True)
+    _int8_shape_cases(records, "wan_self", (2, 40, 4680, 128), gen)
+    _int8_shape_cases(records, "wan_self", (2, 40, 32760, 128), gen, reps=1)
+    for frames in (9, 129):
+        _int8_shape_cases(records, "hunyuan_joint", (1, 24, HY_VIDEO_TOKENS[frames] + HY_TEXT_LEN, 128), gen,
+                          kv_len=[HY_VIDEO_TOKENS[frames] + HY_TEXT_KEYS], reps=3 if frames == 9 else 1,
+                          tile_block=frames == 9)
+    _int8_shape_cases(records, "kvlen_zero_row", (2, 8, 1100, 64), gen, kv_len=[0, 700])
+
+
+# The five combinations of norm, RoPE, `stable` and `prolog_k` that the JAX package's own prolog test runs.
+PROLOG_MODES = (("layer", True, False, True), ("rms", True, True, True), (None, True, False, True),
+                ("layer", False, False, True), ("layer", True, False, False))
+PROLOG_FP32_TOL = (5e-6, 1e-5)  # the same ops in another order: norms over D values, softmax sums over the keys
+
+
+def _prolog_case(records, shape, dtype, gen, mode, has_rope, stable, prolog_k, kv_len=None, reps=3):
+    """The flash kernel with the qk prolog against ``apply_prolog_plain`` and
+    the plain attention (over query chunks, as in :func:`_attn_case`), and
+    beside it the time of the unfused sequence a DiT runs today for the same
+    result where there is one: ``qk_norm_rope`` on q and on k (LayerNorm +
+    RoPE at D = 64), or the RMS norm in PyTorch ops and ``rope_interleaved``
+    on q and on k (D = 128), then ``flash_attention``."""
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.ops.flash_attention import apply_prolog_plain, attention_plain, flash_attention
+    from alg_tpu_torch.ops.qk_prep import qk_norm_rope
+    from alg_tpu_torch.ops.rope import rope_interleaved
+
+    b, h, s, d = shape
+    dev, scale = "cuda", d ** -0.5
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    ang = torch.rand(s, d // 2, generator=gen, device=dev) * 6.28
+    cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+    qs, ks = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev) for _ in range(2))
+    qb, kb = (0.1 * torch.randn(d, generator=gen, device=dev) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    prolog = {"norm": mode, "eps": 1e-6, "q_scale": qs, "q_bias": qb, "k_scale": ks, "k_bias": kb,
+              "cos": cos if has_rope else None, "sin": sin if has_rope else None}
+    qr, kr = apply_prolog_plain(q, k, prolog)
+    k_in = k if prolog_k else kr  # the caller brings k transformed when only the q side is fused
+    kwargs = dict(qk_norm=mode, norm_eps=1e-6, q_norm_scale=qs if mode else None,
+                  q_norm_bias=qb if mode == "layer" else None, k_norm_scale=ks if mode and prolog_k else None,
+                  k_norm_bias=kb if mode == "layer" and prolog_k else None, rope_cos=prolog["cos"],
+                  rope_sin=prolog["sin"], prolog_k=prolog_k)
+
+    def fused():
+        return flash_attention(q, k_in, v, scale, stable=stable, kv_len=lens, **kwargs)
+
+    q_chunk = max(1, min(s, 2 ** 29 // (h * s)))
+
+    def plain_chunks():
+        for bi in range(b):
+            q2, k2 = apply_prolog_plain(q[bi:bi + 1], k[bi:bi + 1], prolog)
+            for i in range(0, s, q_chunk):
+                yield (slice(bi, bi + 1), slice(i, i + q_chunk)), attention_plain(
+                    q2[:, :, i:i + q_chunk], k2, v[bi:bi + 1], scale, None, None if lens is None else lens[bi:bi + 1])
+
+    def plain():
+        for _ in plain_chunks():
+            pass
+
+    unfused = None
+    if prolog_k and has_rope and (mode, d) == ("layer", 64):
+        def unfused():
+            return flash_attention(qk_norm_rope(q, qs, qb, cos, sin, 1e-6), qk_norm_rope(k, ks, kb, cos, sin, 1e-6), v,
+                                   scale, stable=stable, kv_len=lens)
+    elif prolog_k and has_rope and (mode, d) == ("rms", 128):
+        def unfused():
+            return flash_attention(rope_interleaved(L.t5_layer_norm(q, qs, 1e-6), cos, sin),
+                                   rope_interleaved(L.t5_layer_norm(k, ks, 1e-6), cos, sin), v, scale, stable=stable,
+                                   kv_len=lens)
+
+    out = fused()
+    tol = TOL["bfloat16"] if dtype == torch.bfloat16 else PROLOG_FP32_TOL
+    err, ok, atol, sizes = 0.0, bool(torch.isfinite(out).all()), tol[0], []
+    for (bs, qsl), ref in plain_chunks():
+        size = ref.float().abs().mean().item()
+        chunk_atol = min(tol[0], FLASH_BF16_ATOL_SHARE * size) if dtype == torch.bfloat16 else tol[0]
+        e, o = _close(out[bs, :, qsl], ref, (chunk_atol, tol[1]))
+        err, ok, atol = max(err, e), ok and o, min(atol, chunk_atol)
+        sizes.append(size)
+    ms, plain_ms = _time_ms(fused, reps), _time_ms(plain, reps)
+    kept = [s] * b if kv_len is None else [min(n, s) for n in kv_len]
+    nbytes = (2 * q.numel() + 2 * h * sum(kept) * d) * q.element_size() + 4 * (2 * cos.numel() + 4 * d)
+    bound = _bound(4.0 * h * sum(s * n for n in kept) * d, nbytes, tol_name(dtype))
+    name = "flash_prolog_" + "_".join(filter(None, (mode, "rope" if has_rope else None, "stable" if stable else None,
+                                                    None if prolog_k else "q_only")))
+    if unfused is not None:
+        unfused_ms = _time_ms(unfused, reps)
+        bare_ms = _time_ms(lambda: flash_attention(qr, kr, v, scale, stable=stable, kv_len=lens), reps)
+        print(f"[B] {name} {tol_name(dtype)} {shape}: fused {ms:.3f} ms; the unfused sequence (norm and RoPE on q "
+              f"and on k, then the flash kernel) {unfused_ms:.3f} ms, of which the flash kernel alone {bare_ms:.3f} ms",
+              flush=True)
+    _report(records, name, tol_name(dtype), shape, err, ok, (atol, tol[1]), ms, plain_ms, bound,
+            ref_size=statistics.fmean(sizes))
+    if unfused is not None:
+        records[-1].update(unfused_ms=unfused_ms, flash_alone_ms=bare_ms)
+
+
+def _prolog_kernel_cases(records, gen) -> None:
+    """The five combinations at the CogVideoX 9-frame shape, and RMS norm +
+    RoPE at the Hunyuan 9-frame joint shape with ``kv_len``, bf16 and fp32."""
+    import torch
+
+    _set_tf32(False, False)
+    s_hy = HY_VIDEO_TOKENS[9] + HY_TEXT_LEN
+    for dtype in (torch.bfloat16, torch.float32):
+        for mode, has_rope, stable, prolog_k in PROLOG_MODES:
+            _prolog_case(records, (2, 48, 4276, 64), dtype, gen, mode, has_rope, stable, prolog_k)
+        _prolog_case(records, (1, 24, s_hy, 128), dtype, gen, "rms", True, False, True,
+                     kv_len=[HY_VIDEO_TOKENS[9] + HY_TEXT_KEYS])
+        torch.cuda.empty_cache()
+
+
 def phase_dense_flash() -> None:
     """Only the dense flash calls of phase B at head dims 64 and 128, for
     timing two trees against each other on one card."""
@@ -636,6 +920,8 @@ def phase_kernels() -> list:
     _attn_case(records, "flash_clip", (1, 16, 257, 80), fp32, gen, 80 ** -0.5, True)  # the tower runs in fp32
     _hunyuan_kernel_cases(records, gen)
     _training_kernel_cases(records, gen)
+    _int8_kernel_cases(records, gen)
+    _prolog_kernel_cases(records, gen)
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel comparison(s) out of tolerance: {bad}")
@@ -747,18 +1033,23 @@ def _kernel_wrappers() -> dict:
     and as one that wrote the residual."""
     from alg_tpu_torch.ops.flash_attention import flash_attention
     from alg_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_dkv, flash_attention_bwd_dq
+    from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
     from alg_tpu_torch.ops.qk_prep import qk_norm_rope
     from alg_tpu_torch.ops.rope import rope_interleaved
 
     return {"qk_prep": (qk_norm_rope, "launches"), "rope_interleaved": (rope_interleaved, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "flash_attention_lse": (flash_attention, "residual_launches"),
+            "flash_attention_prolog": (flash_attention, "prolog_launches"),
             "flash_attention_bwd_dq": (flash_attention_bwd_dq, "launches"),
-            "flash_attention_bwd_dkv": (flash_attention_bwd_dkv, "launches")}
+            "flash_attention_bwd_dkv": (flash_attention_bwd_dkv, "launches"),
+            "flash_attention_int8": (flash_attention_int8, "launches")}
 
 
-# what a path that takes no gradient leaves at zero
-_NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+# what a path with the int8 mode off and no caller of the qk prolog leaves at zero
+_NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_prolog": 0}
+# what a sampling path in bf16 leaves at zero: it takes no gradient either
+_NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, **_NO_OPT_IN}
 
 
 def _reset_counts() -> None:
@@ -770,6 +1061,18 @@ def _read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _kernel_wrappers().items()}
 
 
+def _free_device_memory() -> None:
+    """Collect what only reference cycles keep (a pipeline and the timed
+    wrappers around its own methods hold each other) and hand the freed device
+    memory back, so that the next slice's weights find room."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _require_finite(latents, *_):
     import torch
 
@@ -777,8 +1080,66 @@ def _require_finite(latents, *_):
         raise AssertionError("final latents are not finite")
 
 
+def _keep_finite(kept: list):
+    """A decode's check that also keeps the latents it was given, as numpy, in ``kept``."""
+
+    def check(latents, *_):
+        _require_finite(latents)
+        kept.append(latents.detach().float().cpu().numpy())
+
+    return check
+
+
+def _int8_reruns(tag, modes, run, timer, bf16_rows, bf16_latents, want_of, shape) -> dict:
+    """Run the pipeline call ``run()`` (the call phase ``tag`` just made, with
+    ``output_type="latent"``) again under each int8 mode of ``modes``, with
+    the same seed. Checks the latents' shape and finiteness and the exact
+    launch counts ``want_of(DiT forwards)``; prints each denoise step's time
+    beside the bf16 run's and the drift of the final latents against the bf16
+    run's (random weights: a record, not a gate). Returns {mode: counts}."""
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.ops.attention import get_attention_int8, set_attention_int8
+
+    bf16_steps = [(name, ms) for name, ms, _ in bf16_rows if name.startswith("denoise step")]
+    out = {}
+    for mode in modes:
+        timer.rows = []
+        set_attention_int8(mode)
+        try:
+            if get_attention_int8() != mode:
+                raise AssertionError(f"int8 mode {get_attention_int8()!r} after set_attention_int8({mode!r})")
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            latents = run()
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            timer.close_step(time.perf_counter())
+            counts = _read_counts()
+        finally:
+            set_attention_int8(False)
+        steps = [(name, ms) for name, ms, _ in timer.rows if name.startswith("denoise step")]
+        want = want_of(len(steps))
+        drift = np.abs(latents.astype(np.float64) - bf16_latents)
+        rms = float(np.sqrt(np.mean(bf16_latents.astype(np.float64) ** 2)))
+        for (name, ms), (_, base_ms) in zip(steps, bf16_steps):
+            print(f"[{tag}] int8 {mode:<4} {name:<36} {ms:10.1f} ms  (bf16 run {base_ms:.1f} ms)")
+        print(f"[{tag}] int8 {mode}: call to the latents {total_s:.2f} s; launches {counts} (want {want}); final latents "
+              f"against the bf16 run's: mean|diff| / rms {drift.mean() / rms:.3e}, max|diff| / rms {drift.max() / rms:.3e} "
+              f"(random weights: a record, not a gate)", flush=True)
+        if len(steps) != len(bf16_steps) or counts != want or not counts["flash_attention_int8"]:
+            raise AssertionError(f"[{tag}] int8 {mode}: {len(steps)} DiT forwards, launches {counts} != {want}")
+        if latents.shape != shape or not np.isfinite(latents).all():
+            raise AssertionError(f"[{tag}] int8 {mode}: latents {latents.shape}, finite={bool(np.isfinite(latents).all())}")
+        out[mode] = counts
+    return out
+
+
 def phase_slice() -> dict:
-    """Drive the full-width pipeline once; return the kernel launch counts."""
+    """Drive the full-width pipeline once in bf16 and once under each int8
+    mode; return {path name: kernel launch counts of that run}."""
     import numpy as np
     import torch
 
@@ -807,7 +1168,8 @@ def phase_slice() -> dict:
     timer = _StageTimer()
     pipe.encode_prompt = timer.wrap("T5 encode", pipe.encode_prompt)
     pipe.vae_encode_sample = timer.wrap("VAE encode + posterior draw", pipe.vae_encode_sample)
-    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_require_finite)
+    final = []  # the latents the decode is given
+    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_keep_finite(final))
     # args: x [B, F, C, H, W], text [B, S_text, D]: the joint [text; video] stream
     hooks = timer.hook_dit(dit, lambda m, a: a[1].shape[1] + a[0].shape[1] * a[0].shape[3] * a[0].shape[4]
                            // m.cfg.patch_size ** 2)
@@ -821,8 +1183,6 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = _read_counts()
-    for h in hooks:
-        h.remove()
 
     for name, ms, dit_ms in timer.rows:
         print(f"[C] {name:<36} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
@@ -843,10 +1203,22 @@ def phase_slice() -> dict:
         raise AssertionError(f"output {video.shape}, finite={bool(np.isfinite(video).all())}")
     print(f"[C] output {video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: PASS", flush=True)
 
+    # the same call under the int8 modes: every DiT attention goes to the int8 kernel, T5's stays where it was
+    by_mode = _int8_reruns(
+        "C", ("qk", "full"),
+        lambda: pipe(image=image, prompt=PROMPT, height=480, width=720, num_frames=9, output_type="latent",
+                     **_alg_kwargs()),
+        timer, timer.rows, final[0],
+        lambda fwd: {"qk_prep": 2 * tcfg.num_layers * fwd, "rope_interleaved": 0,
+                     "flash_attention": t5cfg.num_layers * t5_enc, **_NO_TRAINING,
+                     "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
+    for h in hooks:
+        h.remove()
+
     _headline_forward(dit, gen)
     del dit, t5, vae, pipe
-    torch.cuda.empty_cache()
-    return counts
+    _free_device_memory()
+    return {"cogvideox": counts, **{f"cogvideox_int8_{mode}": n for mode, n in by_mode.items()}}
 
 
 def _headline_forward(dit, gen) -> None:
@@ -888,7 +1260,8 @@ def _seeded_tokenize_mask(vocab_size: int):
 
 
 def phase_slice_wan() -> dict:
-    """Drive the full-width Wan pipeline once; return the kernel launch counts."""
+    """Drive the full-width Wan pipeline once in bf16 and once under int8
+    "qk"; return {path name: kernel launch counts of that run}."""
     import numpy as np
     import torch
 
@@ -921,7 +1294,8 @@ def phase_slice_wan() -> dict:
     pipe.encode_prompt = timer.wrap("UMT5 encode", pipe.encode_prompt)
     pipe._encode_video_condition = timer.wrap("VAE tiled encode of the condition video",
                                               pipe._encode_video_condition)
-    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_require_finite)
+    final = []  # the latents the decode is given
+    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_keep_finite(final))
     clip_tower = timer.wrap("CLIP vision tower", lambda px: clip(px)[-2])
     # args: x [B, C, F, h, w]
     hooks = timer.hook_dit(dit, lambda m, a: a[0].shape[2] * a[0].shape[3] * a[0].shape[4]
@@ -942,8 +1316,6 @@ def phase_slice_wan() -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = _read_counts()
-    for h in hooks:
-        h.remove()
 
     for name, ms, dit_ms in timer.rows:
         print(f"[C2] {name:<40} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
@@ -964,9 +1336,22 @@ def phase_slice_wan() -> dict:
     if video.shape != (1, 9, 480, 832, 3) or not np.isfinite(video).all():
         raise AssertionError(f"output {video.shape}, finite={bool(np.isfinite(video).all())}")
     print(f"[C2] output {video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: PASS", flush=True)
+
+    # the same call under int8 "qk": the self-attention goes to the int8 kernel, the two cross-attentions
+    # (Sq != Sk) and UMT5 stay on the bf16 kernel; the CLIP tower is not run again
+    by_mode = _int8_reruns(
+        "C2", ("qk",),
+        lambda: pipe(image=image, prompt=PROMPT, image_embeds=image_embeds, height=480, width=832, num_frames=9,
+                     output_type="latent", **_alg_kwargs(guidance_scale=5.0, lp_resize_factor=0.4)),
+        timer, timer.rows, final[0],
+        lambda fwd: {"qk_prep": 0, "rope_interleaved": 2 * tcfg.num_layers * fwd,
+                     "flash_attention": 2 * tcfg.num_layers * fwd + UMT5_XXL.num_layers * t5_enc, **_NO_TRAINING,
+                     "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
+    for h in hooks:
+        h.remove()
     del dit, t5, clip, vae, pipe
-    torch.cuda.empty_cache()
-    return counts
+    _free_device_memory()
+    return {"wan": counts, **{f"wan_int8_{mode}": n for mode, n in by_mode.items()}}
 
 
 def _hunyuan_hooks(template, image_token, pad_token, vocab_low, vocab_high, clip_eos):
@@ -1019,7 +1404,8 @@ def _hunyuan_hooks(template, image_token, pad_token, vocab_low, vocab_high, clip
 
 
 def phase_slice_hunyuan() -> dict:
-    """Drive the full-width HunyuanVideo pipeline once; return the kernel launch counts."""
+    """Drive the full-width HunyuanVideo pipeline once in bf16 and once under
+    int8 "full"; return {path name: kernel launch counts of that run}."""
     import numpy as np
     import torch
 
@@ -1055,7 +1441,8 @@ def phase_slice_hunyuan() -> dict:
     hooks = timer.hook_module("Llava (CLIP-L tower, projector, 32 Llama layers)", llava)
     hooks += timer.hook_module("CLIP text", clip)
     vae.encode = timer.wrap("VAE encode of the image", vae.encode)
-    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_require_finite)
+    final = []  # the latents the decode is given
+    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_keep_finite(final))
     text_keys = []
     # args: x [B, C, F, h, w], timestep, text [B, S_text, D], text mask [B, S_text]: the joint [video; text] stream
     hooks += timer.hook_dit(dit, lambda m, a: (text_keys.append(int(a[3].sum())), a[2].shape[1] + a[0].shape[2]
@@ -1073,8 +1460,6 @@ def phase_slice_hunyuan() -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = _read_counts()
-    for h in hooks:
-        h.remove()
 
     for name, ms, dit_ms in timer.rows:
         print(f"[C3] {name:<50} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
@@ -1101,12 +1486,27 @@ def phase_slice_hunyuan() -> dict:
         raise AssertionError(f"output {video.shape}, finite={bool(np.isfinite(video).all())}")
     print(f"[C3] output {video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: PASS", flush=True)
 
+    # the same call under int8 "full" (kv_len at head dim 128): the 60 joint attentions of a forward go to the
+    # int8 kernel, the two refiner blocks (stable=True), Llava and the CLIP text model stay on the bf16 kernel
+    by_mode = _int8_reruns(
+        "C3", ("full",),
+        lambda: pipe(image=image, prompt=PROMPT, height=352, width=608, num_frames=9, output_type="latent",
+                     true_cfg_scale=1.0, i2v_stable=True, **_alg_kwargs(negative_prompt=None, lp_resize_factor=0.625)),
+        timer, timer.rows, final[0],
+        lambda fwd: {"qk_prep": 0, "rope_interleaved": 2 * blocks * fwd,
+                     "flash_attention": tcfg.num_refiner_layers * fwd
+                     + (lcfg.text.num_hidden_layers + lcfg.vision.num_hidden_layers) * llava_runs
+                     + ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING, "flash_attention_int8": blocks * fwd},
+        final[0].shape)
+    for h in hooks:
+        h.remove()
+
     del llava, clip, vae, pipe
-    torch.cuda.empty_cache()
+    _free_device_memory()
     _headline_forward_hunyuan(dit, gen)
     del dit
-    torch.cuda.empty_cache()
-    return counts
+    _free_device_memory()
+    return {"hunyuan": counts, **{f"hunyuan_int8_{mode}": n for mode, n in by_mode.items()}}
 
 
 def _headline_forward_hunyuan(dit, gen) -> None:
@@ -1139,26 +1539,132 @@ def _headline_forward_hunyuan(dit, gen) -> None:
 
 
 # ---------------------------------------------------------------------------
+# C4. the qk prolog's path: attention(prolog=...) at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_prolog_entry() -> dict:
+    """No model passes a prolog (the JAX package's do not either), so the
+    variant's path is the entry point itself: ``attention(q, k, v,
+    stable=False, prolog={...})`` on bf16 tensors of the CogVideoX 9-frame
+    shape (LayerNorm + RoPE) and of the Hunyuan 9-frame joint shape with
+    ``kv_len`` (RMS norm + RoPE), each held against the unfused sequence the
+    DiTs run (norm and RoPE on q and k, then ``attention``). Returns the
+    launch counts of the two calls."""
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.ops.attention import attention
+    from alg_tpu_torch.ops.qk_prep import qk_norm_rope
+    from alg_tpu_torch.ops.rope import rope_interleaved
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    dev, dtype = "cuda", torch.bfloat16
+    s_hy = HY_VIDEO_TOKENS[9] + HY_TEXT_LEN
+    cases = (("layer", (2, 48, 4276, 64), None), ("rms", (1, 24, s_hy, 128), [HY_VIDEO_TOKENS[9] + HY_TEXT_KEYS]))
+    inputs = []
+    for mode, shape, kv_len in cases:
+        s, d = shape[2], shape[3]
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+        ang = torch.rand(s, d // 2, generator=gen, device=dev) * 6.28
+        cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+        prolog = {"norm": mode, "eps": 1e-6, "cos": cos, "sin": sin,
+                  "q_scale": 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev),
+                  "k_scale": 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)}
+        if mode == "layer":
+            prolog.update(q_bias=0.1 * torch.randn(d, generator=gen, device=dev),
+                          k_bias=0.1 * torch.randn(d, generator=gen, device=dev))
+        inputs.append((q, k, v, prolog, None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=dev)))
+    _reset_counts()
+    outs = [attention(q, k, v, kv_len=lens, stable=False, prolog=prolog) for q, k, v, prolog, lens in inputs]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = {name: 0 for name in counts}
+    want.update(flash_attention=2, flash_attention_prolog=2)
+    for (mode, shape, _), (q, k, v, pro, lens), out in zip(cases, inputs, outs):
+        if mode == "layer":
+            q2, k2 = (qk_norm_rope(x, pro[f"{n}_scale"], pro[f"{n}_bias"], pro["cos"], pro["sin"], 1e-6)
+                      for x, n in ((q, "q"), (k, "k")))
+        else:
+            q2, k2 = (rope_interleaved(L.t5_layer_norm(x, pro[f"{n}_scale"], 1e-6), pro["cos"], pro["sin"])
+                      for x, n in ((q, "q"), (k, "k")))
+        ref = attention(q2, k2, v, kv_len=lens, stable=False)
+        size = ref.float().abs().mean().item()
+        tol = (min(TOL["bfloat16"][0], FLASH_BF16_ATOL_SHARE * size), TOL["bfloat16"][1])
+        err, ok = _close(out, ref, tol)
+        ok = ok and out.shape == q.shape and bool(torch.isfinite(out).all())
+        print(f"[C4] attention(prolog={{{mode} norm + RoPE}}) bf16 {shape}: max|diff| against the unfused sequence "
+              f"{err:.3e} (atol {tol[0]:.3g}, rtol {tol[1]:g}, mean|ref| {size:.3e}): {'PASS' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"[C4] the fused prolog disagrees with the unfused sequence at {shape}")
+    print(f"[C4] launches {counts} (want {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"[C4] kernel launches {counts} != {want}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # D. the same path on the card (kernels) and on the CPU (plain versions)
 # ---------------------------------------------------------------------------
 
 
-def _compare_runs(tag, results, want_card) -> None:
+# Card against CPU with int8 attention on, fp32. On the same input the kernel and its plain version agree to
+# the phase-B tolerances (and the on-card tests hold them there at small shapes), but over 4 denoise steps the
+# two runs' activations differ in the last bits (GEMMs in another order), so a q, k, v or P value on a rounding
+# tie takes the neighbouring code in one of them: a K code moves that key's weight in every row by about 1%, a
+# P code moves a weight by 1/127 of the row's largest. The small pipelines attend over 40 to 60 tokens, where
+# one key carries a large share of a row, and their random weights carry a difference of 1e-6 to 1e-4 in the
+# run without int8, so a few flips show in the latents at the size of the mode's own effect (printed beside
+# them: about 2e-2 at the largest, 2e-3 to 5e-3 on the mean). What this phase can hold is therefore coarse:
+# the largest difference to 1e-1, the mean to 1e-2, the decoded frames to the same 40 dB as without int8.
+INT8_LATENT_MAX, INT8_LATENT_MEAN = 1e-1, 1e-2
+
+
+def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None) -> None:
     """``results[dev] = (latents, frames in [0, 1], launch counts)``: the card
-    against the CPU, and the launch counts of both."""
+    against the CPU, and the launch counts of both. ``mean_atol`` also
+    bounds the mean difference; ``exact`` (the CPU latents of the run
+    without int8) is what the int8 mode's own effect is printed against."""
     import numpy as np
 
     (lat_c, fr_c, n_c), (lat_g, fr_g, n_g) = results["cpu"], results["cuda"]
-    err = float(np.abs(lat_g - lat_c).max())
+    err, mean_err = float(np.abs(lat_g - lat_c).max()), float(np.abs(lat_g - lat_c).mean())
     mse = float(np.mean((fr_g.astype(np.float64) - fr_c) ** 2))
     psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
-    want_card = {**want_card, **_NO_TRAINING}
-    ok = err <= 2e-3 and psnr > 40.0 and not any(n_c.values()) and n_g == want_card
-    print(f"[{tag}] small pipeline, card (kernels) vs CPU (plain), fp32: latents max|diff| {err:.3e} (atol 2e-3), "
-          f"frames PSNR {psnr:.1f} dB (> 40), launches card {n_g} (want {want_card}) / CPU {n_c}: "
+    want_card = {**_NO_TRAINING, **want_card}
+    ok = (err <= atol and (mean_atol is None or mean_err <= mean_atol) and psnr > 40.0 and not any(n_c.values())
+          and n_g == want_card)
+    mean_txt = "" if mean_atol is None else f", mean|diff| {mean_err:.3e} (atol {mean_atol:g})"
+    mode_txt = "" if exact is None else (f"; the mode moves the CPU run's latents by max {np.abs(lat_c - exact).max():.3e}, "
+                                         f"mean {np.abs(lat_c - exact).mean():.3e}")
+    print(f"[{tag}] small pipeline, card (kernels) vs CPU (plain), fp32: latents max|diff| {err:.3e} (atol {atol:g})"
+          f"{mean_txt}, frames PSNR {psnr:.1f} dB (> 40){mode_txt}, launches card {n_g} (want {want_card}) / CPU {n_c}: "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"[{tag}] card and CPU runs of the small pipeline disagree")
+
+
+def _small_runs(make_pipe, kw, mode=None) -> dict:
+    """``{dev: (latents, frames, launch counts)}`` of ``make_pipe(dev)(**kw)``
+    on the CPU and on the card, under the int8 attention mode ``mode``."""
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.ops.attention import set_attention_int8
+
+    results = {}
+    set_attention_int8(mode)
+    try:
+        for dev in ("cpu", "cuda"):
+            pipe = make_pipe(dev)
+            _reset_counts()
+            lat = pipe(**kw)
+            frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
+            results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+    finally:
+        set_attention_int8(False)
+    return results
 
 
 def phase_agreement() -> None:
@@ -1186,17 +1692,19 @@ def phase_agreement() -> None:
     image = np.random.RandomState(1).uniform(-1, 1, (1, 3, 64, 64)).astype(np.float32)
     kw = _alg_kwargs(image=image, prompt=PROMPT, height=64, width=64, num_frames=5, max_sequence_length=8,
                      output_type="latent")
-    results = {}
-    for dev in ("cpu", "cuda"):
+
+    def make_pipe(dev):
         dit, t5, vae = (copy.deepcopy(m).to(dev) for m in mods)
-        pipe = CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=_seeded_tokenize(t5cfg.vocab_size),
+        return CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=_seeded_tokenize(t5cfg.vocab_size),
                                  device=dev)
-        _reset_counts()
-        lat = pipe(**kw)
-        frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
-        results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+
     # 4 DiT forwards x 2 layers (2 qk_prep each) + 2 T5 encodes x 2 layers
-    _compare_runs("D", results, {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12})
+    base = _small_runs(make_pipe, kw)
+    _compare_runs("D", base, {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12})
+    for mode in ("qk", "full"):  # the DiT's 8 attentions through the int8 kernel, T5's 4 where they were
+        _compare_runs(f"D int8 {mode}", _small_runs(make_pipe, kw, mode),
+                      {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 4, "flash_attention_int8": 8},
+                      atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])
 
 
 def phase_agreement_wan() -> None:
@@ -1286,18 +1794,20 @@ def phase_agreement_hunyuan() -> None:
     kw = _alg_kwargs(image=image, prompt="a red fox runs", negative_prompt="", height=64, width=64, num_frames=9,
                      true_cfg_scale=2.0, lp_resize_factor=0.625, prompt_template=template, max_sequence_length=20,
                      output_type="latent")
-    results = {}
-    for dev in ("cpu", "cuda"):
+
+    def make_pipe(dev):
         dit, llava, clip, vae = (copy.deepcopy(m).to(dev) for m in mods)
-        pipe = HunyuanVideoPipeline(transformer=dit, vae=vae, llava=llava, clip=clip, tokenize_llama=tok_llama,
+        return HunyuanVideoPipeline(transformer=dit, vae=vae, llava=llava, clip=clip, tokenize_llama=tok_llama,
                                     tokenize_clip=tok_clip, image_processor=image_processor, device=dev)
-        _reset_counts()
-        lat = pipe(**kw)
-        frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
-        results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+
     # 4 DiT forwards x (1 refiner + 1 double + 1 single block; rope on q and k of the last two)
     # + 2 prompt encodes x (3 Llama + 2 CLIP vision + 2 CLIP text layers)
-    _compare_runs("D3", results, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 26})
+    base = _small_runs(make_pipe, kw)
+    _compare_runs("D3", base, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 26})
+    # int8 "full" with kv_len at head dim 128: the double and the single block's joint attention (8 calls)
+    _compare_runs("D3 int8 full", _small_runs(make_pipe, kw, "full"),
+                  {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 18, "flash_attention_int8": 8},
+                  atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])
 
 
 # ---------------------------------------------------------------------------
@@ -1321,7 +1831,8 @@ def _train_step_launches(layers: int) -> dict:
     its forward twice (PyTorch's checkpoint keeps autograd on in the first
     pass, so both write the LSE), then its two backward kernels once."""
     return {"qk_prep": 4 * layers, "rope_interleaved": 0, "flash_attention": 2 * layers,
-            "flash_attention_lse": 2 * layers, "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers}
+            "flash_attention_lse": 2 * layers, "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers,
+            **_NO_OPT_IN}
 
 
 def phase_train_entry() -> dict:
@@ -1540,7 +2051,7 @@ def phase_train_agreement() -> None:
     moved = all(bool(leaf.abs().max() > 0) for leaf in p_g)
     # 3 steps x 2 layers, each block forward run twice under remat
     want = {"qk_prep": 24, "rope_interleaved": 0, "flash_attention": 12, "flash_attention_lse": 12,
-            "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 6}
+            "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 6, **_NO_OPT_IN}
     ok = (loss_err <= 1e-4 and err <= 1e-4 and moved and not any(n_c.values()) and n_g == want and grads_live
           and grad_err <= 1e-4)
     print(f"[E2] small LoRA run of 3 steps, card (kernels) vs CPU (plain), fp32: losses {l_g} vs {l_c}, max rel diff "
@@ -1572,6 +2083,12 @@ _KERNELS = {
                                "flash_bwd_dq_dit", [1, 48, 17776, 64]),
     "flash_attention_bwd_dkv": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:144",
                                 "flash_bwd_dkv_dit", [1, 48, 17776, 64]),
+    # the int8 kernel, "qk" mode, at the shape a 2-pass CogVideoX step gives it; the other mode and shapes ride along
+    "flash_attention_int8": ("alg_tpu_torch/csrc/flash_attention_int8.cu", "alg_tpu/ops/flash_attention_int8.py:109",
+                             "flash_int8_qk_dit", [2, 48, 4276, 64]),
+    # the forward kernel's qk-prolog variant (a compile unit of its own): LayerNorm + RoPE at the CogVideoX shape
+    "flash_attention_prolog": ("alg_tpu_torch/csrc/flash_attention_prolog.cu", "alg_tpu/ops/flash_attention.py:98",
+                               "flash_prolog_layer_rope", [2, 48, 4276, 64]),
 }
 # Other variants of a kernel whose phase-B numbers ride along in its record ("also"): the causal calls
 # and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches.
@@ -1580,7 +2097,11 @@ _ALSO = {"flash_attention": ("flash_llama_causal_kvlen", "flash_clip_text_causal
          "rope_interleaved": ("rope_hunyuan_joint",),
          "flash_attention_lse": tuple("flash_lse_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dq": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
-         "flash_attention_bwd_dkv": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES)}
+         "flash_attention_bwd_dkv": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
+         "flash_attention_int8": tuple(f"flash_int8_{mode}_{tag}" for mode in ("qk", "full", "full_bk64")
+                                       for tag in ("dit", "wan_self", "hunyuan_joint", "kvlen_zero_row")),
+         "flash_attention_prolog": ("flash_prolog_layer_rope", "flash_prolog_rms_rope_stable", "flash_prolog_rope",
+                                    "flash_prolog_layer", "flash_prolog_layer_rope_q_only", "flash_prolog_rms_rope")}
 
 
 def _kernel_json(records, counts_by_path) -> dict:
@@ -1590,7 +2111,8 @@ def _kernel_json(records, counts_by_path) -> dict:
         rec = next(r for r in records if r["name"] == case and r["shape"] == shape and r["dtype"] == "bfloat16")
         by_path = {path: counts[name] for path, counts in counts_by_path.items()}
         also = [{key: r[key] for key in ("name", "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}
+                                         "bound_by", "library_ms", "drift_mean", "drift_max", "quantizers_ms",
+                                         "bf16_flash_ms", "unfused_ms", "flash_alone_ms") if key in r}
                 for case_name in _ALSO.get(name, ()) for r in records if r["name"] == case_name and r is not rec]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": sum(by_path.values()), "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1629,9 +2151,10 @@ def main() -> int:
     try:
         phase_build()
         records = phase_kernels()
-        counts = {"cogvideox": phase_slice()}
-        counts["wan"] = phase_slice_wan()  # after the CogVideoX modules are freed
-        counts["hunyuan"] = phase_slice_hunyuan()  # after the Wan modules are freed
+        counts = phase_slice()  # the bf16 path and the int8 paths over the same pipeline
+        counts.update(phase_slice_wan())  # after the CogVideoX modules are freed
+        counts.update(phase_slice_hunyuan())  # after the Wan modules are freed
+        counts["prolog_entry"] = phase_prolog_entry()
         phase_agreement()
         phase_agreement_wan()
         phase_agreement_hunyuan()
@@ -1642,6 +2165,11 @@ def main() -> int:
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention")),
                               ("wan", ("rope_interleaved", "flash_attention")),
                               ("hunyuan", ("rope_interleaved", "flash_attention")),
+                              ("cogvideox_int8_qk", ("qk_prep", "flash_attention", "flash_attention_int8")),
+                              ("cogvideox_int8_full", ("qk_prep", "flash_attention", "flash_attention_int8")),
+                              ("wan_int8_qk", ("rope_interleaved", "flash_attention", "flash_attention_int8")),
+                              ("hunyuan_int8_full", ("rope_interleaved", "flash_attention", "flash_attention_int8")),
+                              ("prolog_entry", ("flash_attention", "flash_attention_prolog")),
                               ("train_cogvideox", ("qk_prep", "flash_attention", "flash_attention_lse",
                                                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))):
             idle = [k for k in kernels if not counts[path][k]]

@@ -8,7 +8,14 @@ a transposed view, small DiTs, a Llama and a CLIP text model card against
 CPU, and the training kernels: the forward's LSE output and the dq and dkv
 backward kernels at ragged shapes (Sq = 1, Sk = 1, ``kv_len`` 0/1/Sk, causal
 with Sq > Sk, three head dims), the autograd graph that the three kernel
-wrappers keep on the card, and a small LoRA train step card against CPU.
+wrappers keep on the card, and a small LoRA train step card against CPU;
+the int8 attention kernel against its plain version (S = 1, 65 and 1,500,
+``kv_len`` 0 / 1 / S and with whole key blocks masked, both modes, both head
+dims, both dtypes, ``block_k`` 64 and 1,024), its route through
+``set_attention_int8`` and what it refuses, and the flash kernel's qk prolog
+(five combinations of norm, RoPE, ``stable`` and ``prolog_k`` at three head
+dims, alone and with ``kv_len`` and ``causal``, and through
+``attention(prolog=...)`` with and without a gradient).
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -544,3 +551,173 @@ def test_lora_train_step_card_matches_cpu(cuda):
     for a, b in zip(grads[str(cuda)], grads["cpu"]):
         assert float(b.abs().max()) > 0
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
+
+
+# -- int8 attention and the qk prolog ----------------------------------------------------------------------------
+
+
+def _dit_like_qkv(gen, b, h, s, d):
+    """Unit-norm rows times sqrt(D) for q and k, as after a per-head norm, a
+    common-mode offset on k that the mean-centring removes, and normal v."""
+    q, k = (_randn(gen, b, h, s, d) for _ in range(2))
+    q, k = (t / t.norm(dim=-1, keepdim=True) * d ** 0.5 for t in (q, k))
+    return q, k + 3.0 * _randn(gen, b, h, 1, d), _randn(gen, b, h, s, d)
+
+
+INT8_CASES = {
+    "one-row": dict(b=2, h=2, s=1, kv_len=None),
+    "s65": dict(b=1, h=3, s=65, kv_len=None),
+    "s1500": dict(b=2, h=2, s=1500, kv_len=None),  # no multiple of 64, 512 or 1024
+    "kvlen-0-1-s": dict(b=3, h=2, s=200, kv_len=[0, 1, 200]),
+    "kvlen-blocks-past": dict(b=2, h=2, s=1100, kv_len=[70, 1030]),  # whole tiles and a whole key block masked
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_CASES))
+@pytest.mark.parametrize("block_k", [64, 1024], ids=["bk64", "bk1024"])
+@pytest.mark.parametrize("pv_int8", [False, True], ids=["qk", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_int8_kernel_matches_plain(cuda, case, block_k, pv_int8, d, dtype):
+    """The int8 kernel against its plain version on the card. fp32 ``"qk"``:
+    atol 2e-5 + rtol 2e-5 (the same codes and scales; only the order of the
+    fp32 sums differs). ``"full"``: mean under 1e-5 and max under 2e-3, since
+    a P code on a rounding tie may flip (one code is 1/127 of a row's largest
+    p). bf16: the bf16 attention tolerance (the kernel keeps P in fp32, the
+    plain version rounds it)."""
+    from alg_tpu_torch.ops import flash_attention_int8 as I8
+
+    c = INT8_CASES[case]
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (t.to(cuda, dtype) for t in _dit_like_qkv(gen, c["b"], c["h"], c["s"], d))
+    kv_len = None if c["kv_len"] is None else torch.tensor(c["kv_len"], dtype=torch.int32, device=cuda)
+    before = I8.flash_attention_int8.launches
+    out = I8.flash_attention_int8(q, k, v, d ** -0.5, block_q=128, block_k=block_k, pv_int8=pv_int8, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert I8.flash_attention_int8.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all())
+    ref = I8.flash_attention_int8_plain(q, k, v, d ** -0.5, 128, block_k, pv_int8, kv_len)
+    if dtype == torch.bfloat16:
+        _assert_close_flash(out, ref, dtype)
+    elif pv_int8:
+        err = (out - ref).abs()
+        assert err.mean().item() < 1e-5 and err.max().item() < 2e-3, (err.mean().item(), err.max().item())
+    else:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    if kv_len is not None:
+        for i, n in enumerate(c["kv_len"]):
+            if n == 0:
+                assert not out[i].any()  # no key left: a zero row
+            if n == 1:
+                _assert_close(out[i], v[i, :, :1].expand_as(out[i]), dtype)
+    # mean drift against exact attention on this distribution, the JAX package's own bound (its bound on the
+    # largest error was set at S = 512 with 256-key blocks; one P scale over 1,024 keys is coarser)
+    exact = FA.attention_plain(q.float(), k.float(), v.float(), d ** -0.5, None, kv_len)
+    rms = exact.pow(2).mean().sqrt().item()
+    if rms > 0 and dtype == torch.float32:
+        assert (out - exact).abs().mean().item() / rms < (3e-2 if pv_int8 else 2e-2)
+
+
+def test_int8_route_and_refusals_on_the_card(cuda):
+    """``set_attention_int8`` sends a qualifying CUDA call to the int8 kernel
+    and leaves the others on the bf16 kernel; what the int8 kernel does not
+    take raises and launches nothing."""
+    from alg_tpu_torch.ops import attention as A
+    from alg_tpu_torch.ops import flash_attention_int8 as I8
+
+    gen = torch.Generator().manual_seed(12)
+    q, k, v = (t.to(cuda) for t in _dit_like_qkv(gen, 1, 2, 96, 64))
+    A.set_attention_int8("full")
+    try:
+        counts = (I8.flash_attention_int8.launches, FA.flash_attention.launches)
+        out = A.attention(q, k, v, stable=False)
+        assert (I8.flash_attention_int8.launches, FA.flash_attention.launches) == (counts[0] + 1, counts[1])
+        torch.testing.assert_close(out, I8.flash_attention_int8(q, k, v, 64 ** -0.5, pv_int8=True))
+        A.attention(q, k, v)  # stable: the text and vision encoders' calls
+        A.attention(q, k, v, stable=False, causal=True)
+        A.attention(q, k[:, :, :50], v[:, :, :50], stable=False)
+        assert (I8.flash_attention_int8.launches, FA.flash_attention.launches) == (counts[0] + 2, counts[1] + 3)
+        wide = torch.zeros(1, 2, 96, 80, device=cuda)
+        with pytest.raises(ValueError, match="D in"):
+            A.attention(wide, wide, wide, stable=False)  # it does not quietly take the bf16 kernel
+        with pytest.raises(RuntimeError, match="requires a gradient"):
+            A.attention(q.clone().requires_grad_(), k, v, stable=False)
+    finally:
+        A.set_attention_int8(False)
+    with pytest.raises(ValueError, match="self-attention"):
+        I8.flash_attention_int8(q, k[:, :, :50], v[:, :, :50], 0.125)
+    with pytest.raises(ValueError, match="multiple of"):
+        I8.flash_attention_int8(q, k, v, 0.125, block_k=96)
+    with pytest.raises(TypeError):
+        I8.flash_attention_int8(q.half(), k.half(), v.half(), 0.125)
+    assert I8.flash_attention_int8.launches == counts[0] + 2
+
+
+PROLOG_MODES = [("layer", True, False, True), ("rms", True, True, True), (None, True, False, True),
+                ("layer", False, False, True), ("layer", True, False, False)]
+
+
+@pytest.mark.parametrize("mode,has_rope,stable,prolog_k", PROLOG_MODES,
+                         ids=["layer-rope", "rms-rope-stable", "rope", "layer", "layer-rope-q-only"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_flash_kernel_with_the_qk_prolog(cuda, mode, has_rope, stable, prolog_k, d, dtype):
+    """The prolog variant at a ragged S against ``apply_prolog_plain`` and
+    the plain attention, alone and with ``kv_len`` and ``causal``; fp32 atol
+    5e-6 + rtol 1e-5, bf16 the bf16 attention tolerance."""
+    gen = torch.Generator().manual_seed(13)
+    b, h, s = 2, 3, 300
+    q, k, v = (_randn(gen, b, h, s, d).to(cuda, dtype) for _ in range(3))
+    ang = torch.rand(s, d // 2, generator=gen) * 3
+    cos, sin = (f(ang).repeat_interleave(2, -1).contiguous().to(cuda) for f in (torch.cos, torch.sin))
+    qs, qb, ks, kb = (torch.rand(d, generator=gen).to(cuda) for _ in range(4))
+    prolog = {"norm": mode, "eps": 1e-6, "q_scale": qs, "q_bias": qb, "k_scale": ks, "k_bias": kb}
+    if has_rope:
+        prolog["cos"], prolog["sin"] = cos, sin
+    qr, kr = FA.apply_prolog_plain(q, k, prolog)
+    kwargs = dict(qk_norm=mode, norm_eps=1e-6, q_norm_scale=qs if mode else None,
+                  q_norm_bias=qb if mode == "layer" else None, rope_cos=cos if has_rope else None,
+                  rope_sin=sin if has_rope else None, prolog_k=prolog_k)
+    if prolog_k:
+        kwargs.update(k_norm_scale=ks if mode else None, k_norm_bias=kb if mode == "layer" else None)
+    k_in = k if prolog_k else kr  # the caller brings k transformed when only the q side is fused
+    kv_len = torch.tensor([s, 77], dtype=torch.int32, device=cuda)
+    for extra in (dict(), dict(kv_len=kv_len), dict(causal=True)):
+        counts = (FA.flash_attention.launches, FA.flash_attention.prolog_launches)
+        out = FA.flash_attention(q, k_in, v, d ** -0.5, stable=stable, **kwargs, **extra)
+        torch.cuda.synchronize()
+        assert (FA.flash_attention.launches, FA.flash_attention.prolog_launches) == (counts[0] + 1, counts[1] + 1)
+        ref = FA.attention_plain(qr, kr, v, d ** -0.5, None, extra.get("kv_len"), extra.get("causal", False))
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, atol=5e-6, rtol=1e-5)
+        else:
+            _assert_close_flash(out, ref, dtype)
+
+
+def test_attention_prolog_on_the_card(cuda):
+    """``attention(prolog=...)`` launches the prolog variant for a call
+    without a gradient, and with one applies the plain composition and
+    differentiates through the backward kernels; both agree with the CPU."""
+    from alg_tpu_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(14)
+    q, k, v = (_randn(gen, 1, 2, 130, 128) for _ in range(3))
+    ang = torch.rand(130, 64, generator=gen) * 3
+    prolog = {"norm": "rms", "eps": 1e-6, "q_scale": torch.rand(128, generator=gen),
+              "k_scale": torch.rand(128, generator=gen), "cos": torch.cos(ang).repeat_interleave(2, -1),
+              "sin": torch.sin(ang).repeat_interleave(2, -1)}
+    on_card = {name: t.to(cuda) if torch.is_tensor(t) else t for name, t in prolog.items()}
+    ref = A.attention(q, k, v, stable=False, prolog=prolog)
+    before = FA.flash_attention.prolog_launches
+    out = A.attention(q.to(cuda), k.to(cuda), v.to(cuda), stable=False, prolog=on_card)
+    assert FA.flash_attention.prolog_launches == before + 1
+    torch.testing.assert_close(out.cpu(), ref, atol=5e-6, rtol=1e-5)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().clone().to(dev).requires_grad_() for t in (q, k, v, prolog["q_scale"])]
+        pro = {**{name: t.to(dev) if torch.is_tensor(t) else t for name, t in prolog.items()}, "q_scale": leaves[3]}
+        A.attention(*leaves[:3], stable=False, prolog=pro).square().sum().backward()
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    assert FA.flash_attention.prolog_launches == before + 1  # the differentiable call launches no prolog kernel
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)

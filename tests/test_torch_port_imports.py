@@ -26,7 +26,8 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.models.hunyuan.vae", "alg_tpu_torch.pipelines.hunyuan",
             "alg_tpu_torch.ops.flash_attention_bwd", "alg_tpu_torch.core.remat", "alg_tpu_torch.io.lora",
             "alg_tpu_torch.training.losses", "alg_tpu_torch.training.lora", "alg_tpu_torch.training.train",
-            "alg_tpu_torch.training.checkpoint", "alg_tpu_torch.training.data"} <= set(mods)
+            "alg_tpu_torch.training.checkpoint", "alg_tpu_torch.training.data",
+            "alg_tpu_torch.ops.flash_attention_int8", "alg_tpu_torch.ops.attention"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
