@@ -1,7 +1,9 @@
-// Flash-attention forward, the calls without a qk prolog: the kernels and C
-// entry points over the body in flash_attention.cuh, which says what is
-// computed and how. The build reads the next line and makes one object per
-// head dim, each with its own C entry point.
+// Flash-attention forward, the fp32 calls without a qk prolog: the kernels
+// and C entry points over the body in flash_attention.cuh, which says what is
+// computed and how. bf16 calls without a prolog run on the tensor cores
+// (flash_attention_tc.cu); this entry point refuses them, so that none lands
+// here unseen. The build reads the next line and makes one object per head
+// dim, each with its own C entry point.
 //
 // build-variants: ALG_FLASH_HEAD_DIM=64,80,128
 #include "flash_attention.cuh"
@@ -48,11 +50,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* bi
 }  // namespace
 
 // alg_flash_attention_fwd_d<D>. q/out: [B, H, Sq, D], k/v: [B, H, Sk, D],
-// contiguous, of `dtype`. bias: null, or fp32 with element (b, h, i, j) at
-// b·bias_b_stride + (h·Sq + i)·Sk + j (bias_b_stride 0 broadcasts one
-// [H, Sq, Sk] bias over the batch). kv_len: null, or int32 [B] on the
-// device: batch row b attends to its first kv_len[b] keys (clamped to
-// [0, Sk]). causal != 0: query i also sees no key past i + (Sk - Sq). lse:
+// contiguous fp32 (`dtype` alg::kFloat32; bf16 returns cudaErrorInvalidValue:
+// it goes to alg_flash_attention_tc_fwd_d<D>). bias: null, or fp32 with
+// element (b, h, i, j) at b·bias_b_stride + (h·Sq + i)·Sk + j (bias_b_stride
+// 0 broadcasts one [H, Sq, Sk] bias over the batch). kv_len: null, or int32
+// [B] on the device: batch row b attends to its first kv_len[b] keys
+// (clamped to [0, Sk]). causal != 0: query i also sees no key past i + (Sk - Sq). lse:
 // null, or fp32 [B, H, Sq] that receives each row's base-2 log-sum-exp.
 // Returns the launch's cudaError_t.
 extern "C" int ALG_CAT(alg_flash_attention_fwd_d, ALG_FLASH_HEAD_DIM)(
@@ -67,10 +70,7 @@ extern "C" int ALG_CAT(alg_flash_attention_fwd_d, ALG_FLASH_HEAD_DIM)(
     case alg::kFloat32:
       return (int)dispatch<float>(q, k, v, bias, bias_b_stride, kv_len, out, lse, batch, heads, sq,
                                   sk, causal_offset, scale, stable != 0, st);
-    case alg::kBFloat16:
-      return (int)dispatch<__nv_bfloat16>(q, k, v, bias, bias_b_stride, kv_len, out, lse, batch,
-                                          heads, sq, sk, causal_offset, scale, stable != 0, st);
-    default:
+    default:  // bf16 runs on the tensor cores: alg_flash_attention_tc_fwd_d<D>
       return (int)cudaErrorInvalidValue;
   }
 }

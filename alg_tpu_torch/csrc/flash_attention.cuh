@@ -1,6 +1,6 @@
 // Flash-attention forward over [B, H, S, D], online softmax in base 2, for
 // one head dim D fixed at compile time (ALG_FLASH_HEAD_DIM): the body shared by
-// flash_attention.cu (every call without a qk prolog) and
+// flash_attention.cu (the fp32 calls without a qk prolog) and
 // flash_attention_prolog.cu (the calls with one). Each of the two is its own
 // compile unit with its own kernels, so that the code a call without a prolog
 // launches does not depend on the prolog's.
@@ -72,9 +72,9 @@
 // products is what a tensor of the activation type would hold.
 //
 // Bound on the H100: tensor-core FLOPs (4·H·D·Σ visible keys per call). This
-// version runs on the CUDA cores in fp32 FMAs for both bf16 and fp32 inputs,
-// so it sits far below the tensor-core roof; mma/wgmma tiles, TMA staging
-// and warp specialisation are later work.
+// body runs on the CUDA cores in fp32 FMAs: the fp32 calls (flash_attention.cu)
+// and the prolog calls in both types (flash_attention_prolog.cu). bf16 calls
+// without a prolog run on the tensor cores (flash_attention_tc.cu).
 #pragma once
 
 #include <math.h>

@@ -5,9 +5,10 @@
 // build-variants: ALG_FLASH_HEAD_DIM=64,80,128
 //
 // Replaces the TPU kernels alg_tpu/ops/flash_attention_bwd.py:_dq_kernel and
-// :_dkv_kernel (dense, causal, kv_len, Sq != Sk). Given q, k, v, the output
-// cotangent dO, the forward's base-2 row log-sum-exp `lse` and
-// delta_i = rowsum(dO_i ⊙ O_i), both fp32 [B, H, Sq]:
+// :_dkv_kernel (dense, causal, kv_len, Sq != Sk): dq for fp32 and bf16, dkv
+// for fp32 (bf16 dkv runs on the tensor cores, flash_attention_bwd_tc.cu).
+// Given q, k, v, the output cotangent dO, the forward's base-2 row
+// log-sum-exp `lse` and delta_i = rowsum(dO_i ⊙ O_i), both fp32 [B, H, Sq]:
 //
 //   s_ij  = (q_i·k_j)·scale·log2e, masked like the forward: key j is visible
 //           to query i of batch b iff j < min(Sk, kv_len[b]) and, when causal,
@@ -48,7 +49,7 @@
 //
 // Bound on the H100: tensor-core FLOPs (dq three products, 6·H·D per visible
 // (query, key) pair; dkv four, 8·H·D). These kernels run on the CUDA cores,
-// far below that roof; mma/wgmma tiles are later work.
+// far below that roof; dq on the tensor cores is later work.
 #include <math.h>
 #include <stdint.h>
 
@@ -392,7 +393,9 @@ bool bad_shape(int batch, int heads, int sq, int sk) {
 // lse/delta: fp32 [B, H, Sq] (lse in base 2 of the scaled logits, -inf on a
 // row with no visible key); kv_len: null, or int32 [B] on the device; causal
 // != 0 hides from query i the keys past i + (Sk - Sq). `scale` is the
-// softmax scale of the forward. Each returns its launch's cudaError_t.
+// softmax scale of the forward. Each returns its launch's cudaError_t. The
+// dkv entry takes fp32 only (bf16 returns cudaErrorInvalidValue: it goes to
+// alg_flash_attention_bwd_dkv_tc_d<D> in flash_attention_bwd_tc.cu).
 extern "C" int ALG_CAT(alg_flash_attention_bwd_dq_d, ALG_FLASH_HEAD_DIM)(
     int dtype, const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* kv_len, void* dq, int batch, int heads, int sq, int sk, float scale,
@@ -423,10 +426,7 @@ extern "C" int ALG_CAT(alg_flash_attention_bwd_dkv_d, ALG_FLASH_HEAD_DIM)(
     case alg::kFloat32:
       return (int)launch_dkv<float>(q, k, v, dout, lse, delta, kv_len, dk, dv, batch, heads, sq, sk,
                                     causal_offset, scale, st);
-    case alg::kBFloat16:
-      return (int)launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, kv_len, dk, dv, batch, heads, sq,
-                                            sk, causal_offset, scale, st);
-    default:
+    default:  // bf16 runs on the tensor cores: alg_flash_attention_bwd_dkv_tc_d<D>
       return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,9 +7,10 @@ relative-position bias (``scale=1.0``, ``stable=True``; UMT5 with the
 prompt's ``kv_len``), the CLIP vision towers', the Hunyuan token refiner's
 (``kv_len``), and the causal ones: Llama's (with ``kv_len``) and the CLIP
 text encoder's. A call that needs no gradient goes straight to
-:func:`alg_tpu_torch.ops.flash_attention.flash_attention`, which picks the
-CUDA kernel or, for CPU tensors, the plain version, and launches exactly
-what an inference call launches. A call with an input that requires a
+:func:`alg_tpu_torch.ops.flash_attention.flash_attention`, which picks a
+CUDA kernel (bf16 on the tensor cores, fp32 and prolog calls on the CUDA
+cores) or, for CPU tensors, the plain version, and launches exactly what an
+inference call launches. A call with an input that requires a
 gradient goes through
 :class:`alg_tpu_torch.ops.flash_attention_bwd.FlashAttentionFunction`: the
 same forward kernel with its LSE output, and the dq and dkv kernels in the

@@ -1,10 +1,14 @@
-"""Flash-attention forward: the CUDA kernel and its plain PyTorch version.
+"""Flash-attention forward: the CUDA kernels and their plain PyTorch version.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` (with a qk prolog
-``csrc/flash_attention_prolog.cu``; both are thin units over the body in
-``csrc/flash_attention.cuh``) for CUDA tensors and runs
-:func:`attention_plain` for CPU tensors; any other device raises.
-The kernel replaces the TPU kernel
+``flash_attention`` picks its implementation in :func:`route`: CPU tensors
+run :func:`attention_plain`; CUDA bf16 tensors without a qk prolog launch the
+tensor-core kernel ``csrc/flash_attention_tc.cu`` (``mma.sync`` with
+``ldmatrix`` and ``cp.async``); CUDA fp32 tensors, and every call with a
+prolog, launch the CUDA-core kernels ``csrc/flash_attention.cu`` (fp32 only)
+and ``csrc/flash_attention_prolog.cu``, thin units over the body in
+``csrc/flash_attention.cuh``; anything else raises. There is no fallback
+between them: a kernel that fails to build or launch raises.
+The kernels replace the TPU kernel
 ``alg_tpu/ops/flash_attention.py:_fwd_kernel`` at head dims 64, 80 and 128:
 ``stable`` (running max) or not (bounded logits, the DiTs' fast path),
 Sq != Sk (cross-attention), an optional additive fp32 bias
@@ -39,8 +43,10 @@ fp32 logits times ``scale`` plus ``bias``, keys past the causal diagonal or
 at or past ``kv_len`` masked to -inf, an fp32 softmax, probabilities cast to
 the value dtype, then ``P·V``. A row with no visible key (``kv_len`` 0, or a
 causal row when Sq > Sk) comes out as zeros, as from the kernels on both
-machines; ``_xla_attention`` gives NaN there. The kernel keeps P in fp32, so
-in bf16 the two differ by the rounding of P and of the output.
+machines; ``_xla_attention`` gives NaN there. The tensor-core kernel rounds
+the unnormalised P to bf16 before P·V, as the TPU kernel does; the plain
+version rounds the normalised probabilities, and the CUDA-core body keeps P
+in fp32, so in bf16 they differ by those roundings and that of the output.
 :func:`attention_plain_residuals` mirrors ``_xla_attention_residuals`` (base-2
 logits, explicit max, the LSE beside the output), with ``causal`` and ``bias``
 as well.
@@ -142,10 +148,33 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong] + [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float, _INT, _INT]
 
 
+# the C entry point of each route, "{d}" the head dim
+_ENTRY_NAMES = {"tc": "alg_flash_attention_tc_fwd_d{d}", "cuda_core": "alg_flash_attention_fwd_d{d}",
+                "prolog": "alg_flash_attention_prolog_fwd_d{d}"}
+
+
+def route(q: torch.Tensor, prolog: bool = False) -> str:
+    """Which implementation a call on ``q`` takes: ``"plain"`` for a CPU
+    tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for bf16 without
+    a qk prolog, ``"cuda_core"`` for fp32 without one and ``"prolog"`` (the
+    CUDA-core prolog kernel) for either type with one. Raises for any other
+    device or dtype."""
+    if q.device.type == "cpu":
+        return "plain"
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+    if q.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
+    if prolog:
+        return "prolog"
+    return "tc" if q.dtype == torch.bfloat16 else "cuda_core"
+
+
 @functools.cache
-def _entry(head_dim: int, prolog: bool = False):
-    """The C entry point of a head dim: the plain forward's, or the one with the qk prolog."""
-    fn = getattr(_build.load(), f"alg_flash_attention_{'prolog_' if prolog else ''}fwd_d{head_dim}")
+def _entry(head_dim: int, which: str):
+    """The C entry point of a head dim for a route of :func:`route`."""
+    fn = getattr(_build.load(), _ENTRY_NAMES[which].format(d=head_dim))
+    prolog = which == "prolog"
     fn.argtypes = _FWD_ARGTYPES + ([_INT, ctypes.c_float] + [_PTR] * 6 + [_INT] if prolog else []) + [_PTR]
     fn.restype = _INT
     return fn
@@ -225,8 +254,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
     ``stable=False`` skips the running max: exact in fp32 while
     |logit·log2e| stays well below 126, which trained DiT attention does.
-    CPU tensors take the plain version; CUDA tensors the kernel, or raise.
-    No autograd graph is recorded here (see ``ops/attention.py``)."""
+    CPU tensors take the plain version; CUDA tensors a kernel (see
+    :func:`route`), or raise. No autograd graph is recorded here (see
+    ``ops/attention.py``)."""
     if qk_norm not in NORM_CODE:
         raise ValueError(f"qk_norm must be 'layer' or 'rms', got {qk_norm!r}")
     if rope_cos is not None and q.shape[2] != k.shape[2]:
@@ -235,14 +265,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if qk_norm is not None or rope_cos is not None or rope_sin is not None:
         prolog = {"norm": qk_norm, "eps": norm_eps, "q_scale": q_norm_scale, "q_bias": q_norm_bias,
                   "k_scale": k_norm_scale, "k_bias": k_norm_bias, "cos": rope_cos, "sin": rope_sin}
-    if q.device.type == "cpu":
+    which = route(q, prolog is not None)
+    if which == "plain":
         if prolog is not None:
             q, k = apply_prolog_plain(q, k, prolog, prolog_k)
         if return_residuals:
             return attention_plain_residuals(q, k, v, scale, bias, kv_len, causal)
         return attention_plain(q, k, v, scale, bias, kv_len, causal)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v, bias, kv_len)
     prolog_args = ()
     if prolog is not None:
@@ -261,22 +290,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         bias_b_stride = 0 if bias.shape[0] == 1 else h * sq * k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry(d, prolog is not None)(
+        rc = _entry(d, which)(
             _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_b_stride,
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, h, sq, k.shape[2],
             float(scale), int(stable), int(causal), *prolog_args, stream,
         )
-    _build.check(rc, "flash-attention kernel")
+    _build.check(rc, f"flash-attention kernel ({which})")
     flash_attention.launches += 1
-    if prolog is not None:
-        flash_attention.prolog_launches += 1
+    flash_attention.launches_by_route[which] += 1
     if return_residuals:
         flash_attention.residual_launches += 1
         return out, lse
     return out
 
 
-flash_attention.launches = 0  # every launch of the forward kernel
+flash_attention.launches = 0  # every launch of the forward kernels
+flash_attention.launches_by_route = {"tc": 0, "cuda_core": 0, "prolog": 0}  # the same launches by route()
 flash_attention.residual_launches = 0  # those of them that also wrote the LSE
-flash_attention.prolog_launches = 0  # those of them that ran the qk prolog

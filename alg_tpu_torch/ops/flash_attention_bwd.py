@@ -1,11 +1,14 @@
-"""Flash-attention backward: the two CUDA kernels, their plain PyTorch
+"""Flash-attention backward: the CUDA kernels, their plain PyTorch
 version, and the differentiable attention ``torch.autograd.Function``.
 
-``flash_attention_bwd`` launches the two kernels of
-``csrc/flash_attention_bwd.cu`` through their wrappers
-``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` for CUDA tensors,
-and those run their plain versions for CPU tensors; any other device raises.
-The kernels replace the TPU kernels
+``flash_attention_bwd`` launches the dq and dkv kernels through their
+wrappers ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` for CUDA
+tensors, and those run their plain versions for CPU tensors; any other
+device raises. dq runs the CUDA-core kernel of ``csrc/flash_attention_bwd.cu``
+in both types. dkv picks its kernel in :func:`dkv_route`: bf16 the
+tensor-core kernel ``csrc/flash_attention_bwd_tc.cu`` (``mma.sync`` with
+``ldmatrix`` and ``cp.async``), fp32 the CUDA-core one; there is no fallback
+between them. The kernels replace the TPU kernels
 ``alg_tpu/ops/flash_attention_bwd.py:_dq_kernel`` and ``:_dkv_kernel`` at head
 dims 64, 80 and 128: dense, ``causal``, ``kv_len``, Sq != Sk. From q, k, v,
 the forward's output ``o`` and base-2 row log-sum-exp ``lse`` and the output
@@ -17,9 +20,11 @@ cotangent ``do``::
 
 ``delta`` is one fp32 PyTorch reduction outside the kernels, as the JAX
 package computes it outside its Pallas kernels. A row with no visible key
-(``lse = -inf``) gets ``dq = 0`` and adds nothing to ``dk``/``dv``. The
-kernels keep P and dS in fp32 for the second products; the JAX package casts
-them to the value dtype first, so in bf16 the two differ by that rounding.
+(``lse = -inf``) gets ``dq = 0`` and adds nothing to ``dk``/``dv``. The dkv
+kernels and their plain version round P and dS to the input dtype before the
+products that make dv and dk, as the JAX package's dkv kernel does (an
+identity in fp32); the dq kernel and its plain version keep dS in fp32 where
+the JAX package rounds it, so in bf16 dq differs by that rounding.
 
 :class:`FlashAttentionFunction` is the counterpart of
 ``alg_tpu/ops/flash_attention_bwd.py:flash_attention_diff``: its forward is
@@ -63,10 +68,12 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale: float, causal: 
 
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool = False,
                                   kv_len: Optional[torch.Tensor] = None):
-    """The dkv kernel's arithmetic, step by step in fp32: ``(dk, dv)``."""
+    """The dkv kernel's arithmetic, step by step in fp32: ``(dk, dv)``. P and
+    dS are rounded to the dtype of ``do`` and ``q`` before their products, as
+    ``alg_tpu``'s ``_dkv_kernel`` casts them."""
     p, ds = _p_ds_plain(q, k, v, do, lse, delta, scale, causal, kv_len)
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
-    return dk.to(k.dtype), torch.matmul(p.transpose(-1, -2), do.float()).to(v.dtype)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * scale
+    return dk.to(k.dtype), torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float()).to(v.dtype)
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -82,17 +89,33 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float, causal: bool = 
             *flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal, kv_len))
 
 
+# the C entry point of each kernel, "{d}" the head dim: dq, and dkv by the route of dkv_route
+_ENTRY_NAMES = {"dq": "alg_flash_attention_bwd_dq_d{d}", "dkv_tc": "alg_flash_attention_bwd_dkv_tc_d{d}",
+                "dkv_cuda_core": "alg_flash_attention_bwd_dkv_d{d}"}
+
+
+def dkv_route(q: torch.Tensor) -> str:
+    """Which implementation a dkv call on ``q`` takes: ``"plain"`` for a CPU
+    tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for bf16 and
+    ``"cuda_core"`` for fp32. Raises for any other device or dtype."""
+    if q.device.type == "cpu":
+        return "plain"
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
+    if q.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"flash backward kernels take float32 or bfloat16, got {q.dtype}")
+    return "tc" if q.dtype == torch.bfloat16 else "cuda_core"
+
+
 @functools.cache
-def _entries(head_dim: int):
-    lib = _build.load()
-    dq = getattr(lib, f"alg_flash_attention_bwd_dq_d{head_dim}")
-    dq.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+def _entry(head_dim: int, which: str):
+    """The C entry point of a head dim: ``"dq"``, ``"dkv_tc"`` or ``"dkv_cuda_core"``."""
+    fn = getattr(_build.load(), _ENTRY_NAMES[which].format(d=head_dim))
+    n_out = 1 if which == "dq" else 2
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    dkv = getattr(lib, f"alg_flash_attention_bwd_dkv_d{head_dim}")
-    dkv.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    dq.restype = dkv.restype = ctypes.c_int
-    return dq, dkv
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_bwd(q, k, v, do, lse, delta, kv_len):
@@ -110,13 +133,13 @@ def _check_bwd(q, k, v, do, lse, delta, kv_len):
 
 def _launch(which, outs, q, k, v, do, lse, delta, scale, causal, kv_len):
     b, h, sq, d = q.shape
-    entry = _entries(d)[which]
+    entry = _entry(d, which)
     with torch.cuda.device(q.device):
         rc = entry(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                    lse.data_ptr(), delta.data_ptr(), None if kv_len is None else kv_len.data_ptr(),
                    *(t.data_ptr() for t in outs), b, h, sq, k.shape[2], float(scale), int(causal),
                    torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, f"flash-attention {('dq', 'dkv')[which]} kernel")
+    _build.check(rc, f"flash-attention {which} kernel")
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool = False,
@@ -129,7 +152,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool =
         raise RuntimeError(f"flash_attention_bwd_dq: no kernel for device {q.device}")
     _check_bwd(q, k, v, do, lse, delta, kv_len)
     dq = torch.empty_like(q)
-    _launch(0, (dq,), q, k, v, do, lse, delta, scale, causal, kv_len)
+    _launch("dq", (dq,), q, k, v, do, lse, delta, scale, causal, kv_len)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -137,20 +160,21 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool =
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool = False,
                             kv_len: Optional[torch.Tensor] = None):
     """``(dk, dv)`` from ``lse`` and ``delta``. CPU tensors take the plain
-    version; CUDA tensors the kernel, or raise."""
-    if q.device.type == "cpu":
+    version; CUDA tensors a kernel (see :func:`dkv_route`), or raise."""
+    which = dkv_route(q)
+    if which == "plain":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal, kv_len)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
     _check_bwd(q, k, v, do, lse, delta, kv_len)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(1, (dk, dv), q, k, v, do, lse, delta, scale, causal, kv_len)
+    _launch("dkv_" + which, (dk, dv), q, k, v, do, lse, delta, scale, causal, kv_len)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_by_route[which] += 1
     return dk, dv
 
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_route = {"tc": 0, "cuda_core": 0}  # the same launches by dkv_route()
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,

@@ -10,9 +10,13 @@ Phases, each of which must pass:
   A.  build: compile ``alg_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into
       ``alg_tpu_torch/_build/`` (ops/_build.py; one nvcc process per compile
       unit, side by side) and print the build time and the compiler's
-      register/shared-memory report;
+      register/shared-memory report; then ``cuobjdump -sass`` of the library:
+      every kernel of the two tensor-core entry points (the bf16 forward and
+      dkv) must hold HMMA instructions, whose count is printed per kernel;
   B.  kernels: each CUDA kernel against its plain PyTorch version on the
-      card, in bf16 and fp32 (fp32 with TF32 off), at the shapes of the
+      card, in bf16 and fp32 (fp32 with TF32 off; bf16 attention without a
+      prolog and bf16 dkv run the tensor-core kernels, fp32 the CUDA-core
+      ones), at the shapes of the
       CogVideoX, Wan and HunyuanVideo main paths (the causal attention of
       Llama and the CLIP text encoder among them, and one square causal call
       beside its dense twin, which shows the skipped tiles); prints
@@ -105,15 +109,18 @@ Phases, each of which must pass:
       adapters with A and B nonzero within 1e-4 of each leaf's largest value.
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only the
-dense flash calls of phase B at head dims 64 and 128 (for comparing two
-trees on one card; it prints no result line).
+dense flash calls of phase B at head dims 64 and 128 and the training
+kernels at ``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 (for comparing
+two trees on one card, the parent's too: it does not require the
+tensor-core kernels; it prints no result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
-before the last line (one entry a kernel; the int8 kernel and the flash
-kernel's qk-prolog variant, which is a compile unit of its own, have entries
-of their own; ``launches_by_path`` names the run each count comes from, the
-int8 runs of the three pipelines among them; ``also`` carries the other
-shapes and modes), and as the last line
+before the last line (one entry a kernel; the tensor-core forward and dkv
+kernels (bf16 records), the CUDA-core ones (fp32 records), the int8 kernel
+and the flash kernel's qk-prolog variant, each a compile unit of its own,
+have entries of their own; ``launches_by_path`` names the run each count
+comes from, the int8 runs of the three pipelines among them; ``also``
+carries the other shapes and modes), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, without that line, if there is no CUDA device, the port
 cannot be imported, or any phase fails.
@@ -177,18 +184,58 @@ def _set_tf32(matmul: bool, cudnn: bool) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_build() -> None:
+# The tensor-core kernels, by the C entry point that launches them and a part of their kernels' names.
+TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": "flash_fwd_tc_kernel",
+              "alg_flash_attention_bwd_dkv_tc_d<D>": "flash_bwd_dkv_tc_kernel"}
+
+
+def _sass_hmma(lib) -> dict:
+    """{kernel: HMMA instructions in its SASS} for every kernel of the built library (``cuobjdump -sass``)."""
+    import re
+    from pathlib import Path
+
+    from alg_tpu_torch.ops import _build
+
+    proc = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
+    counts, current = {}, None
+    for line in proc.stdout.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            current = found.group(1)
+            counts[current] = 0
+        elif current is not None and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def phase_build(require_tensor_cores: bool = True) -> None:
+    """Build the library, print the compiler's resource report and, from the
+    SASS, the HMMA (tensor-core) instructions of every kernel of the
+    tensor-core entry points; fail if one has none (``require_tensor_cores``
+    False only prints them: ``--dense-flash`` also times trees without those
+    kernels)."""
     from alg_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
-    print(f"[A] built {path.name} in {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])})")
+    print(f"[A] built {path.name} in {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}, "
+          f"{len(_build.compile_units())} compile units)")
     log = path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("    " + line.strip())
+    hmma = _sass_hmma(path)
+    for entry, part in TC_KERNELS.items():
+        kernels = {name: n for name, n in hmma.items() if part in name}
+        for name, n in sorted(kernels.items()):
+            print(f"[A] {entry}: {n} HMMA instructions in {name}")
+        if require_tensor_cores and (not kernels or not all(kernels.values())):
+            raise AssertionError(f"{entry}: kernels {kernels} (want each with HMMA instructions)")
 
 
 # ---------------------------------------------------------------------------
@@ -868,8 +915,10 @@ def _prolog_kernel_cases(records, gen) -> None:
 
 
 def phase_dense_flash() -> None:
-    """Only the dense flash calls of phase B at head dims 64 and 128, for
-    timing two trees against each other on one card."""
+    """Only the dense flash calls of phase B at head dims 64 and 128, and the
+    training kernels (LSE, dq, dkv) at the 49-frame CogVideoX and 9-frame Wan
+    self-attention shapes in bf16, for timing two trees against each other on
+    one card."""
     import torch
 
     records = []  # printed case by case; a comparison out of tolerance fails the phase
@@ -880,6 +929,8 @@ def phase_dense_flash() -> None:
         _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
         _attn_case(records, "flash_wan_self", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False, reps=5)
     _attn_case(records, "flash_wan_self", (2, 40, 32760, 128), torch.bfloat16, gen, 128 ** -0.5, False, reps=1)
+    _attn_bwd_case(records, "dit", (1, 48, 17776, 64), torch.bfloat16, gen, 64 ** -0.5, reps=1)
+    _attn_bwd_case(records, "wan_self", (1, 40, 4680, 128), torch.bfloat16, gen, 128 ** -0.5)
     if not all(r["ok"] for r in records):
         raise AssertionError("a dense flash comparison is out of tolerance")
 
@@ -1027,38 +1078,47 @@ class _StageTimer:
         return sum(1 for name, _, _ in self.rows if name.startswith(prefix))
 
 
-def _kernel_wrappers() -> dict:
-    """{kernel name: (wrapper, name of its launch count)}. The forward kernel
-    with its LSE output is counted twice: as a launch of the forward kernel
-    and as one that wrote the residual."""
+def _kernel_counters() -> dict:
+    """{kernel name: (dict, key) of its launch count}. A forward launch is
+    counted twice: as a launch of the forward wrapper, and under the route
+    its wrapper took (tensor cores, CUDA cores or qk prolog); one that wrote
+    the LSE also under that name. Likewise a dkv launch, under its route."""
     from alg_tpu_torch.ops.flash_attention import flash_attention
     from alg_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
     from alg_tpu_torch.ops.qk_prep import qk_norm_rope
     from alg_tpu_torch.ops.rope import rope_interleaved
 
-    return {"qk_prep": (qk_norm_rope, "launches"), "rope_interleaved": (rope_interleaved, "launches"),
-            "flash_attention": (flash_attention, "launches"),
-            "flash_attention_lse": (flash_attention, "residual_launches"),
-            "flash_attention_prolog": (flash_attention, "prolog_launches"),
-            "flash_attention_bwd_dq": (flash_attention_bwd_dq, "launches"),
-            "flash_attention_bwd_dkv": (flash_attention_bwd_dkv, "launches"),
-            "flash_attention_int8": (flash_attention_int8, "launches")}
+    fwd, dkv = flash_attention.launches_by_route, flash_attention_bwd_dkv.launches_by_route
+    return {"qk_prep": (qk_norm_rope.__dict__, "launches"), "rope_interleaved": (rope_interleaved.__dict__, "launches"),
+            "flash_attention": (flash_attention.__dict__, "launches"),
+            "flash_attention_lse": (flash_attention.__dict__, "residual_launches"),
+            "flash_attention_prolog": (fwd, "prolog"), "flash_attention_tc": (fwd, "tc"),
+            "flash_attention_cuda_core": (fwd, "cuda_core"),
+            "flash_attention_bwd_dq": (flash_attention_bwd_dq.__dict__, "launches"),
+            "flash_attention_bwd_dkv": (flash_attention_bwd_dkv.__dict__, "launches"),
+            "flash_attention_bwd_dkv_tc": (dkv, "tc"), "flash_attention_bwd_dkv_cuda_core": (dkv, "cuda_core"),
+            "flash_attention_int8": (flash_attention_int8.__dict__, "launches")}
 
 
 # what a path with the int8 mode off and no caller of the qk prolog leaves at zero
 _NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_prolog": 0}
 # what a sampling path in bf16 leaves at zero: it takes no gradient either
-_NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, **_NO_OPT_IN}
+_NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_bwd_dkv_tc": 0, "flash_attention_bwd_dkv_cuda_core": 0, **_NO_OPT_IN}
+# what an fp32 path leaves at zero: the tensor-core kernels take bf16 only
+_NO_TENSOR_CORES = {"flash_attention_tc": 0, "flash_attention_bwd_dkv_tc": 0}
+# what a bf16 path leaves at zero: without a prolog no bf16 call reaches a CUDA-core forward or dkv kernel
+_NO_CUDA_CORES = {"flash_attention_cuda_core": 0, "flash_attention_bwd_dkv_cuda_core": 0}
 
 
 def _reset_counts() -> None:
-    for fn, attr in _kernel_wrappers().values():
-        setattr(fn, attr, 0)
+    for counts, key in _kernel_counters().values():
+        counts[key] = 0
 
 
 def _read_counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in _kernel_wrappers().items()}
+    return {name: counts[key] for name, (counts, key) in _kernel_counters().items()}
 
 
 def _free_device_memory() -> None:
@@ -1191,8 +1251,9 @@ def phase_slice() -> dict:
 
     dit_fwd, t5_enc = timer.count("denoise step"), timer.count("T5 encode")
     three, two = timer.count("denoise step (3-pass"), timer.count("denoise step (2-pass")
-    want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0,
-            "flash_attention": tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc, **_NO_TRAINING}
+    bf16_flash = tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc  # every one on the tensor cores
+    want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0, "flash_attention": bf16_flash,
+            "flash_attention_tc": bf16_flash, **_NO_TRAINING, **_NO_CUDA_CORES}
     print(f"[C] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} T5 encodes)")
     if (dit_fwd, t5_enc, three, two) != (4, 2, 2, 2):
         raise AssertionError(f"stage counts: {dit_fwd} DiT forwards ({three} 3-pass, {two} 2-pass), "
@@ -1210,8 +1271,8 @@ def phase_slice() -> dict:
                      **_alg_kwargs()),
         timer, timer.rows, final[0],
         lambda fwd: {"qk_prep": 2 * tcfg.num_layers * fwd, "rope_interleaved": 0,
-                     "flash_attention": t5cfg.num_layers * t5_enc, **_NO_TRAINING,
-                     "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
+                     "flash_attention": t5cfg.num_layers * t5_enc, "flash_attention_tc": t5cfg.num_layers * t5_enc,
+                     **_NO_TRAINING, **_NO_CUDA_CORES, "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
     for h in hooks:
         h.remove()
 
@@ -1324,9 +1385,10 @@ def phase_slice_wan() -> dict:
 
     dit_fwd, t5_enc, clip_runs = timer.count("denoise step"), timer.count("UMT5 encode"), timer.count("CLIP")
     three, two = timer.count("denoise step (3-pass, S=4680)"), timer.count("denoise step (2-pass, S=4680)")
+    bf16_flash = 3 * tcfg.num_layers * dit_fwd + UMT5_XXL.num_layers * t5_enc  # on the tensor cores; CLIP is fp32
     want = {"qk_prep": 0, "rope_interleaved": 2 * tcfg.num_layers * dit_fwd,
-            "flash_attention": 3 * tcfg.num_layers * dit_fwd + UMT5_XXL.num_layers * t5_enc
-            + ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING}
+            "flash_attention": bf16_flash + ccfg.num_hidden_layers * clip_runs, "flash_attention_tc": bf16_flash,
+            "flash_attention_cuda_core": ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING}
     print(f"[C2] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} UMT5 encodes, {clip_runs} CLIP run)")
     if (dit_fwd, t5_enc, clip_runs, three, two) != (4, 2, 1, 2, 2):
         raise AssertionError(f"stage counts: {dit_fwd} DiT forwards ({three} 3-pass, {two} 2-pass at S=4680), "
@@ -1345,8 +1407,9 @@ def phase_slice_wan() -> dict:
                      output_type="latent", **_alg_kwargs(guidance_scale=5.0, lp_resize_factor=0.4)),
         timer, timer.rows, final[0],
         lambda fwd: {"qk_prep": 0, "rope_interleaved": 2 * tcfg.num_layers * fwd,
-                     "flash_attention": 2 * tcfg.num_layers * fwd + UMT5_XXL.num_layers * t5_enc, **_NO_TRAINING,
-                     "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
+                     "flash_attention": 2 * tcfg.num_layers * fwd + UMT5_XXL.num_layers * t5_enc,
+                     "flash_attention_tc": 2 * tcfg.num_layers * fwd + UMT5_XXL.num_layers * t5_enc, **_NO_TRAINING,
+                     **_NO_CUDA_CORES, "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
     for h in hooks:
         h.remove()
     del dit, t5, clip, vae, pipe
@@ -1470,10 +1533,11 @@ def phase_slice_hunyuan() -> dict:
     dit_fwd, llava_runs, clip_runs = timer.count("denoise step"), timer.count("Llava"), timer.count("CLIP text")
     one = timer.count(f"denoise step (1-pass, S={s_joint})")
     blocks = tcfg.num_layers + tcfg.num_single_layers
+    llava_flash = (lcfg.text.num_hidden_layers + lcfg.vision.num_hidden_layers) * llava_runs
+    bf16_flash = (tcfg.num_refiner_layers + blocks) * dit_fwd + llava_flash  # on the tensor cores; CLIP text is fp32
     want = {"qk_prep": 0, "rope_interleaved": 2 * blocks * dit_fwd,
-            "flash_attention": (tcfg.num_refiner_layers + blocks) * dit_fwd
-            + (lcfg.text.num_hidden_layers + lcfg.vision.num_hidden_layers) * llava_runs
-            + ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING}
+            "flash_attention": bf16_flash + ccfg.num_hidden_layers * clip_runs, "flash_attention_tc": bf16_flash,
+            "flash_attention_cuda_core": ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING}
     print(f"[C3] launches {counts} (want {want}: {dit_fwd} DiT forwards, {llava_runs} Llava run, {clip_runs} CLIP "
           f"text run); valid text positions a forward {text_keys} (phase B: {HY_TEXT_KEYS} of {HY_TEXT_LEN})")
     if (dit_fwd, one, llava_runs, clip_runs) != (4, 4, 1, 1) or text_keys != [HY_TEXT_KEYS] * 4:
@@ -1494,9 +1558,10 @@ def phase_slice_hunyuan() -> dict:
                      true_cfg_scale=1.0, i2v_stable=True, **_alg_kwargs(negative_prompt=None, lp_resize_factor=0.625)),
         timer, timer.rows, final[0],
         lambda fwd: {"qk_prep": 0, "rope_interleaved": 2 * blocks * fwd,
-                     "flash_attention": tcfg.num_refiner_layers * fwd
-                     + (lcfg.text.num_hidden_layers + lcfg.vision.num_hidden_layers) * llava_runs
-                     + ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING, "flash_attention_int8": blocks * fwd},
+                     "flash_attention": tcfg.num_refiner_layers * fwd + llava_flash + ccfg.num_hidden_layers * clip_runs,
+                     "flash_attention_tc": tcfg.num_refiner_layers * fwd + llava_flash,
+                     "flash_attention_cuda_core": ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING,
+                     "flash_attention_int8": blocks * fwd},
         final[0].shape)
     for h in hooks:
         h.remove()
@@ -1632,7 +1697,9 @@ def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None
     err, mean_err = float(np.abs(lat_g - lat_c).max()), float(np.abs(lat_g - lat_c).mean())
     mse = float(np.mean((fr_g.astype(np.float64) - fr_c) ** 2))
     psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
-    want_card = {**_NO_TRAINING, **want_card}
+    # an fp32 run: every flash launch is one of the CUDA-core kernel
+    want_card = {**_NO_TRAINING, **_NO_TENSOR_CORES, **want_card,
+                 "flash_attention_cuda_core": want_card["flash_attention"]}
     ok = (err <= atol and (mean_atol is None or mean_err <= mean_atol) and psnr > 40.0 and not any(n_c.values())
           and n_g == want_card)
     mean_txt = "" if mean_atol is None else f", mean|diff| {mean_err:.3e} (atol {mean_atol:g})"
@@ -1831,8 +1898,8 @@ def _train_step_launches(layers: int) -> dict:
     its forward twice (PyTorch's checkpoint keeps autograd on in the first
     pass, so both write the LSE), then its two backward kernels once."""
     return {"qk_prep": 4 * layers, "rope_interleaved": 0, "flash_attention": 2 * layers,
-            "flash_attention_lse": 2 * layers, "flash_attention_bwd_dq": layers, "flash_attention_bwd_dkv": layers,
-            **_NO_OPT_IN}
+            "flash_attention_lse": 2 * layers, "flash_attention_tc": 2 * layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers, "flash_attention_bwd_dkv_tc": layers, **_NO_OPT_IN, **_NO_CUDA_CORES}
 
 
 def phase_train_entry() -> dict:
@@ -1987,8 +2054,10 @@ def _lora_leaf_names(loras) -> list:
     return [tuple(path.rsplit("/", 1)) for path, _ in tree_leaves_with_path(loras)]
 
 
-def phase_train_agreement() -> None:
-    """A small CogVideoX LoRA run on the card (kernels) and on the CPU (plain versions)."""
+def phase_train_agreement() -> dict:
+    """A small CogVideoX LoRA run on the card (kernels) and on the CPU (plain
+    versions); returns the card run's launch counts (fp32: the CUDA-core
+    forward and dkv kernels)."""
     import copy
 
     import torch
@@ -2051,7 +2120,8 @@ def phase_train_agreement() -> None:
     moved = all(bool(leaf.abs().max() > 0) for leaf in p_g)
     # 3 steps x 2 layers, each block forward run twice under remat
     want = {"qk_prep": 24, "rope_interleaved": 0, "flash_attention": 12, "flash_attention_lse": 12,
-            "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 6, **_NO_OPT_IN}
+            "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 6, "flash_attention_cuda_core": 12,
+            "flash_attention_bwd_dkv_cuda_core": 6, **_NO_OPT_IN, **_NO_TENSOR_CORES}
     ok = (loss_err <= 1e-4 and err <= 1e-4 and moved and not any(n_c.values()) and n_g == want and grads_live
           and grad_err <= 1e-4)
     print(f"[E2] small LoRA run of 3 steps, card (kernels) vs CPU (plain), fp32: losses {l_g} vs {l_c}, max rel diff "
@@ -2060,6 +2130,7 @@ def phase_train_agreement() -> None:
           f"(bound 1e-4, every leaf's gradient nonzero: {grads_live}): {'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("[E2] card and CPU runs of the small LoRA training disagree")
+    return n_g
 
 
 # ---------------------------------------------------------------------------
@@ -2067,57 +2138,75 @@ def phase_train_agreement() -> None:
 # ---------------------------------------------------------------------------
 
 
-# For each kernel: its source, the TPU kernel it replaces, and the phase-B case
-# whose numbers go into its JSON record (the shape a 2-pass step of the slice
-# that runs it gives it, in bf16).
+# For each kernel: its source, the TPU kernel it replaces, the phase-B case whose numbers go into its JSON
+# record (the shape a 2-pass step of the slice that runs it gives it) and that case's dtype (the CUDA-core
+# forward and dkv kernels take fp32 only since the tensor-core kernels took bf16), and the name of its launches
+# in a run's counts.
 _KERNELS = {
-    "qk_prep": ("alg_tpu_torch/csrc/qk_prep.cu", "alg_tpu/ops/qk_prep.py:56", "qk_prep", [2, 48, 4276, 64]),
+    "qk_prep": ("alg_tpu_torch/csrc/qk_prep.cu", "alg_tpu/ops/qk_prep.py:56", "qk_prep", [2, 48, 4276, 64],
+                "bfloat16", "qk_prep"),
     "rope_interleaved": ("alg_tpu_torch/csrc/rope.cu", "alg_tpu/ops/qk_prep.py:134", "rope_interleaved",
-                         [2, 40, 4680, 128]),
+                         [2, 40, 4680, 128], "bfloat16", "rope_interleaved"),
+    "flash_attention_tc": ("alg_tpu_torch/csrc/flash_attention_tc.cu", "alg_tpu/ops/flash_attention.py:98",
+                           "flash_wan_self", [2, 40, 4680, 128], "bfloat16", "flash_attention_tc"),
     "flash_attention": ("alg_tpu_torch/csrc/flash_attention.cu", "alg_tpu/ops/flash_attention.py:98",
-                        "flash_wan_self", [2, 40, 4680, 128]),
-    # the training kernels, at the shape the 49-frame CogVideoX train step gives them
-    "flash_attention_lse": ("alg_tpu_torch/csrc/flash_attention.cu", "alg_tpu/ops/flash_attention.py:98",
-                            "flash_lse_dit", [1, 48, 17776, 64]),
+                        "flash_wan_self", [2, 40, 4680, 128], "float32", "flash_attention_cuda_core"),
+    # the training kernels, at the shape the 49-frame CogVideoX train step gives them; the LSE is an output of
+    # both forward kernels, here of the tensor-core one
+    "flash_attention_lse": ("alg_tpu_torch/csrc/flash_attention_tc.cu", "alg_tpu/ops/flash_attention.py:98",
+                            "flash_lse_dit", [1, 48, 17776, 64], "bfloat16", "flash_attention_lse"),
     "flash_attention_bwd_dq": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:89",
-                               "flash_bwd_dq_dit", [1, 48, 17776, 64]),
+                               "flash_bwd_dq_dit", [1, 48, 17776, 64], "bfloat16", "flash_attention_bwd_dq"),
+    "flash_attention_bwd_dkv_tc": ("alg_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+                                   "alg_tpu/ops/flash_attention_bwd.py:144", "flash_bwd_dkv_dit", [1, 48, 17776, 64],
+                                   "bfloat16", "flash_attention_bwd_dkv_tc"),
     "flash_attention_bwd_dkv": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:144",
-                                "flash_bwd_dkv_dit", [1, 48, 17776, 64]),
+                                "flash_bwd_dkv_dit", [1, 48, 17776, 64], "float32",
+                                "flash_attention_bwd_dkv_cuda_core"),
     # the int8 kernel, "qk" mode, at the shape a 2-pass CogVideoX step gives it; the other mode and shapes ride along
     "flash_attention_int8": ("alg_tpu_torch/csrc/flash_attention_int8.cu", "alg_tpu/ops/flash_attention_int8.py:109",
-                             "flash_int8_qk_dit", [2, 48, 4276, 64]),
+                             "flash_int8_qk_dit", [2, 48, 4276, 64], "bfloat16", "flash_attention_int8"),
     # the forward kernel's qk-prolog variant (a compile unit of its own): LayerNorm + RoPE at the CogVideoX shape
     "flash_attention_prolog": ("alg_tpu_torch/csrc/flash_attention_prolog.cu", "alg_tpu/ops/flash_attention.py:98",
-                               "flash_prolog_layer_rope", [2, 48, 4276, 64]),
+                               "flash_prolog_layer_rope", [2, 48, 4276, 64], "bfloat16", "flash_attention_prolog"),
 }
-# Other variants of a kernel whose phase-B numbers ride along in its record ("also"): the causal calls
-# and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches.
+# Other variants of a kernel whose phase-B numbers ride along in its record ("also"): the other shapes, the
+# causal calls and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches; for the forward
+# and dkv kernels only the records of the type each kernel takes.
 _TRAIN_SHAPES = ("dit", "wan_self", "wan_cross_text", "hunyuan_joint", "square_causal")
-_ALSO = {"flash_attention": ("flash_llama_causal_kvlen", "flash_clip_text_causal", "flash_hunyuan_joint"),
+_FLASH_SHAPES = ("flash_dit", "flash_wan_self", "flash_wan_cross_text", "flash_wan_cross_image", "flash_t5_bias_stable",
+                 "flash_umt5_bias_kvlen", "flash_llama_causal_kvlen", "flash_clip_text_causal", "flash_clip",
+                 "flash_clip_l_vision", "flash_hunyuan_refiner", "flash_hunyuan_joint", "flash_square_causal",
+                 "flash_square_dense")
+_ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES,
          "rope_interleaved": ("rope_hunyuan_joint",),
          "flash_attention_lse": tuple("flash_lse_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dq": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
+         "flash_attention_bwd_dkv_tc": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dkv": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
          "flash_attention_int8": tuple(f"flash_int8_{mode}_{tag}" for mode in ("qk", "full", "full_bk64")
                                        for tag in ("dit", "wan_self", "hunyuan_joint", "kvlen_zero_row")),
          "flash_attention_prolog": ("flash_prolog_layer_rope", "flash_prolog_rms_rope_stable", "flash_prolog_rope",
                                     "flash_prolog_layer", "flash_prolog_layer_rope_q_only", "flash_prolog_rms_rope")}
+_ONE_TYPE = ("flash_attention_tc", "flash_attention", "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv")
 
 
 def _kernel_json(records, counts_by_path) -> dict:
     """``counts_by_path``: {path name: launch counts of that path's run}."""
     out = []
-    for name, (source, replaces, case, shape) in _KERNELS.items():
-        rec = next(r for r in records if r["name"] == case and r["shape"] == shape and r["dtype"] == "bfloat16")
-        by_path = {path: counts[name] for path, counts in counts_by_path.items()}
+    for name, (source, replaces, case, shape, dtype, count) in _KERNELS.items():
+        rec = next(r for r in records if r["name"] == case and r["shape"] == shape and r["dtype"] == dtype)
+        by_path = {path: counts[count] for path, counts in counts_by_path.items()}
         also = [{key: r[key] for key in ("name", "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "drift_mean", "drift_max", "quantizers_ms",
                                          "bf16_flash_ms", "unfused_ms", "flash_alone_ms") if key in r}
-                for case_name in _ALSO.get(name, ()) for r in records if r["name"] == case_name and r is not rec]
+                for case_name in _ALSO.get(name, ()) for r in records
+                if r["name"] == case_name and r is not rec and (name not in _ONE_TYPE or r["dtype"] == dtype)]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": sum(by_path.values()), "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                    "library_ms": rec["library_ms"], "at": f"bfloat16 {shape}", "launches_by_path": by_path, "also": also})
+                    "library_ms": rec["library_ms"], "at": f"{dtype} {shape}", "launches_by_path": by_path,
+                    "also": also})
     return {"kernels": out}
 
 
@@ -2139,7 +2228,7 @@ def main() -> int:
     print(_card_line(), flush=True)
     if sys.argv[1:] == ["--dense-flash"]:
         try:
-            phase_build()
+            phase_build(require_tensor_cores=False)
             phase_dense_flash()
         except Exception:
             traceback.print_exc()
@@ -2161,17 +2250,19 @@ def main() -> int:
         counts["train_cogvideox"] = phase_train()
         for name, n in phase_train_entry().items():
             counts["train_cogvideox"][name] += n
-        phase_train_agreement()
-        for path, kernels in (("cogvideox", ("qk_prep", "flash_attention")),
-                              ("wan", ("rope_interleaved", "flash_attention")),
-                              ("hunyuan", ("rope_interleaved", "flash_attention")),
-                              ("cogvideox_int8_qk", ("qk_prep", "flash_attention", "flash_attention_int8")),
-                              ("cogvideox_int8_full", ("qk_prep", "flash_attention", "flash_attention_int8")),
-                              ("wan_int8_qk", ("rope_interleaved", "flash_attention", "flash_attention_int8")),
-                              ("hunyuan_int8_full", ("rope_interleaved", "flash_attention", "flash_attention_int8")),
-                              ("prolog_entry", ("flash_attention", "flash_attention_prolog")),
-                              ("train_cogvideox", ("qk_prep", "flash_attention", "flash_attention_lse",
-                                                   "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))):
+        counts["train_agreement_fp32"] = phase_train_agreement()
+        for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
+                              ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
+                              ("hunyuan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
+                              ("cogvideox_int8_qk", ("qk_prep", "flash_attention_tc", "flash_attention_int8")),
+                              ("cogvideox_int8_full", ("qk_prep", "flash_attention_tc", "flash_attention_int8")),
+                              ("wan_int8_qk", ("rope_interleaved", "flash_attention_tc", "flash_attention_int8")),
+                              ("hunyuan_int8_full", ("rope_interleaved", "flash_attention_tc", "flash_attention_int8")),
+                              ("prolog_entry", ("flash_attention_prolog",)),
+                              ("train_cogvideox", ("qk_prep", "flash_attention_tc", "flash_attention_lse",
+                                                   "flash_attention_bwd_dq", "flash_attention_bwd_dkv_tc")),
+                              ("train_agreement_fp32", ("flash_attention_cuda_core",
+                                                        "flash_attention_bwd_dkv_cuda_core"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

@@ -15,7 +15,13 @@ dims, both dtypes, ``block_k`` 64 and 1,024), its route through
 ``set_attention_int8`` and what it refuses, and the flash kernel's qk prolog
 (five combinations of norm, RoPE, ``stable`` and ``prolog_k`` at three head
 dims, alone and with ``kv_len`` and ``causal``, and through
-``attention(prolog=...)`` with and without a gradient).
+``attention(prolog=...)`` with and without a gradient); and the bf16
+tensor-core kernels (S = 1, 63, 65, 127, 129 and 4,276, Sq != Sk both ways,
+``kv_len`` at 0, 1, either side of a 64-key tile and S, causal with Sq > Sk
+and Sq < Sk, a bias at both batch strides, ``stable`` with logits near ±100
+whose maximum moves in every key tile, D = 80, the LSE; dkv at ragged Sk
+with ``kv_len`` and causal), the routes and the CUDA-core entry points'
+refusal of bf16.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -683,10 +689,11 @@ def test_flash_kernel_with_the_qk_prolog(cuda, mode, has_rope, stable, prolog_k,
     k_in = k if prolog_k else kr  # the caller brings k transformed when only the q side is fused
     kv_len = torch.tensor([s, 77], dtype=torch.int32, device=cuda)
     for extra in (dict(), dict(kv_len=kv_len), dict(causal=True)):
-        counts = (FA.flash_attention.launches, FA.flash_attention.prolog_launches)
+        by_route = FA.flash_attention.launches_by_route
+        counts = (FA.flash_attention.launches, by_route["prolog"])
         out = FA.flash_attention(q, k_in, v, d ** -0.5, stable=stable, **kwargs, **extra)
         torch.cuda.synchronize()
-        assert (FA.flash_attention.launches, FA.flash_attention.prolog_launches) == (counts[0] + 1, counts[1] + 1)
+        assert (FA.flash_attention.launches, by_route["prolog"]) == (counts[0] + 1, counts[1] + 1)
         ref = FA.attention_plain(qr, kr, v, d ** -0.5, None, extra.get("kv_len"), extra.get("causal", False))
         if dtype == torch.float32:
             torch.testing.assert_close(out, ref, atol=5e-6, rtol=1e-5)
@@ -708,9 +715,9 @@ def test_attention_prolog_on_the_card(cuda):
               "sin": torch.sin(ang).repeat_interleave(2, -1)}
     on_card = {name: t.to(cuda) if torch.is_tensor(t) else t for name, t in prolog.items()}
     ref = A.attention(q, k, v, stable=False, prolog=prolog)
-    before = FA.flash_attention.prolog_launches
+    before = FA.flash_attention.launches_by_route["prolog"]
     out = A.attention(q.to(cuda), k.to(cuda), v.to(cuda), stable=False, prolog=on_card)
-    assert FA.flash_attention.prolog_launches == before + 1
+    assert FA.flash_attention.launches_by_route["prolog"] == before + 1
     torch.testing.assert_close(out.cpu(), ref, atol=5e-6, rtol=1e-5)
     grads = {}
     for dev in ("cpu", cuda):
@@ -718,6 +725,156 @@ def test_attention_prolog_on_the_card(cuda):
         pro = {**{name: t.to(dev) if torch.is_tensor(t) else t for name, t in prolog.items()}, "q_scale": leaves[3]}
         A.attention(*leaves[:3], stable=False, prolog=pro).square().sum().backward()
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
-    assert FA.flash_attention.prolog_launches == before + 1  # the differentiable call launches no prolog kernel
+    # the differentiable call launches no prolog kernel
+    assert FA.flash_attention.launches_by_route["prolog"] == before + 1
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+# -- the bf16 tensor-core kernels: csrc/flash_attention_tc.cu and csrc/flash_attention_bwd_tc.cu -----------------
+
+TC_CASES = {
+    # name: (b, h, sq, sk, d, kv_len, causal, stable, bias)
+    "s1": (2, 2, 1, 1, 64, None, False, True, None),
+    "s63": (1, 3, 63, 63, 64, None, False, False, None),
+    "s65": (1, 3, 65, 65, 128, None, False, True, None),
+    "s127": (1, 2, 127, 127, 64, None, False, False, None),
+    "s129": (1, 2, 129, 129, 128, None, False, True, None),
+    "s4276": (1, 2, 4276, 4276, 64, None, False, False, None),
+    "sq70-sk300": (2, 2, 70, 300, 64, None, False, True, None),
+    "sq300-sk70": (2, 2, 300, 70, 128, None, False, False, None),
+    "kvlen-tile-edges-d64": (7, 2, 200, 200, 64, [0, 1, 63, 64, 65, 129, 200], False, False, None),
+    "kvlen-tile-edges-d128": (7, 2, 150, 200, 128, [0, 1, 63, 64, 65, 127, 200], False, True, None),
+    "causal-sq300-sk70": (2, 2, 300, 70, 64, None, True, True, None),
+    "causal-sq70-sk300": (2, 2, 70, 300, 128, None, True, False, None),
+    "causal-kvlen": (2, 2, 200, 200, 64, [200, 65], True, True, None),
+    "bias-shared": (2, 3, 100, 150, 64, None, False, True, "shared"),
+    "bias-per-batch-odd-sk": (2, 3, 100, 151, 64, [151, 40], False, True, "per_batch"),
+    "bias-per-batch-unstable": (2, 2, 90, 200, 128, None, False, False, "per_batch"),
+    "d80": (2, 3, 257, 300, 80, [300, 90], False, True, None),
+    "d80-causal": (1, 2, 130, 130, 80, None, True, False, None),
+}
+
+
+@pytest.mark.parametrize("case", list(TC_CASES))
+def test_tensor_core_forward_matches_plain(cuda, case):
+    """bf16 without a prolog launches the tensor-core kernel: its output
+    within the bf16 attention tolerance of the plain version, its LSE within
+    1e-4 (base-2 units) with -inf on the same rows, zero rows where no key
+    is visible, and the same output with and without the LSE."""
+    b, h, sq, sk, d, kv_len, causal, stable, bias_kind = TC_CASES[case]
+    gen = torch.Generator().manual_seed(21)
+    q = _randn(gen, b, h, sq, d).to(cuda, torch.bfloat16)
+    k, v = (_randn(gen, b, h, sk, d).to(cuda, torch.bfloat16) for _ in range(2))
+    bias = None
+    if bias_kind is not None:
+        bias = _randn(gen, b if bias_kind == "per_batch" else 1, h, sq, sk, scale=2.0).to(cuda)
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = 1.0 / 8 if bias is not None else d ** -0.5
+    counts = (FA.flash_attention.launches, FA.flash_attention.launches_by_route["tc"])
+    out, lse = FA.flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, causal=causal,
+                                  return_residuals=True)
+    alone = FA.flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, causal=causal)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention.launches, FA.flash_attention.launches_by_route["tc"]) == (counts[0] + 2, counts[1] + 2)
+    assert torch.equal(out, alone) and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    _assert_close_flash(out, FA.attention_plain(q, k, v, scale, bias, lens, causal), torch.bfloat16)
+    _, ref_lse = FA.attention_plain_residuals(q, k, v, scale, bias, lens, causal)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    seen = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-4, rtol=0)
+    assert not out[~seen].any()
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tensor_core_forward_rescales_across_tiles(cuda, d):
+    """``stable=True`` with logits near ±100 whose row maxima grow from key
+    tile to key tile: the running max moves in every tile and the output is
+    rescaled each time; against the plain fp32 softmax on the same bf16 inputs."""
+    gen = torch.Generator().manual_seed(22)
+    b, h, s = 1, 2, 700
+    u = _randn(gen, 1, h, 1, d)  # a direction shared by every q and k row of a head, so |logit| reaches 100
+    q, k = (u + 0.1 * _randn(gen, b, h, s, d) for _ in range(2))
+    q = q / q.norm(dim=-1, keepdim=True) * 10.0
+    ramp = torch.linspace(-1.0, 1.0, s)[None, None, :, None]  # keys late in the sequence give the largest logits
+    k = k / k.norm(dim=-1, keepdim=True) * 10.0 * ramp
+    q, k = (t.to(cuda, torch.bfloat16) for t in (q, k))
+    v = _randn(gen, b, h, s, d).to(cuda, torch.bfloat16)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    assert 90.0 < float(logits.abs().max()) <= 100.5
+    before = FA.flash_attention.launches_by_route["tc"]
+    out = FA.flash_attention(q, k, v, 1.0, stable=True)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route["tc"] == before + 1 and bool(torch.isfinite(out).all())
+    _assert_close_flash(out, FA.attention_plain(q, k, v, 1.0), torch.bfloat16)
+
+
+TC_BWD_CASES = {
+    # name: (b, h, sq, sk, d, kv_len, causal)
+    "ragged-131x203-kvlen": (2, 2, 131, 203, 64, [203, 70], False),
+    "causal-square-150": (1, 3, 150, 150, 128, None, True),
+    "causal-sq67-sk160-kvlen": (2, 2, 67, 160, 80, [160, 90], True),
+    "causal-sq140-sk45": (1, 2, 140, 45, 64, None, True),
+    "one-query": (2, 2, 1, 77, 128, None, False),
+    "one-key": (1, 2, 50, 1, 64, None, False),
+    "kvlen-0-1-64-65": (4, 2, 100, 130, 128, [0, 1, 64, 65], False),
+}
+
+
+@pytest.mark.parametrize("case", list(TC_BWD_CASES))
+def test_tensor_core_dkv_matches_plain(cuda, case):
+    """bf16 dkv launches the tensor-core kernel: dk and dv within the bf16
+    gradient tolerance of the plain version (which rounds P and dS to bf16 as
+    the kernel does), exactly 0 for keys past ``kv_len``."""
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+    b, h, sq, sk, d, kv_len, causal = TC_BWD_CASES[case]
+    gen = torch.Generator().manual_seed(23)
+    q, do = (_randn(gen, b, h, sq, d).to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, b, h, sk, d).to(cuda, torch.bfloat16) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    out, lse = FA.flash_attention(q, k, v, scale, kv_len=lens, causal=causal, return_residuals=True)
+    delta = FB.row_delta(out, do)
+    dkv = FB.flash_attention_bwd_dkv
+    counts = (dkv.launches, dkv.launches_by_route["tc"])
+    dk, dv = dkv(q, k, v, do, lse, delta, scale, causal, lens)
+    torch.cuda.synchronize()
+    assert (dkv.launches, dkv.launches_by_route["tc"]) == (counts[0] + 1, counts[1] + 1)
+    ref = FB.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal, lens)
+    for g, r in zip((dk, dv), ref):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        _assert_close_grad(g, r, torch.bfloat16)
+    if kv_len is not None:
+        dead = torch.arange(sk, device=cuda)[None, :] >= lens[:, None]
+        for g in (dk, dv):
+            assert not g.transpose(1, 2)[dead].any()
+
+
+def test_routes_on_the_card(cuda):
+    """fp32 takes the CUDA-core kernels and bf16 with a prolog the prolog
+    kernel, each counted under its route and none as a tensor-core launch;
+    the CUDA-core entry points refuse bf16 outright (cudaErrorInvalidValue),
+    so no bf16 call can land on them unseen."""
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+    q = torch.randn(1, 2, 40, 64, device=cuda)
+    fwd, dkv = FA.flash_attention.launches_by_route, FB.flash_attention_bwd_dkv.launches_by_route
+    counts = (dict(fwd), dict(dkv))
+    out, lse = FA.flash_attention(q, q, q, 0.125, return_residuals=True)
+    FB.flash_attention_bwd_dkv(q, q, q, q, lse, FB.row_delta(out, q), 0.125)
+    ones = torch.ones(64, device=cuda)
+    FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.125, qk_norm="rms", q_norm_scale=ones,
+                       k_norm_scale=ones)
+    torch.cuda.synchronize()
+    assert fwd == {**counts[0], "cuda_core": counts[0]["cuda_core"] + 1, "prolog": counts[0]["prolog"] + 1}
+    assert dkv == {**counts[1], "cuda_core": counts[1]["cuda_core"] + 1}
+    x = q.bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    bf16 = FA._build.DTYPE_CODE[torch.bfloat16]
+    rc = FA._entry(64, "cuda_core")(bf16, x.data_ptr(), x.data_ptr(), x.data_ptr(), None, 0, None, x.data_ptr(),
+                                    None, 1, 2, 40, 40, 0.125, 1, 0, stream)
+    assert rc == 1  # cudaErrorInvalidValue
+    rc = FB._entry(64, "dkv_cuda_core")(bf16, *([x.data_ptr()] * 4), lse.data_ptr(), lse.data_ptr(), None,
+                                        x.data_ptr(), x.data_ptr(), 1, 2, 40, 40, 0.125, 0, stream)
+    assert rc == 1

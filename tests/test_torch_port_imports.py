@@ -27,7 +27,8 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.ops.flash_attention_bwd", "alg_tpu_torch.core.remat", "alg_tpu_torch.io.lora",
             "alg_tpu_torch.training.losses", "alg_tpu_torch.training.lora", "alg_tpu_torch.training.train",
             "alg_tpu_torch.training.checkpoint", "alg_tpu_torch.training.data",
-            "alg_tpu_torch.ops.flash_attention_int8", "alg_tpu_torch.ops.attention"} <= set(mods)
+            "alg_tpu_torch.ops.flash_attention_int8", "alg_tpu_torch.ops.attention",
+            "alg_tpu_torch.ops.flash_attention"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -37,6 +38,8 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['ftfy'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "from alg_tpu_torch.ops.flash_attention import route\n"
+        "from alg_tpu_torch.ops.flash_attention_bwd import dkv_route\n"
         "assert not any(k == 'alg_tpu' or k.startswith('alg_tpu.') for k in sys.modules), 'imported alg_tpu'\n"
         "assert sys.modules.get('optax') is None, 'imported optax'\n"
         "print('ok', len(sys.modules))\n"

@@ -62,9 +62,9 @@ def test_prolog_matches_the_jax_reference(mode, has_rope, stable, prolog_k, d):
     if prolog_k:
         kwargs.update(k_norm_scale=ks if mode else None, k_norm_bias=kb if mode == "layer" else None)
     k_in = torch.from_numpy(k if prolog_k else np.asarray(kr))  # the caller brings k transformed
-    before = (FA.flash_attention.launches, FA.flash_attention.prolog_launches)
+    before = (FA.flash_attention.launches, dict(FA.flash_attention.launches_by_route))
     out = FA.flash_attention(torch.from_numpy(q), k_in, torch.from_numpy(v), d ** -0.5, stable=stable, **kwargs)
-    assert (FA.flash_attention.launches, FA.flash_attention.prolog_launches) == before  # CPU: the plain version
+    assert (FA.flash_attention.launches, FA.flash_attention.launches_by_route) == before  # CPU: the plain version
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
 
 

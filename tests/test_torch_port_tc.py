@@ -1,0 +1,127 @@
+"""The tensor-core attention kernels' surroundings on the CPU: which calls
+the wrappers route to them, that the build compiles them, and the plain
+version of the dkv arithmetic they follow in bf16, against the JAX package.
+
+The kernels themselves (``csrc/flash_attention_tc.cu``,
+``csrc/flash_attention_bwd_tc.cu``) run only on the card; the on-card tests
+in ``test_torch_port_gpu.py`` hold them against the plain versions.
+
+bf16 backward against ``alg_tpu.ops.flash_attention_bwd.flash_attention_bwd``
+in Pallas interpret mode: both round P and dS to bf16 before the products
+that make dv and dk, so the two differ only in the order of fp32 sums, in
+the rounding of the outputs to bf16, and for dq in dS, which the port's dq
+keeps in fp32. Tolerance: one bf16 step at each output's largest magnitude
+(atol = max|ref| · 2**-7, rtol 0)."""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from alg_tpu.ops.flash_attention_bwd import flash_attention_bwd as jax_flash_attention_bwd
+
+from alg_tpu_torch.ops import _build
+from alg_tpu_torch.ops import flash_attention as FA
+from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+from test_torch_port_ops_bwd import CASES
+
+BF16_STEP = 2.0 ** -7  # the spacing of bf16 values in [1, 2)
+
+
+def _on(device, dtype):
+    """A stand-in for a tensor on ``device``: the routing reads device and dtype only."""
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype)
+
+
+@pytest.mark.parametrize("device,dtype,prolog,want", [
+    ("cpu", torch.bfloat16, False, "plain"),
+    ("cpu", torch.float32, True, "plain"),
+    ("cuda", torch.bfloat16, False, "tc"),
+    ("cuda", torch.float32, False, "cuda_core"),
+    ("cuda", torch.bfloat16, True, "prolog"),
+    ("cuda", torch.float32, True, "prolog"),
+], ids=["cpu-bf16", "cpu-fp32-prolog", "cuda-bf16", "cuda-fp32", "cuda-bf16-prolog", "cuda-fp32-prolog"])
+def test_forward_route(device, dtype, prolog, want):
+    """Only a CUDA bf16 call without a qk prolog takes the tensor-core kernel."""
+    assert FA.route(_on(device, dtype), prolog) == want
+
+
+@pytest.mark.parametrize("device,dtype,want", [
+    ("cpu", torch.bfloat16, "plain"), ("cuda", torch.bfloat16, "tc"), ("cuda", torch.float32, "cuda_core"),
+], ids=["cpu-bf16", "cuda-bf16", "cuda-fp32"])
+def test_dkv_route(device, dtype, want):
+    assert FB.dkv_route(_on(device, dtype)) == want
+
+
+@pytest.mark.parametrize("route", [lambda t: FA.route(t), lambda t: FA.route(t, True), FB.dkv_route],
+                         ids=["forward", "forward-prolog", "dkv"])
+def test_routes_raise_for_other_devices_and_dtypes(route):
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        route(_on("meta", torch.bfloat16))
+    with pytest.raises(TypeError):
+        route(_on("cuda", torch.float16))
+
+
+def test_each_route_names_an_entry_point_of_the_sources():
+    """Every C entry point the wrappers can reach is defined in a source, one per head dim."""
+    defined = "".join(p.read_text() for p in _build._sources()[0])
+    for names in (FA._ENTRY_NAMES, FB._ENTRY_NAMES):
+        for name in names.values():
+            stem = name.format(d="")
+            assert f"ALG_CAT({stem}, ALG_FLASH_HEAD_DIM)" in defined, stem
+
+
+@pytest.mark.parametrize("src", ["flash_attention_tc", "flash_attention_bwd_tc"])
+def test_compile_units_list_the_tensor_core_units(src):
+    units = {stem: extra for stem, _, extra in _build.compile_units()}
+    for d in (64, 80, 128):
+        assert units[f"{src}.ALG_FLASH_HEAD_DIM_{d}"] == (f"-DALG_FLASH_HEAD_DIM={d}",)
+    assert "mma.cuh" in {p.name for p in _build._sources()[1]}
+
+
+def _bf16_inputs(case, seed=0):
+    """The case's inputs drawn in fp32 from a numpy seed and rounded to bf16, as numpy fp32 holding bf16 values."""
+    b, h, sq, sk, d, causal, kv_len = CASES[case]
+    r = np.random.RandomState(seed)
+    q, do = (r.randn(b, h, sq, d) for _ in range(2))
+    k, v = (r.randn(b, h, sk, d) for _ in range(2))
+    q, k, v, do = (torch.from_numpy(a.astype(np.float32)).bfloat16().float().numpy() for a in (q, k, v, do))
+    return q, k, v, do, d ** -0.5, causal, None if kv_len is None else np.asarray(kv_len, np.int32)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_backward_plain_matches_jax_interpret_kernels(case):
+    q, k, v, do, scale, causal, kv_len = _bf16_inputs(case)
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    tlen = None if kv_len is None else torch.from_numpy(kv_len)
+    o, lse = FA.attention_plain_residuals(tq, tk, tv, scale, None, tlen, causal)
+    got = FB.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, scale, causal, tlen)
+    jlen = None if kv_len is None else jnp.asarray(kv_len)
+    ref = jax_flash_attention_bwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, o.float().numpy())),
+                                  jnp.asarray(lse.numpy()), jnp.asarray(do, jnp.bfloat16), scale=scale,
+                                  causal=causal, kv_len=jlen, block_q=128, block_k=128, interpret=True)
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        r = np.asarray(r.astype(jnp.float32))
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.float().numpy(), r, atol=BF16_STEP * np.abs(r).max(), rtol=0, err_msg=name)
+
+
+def test_bf16_dkv_plain_rounds_p_and_ds():
+    """The plain dkv version rounds P and dS to bf16 before its products (an
+    identity in fp32): on bf16 inputs it differs from the same arithmetic
+    with fp32 P and dS, and in fp32 it is that arithmetic."""
+    q, k, v, do, scale, causal, kv_len = _bf16_inputs("dense-ragged", seed=1)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    o, lse = FA.attention_plain_residuals(*t[:3], scale)
+    delta = FB.row_delta(o, t[3])
+    p, ds = FB._p_ds_plain(*t[:3], t[3], lse, delta, scale, False, None)
+    unrounded = (torch.matmul(ds.transpose(-1, -2), t[0]) * scale, torch.matmul(p.transpose(-1, -2), t[3]))
+    for got, want in zip(FB.flash_attention_bwd_dkv_plain(*t[:3], t[3], lse, delta, scale), unrounded):
+        assert torch.equal(got, want)
+    bf = [a.bfloat16() for a in t]
+    got = FB.flash_attention_bwd_dkv_plain(*bf[:3], bf[3], lse, delta, scale)
+    assert any(not torch.equal(g, w.bfloat16()) for g, w in zip(got, unrounded))
