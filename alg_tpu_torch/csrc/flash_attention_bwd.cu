@@ -5,8 +5,9 @@
 // build-variants: ALG_FLASH_HEAD_DIM=64,80,128
 //
 // Replaces the TPU kernels alg_tpu/ops/flash_attention_bwd.py:_dq_kernel and
-// :_dkv_kernel (dense, causal, kv_len, Sq != Sk): dq for fp32 and bf16, dkv
-// for fp32 (bf16 dkv runs on the tensor cores, flash_attention_bwd_tc.cu).
+// :_dkv_kernel (dense, causal, kv_len, Sq != Sk) for fp32 inputs, where the
+// products need full precision (bf16 dq and dkv run on the tensor cores,
+// flash_attention_bwd_dq_tc.cu and flash_attention_bwd_tc.cu).
 // Given q, k, v, the output cotangent dO, the forward's base-2 row
 // log-sum-exp `lse` and delta_i = rowsum(dO_i ⊙ O_i), both fp32 [B, H, Sq]:
 //
@@ -16,12 +17,14 @@
 //   p_ij  = exp2(s_ij - lse_i)            (0 where masked)
 //   dp_ij = dO_i·v_j
 //   ds_ij = p_ij·(dp_ij - delta_i)
-//   dQ_i  = scale·Σ_j ds_ij·k_j           (dq kernel)
+//   dQ_i  = scale·Σ_j ds_ij·k_j           (dq kernel; the TPU kernel rounds
+//                                          ds to the input dtype first, an
+//                                          identity in fp32)
 //   dV_j  = Σ_i p_ij·dO_i                 (dkv kernel)
 //   dK_j  = scale·Σ_i ds_ij·q_i           (dkv kernel)
 //
 // Design. Both kernels follow the forward kernel (flash_attention.cu): 128
-// threads a block, fp32 FMAs on the CUDA cores for bf16 and fp32 inputs, the
+// threads a block, fp32 FMAs on the CUDA cores, the
 // other side's rows staged in shared memory as fp32 and read as broadcast
 // float4s, work done in chunks of 16 staged rows. The TPU grid's sequential
 // axis becomes a loop inside the block, so every output row has exactly one
@@ -47,9 +50,8 @@
 // get dK = dV = 0. P stays in fp32 for the second products, as in the forward
 // kernel. No host-side padding, no host read of kv_len.
 //
-// Bound on the H100: tensor-core FLOPs (dq three products, 6·H·D per visible
-// (query, key) pair; dkv four, 8·H·D). These kernels run on the CUDA cores,
-// far below that roof; dq on the tensor cores is later work.
+// Bound on the H100: fp32 FLOPs outside the tensor cores (dq three products,
+// 6·H·D per visible (query, key) pair; dkv four, 8·H·D) at 67 TFLOP/s.
 #include <math.h>
 #include <stdint.h>
 
@@ -393,8 +395,9 @@ bool bad_shape(int batch, int heads, int sq, int sk) {
 // lse/delta: fp32 [B, H, Sq] (lse in base 2 of the scaled logits, -inf on a
 // row with no visible key); kv_len: null, or int32 [B] on the device; causal
 // != 0 hides from query i the keys past i + (Sk - Sq). `scale` is the
-// softmax scale of the forward. Each returns its launch's cudaError_t. The
-// dkv entry takes fp32 only (bf16 returns cudaErrorInvalidValue: it goes to
+// softmax scale of the forward. Each returns its launch's cudaError_t. Both
+// take fp32 only (bf16 returns cudaErrorInvalidValue: it goes to
+// alg_flash_attention_bwd_dq_tc_d<D> in flash_attention_bwd_dq_tc.cu and
 // alg_flash_attention_bwd_dkv_tc_d<D> in flash_attention_bwd_tc.cu).
 extern "C" int ALG_CAT(alg_flash_attention_bwd_dq_d, ALG_FLASH_HEAD_DIM)(
     int dtype, const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -407,10 +410,7 @@ extern "C" int ALG_CAT(alg_flash_attention_bwd_dq_d, ALG_FLASH_HEAD_DIM)(
     case alg::kFloat32:
       return (int)launch_dq<float>(q, k, v, dout, lse, delta, kv_len, dq, batch, heads, sq, sk,
                                    causal_offset, scale, st);
-    case alg::kBFloat16:
-      return (int)launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, kv_len, dq, batch, heads, sq, sk,
-                                           causal_offset, scale, st);
-    default:
+    default:  // bf16 runs on the tensor cores: alg_flash_attention_bwd_dq_tc_d<D>
       return (int)cudaErrorInvalidValue;
   }
 }

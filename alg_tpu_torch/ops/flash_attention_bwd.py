@@ -4,11 +4,12 @@ version, and the differentiable attention ``torch.autograd.Function``.
 ``flash_attention_bwd`` launches the dq and dkv kernels through their
 wrappers ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` for CUDA
 tensors, and those run their plain versions for CPU tensors; any other
-device raises. dq runs the CUDA-core kernel of ``csrc/flash_attention_bwd.cu``
-in both types. dkv picks its kernel in :func:`dkv_route`: bf16 the
-tensor-core kernel ``csrc/flash_attention_bwd_tc.cu`` (``mma.sync`` with
-``ldmatrix`` and ``cp.async``), fp32 the CUDA-core one; there is no fallback
-between them. The kernels replace the TPU kernels
+device raises. Each wrapper picks its kernel by its route
+(:func:`dq_route`, :func:`dkv_route`): bf16 the tensor-core kernels
+``csrc/flash_attention_bwd_dq_tc.cu`` and ``csrc/flash_attention_bwd_tc.cu``
+(``mma.sync`` with ``ldmatrix`` and ``cp.async``), fp32 the CUDA-core ones of
+``csrc/flash_attention_bwd.cu``; there is no fallback between them. The
+kernels replace the TPU kernels
 ``alg_tpu/ops/flash_attention_bwd.py:_dq_kernel`` and ``:_dkv_kernel`` at head
 dims 64, 80 and 128: dense, ``causal``, ``kv_len``, Sq != Sk. From q, k, v,
 the forward's output ``o`` and base-2 row log-sum-exp ``lse`` and the output
@@ -20,11 +21,10 @@ cotangent ``do``::
 
 ``delta`` is one fp32 PyTorch reduction outside the kernels, as the JAX
 package computes it outside its Pallas kernels. A row with no visible key
-(``lse = -inf``) gets ``dq = 0`` and adds nothing to ``dk``/``dv``. The dkv
-kernels and their plain version round P and dS to the input dtype before the
-products that make dv and dk, as the JAX package's dkv kernel does (an
-identity in fp32); the dq kernel and its plain version keep dS in fp32 where
-the JAX package rounds it, so in bf16 dq differs by that rounding.
+(``lse = -inf``) gets ``dq = 0`` and adds nothing to ``dk``/``dv``. The
+kernels and their plain versions round dS (and for dv P) to the input dtype
+before the products that make dq, dk and dv, as the JAX package's kernels
+do; in fp32 that is an identity.
 
 :class:`FlashAttentionFunction` is the counterpart of
 ``alg_tpu/ops/flash_attention_bwd.py:flash_attention_diff``: its forward is
@@ -61,9 +61,11 @@ def _p_ds_plain(q, k, v, do, lse, delta, scale, causal, kv_len):
 
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool = False,
                                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The dq kernel's arithmetic, step by step in fp32."""
+    """The dq kernels' arithmetic, step by step in fp32. dS is rounded to the
+    dtype of ``q`` before its product with k, as ``alg_tpu``'s ``_dq_kernel``
+    casts it."""
     _, ds = _p_ds_plain(q, k, v, do, lse, delta, scale, causal, kv_len)
-    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    return (torch.matmul(ds.to(q.dtype).float(), k.float()) * scale).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool = False,
@@ -89,29 +91,38 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float, causal: bool = 
             *flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal, kv_len))
 
 
-# the C entry point of each kernel, "{d}" the head dim: dq, and dkv by the route of dkv_route
-_ENTRY_NAMES = {"dq": "alg_flash_attention_bwd_dq_d{d}", "dkv_tc": "alg_flash_attention_bwd_dkv_tc_d{d}",
-                "dkv_cuda_core": "alg_flash_attention_bwd_dkv_d{d}"}
+# the C entry point of each kernel by the route of dq_route / dkv_route, "{d}" the head dim
+_ENTRY_NAMES = {"dq_tc": "alg_flash_attention_bwd_dq_tc_d{d}", "dq_cuda_core": "alg_flash_attention_bwd_dq_d{d}",
+                "dkv_tc": "alg_flash_attention_bwd_dkv_tc_d{d}", "dkv_cuda_core": "alg_flash_attention_bwd_dkv_d{d}"}
 
 
-def dkv_route(q: torch.Tensor) -> str:
-    """Which implementation a dkv call on ``q`` takes: ``"plain"`` for a CPU
-    tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for bf16 and
-    ``"cuda_core"`` for fp32. Raises for any other device or dtype."""
+def _route(q: torch.Tensor, what: str) -> str:
     if q.device.type == "cpu":
         return "plain"
     if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
+        raise RuntimeError(f"flash_attention_bwd_{what}: no kernel for device {q.device}")
     if q.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"flash backward kernels take float32 or bfloat16, got {q.dtype}")
     return "tc" if q.dtype == torch.bfloat16 else "cuda_core"
 
 
+def dq_route(q: torch.Tensor) -> str:
+    """Which implementation a dq call on ``q`` takes: ``"plain"`` for a CPU
+    tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for bf16 and
+    ``"cuda_core"`` for fp32. Raises for any other device or dtype."""
+    return _route(q, "dq")
+
+
+def dkv_route(q: torch.Tensor) -> str:
+    """As :func:`dq_route`, for a dkv call."""
+    return _route(q, "dkv")
+
+
 @functools.cache
 def _entry(head_dim: int, which: str):
-    """The C entry point of a head dim: ``"dq"``, ``"dkv_tc"`` or ``"dkv_cuda_core"``."""
+    """The C entry point of a head dim: a key of ``_ENTRY_NAMES``."""
     fn = getattr(_build.load(), _ENTRY_NAMES[which].format(d=head_dim))
-    n_out = 1 if which == "dq" else 2
+    n_out = 1 if which.startswith("dq") else 2
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -145,15 +156,16 @@ def _launch(which, outs, q, k, v, do, lse, delta, scale, causal, kv_len):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool = False,
                            kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``dq`` from ``lse`` and ``delta`` (:func:`row_delta`), fp32 ``[B, H, Sq]``.
-    CPU tensors take the plain version; CUDA tensors the kernel, or raise."""
-    if q.device.type == "cpu":
+    CPU tensors take the plain version; CUDA tensors a kernel (see
+    :func:`dq_route`), or raise."""
+    which = dq_route(q)
+    if which == "plain":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, kv_len)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_bwd_dq: no kernel for device {q.device}")
     _check_bwd(q, k, v, do, lse, delta, kv_len)
     dq = torch.empty_like(q)
-    _launch("dq", (dq,), q, k, v, do, lse, delta, scale, causal, kv_len)
+    _launch("dq_" + which, (dq,), q, k, v, do, lse, delta, scale, causal, kv_len)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_route[which] += 1
     return dq
 
 
@@ -173,6 +185,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool 
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_route = {"tc": 0, "cuda_core": 0}  # the same launches by dq_route()
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.launches_by_route = {"tc": 0, "cuda_core": 0}  # the same launches by dkv_route()
 

@@ -11,12 +11,13 @@ Phases, each of which must pass:
       ``alg_tpu_torch/_build/`` (ops/_build.py; one nvcc process per compile
       unit, side by side) and print the build time and the compiler's
       register/shared-memory report; then ``cuobjdump -sass`` of the library:
-      every kernel of the two tensor-core entry points (the bf16 forward and
-      dkv) must hold HMMA instructions, whose count is printed per kernel;
+      every kernel of the three tensor-core entry points (the bf16 forward,
+      dq and dkv) must hold HMMA instructions, whose count is printed per
+      kernel;
   B.  kernels: each CUDA kernel against its plain PyTorch version on the
       card, in bf16 and fp32 (fp32 with TF32 off; bf16 attention without a
-      prolog and bf16 dkv run the tensor-core kernels, fp32 the CUDA-core
-      ones), at the shapes of the
+      prolog and bf16 dq and dkv run the tensor-core kernels, fp32 the
+      CUDA-core ones), at the shapes of the
       CogVideoX, Wan and HunyuanVideo main paths (the causal attention of
       Llama and the CLIP text encoder among them, and one square causal call
       beside its dense twin, which shows the skipped tiles); prints
@@ -92,11 +93,14 @@ Phases, each of which must pass:
   E.  training slice: the full-width CogVideoX-5b DiT (bf16, frozen, random
       weights from a seed) with rank-8 LoRA adapters attached to the block
       linears (fp32 adapters and AdamW state), remat on, synthetic batch of
-      one: 3 train steps at 9 frames (S = 4,276) and 1 at 49 frames (S =
-      17,776) through ``make_cogvideox_vpred_loss`` -> ``make_lora_loss`` ->
-      ``make_train_step``; checks finite loss and gradient norm, that every
-      adapter moved, that the base weights did not, and the exact kernel
-      launch counts of a step; then the same recipe through the training
+      one: 4 train steps at 9 frames (S = 4,276), the last under
+      ``torch.profiler`` (the ten device kernels that take the most time,
+      each with its share of the step, and the device's idle share), and 1
+      at 49 frames (S = 17,776) through ``make_cogvideox_vpred_loss`` ->
+      ``make_lora_loss`` -> ``make_train_step``; checks finite loss and
+      gradient norm, that every adapter moved, that the base weights did
+      not, and the exact kernel launch counts of a step; then the same
+      recipe through the training
       entry point, ``alg_tpu_torch.train_cli.run`` over a parsed config on
       its defaults for the card (its own full-width random DiT, synthetic
       9-frame examples prefetched to the device, bf16 compute, 3 steps, a
@@ -115,8 +119,8 @@ two trees on one card, the parent's too: it does not require the
 tensor-core kernels; it prints no result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
-before the last line (one entry a kernel; the tensor-core forward and dkv
-kernels (bf16 records), the CUDA-core ones (fp32 records), the int8 kernel
+before the last line (one entry a kernel; the tensor-core forward, dq and
+dkv kernels (bf16 records), the CUDA-core ones (fp32 records), the int8 kernel
 and the flash kernel's qk-prolog variant, each a compile unit of its own,
 have entries of their own; ``launches_by_path`` names the run each count
 comes from, the int8 runs of the three pipelines among them; ``also``
@@ -186,6 +190,7 @@ def _set_tf32(matmul: bool, cudnn: bool) -> None:
 
 # The tensor-core kernels, by the C entry point that launches them and a part of their kernels' names.
 TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": "flash_fwd_tc_kernel",
+              "alg_flash_attention_bwd_dq_tc_d<D>": "flash_bwd_dq_tc_kernel",
               "alg_flash_attention_bwd_dkv_tc_d<D>": "flash_bwd_dkv_tc_kernel"}
 
 
@@ -1082,20 +1087,23 @@ def _kernel_counters() -> dict:
     """{kernel name: (dict, key) of its launch count}. A forward launch is
     counted twice: as a launch of the forward wrapper, and under the route
     its wrapper took (tensor cores, CUDA cores or qk prolog); one that wrote
-    the LSE also under that name. Likewise a dkv launch, under its route."""
+    the LSE also under that name. Likewise a dq or dkv launch, under its
+    route."""
     from alg_tpu_torch.ops.flash_attention import flash_attention
     from alg_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
     from alg_tpu_torch.ops.qk_prep import qk_norm_rope
     from alg_tpu_torch.ops.rope import rope_interleaved
 
-    fwd, dkv = flash_attention.launches_by_route, flash_attention_bwd_dkv.launches_by_route
+    fwd, dq = flash_attention.launches_by_route, flash_attention_bwd_dq.launches_by_route
+    dkv = flash_attention_bwd_dkv.launches_by_route
     return {"qk_prep": (qk_norm_rope.__dict__, "launches"), "rope_interleaved": (rope_interleaved.__dict__, "launches"),
             "flash_attention": (flash_attention.__dict__, "launches"),
             "flash_attention_lse": (flash_attention.__dict__, "residual_launches"),
             "flash_attention_prolog": (fwd, "prolog"), "flash_attention_tc": (fwd, "tc"),
             "flash_attention_cuda_core": (fwd, "cuda_core"),
             "flash_attention_bwd_dq": (flash_attention_bwd_dq.__dict__, "launches"),
+            "flash_attention_bwd_dq_tc": (dq, "tc"), "flash_attention_bwd_dq_cuda_core": (dq, "cuda_core"),
             "flash_attention_bwd_dkv": (flash_attention_bwd_dkv.__dict__, "launches"),
             "flash_attention_bwd_dkv_tc": (dkv, "tc"), "flash_attention_bwd_dkv_cuda_core": (dkv, "cuda_core"),
             "flash_attention_int8": (flash_attention_int8.__dict__, "launches")}
@@ -1104,12 +1112,14 @@ def _kernel_counters() -> dict:
 # what a path with the int8 mode off and no caller of the qk prolog leaves at zero
 _NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_prolog": 0}
 # what a sampling path in bf16 leaves at zero: it takes no gradient either
-_NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                "flash_attention_bwd_dkv_tc": 0, "flash_attention_bwd_dkv_cuda_core": 0, **_NO_OPT_IN}
+_NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dq_tc": 0,
+                "flash_attention_bwd_dq_cuda_core": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_tc": 0,
+                "flash_attention_bwd_dkv_cuda_core": 0, **_NO_OPT_IN}
 # what an fp32 path leaves at zero: the tensor-core kernels take bf16 only
-_NO_TENSOR_CORES = {"flash_attention_tc": 0, "flash_attention_bwd_dkv_tc": 0}
-# what a bf16 path leaves at zero: without a prolog no bf16 call reaches a CUDA-core forward or dkv kernel
-_NO_CUDA_CORES = {"flash_attention_cuda_core": 0, "flash_attention_bwd_dkv_cuda_core": 0}
+_NO_TENSOR_CORES = {"flash_attention_tc": 0, "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dkv_tc": 0}
+# what a bf16 path leaves at zero: without a prolog no bf16 call reaches a CUDA-core forward, dq or dkv kernel
+_NO_CUDA_CORES = {"flash_attention_cuda_core": 0, "flash_attention_bwd_dq_cuda_core": 0,
+                  "flash_attention_bwd_dkv_cuda_core": 0}
 
 
 def _reset_counts() -> None:
@@ -1899,7 +1909,8 @@ def _train_step_launches(layers: int) -> dict:
     pass, so both write the LSE), then its two backward kernels once."""
     return {"qk_prep": 4 * layers, "rope_interleaved": 0, "flash_attention": 2 * layers,
             "flash_attention_lse": 2 * layers, "flash_attention_tc": 2 * layers, "flash_attention_bwd_dq": layers,
-            "flash_attention_bwd_dkv": layers, "flash_attention_bwd_dkv_tc": layers, **_NO_OPT_IN, **_NO_CUDA_CORES}
+            "flash_attention_bwd_dq_tc": layers, "flash_attention_bwd_dkv": layers,
+            "flash_attention_bwd_dkv_tc": layers, **_NO_OPT_IN, **_NO_CUDA_CORES}
 
 
 def phase_train_entry() -> dict:
@@ -2003,7 +2014,7 @@ def phase_train() -> dict:
     want_step = _train_step_launches(layers)
     total = {name: 0 for name in want_step}
     opt_state = None
-    for frames_latent, steps in ((3, 3), (13, 1)):
+    for frames_latent, steps in ((3, 4), (13, 1)):  # the fourth 9-frame step runs under the profiler
         cos, sin = cogvideox_rope(cfg, 480, 720, frames_latent)
         loss = make_lora_loss(make_cogvideox_vpred_loss(dit, rope_cos=cos, rope_sin=sin), None, scale=1.0,
                               attach=True)
@@ -2016,14 +2027,22 @@ def phase_train() -> dict:
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             torch.cuda.synchronize()
+            profiled = frames_latent == 3 and i == steps - 1
             t0 = time.perf_counter()
-            loras, opt_state, metrics = step(loras, opt_state, batch, gen, base)
+            if profiled:
+                (loras, opt_state, metrics), profile = _profiled(lambda: step(loras, opt_state, batch, gen, base))
+            else:
+                loras, opt_state, metrics = step(loras, opt_state, batch, gen, base)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             counts = _read_counts()
+            if profiled:  # its time is the profiler's window: the clock above also holds the trace's export
+                _print_profile("[E] profiled step", profile)
+                ms = profile["window_ms"]
             loss_v, norm_v = float(metrics["loss"]), float(metrics["grad_norm"])
             moved = [not torch.equal(a, b.detach()) for a, b in zip(before, tree_leaves(loras))]
-            print(f"[E] step at S={seq} ({1 + 4 * (frames_latent - 1)} frames): {ms:.1f} ms, loss {loss_v:.5f}, "
+            print(f"[E] step at S={seq} ({1 + 4 * (frames_latent - 1)} frames): {ms:.1f} ms"
+                  f"{' under the profiler (its window)' if profiled else ''}, loss {loss_v:.5f}, "
                   f"grad_norm {norm_v:.5f}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
                   f"launches {counts}; card after it: {_card_state()}", flush=True)
             if not (loss_v == loss_v and norm_v == norm_v and abs(loss_v) != float("inf") and norm_v > 0.0
@@ -2048,6 +2067,69 @@ def phase_train() -> dict:
     return total
 
 
+def _profiled(fn):
+    """``(fn(), profile)``: ``fn`` run once under ``torch.profiler`` (CPU and
+    CUDA activity) inside a named range that ends after a synchronise.
+    ``profile``: {"window_ms": the range's length, "busy_ms": the union of
+    the device's kernel, copy and fill intervals inside it, "kernels":
+    [(name, ms, launches)] by total time}. Read from the profiler's trace."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_profiled_window"):
+            out = fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace) if e.get("ph") == "X"]
+    window = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == "chip_smoke_profiled_window")
+    w0, w1 = float(window["ts"]), float(window["ts"]) + float(window["dur"])
+    device = sorted((max(w0, float(e["ts"])), min(w1, float(e["ts"]) + float(e["dur"])), e["cat"], e["name"])
+                    for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end, kernels = 0.0, w0, {}
+    for a, b, cat, name in device:
+        if b <= a:
+            continue
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        if cat == "kernel":
+            ms, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (ms + (b - a) / 1e3, n + 1)
+    ranked = sorted(((name, ms, n) for name, (ms, n) in kernels.items()), key=lambda r: -r[1])
+    return out, {"window_ms": (w1 - w0) / 1e3, "busy_ms": busy / 1e3, "kernels": ranked}
+
+
+def _print_profile(tag, prof) -> None:
+    """The ten device kernels that take the most time, each with its share of the window, and the idle share."""
+    window = prof["window_ms"]
+    if not prof["kernels"]:
+        print(f"{tag}: the profiler recorded no device kernel in {window:.1f} ms: kernel shares and the idle share "
+              f"not measured", flush=True)
+        return
+    print(f"{tag}: {window:.1f} ms window, device busy {prof['busy_ms']:.1f} ms, idle share "
+          f"{1.0 - prof['busy_ms'] / window:.4f}; {len(prof['kernels'])} kernel names, the ten that take the most "
+          f"time:", flush=True)
+    for name, ms, n in prof["kernels"][:10]:
+        short = name[5:] if name.startswith("void ") else name
+        print(f"{tag}:   {ms:9.2f} ms {ms / window:7.2%} of the step, {n:4d} launches  {short[:110]}", flush=True)
+    families = {}  # the port's kernels, the matrix products of PyTorch's libraries, and the rest
+    ours, products = ("flash_fwd", "flash_bwd", "qk_prep_kernel", "rope_kernel"), ("gemm", "nvjet", "cutlass", "sm90_")
+    for name, ms, _ in prof["kernels"]:
+        family = ("the port's kernels" if any(part in name for part in ours)
+                  else "matrix products" if any(part in name.lower() for part in products) else "other")
+        families[family] = families.get(family, 0.0) + ms
+    print(f"{tag}: by family " + ", ".join(f"{family} {ms:.2f} ms ({ms / window:.2%})"
+                                          for family, ms in sorted(families.items(), key=lambda kv: -kv[1])),
+          flush=True)
+
+
 def _lora_leaf_names(loras) -> list:
     from alg_tpu_torch.training.train import tree_leaves_with_path
 
@@ -2057,7 +2139,7 @@ def _lora_leaf_names(loras) -> list:
 def phase_train_agreement() -> dict:
     """A small CogVideoX LoRA run on the card (kernels) and on the CPU (plain
     versions); returns the card run's launch counts (fp32: the CUDA-core
-    forward and dkv kernels)."""
+    forward, dq and dkv kernels)."""
     import copy
 
     import torch
@@ -2121,7 +2203,8 @@ def phase_train_agreement() -> dict:
     # 3 steps x 2 layers, each block forward run twice under remat
     want = {"qk_prep": 24, "rope_interleaved": 0, "flash_attention": 12, "flash_attention_lse": 12,
             "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 6, "flash_attention_cuda_core": 12,
-            "flash_attention_bwd_dkv_cuda_core": 6, **_NO_OPT_IN, **_NO_TENSOR_CORES}
+            "flash_attention_bwd_dq_cuda_core": 6, "flash_attention_bwd_dkv_cuda_core": 6, **_NO_OPT_IN,
+            **_NO_TENSOR_CORES}
     ok = (loss_err <= 1e-4 and err <= 1e-4 and moved and not any(n_c.values()) and n_g == want and grads_live
           and grad_err <= 1e-4)
     print(f"[E2] small LoRA run of 3 steps, card (kernels) vs CPU (plain), fp32: losses {l_g} vs {l_c}, max rel diff "
@@ -2140,8 +2223,8 @@ def phase_train_agreement() -> dict:
 
 # For each kernel: its source, the TPU kernel it replaces, the phase-B case whose numbers go into its JSON
 # record (the shape a 2-pass step of the slice that runs it gives it) and that case's dtype (the CUDA-core
-# forward and dkv kernels take fp32 only since the tensor-core kernels took bf16), and the name of its launches
-# in a run's counts.
+# forward, dq and dkv kernels take fp32 only since the tensor-core kernels took bf16), and the name of its
+# launches in a run's counts.
 _KERNELS = {
     "qk_prep": ("alg_tpu_torch/csrc/qk_prep.cu", "alg_tpu/ops/qk_prep.py:56", "qk_prep", [2, 48, 4276, 64],
                 "bfloat16", "qk_prep"),
@@ -2155,8 +2238,11 @@ _KERNELS = {
     # both forward kernels, here of the tensor-core one
     "flash_attention_lse": ("alg_tpu_torch/csrc/flash_attention_tc.cu", "alg_tpu/ops/flash_attention.py:98",
                             "flash_lse_dit", [1, 48, 17776, 64], "bfloat16", "flash_attention_lse"),
+    "flash_attention_bwd_dq_tc": ("alg_tpu_torch/csrc/flash_attention_bwd_dq_tc.cu",
+                                  "alg_tpu/ops/flash_attention_bwd.py:89", "flash_bwd_dq_dit", [1, 48, 17776, 64],
+                                  "bfloat16", "flash_attention_bwd_dq_tc"),
     "flash_attention_bwd_dq": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:89",
-                               "flash_bwd_dq_dit", [1, 48, 17776, 64], "bfloat16", "flash_attention_bwd_dq"),
+                               "flash_bwd_dq_dit", [1, 48, 17776, 64], "float32", "flash_attention_bwd_dq_cuda_core"),
     "flash_attention_bwd_dkv_tc": ("alg_tpu_torch/csrc/flash_attention_bwd_tc.cu",
                                    "alg_tpu/ops/flash_attention_bwd.py:144", "flash_bwd_dkv_dit", [1, 48, 17776, 64],
                                    "bfloat16", "flash_attention_bwd_dkv_tc"),
@@ -2171,8 +2257,8 @@ _KERNELS = {
                                "flash_prolog_layer_rope", [2, 48, 4276, 64], "bfloat16", "flash_attention_prolog"),
 }
 # Other variants of a kernel whose phase-B numbers ride along in its record ("also"): the other shapes, the
-# causal calls and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches; for the forward
-# and dkv kernels only the records of the type each kernel takes.
+# causal calls and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches; for the forward,
+# dq and dkv kernels only the records of the type each kernel takes.
 _TRAIN_SHAPES = ("dit", "wan_self", "wan_cross_text", "hunyuan_joint", "square_causal")
 _FLASH_SHAPES = ("flash_dit", "flash_wan_self", "flash_wan_cross_text", "flash_wan_cross_image", "flash_t5_bias_stable",
                  "flash_umt5_bias_kvlen", "flash_llama_causal_kvlen", "flash_clip_text_causal", "flash_clip",
@@ -2181,6 +2267,7 @@ _FLASH_SHAPES = ("flash_dit", "flash_wan_self", "flash_wan_cross_text", "flash_w
 _ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES,
          "rope_interleaved": ("rope_hunyuan_joint",),
          "flash_attention_lse": tuple("flash_lse_" + n for n in _TRAIN_SHAPES),
+         "flash_attention_bwd_dq_tc": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dq": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dkv_tc": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dkv": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
@@ -2188,7 +2275,8 @@ _ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES,
                                        for tag in ("dit", "wan_self", "hunyuan_joint", "kvlen_zero_row")),
          "flash_attention_prolog": ("flash_prolog_layer_rope", "flash_prolog_rms_rope_stable", "flash_prolog_rope",
                                     "flash_prolog_layer", "flash_prolog_layer_rope_q_only", "flash_prolog_rms_rope")}
-_ONE_TYPE = ("flash_attention_tc", "flash_attention", "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv")
+_ONE_TYPE = ("flash_attention_tc", "flash_attention", "flash_attention_bwd_dq_tc", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv")
 
 
 def _kernel_json(records, counts_by_path) -> dict:
@@ -2260,8 +2348,8 @@ def main() -> int:
                               ("hunyuan_int8_full", ("rope_interleaved", "flash_attention_tc", "flash_attention_int8")),
                               ("prolog_entry", ("flash_attention_prolog",)),
                               ("train_cogvideox", ("qk_prep", "flash_attention_tc", "flash_attention_lse",
-                                                   "flash_attention_bwd_dq", "flash_attention_bwd_dkv_tc")),
-                              ("train_agreement_fp32", ("flash_attention_cuda_core",
+                                                   "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
+                              ("train_agreement_fp32", ("flash_attention_cuda_core", "flash_attention_bwd_dq_cuda_core",
                                                         "flash_attention_bwd_dkv_cuda_core"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:

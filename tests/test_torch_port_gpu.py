@@ -19,9 +19,10 @@ dims, alone and with ``kv_len`` and ``causal``, and through
 tensor-core kernels (S = 1, 63, 65, 127, 129 and 4,276, Sq != Sk both ways,
 ``kv_len`` at 0, 1, either side of a 64-key tile and S, causal with Sq > Sk
 and Sq < Sk, a bias at both batch strides, ``stable`` with logits near ±100
-whose maximum moves in every key tile, D = 80, the LSE; dkv at ragged Sk
-with ``kv_len`` and causal), the routes and the CUDA-core entry points'
-refusal of bf16.
+whose maximum moves in every key tile, D = 80, the LSE; dq and dkv at
+ragged Sq and Sk with ``kv_len`` and causal), a bf16 gradient through a small
+DiT card against CPU, the routes and the CUDA-core entry points' refusal of
+bf16.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -851,6 +852,81 @@ def test_tensor_core_dkv_matches_plain(cuda, case):
             assert not g.transpose(1, 2)[dead].any()
 
 
+@pytest.mark.parametrize("case", list(TC_BWD_CASES))
+def test_tensor_core_dq_matches_plain(cuda, case):
+    """bf16 dq launches the tensor-core kernel: dq within the bf16 gradient
+    tolerance of the plain version (which rounds dS to bf16 as the kernel
+    does), exactly 0 for rows that see no key."""
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+    b, h, sq, sk, d, kv_len, causal = TC_BWD_CASES[case]
+    gen = torch.Generator().manual_seed(24)
+    q, do = (_randn(gen, b, h, sq, d).to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, b, h, sk, d).to(cuda, torch.bfloat16) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    out, lse = FA.flash_attention(q, k, v, scale, kv_len=lens, causal=causal, return_residuals=True)
+    delta = FB.row_delta(out, do)
+    dqk = FB.flash_attention_bwd_dq
+    counts = (dqk.launches, dict(dqk.launches_by_route))
+    dq = dqk(q, k, v, do, lse, delta, scale, causal, lens)
+    torch.cuda.synchronize()
+    assert (dqk.launches, dqk.launches_by_route) == (counts[0] + 1, {**counts[1], "tc": counts[1]["tc"] + 1})
+    assert dq.dtype == torch.bfloat16 and bool(torch.isfinite(dq).all())
+    _assert_close_grad(dq, FB.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, lens),
+                       torch.bfloat16)
+    blind = torch.isneginf(lse)  # rows that see no key
+    assert not dq[blind].any()
+
+
+def test_bf16_dit_gradient_card_matches_cpu(cuda):
+    """The gradient of one LoRA loss on a 2-layer CogVideoX DiT (head dim 64)
+    in bf16, at adapters with A and B nonzero: the card, where the forward
+    with the LSE, dq and dkv all run on the tensor cores, against the CPU's
+    plain versions, each leaf within the bf16 gradient tolerance."""
+    from alg_tpu_torch.models.cogvideox.transformer import (CogVideoXTransformer, CogVideoXTransformerConfig,
+                                                            cogvideox_rope)
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+    from alg_tpu_torch.training.lora import init_lora_params, make_lora_loss
+    from alg_tpu_torch.training.losses import make_cogvideox_vpred_loss
+    from alg_tpu_torch.training.train import tree_leaves, tree_leaves_with_path, tree_map
+
+    cfg = CogVideoXTransformerConfig(num_attention_heads=2, attention_head_dim=64, in_channels=8, out_channels=4,
+                                     time_embed_dim=32, text_embed_dim=64, num_layers=2, sample_height=8,
+                                     sample_width=8, max_text_seq_length=8)
+    gen = torch.Generator().manual_seed(6)
+    model = L.init_random_(CogVideoXTransformer(cfg), gen).requires_grad_(False).to(torch.bfloat16)
+    loras0 = init_lora_params(gen, dict(model.named_parameters()), rank=4, prefixes=("blocks",))
+    for path, leaf in tree_leaves_with_path(loras0):
+        if path.endswith("/B"):  # B starts at 0, and A's gradient with it
+            leaf.copy_(0.05 * _randn(gen, *leaf.shape))
+    cos, sin = cogvideox_rope(cfg, 64, 64, 3)  # 3 latent frames of 8 x 8: 48 video tokens, 8 text tokens
+    batch = {"latents": _randn(gen, 2, 3, 4, 8, 8), "image_latents": _randn(gen, 2, 3, 4, 8, 8),
+             "encoder_hidden_states": _randn(gen, 2, 8, 64)}
+    draws = {"t": torch.tensor([999, 400]), "noise": _randn(gen, 2, 3, 4, 8, 8)}
+    routes = (FA.flash_attention.launches_by_route, FB.flash_attention_bwd_dq.launches_by_route,
+              FB.flash_attention_bwd_dkv.launches_by_route)
+    grads = {}
+    for dev in ("cpu", cuda):
+        dit = copy.deepcopy(model).to(dev)
+        loss = make_lora_loss(make_cogvideox_vpred_loss(dit, rope_cos=cos, rope_sin=sin),
+                              dict(dit.named_parameters()), scale=2.0, attach=True)
+        at = tree_map(lambda t: t.clone().to(dev).requires_grad_(), loras0)
+        before = [dict(r) for r in routes]
+        value = loss(at, {n: t.to(dev, torch.bfloat16) for n, t in batch.items()},
+                     {n: t.to(dev) for n, t in draws.items()})
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(value, tree_leaves(at))]
+        torch.cuda.synchronize()
+        want = [dict(r) for r in before]
+        if dev != "cpu":  # two layers: two forwards with the LSE, two dq and two dkv, all on the tensor cores
+            for r in want:
+                r["tc"] += 2
+        assert [dict(r) for r in routes] == want
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        assert float(b.abs().max()) > 0 and bool(torch.isfinite(a).all())
+        _assert_close_grad(a, b, torch.bfloat16)
+
+
 def test_routes_on_the_card(cuda):
     """fp32 takes the CUDA-core kernels and bf16 with a prolog the prolog
     kernel, each counted under its route and none as a tensor-core launch;
@@ -859,22 +935,28 @@ def test_routes_on_the_card(cuda):
     from alg_tpu_torch.ops import flash_attention_bwd as FB
 
     q = torch.randn(1, 2, 40, 64, device=cuda)
-    fwd, dkv = FA.flash_attention.launches_by_route, FB.flash_attention_bwd_dkv.launches_by_route
-    counts = (dict(fwd), dict(dkv))
+    fwd, dq = FA.flash_attention.launches_by_route, FB.flash_attention_bwd_dq.launches_by_route
+    dkv = FB.flash_attention_bwd_dkv.launches_by_route
+    counts = (dict(fwd), dict(dq), dict(dkv))
     out, lse = FA.flash_attention(q, q, q, 0.125, return_residuals=True)
+    FB.flash_attention_bwd_dq(q, q, q, q, lse, FB.row_delta(out, q), 0.125)
     FB.flash_attention_bwd_dkv(q, q, q, q, lse, FB.row_delta(out, q), 0.125)
     ones = torch.ones(64, device=cuda)
     FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.125, qk_norm="rms", q_norm_scale=ones,
                        k_norm_scale=ones)
     torch.cuda.synchronize()
     assert fwd == {**counts[0], "cuda_core": counts[0]["cuda_core"] + 1, "prolog": counts[0]["prolog"] + 1}
-    assert dkv == {**counts[1], "cuda_core": counts[1]["cuda_core"] + 1}
+    assert dq == {**counts[1], "cuda_core": counts[1]["cuda_core"] + 1}
+    assert dkv == {**counts[2], "cuda_core": counts[2]["cuda_core"] + 1}
     x = q.bfloat16()
     stream = torch.cuda.current_stream().cuda_stream
     bf16 = FA._build.DTYPE_CODE[torch.bfloat16]
     rc = FA._entry(64, "cuda_core")(bf16, x.data_ptr(), x.data_ptr(), x.data_ptr(), None, 0, None, x.data_ptr(),
                                     None, 1, 2, 40, 40, 0.125, 1, 0, stream)
     assert rc == 1  # cudaErrorInvalidValue
+    rc = FB._entry(64, "dq_cuda_core")(bf16, *([x.data_ptr()] * 4), lse.data_ptr(), lse.data_ptr(), None,
+                                       x.data_ptr(), 1, 2, 40, 40, 0.125, 0, stream)
+    assert rc == 1
     rc = FB._entry(64, "dkv_cuda_core")(bf16, *([x.data_ptr()] * 4), lse.data_ptr(), lse.data_ptr(), None,
                                         x.data_ptr(), x.data_ptr(), 1, 2, 40, 40, 0.125, 0, stream)
     assert rc == 1

@@ -1,17 +1,18 @@
 """The tensor-core attention kernels' surroundings on the CPU: which calls
 the wrappers route to them, that the build compiles them, and the plain
-version of the dkv arithmetic they follow in bf16, against the JAX package.
+version of the backward arithmetic they follow in bf16, against the JAX
+package.
 
 The kernels themselves (``csrc/flash_attention_tc.cu``,
-``csrc/flash_attention_bwd_tc.cu``) run only on the card; the on-card tests
-in ``test_torch_port_gpu.py`` hold them against the plain versions.
+``csrc/flash_attention_bwd_dq_tc.cu``, ``csrc/flash_attention_bwd_tc.cu``)
+run only on the card; the on-card tests in ``test_torch_port_gpu.py`` hold
+them against the plain versions.
 
 bf16 backward against ``alg_tpu.ops.flash_attention_bwd.flash_attention_bwd``
-in Pallas interpret mode: both round P and dS to bf16 before the products
-that make dv and dk, so the two differ only in the order of fp32 sums, in
-the rounding of the outputs to bf16, and for dq in dS, which the port's dq
-keeps in fp32. Tolerance: one bf16 step at each output's largest magnitude
-(atol = max|ref| · 2**-7, rtol 0)."""
+in Pallas interpret mode: both round dS (and for dv P) to bf16 before the
+products that make dq, dk and dv, so the two differ only in the order of
+fp32 sums and in the rounding of the outputs to bf16. Tolerance: one bf16
+step at each output's largest magnitude (atol = max|ref| · 2**-7, rtol 0)."""
 
 import types
 
@@ -57,8 +58,15 @@ def test_dkv_route(device, dtype, want):
     assert FB.dkv_route(_on(device, dtype)) == want
 
 
-@pytest.mark.parametrize("route", [lambda t: FA.route(t), lambda t: FA.route(t, True), FB.dkv_route],
-                         ids=["forward", "forward-prolog", "dkv"])
+@pytest.mark.parametrize("device,dtype,want", [
+    ("cpu", torch.bfloat16, "plain"), ("cuda", torch.bfloat16, "tc"), ("cuda", torch.float32, "cuda_core"),
+], ids=["cpu-bf16", "cuda-bf16", "cuda-fp32"])
+def test_dq_route(device, dtype, want):
+    assert FB.dq_route(_on(device, dtype)) == want
+
+
+@pytest.mark.parametrize("route", [lambda t: FA.route(t), lambda t: FA.route(t, True), FB.dq_route, FB.dkv_route],
+                         ids=["forward", "forward-prolog", "dq", "dkv"])
 def test_routes_raise_for_other_devices_and_dtypes(route):
     with pytest.raises(RuntimeError, match="no kernel for device"):
         route(_on("meta", torch.bfloat16))
@@ -75,7 +83,7 @@ def test_each_route_names_an_entry_point_of_the_sources():
             assert f"ALG_CAT({stem}, ALG_FLASH_HEAD_DIM)" in defined, stem
 
 
-@pytest.mark.parametrize("src", ["flash_attention_tc", "flash_attention_bwd_tc"])
+@pytest.mark.parametrize("src", ["flash_attention_tc", "flash_attention_bwd_tc", "flash_attention_bwd_dq_tc"])
 def test_compile_units_list_the_tensor_core_units(src):
     units = {stem: extra for stem, _, extra in _build.compile_units()}
     for d in (64, 80, 128):
@@ -125,3 +133,45 @@ def test_bf16_dkv_plain_rounds_p_and_ds():
     bf = [a.bfloat16() for a in t]
     got = FB.flash_attention_bwd_dkv_plain(*bf[:3], bf[3], lse, delta, scale)
     assert any(not torch.equal(g, w.bfloat16()) for g, w in zip(got, unrounded))
+
+
+def test_bf16_dq_plain_rounds_ds():
+    """The plain dq version rounds dS to bf16 before its product with k (an
+    identity in fp32): in fp32 it is the unrounded arithmetic exactly, on
+    bf16 inputs it differs from it."""
+    q, k, v, do, scale, causal, kv_len = _bf16_inputs("dense-ragged", seed=1)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    o, lse = FA.attention_plain_residuals(*t[:3], scale)
+    delta = FB.row_delta(o, t[3])
+    _, ds = FB._p_ds_plain(*t[:3], t[3], lse, delta, scale, False, None)
+    unrounded = torch.matmul(ds, t[1]) * scale
+    assert torch.equal(FB.flash_attention_bwd_dq_plain(*t[:3], t[3], lse, delta, scale), unrounded)
+    bf = [a.bfloat16() for a in t]
+    got = FB.flash_attention_bwd_dq_plain(*bf[:3], bf[3], lse, delta, scale)
+    assert got.dtype == torch.bfloat16 and not torch.equal(got, unrounded.bfloat16())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_dq_plain_is_closer_to_jax_than_fp32_ds(case):
+    """The fault the rounding repairs: on bf16 inputs ``alg_tpu``'s
+    ``_dq_kernel`` (interpret mode) rounds dS to bf16 before dS·k. The plain
+    dq, which now does too, is closer to it than the same arithmetic with
+    dS kept in fp32 (the port's dq before): a smaller mean |diff| and no
+    larger max |diff|, both stated on failure."""
+    q, k, v, do, scale, causal, kv_len = _bf16_inputs(case)
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    tlen = None if kv_len is None else torch.from_numpy(kv_len)
+    o, lse = FA.attention_plain_residuals(tq, tk, tv, scale, None, tlen, causal)
+    delta = FB.row_delta(o, tdo)
+    got = FB.flash_attention_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, scale, causal, tlen).float().numpy()
+    _, ds = FB._p_ds_plain(tq, tk, tv, tdo, lse, delta, scale, causal, tlen)
+    fp32_ds = (torch.matmul(ds, tk.float()) * scale).bfloat16().float().numpy()
+    jlen = None if kv_len is None else jnp.asarray(kv_len)
+    ref = jax_flash_attention_bwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, o.float().numpy())),
+                                  jnp.asarray(lse.numpy()), jnp.asarray(do, jnp.bfloat16), scale=scale,
+                                  causal=causal, kv_len=jlen, block_q=128, block_k=128, interpret=True)[0]
+    ref = np.asarray(ref.astype(jnp.float32))
+    new, old = np.abs(got - ref), np.abs(fp32_ds - ref)
+    said = (f"rounded dS: max|diff| {new.max():.3e}, mean {new.mean():.3e}; "
+            f"fp32 dS: max|diff| {old.max():.3e}, mean {old.mean():.3e}")
+    assert new.mean() < old.mean() and new.max() <= old.max(), said
