@@ -1,9 +1,8 @@
 // Flash-attention forward over [B, H, S, D], online softmax in base 2, for
-// one head dim D fixed at compile time (ALG_FLASH_HEAD_DIM): the body shared by
-// flash_attention.cu (the fp32 calls without a qk prolog) and
-// flash_attention_prolog.cu (the calls with one). Each of the two is its own
-// compile unit with its own kernels, so that the code a call without a prolog
-// launches does not depend on the prolog's.
+// one head dim D fixed at compile time (ALG_FLASH_HEAD_DIM), with the qk
+// prolog: the body of flash_attention_prolog.cu, its only includer. Calls
+// without a prolog run elsewhere: fp32 in flash_attention.cu (register-tiled
+// on the CUDA cores), bf16 in flash_attention_tc.cu (tensor cores).
 //
 // Replaces the TPU kernel alg_tpu/ops/flash_attention.py:_fwd_kernel in the
 // variants the CogVideoX, Wan and HunyuanVideo main paths run: dense,
@@ -72,9 +71,8 @@
 // products is what a tensor of the activation type would hold.
 //
 // Bound on the H100: tensor-core FLOPs (4·H·D·Σ visible keys per call). This
-// body runs on the CUDA cores in fp32 FMAs: the fp32 calls (flash_attention.cu)
-// and the prolog calls in both types (flash_attention_prolog.cu). bf16 calls
-// without a prolog run on the tensor cores (flash_attention_tc.cu).
+// body runs on the CUDA cores in fp32 FMAs, for the prolog calls in both
+// types.
 #pragma once
 
 #include <math.h>

@@ -23,27 +23,32 @@
 //   dV_j  = Σ_i p_ij·dO_i                 (dkv kernel)
 //   dK_j  = scale·Σ_i ds_ij·q_i           (dkv kernel)
 //
-// Design. Both kernels follow the forward kernel (flash_attention.cu): 128
-// threads a block, fp32 FMAs on the CUDA cores, the
-// other side's rows staged in shared memory as fp32 and read as broadcast
-// float4s, work done in chunks of 16 staged rows. The TPU grid's sequential
-// axis becomes a loop inside the block, so every output row has exactly one
-// owner: no atomics, and the sums run in one fixed order.
+// Design. 128 threads a block, fp32 FMAs on the CUDA cores. The TPU grid's
+// sequential axis becomes a loop inside the block, so every output row has
+// exactly one owner: no atomics, and the sums run in one fixed order.
 //
 //  * dq: one block per (b·h, tile of query rows); loop over key tiles (K and V
-//    in shared memory). A query row belongs to kDqLanes neighbouring lanes,
-//    each holding its slice of q, dO and the dQ accumulator in registers.
-//  * dkv: one block per (b·h, tile of keys); loop over query tiles (Q, dO, lse
-//    and delta in shared memory). A key belongs to kDkvLanes neighbouring
-//    lanes, each holding its slice of k, v and of the dK and dV accumulators.
-//
-// The lanes of a row sum their partial dot products with xor shuffles. The
-// slices are narrower than the forward's (8 to 40 values) because a lane
-// here holds three or four of them: q, dO, dQ, or k, v, dK, dV.
+//    staged in static shared memory, read as broadcast float4s, in chunks of
+//    16 keys). A query row belongs to kDqLanes neighbouring lanes, each
+//    holding its slice of q, dO and the dQ accumulator in registers; the
+//    lanes of a row sum their partial dot products with xor shuffles.
+//  * dkv: register-tiled (flash_simt.cuh has the layout). One block per (b·h,
+//    tile of 64 keys; two blocks an SM at D = 64 and 80, one at 128); K and V
+//    staged once; a loop over tiles of 32 queries, Q, dO, lse and delta copied
+//    by cp.async into a two-stage ring in dynamic shared memory, the next
+//    tile's copy in flight while this one is computed. For each query tile,
+//    Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as the same micro-tile a thread (4 or 2 keys ×
+//    4 queries), so that P and dS = P ⊙ (dP - delta) are formed in registers;
+//    they go to shared memory (read back by the same warp), and dV += Pᵀ·dO,
+//    dK += dSᵀ·Q run as register-blocked products, each thread owning its
+//    keys × every 8th group of head-dim columns of both accumulators. dK is
+//    scaled by `scale` once, at the end.
 //
 // Masks and ragged edges. The dq block's key loop ends at the limit of its
 // last row and the dkv block's query loop starts at the first row that sees
-// its first key, so a causal call skips what no row of the block can reach.
+// its first key, so a causal call skips what no row of the block can reach;
+// dkv applies the mask only on query tiles that some pair of its block does
+// not see.
 // Staged rows past the end are zero-filled, and a query past Sq or with
 // lse = -inf (no visible key) takes +1e30 for its lse, so p is exactly 0:
 // such a row gets dQ = 0 and adds nothing to dK or dV. Keys at or past kv_len
@@ -56,6 +61,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_simt.cuh"
 
 #ifndef ALG_FLASH_HEAD_DIM
 #error "compile with -DALG_FLASH_HEAD_DIM=64, 80 or 128 (the build-variants line above)"
@@ -73,13 +79,12 @@ constexpr int kChunk = 16;                    // staged rows per logits/exp/accu
 // Lanes that share one row: powers of two that leave each lane a multiple of four head-dim values. These
 // were the fastest of those tried on an H100; wider slices spill.
 constexpr int kDqLanes = kD > 80 ? 4 : 2;                       // slices of 32, 40, 32 values of q, dO, dQ
-constexpr int kDkvLanes = kD == 64 ? 8 : kD == 80 ? 4 : 16;     // slices of 8, 20, 8 values of k, v, dK, dV
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kNotCausal = 1 << 30;           // causal_offset of a call without the causal mask
 constexpr float kNoRowLse = 1e30f;            // lse of a row that contributes nothing: exp2(s - 1e30) = 0
 
 static_assert(kD == 64 || kD == 80 || kD == 128, "head dims the port's models use");
-static_assert(kD % (4 * kDqLanes) == 0 && kD % (4 * kDkvLanes) == 0 && kStage % kChunk == 0, "tiling");
+static_assert(kD % (4 * kDqLanes) == 0 && kStage % kChunk == 0, "tiling");
 static_assert(2 * kStage * kD * sizeof(float) + 2 * kStage * sizeof(float) <= 48 * 1024,
               "static shared-memory limit");
 
@@ -229,133 +234,167 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV
+// dK, dV: register-tiled on the CUDA cores (flash_simt.cuh has the layout)
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, const int* __restrict__ kv_len, T* __restrict__ dk,
-                     T* __restrict__ dv, int heads, int sq, int sk, int causal_offset, float scale) {
-  constexpr int kL = kDkvLanes, kDL = kD / kL, kKeys = kThreads / kL;
-  __shared__ __align__(16) float qs[kStage][kD];
-  __shared__ __align__(16) float dos[kStage][kD];
-  __shared__ float lses[kStage];
-  __shared__ float deltas[kStage];
+namespace dkv {
 
+using namespace alg::simt;
+
+constexpr int kTK = 4;                            // keys of a thread (rows ty + 16 i of the block's keys)
+constexpr int kBlockKV = kGroups * kTK;           // keys a block
+constexpr int kBlockQ = 32;                       // queries a shared-memory tile
+constexpr int kTQ = kBlockQ / kRowLanes;          // queries of a thread's micro-tile (tx + 8 j)
+constexpr int kDC = kD / kRowLanes;               // head-dim values of a thread's dK and dV rows
+constexpr int S = stride(kD), PS = p_stride(kBlockQ);
+// K, V; two stages of (Q, dO, lse, delta); P and dS
+constexpr int kSmemFloats = 2 * kBlockKV * S + 2 * (2 * kBlockQ * S + 2 * kBlockQ) + 2 * kBlockKV * PS;
+constexpr int kSmemBytes = kSmemFloats * (int)sizeof(float);
+static_assert(kSmemBytes <= 227 * 1024, "shared memory of one block");
+
+__global__ void __launch_bounds__(alg::simt::kThreads, 2)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const int* __restrict__ kv_len, float* __restrict__ dk,
+                     float* __restrict__ dv, int sq, int sk, int heads, int causal_offset, float scale) {
+  extern __shared__ float4 smem4[];
+  float* const ks = reinterpret_cast<float*>(smem4);   // [kBlockKV][S]
+  float* const vs = ks + kBlockKV * S;                  // [kBlockKV][S]
+  float* const stages = vs + kBlockKV * S;              // 2 × (Q [kBlockQ][S], dO [kBlockQ][S], lse, delta)
+  constexpr int kStageFloats = 2 * kBlockQ * S + 2 * kBlockQ;
+  float* const ps = stages + 2 * kStageFloats;          // Pᵀ [kBlockKV][PS]
+  float* const dss = ps + kBlockKV * PS;                // dSᵀ [kBlockKV][PS]
+
+  const int tx = threadIdx.x % kRowLanes, ty = threadIdx.x / kRowLanes;
   const int bh = blockIdx.y;
   const int b = bh / heads;
-  const int part = threadIdx.x % kL;
   const bool causal = causal_offset != kNotCausal;
-  const int key0 = blockIdx.x * kKeys;  // the first tiles see the most queries: longest blocks first as it is
-  const int key = key0 + threadIdx.x / kL;
+  const int key0 = blockIdx.x * kBlockKV;  // the first blocks see the most queries: longest blocks first as it is
   const int n_keys = kv_len == nullptr ? sk : max(0, min(sk, kv_len[b]));
-  const bool live_key = key < n_keys;
-  const T* qp = q + (long long)bh * sq * kD;
-  const T* dop = dout + (long long)bh * sq * kD;
+  const float* qp = q + (long long)bh * sq * kD;
+  const float* dop = dout + (long long)bh * sq * kD;
   const float* lsep = lse + (long long)bh * sq;
   const float* deltap = delta + (long long)bh * sq;
   const float scale_log2 = scale * kLog2e;
 
-  float kr[kDL], vr[kDL], dkr[kDL], dvr[kDL];
-  if (live_key) {
-    const long long at = ((long long)bh * sk + key) * kD + 4 * part;
-    load_slice<T, kL>(k + at, kr);
-    load_slice<T, kL>(v + at, vr);
-  } else {
-#pragma unroll
-    for (int d = 0; d < kDL; ++d) kr[d] = vr[d] = 0.0f;
-  }
-#pragma unroll
-  for (int d = 0; d < kDL; ++d) dkr[d] = dvr[d] = 0.0f;
-
   // queries below the first one that sees the block's first key see none of its keys; a block whose first
   // key is past kv_len has nothing to do
   int q_begin = key0 < n_keys ? 0 : sq;
-  if (causal && q_begin == 0) q_begin = max(0, key0 - causal_offset) / kChunk * kChunk;
+  if (causal && q_begin == 0) q_begin = min(sq, max(0, key0 - causal_offset));
+  const int n_tiles = (sq - q_begin + kBlockQ - 1) / kBlockQ;
 
-  for (int q0 = q_begin; q0 < sq; q0 += kStage) {
-    __syncthreads();  // previous tile fully consumed
-    stage_pair<T>(qp, dop, q0, sq, qs, dos);
-    if (threadIdx.x < kStage) {
-      const int i = q0 + threadIdx.x;
-      float l = i < sq ? lsep[i] : kNoRowLse;
-      if (l == -INFINITY) l = kNoRowLse;
-      lses[threadIdx.x] = l;
-      deltas[threadIdx.x] = i < sq ? deltap[i] : 0.0f;
-    }
-    __syncthreads();
-
-    const int qn = min(kStage, sq - q0);
-    for (int i0 = 0; i0 < qn; i0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-#pragma unroll
-      for (int ii = 0; ii < kChunk; ++ii) s[ii] = dp[ii] = 0.0f;
-#pragma unroll
-      for (int d = 0; d < kDL; d += 4) {
-#pragma unroll
-        for (int ii = 0; ii < kChunk; ++ii) {
-          const float4 qv = *reinterpret_cast<const float4*>(&qs[i0 + ii][d * kL + 4 * part]);
-          s[ii] = fmaf(kr[d], qv.x, s[ii]);
-          s[ii] = fmaf(kr[d + 1], qv.y, s[ii]);
-          s[ii] = fmaf(kr[d + 2], qv.z, s[ii]);
-          s[ii] = fmaf(kr[d + 3], qv.w, s[ii]);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < kDL; d += 4) {
-#pragma unroll
-        for (int ii = 0; ii < kChunk; ++ii) {
-          const float4 dov = *reinterpret_cast<const float4*>(&dos[i0 + ii][d * kL + 4 * part]);
-          dp[ii] = fmaf(vr[d], dov.x, dp[ii]);
-          dp[ii] = fmaf(vr[d + 1], dov.y, dp[ii]);
-          dp[ii] = fmaf(vr[d + 2], dov.z, dp[ii]);
-          dp[ii] = fmaf(vr[d + 3], dov.w, dp[ii]);
-        }
-      }
-#pragma unroll
-      for (int ii = 0; ii < kChunk; ++ii) {
-        const float st = lane_sum<kL>(s[ii]), dpt = lane_sum<kL>(dp[ii]);
-        // a query past Sq or without a visible key has lse 1e30 and zero-filled rows: p = 0
-        const bool visible = live_key && key <= q0 + i0 + ii + causal_offset;  // always true when not causal
-        const float p = visible ? exp2f(st * scale_log2 - lses[i0 + ii]) : 0.0f;
-        s[ii] = p;
-        dp[ii] = p * (dpt - deltas[i0 + ii]);  // ds
-      }
-#pragma unroll
-      for (int d = 0; d < kDL; d += 4) {
-#pragma unroll
-        for (int ii = 0; ii < kChunk; ++ii) {
-          const float4 dov = *reinterpret_cast<const float4*>(&dos[i0 + ii][d * kL + 4 * part]);
-          dvr[d] = fmaf(s[ii], dov.x, dvr[d]);
-          dvr[d + 1] = fmaf(s[ii], dov.y, dvr[d + 1]);
-          dvr[d + 2] = fmaf(s[ii], dov.z, dvr[d + 2]);
-          dvr[d + 3] = fmaf(s[ii], dov.w, dvr[d + 3]);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < kDL; d += 4) {
-#pragma unroll
-        for (int ii = 0; ii < kChunk; ++ii) {
-          const float4 qv = *reinterpret_cast<const float4*>(&qs[i0 + ii][d * kL + 4 * part]);
-          dkr[d] = fmaf(dp[ii], qv.x, dkr[d]);
-          dkr[d + 1] = fmaf(dp[ii], qv.y, dkr[d + 1]);
-          dkr[d + 2] = fmaf(dp[ii], qv.z, dkr[d + 2]);
-          dkr[d + 3] = fmaf(dp[ii], qv.w, dkr[d + 3]);
-        }
-      }
-    }
+  auto stage_queries = [&](int t) {
+    float* st = stages + (t & 1) * kStageFloats;
+    const int q0 = q_begin + t * kBlockQ;
+    stage<kBlockQ, kD>(st, qp, q0, sq);
+    stage<kBlockQ, kD>(st + kBlockQ * S, dop, q0, sq);
+    stage_vector<kBlockQ>(st + 2 * kBlockQ * S, lsep, q0, sq);
+    stage_vector<kBlockQ>(st + 2 * kBlockQ * S + kBlockQ, deltap, q0, sq);
+  };
+  if (n_tiles > 0) {
+    stage<kBlockKV, kD>(ks, k + (long long)bh * sk * kD, key0, n_keys);
+    stage<kBlockKV, kD>(vs, v + (long long)bh * sk * kD, key0, n_keys);
+    stage_queries(0);
   }
+  alg::mma::cp_async_commit();
 
-  if (key >= sk) return;
-  const long long at = ((long long)bh * sk + key) * kD + 4 * part;
+  float dkr[kTK][kDC], dvr[kTK][kDC];
 #pragma unroll
-  for (int d = 0; d < kDL; d += 4) {
-    alg::store4(dk + at + d * kL, dkr[d] * scale, dkr[d + 1] * scale, dkr[d + 2] * scale, dkr[d + 3] * scale);
-    alg::store4(dv + at + d * kL, dvr[d], dvr[d + 1], dvr[d + 2], dvr[d + 3]);
+  for (int i = 0; i < kTK; ++i)
+#pragma unroll
+    for (int e = 0; e < kDC; ++e) dkr[i][e] = dvr[i][e] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = q_begin + t * kBlockQ;
+    if (t + 1 < n_tiles) stage_queries(t + 1);  // the next tile's copy overlaps this tile's math
+    alg::mma::cp_async_commit();
+    alg::mma::cp_async_wait<1>();  // K, V and this tile have landed
+    __syncthreads();
+    const float* qs = stages + (t & 1) * kStageFloats;
+    const float* dos = qs + kBlockQ * S;
+    const float* lses = dos + kBlockQ * S;
+    const float* deltas = lses + kBlockQ;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, the same micro-tile a thread: P and dS are formed in registers
+    float s[kTK][kTQ], dp[kTK][kTQ];
+#pragma unroll
+    for (int i = 0; i < kTK; ++i)
+#pragma unroll
+      for (int j = 0; j < kTQ; ++j) s[i][j] = dp[i][j] = 0.0f;
+    dot_tile<kTK, kTQ, kD>(s, ks + ty * S, qs + tx * S);
+    dot_tile<kTK, kTQ, kD>(dp, vs + ty * S, dos + tx * S);
+
+    // a tile some pair of which is hidden: keys past kv_len (and past Sk), or the causal mask
+    const bool masked = key0 + kBlockKV > n_keys || (causal && key0 + kBlockKV - 1 > q0 + causal_offset);
+#pragma unroll
+    for (int j = 0; j < kTQ; ++j) {
+      const int qi = q0 + tx + kRowLanes * j;
+      // a query past Sq or without a visible key (lse -inf) takes lse 1e30: p = 0, so it adds nothing
+      float l = lses[tx + kRowLanes * j];
+      if (qi >= sq || l == -INFINITY) l = kNoRowLse;
+      const float dl = deltas[tx + kRowLanes * j];
+#pragma unroll
+      for (int i = 0; i < kTK; ++i) {
+        const int key = key0 + ty + kGroups * i;
+        const bool visible = !masked || (key < n_keys && key <= qi + causal_offset);  // no offset: always true
+        const float p = visible ? exp2f(s[i][j] * scale_log2 - l) : 0.0f;
+        ps[(ty + kGroups * i) * PS + tx + kRowLanes * j] = p;
+        dss[(ty + kGroups * i) * PS + tx + kRowLanes * j] = p * (dp[i][j] - dl);
+      }
+    }
+    __syncwarp();  // a key's P and dS are written and read by the 8 lanes of its row group, all in one warp
+    // dV += Pᵀ·dO and dK += dSᵀ·Q
+    pv_tile<kTK, kBlockQ, kD>(dvr, ps + ty * PS, dos + tx * Cols<kD>::kVec);
+    pv_tile<kTK, kBlockQ, kD>(dkr, dss + ty * PS, qs + tx * Cols<kD>::kVec);
+    __syncthreads();  // this stage, P and dS are read; the next iteration's copy may overwrite the stage
+  }
+  alg::mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < kTK; ++i) {
+    const int key = key0 + ty + kGroups * i;
+    if (key >= sk) continue;
+    const long long at = ((long long)bh * sk + key) * kD;
+#pragma unroll
+    for (int c = 0; c < Cols<kD>::kGroupsPerLane; ++c) {
+      constexpr int V = Cols<kD>::kVec;
+      const int col = column<kD>(tx, V * c);
+      const float* a = dkr[i] + V * c;
+      const float* w = dvr[i] + V * c;
+      if constexpr (V == 4) {
+        alg::store4(dk + at + col, a[0] * scale, a[1] * scale, a[2] * scale, a[3] * scale);
+        alg::store4(dv + at + col, w[0], w[1], w[2], w[3]);
+      } else {
+        alg::store2(dk + at + col, a[0] * scale, a[1] * scale);
+        alg::store2(dv + at + col, w[0], w[1]);
+      }
+    }
   }
 }
+
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* delta, const void* kv_len, void* dk, void* dv, int batch, int heads, int sq, int sk,
+                   int causal_offset, float scale, cudaStream_t stream) {
+  // above 48 KB a block's dynamic shared memory needs this attribute, once per device
+  static unsigned long long configured = 0;  // a bit per device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && !((configured >> device) & 1ull)) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << device;
+  }
+  const dim3 grid((sk + kBlockKV - 1) / kBlockKV, batch * heads);
+  flash_bwd_dkv_kernel<<<grid, alg::simt::kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, heads,
+      causal_offset, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace dkv
 
 template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -367,20 +406,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(kv_len), static_cast<T*>(dq), heads, sq, sk, causal_offset, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                       const void* delta, const void* kv_len, void* dk, void* dv, int batch, int heads,
-                       int sq, int sk, int causal_offset, float scale, cudaStream_t stream) {
-  constexpr int kKeys = kThreads / kDkvLanes;
-  const dim3 grid((sk + kKeys - 1) / kKeys, batch * heads);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_len), static_cast<T*>(dk), static_cast<T*>(dv), heads, sq, sk,
-      causal_offset, scale);
   return cudaGetLastError();
 }
 
@@ -424,8 +449,8 @@ extern "C" int ALG_CAT(alg_flash_attention_bwd_dkv_d, ALG_FLASH_HEAD_DIM)(
   const int causal_offset = causal != 0 ? sk - sq : kNotCausal;
   switch (dtype) {
     case alg::kFloat32:
-      return (int)launch_dkv<float>(q, k, v, dout, lse, delta, kv_len, dk, dv, batch, heads, sq, sk,
-                                    causal_offset, scale, st);
+      return (int)dkv::launch(q, k, v, dout, lse, delta, kv_len, dk, dv, batch, heads, sq, sk, causal_offset,
+                              scale, st);
     default:  // bf16 runs on the tensor cores: alg_flash_attention_bwd_dkv_tc_d<D>
       return (int)cudaErrorInvalidValue;
   }

@@ -25,7 +25,7 @@
 //          l += Σ codes · (srow / 127): numerator and denominator from the
 //          same codes.
 //
-// Design. The shape of csrc/flash_attention.cu: one block of 128 threads per
+// Design. As csrc/flash_attention.cuh's body: one block of 128 threads per
 // (b·h, tile of query rows), a query row on one lane (D = 64) or two
 // neighbouring lanes (D = 128), the key loop inside the block over tiles of
 // 64 keys staged in shared memory, and inside a tile chunks of 16 keys. A

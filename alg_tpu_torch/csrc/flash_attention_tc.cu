@@ -1,6 +1,6 @@
 // Flash-attention forward in bf16 on the tensor cores: every bf16 call
-// without a qk prolog (fp32 calls and prolog calls keep the CUDA-core body of
-// flash_attention.cuh). The build reads the next line and makes one object
+// without a qk prolog (fp32 calls run on the CUDA cores in flash_attention.cu,
+// prolog calls on the body of flash_attention.cuh). The build reads the next line and makes one object
 // per head dim, each with its own C entry point.
 //
 // build-variants: ALG_FLASH_HEAD_DIM=64,80,128

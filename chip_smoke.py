@@ -10,7 +10,9 @@ Phases, each of which must pass:
   A.  build: compile ``alg_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into
       ``alg_tpu_torch/_build/`` (ops/_build.py; one nvcc process per compile
       unit, side by side) and print the build time and the compiler's
-      register/shared-memory report; then ``cuobjdump -sass`` of the library:
+      register/shared-memory report, with one line for each instantiation
+      of the register-tiled fp32 forward and dkv kernels (registers, spilled
+      bytes, head dim); then ``cuobjdump -sass`` of the library:
       every kernel of the three tensor-core entry points (the bf16 forward,
       dq and dkv) must hold HMMA instructions, whose count is printed per
       kernel;
@@ -113,8 +115,9 @@ Phases, each of which must pass:
       adapters with A and B nonzero within 1e-4 of each leaf's largest value.
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only the
-dense flash calls of phase B at head dims 64 and 128 and the training
-kernels at ``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 (for comparing
+dense flash calls of phase B at head dims 64 and 128, the fp32 CLIP calls
+``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), and the training kernels at
+``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 and fp32 (for comparing
 two trees on one card, the parent's too: it does not require the
 tensor-core kernels; it prints no result line).
 
@@ -216,6 +219,39 @@ def _sass_hmma(lib) -> dict:
     return counts
 
 
+# The register-tiled fp32 kernels, by a part of their mangled names: the forward (csrc/flash_attention.cu;
+# not the prolog or tensor-core forwards) and dkv (csrc/flash_attention_bwd.cu; not the tensor-core one).
+FP32_KERNELS = {"fp32 forward": r"\d+flash_fwd_kernelI", "fp32 dkv": r"\d+flash_bwd_dkv_kernel[EI]"}
+
+
+def _fp32_kernel_resources(log: str) -> list:
+    """Lines naming the registers and spilled bytes of every instantiation of
+    the fp32 forward and dkv kernels, from the build log's ``ptxas -v``
+    report (the head dim from the unit's ``-DALG_FLASH_HEAD_DIM``)."""
+    import re
+
+    lines, head_dim, kernel, props = [], None, None, None
+    for line in log.splitlines():
+        unit = re.search(r"-DALG_FLASH_HEAD_DIM=(\d+)", line)
+        if unit and "nvcc" in line:
+            head_dim = unit.group(1)
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            kernel, props = found.group(1), None
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            props = spill.groups()
+        used = re.search(r"Used (\d+) registers", line)
+        if used and kernel is not None:
+            for what, pattern in FP32_KERNELS.items():
+                if re.search(pattern, kernel):
+                    stores, loads = props or ("?", "?")
+                    lines.append(f"[A] {what} D={head_dim} {kernel}: {used.group(1)} registers, {stores} bytes spill "
+                                 f"stores, {loads} bytes spill loads")
+            kernel = None
+    return lines
+
+
 def phase_build(require_tensor_cores: bool = True) -> None:
     """Build the library, print the compiler's resource report and, from the
     SASS, the HMMA (tensor-core) instructions of every kernel of the
@@ -234,6 +270,8 @@ def phase_build(require_tensor_cores: bool = True) -> None:
         for line in log.read_text().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("    " + line.strip())
+        for line in _fp32_kernel_resources(log.read_text()):
+            print(line)
     hmma = _sass_hmma(path)
     for entry, part in TC_KERNELS.items():
         kernels = {name: n for name, n in hmma.items() if part in name}
@@ -920,10 +958,10 @@ def _prolog_kernel_cases(records, gen) -> None:
 
 
 def phase_dense_flash() -> None:
-    """Only the dense flash calls of phase B at head dims 64 and 128, and the
-    training kernels (LSE, dq, dkv) at the 49-frame CogVideoX and 9-frame Wan
-    self-attention shapes in bf16, for timing two trees against each other on
-    one card."""
+    """Only the dense flash calls of phase B at head dims 64 and 128, the
+    fp32 CLIP calls, and the training kernels (LSE, dq, dkv) at the 49-frame
+    CogVideoX and 9-frame Wan self-attention shapes in bf16 and fp32, for
+    timing two trees against each other on one card."""
     import torch
 
     records = []  # printed case by case; a comparison out of tolerance fails the phase
@@ -933,9 +971,15 @@ def phase_dense_flash() -> None:
         _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False, reps=5)
         _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
         _attn_case(records, "flash_wan_self", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False, reps=5)
-    _attn_case(records, "flash_wan_self", (2, 40, 32760, 128), torch.bfloat16, gen, 128 ** -0.5, False, reps=1)
-    _attn_bwd_case(records, "dit", (1, 48, 17776, 64), torch.bfloat16, gen, 64 ** -0.5, reps=1)
-    _attn_bwd_case(records, "wan_self", (1, 40, 4680, 128), torch.bfloat16, gen, 128 ** -0.5)
+        _attn_case(records, "flash_wan_self", (2, 40, 32760, 128), dtype, gen, 128 ** -0.5, False, reps=1)
+        torch.cuda.empty_cache()
+    _attn_case(records, "flash_clip", (1, 16, 257, 80), torch.float32, gen, 80 ** -0.5, True, reps=20)
+    _attn_case(records, "flash_clip_text_causal", (1, 12, 77, 64), torch.float32, gen, 64 ** -0.5, True,
+               causal=True, reps=20)
+    for dtype in (torch.bfloat16, torch.float32):
+        _attn_bwd_case(records, "dit", (1, 48, 17776, 64), dtype, gen, 64 ** -0.5, reps=1)
+        _attn_bwd_case(records, "wan_self", (1, 40, 4680, 128), dtype, gen, 128 ** -0.5)
+        torch.cuda.empty_cache()
     if not all(r["ok"] for r in records):
         raise AssertionError("a dense flash comparison is out of tolerance")
 

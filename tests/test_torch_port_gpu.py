@@ -22,7 +22,12 @@ and Sq < Sk, a bias at both batch strides, ``stable`` with logits near ±100
 whose maximum moves in every key tile, D = 80, the LSE; dq and dkv at
 ragged Sq and Sk with ``kv_len`` and causal), a bf16 gradient through a small
 DiT card against CPU, the routes and the CUDA-core entry points' refusal of
-bf16.
+bf16; and the register-tiled fp32 forward and dkv kernels at the edges of
+their tiles (S = 63, 64, 65 and a key tile ± 1; Sq = 1; ``kv_len`` 0, 1, a
+key tile and one more; causal with Sq < Sk and Sq > Sk; a bias at both
+batch strides with ``stable`` both ways; D = 80; the LSE; each of the
+forward's three block heights, reached by the head count; logits near ±100
+in fp32), each counted once under ``cuda_core``.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -960,3 +965,163 @@ def test_routes_on_the_card(cuda):
     rc = FB._entry(64, "dkv_cuda_core")(bf16, *([x.data_ptr()] * 4), lse.data_ptr(), lse.data_ptr(), None,
                                         x.data_ptr(), x.data_ptr(), 1, 2, 40, 40, 0.125, 0, stream)
     assert rc == 1
+
+
+# -- the register-tiled fp32 kernels: csrc/flash_attention.cu and the dkv kernel of csrc/flash_attention_bwd.cu ---
+
+def _fp32_forward_heights(d: int) -> tuple:
+    """The fp32 forward's query rows a block, by preference (csrc/flash_attention.cu): 128 (64 at
+    D = 128) where that still gives every SM a block, else 32, else 16."""
+    return (64 if d == 128 else 128, 32, 16)
+
+
+def _fp32_forward_rows(sq: int, bh: int, d: int) -> int:
+    """Query rows a block of the fp32 forward takes at [B·H = bh, Sq = sq, D = d] (the launcher's rule)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    heights = _fp32_forward_heights(d)
+    for rows in heights[:-1]:
+        if -(-sq // rows) * bh >= sms:
+            return rows
+    return heights[-1]
+
+
+def _heads_for_rows(rows: int, sq: int, b: int, d: int) -> int:
+    """The fewest heads with which a [b, h, sq, d] call takes blocks of ``rows`` query rows."""
+    for h in range(1, 1025):
+        if _fp32_forward_rows(sq, b * h, d) == rows:
+            return h
+    raise AssertionError(f"no head count gives {rows}-row blocks at Sq = {sq}, B = {b}, D = {d}")
+
+
+FP32_FWD_CASES = {
+    # name: (b, sq, sk, d, kv_len, causal, stable, bias); keys a tile: 64 at D = 64; at D = 80 32 in the
+    # 128-row blocks, else 64; at D = 128 48 in the 64-row blocks, else 32
+    "s63-d128": (1, 63, 63, 128, None, False, False, None),
+    "s64-d128": (1, 64, 64, 128, None, False, True, None),
+    "s65-d128": (1, 65, 65, 128, None, False, True, None),
+    "s127": (1, 127, 127, 64, None, False, False, None),
+    "s128": (1, 128, 128, 64, None, False, True, None),
+    "s129-d80": (1, 129, 129, 80, None, False, True, None),
+    "sk31-d128": (1, 40, 31, 128, None, False, False, None),
+    "sk49-d128": (1, 40, 49, 128, None, False, True, None),
+    "sk33-d80": (1, 70, 33, 80, None, False, True, None),
+    "sk63-d80": (1, 70, 63, 80, None, False, False, None),
+    "sk65-d64": (1, 97, 65, 64, None, False, True, None),
+    "sq1": (2, 1, 300, 64, None, False, True, None),
+    "kvlen-0-1-64-65-d64": (5, 100, 130, 64, [0, 1, 64, 65, 130], False, True, None),
+    "kvlen-0-1-32-33-48-49-d128": (7, 100, 100, 128, [0, 1, 32, 33, 48, 49, 100], False, False, None),
+    "kvlen-0-1-64-65-d80": (5, 60, 70, 80, [0, 1, 64, 65, 70], False, True, None),
+    "causal-sq70-sk200-d80": (1, 70, 200, 80, None, True, True, None),
+    "causal-sq200-sk70-d64": (1, 200, 70, 64, None, True, False, None),
+    "causal-kvlen-d128": (2, 130, 130, 128, [130, 45], True, True, None),
+    "bias-shared-stable": (2, 100, 97, 64, None, False, True, "shared"),
+    "bias-shared-unstable-d80": (1, 65, 80, 80, None, False, False, "shared"),
+    "bias-per-batch-unstable-d128": (2, 65, 130, 128, None, False, False, "per_batch"),
+    "bias-per-batch-stable-kvlen-d80": (3, 90, 90, 80, [90, 33, 1], False, True, "per_batch"),
+}
+# every block height each case can reach: 32-row blocks need Sq > 32 (else they are as many as the largest)
+FP32_FWD_PARAMS = [(case, rows) for case, spec in FP32_FWD_CASES.items() for rows in _fp32_forward_heights(spec[3])
+                   if rows != 32 or spec[1] > 32]
+
+
+@pytest.mark.parametrize("case,rows", FP32_FWD_PARAMS, ids=[f"{c}-bq{r}" for c, r in FP32_FWD_PARAMS])
+def test_fp32_forward_tiles_match_plain(cuda, case, rows):
+    """The fp32 forward at the edges of its tiles (128 query rows a block, 64
+    at D = 128, or 32 or 16, with as many heads as make the launcher pick that
+    block; 32, 48 or 64 keys a tile): output and LSE against the plain
+    version within the fp32 tolerance, -inf and zero rows where no key is
+    visible, the same output with and without the LSE, and each call counted
+    once under ``cuda_core`` and nowhere else."""
+    b, sq, sk, d, kv_len, causal, stable, bias_kind = FP32_FWD_CASES[case]
+    h = _heads_for_rows(rows, sq, b, d)
+    gen = torch.Generator().manual_seed(31)
+    q = _randn(gen, b, h, sq, d).to(cuda)
+    k, v = (_randn(gen, b, h, sk, d).to(cuda) for _ in range(2))
+    bias = None
+    if bias_kind is not None:
+        bias = _randn(gen, b if bias_kind == "per_batch" else 1, h, sq, sk, scale=2.0).to(cuda)
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = 1.0 / 8 if bias is not None else d ** -0.5
+    routes = dict(FA.flash_attention.launches_by_route)
+    out, lse = FA.flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, causal=causal,
+                                  return_residuals=True)
+    alone = FA.flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route == {**routes, "cuda_core": routes["cuda_core"] + 2}
+    assert torch.equal(out, alone) and out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    ref, ref_lse = FA.attention_plain_residuals(q, k, v, scale, bias, lens, causal)
+    _assert_close(out, ref, torch.float32)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    seen = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-4, rtol=0)
+    assert not out[~seen].any()
+
+
+def test_fp32_forward_rescales_across_tiles(cuda):
+    """``stable=True`` in fp32 with logits near ±100 whose row maxima grow
+    from key tile to key tile, at all three head dims and block sizes."""
+    gen = torch.Generator().manual_seed(32)
+    for d in (64, 80, 128):
+        for rows in _fp32_forward_heights(d):
+            b, s = 1, 300
+            h = _heads_for_rows(rows, s, b, d)
+            u = _randn(gen, 1, h, 1, d)
+            q, k = (u + 0.1 * _randn(gen, b, h, s, d) for _ in range(2))
+            q = q / q.norm(dim=-1, keepdim=True) * 10.0
+            k = k / k.norm(dim=-1, keepdim=True) * 10.0 * torch.linspace(-1.0, 1.0, s)[None, None, :, None]
+            q, k, v = q.to(cuda), k.to(cuda), _randn(gen, b, h, s, d).to(cuda)
+            out = FA.flash_attention(q, k, v, 1.0, stable=True)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(out).all())
+            _assert_close(out, FA.attention_plain(q, k, v, 1.0), torch.float32)
+
+
+FP32_DKV_CASES = {
+    # name: (b, h, sq, sk, d, kv_len, causal)
+    "sk63-d64": (1, 2, 50, 63, 64, None, False),
+    "sk64-d64": (1, 2, 50, 64, 64, None, False),
+    "sk65-d80": (1, 2, 50, 65, 80, None, False),
+    "sk63-d128": (1, 2, 50, 63, 128, None, False),
+    "sk65-d128": (1, 2, 50, 65, 128, None, False),
+    "sq31-d80": (1, 2, 31, 90, 80, None, False),
+    "sq32-d64": (1, 2, 32, 90, 64, None, False),
+    "sq33-d128": (1, 2, 33, 90, 128, None, False),
+    "sq1": (2, 2, 1, 100, 64, None, False),
+    "kvlen-0-1-64-65-d64": (5, 2, 70, 130, 64, [0, 1, 64, 65, 130], False),
+    "kvlen-0-1-64-65-d80": (5, 2, 70, 130, 80, [0, 1, 64, 65, 130], False),
+    "kvlen-0-1-64-65-d128": (5, 2, 70, 100, 128, [0, 1, 64, 65, 100], False),
+    "causal-sq45-sk160-d80": (1, 3, 45, 160, 80, None, True),
+    "causal-sq160-sk45-d128": (1, 2, 160, 45, 128, None, True),
+    "causal-square-kvlen-d64": (2, 2, 130, 130, 64, [130, 70], True),
+}
+
+
+@pytest.mark.parametrize("case", list(FP32_DKV_CASES))
+def test_fp32_dkv_tiles_match_plain(cuda, case):
+    """The fp32 dkv kernel at the edges of its tiles (64 keys a block, 32
+    queries a tile): dk and dv within the
+    fp32 tolerance of the plain version, exactly 0 for keys past ``kv_len``,
+    and the call counted once under ``cuda_core`` and nowhere else."""
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+    b, h, sq, sk, d, kv_len, causal = FP32_DKV_CASES[case]
+    gen = torch.Generator().manual_seed(33)
+    q, do = (_randn(gen, b, h, sq, d).to(cuda) for _ in range(2))
+    k, v = (_randn(gen, b, h, sk, d).to(cuda) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    out, lse = FA.flash_attention(q, k, v, scale, kv_len=lens, causal=causal, return_residuals=True)
+    delta = FB.row_delta(out, do)
+    dkv = FB.flash_attention_bwd_dkv
+    counts = (dkv.launches, dict(dkv.launches_by_route))
+    dk, dv = dkv(q, k, v, do, lse, delta, scale, causal, lens)
+    torch.cuda.synchronize()
+    assert (dkv.launches, dkv.launches_by_route) == (counts[0] + 1, {**counts[1], "cuda_core": counts[1]["cuda_core"] + 1})
+    ref = FB.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal, lens)
+    for g, r in zip((dk, dv), ref):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        _assert_close(g, r, torch.float32)
+    if kv_len is not None:
+        dead = torch.arange(sk, device=cuda)[None, :] >= lens[:, None]
+        for g in (dk, dv):
+            assert not g.transpose(1, 2)[dead].any()

@@ -16,7 +16,8 @@ import torch
 import jax.numpy as jnp
 
 from alg_tpu.models import layers as JL
-from alg_tpu.ops.attention import _xla_attention
+from alg_tpu.ops.attention import _xla_attention, _xla_attention_residuals
+from alg_tpu.ops.attention import attention as jax_attention
 from alg_tpu.models import rope as JR
 from alg_tpu.ops.qk_prep import qk_norm_rope as jax_qk_norm_rope
 from alg_tpu.ops.qk_prep import rope_interleaved as jax_rope_interleaved
@@ -199,6 +200,29 @@ def test_attention_causal_matches_xla_attention(case):
         np.testing.assert_allclose(out[1:2, :, i:i + 1].numpy(), alone.numpy(), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("h,s,d,causal", [(2, 257, 80, False), (2, 77, 64, True)],
+                         ids=["clip-vit-h-257x80", "clip-text-causal-77x64"])
+def test_clip_calls_match_jax_attention(h, s, d, causal):
+    """The two fp32 calls of the shipped paths' CLIP towers (ViT-H's 257
+    tokens at D = 80, stable; CLIP text's 77 causal tokens at D = 64, stable)
+    at narrow width: the port's ``attention`` and ``flash_attention`` (the
+    plain version, on the CPU) against ``alg_tpu``'s ``attention`` as it runs
+    on the CPU (its flash kernel has no interpret mode; its front door takes
+    XLA there), and the LSE against ``_xla_attention_residuals``."""
+    q, k, v, _ = _attn_inputs(1, h, s, s, d, 11, False)
+    scale = d ** -0.5
+    ref = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale, causal=causal,
+                                   stable=True))
+    out = attention(*_t(q, k, v), scale=scale, causal=causal, stable=True)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
+    flash, lse = FA.flash_attention(*_t(q, k, v), scale, stable=True, causal=causal, return_residuals=True)
+    np.testing.assert_allclose(flash.numpy(), ref, atol=ATOL, rtol=0)
+    assert bool(torch.isfinite(lse).all())
+    if not causal:
+        _, ref_lse = _xla_attention_residuals(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("stable", [True, False], ids=["stable", "unstable"])
 def test_attention_causal_rows_without_a_visible_key_are_zero(stable):
     """Sq > Sk hides every key from the first Sq - Sk rows, and ``kv_len`` 0
@@ -319,7 +343,7 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
                                                       "flash_attention_int8.cu",
                                                       "flash_attention_prolog.cu", "flash_attention_tc.cu",
                                                       "qk_prep.cu", "rope.cu"}
-    assert {p.name for p in _build._sources()[1]} == {"common.cuh", "flash_attention.cuh", "mma.cuh"}
+    assert {p.name for p in _build._sources()[1]} == {"common.cuh", "flash_attention.cuh", "flash_simt.cuh", "mma.cuh"}
     # the flash sources declare their head dims in a ``// build-variants:`` line: one unit each
     assert [(u[0], u[2]) for u in _build.compile_units()] == [
         *((f"{src}.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",))

@@ -44,6 +44,8 @@ CASES = {
     "masked-row": (2, 1, 128, 128, 64, False, [0, 128]),
     "d128-causal-kv_len": (2, 2, 70, 90, 128, True, [90, 33]),
     "d128-dense": (1, 2, 131, 77, 128, False, None),
+    "d80-cross-kv_len": (2, 2, 96, 160, 80, False, [160, 57]),
+    "d80-causal-sk>sq": (1, 2, 70, 150, 80, True, None),
 }
 
 

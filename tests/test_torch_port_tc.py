@@ -14,6 +14,7 @@ products that make dq, dk and dv, so the two differ only in the order of
 fp32 sums and in the rounding of the outputs to bf16. Tolerance: one bf16
 step at each output's largest magnitude (atol = max|ref| · 2**-7, rtol 0)."""
 
+import re
 import types
 
 import numpy as np
@@ -81,6 +82,17 @@ def test_each_route_names_an_entry_point_of_the_sources():
         for name in names.values():
             stem = name.format(d="")
             assert f"ALG_CAT({stem}, ALG_FLASH_HEAD_DIM)" in defined, stem
+
+
+def test_only_the_prolog_unit_includes_the_cuda_core_forward_body():
+    """The fp32 forward has its own register-tiled kernel: ``flash_attention.cu``
+    no longer includes ``flash_attention.cuh``, whose body serves the prolog
+    unit alone; the fp32 forward and dkv share ``flash_simt.cuh``."""
+    includes = {p.name: re.findall(r'^#include "([^"]+)"', p.read_text(), re.MULTILINE)
+                for p in [*_build._sources()[0], *_build._sources()[1]]}
+    assert [name for name, inc in includes.items() if "flash_attention.cuh" in inc] == ["flash_attention_prolog.cu"]
+    assert "flash_simt.cuh" in includes["flash_attention.cu"]
+    assert "flash_simt.cuh" in includes["flash_attention_bwd.cu"]
 
 
 @pytest.mark.parametrize("src", ["flash_attention_tc", "flash_attention_bwd_tc", "flash_attention_bwd_dq_tc"])
