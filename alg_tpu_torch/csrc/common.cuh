@@ -63,22 +63,28 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-// 16 bytes of T converted to fp32: 4 floats or 8 bf16 values.
+// 16 bytes of T as fp32 values: 4 floats or 8 bf16 values. `unpack` converts a raw 16-byte load, `load`
+// loads and converts, `store` rounds N values to T and writes them as one 16-byte store.
 template <typename T>
 struct Vec16;
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& raw, float* out) {
+    out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
+  }
   __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ __forceinline__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static void unpack(const uint4& raw, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -86,6 +92,16 @@ struct Vec16<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* v) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
   }
 };
 

@@ -231,21 +231,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   }
 }
 
-// The SMs of the current device, read once a device.
-cudaError_t multiprocessors(int* n) {
-  static int count[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < 64 && count[device] > 0) {
-    *n = count[device];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && device < 64) count[device] = *n;
-  return err;
-}
-
 template <int TM, bool kStable, bool kBias>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* bias, long long bias_b_stride,
                    const int* kv_len, float* out, float* lse, int batch, int heads, int sq, int sk,
@@ -309,16 +294,15 @@ extern "C" int ALG_CAT(alg_flash_attention_fwd_d, ALG_FLASH_HEAD_DIM)(
               *fv = static_cast<const float*>(v), *fb = static_cast<const float*>(bias);
   const int* lens = static_cast<const int*>(kv_len);
   float *fo = static_cast<float*>(out), *fl = static_cast<float*>(lse);
-  // 16·kTMLarge rows a block, unless that leaves SMs idle: then 32, or 16
-  int sms = 0;
-  const cudaError_t err = multiprocessors(&sms);
+  // 16·kTMLarge rows a block, unless that leaves SMs idle: then 32, or 16 (flash_simt.cuh)
+  int tm = 0;
+  const cudaError_t err = rows_per_group(sq, (long long)batch * heads, kTMLarge, &tm);
   if (err != cudaSuccess) return (int)err;
-  auto blocks = [&](int rows) { return (long long)(sq + rows - 1) / rows * batch * heads; };
   const bool is_stable = stable != 0;
-  if (blocks(kGroups * kTMLarge) >= sms)
+  if (tm == kTMLarge)
     return (int)dispatch<kTMLarge>(fq, fk, fv, fb, bias_b_stride, lens, fo, fl, batch, heads, sq, sk, causal_offset, scale,
                             is_stable, st);
-  if (blocks(kGroups * 2) >= sms)
+  if (tm == 2)
     return (int)dispatch<2>(fq, fk, fv, fb, bias_b_stride, lens, fo, fl, batch, heads, sq, sk, causal_offset, scale,
                             is_stable, st);
   return (int)dispatch<1>(fq, fk, fv, fb, bias_b_stride, lens, fo, fl, batch, heads, sq, sk, causal_offset, scale,

@@ -23,37 +23,49 @@
 //   dV_j  = Σ_i p_ij·dO_i                 (dkv kernel)
 //   dK_j  = scale·Σ_i ds_ij·q_i           (dkv kernel)
 //
-// Design. 128 threads a block, fp32 FMAs on the CUDA cores. The TPU grid's
-// sequential axis becomes a loop inside the block, so every output row has
-// exactly one owner: no atomics, and the sums run in one fixed order.
+// Design. 128 threads a block, fp32 FMAs on the CUDA cores, both kernels
+// register-tiled (flash_simt.cuh has the layout). The TPU grid's sequential
+// axis becomes a loop inside the block, so every output row has exactly one
+// owner: no atomics, and the sums run in one fixed order.
 //
-//  * dq: one block per (b·h, tile of query rows); loop over key tiles (K and V
-//    staged in static shared memory, read as broadcast float4s, in chunks of
-//    16 keys). A query row belongs to kDqLanes neighbouring lanes, each
-//    holding its slice of q, dO and the dQ accumulator in registers; the
-//    lanes of a row sum their partial dot products with xor shuffles.
-//  * dkv: register-tiled (flash_simt.cuh has the layout). One block per (b·h,
-//    tile of 64 keys; two blocks an SM at D = 64 and 80, one at 128); K and V
-//    staged once; a loop over tiles of 32 queries, Q, dO, lse and delta copied
-//    by cp.async into a two-stage ring in dynamic shared memory, the next
-//    tile's copy in flight while this one is computed. For each query tile,
-//    Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as the same micro-tile a thread (4 or 2 keys ×
-//    4 queries), so that P and dS = P ⊙ (dP - delta) are formed in registers;
-//    they go to shared memory (read back by the same warp), and dV += Pᵀ·dO,
-//    dK += dSᵀ·Q run as register-blocked products, each thread owning its
-//    keys × every 8th group of head-dim columns of both accumulators. dK is
-//    scaled by `scale` once, at the end.
+//  * dq: one block per (b·h, tile of 16·TM query rows); TM = 8 (128 rows) at
+//    D = 64, 4 (64 rows) at D = 80 and 128, where 128 rows would need more
+//    registers than a thread has; where that grid would leave SMs idle, 2 or
+//    1 (flash_simt.cuh's rows_per_group, the forward's rule). Q, dO, lse and
+//    delta of the tile are copied once by cp.async into dynamic shared
+//    memory; the block walks the keys in tiles (block_k: 32 keys at D = 64
+//    and 128, 64 at D = 80, so that two blocks fit an SM), K and V copied in
+//    turn into a K and a V buffer, each copy one K or V tile ahead of its
+//    use. For each key tile: dP = dO·Vᵀ and S = Q·Kᵀ as the same micro-tile
+//    a thread (TM rows × block_k / 8 keys), so that P = exp2(S·scale·log2e -
+//    lse) and dS = P ⊙ (dP - delta) are formed in registers; dS goes to
+//    shared memory, read back by the same warp, and dQ += dS·K runs as the
+//    second register-blocked product (K in V's place in the forward's P·V),
+//    each thread owning its rows × every 8th group of head-dim columns. dQ is
+//    scaled by `scale` once, at the store. At D = 64 the S and dP tiles are
+//    8 × 4 (2.7 FMAs per float read from shared memory) and dS·K 8 × 8 (4).
+//  * dkv: one block per (b·h, tile of 64 keys; two blocks an SM at D = 64
+//    and 80, one at 128); K and V staged once; a loop over tiles of 32
+//    queries, Q, dO, lse and delta copied by cp.async into a two-stage ring
+//    in dynamic shared memory, the next tile's copy in flight while this one
+//    is computed. For each query tile, Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as the same
+//    micro-tile a thread (4 keys × 4 queries), so that P and dS = P ⊙ (dP -
+//    delta) are formed in registers; they go to shared memory (read back by
+//    the same warp), and dV += Pᵀ·dO, dK += dSᵀ·Q run as register-blocked
+//    products, each thread owning its keys × every 8th group of head-dim
+//    columns of both accumulators. dK is scaled by `scale` once, at the end.
 //
 // Masks and ragged edges. The dq block's key loop ends at the limit of its
-// last row and the dkv block's query loop starts at the first row that sees
-// its first key, so a causal call skips what no row of the block can reach;
-// dkv applies the mask only on query tiles that some pair of its block does
-// not see.
-// Staged rows past the end are zero-filled, and a query past Sq or with
-// lse = -inf (no visible key) takes +1e30 for its lse, so p is exactly 0:
-// such a row gets dQ = 0 and adds nothing to dK or dV. Keys at or past kv_len
-// get dK = dV = 0. P stays in fp32 for the second products, as in the forward
-// kernel. No host-side padding, no host read of kv_len.
+// last row, and causal dq blocks run longest first; the dkv block's query
+// loop starts at the first row that sees its first key, so a causal call
+// skips what no row of the block can reach. Both apply the mask only on
+// tiles that some pair of the block does not see.
+// Staged rows past the end are zero-filled (cp.async with a source size of
+// 0), and a query past Sq or with lse = -inf (no visible key) takes +1e30 for
+// its lse, so p is exactly 0: such a row gets dQ = 0 and adds nothing to dK
+// or dV. Keys at or past kv_len get dK = dV = 0. P stays in fp32 for the
+// second products, as in the forward kernel. No host-side padding, no host
+// read of kv_len.
 //
 // Bound on the H100: fp32 FLOPs outside the tensor cores (dq three products,
 // 6·H·D per visible (query, key) pair; dkv four, 8·H·D) at 67 TFLOP/s.
@@ -73,165 +85,192 @@
 namespace {
 
 constexpr int kD = ALG_FLASH_HEAD_DIM;        // head dim
-constexpr int kThreads = 128;                 // threads per block
-constexpr int kStage = kD > 80 ? 32 : 64;     // rows of the other side per shared-memory tile
-constexpr int kChunk = 16;                    // staged rows per logits/exp/accumulate round
-// Lanes that share one row: powers of two that leave each lane a multiple of four head-dim values. These
-// were the fastest of those tried on an H100; wider slices spill.
-constexpr int kDqLanes = kD > 80 ? 4 : 2;                       // slices of 32, 40, 32 values of q, dO, dQ
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kNotCausal = 1 << 30;           // causal_offset of a call without the causal mask
 constexpr float kNoRowLse = 1e30f;            // lse of a row that contributes nothing: exp2(s - 1e30) = 0
 
 static_assert(kD == 64 || kD == 80 || kD == 128, "head dims the port's models use");
-static_assert(kD % (4 * kDqLanes) == 0 && kStage % kChunk == 0, "tiling");
-static_assert(2 * kStage * kD * sizeof(float) + 2 * kStage * sizeof(float) <= 48 * 1024,
-              "static shared-memory limit");
-
-// Sum over the kL neighbouring lanes that share a row; every lane gets the total.
-template <int kL>
-__device__ __forceinline__ float lane_sum(float x) {
-#pragma unroll
-  for (int w = 1; w < kL; w *= 2) x += __shfl_xor_sync(0xffffffffu, x, w);
-  return x;
-}
-
-// Stage rows [r0, r0 + kStage) of two [rows, kD] matrices into shared memory as fp32; rows at or past
-// `limit` become zeros.
-template <typename T>
-__device__ __forceinline__ void stage_pair(const T* __restrict__ a, const T* __restrict__ b, int r0, int limit,
-                                           float (*as)[kD], float (*bs)[kD]) {
-  constexpr int kVec = alg::Vec16<T>::N;
-  constexpr int kVecsPerTile = kStage * kD / kVec;
-  for (int i = threadIdx.x; i < kVecsPerTile; i += kThreads) {
-    const int r = i * kVec / kD, c = i * kVec % kD;
-    float ab[kVec], bb[kVec];
-    if (r0 + r < limit) {
-      alg::Vec16<T>::load(a + (long long)(r0 + r) * kD + c, ab);
-      alg::Vec16<T>::load(b + (long long)(r0 + r) * kD + c, bb);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) ab[e] = bb[e] = 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < kVec; e += 4) {
-      *reinterpret_cast<float4*>(&as[r][c + e]) = make_float4(ab[e], ab[e + 1], ab[e + 2], ab[e + 3]);
-      *reinterpret_cast<float4*>(&bs[r][c + e]) = make_float4(bb[e], bb[e + 1], bb[e + 2], bb[e + 3]);
-    }
-  }
-}
-
-// A lane's slice of row `p` (already offset to the lane's first column): local value d (a multiple of 4)
-// sits at head-dim column d·kL + 4·part.
-template <typename T, int kL>
-__device__ __forceinline__ void load_slice(const T* p, float* out) {
-#pragma unroll
-  for (int d = 0; d < kD / kL; d += 4) alg::load4(p + d * kL, out + d);
-}
 
 // ---------------------------------------------------------------------------
-// dQ
+// dQ: register-tiled on the CUDA cores (flash_simt.cuh has the layout)
 // ---------------------------------------------------------------------------
 
-template <typename T>
+namespace grad_q {
+
+using namespace alg::simt;
+
+constexpr int kTMLarge = kD == 64 ? 8 : 4;    // rows of a row group when the grid fills the card
+constexpr int kDC = kD / kRowLanes;           // head-dim values of a thread's dQ rows
+constexpr int S = stride(kD);
+
+// Keys a shared-memory tile for TM rows a row group: in the largest blocks 32 at D = 64 and 128 and 64 at
+// D = 80, so that two blocks fit an SM; in the small blocks 64, and 32 at D = 128.
+__host__ __device__ constexpr int block_k(int tm) {
+  return tm > 2 ? (kD == 80 ? 64 : 32) : (kD == 128 ? 32 : 64);
+}
+
+// Dynamic shared memory of a block with TM rows a row group: Q, dO, a K and a V tile, dS, lse, delta.
+constexpr int smem_floats(int tm) {
+  return 2 * kGroups * tm * S + 2 * block_k(tm) * S + kGroups * tm * p_stride(block_k(tm)) + 2 * kGroups * tm;
+}
+
+template <int TM>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const int* __restrict__ kv_len, T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const int* __restrict__ kv_len, float* __restrict__ dq,
                     int heads, int sq, int sk, int causal_offset, float scale) {
-  constexpr int kL = kDqLanes, kDL = kD / kL, kRows = kThreads / kL;
-  __shared__ __align__(16) float ks[kStage][kD];
-  __shared__ __align__(16) float vs[kStage][kD];
+  constexpr int kBlockQ = kGroups * TM, kBlockK = block_k(TM);
+  constexpr int kTN = kBlockK / kRowLanes;  // keys of a thread's S and dP micro-tiles
+  constexpr int PS = p_stride(kBlockK);
+  static_assert(kBlockK % kRowLanes == 0 && kBlockK % 4 == 0, "key tile");
+  extern __shared__ float4 smem4[];
+  float* const qs = reinterpret_cast<float*>(smem4);  // [kBlockQ][S]
+  float* const dos = qs + kBlockQ * S;                 // [kBlockQ][S]
+  float* const ks = dos + kBlockQ * S;                 // [kBlockK][S]
+  float* const vs = ks + kBlockK * S;                  // [kBlockK][S]
+  float* const dss = vs + kBlockK * S;                 // [kBlockQ][PS]
+  float* const lses = dss + kBlockQ * PS;              // [kBlockQ]
+  float* const deltas = lses + kBlockQ;                // [kBlockQ]
 
+  const int tx = threadIdx.x % kRowLanes, ty = threadIdx.x / kRowLanes;
   const int bh = blockIdx.y;
   const int b = bh / heads;
-  const int part = threadIdx.x % kL;
   const bool causal = causal_offset != kNotCausal;
   const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // causal: longest blocks first
-  const int row = tile * kRows + threadIdx.x / kL;
-  const bool valid_row = row < sq;
+  const int q0 = tile * kBlockQ;
   const int n_keys = kv_len == nullptr ? sk : max(0, min(sk, kv_len[b]));
-  const int last_row = min(sq, (tile + 1) * kRows) - 1;
-  const int row_keys = !valid_row ? 0 : causal ? max(0, min(n_keys, row + causal_offset + 1)) : n_keys;
-  const int block_keys = causal ? max(0, min(n_keys, last_row + causal_offset + 1)) : n_keys;
-  const T* kp = k + (long long)bh * sk * kD;
-  const T* vp = v + (long long)bh * sk * kD;
+  auto keys_of = [&](int row) {  // keys row `row` sees
+    return row >= sq ? 0 : causal ? max(0, min(n_keys, row + causal_offset + 1)) : n_keys;
+  };
+  const int block_keys = keys_of(min(sq, q0 + kBlockQ) - 1);  // the block's last row's limit: the loop bound
+  const int whole_keys = keys_of(q0);                         // keys every row of the block sees
+  const int n_tiles = (block_keys + kBlockK - 1) / kBlockK;
+  const long long row0 = (long long)bh * sq;  // the head's first query row
+  const float* kp = k + (long long)bh * sk * kD;
+  const float* vp = v + (long long)bh * sk * kD;
   const float scale_log2 = scale * kLog2e;
 
-  float qr[kDL], dor[kDL], acc[kDL];
-  float lse_r = kNoRowLse, delta_r = 0.0f;
-  if (valid_row) {
-    const long long at = (long long)bh * sq + row;
-    load_slice<T, kL>(q + at * kD + 4 * part, qr);
-    load_slice<T, kL>(dout + at * kD + 4 * part, dor);
-    lse_r = lse[at];
-    if (lse_r == -INFINITY) lse_r = kNoRowLse;
-    delta_r = delta[at];
-  } else {
-#pragma unroll
-    for (int d = 0; d < kDL; ++d) qr[d] = dor[d] = 0.0f;
+  // V and K are copied in turn, each one K or V tile ahead of its use: V of tile t + 1 during Q·Kᵀ and dS·K
+  // of tile t, K of tile t + 1 during dO·Vᵀ of tile t + 1 (one commit group a copy, empty past the last tile)
+  auto copy = [&](float* dst, const float* src, int t) {
+    if (t < n_tiles) stage<kBlockK, kD>(dst, src, t * kBlockK, block_keys);
+    alg::mma::cp_async_commit();
+  };
+  if (n_tiles > 0) {  // Q, dO, lse and delta land with V of tile 0
+    stage<kBlockQ, kD>(qs, q + row0 * kD, q0, sq);
+    stage<kBlockQ, kD>(dos, dout + row0 * kD, q0, sq);
+    stage_vector<kBlockQ>(lses, lse + row0, q0, sq);
+    stage_vector<kBlockQ>(deltas, delta + row0, q0, sq);
   }
-#pragma unroll
-  for (int d = 0; d < kDL; ++d) acc[d] = 0.0f;
+  copy(vs, vp, 0);
+  copy(ks, kp, 0);
 
-  for (int k0 = 0; k0 < block_keys; k0 += kStage) {
-    __syncthreads();  // previous tile fully consumed
-    stage_pair<T>(kp, vp, k0, block_keys, ks, vs);
-    __syncthreads();
+  // this thread's rows: ty + 16 i; its keys in a tile: tx + 8 j
+  int row_keys[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) row_keys[i] = keys_of(q0 + ty + kGroups * i);
 
-    const int kn = min(kStage, block_keys - k0);
-    for (int j0 = 0; j0 < kn; j0 += kChunk) {
-      float s[kChunk], dp[kChunk];
+  float acc[TM][kDC];
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) s[jj] = dp[jj] = 0.0f;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int d = 0; d < kDL; d += 4) {
+    for (int e = 0; e < kDC; ++e) acc[i][e] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBlockK;
+    alg::mma::cp_async_wait<1>();  // this tile's V (and Q, dO, lse, delta) has landed
+    __syncthreads();                // for every warp
+
+    float dp[TM][kTN], s[TM][kTN];
 #pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) {
-          const float4 kv = *reinterpret_cast<const float4*>(&ks[j0 + jj][d * kL + 4 * part]);
-          s[jj] = fmaf(qr[d], kv.x, s[jj]);
-          s[jj] = fmaf(qr[d + 1], kv.y, s[jj]);
-          s[jj] = fmaf(qr[d + 2], kv.z, s[jj]);
-          s[jj] = fmaf(qr[d + 3], kv.w, s[jj]);
-        }
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) dp[i][j] = s[i][j] = 0.0f;
+    dot_tile<TM, kTN, kD>(dp, dos + ty * S, vs + tx * S);
+    alg::mma::cp_async_wait<0>();  // this tile's K has landed
+    __syncthreads();                // and every warp is done with this tile's V
+    copy(vs, vp, t + 1);
+    dot_tile<TM, kTN, kD>(s, qs + ty * S, ks + tx * S);
+
+    // P and dS on the thread's micro-tile; the mask only where some pair of the block is hidden
+    const bool masked = k0 + kBlockK > whole_keys;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = ty + kGroups * i;
+      // a row past Sq or without a visible key (lse -inf) takes lse 1e30: p = 0, so its dQ is 0
+      float l = lses[r];
+      if (q0 + r >= sq || l == -INFINITY) l = kNoRowLse;
+      const float dl = deltas[r];
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int key = k0 + tx + kRowLanes * j;
+        const float p = masked && key >= row_keys[i] ? 0.0f : exp2f(s[i][j] * scale_log2 - l);
+        dss[r * PS + tx + kRowLanes * j] = p * (dp[i][j] - dl);
       }
+    }
+    __syncwarp();  // a row's dS is written and read by the 8 lanes of its row group, all in one warp
+    pv_tile<TM, kBlockK, kD>(acc, dss + ty * PS, ks + tx * Cols<kD>::kVec);  // dQ += dS·K
+    __syncthreads();  // every warp is done with this tile's K
+    copy(ks, kp, t + 1);
+  }
+  alg::mma::cp_async_wait<0>();
+
 #pragma unroll
-      for (int d = 0; d < kDL; d += 4) {
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + ty + kGroups * i;
+    if (row >= sq) continue;
+    float* orow = dq + (row0 + row) * kD;
 #pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) {
-          const float4 vv = *reinterpret_cast<const float4*>(&vs[j0 + jj][d * kL + 4 * part]);
-          dp[jj] = fmaf(dor[d], vv.x, dp[jj]);
-          dp[jj] = fmaf(dor[d + 1], vv.y, dp[jj]);
-          dp[jj] = fmaf(dor[d + 2], vv.z, dp[jj]);
-          dp[jj] = fmaf(dor[d + 3], vv.w, dp[jj]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float st = lane_sum<kL>(s[jj]), dpt = lane_sum<kL>(dp[jj]);
-        const float p = k0 + j0 + jj < row_keys ? exp2f(st * scale_log2 - lse_r) : 0.0f;
-        s[jj] = p * (dpt - delta_r);  // ds
-      }
-#pragma unroll
-      for (int d = 0; d < kDL; d += 4) {
-#pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) {
-          const float4 kv = *reinterpret_cast<const float4*>(&ks[j0 + jj][d * kL + 4 * part]);
-          acc[d] = fmaf(s[jj], kv.x, acc[d]);
-          acc[d + 1] = fmaf(s[jj], kv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(s[jj], kv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(s[jj], kv.w, acc[d + 3]);
-        }
+    for (int c = 0; c < Cols<kD>::kGroupsPerLane; ++c) {
+      constexpr int V = Cols<kD>::kVec;
+      const float* x = acc[i] + V * c;
+      if constexpr (V == 4) {
+        alg::store4(orow + column<kD>(tx, V * c), x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+      } else {
+        alg::store2(orow + column<kD>(tx, V * c), x[0] * scale, x[1] * scale);
       }
     }
   }
-
-  if (!valid_row) return;
-  T* orow = dq + ((long long)bh * sq + row) * kD + 4 * part;
-#pragma unroll
-  for (int d = 0; d < kDL; d += 4)
-    alg::store4(orow + d * kL, acc[d] * scale, acc[d + 1] * scale, acc[d + 2] * scale, acc[d + 3] * scale);
 }
+
+template <int TM>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* delta, const void* kv_len, void* dq, int batch, int heads, int sq, int sk,
+                   int causal_offset, float scale, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<TM>;
+  constexpr int kBytes = smem_floats(TM) * (int)sizeof(float);
+  static_assert(kBytes <= 227 * 1024, "shared memory of one block");
+  // above 48 KB a block's dynamic shared memory needs this attribute, once per device and instantiation
+  static unsigned long long configured = 0;  // a bit per device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && !((configured >> device) & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << device;
+  }
+  const dim3 grid((sq + kGroups * TM - 1) / (kGroups * TM), batch * heads);
+  kernel<<<grid, kThreads, kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<float*>(dq), heads, sq, sk, causal_offset, scale);
+  return cudaGetLastError();
+}
+
+// 16·kTMLarge rows a block, unless that leaves SMs idle: then 32, or 16 (flash_simt.cuh)
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                     const void* delta, const void* kv_len, void* dq, int batch, int heads, int sq, int sk,
+                     int causal_offset, float scale, cudaStream_t stream) {
+  int tm = 0;
+  const cudaError_t err = rows_per_group(sq, (long long)batch * heads, kTMLarge, &tm);
+  if (err != cudaSuccess) return err;
+  auto* run = tm == kTMLarge ? &launch<kTMLarge> : tm == 2 ? &launch<2> : &launch<1>;
+  return run(q, k, v, dout, lse, delta, kv_len, dq, batch, heads, sq, sk, causal_offset, scale, stream);
+}
+
+}  // namespace grad_q
 
 // ---------------------------------------------------------------------------
 // dK, dV: register-tiled on the CUDA cores (flash_simt.cuh has the layout)
@@ -396,19 +435,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace dkv
 
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                      const void* delta, const void* kv_len, void* dq, int batch, int heads, int sq, int sk,
-                      int causal_offset, float scale, cudaStream_t stream) {
-  constexpr int kRows = kThreads / kDqLanes;
-  const dim3 grid((sq + kRows - 1) / kRows, batch * heads);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_len), static_cast<T*>(dq), heads, sq, sk, causal_offset, scale);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int batch, int heads, int sq, int sk) {
   return batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || (long long)batch * heads > 65535;
 }
@@ -433,8 +459,8 @@ extern "C" int ALG_CAT(alg_flash_attention_bwd_dq_d, ALG_FLASH_HEAD_DIM)(
   const int causal_offset = causal != 0 ? sk - sq : kNotCausal;
   switch (dtype) {
     case alg::kFloat32:
-      return (int)launch_dq<float>(q, k, v, dout, lse, delta, kv_len, dq, batch, heads, sq, sk,
-                                   causal_offset, scale, st);
+      return (int)grad_q::dispatch(q, k, v, dout, lse, delta, kv_len, dq, batch, heads, sq, sk, causal_offset,
+                                   scale, st);
     default:  // bf16 runs on the tensor cores: alg_flash_attention_bwd_dq_tc_d<D>
       return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,6 @@
 // Register-tiled fp32 products on the CUDA cores for the fp32 attention
-// kernels: the forward (flash_attention.cu) and dK/dV (flash_attention_bwd.cu).
+// kernels: the forward (flash_attention.cu), dQ and dK/dV
+// (flash_attention_bwd.cu).
 // No MMA instruction takes fp32 products, so these kernels stay on the FMA
 // pipes; what bounds them is how many FMAs each shared-memory read feeds.
 //
@@ -29,6 +30,10 @@
 // Tiles arrive from device memory by cp.async 16-byte copies straight into the
 // padded rows (fp32 needs no conversion); rows at or past a limit are
 // zero-filled with a source size of 0 (mma.cuh's cp_async16).
+//
+// Block heights. The forward and dQ kernels take 16·TM query rows a block;
+// their launchers pick TM by one rule (rows_per_group): the largest blocks
+// where those still give every SM a block, else 32 rows, else 16.
 #pragma once
 
 #include <stdint.h>
@@ -136,6 +141,32 @@ __device__ __forceinline__ void pv_tile(float (&acc)[TM][kD / kRowLanes], const 
       }
     }
   }
+}
+
+// The SMs of the current device, read once a device (host code).
+inline cudaError_t multiprocessors(int* n) {
+  static int count[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && count[device] > 0) {
+    *n = count[device];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device < 64) count[device] = *n;
+  return err;
+}
+
+// TM for a call over `bh` heads of `sq` query rows (host code): tm_large where 16·tm_large-row blocks give
+// every SM of the device a block, else 2 where 32-row blocks do, else 1.
+inline cudaError_t rows_per_group(int sq, long long bh, int tm_large, int* tm) {
+  int sms = 0;
+  const cudaError_t err = multiprocessors(&sms);
+  if (err != cudaSuccess) return err;
+  auto blocks = [&](int t) { return (sq + kGroups * t - 1) / (kGroups * t) * bh; };
+  *tm = blocks(tm_large) >= sms ? tm_large : blocks(2) >= sms ? 2 : 1;
+  return cudaSuccess;
 }
 
 // Head-dim column of a lane's value e in the second product's layout.

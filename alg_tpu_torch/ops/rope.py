@@ -47,8 +47,9 @@ def _entry():
 def _check(x, cos, sin):
     if x.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"rope kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4 or x.numel() == 0 or x.shape[0] * x.shape[1] > 65535 or x.shape[2] * x.shape[3] >= 2 ** 31:
-        raise ValueError(f"rope kernel takes a non-empty [B, H, S, D] with B·H <= 65535, got {tuple(x.shape)}")
+    if x.dim() != 4 or x.numel() == 0 or max(x.shape[0] * x.shape[1], x.shape[2] * x.shape[3]) > 2 ** 31 - 256:
+        raise ValueError(f"rope kernel takes a non-empty [B, H, S, D] with B·H and S·D at most 2^31 - 256, got "
+                         f"{tuple(x.shape)}")
     s, d = x.shape[2:]
     vec = 16 // x.element_size()
     if d % 8 != 0:

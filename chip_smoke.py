@@ -11,7 +11,7 @@ Phases, each of which must pass:
       ``alg_tpu_torch/_build/`` (ops/_build.py; one nvcc process per compile
       unit, side by side) and print the build time and the compiler's
       register/shared-memory report, with one line for each instantiation
-      of the register-tiled fp32 forward and dkv kernels (registers, spilled
+      of the register-tiled fp32 forward, dq and dkv kernels (registers, spilled
       bytes, head dim); then ``cuobjdump -sass`` of the library:
       every kernel of the three tensor-core entry points (the bf16 forward,
       dq and dkv) must hold HMMA instructions, whose count is printed per
@@ -114,7 +114,9 @@ Phases, each of which must pass:
       1e-4), and, with no optimizer between, the gradients of one loss at
       adapters with A and B nonzero within 1e-4 of each leaf's largest value.
 
-``python3 chip_smoke.py --dense-flash`` builds the kernels and times only the
+``python3 chip_smoke.py --dense-flash`` builds the kernels and times only rope
+at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
+(with its device time from ``torch.profiler``), the
 dense flash calls of phase B at head dims 64 and 128, the fp32 CLIP calls
 ``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), and the training kernels at
 ``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 and fp32 (for comparing
@@ -177,6 +179,24 @@ def _time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device milliseconds a call of ``fn`` spends in kernels whose name
+    holds ``kernel``, from ``torch.profiler`` over ``reps`` calls (one
+    warm-up); None where the profiler saw none. The CUDA-event time of one
+    call also holds the wrapper's host path when the device waits for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
 def _set_tf32(matmul: bool, cudnn: bool) -> None:
     import torch
 
@@ -220,13 +240,14 @@ def _sass_hmma(lib) -> dict:
 
 
 # The register-tiled fp32 kernels, by a part of their mangled names: the forward (csrc/flash_attention.cu;
-# not the prolog or tensor-core forwards) and dkv (csrc/flash_attention_bwd.cu; not the tensor-core one).
-FP32_KERNELS = {"fp32 forward": r"\d+flash_fwd_kernelI", "fp32 dkv": r"\d+flash_bwd_dkv_kernel[EI]"}
+# not the prolog or tensor-core forwards), dq and dkv (csrc/flash_attention_bwd.cu; not the tensor-core ones).
+FP32_KERNELS = {"fp32 forward": r"\d+flash_fwd_kernelI", "fp32 dq": r"\d+flash_bwd_dq_kernelI",
+                "fp32 dkv": r"\d+flash_bwd_dkv_kernel[EI]"}
 
 
 def _fp32_kernel_resources(log: str) -> list:
     """Lines naming the registers and spilled bytes of every instantiation of
-    the fp32 forward and dkv kernels, from the build log's ``ptxas -v``
+    the fp32 forward, dq and dkv kernels, from the build log's ``ptxas -v``
     report (the head dim from the unit's ``-DALG_FLASH_HEAD_DIM``)."""
     import re
 
@@ -398,6 +419,10 @@ def _rope_case(records, shape, dtype, gen, reps=5, identity_suffix=None):
     bound = _bound(3 * x.numel(), nbytes, tol_name(dtype))  # 2 multiplies and an add a value, fp32 CUDA cores
     name = "rope_interleaved" if identity_suffix is None else "rope_hunyuan_joint"
     _report(records, name, tol_name(dtype), shape, err, ok, tol, ms, plain_ms, bound)
+    device_ms = _device_ms(lambda: rope_interleaved(x, cos, sin), "rope_kernel")
+    records[-1]["device_ms"] = device_ms
+    print(f"[B]   {name} {tol_name(dtype)} {shape}: device time a launch "
+          f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'} (torch.profiler)", flush=True)
 
 
 def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_bias=False, kv_len=None,
@@ -958,7 +983,8 @@ def _prolog_kernel_cases(records, gen) -> None:
 
 
 def phase_dense_flash() -> None:
-    """Only the dense flash calls of phase B at head dims 64 and 128, the
+    """Only rope in bf16 at the shipped Wan and Hunyuan shapes and at 9 Wan
+    frames, the dense flash calls of phase B at head dims 64 and 128, the
     fp32 CLIP calls, and the training kernels (LSE, dq, dkv) at the 49-frame
     CogVideoX and 9-frame Wan self-attention shapes in bf16 and fp32, for
     timing two trees against each other on one card."""
@@ -967,6 +993,10 @@ def phase_dense_flash() -> None:
     records = []  # printed case by case; a comparison out of tolerance fails the phase
     gen = torch.Generator("cuda").manual_seed(0)
     _set_tf32(False, False)
+    _rope_case(records, (2, 40, 32760, 128), torch.bfloat16, gen, reps=20)
+    _rope_case(records, (1, 24, HY_VIDEO_TOKENS[129] + HY_TEXT_LEN, 128), torch.bfloat16, gen, reps=20,
+               identity_suffix=HY_TEXT_LEN)
+    _rope_case(records, (2, 40, 4680, 128), torch.bfloat16, gen, reps=20)
     for dtype in (torch.bfloat16, torch.float32):
         _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False, reps=5)
         _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
@@ -2309,7 +2339,7 @@ _FLASH_SHAPES = ("flash_dit", "flash_wan_self", "flash_wan_cross_text", "flash_w
                  "flash_clip_l_vision", "flash_hunyuan_refiner", "flash_hunyuan_joint", "flash_square_causal",
                  "flash_square_dense")
 _ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES,
-         "rope_interleaved": ("rope_hunyuan_joint",),
+         "rope_interleaved": ("rope_interleaved", "rope_hunyuan_joint"),
          "flash_attention_lse": tuple("flash_lse_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dq_tc": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dq": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
@@ -2331,7 +2361,7 @@ def _kernel_json(records, counts_by_path) -> dict:
         by_path = {path: counts[count] for path, counts in counts_by_path.items()}
         also = [{key: r[key] for key in ("name", "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "drift_mean", "drift_max", "quantizers_ms",
-                                         "bf16_flash_ms", "unfused_ms", "flash_alone_ms") if key in r}
+                                         "bf16_flash_ms", "unfused_ms", "flash_alone_ms", "device_ms") if key in r}
                 for case_name in _ALSO.get(name, ()) for r in records
                 if r["name"] == case_name and r is not rec and (name not in _ONE_TYPE or r["dtype"] == dtype)]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -3,8 +3,9 @@ at small ragged shapes that ``chip_smoke.py``'s main-path shapes do not
 reach: Sq != Sk, fewer keys than one 16-key chunk, a per-batch bias, a
 query tile that is mostly past Sq, a single row, head dims 80 and 128,
 ``kv_len`` of 0, 1 and Sk, causal masks (Sq = Sk, Sq < Sk, Sq > Sk with its
-zero rows, with ``kv_len`` and a per-batch bias), rope at S = 1 and 300 on
-a transposed view, small DiTs, a Llama and a CLIP text model card against
+zero rows, with ``kv_len`` and a per-batch bias), rope from S = 1 to 17,000
+across its row tiles and head chunks (B·H = 1, a short last chunk) on a
+transposed view, its identity rows bit-equal, small DiTs, a Llama and a CLIP text model card against
 CPU, and the training kernels: the forward's LSE output and the dq and dkv
 backward kernels at ragged shapes (Sq = 1, Sk = 1, ``kv_len`` 0/1/Sk, causal
 with Sq > Sk, three head dims), the autograd graph that the three kernel
@@ -22,12 +23,13 @@ and Sq < Sk, a bias at both batch strides, ``stable`` with logits near ±100
 whose maximum moves in every key tile, D = 80, the LSE; dq and dkv at
 ragged Sq and Sk with ``kv_len`` and causal), a bf16 gradient through a small
 DiT card against CPU, the routes and the CUDA-core entry points' refusal of
-bf16; and the register-tiled fp32 forward and dkv kernels at the edges of
-their tiles (S = 63, 64, 65 and a key tile ± 1; Sq = 1; ``kv_len`` 0, 1, a
-key tile and one more; causal with Sq < Sk and Sq > Sk; a bias at both
-batch strides with ``stable`` both ways; D = 80; the LSE; each of the
-forward's three block heights, reached by the head count; logits near ±100
-in fp32), each counted once under ``cuda_core``.
+bf16; and the register-tiled fp32 forward, dq and dkv kernels at the edges
+of their tiles (S = 63, 64, 65 and a key tile ± 1; Sq = 1; ``kv_len`` 0, 1,
+a key tile and one more; causal with Sq < Sk and Sq > Sk; a bias at both
+batch strides with ``stable`` both ways; D = 80; the LSE; each block height
+of the forward and dq, reached by the head count; Wan's cross-attention to
+512 and 257 keys; logits near ±100 in fp32), each counted once under
+``cuda_core``.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -214,15 +216,43 @@ def test_flash_kernel_stays_finite_on_rows_masked_by_the_bias(cuda):
     _assert_close(out[:, :, rows], ref[:, :, rows], torch.float32)
 
 
-@pytest.mark.parametrize("s", [1, 300])
+def _rope_chunk(bh: int) -> int:
+    """Heads a block of the rope kernel walks (csrc/rope.cu's launcher): B·H in as few chunks of at most 8
+    as there can be, all but the last of one size."""
+    chunks = -(-bh // 8)
+    return -(-bh // chunks)
+
+
+ROPE_CASES = {
+    # name: (b, h, s); rows an S tile: 256 threads over D·(bytes a value)/16 threads a row (8 to 32 rows)
+    "s1": (2, 3, 1),
+    "s15": (1, 5, 15),
+    "bh1-s17": (1, 1, 17),
+    "bh1-s33": (1, 1, 33),
+    "s257": (1, 7, 257),
+    "s300": (2, 3, 300),
+    "chunks-5-4-s65": (3, 3, 65),
+    "chunks-ragged-s300": (1, 100, 300),  # 12 chunks of 8 heads and one of 4
+    "s17000": (1, 6, 17000),
+}
+
+
+@pytest.mark.parametrize("case", list(ROPE_CASES))
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_rope_kernel_matches_plain(cuda, s, d, dtype):
+def test_rope_kernel_matches_plain(cuda, case, d, dtype):
     """On the transposed view the models pass (the [B, S, H, D] projection
-    seen as [B, H, S, D]) and on a contiguous tensor."""
+    seen as [B, H, S, D]) and on a contiguous tensor, at S on either side of
+    the kernel's row tiles, B·H = 1, and B·H cut into head chunks with a
+    short last chunk; the last quarter of the rows has cos = 1, sin = 0 (the
+    Hunyuan text rows) and comes back bit-equal."""
+    b, h, s = ROPE_CASES[case]
+    if case.startswith("chunks"):
+        assert (b * h) % _rope_chunk(b * h) != 0  # the last chunk is short
     gen = torch.Generator().manual_seed(5)
-    base = _randn(gen, 2, s, 3, d).to(cuda, dtype)  # [B, S, H, D]
+    base = _randn(gen, b, s, h, d).to(cuda, dtype)  # [B, S, H, D]
     ang = torch.rand((s, d // 2), generator=gen) * 6.28
+    ang[s - s // 4:] = 0.0
     cos = torch.cos(ang).repeat_interleave(2, -1).to(cuda)
     sin = torch.sin(ang).repeat_interleave(2, -1).to(cuda)
     for x in (base.transpose(1, 2), base.transpose(1, 2).contiguous()):
@@ -232,6 +262,7 @@ def test_rope_kernel_matches_plain(cuda, s, d, dtype):
         assert RO.rope_interleaved.launches == before + 1
         assert out.shape == x.shape and out.is_contiguous() and out.dtype == dtype
         _assert_close(out, RO.apply_rope_interleaved(x, cos, sin), dtype)
+        assert torch.equal(out[:, :, s - s // 4:], x[:, :, s - s // 4:])
 
 
 @pytest.mark.parametrize("s", [1, 300])
@@ -967,7 +998,7 @@ def test_routes_on_the_card(cuda):
     assert rc == 1
 
 
-# -- the register-tiled fp32 kernels: csrc/flash_attention.cu and the dkv kernel of csrc/flash_attention_bwd.cu ---
+# -- the register-tiled fp32 kernels: csrc/flash_attention.cu and the dq and dkv kernels of csrc/flash_attention_bwd.cu
 
 def _fp32_forward_heights(d: int) -> tuple:
     """The fp32 forward's query rows a block, by preference (csrc/flash_attention.cu): 128 (64 at
@@ -975,20 +1006,27 @@ def _fp32_forward_heights(d: int) -> tuple:
     return (64 if d == 128 else 128, 32, 16)
 
 
-def _fp32_forward_rows(sq: int, bh: int, d: int) -> int:
-    """Query rows a block of the fp32 forward takes at [B·H = bh, Sq = sq, D = d] (the launcher's rule)."""
+def _fp32_dq_heights(d: int) -> tuple:
+    """The fp32 dq kernel's query rows a block, by the forward's rule (csrc/flash_attention_bwd.cu): 128 at
+    D = 64 (64 at D = 80 and 128), else 32, else 16."""
+    return (128 if d == 64 else 64, 32, 16)
+
+
+def _fp32_forward_rows(sq: int, bh: int, d: int, heights=_fp32_forward_heights) -> int:
+    """Query rows a block of the fp32 forward (or, with ``heights=_fp32_dq_heights``, of dq) takes at
+    [B·H = bh, Sq = sq, D = d] (the launchers' rule, csrc/flash_simt.cuh)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    heights = _fp32_forward_heights(d)
+    heights = heights(d)
     for rows in heights[:-1]:
         if -(-sq // rows) * bh >= sms:
             return rows
     return heights[-1]
 
 
-def _heads_for_rows(rows: int, sq: int, b: int, d: int) -> int:
+def _heads_for_rows(rows: int, sq: int, b: int, d: int, heights=_fp32_forward_heights) -> int:
     """The fewest heads with which a [b, h, sq, d] call takes blocks of ``rows`` query rows."""
     for h in range(1, 1025):
-        if _fp32_forward_rows(sq, b * h, d) == rows:
+        if _fp32_forward_rows(sq, b * h, d, heights) == rows:
             return h
     raise AssertionError(f"no head count gives {rows}-row blocks at Sq = {sq}, B = {b}, D = {d}")
 
@@ -1125,3 +1163,63 @@ def test_fp32_dkv_tiles_match_plain(cuda, case):
         dead = torch.arange(sk, device=cuda)[None, :] >= lens[:, None]
         for g in (dk, dv):
             assert not g.transpose(1, 2)[dead].any()
+
+
+FP32_DQ_CASES = {
+    # name: (b, sq, sk, d, kv_len, causal); keys a tile: 32 at D = 64 and 128 and 64 at D = 80 in the largest
+    # blocks; 64 (32 at D = 128) in the 32- and 16-row blocks
+    "s63-d128": (1, 63, 63, 128, None, False),
+    "s64-d64": (1, 64, 64, 64, None, False),
+    "s65-d80": (1, 65, 65, 80, None, False),
+    "s127-d64": (1, 127, 127, 64, None, False),
+    "s128-d128": (1, 128, 128, 128, None, False),
+    "s129-d64": (1, 129, 129, 64, None, False),
+    "sk31-d64": (1, 70, 31, 64, None, False),
+    "sk33-d128": (1, 70, 33, 128, None, False),
+    "sk63-d80": (1, 70, 63, 80, None, False),
+    "sk65-d64": (1, 70, 65, 64, None, False),
+    "sq1": (2, 1, 300, 64, None, False),
+    "kvlen-0-1-32-33-64-65-d64": (7, 100, 130, 64, [0, 1, 32, 33, 64, 65, 130], False),
+    "kvlen-0-1-32-33-d128": (5, 70, 100, 128, [0, 1, 32, 33, 100], False),
+    "kvlen-0-1-64-65-d80": (5, 70, 90, 80, [0, 1, 64, 65, 90], False),
+    "causal-sq70-sk200-d80": (1, 70, 200, 80, None, True),
+    "causal-sq200-sk70-d64": (1, 200, 70, 64, None, True),  # its first 130 rows see no key
+    "causal-sq160-sk45-d128": (1, 160, 45, 128, None, True),
+    "causal-kvlen-d128": (2, 130, 130, 128, [130, 45], True),
+    "wan-cross-text-d128": (1, 130, 512, 128, None, False),
+    "wan-cross-image-d128": (1, 130, 257, 128, None, False),
+}
+FP32_DQ_PARAMS = [(case, rows) for case, spec in FP32_DQ_CASES.items() for rows in _fp32_dq_heights(spec[3])
+                  if rows != 32 or spec[1] > 32]
+
+
+@pytest.mark.parametrize("case,rows", FP32_DQ_PARAMS, ids=[f"{c}-bq{r}" for c, r in FP32_DQ_PARAMS])
+def test_fp32_dq_tiles_match_plain(cuda, case, rows):
+    """The fp32 dq kernel at the edges of its tiles (128, 64, 32 or 16 query
+    rows a block, with as many heads as make the launcher pick that block;
+    32 or 64 keys a tile): dq within the fp32 tolerance of the plain version,
+    exactly 0 on rows that see no key, and the call counted once under
+    ``cuda_core`` and nowhere else."""
+    from alg_tpu_torch.ops import flash_attention_bwd as FB
+
+    b, sq, sk, d, kv_len, causal = FP32_DQ_CASES[case]
+    h = _heads_for_rows(rows, sq, b, d, _fp32_dq_heights)
+    gen = torch.Generator().manual_seed(34)
+    q, do = (_randn(gen, b, h, sq, d).to(cuda) for _ in range(2))
+    k, v = (_randn(gen, b, h, sk, d).to(cuda) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    out, lse = FA.flash_attention(q, k, v, scale, kv_len=lens, causal=causal, return_residuals=True)
+    delta = FB.row_delta(out, do)
+    dq_fn = FB.flash_attention_bwd_dq
+    counts = (dq_fn.launches, dict(dq_fn.launches_by_route))
+    dq = dq_fn(q, k, v, do, lse, delta, scale, causal, lens)
+    torch.cuda.synchronize()
+    assert (dq_fn.launches, dq_fn.launches_by_route) == (
+        counts[0] + 1, {**counts[1], "cuda_core": counts[1]["cuda_core"] + 1})
+    assert dq.dtype == torch.float32 and bool(torch.isfinite(dq).all())
+    _assert_close(dq, FB.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, lens), torch.float32)
+    unseen = torch.isneginf(lse)
+    assert not dq[unseen].any()
+    if (kv_len is not None and 0 in kv_len) or (causal and sq > sk):
+        assert bool(unseen.any())  # the case reaches rows without a key

@@ -2,12 +2,13 @@
 """Time tile variants of the fp32 CUDA-core attention kernels on one GPU.
 
 Each variant is a copy of ``alg_tpu_torch`` under a scratch directory with
-lines of ``csrc/flash_attention.cu`` or ``csrc/flash_attention_bwd.cu``
-replaced (the other kernel sources are left out, so each copy builds only the
-two fp32 units). Each copy is built by the port's own ``ops/_build.py`` and
-timed in a process of its own with ``chip_smoke.py``'s phase-B cases (kernel, plain
-version, SDPA, bound); the registers and spilled bytes of its fp32 forward and
-dkv instantiations are printed from the build log, with the static mix of
+lines of ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` or
+``csrc/flash_simt.cuh`` replaced (the other kernel sources are left out, so
+each copy builds only the two fp32 units). Each copy is built by the port's
+own ``ops/_build.py`` and timed in a process of its own with
+``chip_smoke.py``'s phase-B cases (kernel, plain version, SDPA, bound); the
+registers and spilled bytes of its fp32 forward, dq and dkv instantiations
+are printed from the build log, with the static mix of
 their SASS instructions (``cuobjdump -sass``: FFMA, shared-memory loads by
 width, shuffles, barriers, MUFU) and the FMAs per float those loads bring,
 and the device time a launch of the forward at the two CLIP shapes from
@@ -18,8 +19,8 @@ Run from the repository root on a machine with one CUDA card::
     python3 tools/sweep_fp32_tiles.py [variant ...] [--scratch DIR]
 
 With no variant names it runs them all, in the order of ``VARIANTS``. The
-variants listed are those measured for the fp32 forward and dkv (PERF.md,
-section 6): "base" is the tree as it is.
+variants listed are those measured for the fp32 forward, dq and dkv
+(PERF.md, section 6): "base" is the tree as it is.
 """
 
 from __future__ import annotations
@@ -33,11 +34,14 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FWD, BWD = "flash_attention.cu", "flash_attention_bwd.cu"
+FWD, BWD, SIMT = "flash_attention.cu", "flash_attention_bwd.cu", "flash_simt.cuh"
 BLOCK_K = "return kD == 64 ? 64 : kD == 80 ? (tm > 2 ? 32 : 64) : (tm > 2 ? 48 : 32);"
 TM_LARGE = "constexpr int kTMLarge = kD == 128 ? 4 : 8;"
-SMALL = "if (blocks(kGroups * 2) >= sms)"
+SMALL = "*tm = blocks(tm_large) >= sms ? tm_large : blocks(2) >= sms ? 2 : 1;"
 DKV_TK = "constexpr int kTK = 4;"
+DQ_TM_LARGE = "constexpr int kTMLarge = kD == 64 ? 8 : 4;"
+DQ_BLOCK_K = "return tm > 2 ? (kD == 80 ? 64 : 32) : (kD == 128 ? 32 : 64);"
+DQ_BLOCK_K_64 = "return tm > 2 ? (kD == 128 ? 32 : 64) : (kD == 128 ? 32 : 64);"  # 64 keys a tile, 32 at D = 128
 
 # name: [(source, line as it is in the tree, line in the variant)]
 VARIANTS = {
@@ -49,12 +53,21 @@ VARIANTS = {
     "fwd_d128_bk64": [(FWD, BLOCK_K, BLOCK_K.replace("48", "64"))],
     # D = 128: 128-row blocks (TM = 8; one block an SM)
     "fwd_d128_tm8": [(FWD, TM_LARGE, "constexpr int kTMLarge = 8;")],
-    # 32-row blocks only where they give every SM two blocks, else 16-row ones
-    "fwd_small_tm1": [(FWD, SMALL, "if (blocks(kGroups * 2) >= 2 * sms)")],
+    # 32-row blocks only where they give every SM two blocks, else 16-row ones (the forward's and dq's rule)
+    "fwd_small_tm1": [(SIMT, SMALL, SMALL.replace("blocks(2) >= sms", "blocks(2) >= 2 * sms"))],
     # dkv with 2 keys a thread at D = 128 (32 keys a block, two blocks an SM)
     "dkv_d128_tk2": [(BWD, DKV_TK, "constexpr int kTK = kD == 128 ? 2 : 4;")],
     # dkv with 8 keys a thread at D = 64 (128 keys a block, one block an SM)
     "dkv_d64_tk8": [(BWD, DKV_TK, "constexpr int kTK = kD == 64 ? 8 : 4;")],
+    # dq at D = 64: 64-row blocks (4 × 4 S and dP micro-tiles with 32-key tiles, 4 × 8 with 64)
+    "dq_d64_tm4": [(BWD, DQ_TM_LARGE, "constexpr int kTMLarge = 4;")],
+    "dq_d64_tm4_bk64": [(BWD, DQ_TM_LARGE, "constexpr int kTMLarge = 4;"), (BWD, DQ_BLOCK_K, DQ_BLOCK_K_64)],
+    # dq at D = 64, 128-row blocks with 48- or 64-key tiles (8 × 6 or 8 × 8 micro-tiles; one block an SM)
+    "dq_d64_bk48": [(BWD, DQ_BLOCK_K, DQ_BLOCK_K.replace("(kD == 80 ? 64 : 32)", "(kD == 64 ? 48 : kD == 80 ? 64 : 32)"))],
+    "dq_d64_bk64": [(BWD, DQ_BLOCK_K, DQ_BLOCK_K_64)],
+    # dq at D = 128, 64-row blocks with 48- or 64-key tiles (4 × 6 or 4 × 8 micro-tiles; one block an SM)
+    "dq_d128_bk48": [(BWD, DQ_BLOCK_K, DQ_BLOCK_K.replace("(kD == 80 ? 64 : 32)", "(kD == 128 ? 48 : kD == 80 ? 64 : 32)"))],
+    "dq_d128_bk64": [(BWD, DQ_BLOCK_K, DQ_BLOCK_K.replace("(kD == 80 ? 64 : 32)", "(kD == 64 ? 32 : 64)"))],
 }
 
 
@@ -88,7 +101,7 @@ def sass_class(opcode: str):
 
 
 def sass_mix(lib) -> dict:
-    """{fp32 forward or dkv kernel: {class: static count, "total": instructions}} from ``cuobjdump -sass``."""
+    """{fp32 forward, dq or dkv kernel: {class: static count, "total": instructions}} from ``cuobjdump -sass``."""
     import re
     from pathlib import Path
 
@@ -145,7 +158,9 @@ def time_one(name: str) -> None:
                  reps=20)
     c._attn_case(records, "flash_t5_bias_stable", (1, 64, 226, 64), f32, gen, 1.0, True, with_bias=True)
     c._attn_bwd_case(records, "dit", (1, 48, 4276, 64), f32, gen, 64 ** -0.5)
+    c._attn_bwd_case(records, "dit", (1, 48, 17776, 64), f32, gen, 64 ** -0.5, reps=1)
     c._attn_bwd_case(records, "wan_self", (1, 40, 4680, 128), f32, gen, 128 ** -0.5)
+    c._attn_bwd_case(records, "wan_cross_text", (1, 40, 4680, 128), f32, gen, 128 ** -0.5, sk=512)
     c._attn_bwd_case(records, "square_causal", (1, 32, 4096, 128), f32, gen, 128 ** -0.5, stable=True, causal=True)
     for shape, causal in (((1, 16, 257, 80), False), ((1, 12, 77, 64), True)):
         q = torch.randn(shape, device="cuda")
