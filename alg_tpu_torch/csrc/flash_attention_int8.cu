@@ -1,6 +1,8 @@
-// Int8 flash attention over [B, H, S, D] for dense self-attention, for one
-// head dim D fixed at compile time. The build reads the next line and makes
-// one object per value, each with its own C entry point.
+// Int8 flash attention over [B, H, S, D] for dense self-attention on the CUDA
+// cores, for one head dim D fixed at compile time: the route of fp32 inputs
+// (ops/flash_attention_int8.py:route; bf16 inputs take the tensor-core kernel,
+// flash_attention_int8_tc.cu). The build reads the next line and makes one
+// object per value, each with its own C entry point.
 //
 // build-variants: ALG_INT8_HEAD_DIM=64,128
 //
@@ -15,7 +17,11 @@
 // modes for the second product:
 //
 //   "qk"   (pv_int8 = 0): V comes in the activation type; P stays fp32 and
-//          P·V is fp32 FMAs, l = Σ p.
+//          P·V is fp32 FMAs, l = Σ p. For fp32 inputs that is the TPU
+//          kernel's P·V (its rounding of P to the value type is the identity);
+//          the entry still takes bf16, which the wrapper sends to the
+//          tensor-core kernel, where P is rounded to bf16 as the TPU kernel
+//          rounds it.
 //   "full" (pv_int8 = 1): V comes as int8 codes with one fp32 scale per
 //          (b·h, channel). For each (query row, block of block_k keys)
 //          srow = max(rowmax(p), 1e-37), codes = rint(p · (127 / srow)), 0
@@ -47,8 +53,8 @@
 //
 // Bound on the H100: tensor-core operations (2·S²·D a head at the int8 rate
 // for QKᵀ, as many at the bf16 or int8 rate for P·V). This version runs on
-// the CUDA cores (dp4a, fp32 FMA), far below that; mma.sync / wgmma int8 or
-// fp8 tiles are later work.
+// the CUDA cores (dp4a, fp32 FMA), far below that: it is the fp32 route and
+// the yardstick of the tensor-core kernel.
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>

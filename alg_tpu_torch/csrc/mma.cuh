@@ -1,10 +1,12 @@
-// Tensor-core building blocks in inline PTX for the bf16 attention kernels
-// (flash_attention_tc.cu, flash_attention_bwd_tc.cu): warp-wide matrix
-// products mma.sync.m16n8k16 with bf16 inputs and fp32 accumulators, the
-// ldmatrix loads that fill their fragments from shared memory, cp.async
-// copies from device memory into shared memory, and the layout of a [rows, D]
-// bf16 tile in shared memory that keeps the ldmatrix reads free of bank
-// conflicts.
+// Tensor-core building blocks in inline PTX for the attention kernels
+// (flash_attention_tc.cu, flash_attention_bwd_tc.cu, flash_attention_bwd_dq_tc.cu,
+// flash_attention_int8_tc.cu): warp-wide matrix products mma.sync.m16n8k16
+// with bf16 inputs and fp32 accumulators and m16n8k32 with int8 inputs and
+// int32 accumulators, the ldmatrix loads that fill their fragments from
+// shared memory, cp.async copies from device memory into shared memory, and
+// the layout of a [rows, D] bf16 tile in shared memory that keeps the
+// ldmatrix reads free of bank conflicts (an int8 row of D values is a row of
+// D / 2 b16 units).
 //
 // Fragments of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for
 // lane l, g = l / 4 and c = 2 * (l % 4):
@@ -40,6 +42,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
       "{%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a · b over one m16n8k32 tile, int8 inputs, exact int32 accumulation. Its fragments hold four int8
+// values a register, the lowest index in the lowest byte; for lane l, g = l / 4 and t = l % 4:
+//   A (16 x 32, row-major): a0 = A[g][4t..4t+3],  a1 = A[g+8][4t..4t+3],
+//                           a2 = A[g][16+4t..16+4t+3], a3 = A[g+8][16+4t..16+4t+3]
+//   B (32 x 8, "col"):      b0 = B[4t..4t+3][g],  b1 = B[16+4t..16+4t+3][g]
+//   C (16 x 8, s32):        the layout of the fp32 C fragment of m16n8k16.
+// A 16-byte row chunk of int8 values is 8 b16 units, so the b16 ldmatrix below fills these fragments
+// unchanged: a0-a3 from a 16-row, 32-byte block in "A order", b0 and b1 from the two 16-byte chunks of 8
+// rows of a matrix stored N-major.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

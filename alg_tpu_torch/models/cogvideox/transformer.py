@@ -121,15 +121,15 @@ class JointAttention(nn.Module):
     def forward(self, joint: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor):
         b, s, dim = joint.shape
 
-        def heads(x):
-            return x.view(b, s, self.nh, self.hd).transpose(1, 2).contiguous()
+        def heads(x):  # [B, H, S, D] as a view of the [B, S, H·D] projection
+            return x.view(b, s, self.nh, self.hd).transpose(1, 2)
 
-        def prep(x, norm):
+        def prep(x, norm):  # the kernel reads the view through its strides and writes a contiguous result
             return qk_norm_rope(heads(x), norm.weight.float(), norm.bias.float(), rope_cos, rope_sin, norm.eps)
 
         q = prep(self.to_q(joint), self.norm_q)
         k = prep(self.to_k(joint), self.norm_k)
-        o = attention(q, k, heads(self.to_v(joint)), stable=False)
+        o = attention(q, k, heads(self.to_v(joint)).contiguous(), stable=False)
         return self.to_out(o.transpose(1, 2).reshape(b, s, dim))
 
 

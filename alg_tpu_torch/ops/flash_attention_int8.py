@@ -11,10 +11,12 @@ row, key block), and V, per (batch·head, channel), so that both products are
 integer products. The accuracy scheme is the JAX package's (per-block scales
 and K mean-centring over the sequence, which softmax is invariant to).
 
-``flash_attention_int8`` launches ``csrc/flash_attention_int8.cu`` for CUDA
-tensors and runs :func:`flash_attention_int8_plain` for CPU tensors; any other
-device raises. Self-attention only, head dims 64 and 128, fp32 or bf16 inputs,
-any S >= 1, an optional per-batch key count ``kv_len``; no autograd (an input
+``flash_attention_int8`` picks its implementation in :func:`route`: bf16
+CUDA tensors launch the tensor-core kernel ``csrc/flash_attention_int8_tc.cu``,
+fp32 CUDA tensors the CUDA-core kernel ``csrc/flash_attention_int8.cu``, and
+CPU tensors run :func:`flash_attention_int8_plain`; any other device
+raises. Self-attention only, head dims 64 and 128, fp32 or bf16 inputs, any
+S >= 1, an optional per-batch key count ``kv_len``; no autograd (an input
 that requires a gradient raises). The quantizers are PyTorch ops on the
 tensors' device, as they are XLA ops in the JAX package.
 
@@ -38,9 +40,14 @@ Where this differs from the JAX package, on purpose:
   is ``0 · inf`` and leans on what a NaN converts to;
 * the denominator of ``"qk"`` mode is ``Σ p`` in fp32 at both head dims, and
   of ``"full"`` mode the sum of the same codes as the numerator's at both;
-* on bf16 inputs in ``"qk"`` mode the kernel keeps P in fp32 for P·V, as the
-  port's bf16 kernel does; the plain version rounds P to the value dtype, as
-  the JAX package does, so the two differ by that rounding.
+* ``"qk"`` mode rounds P to the value dtype before P·V, as the JAX package
+  does, in the plain version and in the tensor-core kernel alike (in fp32 the
+  rounding is the identity, so the CUDA-core kernel keeps P as it is).
+
+For ``"full"`` mode the tensor-core kernel takes V's codes transposed,
+``[B·H, D, keys]``, and with the keys of every 32-key chunk in the order in
+which its P codes arrive from the Q·Kᵀ product (:func:`int8_pv_key_order`):
+the wrapper makes that copy once a call.
 """
 
 from __future__ import annotations
@@ -55,8 +62,11 @@ from alg_tpu_torch.ops import _build
 from alg_tpu_torch.ops._autograd import needs_grad
 from alg_tpu_torch.ops.flash_attention import LOG2E
 
-HEAD_DIMS = (64, 128)  # the variants csrc/flash_attention_int8.cu declares, one entry point each
-KEY_TILE = 64  # keys the kernel stages at a time: block_k must be a multiple
+HEAD_DIMS = (64, 128)  # the variants both int8 sources declare, one entry point each
+KEY_TILE = 64  # keys the kernels stage at a time: block_k must be a multiple
+
+# the C entry point of each route, "{d}" the head dim
+_ENTRY_NAMES = {"tc": "alg_flash_attention_int8_tc_d{d}", "cuda_core": "alg_flash_attention_int8_d{d}"}
 
 
 def _valid_keys(kv_len: torch.Tensor, s: int) -> torch.Tensor:
@@ -174,10 +184,53 @@ def flash_attention_int8_plain(q, k, v, scale: float, block_q: int = 512, block_
     return out.reshape(b, h, s, d)
 
 
+def route(q: torch.Tensor, pv_int8: bool = False) -> str:
+    """Which implementation a call on ``q`` takes, in either mode: ``"plain"``
+    for a CPU tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for
+    bf16 and ``"cuda_core"`` for fp32. Raises for any other device or dtype."""
+    del pv_int8  # both modes take the same route
+    if q.device.type == "cpu":
+        return "plain"
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_int8: no kernel for device {q.device}")
+    if q.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"int8 flash kernel takes float32 or bfloat16, got {q.dtype}")
+    return "tc" if q.dtype == torch.bfloat16 else "cuda_core"
+
+
+def int8_pv_key_order(n_keys: int, device=None) -> torch.Tensor:
+    """The key at each position of V's codes as the tensor-core kernel reads
+    them, for ``n_keys`` a multiple of 32. The Q·Kᵀ accumulator of lane
+    ``4g + t`` of a warp holds keys ``2t, 2t+1, 8+2t, 9+2t`` and the same
+    plus 16 of each 32-key chunk; the A operand of the next int8 product
+    wants them at positions ``4t..4t+3`` and ``16+4t..16+4t+3``. Position
+    ``16h + 4t + e`` of a chunk therefore holds key
+    ``16h + 2t + (e & 1) + 8 (e >> 1)``."""
+    j = torch.arange(n_keys, device=device)
+    within = j % 32
+    t, e = (within % 16) // 4, within % 4
+    return j - within + 16 * (within // 16) + 2 * t + (e & 1) + 8 * (e >> 1)
+
+
+def pv_codes_for_tc(v_int: torch.Tensor) -> torch.Tensor:
+    """V's codes ``[B·H, S, D]`` as the tensor-core kernel's ``"full"`` mode
+    reads them: ``[B·H, D, S']``, S' the next multiple of :data:`KEY_TILE`,
+    zero past S, the keys of every 32-key chunk in :func:`int8_pv_key_order`."""
+    s = v_int.shape[1]
+    keys = -(-s // KEY_TILE) * KEY_TILE
+    order = int8_pv_key_order(keys, v_int.device)
+    out = v_int.transpose(1, 2)[:, :, order.clamp(max=s - 1)].contiguous()  # one gather
+    if keys > s:
+        out.index_fill_(2, torch.nonzero(order >= s).flatten(), 0)
+    return out
+
+
 @functools.cache
-def _entry(head_dim: int):
-    fn = getattr(_build.load(), f"alg_flash_attention_int8_d{head_dim}")
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _entry(head_dim: int, which: str):
+    """The C entry point of a head dim for a route of :func:`route`."""
+    fn = getattr(_build.load(), _ENTRY_NAMES[which].format(d=head_dim))
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * (7 if which == "tc" else 6) + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -211,40 +264,47 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     ``pv_int8`` an int8 ``P·V`` as well. Batch row ``b`` attends to its first
     ``kv_len[b]`` keys only (int32 ``[B]``); a row with none gives zeros.
 
-    CPU tensors take the plain version; CUDA tensors the kernel, or raise
-    (another head dim than 64 or 128, Sq != Sk, a ``block_k`` that is no
-    multiple of :data:`KEY_TILE`). An input that requires a gradient raises:
-    the int8 path has no backward."""
+    CPU tensors take the plain version; CUDA tensors a kernel (see
+    :func:`route`), or raise (another head dim than 64 or 128, Sq != Sk, a
+    ``block_k`` that is no multiple of :data:`KEY_TILE`). An input that
+    requires a gradient raises: the int8 path has no backward."""
     if k.shape[2] != q.shape[2]:
         raise ValueError("int8 kernel is self-attention only")
     if needs_grad(q, k, v):
         raise RuntimeError("flash_attention_int8 is inference only: an input requires a gradient and the int8 "
                            "kernel has no backward (switch the mode off with set_attention_int8(False))")
-    if q.device.type == "cpu":
+    which = route(q, pv_int8)
+    if which == "plain":
         return flash_attention_int8_plain(q, k, v, scale, block_q, block_k, pv_int8, kv_len)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_int8: no kernel for device {q.device}")
     _check(q, k, v, block_q, block_k, kv_len)
     b, h, s, d = q.shape
     q_int, k_int, sq_blk, sk_blk = quantize_qk_int8(q, k, scale, block_q, block_k, kv_len)
+    v_keys = ()  # the tensor-core entry's last argument: the keys of a row of V's transposed codes
     if pv_int8:
         v_arg, sv = quantize_v_int8(v, kv_len)
+        if which == "tc":
+            v_arg = pv_codes_for_tc(v_arg)
+            v_keys = (v_arg.shape[-1],)
     else:
         v_arg, sv = v.contiguous(), None
+        if which == "tc":
+            v_keys = (0,)
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     for t in (q_int, k_int, v_arg, out):
         if t.data_ptr() % 16:
             raise ValueError("int8 flash operands must be 16-byte aligned")
     with torch.cuda.device(q.device):
-        rc = _entry(d)(
+        rc = _entry(d, which)(
             _build.DTYPE_CODE[q.dtype], q_int.data_ptr(), k_int.data_ptr(), v_arg.data_ptr(), sq_blk.data_ptr(),
             sk_blk.data_ptr(), None if sv is None else sv.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), b, h, s, block_q, block_k, int(pv_int8),
-            torch.cuda.current_stream().cuda_stream,
+            *v_keys, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "int8 flash-attention kernel")
+    _build.check(rc, f"int8 flash-attention kernel ({which})")
     flash_attention_int8.launches += 1
+    flash_attention_int8.launches_by_route[which] += 1
     return out
 
 
-flash_attention_int8.launches = 0
+flash_attention_int8.launches = 0  # every launch of the int8 kernels
+flash_attention_int8.launches_by_route = {"tc": 0, "cuda_core": 0}  # the same launches by route()

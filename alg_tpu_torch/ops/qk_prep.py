@@ -7,6 +7,12 @@ CPU tensor; any other device raises. The kernel replaces the TPU kernel
 package's ``_xla_compose`` op for op (LayerNorm with fp32 statistics, cast
 to the activation dtype, then the rotation in the activation dtype).
 
+The kernel reads ``x`` through its strides, so the DiT passes the
+``[B, S, H, D]`` projection viewed as ``[B, H, S, D]`` without a
+``.contiguous()`` copy; the result is a new contiguous ``[B, H, S, D]``
+tensor. Only the last dim must have unit stride, and every row must start on
+a 16-byte boundary.
+
 The kernel rounds once, after the rotation, where the plain version rounds
 after each multiply-add: in bf16 the two differ by up to about two bf16
 ulps (atol 2e-2 at unit scale). Identity rows (cos 1, sin 0), which the DiT
@@ -43,8 +49,8 @@ def qk_norm_rope_plain(x, scale, bias, cos, sin, eps: float) -> torch.Tensor:
 @functools.cache
 def _entry():
     fn = _build.load().alg_qk_prep
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -55,16 +61,20 @@ def _check(x, scale, bias, cos, sin):
         raise TypeError(f"qk_prep kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or x.shape[-1] != HEAD_DIM:
         raise ValueError(f"qk_prep kernel takes [B, H, S, {HEAD_DIM}], got {tuple(x.shape)}")
+    if x.numel() == 0 or max(x.shape[0] * x.shape[1], x.shape[2] * HEAD_DIM) > 2 ** 31 - 256:
+        raise ValueError(f"qk_prep kernel takes a non-empty [B, H, S, {HEAD_DIM}] with B·H and S·D at most "
+                         f"2^31 - 256, got {tuple(x.shape)}")
+    vec = 16 // x.element_size()
+    if x.stride(3) != 1 or any(st % vec for st in x.stride()[:3]) or x.data_ptr() % 16:
+        raise ValueError(f"qk_prep kernel takes x with unit stride along D and 16-byte aligned rows, got strides "
+                         f"{x.stride()}")
     s = x.shape[2]
     for name, t, shape in (("scale", scale, (HEAD_DIM,)), ("bias", bias, (HEAD_DIM,)),
                            ("cos", cos, (s, HEAD_DIM)), ("sin", sin, (s, HEAD_DIM))):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"qk_prep {name}: want float32 {shape}, got {t.dtype} {tuple(t.shape)}")
-    for t in (x, scale, bias, cos, sin):
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 8:
-            raise ValueError("qk_prep operands must be contiguous, 8-byte aligned and on one device")
-    if x.numel() == 0:
-        raise ValueError("qk_prep got an empty tensor")
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("qk_prep scale, bias and tables must be contiguous, 16-byte aligned and on x's device")
 
 
 class _QkNormRopeFunction(torch.autograd.Function):
@@ -84,7 +94,8 @@ class _QkNormRopeFunction(torch.autograd.Function):
 def qk_norm_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, eps: float) -> torch.Tensor:
     """Per-head LayerNorm (affine ``scale``/``bias`` [64]) then RoPE with
-    ``cos``/``sin`` [S, 64] on ``x`` [B, H, S, 64].
+    ``cos``/``sin`` [S, 64] on ``x`` [B, H, S, 64] (any strides with a unit
+    last stride); the result is contiguous.
 
     CPU tensors take the plain version; CUDA tensors the kernel (fp32
     ``scale``/``bias``/``cos``/``sin``, contiguous), or raise."""
@@ -99,12 +110,13 @@ def qk_norm_rope(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, cos: 
 
 def _launch(x, scale, bias, cos, sin, eps):
     _check(x, scale, bias, cos, sin)
-    out = torch.empty_like(x)
+    b, h, s, d = x.shape
+    out = torch.empty((b, h, s, d), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _entry()(
-            _build.DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(), bias.data_ptr(), cos.data_ptr(),
-            sin.data_ptr(), out.data_ptr(), x.numel() // HEAD_DIM, x.shape[2], HEAD_DIM, eps, stream,
+            _build.DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), x.stride(1), x.stride(2), scale.data_ptr(),
+            bias.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b * h * s, h, s, HEAD_DIM, eps, stream,
         )
     _build.check(rc, "qk_prep kernel")
     qk_norm_rope.launches += 1

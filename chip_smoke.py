@@ -13,9 +13,10 @@ Phases, each of which must pass:
       register/shared-memory report, with one line for each instantiation
       of the register-tiled fp32 forward, dq and dkv kernels (registers, spilled
       bytes, head dim); then ``cuobjdump -sass`` of the library:
-      every kernel of the three tensor-core entry points (the bf16 forward,
-      dq and dkv) must hold HMMA instructions, whose count is printed per
-      kernel;
+      every kernel of the tensor-core entry points must hold tensor-core
+      instructions, whose counts are printed per kernel: HMMA in the bf16
+      forward, dq and dkv, IMMA in both modes of the int8 kernel and HMMA in
+      its "qk" mode as well (P·V in bf16);
   B.  kernels: each CUDA kernel against its plain PyTorch version on the
       card, in bf16 and fp32 (fp32 with TF32 off; bf16 attention without a
       prolog and bf16 dq and dkv run the tensor-core kernels, fp32 the
@@ -37,14 +38,16 @@ Phases, each of which must pass:
       call with ``kv_len`` 0 in a batch row), with the backward time of
       ``scaled_dot_product_attention`` under autograd as the yardstick (its
       forward on inputs that require a gradient for the LSE call);
-      then the int8 attention kernel against ``flash_attention_int8_plain``,
-      bf16 and fp32 inputs, modes "qk" and "full", at the self-attention
+      then the int8 attention kernels against ``flash_attention_int8_plain``
+      (the tensor-core kernel on bf16 inputs, the CUDA-core one on the same
+      values in fp32), modes "qk" and "full", at the self-attention
       shapes of the three DiTs at 9 frames and at the shipped lengths (the
       Hunyuan ones with ``kv_len``) and with ``kv_len`` 0 in a batch row, on
-      DiT-like inputs, with its drift against exact attention beside the JAX
-      package's bounds, its bound, the quantizers' time, the bf16 flash kernel
-      and ``scaled_dot_product_attention`` on the same tensors, and "full"
-      mode again with ``block_k`` equal to the kernel's key tile; then the
+      DiT-like inputs, with their drift against exact attention beside the JAX
+      package's bounds, their bound, the quantizers' times (each apart), the
+      bf16 flash kernel and ``scaled_dot_product_attention`` on the same
+      tensors, and "full" mode again with ``block_k`` equal to the kernels'
+      key tile; then the
       flash kernel's qk prolog (five combinations of norm, RoPE, ``stable``
       and ``prolog_k``) against ``apply_prolog_plain`` and the plain
       attention, beside the unfused sequence the DiTs run today;
@@ -85,7 +88,9 @@ Phases, each of which must pass:
       fp32 with TF32 off; final latents within atol 2e-3, decoded frames
       above 40 dB; then the same under int8 "qk" and "full" (frames above
       40 dB, latents within 1e-1 at the largest and 1e-2 on the mean: rounding
-      ties fall differently in the two runs, see ``INT8_LATENT_MAX``);
+      ties fall differently in the two runs, see ``INT8_LATENT_MAX``); these
+      fp32 runs take the CUDA-core int8 kernel, whose launches are the
+      ``agreement_*_int8_*`` paths of the JSON line;
   D2. the same for a small Wan pipeline (DiT head dim 128, UMT5 with a mask,
       CLIP head dim 80);
   D3. the same for a small HunyuanVideo pipeline (DiT and Llava head dim 128,
@@ -116,7 +121,12 @@ Phases, each of which must pass:
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only rope
 at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
-(with its device time from ``torch.profiler``), the
+(with its device time from ``torch.profiler``), qk_prep in bf16 at
+``[2,48,17776,64]`` and ``[2,48,4276,64]`` (device time; on a contiguous
+input, then on the head-split view beside the transposing copy it saves),
+``flash_attention_int8`` in bf16 in both modes at ``[2,48,17776,64]`` and
+``[2,40,32760,128]`` (the call with its quantizers, and the kernel's device
+time), the
 dense flash calls of phase B at head dims 64 and 128, the fp32 CLIP calls
 ``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), and the training kernels at
 ``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 and fp32 (for comparing
@@ -125,8 +135,9 @@ tensor-core kernels; it prints no result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
-dkv kernels (bf16 records), the CUDA-core ones (fp32 records), the int8 kernel
-and the flash kernel's qk-prolog variant, each a compile unit of its own,
+dkv kernels (bf16 records), the CUDA-core ones (fp32 records), the int8
+kernels (the tensor-core one's bf16 records, the CUDA-core one's fp32) and
+the flash kernel's qk-prolog variant, each a compile unit of its own,
 have entries of their own; ``launches_by_path`` names the run each count
 comes from, the int8 runs of the three pipelines among them; ``also``
 carries the other shapes and modes), and as the last line
@@ -211,14 +222,19 @@ def _set_tf32(matmul: bool, cudnn: bool) -> None:
 # ---------------------------------------------------------------------------
 
 
-# The tensor-core kernels, by the C entry point that launches them and a part of their kernels' names.
-TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": "flash_fwd_tc_kernel",
-              "alg_flash_attention_bwd_dq_tc_d<D>": "flash_bwd_dq_tc_kernel",
-              "alg_flash_attention_bwd_dkv_tc_d<D>": "flash_bwd_dkv_tc_kernel"}
+# The tensor-core kernels: the C entry point that launches them, a part of their kernels' names, and the
+# tensor-core instructions each must hold (HMMA: bf16 products; IMMA: int8 products). The int8 kernel's two
+# instantiations by mode: "qk" (template argument false) takes QKᵀ in int8 and P·V in bf16, "full" both in int8.
+TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": ("flash_fwd_tc_kernel", ("HMMA",)),
+              "alg_flash_attention_bwd_dq_tc_d<D>": ("flash_bwd_dq_tc_kernel", ("HMMA",)),
+              "alg_flash_attention_bwd_dkv_tc_d<D>": ("flash_bwd_dkv_tc_kernel", ("HMMA",)),
+              "alg_flash_attention_int8_tc_d<D> qk": ("flash_int8_tc_kernelILb0E", ("IMMA", "HMMA")),
+              "alg_flash_attention_int8_tc_d<D> full": ("flash_int8_tc_kernelILb1E", ("IMMA",))}
 
 
 def _sass_hmma(lib) -> dict:
-    """{kernel: HMMA instructions in its SASS} for every kernel of the built library (``cuobjdump -sass``)."""
+    """{kernel: {"HMMA": n, "IMMA": m}}, the tensor-core instructions in the SASS of every kernel of the built
+    library (``cuobjdump -sass``)."""
     import re
     from pathlib import Path
 
@@ -233,9 +249,11 @@ def _sass_hmma(lib) -> dict:
         found = re.search(r"Function : (\S+)", line)
         if found:
             current = found.group(1)
-            counts[current] = 0
-        elif current is not None and "HMMA" in line:
-            counts[current] += 1
+            counts[current] = {"HMMA": 0, "IMMA": 0}
+        elif current is not None:
+            for op in ("HMMA", "IMMA"):
+                if op in line:
+                    counts[current][op] += 1
     return counts
 
 
@@ -275,8 +293,8 @@ def _fp32_kernel_resources(log: str) -> list:
 
 def phase_build(require_tensor_cores: bool = True) -> None:
     """Build the library, print the compiler's resource report and, from the
-    SASS, the HMMA (tensor-core) instructions of every kernel of the
-    tensor-core entry points; fail if one has none (``require_tensor_cores``
+    SASS, the HMMA and IMMA (tensor-core) instructions of every kernel of the
+    tensor-core entry points; fail if one lacks those it must hold (``require_tensor_cores``
     False only prints them: ``--dense-flash`` also times trees without those
     kernels)."""
     from alg_tpu_torch.ops import _build
@@ -293,13 +311,13 @@ def phase_build(require_tensor_cores: bool = True) -> None:
                 print("    " + line.strip())
         for line in _fp32_kernel_resources(log.read_text()):
             print(line)
-    hmma = _sass_hmma(path)
-    for entry, part in TC_KERNELS.items():
-        kernels = {name: n for name, n in hmma.items() if part in name}
+    sass = _sass_hmma(path)
+    for entry, (part, wanted) in TC_KERNELS.items():
+        kernels = {name: n for name, n in sass.items() if part in name}
         for name, n in sorted(kernels.items()):
-            print(f"[A] {entry}: {n} HMMA instructions in {name}")
-        if require_tensor_cores and (not kernels or not all(kernels.values())):
-            raise AssertionError(f"{entry}: kernels {kernels} (want each with HMMA instructions)")
+            print(f"[A] {entry}: {n['HMMA']} HMMA and {n['IMMA']} IMMA instructions in {name}")
+        if require_tensor_cores and (not kernels or not all(n[op] for n in kernels.values() for op in wanted)):
+            raise AssertionError(f"{entry}: kernels {kernels} (want each with {' and '.join(wanted)} instructions)")
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +374,7 @@ def _close(a, b, tol):
     return diff.max().item(), bool((diff <= tol[0] + tol[1] * b.abs()).all())  # tol[0]: a number or a tensor
 
 
-def _qk_case(records, shape, dtype, gen, text_len=226):
+def _qk_case(records, shape, dtype, gen, text_len=226, reps=5):
     import torch
 
     from alg_tpu_torch.models import layers as L
@@ -382,11 +400,15 @@ def _qk_case(records, shape, dtype, gen, text_len=226):
     id_err, id_ok = _close(out[:, :, :text_len], ln, id_tol)
     print(f"[B] qk_prep identity rows {str(dtype):<14} max|diff| vs layer_norm {id_err:.3e} "
           f"(atol {id_tol[0]:g}, rtol {id_tol[1]:g}) {'PASS' if id_ok else 'FAIL'}")
-    ms = _time_ms(lambda: qk_norm_rope(x, scale, bias, cos, sin, 1e-6))
-    plain_ms = _time_ms(lambda: qk_norm_rope_plain(x, scale, bias, cos, sin, 1e-6))
+    ms = _time_ms(lambda: qk_norm_rope(x, scale, bias, cos, sin, 1e-6), reps)
+    plain_ms = _time_ms(lambda: qk_norm_rope_plain(x, scale, bias, cos, sin, 1e-6), reps)
     nbytes = 2 * x.numel() * x.element_size() + 4 * (cos.numel() + sin.numel() + scale.numel() + bias.numel())
     bound = _bound(12 * x.numel(), nbytes, tol_name(dtype))  # about 12 operations a value, fp32 CUDA cores
     _report(records, "qk_prep", tol_name(dtype), shape, err, ok and id_ok, tol, ms, plain_ms, bound)
+    device_ms = _device_ms(lambda: qk_norm_rope(x, scale, bias, cos, sin, 1e-6), "qk_prep_kernel")
+    records[-1]["device_ms"] = device_ms
+    print(f"[B]   qk_prep {tol_name(dtype)} {shape}: device time a launch "
+          f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'} (torch.profiler)", flush=True)
 
 
 def _rope_case(records, shape, dtype, gen, reps=5, identity_suffix=None):
@@ -729,12 +751,16 @@ def _training_kernel_cases(records, gen) -> None:
 
 # Published int8 tensor-core rate of one H100 SXM (dense), for the int8 products' bounds.
 PEAK_INT8_OPS_PER_S = 1979e12
-# The int8 kernel against its plain version. fp32 inputs, "qk": the same codes and scales, only the order of
-# the fp32 sums differs. "full": a P code on a rounding tie may flip (one code is 1/127 of a row's largest
-# p), so the mean and the largest difference are bounded, as in the JAX package's own tests. bf16 inputs: the
-# bf16 attention tolerance above (in "qk" mode the kernel keeps P in fp32 where the plain version rounds it).
+# The int8 kernels against their plain version. fp32 inputs (the CUDA-core kernel), "qk": the same codes and
+# scales, only the order of the fp32 sums differs. "full": a P code on a rounding tie may flip (one code is
+# 1/127 of a row's largest p), so the mean and the largest difference are bounded, as in the JAX package's own
+# tests. bf16 inputs (the tensor-core kernel), "qk": one bf16 step of the plain version (rtol 2**-7, atol
+# 2**-7 of the output's mean magnitude), since both round P to bf16 alike and differ only in the order of the
+# fp32 sums of P·V and in the plain version's rounding of that product to bf16; "full": the bf16 attention
+# tolerance above.
 INT8_QK_TOL = (2e-5, 2e-5)
 INT8_FULL_MEAN, INT8_FULL_MAX = 1e-5, 2e-3
+BF16_STEP = 2.0 ** -7  # one bf16 step at x is at most BF16_STEP·|x|
 # The JAX package's bounds on the drift of int8 attention against exact attention, over the exact output's
 # rms, on DiT-like inputs: (mean, max) by mode, the wider of its D = 64 and D = 128 bounds. A record here.
 INT8_DRIFT_BOUNDS = {False: (2e-2, 1.5e-1), True: (3e-2, 3e-1)}
@@ -752,58 +778,72 @@ def _dit_like_qkv(shape, dtype, gen):
     return q.to(dtype), k.to(dtype), torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _int8_bound(shape, kept, pv_int8, element_size, with_kv_len):
+    """(least ms, what bounds it) of one int8 call: QKᵀ at the int8 rate plus P·V at the bf16 rate ("qk") or
+    the int8 rate ("full") over the visible pairs, or the bytes of q, k, v and the output if that is more."""
+    b, h, s, d = shape
+    pairs = sum(s * n for n in kept)
+    ops_ms = (2.0 * h * pairs * d / PEAK_INT8_OPS_PER_S
+              + 2.0 * h * pairs * d / (PEAK_INT8_OPS_PER_S if pv_int8 else PEAK_OPS_PER_S["bfloat16"])) * 1e3
+    nbytes = (2 * b * h * s * d + 2 * h * sum(kept) * d) * element_size + (4 * b if with_kv_len else 0)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
 def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=False):
-    """The int8 kernel at one shape: bf16 and fp32 inputs, both modes, each
-    against ``flash_attention_int8_plain`` on the card (taken over groups of
-    batch·heads, one block of query rows at a time), with its drift against exact
-    fp32 attention, its bound (QKᵀ at the int8 rate plus P·V at the bf16 rate
-    in "qk" mode or the int8 rate in "full" mode, or the bytes of q, k, v and
-    the output if that is more), the quantizers' own time (they run inside
-    every call), the bf16 flash kernel and ``scaled_dot_product_attention`` in
+    """The int8 kernels at one shape, on one draw of bf16 values: the
+    tensor-core route on the bf16 tensors and the CUDA-core route on the same
+    values in fp32, both modes, each against ``flash_attention_int8_plain``
+    on the card (taken over groups of batch·heads, one block of query rows at
+    a time), with its drift against exact fp32 attention, its bound, the
+    quantizers' own time (they run inside every call; printed apart, with the
+    transposed copy of V's codes that the tensor-core route's "full" mode
+    makes), the bf16 flash kernel and ``scaled_dot_product_attention`` in
     bf16 on the same tensors. The plain version's time is that of the one run
     that is compared. ``tile_block`` also times "full" mode with ``block_k``
-    equal to the kernel's key tile, where a key block is staged once."""
+    equal to the kernels' key tile, where a key block is staged once."""
     import torch
     import torch.nn.functional as F
 
     from alg_tpu_torch.ops.flash_attention import attention_plain, flash_attention
     from alg_tpu_torch.ops.flash_attention_int8 import (KEY_TILE, flash_attention_int8, flash_attention_int8_plain,
-                                                        quantize_qk_int8, quantize_v_int8)
+                                                        pv_codes_for_tc, quantize_qk_int8, quantize_v_int8, route)
 
     b, h, s, d = shape
     scale = d ** -0.5
     lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     kept = [s] * b if kv_len is None else [min(n, s) for n in kv_len]
-    pairs = sum(s * n for n in kept)
     group = max(1, min(h, 2 ** 19 // s))  # heads a plain call takes: [group, 512, S] fp32 logits (1 GiB) and a few like it
-    bf16_ms = sdpa_ms = None
+    qb, kb, vb = _dit_like_qkv(shape, torch.bfloat16, gen)
+    mask = None
+    if lens is not None:
+        keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+        mask = torch.zeros((b, 1, s, s), device="cuda").masked_fill(~keep[:, None, None, :], float("-inf")).bfloat16()
+    bf16_ms = _time_ms(lambda: flash_attention(qb, kb, vb, scale, stable=False, kv_len=lens), reps)
+    sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale), reps)
+    del mask
+    # exact attention in fp32 on the same values, for the drift, kept on the card as the inputs' dtype allows
+    exact = torch.empty(shape, dtype=torch.float32, device="cuda")
+    q_chunk = max(1, min(s, 2 ** 28 // (group * s)))
+    for bi in range(b):
+        for h0 in range(0, h, group):
+            sl = (slice(bi, bi + 1), slice(h0, h0 + group))
+            kf, vf = kb[sl].float(), vb[sl].float()
+            for i in range(0, s, q_chunk):
+                exact[sl][:, :, i:i + q_chunk] = attention_plain(qb[sl][:, :, i:i + q_chunk].float(), kf, vf, scale,
+                                                                 None, None if lens is None else lens[bi:bi + 1])
+    rms = exact.pow(2).mean().sqrt().item()
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = _dit_like_qkv(shape, dtype, gen)
+        q, k, v = (t.to(dtype) for t in (qb, kb, vb))
         name_dt = tol_name(dtype)
-        if dtype == torch.bfloat16:
-            mask = None
-            if lens is not None:
-                keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
-                mask = torch.zeros((b, 1, s, s), device="cuda").masked_fill(~keep[:, None, None, :],
-                                                                             float("-inf")).to(dtype)
-            bf16_ms = _time_ms(lambda: flash_attention(q, k, v, scale, stable=False, kv_len=lens), reps)
-            sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), reps)
-            del mask
-        # exact attention in fp32 on the same values, for the drift, kept on the card as the inputs' dtype allows
-        exact = torch.empty(shape, dtype=torch.float32, device="cuda")
-        q_chunk = max(1, min(s, 2 ** 28 // (group * s)))
-        for bi in range(b):
-            for h0 in range(0, h, group):
-                sl = (slice(bi, bi + 1), slice(h0, h0 + group))
-                kf, vf = k[sl].float(), v[sl].float()
-                for i in range(0, s, q_chunk):
-                    exact[sl][:, :, i:i + q_chunk] = attention_plain(q[sl][:, :, i:i + q_chunk].float(), kf, vf, scale,
-                                                                     None, None if lens is None else lens[bi:bi + 1])
-        rms = exact.pow(2).mean().sqrt().item()
         quant_qk_ms = _time_ms(lambda: quantize_qk_int8(q, k, scale, 512, 1024, lens), reps)
         quant_v_ms = _time_ms(lambda: quantize_v_int8(v, lens), reps)
+        v_codes = quantize_v_int8(v, lens)[0]
+        transpose_ms = _time_ms(lambda: pv_codes_for_tc(v_codes), reps) if dtype == torch.bfloat16 else 0.0
+        del v_codes
         for pv_int8 in (False, True):
             mode = "full" if pv_int8 else "qk"
+            which = route(q, pv_int8)
             out = flash_attention_int8(q, k, v, scale, pv_int8=pv_int8, kv_len=lens)
             torch.cuda.synchronize()
             ok = bool(torch.isfinite(out).all())
@@ -816,7 +856,10 @@ def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=
             size = ref.float().abs().mean().item()
             diff = (out.float() - ref.float()).abs()
             err, err_mean = diff.max().item(), diff.mean().item()
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and not pv_int8:
+                tol = (BF16_STEP * size, BF16_STEP)
+                ok = ok and bool((diff <= tol[0] + tol[1] * ref.float().abs()).all())
+            elif dtype == torch.bfloat16:
                 tol = (min(TOL["bfloat16"][0], FLASH_BF16_ATOL_SHARE * size), TOL["bfloat16"][1])
                 ok = ok and bool((diff <= tol[0] + tol[1] * ref.float().abs()).all())
             elif not pv_int8:
@@ -830,20 +873,20 @@ def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=
             drift_mean, drift_max = drift.mean().item() / rms, drift.max().item() / rms
             del drift
             ms = _time_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8, kv_len=lens), reps)
-            ops_ms = (2.0 * h * pairs * d / PEAK_INT8_OPS_PER_S
-                      + 2.0 * h * pairs * d / (PEAK_INT8_OPS_PER_S if pv_int8 else PEAK_OPS_PER_S["bfloat16"])) * 1e3
-            nbytes = (2 * q.numel() + 2 * h * sum(kept) * d) * q.element_size() + (0 if lens is None else 4 * b)
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            bound = (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
-            quant_ms = quant_qk_ms + (quant_v_ms if pv_int8 else 0.0)
+            bound = _int8_bound(shape, kept, pv_int8, q.element_size(), lens is not None)
+            quant_ms = quant_qk_ms + (quant_v_ms + transpose_ms if pv_int8 else 0.0)
             limits = INT8_DRIFT_BOUNDS[pv_int8]
-            print(f"[B] int8 {mode:<4} {tag:<14} {name_dt:<8} {str(shape):<22} mean|diff| {err_mean:.3e}; "
-                  f"drift against exact attention over its rms: mean {drift_mean:.3e} (reference's bound "
-                  f"{limits[0]:g}), max {drift_max:.3e} ({limits[1]:g}); quantizers {quant_ms:.3f} ms of the "
-                  f"kernel's time; bf16 flash kernel on the same tensors in bf16 {bf16_ms:.3f} ms", flush=True)
+            print(f"[B] int8 {mode:<4} {tag:<14} {name_dt:<8} {str(shape):<22} route {which}: mean|diff| "
+                  f"{err_mean:.3e}; drift against exact attention over its rms: mean {drift_mean:.3e} (reference's "
+                  f"bound {limits[0]:g}), max {drift_max:.3e} ({limits[1]:g}); quantizers {quant_ms:.3f} ms of the "
+                  f"kernel's time (q and k {quant_qk_ms:.3f}"
+                  + (f", v {quant_v_ms:.3f}" + (f", v's codes transposed {transpose_ms:.3f}" if transpose_ms else "")
+                     if pv_int8 else "")
+                  + f"); bf16 flash kernel on the same values in bf16 {bf16_ms:.3f} ms", flush=True)
             _report(records, f"flash_int8_{mode}_{tag}", name_dt, shape, err, ok, tol, ms, plain_ms, bound, sdpa_ms,
                     ref_size=size)
-            records[-1].update(drift_mean=drift_mean, drift_max=drift_max, quantizers_ms=quant_ms, bf16_flash_ms=bf16_ms)
+            records[-1].update(drift_mean=drift_mean, drift_max=drift_max, quantizers_ms=quant_ms,
+                               bf16_flash_ms=bf16_ms, route=which)
         if tile_block:
             tile_ms = _time_ms(lambda: flash_attention_int8(q, k, v, scale, block_k=KEY_TILE, pv_int8=True,
                                                             kv_len=lens), reps)
@@ -856,15 +899,22 @@ def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=
                                 max_abs_err=None, ok=bool(torch.isfinite(tile_out).all()), ms=tile_ms, plain_ms=None,
                                 bound_ms=bound[0], bound_by=bound[1], library_ms=sdpa_ms))
             del tile_out, tile_drift
-        del q, k, v, exact, out
+        del q, k, v, out
         torch.cuda.empty_cache()
+    del qb, kb, vb, exact
+    torch.cuda.empty_cache()
 
 
 def _int8_kernel_cases(records, gen) -> None:
     """The int8 kernel at the self-attention shapes of the three DiTs, at 9
     frames and at the shipped lengths, and one call with ``kv_len`` 0 in a
     batch row."""
+    import torch
+
     _set_tf32(False, False)
+    # the plain version's bf16 P·V with fp32 partial sums, as the kernel's (cuBLAS may otherwise reduce in bf16)
+    kept = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     _int8_shape_cases(records, "dit", (2, 48, 4276, 64), gen, tile_block=True)
     _int8_shape_cases(records, "dit", (2, 48, 17776, 64), gen, reps=1, tile_block=True)
     _int8_shape_cases(records, "wan_self", (2, 40, 4680, 128), gen)
@@ -874,6 +924,7 @@ def _int8_kernel_cases(records, gen) -> None:
                           kv_len=[HY_VIDEO_TOKENS[frames] + HY_TEXT_KEYS], reps=3 if frames == 9 else 1,
                           tile_block=frames == 9)
     _int8_shape_cases(records, "kvlen_zero_row", (2, 8, 1100, 64), gen, kv_len=[0, 700])
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = kept
 
 
 # The five combinations of norm, RoPE, `stable` and `prolog_k` that the JAX package's own prolog test runs.
@@ -982,9 +1033,65 @@ def _prolog_kernel_cases(records, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def _qk_dense_case(records, shape, gen, reps=20) -> None:
+    """qk_prep in bf16 on a contiguous input against its plain version, with
+    its device time (``torch.profiler``); then on the [B, S, H, D] projection
+    viewed as [B, H, S, D], which the CogVideoX DiT passes where the tree's
+    wrapper takes it, beside the transposing copy that a tree whose wrapper
+    refuses the view makes first. Public functions only, so that one script
+    times two trees."""
+    import torch
+
+    from alg_tpu_torch.ops.qk_prep import qk_norm_rope
+
+    _qk_case(records, shape, torch.bfloat16, gen, reps=reps)
+    b, h, s, d = shape
+    x = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    scale, bias = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+    tab = torch.ones(s, d, device="cuda")
+    copy_ms = _device_ms(lambda: x.contiguous(), "elementwise_kernel")
+    try:
+        view_ms = _device_ms(lambda: qk_norm_rope(x, scale, bias, tab, tab, 1e-6), "qk_prep_kernel")
+        view = f"{view_ms:.4f} ms" if view_ms is not None else "not measured"
+    except ValueError:  # a wrapper that takes contiguous inputs only
+        view = "not taken by this tree's wrapper"
+    print(f"[dense] qk_prep bf16 {shape} on the transposed view: device time a launch {view}; the transposing copy "
+          f"it saves: {'not measured' if copy_ms is None else f'{copy_ms:.4f} ms'} of device time (torch.profiler)",
+          flush=True)
+
+
+def _int8_dense_case(shape, gen, reps=3) -> None:
+    """``flash_attention_int8`` on bf16 DiT-like inputs in both modes through
+    its public function (quantizers included), and the device time of the
+    kernel alone (``torch.profiler``), beside the bf16 flash kernel on the
+    same tensors. Printed only: the outputs must be finite."""
+    import torch
+
+    from alg_tpu_torch.ops.flash_attention import flash_attention
+    from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
+
+    q, k, v = _dit_like_qkv(shape, torch.bfloat16, gen)
+    scale = shape[-1] ** -0.5
+    bf16_ms = _time_ms(lambda: flash_attention(q, k, v, scale, stable=False), reps)
+    for pv_int8 in (False, True):
+        out = flash_attention_int8(q, k, v, scale, pv_int8=pv_int8)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"int8 {shape}: non-finite output")
+        del out
+        ms = _time_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8), reps)
+        device_ms = _device_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8), "flash_int8", reps=reps)
+        print(f"[dense] int8 {'full' if pv_int8 else 'qk':<4} bf16 {str(shape):<22} call {ms:.3f} ms (quantizers "
+              f"included), kernel device time {'not measured' if device_ms is None else f'{device_ms:.3f} ms'} "
+              f"(torch.profiler); bf16 flash kernel on the same tensors {bf16_ms:.3f} ms", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def phase_dense_flash() -> None:
     """Only rope in bf16 at the shipped Wan and Hunyuan shapes and at 9 Wan
-    frames, the dense flash calls of phase B at head dims 64 and 128, the
+    frames, qk_prep in bf16 at the shipped and 9-frame CogVideoX shapes, the
+    int8 kernel in bf16 in both modes at the shipped CogVideoX and Wan
+    self-attention shapes, the dense flash calls of phase B at head dims 64 and 128, the
     fp32 CLIP calls, and the training kernels (LSE, dq, dkv) at the 49-frame
     CogVideoX and 9-frame Wan self-attention shapes in bf16 and fp32, for
     timing two trees against each other on one card."""
@@ -997,6 +1104,10 @@ def phase_dense_flash() -> None:
     _rope_case(records, (1, 24, HY_VIDEO_TOKENS[129] + HY_TEXT_LEN, 128), torch.bfloat16, gen, reps=20,
                identity_suffix=HY_TEXT_LEN)
     _rope_case(records, (2, 40, 4680, 128), torch.bfloat16, gen, reps=20)
+    _qk_dense_case(records, (2, 48, 17776, 64), gen)
+    _qk_dense_case(records, (2, 48, 4276, 64), gen)
+    _int8_dense_case((2, 48, 17776, 64), gen)
+    _int8_dense_case((2, 40, 32760, 128), gen, reps=1)
     for dtype in (torch.bfloat16, torch.float32):
         _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False, reps=5)
         _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
@@ -1161,8 +1272,8 @@ def _kernel_counters() -> dict:
     """{kernel name: (dict, key) of its launch count}. A forward launch is
     counted twice: as a launch of the forward wrapper, and under the route
     its wrapper took (tensor cores, CUDA cores or qk prolog); one that wrote
-    the LSE also under that name. Likewise a dq or dkv launch, under its
-    route."""
+    the LSE also under that name. Likewise a dq, dkv or int8 launch, under
+    its route."""
     from alg_tpu_torch.ops.flash_attention import flash_attention
     from alg_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
@@ -1180,11 +1291,14 @@ def _kernel_counters() -> dict:
             "flash_attention_bwd_dq_tc": (dq, "tc"), "flash_attention_bwd_dq_cuda_core": (dq, "cuda_core"),
             "flash_attention_bwd_dkv": (flash_attention_bwd_dkv.__dict__, "launches"),
             "flash_attention_bwd_dkv_tc": (dkv, "tc"), "flash_attention_bwd_dkv_cuda_core": (dkv, "cuda_core"),
-            "flash_attention_int8": (flash_attention_int8.__dict__, "launches")}
+            "flash_attention_int8": (flash_attention_int8.__dict__, "launches"),
+            "flash_attention_int8_tc": (flash_attention_int8.launches_by_route, "tc"),
+            "flash_attention_int8_cuda_core": (flash_attention_int8.launches_by_route, "cuda_core")}
 
 
 # what a path with the int8 mode off and no caller of the qk prolog leaves at zero
-_NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_prolog": 0}
+_NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_int8_tc": 0, "flash_attention_int8_cuda_core": 0,
+              "flash_attention_prolog": 0}
 # what a sampling path in bf16 leaves at zero: it takes no gradient either
 _NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dq_tc": 0,
                 "flash_attention_bwd_dq_cuda_core": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_tc": 0,
@@ -1266,6 +1380,7 @@ def _int8_reruns(tag, modes, run, timer, bf16_rows, bf16_latents, want_of, shape
             set_attention_int8(False)
         steps = [(name, ms) for name, ms, _ in timer.rows if name.startswith("denoise step")]
         want = want_of(len(steps))
+        want["flash_attention_int8_tc"] = want["flash_attention_int8"]  # bf16: every int8 launch on the tensor cores
         drift = np.abs(latents.astype(np.float64) - bf16_latents)
         rms = float(np.sqrt(np.mean(bf16_latents.astype(np.float64) ** 2)))
         for (name, ms), (_, base_ms) in zip(steps, bf16_steps):
@@ -1770,11 +1885,12 @@ def phase_prolog_entry() -> dict:
 INT8_LATENT_MAX, INT8_LATENT_MEAN = 1e-1, 1e-2
 
 
-def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None) -> None:
+def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None) -> dict:
     """``results[dev] = (latents, frames in [0, 1], launch counts)``: the card
     against the CPU, and the launch counts of both. ``mean_atol`` also
     bounds the mean difference; ``exact`` (the CPU latents of the run
-    without int8) is what the int8 mode's own effect is printed against."""
+    without int8) is what the int8 mode's own effect is printed against.
+    Returns the card's launch counts."""
     import numpy as np
 
     (lat_c, fr_c, n_c), (lat_g, fr_g, n_g) = results["cpu"], results["cuda"]
@@ -1783,7 +1899,8 @@ def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None
     psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
     # an fp32 run: every flash launch is one of the CUDA-core kernel
     want_card = {**_NO_TRAINING, **_NO_TENSOR_CORES, **want_card,
-                 "flash_attention_cuda_core": want_card["flash_attention"]}
+                 "flash_attention_cuda_core": want_card["flash_attention"],
+                 "flash_attention_int8_cuda_core": want_card.get("flash_attention_int8", 0)}
     ok = (err <= atol and (mean_atol is None or mean_err <= mean_atol) and psnr > 40.0 and not any(n_c.values())
           and n_g == want_card)
     mean_txt = "" if mean_atol is None else f", mean|diff| {mean_err:.3e} (atol {mean_atol:g})"
@@ -1794,6 +1911,7 @@ def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"[{tag}] card and CPU runs of the small pipeline disagree")
+    return n_g
 
 
 def _small_runs(make_pipe, kw, mode=None) -> dict:
@@ -1818,7 +1936,7 @@ def _small_runs(make_pipe, kw, mode=None) -> dict:
     return results
 
 
-def phase_agreement() -> None:
+def phase_agreement() -> dict:
     import copy
 
     import numpy as np
@@ -1852,10 +1970,13 @@ def phase_agreement() -> None:
     # 4 DiT forwards x 2 layers (2 qk_prep each) + 2 T5 encodes x 2 layers
     base = _small_runs(make_pipe, kw)
     _compare_runs("D", base, {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12})
-    for mode in ("qk", "full"):  # the DiT's 8 attentions through the int8 kernel, T5's 4 where they were
-        _compare_runs(f"D int8 {mode}", _small_runs(make_pipe, kw, mode),
-                      {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 4, "flash_attention_int8": 8},
-                      atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])
+    counts = {}
+    for mode in ("qk", "full"):  # the DiT's 8 attentions through the fp32 int8 kernel, T5's 4 where they were
+        counts[f"agreement_cogvideox_int8_{mode}"] = _compare_runs(
+            f"D int8 {mode}", _small_runs(make_pipe, kw, mode),
+            {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 4, "flash_attention_int8": 8},
+            atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])
+    return counts
 
 
 def phase_agreement_wan() -> None:
@@ -1904,7 +2025,7 @@ def phase_agreement_wan() -> None:
     _compare_runs("D2", results, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 30})
 
 
-def phase_agreement_hunyuan() -> None:
+def phase_agreement_hunyuan() -> dict:
     import copy
 
     import numpy as np
@@ -1956,9 +2077,10 @@ def phase_agreement_hunyuan() -> None:
     base = _small_runs(make_pipe, kw)
     _compare_runs("D3", base, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 26})
     # int8 "full" with kv_len at head dim 128: the double and the single block's joint attention (8 calls)
-    _compare_runs("D3 int8 full", _small_runs(make_pipe, kw, "full"),
-                  {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 18, "flash_attention_int8": 8},
-                  atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])
+    return {"agreement_hunyuan_int8_full": _compare_runs(
+        "D3 int8 full", _small_runs(make_pipe, kw, "full"),
+        {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 18, "flash_attention_int8": 8},
+        atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])}
 
 
 # ---------------------------------------------------------------------------
@@ -2323,9 +2445,14 @@ _KERNELS = {
     "flash_attention_bwd_dkv": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:144",
                                 "flash_bwd_dkv_dit", [1, 48, 17776, 64], "float32",
                                 "flash_attention_bwd_dkv_cuda_core"),
-    # the int8 kernel, "qk" mode, at the shape a 2-pass CogVideoX step gives it; the other mode and shapes ride along
+    # the int8 kernels, "qk" mode, at the shape a 2-pass CogVideoX step gives them; the other mode and shapes ride
+    # along: the tensor-core kernel (bf16, the sampling paths under the int8 modes) and the CUDA-core one (fp32,
+    # the agreement runs under the int8 modes)
+    "flash_attention_int8_tc": ("alg_tpu_torch/csrc/flash_attention_int8_tc.cu",
+                                "alg_tpu/ops/flash_attention_int8.py:109", "flash_int8_qk_dit", [2, 48, 4276, 64],
+                                "bfloat16", "flash_attention_int8_tc"),
     "flash_attention_int8": ("alg_tpu_torch/csrc/flash_attention_int8.cu", "alg_tpu/ops/flash_attention_int8.py:109",
-                             "flash_int8_qk_dit", [2, 48, 4276, 64], "bfloat16", "flash_attention_int8"),
+                             "flash_int8_qk_dit", [2, 48, 4276, 64], "float32", "flash_attention_int8_cuda_core"),
     # the forward kernel's qk-prolog variant (a compile unit of its own): LayerNorm + RoPE at the CogVideoX shape
     "flash_attention_prolog": ("alg_tpu_torch/csrc/flash_attention_prolog.cu", "alg_tpu/ops/flash_attention.py:98",
                                "flash_prolog_layer_rope", [2, 48, 4276, 64], "bfloat16", "flash_attention_prolog"),
@@ -2345,12 +2472,13 @@ _ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES,
          "flash_attention_bwd_dq": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dkv_tc": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dkv": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
-         "flash_attention_int8": tuple(f"flash_int8_{mode}_{tag}" for mode in ("qk", "full", "full_bk64")
-                                       for tag in ("dit", "wan_self", "hunyuan_joint", "kvlen_zero_row")),
+         **{name: tuple(f"flash_int8_{mode}_{tag}" for mode in ("qk", "full", "full_bk64")
+                        for tag in ("dit", "wan_self", "hunyuan_joint", "kvlen_zero_row"))
+            for name in ("flash_attention_int8_tc", "flash_attention_int8")},
          "flash_attention_prolog": ("flash_prolog_layer_rope", "flash_prolog_rms_rope_stable", "flash_prolog_rope",
                                     "flash_prolog_layer", "flash_prolog_layer_rope_q_only", "flash_prolog_rms_rope")}
 _ONE_TYPE = ("flash_attention_tc", "flash_attention", "flash_attention_bwd_dq_tc", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv")
+             "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv", "flash_attention_int8_tc", "flash_attention_int8")
 
 
 def _kernel_json(records, counts_by_path) -> dict:
@@ -2406,9 +2534,9 @@ def main() -> int:
         counts.update(phase_slice_wan())  # after the CogVideoX modules are freed
         counts.update(phase_slice_hunyuan())  # after the Wan modules are freed
         counts["prolog_entry"] = phase_prolog_entry()
-        phase_agreement()
+        counts.update(phase_agreement())  # the card's counts of its fp32 runs under the int8 modes
         phase_agreement_wan()
-        phase_agreement_hunyuan()
+        counts.update(phase_agreement_hunyuan())
         counts["train_cogvideox"] = phase_train()
         for name, n in phase_train_entry().items():
             counts["train_cogvideox"][name] += n
@@ -2416,10 +2544,14 @@ def main() -> int:
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
                               ("hunyuan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
-                              ("cogvideox_int8_qk", ("qk_prep", "flash_attention_tc", "flash_attention_int8")),
-                              ("cogvideox_int8_full", ("qk_prep", "flash_attention_tc", "flash_attention_int8")),
-                              ("wan_int8_qk", ("rope_interleaved", "flash_attention_tc", "flash_attention_int8")),
-                              ("hunyuan_int8_full", ("rope_interleaved", "flash_attention_tc", "flash_attention_int8")),
+                              ("cogvideox_int8_qk", ("qk_prep", "flash_attention_tc", "flash_attention_int8_tc")),
+                              ("cogvideox_int8_full", ("qk_prep", "flash_attention_tc", "flash_attention_int8_tc")),
+                              ("wan_int8_qk", ("rope_interleaved", "flash_attention_tc", "flash_attention_int8_tc")),
+                              ("hunyuan_int8_full", ("rope_interleaved", "flash_attention_tc",
+                                                     "flash_attention_int8_tc")),
+                              ("agreement_cogvideox_int8_qk", ("qk_prep", "flash_attention_int8_cuda_core")),
+                              ("agreement_cogvideox_int8_full", ("qk_prep", "flash_attention_int8_cuda_core")),
+                              ("agreement_hunyuan_int8_full", ("rope_interleaved", "flash_attention_int8_cuda_core")),
                               ("prolog_entry", ("flash_attention_prolog",)),
                               ("train_cogvideox", ("qk_prep", "flash_attention_tc", "flash_attention_lse",
                                                    "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),

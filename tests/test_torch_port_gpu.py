@@ -4,16 +4,19 @@ reach: Sq != Sk, fewer keys than one 16-key chunk, a per-batch bias, a
 query tile that is mostly past Sq, a single row, head dims 80 and 128,
 ``kv_len`` of 0, 1 and Sk, causal masks (Sq = Sk, Sq < Sk, Sq > Sk with its
 zero rows, with ``kv_len`` and a per-batch bias), rope from S = 1 to 17,000
-across its row tiles and head chunks (B·H = 1, a short last chunk) on a
-transposed view, its identity rows bit-equal, small DiTs, a Llama and a CLIP text model card against
+and qk_prep from S = 1 to 4,276 across their row tiles and head chunks
+(B·H = 1, a short last chunk) on a transposed view, bit-equal to the call on
+a contiguous copy, rope's identity rows bit-equal, small DiTs, a Llama and a CLIP text model card against
 CPU, and the training kernels: the forward's LSE output and the dq and dkv
 backward kernels at ragged shapes (Sq = 1, Sk = 1, ``kv_len`` 0/1/Sk, causal
 with Sq > Sk, three head dims), the autograd graph that the three kernel
 wrappers keep on the card, and a small LoRA train step card against CPU;
-the int8 attention kernel against its plain version (S = 1, 65 and 1,500,
-``kv_len`` 0 / 1 / S and with whole key blocks masked, both modes, both head
-dims, both dtypes, ``block_k`` 64 and 1,024), its route through
-``set_attention_int8`` and what it refuses, and the flash kernel's qk prolog
+the int8 attention kernels against their plain version (the tensor-core
+kernel for bf16, the CUDA-core one for fp32; S = 1, 31-33, 63-65, 127-129 and
+1,500, ``kv_len`` 0 / 1 / S, at key-tile and key-block edges and with whole
+key blocks masked, both modes, both head dims, ``block_k`` 64 and 1,024), their
+routes and launch counts, the route through ``set_attention_int8`` and what
+it refuses, and the flash kernel's qk prolog
 (five combinations of norm, RoPE, ``stable`` and ``prolog_k`` at three head
 dims, alone and with ``kv_len`` and ``causal``, and through
 ``attention(prolog=...)`` with and without a gradient); and the bf16
@@ -265,27 +268,54 @@ def test_rope_kernel_matches_plain(cuda, case, d, dtype):
         assert torch.equal(out[:, :, s - s // 4:], x[:, :, s - s // 4:])
 
 
-@pytest.mark.parametrize("s", [1, 300])
+QK_CASES = {
+    # name: (b, h, s); rows an S tile: 256 threads over 8 (bf16) or 16 (fp32) threads a row, so 32 or 16 rows
+    "s1": (2, 3, 1),
+    "s15": (1, 5, 15),
+    "bh1-s17": (1, 1, 17),
+    "s31": (2, 3, 31),
+    "bh1-s33": (1, 1, 33),
+    "s300": (2, 3, 300),
+    "chunks-5-4-s65": (3, 3, 65),
+    "chunks-ragged-s300": (1, 100, 300),  # 12 chunks of 8 heads and one of 4
+    "s4276": (1, 6, 4276),
+}
+
+
+@pytest.mark.parametrize("case", list(QK_CASES))
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_qk_prep_kernel_matches_plain(cuda, s, dtype):
+def test_qk_prep_kernel_matches_plain(cuda, case, dtype):
+    """On the transposed view the CogVideoX DiT passes (the [B, S, H, D]
+    projection seen as [B, H, S, D]) and on a contiguous copy, bit-equal, at
+    S on either side of the kernel's row tiles, B·H = 1, and B·H cut into head
+    chunks with a short last chunk; within the bf16 or fp32 tolerance of the
+    plain version. The first third of the rows has cos = 1, sin = 0 (the text
+    prefix): there the output is the LayerNorm's, up to one rounding step of
+    the activation dtype (the two reduce mean and variance in other orders)."""
+    b, h, s = QK_CASES[case]
+    if case.startswith("chunks"):
+        assert (b * h) % _rope_chunk(b * h) != 0  # the last chunk is short
     gen = torch.Generator().manual_seed(1)
-    x = _randn(gen, 2, 3, s, 64).to(cuda, dtype)
+    base = _randn(gen, b, s, h, 64).to(cuda, dtype)  # [B, S, H, D]
     scale, bias = (1.0 + _randn(gen, 64, scale=0.1)).to(cuda), _randn(gen, 64, scale=0.1).to(cuda)
     ang = torch.rand((s, 32), generator=gen) * 6.28
-    n_id = s // 3
+    n_id = max(1, s // 3)
     ang[:n_id] = 0.0  # identity rows, as over the DiT's text prefix
     cos = torch.cos(ang).repeat_interleave(2, -1).to(cuda)
     sin = torch.sin(ang).repeat_interleave(2, -1).to(cuda)
-    before = QK.qk_norm_rope.launches
-    out = QK.qk_norm_rope(x, scale, bias, cos, sin, 1e-6)
-    torch.cuda.synchronize()
-    assert QK.qk_norm_rope.launches == before + 1
-    _assert_close(out, QK.qk_norm_rope_plain(x, scale, bias, cos, sin, 1e-6), dtype)
-    # identity rows reduce to the LayerNorm output, up to one rounding step
-    # of the activation dtype (the two reduce mean and variance in other orders)
-    ln = L.layer_norm(x[:, :, :n_id], scale, bias, 1e-6)
-    atol, rtol = (2e-6, 1e-6) if dtype == torch.float32 else (1e-6, 8e-3)
-    torch.testing.assert_close(out[:, :, :n_id].float(), ln.float(), atol=atol, rtol=rtol)
+    outs = []
+    for x in (base.transpose(1, 2), base.transpose(1, 2).contiguous()):
+        before = QK.qk_norm_rope.launches
+        out = QK.qk_norm_rope(x, scale, bias, cos, sin, 1e-6)
+        torch.cuda.synchronize()
+        assert QK.qk_norm_rope.launches == before + 1
+        assert out.shape == x.shape and out.is_contiguous() and out.dtype == dtype
+        _assert_close(out, QK.qk_norm_rope_plain(x, scale, bias, cos, sin, 1e-6), dtype)
+        ln = L.layer_norm(x[:, :, :n_id], scale, bias, 1e-6)
+        atol, rtol = (2e-6, 1e-6) if dtype == torch.float32 else (1e-6, 8e-3)
+        torch.testing.assert_close(out[:, :, :n_id].float(), ln.float(), atol=atol, rtol=rtol)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
@@ -609,11 +639,31 @@ def _dit_like_qkv(gen, b, h, s, d):
 
 INT8_CASES = {
     "one-row": dict(b=2, h=2, s=1, kv_len=None),
+    "s31": dict(b=1, h=2, s=31, kv_len=None),
+    "s32": dict(b=1, h=2, s=32, kv_len=None),  # one 32-key chunk of a key tile
+    "s33": dict(b=1, h=2, s=33, kv_len=None),
+    "s63": dict(b=1, h=3, s=63, kv_len=None),
+    "s64": dict(b=1, h=3, s=64, kv_len=None),  # one key tile; the "full" rows of a block at D = 128
     "s65": dict(b=1, h=3, s=65, kv_len=None),
+    "s127": dict(b=1, h=2, s=127, kv_len=None),
+    "s128": dict(b=1, h=2, s=128, kv_len=None),  # the query rows of a block
+    "s129": dict(b=1, h=2, s=129, kv_len=None),
     "s1500": dict(b=2, h=2, s=1500, kv_len=None),  # no multiple of 64, 512 or 1024
     "kvlen-0-1-s": dict(b=3, h=2, s=200, kv_len=[0, 1, 200]),
+    "kvlen-tile-edges": dict(b=3, h=2, s=200, kv_len=[63, 64, 65]),
+    "kvlen-block-edges": dict(b=3, h=1, s=1100, kv_len=[1023, 1024, 1025]),  # at block_k = 1,024
     "kvlen-blocks-past": dict(b=2, h=2, s=1100, kv_len=[70, 1030]),  # whole tiles and a whole key block masked
 }
+BF16_STEP = 2.0 ** -7  # the spacing of bf16 values in [1, 2): one step at x is at most BF16_STEP·|x|
+
+
+@pytest.fixture
+def full_fp32_reductions(cuda):
+    """bf16 products of the plain version with fp32 partial sums (cuBLAS may otherwise reduce in bf16)."""
+    kept = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = kept
 
 
 @pytest.mark.parametrize("case", list(INT8_CASES))
@@ -621,26 +671,37 @@ INT8_CASES = {
 @pytest.mark.parametrize("pv_int8", [False, True], ids=["qk", "full"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-def test_int8_kernel_matches_plain(cuda, case, block_k, pv_int8, d, dtype):
-    """The int8 kernel against its plain version on the card. fp32 ``"qk"``:
+def test_int8_kernel_matches_plain(cuda, full_fp32_reductions, case, block_k, pv_int8, d, dtype):
+    """The int8 kernels against their plain version on the card: bf16 inputs
+    on the tensor-core kernel, fp32 on the CUDA-core one. fp32 ``"qk"``:
     atol 2e-5 + rtol 2e-5 (the same codes and scales; only the order of the
-    fp32 sums differs). ``"full"``: mean under 1e-5 and max under 2e-3, since
-    a P code on a rounding tie may flip (one code is 1/127 of a row's largest
-    p). bf16: the bf16 attention tolerance (the kernel keeps P in fp32, the
-    plain version rounds it)."""
+    fp32 sums differs). ``"full"``: mean under 1e-5 and max under 2e-3 in
+    fp32, since a P code on a rounding tie may flip (one code is 1/127 of a
+    row's largest p); in bf16 the bf16 attention tolerance. bf16 ``"qk"``:
+    one bf16 step of the plain version, since both round P to bf16 alike
+    (rtol 2**-7, and atol 2**-7 of the output's mean magnitude for outputs
+    near zero, where the order of the fp32 sums and the plain version's
+    rounding of its product to bf16 show)."""
     from alg_tpu_torch.ops import flash_attention_int8 as I8
 
     c = INT8_CASES[case]
     gen = torch.Generator().manual_seed(11)
     q, k, v = (t.to(cuda, dtype) for t in _dit_like_qkv(gen, c["b"], c["h"], c["s"], d))
     kv_len = None if c["kv_len"] is None else torch.tensor(c["kv_len"], dtype=torch.int32, device=cuda)
-    before = I8.flash_attention_int8.launches
+    which = "tc" if dtype == torch.bfloat16 else "cuda_core"
+    assert I8.route(q, pv_int8) == which
+    before = (I8.flash_attention_int8.launches, I8.flash_attention_int8.launches_by_route[which])
     out = I8.flash_attention_int8(q, k, v, d ** -0.5, block_q=128, block_k=block_k, pv_int8=pv_int8, kv_len=kv_len)
     torch.cuda.synchronize()
-    assert I8.flash_attention_int8.launches == before + 1
+    assert (I8.flash_attention_int8.launches, I8.flash_attention_int8.launches_by_route[which]) == (
+        before[0] + 1, before[1] + 1)
     assert out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all())
     ref = I8.flash_attention_int8_plain(q, k, v, d ** -0.5, 128, block_k, pv_int8, kv_len)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and not pv_int8:
+        seen = ref.float().abs().sum(-1) > 0
+        size = ref.float().abs()[seen].mean().item() if bool(seen.any()) else 0.0
+        torch.testing.assert_close(out.float(), ref.float(), atol=BF16_STEP * size, rtol=BF16_STEP)
+    elif dtype == torch.bfloat16:
         _assert_close_flash(out, ref, dtype)
     elif pv_int8:
         err = (out - ref).abs()
@@ -694,6 +755,30 @@ def test_int8_route_and_refusals_on_the_card(cuda):
     with pytest.raises(TypeError):
         I8.flash_attention_int8(q.half(), k.half(), v.half(), 0.125)
     assert I8.flash_attention_int8.launches == counts[0] + 2
+
+
+@pytest.mark.parametrize("pv_int8", [False, True], ids=["qk", "full"])
+def test_int8_routes_on_the_card(cuda, pv_int8):
+    """bf16 takes the tensor-core kernel and fp32 the CUDA-core one, in both
+    modes; each launch is counted once in ``launches`` and once under its
+    route; the two routes agree to the int8 drift (mean difference under 5%
+    of the output's rms: bf16 inputs quantize to slightly other codes)."""
+    from alg_tpu_torch.ops import flash_attention_int8 as I8
+
+    gen = torch.Generator().manual_seed(13)
+    q, k, v = (t.to(cuda) for t in _dit_like_qkv(gen, 2, 2, 300, 64))
+    counts = (I8.flash_attention_int8.launches, dict(I8.flash_attention_int8.launches_by_route))
+    outs = {}
+    for dtype, which in ((torch.float32, "cuda_core"), (torch.bfloat16, "tc")):
+        args = [t.to(dtype) for t in (q, k, v)]
+        assert I8.route(args[0], pv_int8) == which
+        outs[which] = I8.flash_attention_int8(*args, 0.125, block_q=128, block_k=128, pv_int8=pv_int8)
+    torch.cuda.synchronize()
+    assert I8.flash_attention_int8.launches == counts[0] + 2
+    assert I8.flash_attention_int8.launches_by_route == {key: n + 1 for key, n in counts[1].items()}
+    ref = outs["cuda_core"]
+    assert bool(torch.isfinite(outs["tc"]).all())
+    assert (outs["tc"].float() - ref).abs().mean().item() < 5e-2 * ref.pow(2).mean().sqrt().item()
 
 
 PROLOG_MODES = [("layer", True, False, True), ("rms", True, True, True), (None, True, False, True),

@@ -69,6 +69,49 @@ def test_qk_prep_identity_rows_equal_layer_norm():
     np.testing.assert_allclose(out[:, :, :40].numpy(), np.asarray(jax_ln)[:, :, :40], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_qk_prep_takes_the_head_split_view(dtype):
+    """The CogVideoX DiT passes the [B, S, H, D] projection viewed as
+    [B, H, S, D]: the result equals the call on the contiguous copy, and
+    ``alg_tpu``'s ``qk_norm_rope`` (its XLA composition, the one its CPU
+    path takes) on the same values, to atol 1e-5 in fp32 and to one bf16
+    step of the output's largest magnitude in bf16 (the same ops in another
+    order of rounding)."""
+    x, scale, bias, cos, sin = _qk_inputs(77, identity_rows=10)
+    X = torch.from_numpy(x).to(dtype)
+    view = X.transpose(1, 2).contiguous().transpose(1, 2)  # [B, H, S, D] over a [B, S, H, D] tensor
+    assert not view.is_contiguous() and view.stride(3) == 1
+    out = qk_norm_rope(view, *_t(scale, bias, cos, sin), 1e-6)
+    assert torch.equal(out, qk_norm_rope(X, *_t(scale, bias, cos, sin), 1e-6))
+    ref = jax_qk_norm_rope(jnp.asarray(X.float().numpy(), jnp.float32 if dtype == torch.float32 else jnp.bfloat16),
+                           {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}, jnp.asarray(cos),
+                           jnp.asarray(sin), 1e-6, force="xla")
+    ref = np.asarray(ref.astype(jnp.float32))
+    atol = ATOL if dtype == torch.float32 else 2.0 ** -7 * float(np.abs(ref).max())
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("bad", ["strided_last_dim", "misaligned_row", "head_dim_128", "float16", "table_shape"])
+def test_qk_prep_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    from alg_tpu_torch.ops import qk_prep as QP
+
+    x, ones, zeros, tab = torch.zeros(2, 3, 16, 64), torch.ones(64), torch.zeros(64), torch.ones(16, 64)
+    QP._check(x, ones, zeros, tab, tab)
+    QP._check(torch.zeros(2, 16, 3, 64).transpose(1, 2), ones, zeros, tab, tab)  # the head-split view as it is
+    if bad == "strided_last_dim":
+        x = torch.zeros(2, 3, 16, 128)[..., ::2]
+    elif bad == "misaligned_row":  # 8 bytes past an allocation's start: no row on a 16-byte boundary
+        x = torch.zeros(2 * 3 * 16 * 64 + 2)[2:].view(2, 3, 16, 64)
+    elif bad == "head_dim_128":
+        x, ones, zeros, tab = torch.zeros(2, 3, 16, 128), torch.ones(128), torch.zeros(128), torch.ones(16, 128)
+    elif bad == "float16":
+        x = x.half()
+    elif bad == "table_shape":
+        tab = torch.ones(15, 64)
+    with pytest.raises((TypeError, ValueError)):
+        QP._check(x, ones, zeros, tab, tab)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s,force", [(256, "pallas"), (300, "xla"), (1, "xla")],
                          ids=["pallas-interpret", "xla-s300", "xla-s1"])
@@ -340,7 +383,7 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
 
     assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "flash_attention_bwd.cu",
                                                       "flash_attention_bwd_dq_tc.cu", "flash_attention_bwd_tc.cu",
-                                                      "flash_attention_int8.cu",
+                                                      "flash_attention_int8.cu", "flash_attention_int8_tc.cu",
                                                       "flash_attention_prolog.cu", "flash_attention_tc.cu",
                                                       "qk_prep.cu", "rope.cu"}
     assert {p.name for p in _build._sources()[1]} == {"common.cuh", "flash_attention.cuh", "flash_simt.cuh", "mma.cuh"}
@@ -349,7 +392,8 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
         *((f"{src}.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",))
           for src in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dq_tc", "flash_attention_bwd_tc")
           for d in FA.HEAD_DIMS),
-        *((f"flash_attention_int8.ALG_INT8_HEAD_DIM_{d}", (f"-DALG_INT8_HEAD_DIM={d}",)) for d in I8.HEAD_DIMS),
+        *((f"{src}.ALG_INT8_HEAD_DIM_{d}", (f"-DALG_INT8_HEAD_DIM={d}",))
+          for src in ("flash_attention_int8", "flash_attention_int8_tc") for d in I8.HEAD_DIMS),
         *((f"{src}.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",))
           for src in ("flash_attention_prolog", "flash_attention_tc") for d in FA.HEAD_DIMS),
         ("qk_prep", ()), ("rope", ())]

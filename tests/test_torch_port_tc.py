@@ -1,12 +1,12 @@
 """The tensor-core attention kernels' surroundings on the CPU: which calls
-the wrappers route to them, that the build compiles them, and the plain
+the wrappers route to them, that the build compiles them, the plain
 version of the backward arithmetic they follow in bf16, against the JAX
-package.
+package, and a numpy model of the int8 kernel's fragment layout.
 
 The kernels themselves (``csrc/flash_attention_tc.cu``,
-``csrc/flash_attention_bwd_dq_tc.cu``, ``csrc/flash_attention_bwd_tc.cu``)
-run only on the card; the on-card tests in ``test_torch_port_gpu.py`` hold
-them against the plain versions.
+``csrc/flash_attention_bwd_dq_tc.cu``, ``csrc/flash_attention_bwd_tc.cu``,
+``csrc/flash_attention_int8_tc.cu``) run only on the card; the on-card tests
+in ``test_torch_port_gpu.py`` hold them against the plain versions.
 
 bf16 backward against ``alg_tpu.ops.flash_attention_bwd.flash_attention_bwd``
 in Pallas interpret mode: both round dS (and for dv P) to bf16 before the
@@ -28,6 +28,7 @@ from alg_tpu.ops.flash_attention_bwd import flash_attention_bwd as jax_flash_att
 from alg_tpu_torch.ops import _build
 from alg_tpu_torch.ops import flash_attention as FA
 from alg_tpu_torch.ops import flash_attention_bwd as FB
+from alg_tpu_torch.ops import flash_attention_int8 as I8
 
 from test_torch_port_ops_bwd import CASES
 
@@ -66,8 +67,19 @@ def test_dq_route(device, dtype, want):
     assert FB.dq_route(_on(device, dtype)) == want
 
 
-@pytest.mark.parametrize("route", [lambda t: FA.route(t), lambda t: FA.route(t, True), FB.dq_route, FB.dkv_route],
-                         ids=["forward", "forward-prolog", "dq", "dkv"])
+@pytest.mark.parametrize("pv_int8", [False, True], ids=["qk", "full"])
+@pytest.mark.parametrize("device,dtype,want", [
+    ("cpu", torch.bfloat16, "plain"), ("cpu", torch.float32, "plain"), ("cuda", torch.bfloat16, "tc"),
+    ("cuda", torch.float32, "cuda_core"),
+], ids=["cpu-bf16", "cpu-fp32", "cuda-bf16", "cuda-fp32"])
+def test_int8_route(device, dtype, pv_int8, want):
+    """bf16 int8 attention takes the tensor-core kernel in both modes; fp32 keeps the CUDA-core kernel."""
+    assert I8.route(_on(device, dtype), pv_int8) == want
+
+
+@pytest.mark.parametrize("route", [lambda t: FA.route(t), lambda t: FA.route(t, True), FB.dq_route, FB.dkv_route,
+                                   lambda t: I8.route(t), lambda t: I8.route(t, True)],
+                         ids=["forward", "forward-prolog", "dq", "dkv", "int8-qk", "int8-full"])
 def test_routes_raise_for_other_devices_and_dtypes(route):
     with pytest.raises(RuntimeError, match="no kernel for device"):
         route(_on("meta", torch.bfloat16))
@@ -78,10 +90,11 @@ def test_routes_raise_for_other_devices_and_dtypes(route):
 def test_each_route_names_an_entry_point_of_the_sources():
     """Every C entry point the wrappers can reach is defined in a source, one per head dim."""
     defined = "".join(p.read_text() for p in _build._sources()[0])
-    for names in (FA._ENTRY_NAMES, FB._ENTRY_NAMES):
+    for names, macro in ((FA._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"), (FB._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"),
+                         (I8._ENTRY_NAMES, "ALG_INT8_HEAD_DIM")):
         for name in names.values():
             stem = name.format(d="")
-            assert f"ALG_CAT({stem}, ALG_FLASH_HEAD_DIM)" in defined, stem
+            assert f"ALG_CAT({stem}, {macro})" in defined, stem
 
 
 def test_only_the_prolog_unit_includes_the_cuda_core_forward_body():
@@ -95,12 +108,89 @@ def test_only_the_prolog_unit_includes_the_cuda_core_forward_body():
     assert "flash_simt.cuh" in includes["flash_attention_bwd.cu"]
 
 
-@pytest.mark.parametrize("src", ["flash_attention_tc", "flash_attention_bwd_tc", "flash_attention_bwd_dq_tc"])
-def test_compile_units_list_the_tensor_core_units(src):
+@pytest.mark.parametrize("src,macro,dims", [
+    ("flash_attention_tc", "ALG_FLASH_HEAD_DIM", (64, 80, 128)),
+    ("flash_attention_bwd_tc", "ALG_FLASH_HEAD_DIM", (64, 80, 128)),
+    ("flash_attention_bwd_dq_tc", "ALG_FLASH_HEAD_DIM", (64, 80, 128)),
+    ("flash_attention_int8_tc", "ALG_INT8_HEAD_DIM", I8.HEAD_DIMS),
+], ids=["flash_attention_tc", "flash_attention_bwd_tc", "flash_attention_bwd_dq_tc", "flash_attention_int8_tc"])
+def test_compile_units_list_the_tensor_core_units(src, macro, dims):
     units = {stem: extra for stem, _, extra in _build.compile_units()}
-    for d in (64, 80, 128):
-        assert units[f"{src}.ALG_FLASH_HEAD_DIM_{d}"] == (f"-DALG_FLASH_HEAD_DIM={d}",)
+    for d in dims:
+        assert units[f"{src}.{macro}_{d}"] == (f"-D{macro}={d}",)
     assert "mma.cuh" in {p.name for p in _build._sources()[1]}
+
+
+def _int8_a_operand(codes):
+    """The A operand of ``mma.m16n8k32.s8`` that the int8 kernel hands over
+    for a 16-row, 32-key chunk of P codes: lane ``4g + t`` holds, from its
+    Q·Kᵀ accumulators, the codes of rows ``g`` and ``g + 8`` at keys
+    ``8j + 2t + e`` (n8 tile j, e = 0, 1) and packs the code of (j, row
+    half hf, e) into byte ``2 (j % 2) + e`` of register ``2 (j // 2) + hf``
+    (``chunk_codes`` in ``csrc/flash_attention_int8_tc.cu``). Returns the
+    16 x 32 matrix the instruction reads from those registers, by the PTX
+    ISA's fragment layout: register r, byte i of lane 4g + t is element
+    (g + 8 (r % 2), 16 (r // 2) + 4t + i)."""
+    regs = np.zeros((32, 4, 4), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(4):
+            for hf in range(2):
+                for e in range(2):
+                    regs[lane, 2 * (j // 2) + hf, 2 * (j % 2) + e] = codes[g + 8 * hf, 8 * j + 2 * t + e]
+    a = np.zeros((16, 32), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for r in range(4):
+            for i in range(4):
+                a[g + 8 * (r % 2), 16 * (r // 2) + 4 * t + i] = regs[lane, r, i]
+    return a
+
+
+def _int8_b_operand(vt_chunk):
+    """The B operand (32 positions x 8 channels) that ``ldmatrix`` gives the
+    kernel from 8 channel rows of V's transposed codes over one 32-position
+    chunk: b0 of lane 4g + t is bytes 4t..4t+3 of the chunk's first 16
+    positions of channel g, b1 the same of its last 16; by the PTX layout
+    byte i of b0 is element (4t + i, g) and of b1 (16 + 4t + i, g)."""
+    b = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for half in range(2):
+            for i in range(4):
+                b[16 * half + 4 * t + i, g] = vt_chunk[g, 16 * half + 4 * t + i]
+    return b
+
+
+@pytest.mark.parametrize("s", [64, 50, 100], ids=["s64", "s50-padded", "s100-two-tiles"])
+def test_int8_pv_fragments_give_the_plain_integer_product(s):
+    """The P codes as the int8 kernel packs them, against V's codes as
+    ``pv_codes_for_tc`` transposes and reorders them, give through the
+    m16n8k32 fragment layouts the plain int32 product P·V, chunk by chunk
+    and channel tile by channel tile; keys past S are zero in V's copy. A
+    wrong key order would pair a code with another key's values here."""
+    rng = np.random.RandomState(3)
+    d = 64
+    v_int = torch.from_numpy(rng.randint(-127, 128, (1, s, d)).astype(np.int8))
+    vt = I8.pv_codes_for_tc(v_int)[0].numpy().astype(np.int64)  # [D, keys]
+    keys = vt.shape[1]
+    assert keys == -(-s // I8.KEY_TILE) * I8.KEY_TILE and not vt[:, I8.int8_pv_key_order(keys).numpy() >= s].any()
+    codes = rng.randint(0, 128, (16, keys)).astype(np.int64)
+    codes[:, s:] = 0  # no key there
+    want = codes[:, :s] @ v_int[0].numpy().astype(np.int64)
+    got = np.zeros((16, d), np.int64)
+    for c in range(keys // 32):
+        a = _int8_a_operand(codes[:, 32 * c:32 * c + 32])
+        for dt in range(d // 8):
+            got[:, 8 * dt:8 * dt + 8] += a @ _int8_b_operand(vt[8 * dt:8 * dt + 8, 32 * c:32 * c + 32])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_pv_key_order_is_a_permutation_within_each_chunk():
+    order = I8.int8_pv_key_order(128).numpy()
+    for c in range(4):
+        assert sorted(order[32 * c:32 * c + 32]) == list(range(32 * c, 32 * c + 32))
+    assert list(order[:8]) == [0, 1, 8, 9, 2, 3, 10, 11]  # lane 0's codes, then lane 1's
 
 
 def _bf16_inputs(case, seed=0):
