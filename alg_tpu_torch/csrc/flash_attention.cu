@@ -1,7 +1,7 @@
-// Flash-attention forward in fp32 on the CUDA cores: every fp32 call without
-// a qk prolog. bf16 calls without a prolog run on the tensor cores
-// (flash_attention_tc.cu) and calls with one in flash_attention_prolog.cu;
-// this entry point refuses bf16, so that none lands here unseen. The build
+// Flash-attention forward in fp32 on the CUDA cores: every fp32 call (a call
+// with a qk prolog runs qk_prolog.cu on q and k first). bf16 calls run on the
+// tensor cores (flash_attention_tc.cu); this entry point refuses bf16, so that
+// none lands here unseen. The build
 // reads the next line and makes one object per head dim, each with its own C
 // entry point.
 //

@@ -16,12 +16,12 @@
 // o = acc / (l == 0 ? 1 : l), so a row that sees no key writes zeros. Two
 // modes for the second product:
 //
-//   "qk"   (pv_int8 = 0): V comes in the activation type; P stays fp32 and
-//          P·V is fp32 FMAs, l = Σ p. For fp32 inputs that is the TPU
-//          kernel's P·V (its rounding of P to the value type is the identity);
-//          the entry still takes bf16, which the wrapper sends to the
-//          tensor-core kernel, where P is rounded to bf16 as the TPU kernel
-//          rounds it.
+//   "qk"   (pv_int8 = 0): V comes in fp32; P stays fp32 and P·V is fp32
+//          FMAs, l = Σ p: the TPU kernel's P·V for fp32 inputs (its rounding
+//          of P to the value type is the identity). The entry takes fp32
+//          only and returns cudaErrorInvalidValue for bf16, which the wrapper
+//          sends to the tensor-core kernel, where P is rounded to bf16 as the
+//          TPU kernel rounds it.
 //   "full" (pv_int8 = 1): V comes as int8 codes with one fp32 scale per
 //          (b·h, channel). For each (query row, block of block_k keys)
 //          srow = max(rowmax(p), 1e-37), codes = rint(p · (127 / srow)), 0
@@ -31,7 +31,7 @@
 //          l += Σ codes · (srow / 127): numerator and denominator from the
 //          same codes.
 //
-// Design. As csrc/flash_attention.cuh's body: one block of 128 threads per
+// Design. One block of 128 threads per
 // (b·h, tile of query rows), a query row on one lane (D = 64) or two
 // neighbouring lanes (D = 128), the key loop inside the block over tiles of
 // 64 keys staged in shared memory, and inside a tile chunks of 16 keys. A
@@ -317,7 +317,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sq, 
 // [B·H, ceil(S / block_q)] with scale·log2e folded in; sk: fp32
 // [B·H, ceil(S / block_k)]; sv: fp32 [B·H, D], read only when pv_int8 != 0;
 // kv_len: null, or int32 [B] on the device (clamped to [0, S]); out:
-// [B·H, S, D] of `dtype`. All contiguous, q, k, v and out 16-byte aligned.
+// [B·H, S, D] of `dtype`, which must be fp32 (alg::kFloat32; anything else
+// returns cudaErrorInvalidValue). All contiguous, q, k, v and out 16-byte aligned.
 // block_k must be a multiple of 64 and at most 65,536 (the int32 P·V sum of a
 // key block). Returns the launch's cudaError_t.
 extern "C" int ALG_CAT(alg_flash_attention_int8_d, ALG_INT8_HEAD_DIM)(
@@ -332,9 +333,6 @@ extern "C" int ALG_CAT(alg_flash_attention_int8_d, ALG_INT8_HEAD_DIM)(
     case alg::kFloat32:
       return (int)launch<float>(q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k,
                                 pv_int8 != 0, st);
-    case alg::kBFloat16:
-      return (int)launch<__nv_bfloat16>(q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k,
-                                        pv_int8 != 0, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

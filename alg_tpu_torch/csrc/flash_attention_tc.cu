@@ -1,7 +1,7 @@
-// Flash-attention forward in bf16 on the tensor cores: every bf16 call
-// without a qk prolog (fp32 calls run on the CUDA cores in flash_attention.cu,
-// prolog calls on the body of flash_attention.cuh). The build reads the next line and makes one object
-// per head dim, each with its own C entry point.
+// Flash-attention forward in bf16 on the tensor cores: every bf16 call (fp32
+// calls run on the CUDA cores in flash_attention.cu; a call with a qk prolog
+// runs qk_prolog.cu on q and k first). The build reads the next line and
+// makes one object per head dim, each with its own C entry point.
 //
 // build-variants: ALG_FLASH_HEAD_DIM=64,80,128
 //
@@ -11,10 +11,14 @@
 // an optional additive fp32 bias [1|B, H, Sq, Sk]; an optional per-batch key
 // count kv_len [B] read on the device; Sq != Sk; `causal` (query i sees key j
 // iff j <= i + (Sk - Sq)); and the base-2 row log-sum-exp (`lse`) that the
-// backward kernels read. Conventions are those of flash_attention.cuh: a
+// backward kernels read. Conventions are those of flash_attention.cu: a
 // running max of -inf takes 0 for the exponentials, a row with no visible key
 // writes zeros and an LSE of -inf. P is rounded to bf16 before P·V, as the TPU
-// kernel does (p.astype(v.dtype)); the denominator sums the fp32 p.
+// kernel does (p.astype(v.dtype)). The denominator, and with it the LSE, is
+// the TPU kernel's too: at D = 64 and 80, where that kernel sums the rows on
+// its matrix unit through a ones column appended to V (d % 128 != 0), the
+// sum of the bf16-rounded p, fp32-accumulated; at D = 128 the sum of the fp32
+// p.
 //
 // Bound on the H100: tensor-core FLOPs, 4·H·D per visible (query, key) pair
 // (q·kᵀ and P·V) at 989 TFLOP/s in bf16; the bytes (q, k, v, the output once)
@@ -36,10 +40,14 @@
 // the accumulator fragments (a lane holds two rows of each m16 tile, so a row
 // max or sum is two xor shuffles inside a quad); P goes to bf16 A fragments in
 // registers and P·V is a second mma.sync with B fragments by ldmatrix.trans of
-// V. The denominator is kept per lane and summed across the quad once, at the
-// end.
+// V. At D = 128 the denominator is kept per lane and summed across the quad
+// once, at the end; at D = 64 and 80 it is one more mma.sync a 16-key step,
+// the bf16 P fragment times a B fragment of ones held in registers (no
+// shared-memory read), which leaves the row sum of the rounded p in every
+// column of an fp32 accumulator tile: the TPU kernel's ones column, and no
+// CUDA-core work beside the rescale.
 //
-// Masks, as in flash_attention.cuh: row i of batch b sees keys j < min(Sk,
+// Masks, as in flash_attention.cu: row i of batch b sees keys j < min(Sk,
 // kv_len[b], i + (Sk - Sq) + 1), the last term only when causal. The block's
 // key loop ends at its last row's limit; keys past it are zero-filled in
 // shared memory and masked; tiles that every row of the block sees whole
@@ -76,6 +84,9 @@ constexpr int kDTiles = kD / 8;                // n8 tiles of the output
 constexpr int kKeyTiles = kBlockK / 8;         // n8 tiles of S
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kNotCausal = 1 << 30;            // causal_offset of a call without the causal mask
+constexpr bool kSumRounded = kD % 128 != 0;    // the denominator sums the bf16 p (the TPU kernel's ones column)
+constexpr int kLSlots = kSumRounded ? 4 : 2;   // a row tile's denominator values a lane keeps
+constexpr uint32_t kOnes = 0x3f803f80u;        // two bf16 ones: the B fragment of P·1
 
 using TileD = alg::mma::Tile<kD>;
 constexpr int kQBytes = TileD::bytes(kBlockQ);
@@ -86,6 +97,13 @@ static_assert(kD == 64 || kD == 80 || kD == 128, "head dims the port's models us
 static_assert(kDTiles % 2 == 0 && kKeyTiles % 2 == 0, "ldmatrix.x4 reads two n8 tiles at a time");
 static_assert(kRowTiles >= 1 && kBlockK % 16 == 0, "tiles");
 static_assert(kSmemBytes <= 227 * 1024, "shared memory of one block");
+
+// l += P·1 over one k16 step: the row sums of the bf16 P fragment pa, fp32-accumulated, in every column of the
+// accumulator tile l (a template, so that the D = 128 units, whose l is not a tile, never instantiate it)
+template <int N>
+__device__ __forceinline__ void add_row_sums(float (&l)[N], const uint32_t (&pa)[4]) {
+  mma_bf16(l, pa, kOnes, kOnes);
+}
 
 template <bool kStable, bool kBias>
 __global__ void __launch_bounds__(kThreads)
@@ -145,13 +163,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     }
 
   float o[kRowTiles][kDTiles][4];
-  float m[kRowTiles][2], l[kRowTiles][2];  // running max (stable only), this lane's part of the denominator
+  // running max (stable only); the denominator: at D = 128 this lane's part of row half hf's in l[mt][hf], at
+  // D = 64 and 80 the accumulator tile of P·1, whose element 2 hf holds row half hf's whole sum
+  float m[kRowTiles][2], l[kRowTiles][kLSlots];
 #pragma unroll
   for (int mt = 0; mt < kRowTiles; ++mt) {
 #pragma unroll
     for (int dt = 0; dt < kDTiles; ++dt) o[mt][dt][0] = o[mt][dt][1] = o[mt][dt][2] = o[mt][dt][3] = 0.0f;
     m[mt][0] = m[mt][1] = -INFINITY;
-    l[mt][0] = l[mt][1] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kLSlots; ++i) l[mt][i] = 0.0f;
   }
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -240,7 +261,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
           // all logits so far -inf (no visible key yet, a bias of -inf): take 0, so that p = exp2(-inf) = 0
           m_exp = m_new == -INFINITY ? 0.0f : m_new;
           const float alpha = exp2f(m[mt][hf] - m_exp);  // 0 while the old max is -inf
-          l[mt][hf] *= alpha;
+          if constexpr (kSumRounded) {
+            l[mt][2 * hf] *= alpha;
+            l[mt][2 * hf + 1] *= alpha;
+          } else {
+            l[mt][hf] *= alpha;
+          }
 #pragma unroll
           for (int dt = 0; dt < kDTiles; ++dt) {
             o[mt][dt][2 * hf] *= alpha;
@@ -251,7 +277,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
 #pragma unroll
         for (int nt = 0; nt < kKeyTiles; ++nt) {
           const float p0 = exp2f(s[mt][nt][2 * hf] - m_exp), p1 = exp2f(s[mt][nt][2 * hf + 1] - m_exp);
-          l[mt][hf] += p0 + p1;
+          if constexpr (!kSumRounded) l[mt][hf] += p0 + p1;
           s[mt][nt][2 * hf] = p0;
           s[mt][nt][2 * hf + 1] = p1;
         }
@@ -267,6 +293,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
         pa[mt][1] = pack_bf16(s[mt][2 * j][2], s[mt][2 * j][3]);
         pa[mt][2] = pack_bf16(s[mt][2 * j + 1][0], s[mt][2 * j + 1][1]);
         pa[mt][3] = pack_bf16(s[mt][2 * j + 1][2], s[mt][2 * j + 1][3]);
+        if constexpr (kSumRounded) add_row_sums(l[mt], pa[mt]);
       }
 #pragma unroll
       for (int dp = 0; dp < kDTiles / 2; ++dp) {
@@ -287,9 +314,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
   for (int mt = 0; mt < kRowTiles; ++mt)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      float lsum = l[mt][hf];
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      float lsum;
+      if constexpr (kSumRounded) {
+        lsum = l[mt][2 * hf];  // the whole row's, in every lane of the quad
+      } else {
+        lsum = l[mt][hf];
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      }
       const int row = first + 16 * mt + 8 * hf;
       if (row >= sq) continue;
       const float inv = 1.0f / (lsum == 0.0f ? 1.0f : lsum);  // a row with no visible key: o = 0

@@ -8,9 +8,9 @@ prompt's ``kv_len``), the CLIP vision towers', the Hunyuan token refiner's
 (``kv_len``), and the causal ones: Llama's (with ``kv_len``) and the CLIP
 text encoder's. A call that needs no gradient goes straight to
 :func:`alg_tpu_torch.ops.flash_attention.flash_attention`, which picks a
-CUDA kernel (bf16 on the tensor cores, fp32 and prolog calls on the CUDA
-cores) or, for CPU tensors, the plain version, and launches exactly what an
-inference call launches. A call with an input that requires a
+CUDA kernel (bf16 on the tensor cores, fp32 on the CUDA cores) or, for CPU
+tensors, the plain version, and launches exactly what an inference call
+launches. A call with an input that requires a
 gradient goes through
 :class:`alg_tpu_torch.ops.flash_attention_bwd.FlashAttentionFunction`: the
 same forward kernel with its LSE output, and the dq and dkv kernels in the
@@ -27,10 +27,13 @@ Two opt-in variants, with the JAX package's names and conditions:
   than 64 or 128 raises on the card, and one whose input requires a gradient
   raises everywhere: the int8 path has no backward (the JAX package routes
   such a call to a kernel that cannot be differentiated, without saying so).
-* ``prolog`` fuses the per-head qk norm and RoPE into the attention kernel
-  (``ops/flash_attention.py``). On CPU tensors, and whenever an input needs a
-  gradient, it is applied up front as the plain, differentiable composition
-  :func:`apply_prolog_plain`, and the call goes on as one without a prolog.
+* ``prolog`` applies the per-head qk norm and RoPE of the JAX kernel's
+  prolog to q and k. On the card, for a call without a gradient, that is one
+  launch of the qk prolog kernel over q and k ahead of the forward kernel
+  (``ops/flash_attention.py:qk_prolog``). On CPU tensors, and whenever an
+  input needs a gradient, it is the plain, differentiable composition
+  :func:`apply_prolog_plain`. Either way the attention is then a call
+  without a prolog.
 """
 
 from __future__ import annotations

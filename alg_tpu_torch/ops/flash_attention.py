@@ -1,12 +1,10 @@
 """Flash-attention forward: the CUDA kernels and their plain PyTorch version.
 
 ``flash_attention`` picks its implementation in :func:`route`: CPU tensors
-run :func:`attention_plain`; CUDA bf16 tensors without a qk prolog launch the
-tensor-core kernel ``csrc/flash_attention_tc.cu`` (``mma.sync`` with
-``ldmatrix`` and ``cp.async``); CUDA fp32 tensors, and every call with a
-prolog, launch the CUDA-core kernels ``csrc/flash_attention.cu`` (fp32 only)
-and ``csrc/flash_attention_prolog.cu``, thin units over the body in
-``csrc/flash_attention.cuh``; anything else raises. There is no fallback
+run :func:`attention_plain`; CUDA bf16 tensors launch the tensor-core kernel
+``csrc/flash_attention_tc.cu`` (``mma.sync`` with ``ldmatrix`` and
+``cp.async``), CUDA fp32 tensors the register-tiled CUDA-core kernel
+``csrc/flash_attention.cu``; anything else raises. There is no fallback
 between them: a kernel that fails to build or launch raises.
 The kernels replace the TPU kernel
 ``alg_tpu/ops/flash_attention.py:_fwd_kernel`` at head dims 64, 80 and 128:
@@ -26,14 +24,18 @@ The qk prolog (``qk_norm``, ``rope_cos``/``rope_sin``, ``prolog_k``; the JAX
 package's names) applies a per-head LayerNorm or RMS norm over D (fp32
 statistics, fp32 affine, cast back to the activation dtype) and then
 interleaved RoPE (tables cast to the activation dtype) to q and, unless
-``prolog_k=False``, to k, inside the attention kernel: on the q rows once and
-on every K tile. It composes with every option above. Its plain version is
+``prolog_k=False``, to k. The JAX kernel does it inside the attention kernel,
+on the q rows once and on every K tile in every query block; on the card
+:func:`qk_prolog` does it once, in one launch of ``csrc/qk_prolog.cu`` over q
+and k into new tensors, and the call goes on to the forward kernel of its
+dtype as a call without a prolog (``qk_prolog.launches`` counts those
+launches). It composes with every option above. Its plain version is
 :func:`apply_prolog_plain` (counterpart of
 ``alg_tpu/ops/attention.py:_apply_prolog_xla``) followed by the plain
 attention. The kernel rounds the norm's result, the tables, each product of
 the rotation and their sum to the activation dtype, as the plain version's
-ops in that dtype do, so in bf16 the two feed the same q and k into the
-products but for a norm result on a rounding tie.
+ops in that dtype do, so in bf16 the two give the same q and k but for a
+norm result on a rounding tie.
 
 ``flash_attention`` itself records no autograd graph; differentiable calls go
 through :func:`alg_tpu_torch.ops.attention.attention`.
@@ -44,9 +46,10 @@ at or past ``kv_len`` masked to -inf, an fp32 softmax, probabilities cast to
 the value dtype, then ``P·V``. A row with no visible key (``kv_len`` 0, or a
 causal row when Sq > Sk) comes out as zeros, as from the kernels on both
 machines; ``_xla_attention`` gives NaN there. The tensor-core kernel rounds
-the unnormalised P to bf16 before P·V, as the TPU kernel does; the plain
-version rounds the normalised probabilities, and the CUDA-core body keeps P
-in fp32, so in bf16 they differ by those roundings and that of the output.
+the unnormalised P to bf16 before P·V and takes the TPU kernel's denominator
+(at D = 64 and 80 the sum of the rounded p, at 128 of the fp32 p); the plain
+version rounds the normalised probabilities, so in bf16 the two differ by
+those roundings and that of the output.
 :func:`attention_plain_residuals` mirrors ``_xla_attention_residuals`` (base-2
 logits, explicit max, the LSE beside the output), with ``causal`` and ``bias``
 as well.
@@ -65,9 +68,9 @@ from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops import _build
 from alg_tpu_torch.ops._autograd import needs_grad
 
-HEAD_DIMS = (64, 80, 128)  # the variants csrc/flash_attention.cu declares, one entry point each
+HEAD_DIMS = (64, 80, 128)  # the variants csrc/flash_attention*.cu and csrc/qk_prolog.cu declare
 LOG2E = 1.4426950408889634
-NORM_CODE = {None: 0, "layer": 1, "rms": 2}  # the prolog's norm modes (csrc/flash_attention.cuh, struct Prolog)
+NORM_CODE = {None: 0, "layer": 1, "rms": 2}  # the prolog's norm modes (csrc/qk_prolog.cu)
 
 
 def mask_logits(logits, kv_len: Optional[torch.Tensor] = None, causal: bool = False):
@@ -119,6 +122,45 @@ def attention_plain_residuals(q, k, v, scale: float, bias: Optional[torch.Tensor
     return out, (m_safe + torch.log2(l))[..., 0]  # log2(0) = -inf
 
 
+def tensor_core_lse_plain(q, k, scale: float, bias: Optional[torch.Tensor] = None,
+                          kv_len: Optional[torch.Tensor] = None, causal: bool = False, stable: bool = True,
+                          key_tile: int = 64):
+    """``(lse, tie)``, fp32 ``[B, H, Sq]``: the base-2 LSE that the bf16
+    tensor-core forward writes (``csrc/flash_attention_tc.cu``), step by step
+    in fp32, and the most that one p on a bf16 rounding tie can move it. The
+    denominator is the TPU kernel's: at D = 64 and 80 the sum of the
+    bf16-rounded p, taken over ``key_tile``-key tiles against the running
+    max when ``stable`` (else against 0), at D = 128 the sum of the fp32 p
+    (then the LSE is :func:`attention_plain_residuals`' up to the order of
+    the sums, and ``tie`` is 0). The kernel sums its logits in another
+    order, so a p on a tie may round the other way, which moves the sum by
+    at most 2^-7 of that p: ``tie`` is log2(1 + 2^-7 · max p / sum). A row
+    with no visible key gives -inf and 0."""
+    rounded = q.shape[-1] % 128 != 0
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * LOG2E)
+    if bias is not None:
+        s = s + bias.float() * LOG2E
+    s, _ = mask_logits(s, kv_len, causal)
+    m = torch.full(s.shape[:-1], float("-inf"), device=s.device)
+    l = torch.zeros(s.shape[:-1], device=s.device)
+    step = key_tile if stable else s.shape[-1]  # without a running max the tiles sum alike
+    for k0 in range(0, s.shape[-1], step):
+        t = s[..., k0:k0 + step]
+        base = torch.zeros_like(m)
+        if stable:
+            m_new = torch.maximum(m, t.amax(dim=-1))
+            base = torch.where(torch.isneginf(m_new), base, m_new)  # no visible key yet: p = exp2(-inf) = 0
+            l, m = l * torch.exp2(m - base), m_new
+        p = torch.exp2(t - base[..., None])
+        l = l + (p.bfloat16().float() if rounded else p).sum(dim=-1)
+    base = torch.where(torch.isneginf(m), torch.zeros_like(m), m) if stable else torch.zeros_like(m)
+    seen = l > 0
+    lse = torch.where(seen, base + torch.log2(l), torch.full_like(l, float("-inf")))
+    p_max = torch.exp2(s.amax(dim=-1) - base)
+    tie = torch.log2(1.0 + 2.0 ** -7 * p_max / torch.where(seen, l, torch.ones_like(l)))
+    return lse, torch.where(seen & rounded, tie, torch.zeros_like(tie))
+
+
 def apply_prolog_plain(q, k, prolog: dict, prolog_k: bool = True):
     """``(q, k)`` through the qk prolog in PyTorch ops: the per-head norm
     ``prolog["norm"]`` (``"layer"``, ``"rms"`` or None; ``eps``, affines
@@ -145,28 +187,29 @@ def apply_prolog_plain(q, k, prolog: dict, prolog_k: bool = True):
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong] + [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float, _INT, _INT]
-
+# (dtype, q, k, v, bias, bias_b_stride, kv_len, out, lse, batch, heads, sq, sk, scale, stable, causal, stream)
+_FWD_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong] + [_PTR] * 3 + [_INT] * 4 + [ctypes.c_float, _INT, _INT, _PTR]
+# (dtype, q, k, q_out, k_out, n_heads, sq, sk, norm, eps, q_scale, q_bias, k_scale, k_bias, cos, sin, prolog_k, stream)
+_PROLOG_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong, _INT, _INT, _INT, ctypes.c_float] + [_PTR] * 6 + [_INT, _PTR]
 
 # the C entry point of each route, "{d}" the head dim
-_ENTRY_NAMES = {"tc": "alg_flash_attention_tc_fwd_d{d}", "cuda_core": "alg_flash_attention_fwd_d{d}",
-                "prolog": "alg_flash_attention_prolog_fwd_d{d}"}
+_ENTRY_NAMES = {"tc": "alg_flash_attention_tc_fwd_d{d}", "cuda_core": "alg_flash_attention_fwd_d{d}"}
+PROLOG_ENTRY_NAME = "alg_qk_prolog_d{d}"  # csrc/qk_prolog.cu
 
 
 def route(q: torch.Tensor, prolog: bool = False) -> str:
     """Which implementation a call on ``q`` takes: ``"plain"`` for a CPU
-    tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for bf16 without
-    a qk prolog, ``"cuda_core"`` for fp32 without one and ``"prolog"`` (the
-    CUDA-core prolog kernel) for either type with one. Raises for any other
+    tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for bf16 and
+    ``"cuda_core"`` for fp32. A qk prolog does not change it: :func:`qk_prolog`
+    runs first, and the forward is a call without one. Raises for any other
     device or dtype."""
+    del prolog  # the same route with and without a prolog
     if q.device.type == "cpu":
         return "plain"
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if q.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
-    if prolog:
-        return "prolog"
     return "tc" if q.dtype == torch.bfloat16 else "cuda_core"
 
 
@@ -174,8 +217,16 @@ def route(q: torch.Tensor, prolog: bool = False) -> str:
 def _entry(head_dim: int, which: str):
     """The C entry point of a head dim for a route of :func:`route`."""
     fn = getattr(_build.load(), _ENTRY_NAMES[which].format(d=head_dim))
-    prolog = which == "prolog"
-    fn.argtypes = _FWD_ARGTYPES + ([_INT, ctypes.c_float] + [_PTR] * 6 + [_INT] if prolog else []) + [_PTR]
+    fn.argtypes = _FWD_ARGTYPES
+    fn.restype = _INT
+    return fn
+
+
+@functools.cache
+def _prolog_entry(head_dim: int):
+    """The qk prolog's C entry point of a head dim."""
+    fn = getattr(_build.load(), PROLOG_ENTRY_NAME.format(d=head_dim))
+    fn.argtypes = _PROLOG_ARGTYPES
     fn.restype = _INT
     return fn
 
@@ -208,29 +259,74 @@ def _check(q, k, v, bias, kv_len=None):
             raise ValueError("flash operands must be contiguous, 16-byte aligned and on one device")
 
 
-def _check_prolog(q, prolog: dict, prolog_k: bool):
-    """Raise on a prolog the kernel does not take; return its tensors in the entry point's order."""
-    mode, d, sq = prolog["norm"], q.shape[-1], q.shape[2]
-    rope = prolog["cos"] is not None
-    if rope != (prolog["sin"] is not None):
+def _check_prolog(q, k, prolog: dict, prolog_k: bool):
+    """Raise on q, k or a prolog the kernel does not take; return the prolog's tensors in the entry point's
+    order (q_scale, q_bias, k_scale, k_bias, cos, sin; None where not read)."""
+    mode = prolog.get("norm")
+    if mode not in NORM_CODE:
+        raise ValueError(f"unknown prolog norm {mode!r}")
+    if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype:
+        raise TypeError(f"qk prolog takes float32 or bfloat16 q/k of one dtype, got {q.dtype}/{k.dtype}")
+    if q.dim() != 4 or q.shape[-1] not in HEAD_DIMS or k.dim() != 4 or k.shape[:2] != q.shape[:2] \
+            or k.shape[-1] != q.shape[-1] or q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError(f"qk prolog takes [B, H, S, D] q and k with D in {HEAD_DIMS}, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    d, sq = q.shape[-1], q.shape[2]
+    rope = prolog.get("cos") is not None
+    if rope != (prolog.get("sin") is not None):
         raise ValueError("flash prolog: rope_cos and rope_sin come together")
+    if mode is None and not rope:
+        raise ValueError("qk prolog: a norm, RoPE or both")
+    if rope and prolog_k and k.shape[2] != sq:
+        raise ValueError("fused RoPE assumes self-attention (Sq == Sk)")
     wanted = []
     for name, needed in (("q_scale", mode is not None), ("q_bias", mode == "layer"),
                          ("k_scale", mode is not None and prolog_k), ("k_bias", mode == "layer" and prolog_k)):
-        t = prolog[name] if needed else None
+        t = prolog.get(name) if needed else None
         if needed and (t is None or t.dtype != torch.float32 or tuple(t.shape) != (d,)):
             raise ValueError(f"flash prolog {name}: want float32 [{d}], got "
                              f"{None if t is None else (t.dtype, tuple(t.shape))}")
         wanted.append(t)
     for name in ("cos", "sin"):
-        t = prolog[name]
+        t = prolog.get(name)
         if rope and (t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] < sq or t.shape[1] != d):
             raise ValueError(f"flash prolog {name}: want float32 [S >= {sq}, {d}], got {t.dtype} {tuple(t.shape)}")
         wanted.append(t)
-    for t in wanted:
-        if t is not None and (t.device != q.device or not t.is_contiguous() or t.data_ptr() % 8):
-            raise ValueError("flash prolog operands must be contiguous, 8-byte aligned and on the device of q")
+    for t in (q, k, *wanted):
+        if t is not None and (t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("qk prolog operands must be contiguous, 16-byte aligned and on the device of q")
     return wanted
+
+
+def qk_prolog(q: torch.Tensor, k: torch.Tensor, prolog: dict, prolog_k: bool = True):
+    """``(q, k)`` through the qk prolog (``prolog`` as for
+    :func:`apply_prolog_plain`), new tensors; ``prolog_k=False`` returns k as
+    it came. CPU tensors take :func:`apply_prolog_plain`; CUDA tensors one
+    launch of ``csrc/qk_prolog.cu`` over q and k (``qk_prolog.launches``
+    counts them), or raise. No autograd graph is recorded (see
+    ``ops/attention.py``)."""
+    if route(q) == "plain":
+        return apply_prolog_plain(q, k, prolog, prolog_k)
+    tensors = _check_prolog(q, k, prolog, prolog_k)
+    if needs_grad(q, k, *tensors):
+        raise RuntimeError("qk_prolog records no autograd graph: call ops.attention.attention, which applies "
+                           "the plain, differentiable composition")
+    b, h, sq, d = q.shape
+    q_out = torch.empty_like(q)
+    k_out = torch.empty_like(k) if prolog_k else k
+    with torch.cuda.device(q.device):
+        rc = _prolog_entry(d)(
+            _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), q_out.data_ptr(),
+            k_out.data_ptr() if prolog_k else None, b * h, sq, k.shape[2], NORM_CODE[prolog.get("norm")],
+            float(prolog.get("eps", 1e-6)), *(None if t is None else t.data_ptr() for t in tensors), int(prolog_k),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "qk prolog kernel")
+    qk_prolog.launches += 1
+    return q_out, k_out
+
+
+qk_prolog.launches = 0  # every launch of the qk prolog kernel
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -250,7 +346,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     ``qk_norm`` (``"layer"`` or ``"rms"``, with ``norm_eps`` and the fp32
     ``[D]`` affines) and ``rope_cos``/``rope_sin`` (fp32 ``[S, D]``,
     self-attention only) are the qk prolog, applied to q and, unless
-    ``prolog_k=False``, to k inside the kernel (see the module docstring).
+    ``prolog_k=False``, to k before the attention (see the module docstring).
 
     ``stable=False`` skips the running max: exact in fp32 while
     |logit·log2e| stays well below 126, which trained DiT attention does.
@@ -265,7 +361,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if qk_norm is not None or rope_cos is not None or rope_sin is not None:
         prolog = {"norm": qk_norm, "eps": norm_eps, "q_scale": q_norm_scale, "q_bias": q_norm_bias,
                   "k_scale": k_norm_scale, "k_bias": k_norm_bias, "cos": rope_cos, "sin": rope_sin}
-    which = route(q, prolog is not None)
+    which = route(q)
     if which == "plain":
         if prolog is not None:
             q, k = apply_prolog_plain(q, k, prolog, prolog_k)
@@ -273,14 +369,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
             return attention_plain_residuals(q, k, v, scale, bias, kv_len, causal)
         return attention_plain(q, k, v, scale, bias, kv_len, causal)
     _check(q, k, v, bias, kv_len)
-    prolog_args = ()
-    if prolog is not None:
-        tensors = _check_prolog(q, prolog, prolog_k)
-        prolog_args = (NORM_CODE[qk_norm], float(norm_eps), *(None if t is None else t.data_ptr() for t in tensors),
-                       int(prolog_k))
-    if needs_grad(q, k, v, bias, *(() if prolog is None else tensors)):
+    if needs_grad(q, k, v, bias):
         raise RuntimeError("flash_attention records no autograd graph: call ops.attention.attention, which "
                            "differentiates through the backward kernels")
+    if prolog is not None:
+        q, k = qk_prolog(q, k, prolog, prolog_k)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_residuals else None
@@ -294,7 +387,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
             _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_b_stride,
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, h, sq, k.shape[2],
-            float(scale), int(stable), int(causal), *prolog_args, stream,
+            float(scale), int(stable), int(causal), stream,
         )
     _build.check(rc, f"flash-attention kernel ({which})")
     flash_attention.launches += 1
@@ -306,5 +399,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
 
 flash_attention.launches = 0  # every launch of the forward kernels
-flash_attention.launches_by_route = {"tc": 0, "cuda_core": 0, "prolog": 0}  # the same launches by route()
+flash_attention.launches_by_route = {"tc": 0, "cuda_core": 0}  # the same launches by route()
 flash_attention.residual_launches = 0  # those of them that also wrote the LSE

@@ -11,16 +11,18 @@ Phases, each of which must pass:
       ``alg_tpu_torch/_build/`` (ops/_build.py; one nvcc process per compile
       unit, side by side) and print the build time and the compiler's
       register/shared-memory report, with one line for each instantiation
-      of the register-tiled fp32 forward, dq and dkv kernels (registers, spilled
-      bytes, head dim); then ``cuobjdump -sass`` of the library:
+      of the register-tiled fp32 forward, dq and dkv kernels, the bf16
+      tensor-core forward and the qk prolog kernel (registers, spilled
+      bytes, head dim), and the compile units; then ``cuobjdump -sass`` of
+      the library:
       every kernel of the tensor-core entry points must hold tensor-core
       instructions, whose counts are printed per kernel: HMMA in the bf16
       forward, dq and dkv, IMMA in both modes of the int8 kernel and HMMA in
       its "qk" mode as well (P·V in bf16);
   B.  kernels: each CUDA kernel against its plain PyTorch version on the
-      card, in bf16 and fp32 (fp32 with TF32 off; bf16 attention without a
-      prolog and bf16 dq and dkv run the tensor-core kernels, fp32 the
-      CUDA-core ones), at the shapes of the
+      card, in bf16 and fp32 (fp32 with TF32 off; bf16 attention and bf16
+      dq and dkv run the tensor-core kernels, fp32 the CUDA-core ones), at
+      the shapes of the
       CogVideoX, Wan and HunyuanVideo main paths (the causal attention of
       Llama and the CLIP text encoder among them, and one square causal call
       beside its dense twin, which shows the skipped tiles); prints
@@ -49,8 +51,11 @@ Phases, each of which must pass:
       tensors, and "full" mode again with ``block_k`` equal to the kernels'
       key tile; then the
       flash kernel's qk prolog (five combinations of norm, RoPE, ``stable``
-      and ``prolog_k``) against ``apply_prolog_plain`` and the plain
-      attention, beside the unfused sequence the DiTs run today;
+      and ``prolog_k``): the call (the ``qk_prolog`` kernel on q and k, then
+      the forward kernel of the dtype) against ``apply_prolog_plain`` and the
+      plain attention, beside the unfused sequence the DiTs run today, and
+      the ``qk_prolog`` kernel alone against ``apply_prolog_plain`` with its
+      device time (``torch.profiler``) beside its byte bound;
   C.  CogVideoX slice: the full-width CogVideoX-5b-I2V pipeline (42-layer DiT
       and 24-layer T5-XXL in bf16, VAE in fp32, random weights from a seed)
       driven once through ``CogVideoXPipeline.__call__`` with the shipped ALG
@@ -82,7 +87,9 @@ Phases, each of which must pass:
       entry point, ``attention(..., stable=False, prolog={...})``, on bf16
       tensors of the CogVideoX 9-frame shape (LayerNorm + RoPE) and the
       Hunyuan 9-frame joint shape with ``kv_len`` (RMS norm + RoPE), held
-      against the unfused sequence, with exact launch counts;
+      against the unfused sequence, with exact launch counts (two
+      ``qk_prolog`` launches, two tensor-core forwards, no CUDA-core
+      forward);
   D.  agreement: a small CogVideoX pipeline (head dim 64, two layers) run on
       the card through the kernels and on the CPU through the plain versions,
       fp32 with TF32 off; final latents within atol 2e-3, decoded frames
@@ -128,7 +135,10 @@ input, then on the head-split view beside the transposing copy it saves),
 ``[2,40,32760,128]`` (the call with its quantizers, and the kernel's device
 time), the
 dense flash calls of phase B at head dims 64 and 128, the fp32 CLIP calls
-``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), and the training kernels at
+``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), the qk prolog calls of
+phase B at ``[2,48,4276,64]`` (LayerNorm + RoPE) and ``[1,24,3048,128]`` (RMS
+norm + RoPE, ``kv_len``) in bf16 and fp32 beside the unfused sequence, and
+the training kernels at
 ``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 and fp32 (for comparing
 two trees on one card, the parent's too: it does not require the
 tensor-core kernels; it prints no result line).
@@ -137,7 +147,7 @@ Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
 dkv kernels (bf16 records), the CUDA-core ones (fp32 records), the int8
 kernels (the tensor-core one's bf16 records, the CUDA-core one's fp32) and
-the flash kernel's qk-prolog variant, each a compile unit of its own,
+the qk prolog kernel (the prolog calls' records along),
 have entries of their own; ``launches_by_path`` names the run each count
 comes from, the int8 runs of the three pipelines among them; ``also``
 carries the other shapes and modes), and as the last line
@@ -190,22 +200,32 @@ def _time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel: str, reps: int = 20):
-    """Mean device milliseconds a call of ``fn`` spends in kernels whose name
-    holds ``kernel``, from ``torch.profiler`` over ``reps`` calls (one
-    warm-up); None where the profiler saw none. The CUDA-event time of one
-    call also holds the wrapper's host path when the device waits for it."""
+def _device_ms(fn, kernel: str, reps: int = 20, flush_l2: bool = False):
+    """Mean device milliseconds of one launch of the kernels whose name holds
+    ``kernel`` (``fn`` launches one of them a call), from ``torch.profiler``
+    over ``reps`` calls (one warm-up): their device time over the launches
+    the profiler saw, since it may miss some; None where it saw none. With
+    ``flush_l2`` a 256 MB buffer is written before each call, so that the
+    kernel finds its inputs in device memory and not in the 50 MB L2. The
+    CUDA-event time of one call also holds the wrapper's host path when the
+    device waits for it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda") if flush_l2 else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    seen = [e for e in prof.key_averages() if kernel in e.key]
+    us, launches = sum(getattr(e, "device_time_total", 0) for e in seen), sum(e.count for e in seen)
+    if launches != reps:
+        print(f"    (torch.profiler saw {launches} of the {reps} launches of {kernel})", flush=True)
+    return us / launches / 1e3 if us > 0 else None
 
 
 def _set_tf32(matmul: bool, cudnn: bool) -> None:
@@ -257,21 +277,23 @@ def _sass_hmma(lib) -> dict:
     return counts
 
 
-# The register-tiled fp32 kernels, by a part of their mangled names: the forward (csrc/flash_attention.cu;
-# not the prolog or tensor-core forwards), dq and dkv (csrc/flash_attention_bwd.cu; not the tensor-core ones).
+# Kernels whose instantiations phase A names one by one, by a part of their mangled names: the register-tiled
+# fp32 forward (csrc/flash_attention.cu; not the tensor-core forward), dq and dkv (csrc/flash_attention_bwd.cu;
+# not the tensor-core ones), the bf16 tensor-core forward and the qk prolog kernel.
 FP32_KERNELS = {"fp32 forward": r"\d+flash_fwd_kernelI", "fp32 dq": r"\d+flash_bwd_dq_kernelI",
                 "fp32 dkv": r"\d+flash_bwd_dkv_kernel[EI]"}
+RESOURCE_KERNELS = {**FP32_KERNELS, "bf16 tc forward": r"\d+flash_fwd_tc_kernelI", "qk prolog": r"\d+qk_prolog_kernelI"}
 
 
-def _fp32_kernel_resources(log: str) -> list:
+def _kernel_resources(log: str) -> list:
     """Lines naming the registers and spilled bytes of every instantiation of
-    the fp32 forward, dq and dkv kernels, from the build log's ``ptxas -v``
-    report (the head dim from the unit's ``-DALG_FLASH_HEAD_DIM``)."""
+    the kernels of ``RESOURCE_KERNELS``, from the build log's ``ptxas -v``
+    report (the head dim from the unit's ``-DALG_*_HEAD_DIM``)."""
     import re
 
     lines, head_dim, kernel, props = [], None, None, None
     for line in log.splitlines():
-        unit = re.search(r"-DALG_FLASH_HEAD_DIM=(\d+)", line)
+        unit = re.search(r"-DALG_\w+_HEAD_DIM=(\d+)", line)
         if unit and "nvcc" in line:
             head_dim = unit.group(1)
         found = re.search(r"Compiling entry function '(\S+)'", line)
@@ -282,7 +304,7 @@ def _fp32_kernel_resources(log: str) -> list:
             props = spill.groups()
         used = re.search(r"Used (\d+) registers", line)
         if used and kernel is not None:
-            for what, pattern in FP32_KERNELS.items():
+            for what, pattern in RESOURCE_KERNELS.items():
                 if re.search(pattern, kernel):
                     stores, loads = props or ("?", "?")
                     lines.append(f"[A] {what} D={head_dim} {kernel}: {used.group(1)} registers, {stores} bytes spill "
@@ -302,14 +324,15 @@ def phase_build(require_tensor_cores: bool = True) -> None:
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
+    units = _build.compile_units()
     print(f"[A] built {path.name} in {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}, "
-          f"{len(_build.compile_units())} compile units)")
+          f"{len(units)} compile units: {', '.join(stem for stem, _, _ in units)})")
     log = path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("    " + line.strip())
-        for line in _fp32_kernel_resources(log.read_text()):
+        for line in _kernel_resources(log.read_text()):
             print(line)
     sass = _sass_hmma(path)
     for entry, (part, wanted) in TC_KERNELS.items():
@@ -575,7 +598,8 @@ def _hunyuan_kernel_cases(records, gen) -> None:
 
 
 # The forward's LSE: base-2 units; kernel and plain version sum the same fp32 logits (from the same bf16
-# or fp32 inputs) in another order, so one absolute bound serves both dtypes.
+# or fp32 inputs) in another order, so one absolute bound serves both dtypes; in bf16 at D = 64 and 80 the
+# sum is of the bf16-rounded p, and a p on a rounding tie adds tensor_core_lse_plain's `tie`.
 LSE_ATOL = 1e-4
 
 
@@ -595,6 +619,7 @@ def _attn_bwd_case(records, name, shape_q, dtype, gen, scale, stable=False, sk=N
     import torch
     import torch.nn.functional as F
 
+    from alg_tpu_torch.ops import flash_attention as FA
     from alg_tpu_torch.ops.flash_attention import attention_plain_residuals, flash_attention
     from alg_tpu_torch.ops.flash_attention_bwd import (flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
                                                        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
@@ -616,22 +641,31 @@ def _attn_bwd_case(records, name, shape_q, dtype, gen, scale, stable=False, sk=N
     def forward():
         return flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal, return_residuals=True)
 
+    # the LSE's plain version is the kernel's denominator: in bf16 the tensor-core forward's, the TPU kernel's
+    # (at D = 64 and 80 the sum of the bf16-rounded p, where a p on a rounding tie adds `tie` to the bound);
+    # a tree without tensor_core_lse_plain sums the fp32 p in both types
+    tc_lse = getattr(FA, "tensor_core_lse_plain", None) if dtype == torch.bfloat16 else None
+
     def plain_forward():
-        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        lse, tie = (torch.zeros((b, h, sq), dtype=torch.float32, device=dev) for _ in range(2))
         for bs, qs in chunks:
             n = keys_of(qs)
             if n == 0:
                 lse[bs, :, qs] = float("-inf")
                 continue
-            lse[bs, :, qs] = attention_plain_residuals(q[bs, :, qs], k[bs, :, :n], v[bs, :, :n], scale, None,
-                                                       None if lens is None else lens[bs], causal)[1]
-        return lse
+            args = (q[bs, :, qs], k[bs, :, :n], scale, None, None if lens is None else lens[bs], causal)
+            if tc_lse is not None:
+                lse[bs, :, qs], tie[bs, :, qs] = tc_lse(*args, stable=stable)
+            else:
+                lse[bs, :, qs] = attention_plain_residuals(args[0], args[1], v[bs, :, :n], *args[2:])[1]
+        return lse, tie
 
     out, lse = forward()
-    ref_lse = plain_forward()
+    ref_lse, tie = plain_forward()
     finite = torch.isfinite(ref_lse)
     lse_err = (lse[finite] - ref_lse[finite]).abs().max().item() if bool(finite.any()) else 0.0
-    lse_ok = lse_err <= LSE_ATOL and bool(torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)))
+    lse_ok = bool(((lse - ref_lse).abs()[finite] <= LSE_ATOL + tie[finite]).all()) \
+        and bool(torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse)))
     delta = row_delta(out, do)
 
     def plain_dq():
@@ -933,13 +967,20 @@ PROLOG_MODES = (("layer", True, False, True), ("rms", True, True, True), (None, 
 PROLOG_FP32_TOL = (5e-6, 1e-5)  # the same ops in another order: norms over D values, softmax sums over the keys
 
 
-def _prolog_case(records, shape, dtype, gen, mode, has_rope, stable, prolog_k, kv_len=None, reps=3):
-    """The flash kernel with the qk prolog against ``apply_prolog_plain`` and
+def _prolog_case(records, shape, dtype, gen, mode, has_rope, stable, prolog_k, kv_len=None, reps=3,
+                 transform_record=True):
+    """The flash call with the qk prolog (the ``qk_prolog`` kernel on q and k,
+    then the forward kernel of the dtype) against ``apply_prolog_plain`` and
     the plain attention (over query chunks, as in :func:`_attn_case`), and
     beside it the time of the unfused sequence a DiT runs today for the same
     result where there is one: ``qk_norm_rope`` on q and on k (LayerNorm +
     RoPE at D = 64), or the RMS norm in PyTorch ops and ``rope_interleaved``
-    on q and on k (D = 128), then ``flash_attention``."""
+    on q and on k (D = 128), then ``flash_attention``; and the device time
+    (``torch.profiler``) of the call's prolog kernel and of its forward
+    kernel. With ``transform_record`` also a record of the ``qk_prolog``
+    kernel alone against ``apply_prolog_plain`` at its byte bound. Only
+    public functions in the call and the unfused sequence, so that one
+    script times two trees."""
     import torch
 
     from alg_tpu_torch.models import layers as L
@@ -1002,23 +1043,88 @@ def _prolog_case(records, shape, dtype, gen, mode, has_rope, stable, prolog_k, k
         sizes.append(size)
     ms, plain_ms = _time_ms(fused, reps), _time_ms(plain, reps)
     kept = [s] * b if kv_len is None else [min(n, s) for n in kv_len]
-    nbytes = (2 * q.numel() + 2 * h * sum(kept) * d) * q.element_size() + 4 * (2 * cos.numel() + 4 * d)
+    # the call's bytes: q, the keys and values each row reads, the output, the tables and the affines, once each;
+    # the transform's: q (and k) read and written once, the tables and the affines read once; about 12 operations
+    # a transformed value on the CUDA cores
+    table_bytes = 4 * (2 * s * d if has_rope else 0) + 4 * 4 * d
+    nbytes = (2 * q.numel() + 2 * h * sum(kept) * d) * q.element_size() + table_bytes
     bound = _bound(4.0 * h * sum(s * n for n in kept) * d, nbytes, tol_name(dtype))
-    name = "flash_prolog_" + "_".join(filter(None, (mode, "rope" if has_rope else None, "stable" if stable else None,
-                                                    None if prolog_k else "q_only")))
+    transformed = q.numel() * (2 if prolog_k else 1)
+    transform_bound = _bound(12.0 * transformed, 2 * transformed * q.element_size() + table_bytes, tol_name(dtype))
+    suffix = "_".join(filter(None, (mode, "rope" if has_rope else None, "stable" if stable else None,
+                                    None if prolog_k else "q_only")))
+    name = "flash_prolog_" + suffix
+    prolog_dev = _device_ms(fused, "qk_prolog_kernel", reps=max(reps, 10))  # the profiler misses a first few
+    forward_dev = _device_ms(fused, "flash_fwd", reps=max(reps, 10))
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+    print(f"[B] {name} {tol_name(dtype)} {shape}: device time of the call's prolog kernel {fmt(prolog_dev)} "
+          f"(bound {transform_bound[0]:.4f} ms, {transform_bound[1]}), of its forward kernel {fmt(forward_dev)} "
+          f"(torch.profiler)", flush=True)
     if unfused is not None:
         unfused_ms = _time_ms(unfused, reps)
         bare_ms = _time_ms(lambda: flash_attention(qr, kr, v, scale, stable=stable, kv_len=lens), reps)
-        print(f"[B] {name} {tol_name(dtype)} {shape}: fused {ms:.3f} ms; the unfused sequence (norm and RoPE on q "
-              f"and on k, then the flash kernel) {unfused_ms:.3f} ms, of which the flash kernel alone {bare_ms:.3f} ms",
+        print(f"[B] {name} {tol_name(dtype)} {shape}: prolog + forward {ms:.3f} ms; the unfused sequence (norm and "
+              f"RoPE on q and on k, then the flash kernel) {unfused_ms:.3f} ms "
+              f"({'at most' if ms <= unfused_ms else 'ABOVE'} it), of which the flash kernel alone {bare_ms:.3f} ms",
               flush=True)
     _report(records, name, tol_name(dtype), shape, err, ok, (atol, tol[1]), ms, plain_ms, bound,
             ref_size=statistics.fmean(sizes))
+    records[-1].update(prolog_device_ms=prolog_dev, forward_device_ms=forward_dev)
     if unfused is not None:
         records[-1].update(unfused_ms=unfused_ms, flash_alone_ms=bare_ms)
+    if transform_record:
+        _qk_prolog_record(records, suffix, q, k, prolog, prolog_k, qr, kr if prolog_k else None, transform_bound,
+                          reps)
 
 
-def _prolog_kernel_cases(records, gen) -> None:
+# bf16: the qk prolog kernel is its plain version bit for bit but where a norm result lies on a rounding tie (the
+# statistics are summed in another order): a value on a tie moves by one bf16 step, and the rotation's roundings
+# of its products and their sum by about one more, so two bf16 steps of the row's largest value at most, on a few
+# values.
+QK_PROLOG_BF16_SHARE = 1e-3  # the share of values that may differ
+
+
+def _qk_prolog_record(records, suffix, q, k, prolog, prolog_k, qr, kr, bound, reps):
+    """The ``qk_prolog`` kernel alone against ``apply_prolog_plain`` (``qr``,
+    ``kr``; kr None without ``prolog_k``), its time, the plain version's and
+    its device time (``torch.profiler``) beside ``bound``."""
+    import torch
+
+    from alg_tpu_torch.ops.flash_attention import apply_prolog_plain, qk_prolog
+
+    got = qk_prolog(q, k, prolog, prolog_k)
+    pairs = [(got[0], qr)] + ([(got[1], kr)] if prolog_k else [])
+    dtype = tol_name(q.dtype)
+    err, ok, differ, total = 0.0, got[1] is k or prolog_k, 0, 0
+    for g, w in pairs:
+        diff = (g.float() - w.float()).abs()
+        err = max(err, diff.max().item())
+        if q.dtype == torch.bfloat16:
+            differ += int((g != w).sum())
+            total += g.numel()
+            ok = ok and bool((diff <= 2.0 ** -6 * w.float().abs().amax(-1, keepdim=True)).all())
+        else:
+            ok = ok and bool((diff <= PROLOG_FP32_TOL[0] + PROLOG_FP32_TOL[1] * w.float().abs()).all())
+    if q.dtype == torch.bfloat16:
+        ok = ok and differ <= QK_PROLOG_BF16_SHARE * total
+        tol = (0.0, 2.0 ** -6)
+    else:
+        tol = PROLOG_FP32_TOL
+    del got
+    ms = _time_ms(lambda: qk_prolog(q, k, prolog, prolog_k), reps=max(reps, 10))
+    plain_ms = _time_ms(lambda: apply_prolog_plain(q, k, prolog, prolog_k), reps=max(reps, 10))
+    _report(records, "qk_prolog_" + suffix, dtype, tuple(q.shape), err, ok, tol, ms, plain_ms, bound)
+    device_ms = _device_ms(lambda: qk_prolog(q, k, prolog, prolog_k), "qk_prolog_kernel", flush_l2=True)
+    records[-1].update(device_ms=device_ms, values_that_differ=differ if q.dtype == torch.bfloat16 else None)
+    share = "not measured" if device_ms is None else f"{bound[0] / device_ms:.1%} of its bound"
+    print(f"[B]   qk_prolog_{suffix} {dtype} {tuple(q.shape)}: device time a launch "
+          f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'} (torch.profiler, L2 flushed before "
+          f"each launch; {share})"
+          + (f"; {differ} of {total} values differ from the plain version (norm-rounding ties, at most two bf16 "
+             f"steps of their row's largest)" if q.dtype == torch.bfloat16 else ""), flush=True)
+
+
+def _prolog_kernel_cases(records, gen, transform_record=True, combinations=PROLOG_MODES) -> None:
     """The five combinations at the CogVideoX 9-frame shape, and RMS norm +
     RoPE at the Hunyuan 9-frame joint shape with ``kv_len``, bf16 and fp32."""
     import torch
@@ -1026,10 +1132,11 @@ def _prolog_kernel_cases(records, gen) -> None:
     _set_tf32(False, False)
     s_hy = HY_VIDEO_TOKENS[9] + HY_TEXT_LEN
     for dtype in (torch.bfloat16, torch.float32):
-        for mode, has_rope, stable, prolog_k in PROLOG_MODES:
-            _prolog_case(records, (2, 48, 4276, 64), dtype, gen, mode, has_rope, stable, prolog_k)
+        for mode, has_rope, stable, prolog_k in combinations:
+            _prolog_case(records, (2, 48, 4276, 64), dtype, gen, mode, has_rope, stable, prolog_k,
+                         transform_record=transform_record)
         _prolog_case(records, (1, 24, s_hy, 128), dtype, gen, "rms", True, False, True,
-                     kv_len=[HY_VIDEO_TOKENS[9] + HY_TEXT_KEYS])
+                     kv_len=[HY_VIDEO_TOKENS[9] + HY_TEXT_KEYS], transform_record=transform_record)
         torch.cuda.empty_cache()
 
 
@@ -1092,7 +1199,9 @@ def phase_dense_flash() -> None:
     frames, qk_prep in bf16 at the shipped and 9-frame CogVideoX shapes, the
     int8 kernel in bf16 in both modes at the shipped CogVideoX and Wan
     self-attention shapes, the dense flash calls of phase B at head dims 64 and 128, the
-    fp32 CLIP calls, and the training kernels (LSE, dq, dkv) at the 49-frame
+    fp32 CLIP calls, the qk prolog calls of phase B at the CogVideoX (LayerNorm
+    + RoPE) and Hunyuan (RMS norm + RoPE, ``kv_len``) 9-frame shapes in bf16 and
+    fp32, and the training kernels (LSE, dq, dkv) at the 49-frame
     CogVideoX and 9-frame Wan self-attention shapes in bf16 and fp32, for
     timing two trees against each other on one card."""
     import torch
@@ -1117,6 +1226,7 @@ def phase_dense_flash() -> None:
     _attn_case(records, "flash_clip", (1, 16, 257, 80), torch.float32, gen, 80 ** -0.5, True, reps=20)
     _attn_case(records, "flash_clip_text_causal", (1, 12, 77, 64), torch.float32, gen, 64 ** -0.5, True,
                causal=True, reps=20)
+    _prolog_kernel_cases(records, gen, transform_record=False, combinations=[("layer", True, False, True)])
     for dtype in (torch.bfloat16, torch.float32):
         _attn_bwd_case(records, "dit", (1, 48, 17776, 64), dtype, gen, 64 ** -0.5, reps=1)
         _attn_bwd_case(records, "wan_self", (1, 40, 4680, 128), dtype, gen, 128 ** -0.5)
@@ -1271,10 +1381,10 @@ class _StageTimer:
 def _kernel_counters() -> dict:
     """{kernel name: (dict, key) of its launch count}. A forward launch is
     counted twice: as a launch of the forward wrapper, and under the route
-    its wrapper took (tensor cores, CUDA cores or qk prolog); one that wrote
-    the LSE also under that name. Likewise a dq, dkv or int8 launch, under
-    its route."""
-    from alg_tpu_torch.ops.flash_attention import flash_attention
+    its wrapper took (tensor cores or CUDA cores); one that wrote the LSE
+    also under that name. Likewise a dq, dkv or int8 launch, under its
+    route. The qk prolog kernel has its own count."""
+    from alg_tpu_torch.ops.flash_attention import flash_attention, qk_prolog
     from alg_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
     from alg_tpu_torch.ops.qk_prep import qk_norm_rope
@@ -1285,7 +1395,7 @@ def _kernel_counters() -> dict:
     return {"qk_prep": (qk_norm_rope.__dict__, "launches"), "rope_interleaved": (rope_interleaved.__dict__, "launches"),
             "flash_attention": (flash_attention.__dict__, "launches"),
             "flash_attention_lse": (flash_attention.__dict__, "residual_launches"),
-            "flash_attention_prolog": (fwd, "prolog"), "flash_attention_tc": (fwd, "tc"),
+            "qk_prolog": (qk_prolog.__dict__, "launches"), "flash_attention_tc": (fwd, "tc"),
             "flash_attention_cuda_core": (fwd, "cuda_core"),
             "flash_attention_bwd_dq": (flash_attention_bwd_dq.__dict__, "launches"),
             "flash_attention_bwd_dq_tc": (dq, "tc"), "flash_attention_bwd_dq_cuda_core": (dq, "cuda_core"),
@@ -1298,14 +1408,14 @@ def _kernel_counters() -> dict:
 
 # what a path with the int8 mode off and no caller of the qk prolog leaves at zero
 _NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_int8_tc": 0, "flash_attention_int8_cuda_core": 0,
-              "flash_attention_prolog": 0}
+              "qk_prolog": 0}
 # what a sampling path in bf16 leaves at zero: it takes no gradient either
 _NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dq_tc": 0,
                 "flash_attention_bwd_dq_cuda_core": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_tc": 0,
                 "flash_attention_bwd_dkv_cuda_core": 0, **_NO_OPT_IN}
 # what an fp32 path leaves at zero: the tensor-core kernels take bf16 only
 _NO_TENSOR_CORES = {"flash_attention_tc": 0, "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dkv_tc": 0}
-# what a bf16 path leaves at zero: without a prolog no bf16 call reaches a CUDA-core forward, dq or dkv kernel
+# what a bf16 path leaves at zero: no bf16 call reaches a CUDA-core forward, dq or dkv kernel
 _NO_CUDA_CORES = {"flash_attention_cuda_core": 0, "flash_attention_bwd_dq_cuda_core": 0,
                   "flash_attention_bwd_dkv_cuda_core": 0}
 
@@ -1844,7 +1954,7 @@ def phase_prolog_entry() -> dict:
     torch.cuda.synchronize()
     counts = _read_counts()
     want = {name: 0 for name in counts}
-    want.update(flash_attention=2, flash_attention_prolog=2)
+    want.update(flash_attention=2, flash_attention_tc=2, qk_prolog=2)  # no CUDA-core forward
     for (mode, shape, _), (q, k, v, pro, lens), out in zip(cases, inputs, outs):
         if mode == "layer":
             q2, k2 = (qk_norm_rope(x, pro[f"{n}_scale"], pro[f"{n}_bias"], pro["cos"], pro["sin"], 1e-6)
@@ -2453,9 +2563,10 @@ _KERNELS = {
                                 "bfloat16", "flash_attention_int8_tc"),
     "flash_attention_int8": ("alg_tpu_torch/csrc/flash_attention_int8.cu", "alg_tpu/ops/flash_attention_int8.py:109",
                              "flash_int8_qk_dit", [2, 48, 4276, 64], "float32", "flash_attention_int8_cuda_core"),
-    # the forward kernel's qk-prolog variant (a compile unit of its own): LayerNorm + RoPE at the CogVideoX shape
-    "flash_attention_prolog": ("alg_tpu_torch/csrc/flash_attention_prolog.cu", "alg_tpu/ops/flash_attention.py:98",
-                               "flash_prolog_layer_rope", [2, 48, 4276, 64], "bfloat16", "flash_attention_prolog"),
+    # the qk prolog kernel, the transform of the forward kernel's prolog variant: LayerNorm + RoPE at the
+    # CogVideoX shape; the prolog calls (prolog kernel and forward) ride along
+    "qk_prolog": ("alg_tpu_torch/csrc/qk_prolog.cu", "alg_tpu/ops/flash_attention.py:138", "qk_prolog_layer_rope",
+                  [2, 48, 4276, 64], "bfloat16", "qk_prolog"),
 }
 # Other variants of a kernel whose phase-B numbers ride along in its record ("also"): the other shapes, the
 # causal calls and the Hunyuan DiT's joint call with kv_len, at the shapes phase C3 launches; for the forward,
@@ -2475,8 +2586,9 @@ _ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES,
          **{name: tuple(f"flash_int8_{mode}_{tag}" for mode in ("qk", "full", "full_bk64")
                         for tag in ("dit", "wan_self", "hunyuan_joint", "kvlen_zero_row"))
             for name in ("flash_attention_int8_tc", "flash_attention_int8")},
-         "flash_attention_prolog": ("flash_prolog_layer_rope", "flash_prolog_rms_rope_stable", "flash_prolog_rope",
-                                    "flash_prolog_layer", "flash_prolog_layer_rope_q_only", "flash_prolog_rms_rope")}
+         "qk_prolog": tuple(f"{kind}_prolog_{suffix}" for kind in ("qk", "flash")
+                            for suffix in ("layer_rope", "rms_rope_stable", "rope", "layer", "layer_rope_q_only",
+                                           "rms_rope"))}
 _ONE_TYPE = ("flash_attention_tc", "flash_attention", "flash_attention_bwd_dq_tc", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv", "flash_attention_int8_tc", "flash_attention_int8")
 
@@ -2489,7 +2601,8 @@ def _kernel_json(records, counts_by_path) -> dict:
         by_path = {path: counts[count] for path, counts in counts_by_path.items()}
         also = [{key: r[key] for key in ("name", "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "drift_mean", "drift_max", "quantizers_ms",
-                                         "bf16_flash_ms", "unfused_ms", "flash_alone_ms", "device_ms") if key in r}
+                                         "bf16_flash_ms", "unfused_ms", "flash_alone_ms", "device_ms",
+                                         "prolog_device_ms", "forward_device_ms", "values_that_differ") if key in r}
                 for case_name in _ALSO.get(name, ()) for r in records
                 if r["name"] == case_name and r is not rec and (name not in _ONE_TYPE or r["dtype"] == dtype)]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2552,7 +2665,7 @@ def main() -> int:
                               ("agreement_cogvideox_int8_qk", ("qk_prep", "flash_attention_int8_cuda_core")),
                               ("agreement_cogvideox_int8_full", ("qk_prep", "flash_attention_int8_cuda_core")),
                               ("agreement_hunyuan_int8_full", ("rope_interleaved", "flash_attention_int8_cuda_core")),
-                              ("prolog_entry", ("flash_attention_prolog",)),
+                              ("prolog_entry", ("qk_prolog", "flash_attention_tc")),
                               ("train_cogvideox", ("qk_prep", "flash_attention_tc", "flash_attention_lse",
                                                    "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
                               ("train_agreement_fp32", ("flash_attention_cuda_core", "flash_attention_bwd_dq_cuda_core",

@@ -19,14 +19,19 @@ routes and launch counts, the route through ``set_attention_int8`` and what
 it refuses, and the flash kernel's qk prolog
 (five combinations of norm, RoPE, ``stable`` and ``prolog_k`` at three head
 dims, alone and with ``kv_len`` and ``causal``, and through
-``attention(prolog=...)`` with and without a gradient); and the bf16
+``attention(prolog=...)`` with and without a gradient; the ``qk_prolog``
+kernel alone at ragged S and head counts across its row tiles and head
+chunks, each norm, each head dim, both types, bit-equal to its plain
+version in bf16 but for norm-rounding ties; the bf16 prolog call on the
+tensor cores); and the bf16
 tensor-core kernels (S = 1, 63, 65, 127, 129 and 4,276, Sq != Sk both ways,
 ``kv_len`` at 0, 1, either side of a 64-key tile and S, causal with Sq > Sk
 and Sq < Sk, a bias at both batch strides, ``stable`` with logits near ±100
-whose maximum moves in every key tile, D = 80, the LSE; dq and dkv at
+whose maximum moves in every key tile, D = 80, the LSE, and the LSE held to
+the denominator of the TPU kernel at each head dim; dq and dkv at
 ragged Sq and Sk with ``kv_len`` and causal), a bf16 gradient through a small
 DiT card against CPU, the routes and the CUDA-core entry points' refusal of
-bf16; and the register-tiled fp32 forward, dq and dkv kernels at the edges
+bf16 (the int8 one's too); and the register-tiled fp32 forward, dq and dkv kernels at the edges
 of their tiles (S = 63, 64, 65 and a key tile ± 1; Sq = 1; ``kv_len`` 0, 1,
 a key tile and one more; causal with Sq < Sk and Sq > Sk; a bias at both
 batch strides with ``stable`` both ways; D = 80; the LSE; each block height
@@ -440,6 +445,25 @@ def _assert_close_grad(out, ref, dtype):
     torch.testing.assert_close(out.float().cpu(), ref.float().cpu(), atol=atol, rtol=rtol)
 
 
+def _assert_lse_close(lse, q, k, scale, bias, kv_len, causal, stable):
+    """The forward's LSE within 1e-4 (base-2 units) of its plain version on
+    the rows that see a key, with -inf on the same rows. The plain version
+    is the kernel's denominator: for bf16 (the tensor-core forward)
+    ``tensor_core_lse_plain``, the TPU kernel's, which at D = 64 and 80 sums
+    the bf16-rounded p, so a p on a rounding tie may round the other way in
+    the kernel and add that function's ``tie`` to the bound; for fp32
+    ``attention_plain_residuals``."""
+    if q.dtype == torch.bfloat16:
+        ref, tie = FA.tensor_core_lse_plain(q, k, scale, bias, kv_len, causal, stable)
+    else:
+        ref, tie = FA.attention_plain_residuals(q, k, k, scale, bias, kv_len, causal)[1], 0.0
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref))
+    seen = torch.isfinite(ref)
+    excess = (lse - ref).abs() - (1e-4 + torch.as_tensor(tie, device=lse.device))
+    assert not bool((excess[seen] > 0).any()), f"LSE out by {float(excess[seen].max()):.3e} beyond its bound"
+    return seen
+
+
 BWD_CASES = {
     # name: (b, h, sq, sk, causal, kv_len, stable)
     "ragged-331x203": (2, 3, 331, 203, False, None, False),
@@ -456,9 +480,9 @@ BWD_CASES = {
 @pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 def test_lse_and_backward_kernels_match_plain(cuda, case, d, dtype):
-    """The LSE within 1e-4 (base-2 units) with -inf on the same rows; dq, dk
-    and dv within the attention tolerance above, exactly 0 where no key or no
-    query reaches."""
+    """The LSE within 1e-4 (base-2 units) of the kernel's denominator with
+    -inf on the same rows (``_assert_lse_close``); dq, dk and dv within the
+    attention tolerance above, exactly 0 where no key or no query reaches."""
     from alg_tpu_torch.ops import flash_attention_bwd as FB
 
     b, h, sq, sk, causal, kv_len, stable = BWD_CASES[case]
@@ -471,10 +495,7 @@ def test_lse_and_backward_kernels_match_plain(cuda, case, d, dtype):
               FB.flash_attention_bwd_dkv.launches)
     out, lse = FA.flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal, return_residuals=True)
     assert torch.equal(out, FA.flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal))
-    ref_out, ref_lse = FA.attention_plain_residuals(q, k, v, scale, None, lens, causal)
-    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
-    seen = torch.isfinite(ref_lse)
-    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-4, rtol=0)
+    seen = _assert_lse_close(lse, q, k, scale, None, lens, causal, stable)
     assert not out[~seen].any()
 
     got = FB.flash_attention_bwd(q, k, v, out, lse, do, scale, causal, lens)
@@ -810,12 +831,13 @@ def test_flash_kernel_with_the_qk_prolog(cuda, mode, has_rope, stable, prolog_k,
         kwargs.update(k_norm_scale=ks if mode else None, k_norm_bias=kb if mode == "layer" else None)
     k_in = k if prolog_k else kr  # the caller brings k transformed when only the q side is fused
     kv_len = torch.tensor([s, 77], dtype=torch.int32, device=cuda)
+    which = FA.route(q)
     for extra in (dict(), dict(kv_len=kv_len), dict(causal=True)):
         by_route = FA.flash_attention.launches_by_route
-        counts = (FA.flash_attention.launches, by_route["prolog"])
+        counts = (FA.flash_attention.launches, by_route[which], FA.qk_prolog.launches)
         out = FA.flash_attention(q, k_in, v, d ** -0.5, stable=stable, **kwargs, **extra)
         torch.cuda.synchronize()
-        assert (FA.flash_attention.launches, by_route["prolog"]) == (counts[0] + 1, counts[1] + 1)
+        assert (FA.flash_attention.launches, by_route[which], FA.qk_prolog.launches) == tuple(n + 1 for n in counts)
         ref = FA.attention_plain(qr, kr, v, d ** -0.5, None, extra.get("kv_len"), extra.get("causal", False))
         if dtype == torch.float32:
             torch.testing.assert_close(out, ref, atol=5e-6, rtol=1e-5)
@@ -824,9 +846,10 @@ def test_flash_kernel_with_the_qk_prolog(cuda, mode, has_rope, stable, prolog_k,
 
 
 def test_attention_prolog_on_the_card(cuda):
-    """``attention(prolog=...)`` launches the prolog variant for a call
-    without a gradient, and with one applies the plain composition and
-    differentiates through the backward kernels; both agree with the CPU."""
+    """``attention(prolog=...)`` launches the qk prolog kernel and then the
+    forward for a call without a gradient, and with one applies the plain
+    composition and differentiates through the backward kernels; both agree
+    with the CPU."""
     from alg_tpu_torch.ops import attention as A
 
     gen = torch.Generator().manual_seed(14)
@@ -837,9 +860,10 @@ def test_attention_prolog_on_the_card(cuda):
               "sin": torch.sin(ang).repeat_interleave(2, -1)}
     on_card = {name: t.to(cuda) if torch.is_tensor(t) else t for name, t in prolog.items()}
     ref = A.attention(q, k, v, stable=False, prolog=prolog)
-    before = FA.flash_attention.launches_by_route["prolog"]
+    before = (FA.qk_prolog.launches, FA.flash_attention.launches_by_route["cuda_core"])
     out = A.attention(q.to(cuda), k.to(cuda), v.to(cuda), stable=False, prolog=on_card)
-    assert FA.flash_attention.launches_by_route["prolog"] == before + 1
+    assert (FA.qk_prolog.launches, FA.flash_attention.launches_by_route["cuda_core"]) == (before[0] + 1,
+                                                                                         before[1] + 1)
     torch.testing.assert_close(out.cpu(), ref, atol=5e-6, rtol=1e-5)
     grads = {}
     for dev in ("cpu", cuda):
@@ -848,7 +872,7 @@ def test_attention_prolog_on_the_card(cuda):
         A.attention(*leaves[:3], stable=False, prolog=pro).square().sum().backward()
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
     # the differentiable call launches no prolog kernel
-    assert FA.flash_attention.launches_by_route["prolog"] == before + 1
+    assert FA.qk_prolog.launches == before[0] + 1
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
@@ -882,8 +906,9 @@ TC_CASES = {
 def test_tensor_core_forward_matches_plain(cuda, case):
     """bf16 without a prolog launches the tensor-core kernel: its output
     within the bf16 attention tolerance of the plain version, its LSE within
-    1e-4 (base-2 units) with -inf on the same rows, zero rows where no key
-    is visible, and the same output with and without the LSE."""
+    1e-4 (base-2 units) of the kernel's denominator with -inf on the same
+    rows (``_assert_lse_close``), zero rows where no key is visible, and the
+    same output with and without the LSE."""
     b, h, sq, sk, d, kv_len, causal, stable, bias_kind = TC_CASES[case]
     gen = torch.Generator().manual_seed(21)
     q = _randn(gen, b, h, sq, d).to(cuda, torch.bfloat16)
@@ -901,10 +926,7 @@ def test_tensor_core_forward_matches_plain(cuda, case):
     assert (FA.flash_attention.launches, FA.flash_attention.launches_by_route["tc"]) == (counts[0] + 2, counts[1] + 2)
     assert torch.equal(out, alone) and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
     _assert_close_flash(out, FA.attention_plain(q, k, v, scale, bias, lens, causal), torch.bfloat16)
-    _, ref_lse = FA.attention_plain_residuals(q, k, v, scale, bias, lens, causal)
-    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
-    seen = torch.isfinite(ref_lse)
-    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-4, rtol=0)
+    seen = _assert_lse_close(lse, q, k, scale, bias, lens, causal, stable)
     assert not out[~seen].any()
 
 
@@ -1049,10 +1071,11 @@ def test_bf16_dit_gradient_card_matches_cpu(cuda):
 
 
 def test_routes_on_the_card(cuda):
-    """fp32 takes the CUDA-core kernels and bf16 with a prolog the prolog
-    kernel, each counted under its route and none as a tensor-core launch;
-    the CUDA-core entry points refuse bf16 outright (cudaErrorInvalidValue),
-    so no bf16 call can land on them unseen."""
+    """fp32 takes the CUDA-core kernels, each counted under its route and
+    none as a tensor-core launch, and bf16 with a prolog the qk prolog kernel
+    and then the tensor-core forward; the CUDA-core entry points refuse bf16
+    outright (cudaErrorInvalidValue), so no bf16 call can land on them
+    unseen."""
     from alg_tpu_torch.ops import flash_attention_bwd as FB
 
     q = torch.randn(1, 2, 40, 64, device=cuda)
@@ -1063,10 +1086,12 @@ def test_routes_on_the_card(cuda):
     FB.flash_attention_bwd_dq(q, q, q, q, lse, FB.row_delta(out, q), 0.125)
     FB.flash_attention_bwd_dkv(q, q, q, q, lse, FB.row_delta(out, q), 0.125)
     ones = torch.ones(64, device=cuda)
+    prologs = FA.qk_prolog.launches
     FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.125, qk_norm="rms", q_norm_scale=ones,
                        k_norm_scale=ones)
     torch.cuda.synchronize()
-    assert fwd == {**counts[0], "cuda_core": counts[0]["cuda_core"] + 1, "prolog": counts[0]["prolog"] + 1}
+    assert fwd == {**counts[0], "cuda_core": counts[0]["cuda_core"] + 1, "tc": counts[0]["tc"] + 1}
+    assert FA.qk_prolog.launches == prologs + 1
     assert dq == {**counts[1], "cuda_core": counts[1]["cuda_core"] + 1}
     assert dkv == {**counts[2], "cuda_core": counts[2]["cuda_core"] + 1}
     x = q.bfloat16()
@@ -1308,3 +1333,143 @@ def test_fp32_dq_tiles_match_plain(cuda, case, rows):
     assert not dq[unseen].any()
     if (kv_len is not None and 0 in kv_len) or (causal and sq > sk):
         assert bool(unseen.any())  # the case reaches rows without a key
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_core_int8_entry_refuses_bf16(cuda, d):
+    """The CUDA-core int8 entry has no bf16 instantiation: a direct bf16 call
+    returns cudaErrorInvalidValue and launches nothing; bf16 int8 attention
+    takes the tensor-core kernel (``flash_attention_int8.route``)."""
+    from alg_tpu_torch.ops import flash_attention_int8 as I8
+
+    x = torch.zeros(1, 2, 64, d, dtype=torch.bfloat16, device=cuda)
+    scales = torch.ones(2, 1, device=cuda)
+    bf16 = FA._build.DTYPE_CODE[torch.bfloat16]
+    rc = I8._entry(d, "cuda_core")(bf16, x.data_ptr(), x.data_ptr(), x.data_ptr(), scales.data_ptr(),
+                                   scales.data_ptr(), None, None, x.data_ptr(), 1, 2, 64, 64, 64, 0,
+                                   torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1  # cudaErrorInvalidValue
+    assert I8.route(x) == "tc"
+
+
+# -- the tensor-core forward's denominator: the TPU kernel's at each head dim ------------------------------------
+
+
+@pytest.mark.parametrize("stable", [False, True], ids=["bounded", "stable"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tensor_core_lse_takes_the_tpu_kernels_denominator(cuda, d, stable):
+    """At D = 64 and 80 the tensor-core forward normalises by the sum of the
+    bf16-rounded p, as the TPU kernel's ones column does, and at D = 128 by
+    the sum of the fp32 p: its LSE lies within 1e-4 (base-2 units) of
+    ``tensor_core_lse_plain``'s log2 of that sum (plus the running max when
+    stable), and a p on a rounding tie adds ``tie``; at D = 64 and 80 its mean
+    distance from that LSE is under a tenth of its distance from the fp32
+    sum's (``attention_plain_residuals``)."""
+    gen = torch.Generator().manual_seed(23 + d + stable)
+    q, k, v = (_randn(gen, 2, 3, 300, d).to(cuda, torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    _, lse = FA.flash_attention(q, k, v, scale, stable=stable, return_residuals=True)
+    torch.cuda.synchronize()
+    _assert_lse_close(lse, q, k, scale, None, None, False, stable)
+    if d % 128:
+        want = FA.tensor_core_lse_plain(q, k, scale, stable=stable)[0]
+        fp32_sum = FA.attention_plain_residuals(q, k, v, scale)[1]
+        err, err_fp32 = (float((lse - ref).abs().mean()) for ref in (want, fp32_sum))
+        assert err < 0.1 * err_fp32, f"mean |LSE diff|: the rounded sum's {err:.3e}, the fp32 sum's {err_fp32:.3e}"
+
+
+# -- the qk prolog kernel: csrc/qk_prolog.cu ---------------------------------------------------------------------
+
+QK_PROLOG_MODES = {"layer-rope": ("layer", True, True), "rms-rope": ("rms", True, True), "rope": (None, True, True),
+                   "layer": ("layer", False, True), "rms": ("rms", False, True),
+                   "layer-rope-q-only": ("layer", True, False)}
+# (b, h, sq, sk): S = 1 and either side of the row tiles (8, 16 or 32 rows a block by type and head dim), B·H
+# either side of the 4 heads in flight and the 8-head chunks; sk != sq only where there is no RoPE
+QK_PROLOG_SHAPES = [(1, 1, 1, 1), (1, 3, 7, 7), (1, 4, 8, 8), (1, 5, 9, 9), (2, 4, 15, 15), (1, 9, 16, 16),
+                    (3, 3, 17, 17), (1, 1, 31, 31), (2, 8, 32, 32), (1, 17, 33, 33), (2, 5, 300, 300)]
+
+
+def _assert_prolog_equal(got, want, dtype):
+    """bf16: bit-equal but where a norm result lies on a rounding tie (the
+    kernel sums the statistics in another order): at most 0.1% of the values
+    (and at least 2) differ, each by at most two bf16 steps of its row's
+    largest magnitude. fp32: atol 5e-6 + rtol 1e-5 (norm statistics in
+    another order)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=5e-6, rtol=1e-5)
+        return
+    differ = got != want
+    assert int(differ.sum()) <= max(2, differ.numel() // 1000), f"{int(differ.sum())} of {differ.numel()} differ"
+    step = 2.0 * BF16_STEP * want.float().abs().amax(-1, keepdim=True)
+    assert bool(((got.float() - want.float()).abs() <= step).all())
+
+
+@pytest.mark.parametrize("mode", list(QK_PROLOG_MODES))
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_qk_prolog_kernel_matches_plain(cuda, mode, d, dtype):
+    """``qk_prolog`` against ``apply_prolog_plain`` on the card at every shape
+    of ``QK_PROLOG_SHAPES`` (without RoPE also with Sk != Sq), one launch a
+    call for q and k together; k comes back as it went with ``prolog_k=False``."""
+    norm, rope, prolog_k = QK_PROLOG_MODES[mode]
+    gen = torch.Generator().manual_seed(24 + d)
+    shapes = QK_PROLOG_SHAPES + ([] if rope else [(2, 3, 33, 70), (1, 9, 70, 1)])
+    for b, h, sq, sk in shapes:
+        q = (_randn(gen, b, h, sq, d) + 0.5).to(cuda, dtype)
+        k = (_randn(gen, b, h, sk, d) - 0.5).to(cuda, dtype)
+        ang = torch.rand(sq, d // 2, generator=gen) * 6.28
+        pro = {"norm": norm, "eps": 1e-6, **{name: (1.0 + 0.1 * _randn(gen, d)).to(cuda)
+                                            for name in ("q_scale", "q_bias", "k_scale", "k_bias")}}
+        if rope:
+            pro["cos"], pro["sin"] = (f(ang).repeat_interleave(2, -1).contiguous().to(cuda) for f in (torch.cos, torch.sin))
+        before = FA.qk_prolog.launches
+        got = FA.qk_prolog(q, k, pro, prolog_k)
+        torch.cuda.synchronize()
+        assert FA.qk_prolog.launches == before + 1
+        want = FA.apply_prolog_plain(q, k, pro, prolog_k)
+        _assert_prolog_equal(got[0], want[0], dtype)
+        if prolog_k:
+            _assert_prolog_equal(got[1], want[1], dtype)
+        else:
+            assert got[1] is k
+
+
+def test_qk_prolog_refuses_what_the_kernel_does_not_take(cuda):
+    """On the card the wrapper raises instead of launching or falling back."""
+    q = torch.zeros(1, 2, 8, 64, device=cuda)
+    pro = {"norm": "rms", "eps": 1e-6, "q_scale": torch.ones(64, device=cuda), "k_scale": torch.ones(64, device=cuda)}
+    before = FA.qk_prolog.launches
+    with pytest.raises(TypeError):
+        FA.qk_prolog(q.half(), q.half(), pro)
+    with pytest.raises(ValueError):
+        FA.qk_prolog(q, q, {**pro, "k_scale": torch.ones(64)})  # on the CPU
+    with pytest.raises(ValueError):
+        FA.qk_prolog(q, q, {**pro, "q_scale": torch.ones(65, device=cuda)[1:]})  # misaligned
+    with pytest.raises(RuntimeError):
+        FA.qk_prolog(q.requires_grad_(), q, pro)
+    assert FA.qk_prolog.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_prolog_call_runs_the_tensor_core_forward(cuda, d):
+    """A bf16 call with a prolog is the qk prolog kernel and then the
+    tensor-core forward, which rounds P to bf16 before P·V as the TPU kernel
+    does: bit-equal to the forward without a prolog on ``qk_prolog``'s q and
+    k, and within the bf16 attention tolerance of the plain composition."""
+    gen = torch.Generator().manual_seed(25)
+    q, k, v = (_randn(gen, 2, 3, 200, d).to(cuda, torch.bfloat16) for _ in range(3))
+    ang = torch.rand(200, d // 2, generator=gen) * 6.28
+    cos, sin = (f(ang).repeat_interleave(2, -1).contiguous().to(cuda) for f in (torch.cos, torch.sin))
+    qs, qb, ks, kb = (torch.rand(d, generator=gen).to(cuda) for _ in range(4))
+    pro = {"norm": "layer", "eps": 1e-6, "q_scale": qs, "q_bias": qb, "k_scale": ks, "k_bias": kb, "cos": cos,
+           "sin": sin}
+    counts = (FA.qk_prolog.launches, dict(FA.flash_attention.launches_by_route))
+    out = FA.flash_attention(q, k, v, d ** -0.5, stable=False, qk_norm="layer", q_norm_scale=qs, q_norm_bias=qb,
+                             k_norm_scale=ks, k_norm_bias=kb, rope_cos=cos, rope_sin=sin)
+    torch.cuda.synchronize()
+    assert FA.qk_prolog.launches == counts[0] + 1
+    assert FA.flash_attention.launches_by_route == {**counts[1], "tc": counts[1]["tc"] + 1}
+    assert torch.equal(out, FA.flash_attention(*FA.qk_prolog(q, k, pro), v, d ** -0.5, stable=False))
+    qr, kr = FA.apply_prolog_plain(q, k, pro)
+    _assert_close_flash(out, FA.attention_plain(qr, kr, v, d ** -0.5), torch.bfloat16)

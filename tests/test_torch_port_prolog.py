@@ -1,11 +1,14 @@
 """The flash kernel's qk prolog on the CPU against the JAX package's.
 
 The prolog is a per-head LayerNorm or RMS norm of q and k followed by
-interleaved RoPE, applied inside the attention kernel on the card. The JAX
-package's Pallas form has no interpret switch, so the JAX side here is what
-its own test holds that kernel to: ``_apply_prolog_xla`` followed by
-``_xla_attention``. The port side is ``flash_attention`` with the prolog
-arguments and ``attention(prolog=...)`` on CPU tensors, which run
+interleaved RoPE; on the card ``qk_prolog`` applies it in one launch of its
+own ahead of the attention kernel. The JAX side here is what its own test
+holds that kernel to, ``_apply_prolog_xla`` followed by ``_xla_attention``,
+and the transform inside the JAX kernel itself
+(``alg_tpu/ops/flash_attention.py:138-155``), run in interpret mode with
+the prolog against the same kernel without one on the port's transformed q
+and k. The port side is ``flash_attention`` with the prolog arguments,
+``qk_prolog`` and ``attention(prolog=...)`` on CPU tensors, which run
 ``apply_prolog_plain`` and the plain attention. fp32, atol 5e-6, the JAX
 test's own bound: the same ops in another order (norms over 64 or 128 values,
 softmax sums over 300 keys). Gradients against ``jax.grad`` of the JAX
@@ -23,6 +26,8 @@ from alg_tpu.ops.attention import _apply_prolog_xla, _xla_attention
 
 from alg_tpu_torch.ops import attention as A
 from alg_tpu_torch.ops import flash_attention as FA
+
+from test_torch_port_tc import BF16_STEP, interpret_jax_flash
 
 ATOL = 5e-6
 MODES = [("layer", True, False, True), ("rms", True, True, True), (None, True, False, True),
@@ -149,3 +154,105 @@ def test_prolog_arguments_are_checked():
     qs = torch.from_numpy(affines[0])
     out = A.attention(q, k[:, :, :20], v[:, :, :20], prolog={"norm": "rms", "eps": 1e-6, "q_scale": qs, "k_scale": qs})
     assert out.shape == q.shape
+
+
+TRANSFORMS = [("layer", True), ("rms", True), (None, True), ("layer", False), ("rms", False)]
+
+
+@pytest.mark.parametrize("prolog_k", [True, False], ids=["qk", "q-only"])
+@pytest.mark.parametrize("mode,has_rope", TRANSFORMS, ids=["layer-rope", "rms-rope", "rope", "layer", "rms"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_apply_prolog_plain_matches_the_jax_kernels_transform(dtype, d, mode, has_rope, prolog_k, monkeypatch):
+    """``apply_prolog_plain`` against the transform inside ``alg_tpu``'s
+    ``_fwd_kernel``: that kernel in interpret mode with the prolog, against
+    the same kernel without one on the q and k that ``apply_prolog_plain``
+    gives (with ``prolog_k=False`` both take k transformed by the caller).
+    Equal transforms give equal outputs. bf16: bit-equal but where a norm
+    result lies on a rounding tie (the two sum the statistics in another
+    order; a k row on a tie moves every output of its head): at most 1% of
+    the outputs differ, by at most one bf16 step of the largest. fp32: atol
+    5e-6, the same ops in another order."""
+    jax_fwd = interpret_jax_flash(monkeypatch)
+    s = 130  # two query and key blocks of 128, the second ragged
+    q, k, v, cos, sin, affines = _inputs(1, 2, s, d, seed=d + 2 * has_rope + prolog_k)
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    pro = _prolog(mode, has_rope, cos, sin, affines, torch.from_numpy)
+    qr, kr = FA.apply_prolog_plain(tq, tk, pro, prolog_k)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jdt)
+
+    qs, qb, ks, kb = (jnp.asarray(a) for a in affines)
+    kwargs = dict(qk_norm=mode, q_norm_scale=qs if mode else None, q_norm_bias=qb if mode == "layer" else None,
+                  k_norm_scale=ks if mode and prolog_k else None, k_norm_bias=kb if mode == "layer" and prolog_k else None,
+                  rope_cos=jnp.asarray(cos) if has_rope else None, rope_sin=jnp.asarray(sin) if has_rope else None,
+                  prolog_k=prolog_k)
+    common = dict(scale=d ** -0.5, stable=True, block_q=128, block_k=128)
+    fused = jax_fwd(j(tq), j(tk if prolog_k else kr), j(tv), norm_eps=1e-6, **kwargs, **common)
+    bare = jax_fwd(j(qr), j(kr), j(tv), **common)
+    fused, bare = (np.asarray(a.astype(jnp.float32)) for a in (fused, bare))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(bare, fused, atol=ATOL, rtol=0)
+        return
+    differ = fused != bare
+    assert differ.mean() <= 0.01, f"{differ.sum()} of {differ.size} outputs differ"
+    np.testing.assert_allclose(bare, fused, atol=BF16_STEP * np.abs(fused).max(), rtol=0)
+
+
+@pytest.mark.parametrize("prolog_k", [True, False], ids=["qk", "q-only"])
+def test_qk_prolog_takes_the_plain_version_on_the_cpu(prolog_k):
+    """``qk_prolog`` on CPU tensors is ``apply_prolog_plain``, and launches nothing."""
+    q, k, _, cos, sin, affines = _inputs(2, 3, 40, 80, seed=6)
+    pro = _prolog("layer", True, cos, sin, affines, torch.from_numpy)
+    tq, tk = torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16()
+    before = FA.qk_prolog.launches
+    got = FA.qk_prolog(tq, tk, pro, prolog_k)
+    assert FA.qk_prolog.launches == before
+    for g, w in zip(got, FA.apply_prolog_plain(tq, tk, pro, prolog_k)):
+        assert torch.equal(g, w)
+    assert got[1] is tk or prolog_k
+
+
+def _prolog_on(dtype=torch.float32, d=64, sq=40, sk=40, mode="layer", rope=True):
+    """q, k and a prolog of CPU tensors for ``FA._check_prolog``."""
+    q, k = torch.zeros(2, 3, sq, d, dtype=dtype), torch.zeros(2, 3, sk, d, dtype=dtype)
+    pro = {"norm": mode, "eps": 1e-6, **{name: torch.ones(d) for name in ("q_scale", "q_bias", "k_scale", "k_bias")}}
+    if rope:
+        pro["cos"], pro["sin"] = torch.ones(max(sq, sk), d), torch.zeros(max(sq, sk), d)
+    return q, k, pro
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda q, k, p: (q.half(), k.half(), p), "float32 or bfloat16"),
+    (lambda q, k, p: (q, k.bfloat16(), p), "one dtype"),
+    (lambda q, k, p: (q[..., :32].contiguous(), k[..., :32].contiguous(), p), "D in"),
+    (lambda q, k, p: (q, k[:1], p), "D in"),
+    (lambda q, k, p: (q, k, {**p, "norm": "group"}), "unknown prolog norm"),
+    (lambda q, k, p: (q, k, {**p, "sin": None}), "come together"),
+    (lambda q, k, p: (q, k, {**p, "norm": None, "cos": None, "sin": None}), "a norm, RoPE or both"),
+    (lambda q, k, p: (q, k[:, :, :20].contiguous(), p), "self-attention"),
+    (lambda q, k, p: (q, k, {**p, "k_bias": None}), "k_bias"),
+    (lambda q, k, p: (q, k, {**p, "q_scale": torch.ones(32)}), "q_scale"),
+    (lambda q, k, p: (q, k, {**p, "cos": p["cos"][:20]}), "cos"),
+    (lambda q, k, p: (q, k, {**p, "sin": p["sin"].double()}), "sin"),
+    (lambda q, k, p: (q.new_zeros(2, 3, 64, 40).transpose(2, 3), k, p), "contiguous"),
+    (lambda q, k, p: (q, k, {**p, "cos": torch.ones(41 * 64 + 1)[1:].view(41, 64)}), "16-byte aligned"),
+], ids=["half", "mixed", "d32", "batch", "norm", "half-table", "nothing", "cross-rope", "k-bias", "scale-shape",
+        "short-table", "table-dtype", "strided", "misaligned"])
+def test_qk_prolog_checks_what_the_kernel_takes(change, match):
+    """What ``csrc/qk_prolog.cu`` does not take raises before a launch; a
+    norm alone takes q and k of different lengths, and without ``prolog_k``
+    the k affines are not read."""
+    q, k, pro = change(*_prolog_on())
+    with pytest.raises((TypeError, ValueError), match=match):
+        FA._check_prolog(q, k, pro, True)
+
+
+def test_qk_prolog_check_passes_what_the_kernel_takes():
+    q, k, pro = _prolog_on(sq=33, sk=70, rope=False)
+    assert FA._check_prolog(q, k, pro, True)[4:] == [None, None]
+    q, k, pro = _prolog_on(torch.bfloat16, d=80, mode="rms")
+    wanted = FA._check_prolog(q, k, {**pro, "k_scale": None, "q_bias": None}, False)
+    assert [t is None for t in wanted] == [False, True, True, True, False, False]

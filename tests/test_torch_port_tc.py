@@ -1,7 +1,9 @@
 """The tensor-core attention kernels' surroundings on the CPU: which calls
 the wrappers route to them, that the build compiles them, the plain
 version of the backward arithmetic they follow in bf16, against the JAX
-package, and a numpy model of the int8 kernel's fragment layout.
+package, a torch model of the forward's softmax arithmetic (its denominator)
+against the JAX package's forward kernel, and a numpy model of the int8
+kernel's fragment layout.
 
 The kernels themselves (``csrc/flash_attention_tc.cu``,
 ``csrc/flash_attention_bwd_dq_tc.cu``, ``csrc/flash_attention_bwd_tc.cu``,
@@ -14,6 +16,7 @@ products that make dq, dk and dv, so the two differ only in the order of
 fp32 sums and in the rounding of the outputs to bf16. Tolerance: one bf16
 step at each output's largest magnitude (atol = max|ref| · 2**-7, rtol 0)."""
 
+import functools
 import re
 import types
 
@@ -23,6 +26,7 @@ import torch
 
 import jax.numpy as jnp
 
+from alg_tpu.ops import flash_attention as JFA
 from alg_tpu.ops.flash_attention_bwd import flash_attention_bwd as jax_flash_attention_bwd
 
 from alg_tpu_torch.ops import _build
@@ -45,11 +49,14 @@ def _on(device, dtype):
     ("cpu", torch.float32, True, "plain"),
     ("cuda", torch.bfloat16, False, "tc"),
     ("cuda", torch.float32, False, "cuda_core"),
-    ("cuda", torch.bfloat16, True, "prolog"),
-    ("cuda", torch.float32, True, "prolog"),
+    ("cuda", torch.bfloat16, True, "tc"),
+    ("cuda", torch.float32, True, "cuda_core"),
 ], ids=["cpu-bf16", "cpu-fp32-prolog", "cuda-bf16", "cuda-fp32", "cuda-bf16-prolog", "cuda-fp32-prolog"])
 def test_forward_route(device, dtype, prolog, want):
-    """Only a CUDA bf16 call without a qk prolog takes the tensor-core kernel."""
+    """Every CUDA bf16 call takes the tensor-core kernel, every fp32 one the
+    CUDA-core kernel: a qk prolog runs as a launch of its own ahead of the
+    forward (``qk_prolog``), so a bf16 call with one rounds P to bf16 before
+    P·V as the TPU kernel does."""
     assert FA.route(_on(device, dtype), prolog) == want
 
 
@@ -91,19 +98,22 @@ def test_each_route_names_an_entry_point_of_the_sources():
     """Every C entry point the wrappers can reach is defined in a source, one per head dim."""
     defined = "".join(p.read_text() for p in _build._sources()[0])
     for names, macro in ((FA._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"), (FB._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"),
-                         (I8._ENTRY_NAMES, "ALG_INT8_HEAD_DIM")):
+                         (I8._ENTRY_NAMES, "ALG_INT8_HEAD_DIM"), ({"prolog": FA.PROLOG_ENTRY_NAME}, "ALG_QK_HEAD_DIM")):
         for name in names.values():
             stem = name.format(d="")
             assert f"ALG_CAT({stem}, {macro})" in defined, stem
 
 
 def test_only_the_prolog_unit_includes_the_cuda_core_forward_body():
-    """The fp32 forward has its own register-tiled kernel: ``flash_attention.cu``
-    no longer includes ``flash_attention.cuh``, whose body serves the prolog
-    unit alone; the fp32 forward and dkv share ``flash_simt.cuh``."""
-    includes = {p.name: re.findall(r'^#include "([^"]+)"', p.read_text(), re.MULTILINE)
-                for p in [*_build._sources()[0], *_build._sources()[1]]}
-    assert [name for name, inc in includes.items() if "flash_attention.cuh" in inc] == ["flash_attention_prolog.cu"]
+    """The CUDA-core forward body ``flash_attention.cuh`` and the unit of the
+    in-kernel prolog over it are gone: no source includes them, the qk prolog
+    is a unit of its own (``qk_prolog.cu``) that includes no attention body,
+    and the fp32 forward, dq and dkv share ``flash_simt.cuh``."""
+    sources = [*_build._sources()[0], *_build._sources()[1]]
+    includes = {p.name: re.findall(r'^#include "([^"]+)"', p.read_text(), re.MULTILINE) for p in sources}
+    retired = {"flash_attention.cuh", "flash_attention_prolog.cu"}
+    assert not retired & set(includes) and not [name for name, inc in includes.items() if retired & set(inc)]
+    assert includes["qk_prolog.cu"] == ["common.cuh"]
     assert "flash_simt.cuh" in includes["flash_attention.cu"]
     assert "flash_simt.cuh" in includes["flash_attention_bwd.cu"]
 
@@ -119,6 +129,105 @@ def test_compile_units_list_the_tensor_core_units(src, macro, dims):
     for d in dims:
         assert units[f"{src}.{macro}_{d}"] == (f"-D{macro}={d}",)
     assert "mma.cuh" in {p.name for p in _build._sources()[1]}
+
+
+def test_cuda_core_int8_unit_has_no_bf16_instantiation():
+    """bf16 int8 attention runs on the tensor cores (``flash_attention_int8_tc.cu``);
+    the CUDA-core unit instantiates fp32 alone, so its entry returns
+    cudaErrorInvalidValue for bf16 as the other CUDA-core entries do."""
+    src = (_build.SOURCE_DIR / "flash_attention_int8.cu").read_text()
+    assert "__nv_bfloat16" not in src and "kBFloat16" not in src
+    assert re.search(r"case alg::kFloat32:\s*return \(int\)launch<float>", src)
+
+
+class _InterpretPallas:
+    """``jax.experimental.pallas`` as a module of the JAX package sees it, but
+    with every ``pallas_call`` in interpret mode."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def pallas_call(self, *args, **kwargs):
+        return self._real.pallas_call(*args, interpret=True, **kwargs)
+
+
+def interpret_jax_flash(monkeypatch):
+    """``alg_tpu``'s flash forward with its Pallas kernel in interpret mode,
+    for the calling test only: the JAX function has no interpret switch, so
+    its module's ``pl`` gives way to :class:`_InterpretPallas` (undone after
+    the test) and the function runs without its ``jax.jit`` wrapper, whose
+    cache would outlive the swap."""
+    monkeypatch.setattr(JFA, "pl", _InterpretPallas(JFA.pl))
+    return JFA.flash_attention.__wrapped__
+
+
+def _tc_forward_model(q, k, v, scale, stable, block_k, rounded_sum):
+    """The tensor-core forward's arithmetic (``csrc/flash_attention_tc.cu``)
+    in torch over blocks of ``block_k`` keys: fp32 logits of the bf16 inputs
+    times scale·log2e; p = exp2(logit − running max) when ``stable`` (the
+    accumulators rescaled as the max moves), else exp2(logit); P rounded to
+    bf16 before an fp32-accumulated P·V; the denominator the sum of the
+    rounded p (``rounded_sum``) or of the fp32 p. Returns the output rounded
+    to bf16 and the base-2 LSE, as numpy fp32."""
+    q, k, v = (torch.from_numpy(a).float() for a in (q, k, v))
+    logits = torch.matmul(q, k.transpose(-1, -2)) * (scale * FA.LOG2E)
+    shape = q.shape[:-1] + (1,)
+    acc, l, m = torch.zeros(q.shape), torch.zeros(shape), torch.full(shape, -float("inf"))
+    for k0 in range(0, k.shape[2], block_k):
+        s = logits[..., k0:k0 + block_k]
+        alpha = torch.ones(shape)
+        if stable:
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha, m = torch.exp2(m - m_new), m_new
+            s = s - m
+        p = torch.exp2(s)
+        p_bf16 = p.bfloat16().float()
+        acc = acc * alpha + torch.matmul(p_bf16, v[..., k0:k0 + block_k, :])
+        l = l * alpha + (p_bf16 if rounded_sum else p).sum(-1, keepdim=True)
+    lse = torch.log2(l) + (m if stable else 0.0)
+    return (acc / l).bfloat16().float().numpy(), lse[..., 0].numpy()
+
+
+@pytest.mark.parametrize("stable", [False, True], ids=["bounded", "stable"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tc_forward_denominator_matches_the_jax_kernel(d, stable, monkeypatch):
+    """The denominator the tensor-core forward takes, against ``alg_tpu``'s
+    ``_fwd_kernel`` in interpret mode (``block_q`` = ``block_k`` = 128, two
+    key blocks, so that the running max moves): at D = 64 and 80 that kernel
+    sums the rows through a ones column appended to V, the sum of the
+    bf16-rounded p; at D = 128 it sums the fp32 p. The torch model of the
+    kernel's arithmetic with the denominator of its head dim is closer to the
+    JAX kernel than the model with the other one: fewer outputs that differ,
+    no larger max |diff|, a closer LSE (both stated on failure); and within
+    one bf16 step of the outputs' largest magnitude and 1e-3 of the LSE
+    (base-2 units): the two exp2s differ in the last bit, so a p on a bf16
+    rounding tie may round the other way and move its row's sum by one bf16
+    step of itself."""
+    jax_fwd = interpret_jax_flash(monkeypatch)
+    r = np.random.RandomState(d + stable)
+    q, k, v = (torch.from_numpy(r.randn(1, 2, 256, d).astype(np.float32)).bfloat16().float().numpy()
+               for _ in range(3))
+    out, lse = jax_fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), scale=d ** -0.5, stable=stable,
+                       block_q=128, block_k=128, return_residuals=True)
+    out, lse = np.asarray(out.astype(jnp.float32)), np.asarray(lse)
+    found = {}
+    for rounded_sum in (True, False):
+        o, ls = _tc_forward_model(q, k, v, d ** -0.5, stable, 128, rounded_sum)
+        diff = np.abs(o - out)
+        found[rounded_sum] = (int((diff > 0).sum()), float(diff.max()), float(np.abs(ls - lse).max()))
+    want, other = found[d % 128 != 0], found[d % 128 == 0]
+    said = f"(outputs that differ, max|diff|, max|LSE diff|): this head dim's sum {want}, the other sum {other}"
+    assert want[0] < other[0] and want[1] <= other[1] and want[2] < other[2], said
+    assert want[1] <= BF16_STEP * np.abs(out).max() and want[2] < 1e-3, said
+    # the port's plain version of the kernel's LSE, over the JAX kernel's 128-key blocks: within 1e-4 but for
+    # the p on a rounding tie that its `tie` bounds
+    port, tie = FA.tensor_core_lse_plain(torch.from_numpy(q), torch.from_numpy(k), d ** -0.5, stable=stable,
+                                         key_tile=128)
+    excess = np.abs(port.numpy() - lse) - tie.numpy() - 1e-4
+    assert excess.max() <= 0, f"LSE out by {excess.max():.3e} beyond its bound"
 
 
 def _int8_a_operand(codes):

@@ -140,7 +140,7 @@ def time_one(name: str) -> None:
 
     print(c._card_line(), flush=True)
     path = _build.build()
-    for line in c._fp32_kernel_resources(path.with_suffix(".log").read_text()):
+    for line in c._kernel_resources(path.with_suffix(".log").read_text()):
         print(line.split(" _Z")[0], line.split(":")[-1])
     for kernel, counts in sass_mix(path).items():
         floats = 4 * counts["LDS.128"] + 2 * counts["LDS.64"] + counts["LDS.32"]
