@@ -3,8 +3,10 @@
 Same schema and merge semantics as the reference: sections
 ``model.{path,dtype[,flow_shift,flow_reverse]}``, ``generation``, ``alg`` and
 ``video``; pipeline kwargs are ``{**generation, **alg}`` with ``None`` values
-dropped so the pipeline's defaults win. ``yaml`` is imported when a file is
-loaded, so the package imports without PyYAML.
+dropped so the pipeline's defaults win; the model family is a substring of
+``model.path``. ``yaml`` is imported when a file is loaded, so the package
+imports without PyYAML, and :func:`run_config_from_dict` takes a config that
+is already parsed.
 """
 
 from __future__ import annotations
@@ -50,12 +52,28 @@ class RunConfig:
         merged = {**self.generation, **self.alg}
         return {k: v for k, v in merged.items() if v is not None}
 
+    @property
+    def family(self) -> str:
+        """The model family, by a substring of ``model.path``."""
+        if "Wan" in self.model_path:
+            return "wan"
+        if "CogVideoX" in self.model_path:
+            return "cogvideox"
+        if "HunyuanVideo" in self.model_path:
+            return "hunyuan"
+        raise ValueError(f"Cannot infer model family from path {self.model_path!r}")
+
 
 def load_run_config(path: str) -> RunConfig:
+    """The YAML file at ``path`` as a :class:`RunConfig`."""
     import yaml
 
     with open(path, "r") as f:
-        raw = yaml.safe_load(f)
+        return run_config_from_dict(yaml.safe_load(f))
+
+
+def run_config_from_dict(raw: Dict[str, Any]) -> RunConfig:
+    """A parsed config (the YAML file's mapping) as a :class:`RunConfig`."""
     model = raw.get("model", {})
     dtype_str = model.get("dtype", "bfloat16")
     return RunConfig(

@@ -1,0 +1,439 @@
+"""Write random CogVideoX-I2V and Wan2.1-I2V checkpoints in HF repo layout.
+
+The port's counterpart of ``tools/make_tiny_checkpoint.py``'s CogVideoX 1.0
+and Wan writers, at any width and depth: ``transformer/``, ``vae/``,
+``text_encoder/`` (and Wan's ``image_encoder/``), each with its
+``config.json`` and one safetensors shard under the diffusers / transformers
+tensor names, ``tokenizer/`` (a WordLevel ``tokenizer.json`` written as
+plain JSON) and CogVideoX's ``scheduler/``. The widths and depths come from
+a config dict (:data:`TINY_COGVIDEOX`, :data:`COGVIDEOX_5B_I2V`,
+:data:`TINY_WAN`): at the published widths it is a checkpoint that
+:mod:`alg_tpu_torch.io.model_zoo` loads as it would the published one.
+
+Tensors are drawn in order from one ``torch.Generator`` seeded with
+``seed`` on ``device``: linear and conv weights N(0, 1/fan_in), biases and
+tables N(0, 0.02²), embeddings N(0, 1); norm weights are ones and norm
+biases zeros. They are saved in ``dtype`` (bf16 unless asked), as the
+published transformer and text-encoder shards are, one tensor at a time
+through the host. The writers return the tensors they drew, by
+subdirectory and name, on ``device``.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+from typing import Dict, List, Tuple
+
+import torch
+
+from alg_tpu_torch.io.safetensors import save_safetensors
+
+TINY_COGVIDEOX = {
+    "transformer": {
+        "num_attention_heads": 2, "attention_head_dim": 16, "in_channels": 8, "out_channels": 4,
+        "time_embed_dim": 16, "text_embed_dim": 16, "num_layers": 2, "attention_bias": True,
+        "sample_width": 8, "sample_height": 8, "sample_frames": 9, "patch_size": 2, "patch_size_t": None,
+        "max_text_seq_length": 16, "norm_eps": 1e-5, "use_rotary_positional_embeddings": True,
+    },
+    "vae": {
+        "block_out_channels": [8, 16, 16, 16], "latent_channels": 4, "layers_per_block": 1, "norm_num_groups": 4,
+        "norm_eps": 1e-6, "temporal_compression_ratio": 4, "scaling_factor": 0.7, "invert_scale_latents": False,
+    },
+    "text_encoder": {
+        "vocab_size": 64, "d_model": 16, "d_kv": 4, "d_ff": 32, "num_layers": 2, "num_heads": 4,
+        "relative_attention_num_buckets": 8, "relative_attention_max_distance": 16,
+    },
+}
+
+# THUDM/CogVideoX-5b-I2V's published widths and depths (its transformer/, vae/ and text_encoder/ config.json)
+COGVIDEOX_5B_I2V = {
+    "transformer": {
+        "num_attention_heads": 48, "attention_head_dim": 64, "in_channels": 32, "out_channels": 16,
+        "time_embed_dim": 512, "text_embed_dim": 4096, "num_layers": 42, "attention_bias": True,
+        "sample_width": 90, "sample_height": 60, "sample_frames": 49, "patch_size": 2, "patch_size_t": None,
+        "max_text_seq_length": 226, "norm_eps": 1e-5, "use_rotary_positional_embeddings": True,
+    },
+    "vae": {
+        "block_out_channels": [128, 256, 256, 512], "latent_channels": 16, "layers_per_block": 3,
+        "norm_num_groups": 32, "norm_eps": 1e-6, "temporal_compression_ratio": 4, "scaling_factor": 0.7,
+        "invert_scale_latents": False,
+    },
+    "text_encoder": {
+        "vocab_size": 32128, "d_model": 4096, "d_kv": 64, "d_ff": 10240, "num_layers": 24, "num_heads": 64,
+        "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+    },
+}
+
+TINY_WAN = {
+    "transformer": {
+        "num_attention_heads": 2, "attention_head_dim": 12, "in_channels": 12, "out_channels": 4, "num_layers": 2,
+        "ffn_dim": 32, "freq_dim": 16, "text_dim": 16, "image_dim": 16, "patch_size": [1, 2, 2], "eps": 1e-6,
+    },
+    "vae": {
+        "base_dim": 8, "z_dim": 4, "dim_mult": [1, 2, 2, 2], "num_res_blocks": 1,
+        "temperal_downsample": [False, True, True],
+        "latents_mean": [-0.5 + i / 3 for i in range(4)], "latents_std": [1.0 + i / 3 for i in range(4)],
+    },
+    "text_encoder": {
+        "vocab_size": 64, "d_model": 16, "d_kv": 4, "d_ff": 32, "num_layers": 2, "num_heads": 4,
+        "relative_attention_num_buckets": 8, "relative_attention_max_distance": 16,
+    },
+    "image_encoder": {
+        "hidden_size": 16, "intermediate_size": 32, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "image_size": 28, "patch_size": 14, "hidden_act": "gelu",
+    },
+}
+
+COGVIDEOX_SCHEDULER = {
+    "_class_name": "CogVideoXDDIMScheduler", "num_train_timesteps": 1000, "beta_start": 0.00085, "beta_end": 0.012,
+    "beta_schedule": "scaled_linear", "snr_shift_scale": 3.0, "rescale_betas_zero_snr": True,
+    "set_alpha_to_one": True, "timestep_spacing": "trailing", "prediction_type": "v_prediction",
+}
+
+Spec = List[Tuple[str, Tuple[int, ...], str]]  # (tensor name, shape, kind)
+
+
+class _Spec:
+    """The tensors of one shard in the order they are drawn. Kinds: ``w`` a
+    weight (N(0, 1/fan_in), fan_in the product of the dims after the first),
+    ``b`` a bias or table (N(0, 0.02²)), ``e`` an embedding (N(0, 1)),
+    ``1`` and ``0`` a norm's weight and bias."""
+
+    def __init__(self):
+        self.items: Spec = []
+
+    def add(self, name: str, shape, kind: str = "w") -> None:
+        self.items.append((name, tuple(int(d) for d in shape), kind))
+
+    def linear(self, name: str, n_out: int, n_in: int, bias: bool = True) -> None:
+        self.add(f"{name}.weight", (n_out, n_in))
+        if bias:
+            self.add(f"{name}.bias", (n_out,), "b")
+
+    def conv(self, name: str, cin: int, cout: int, *kernel) -> None:
+        self.add(f"{name}.weight", (cout, cin, *kernel))
+        self.add(f"{name}.bias", (cout,), "b")
+
+    def norm(self, name: str, ch: int, bias: bool = True) -> None:
+        self.add(f"{name}.weight", (ch,), "1")
+        if bias:
+            self.add(f"{name}.bias", (ch,), "0")
+
+
+# -- CogVideoX ------------------------------------------------------------------------
+
+
+def cogvideox_transformer_spec(cfg: dict) -> Spec:
+    if cfg.get("patch_size_t") is not None:
+        raise NotImplementedError("CogVideoX 1.5 (patch_size_t) is not ported yet (ROADMAP.md, A-item 3)")
+    s = _Spec()
+    heads, hd = cfg["num_attention_heads"], cfg["attention_head_dim"]
+    dim, te, p = heads * hd, cfg["time_embed_dim"], cfg["patch_size"]
+    s.conv("patch_embed.proj", cfg["in_channels"], dim, p, p)  # 1.0 ships a conv2d patch embed
+    s.linear("patch_embed.text_proj", dim, cfg["text_embed_dim"])
+    s.linear("time_embedding.linear_1", te, dim)
+    s.linear("time_embedding.linear_2", te, te)
+    s.norm("norm_final", dim)
+    s.linear("norm_out.linear", 2 * dim, te)
+    s.norm("norm_out.norm", dim)
+    s.linear("proj_out", p * p * cfg["out_channels"], dim)
+    for i in range(cfg["num_layers"]):
+        b = f"transformer_blocks.{i}"
+        for nm in ("norm1", "norm2"):
+            s.linear(f"{b}.{nm}.linear", 6 * dim, te)
+            s.norm(f"{b}.{nm}.norm", dim)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            s.linear(f"{b}.attn1.{nm}", dim, dim)
+        s.norm(f"{b}.attn1.norm_q", hd)
+        s.norm(f"{b}.attn1.norm_k", hd)
+        s.linear(f"{b}.ff.net.0.proj", 4 * dim, dim)
+        s.linear(f"{b}.ff.net.2", dim, 4 * dim)
+    return s.items
+
+
+def cogvideox_vae_spec(cfg: dict) -> Spec:
+    s = _Spec()
+    boc, z = cfg["block_out_channels"], cfg["latent_channels"]
+
+    def conv3d(name, cin, cout, k=3):
+        s.conv(f"{name}.conv", cin, cout, k, k, k)
+
+    def resnet(name, cin, cout, spatial=False):
+        conv3d(f"{name}.conv1", cin, cout)
+        conv3d(f"{name}.conv2", cout, cout)
+        if spatial:
+            for nm, ch in (("norm1", cin), ("norm2", cout)):
+                s.norm(f"{name}.{nm}.norm_layer", ch)
+                conv3d(f"{name}.{nm}.conv_y", z, ch, k=1)
+                conv3d(f"{name}.{nm}.conv_b", z, ch, k=1)
+        else:
+            s.norm(f"{name}.norm1", cin)
+            s.norm(f"{name}.norm2", cout)
+        if cin != cout:
+            conv3d(f"{name}.conv_shortcut", cin, cout, k=1)
+
+    conv3d("encoder.conv_in", 3, boc[0])
+    ch = boc[0]
+    for i, out in enumerate(boc):
+        for j in range(cfg["layers_per_block"]):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", ch, out)
+            ch = out
+        if i < len(boc) - 1:
+            s.conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", out, out, 3, 3)
+    for j in range(2):
+        resnet(f"encoder.mid_block.resnets.{j}", ch, ch)
+    s.norm("encoder.norm_out", ch)
+    conv3d("encoder.conv_out", ch, 2 * z)
+
+    rev = list(reversed(boc))
+    conv3d("decoder.conv_in", z, rev[0])
+    for j in range(2):
+        resnet(f"decoder.mid_block.resnets.{j}", rev[0], rev[0], spatial=True)
+    ch = rev[0]
+    for i, out in enumerate(rev):
+        for j in range(cfg["layers_per_block"] + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", ch if j == 0 else out, out, spatial=True)
+        ch = out
+        if i < len(rev) - 1:
+            s.conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", out, out, 3, 3)
+    s.norm("decoder.norm_out.norm_layer", ch)
+    conv3d("decoder.norm_out.conv_y", z, ch, k=1)
+    conv3d("decoder.norm_out.conv_b", z, ch, k=1)
+    conv3d("decoder.conv_out", ch, 3)
+    return s.items
+
+
+def t5_spec(cfg: dict, per_layer_bias: bool = False) -> Spec:
+    """T5 (one relative-bias table, in block 0) or UMT5 (one a block)."""
+    s = _Spec()
+    d, inner, heads = cfg["d_model"], cfg["num_heads"] * cfg["d_kv"], cfg["num_heads"]
+    s.add("shared.weight", (cfg["vocab_size"], d), "e")
+    for i in range(cfg["num_layers"]):
+        b = f"encoder.block.{i}"
+        for nm in ("q", "k", "v"):
+            s.linear(f"{b}.layer.0.SelfAttention.{nm}", inner, d, bias=False)
+        s.linear(f"{b}.layer.0.SelfAttention.o", d, inner, bias=False)
+        if per_layer_bias or i == 0:
+            s.add(f"{b}.layer.0.SelfAttention.relative_attention_bias.weight",
+                  (cfg["relative_attention_num_buckets"], heads), "b")
+        s.norm(f"{b}.layer.0.layer_norm", d, bias=False)
+        s.linear(f"{b}.layer.1.DenseReluDense.wi_0", cfg["d_ff"], d, bias=False)
+        s.linear(f"{b}.layer.1.DenseReluDense.wi_1", cfg["d_ff"], d, bias=False)
+        s.linear(f"{b}.layer.1.DenseReluDense.wo", d, cfg["d_ff"], bias=False)
+        s.norm(f"{b}.layer.1.layer_norm", d, bias=False)
+    s.norm("encoder.final_layer_norm", d, bias=False)
+    return s.items
+
+
+# -- Wan --------------------------------------------------------------------------------
+
+
+def wan_transformer_spec(cfg: dict) -> Spec:
+    s = _Spec()
+    dim = cfg["num_attention_heads"] * cfg["attention_head_dim"]
+    pt, ph, pw = cfg["patch_size"]
+    s.conv("patch_embedding", cfg["in_channels"], dim, pt, ph, pw)
+    s.linear("condition_embedder.time_embedder.linear_1", dim, cfg["freq_dim"])
+    s.linear("condition_embedder.time_embedder.linear_2", dim, dim)
+    s.linear("condition_embedder.time_proj", 6 * dim, dim)
+    s.linear("condition_embedder.text_embedder.linear_1", dim, cfg["text_dim"])
+    s.linear("condition_embedder.text_embedder.linear_2", dim, dim)
+    image_dim = cfg.get("image_dim")
+    if image_dim is not None:
+        s.norm("condition_embedder.image_embedder.norm1", image_dim)
+        s.linear("condition_embedder.image_embedder.ff.net.0.proj", image_dim, image_dim)
+        s.linear("condition_embedder.image_embedder.ff.net.2", dim, image_dim)
+        s.norm("condition_embedder.image_embedder.norm2", dim)
+    s.add("scale_shift_table", (1, 2, dim), "b")
+    s.linear("proj_out", pt * ph * pw * cfg["out_channels"], dim)
+    for i in range(cfg["num_layers"]):
+        b = f"blocks.{i}"
+        s.add(f"{b}.scale_shift_table", (1, 6, dim), "b")
+        for an, added in (("attn1", False), ("attn2", image_dim is not None)):
+            for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+                s.linear(f"{b}.{an}.{nm}", dim, dim)
+            s.norm(f"{b}.{an}.norm_q", dim, bias=False)
+            s.norm(f"{b}.{an}.norm_k", dim, bias=False)
+            if added:
+                s.linear(f"{b}.{an}.add_k_proj", dim, dim)
+                s.linear(f"{b}.{an}.add_v_proj", dim, dim)
+                s.norm(f"{b}.{an}.norm_added_k", dim, bias=False)
+        s.norm(f"{b}.norm2", dim)
+        s.linear(f"{b}.ffn.net.0.proj", cfg["ffn_dim"], dim)
+        s.linear(f"{b}.ffn.net.2", dim, cfg["ffn_dim"])
+    return s.items
+
+
+def wan_vae_spec(cfg: dict) -> Spec:
+    s = _Spec()
+    dims = [cfg["base_dim"] * m for m in cfg["dim_mult"]]
+    z = cfg["z_dim"]
+
+    def gamma(name, ch):
+        s.add(f"{name}.gamma", (ch, 1, 1), "1")
+
+    def resnet(name, cin, cout):
+        gamma(f"{name}.norm1", cin)
+        s.conv(f"{name}.conv1", cin, cout, 3, 3, 3)
+        gamma(f"{name}.norm2", cout)
+        s.conv(f"{name}.conv2", cout, cout, 3, 3, 3)
+        if cin != cout:
+            s.conv(f"{name}.conv_shortcut", cin, cout, 1, 1, 1)
+
+    def attention(name, ch):
+        gamma(f"{name}.norm", ch)
+        s.conv(f"{name}.to_qkv", ch, 3 * ch, 1, 1)
+        s.conv(f"{name}.proj", ch, ch, 1, 1)
+
+    def mid(prefix, ch):
+        resnet(f"{prefix}.resnets.0", ch, ch)
+        attention(f"{prefix}.attentions.0", ch)
+        resnet(f"{prefix}.resnets.1", ch, ch)
+
+    s.conv("encoder.conv_in", 3, dims[0], 3, 3, 3)
+    idx, ch = 0, dims[0]
+    for i, out in enumerate(dims):
+        for _ in range(cfg["num_res_blocks"]):
+            resnet(f"encoder.down_blocks.{idx}", ch, out)
+            ch, idx = out, idx + 1
+        if i < len(dims) - 1:
+            s.conv(f"encoder.down_blocks.{idx}.resample.1", out, out, 3, 3)
+            if cfg["temperal_downsample"][i]:
+                s.conv(f"encoder.down_blocks.{idx}.time_conv", out, out, 3, 1, 1)
+            idx += 1
+    mid("encoder.mid_block", ch)
+    gamma("encoder.norm_out", ch)
+    s.conv("encoder.conv_out", ch, 2 * z, 3, 3, 3)
+    s.conv("quant_conv", 2 * z, 2 * z, 1, 1, 1)
+    s.conv("post_quant_conv", z, z, 1, 1, 1)
+    rdims = list(reversed(dims))
+    s.conv("decoder.conv_in", z, rdims[0], 3, 3, 3)
+    mid("decoder.mid_block", rdims[0])
+    idx, ch = 0, rdims[0]
+    up_temporal = list(reversed(cfg["temperal_downsample"]))
+    for i, out in enumerate(rdims):
+        for j in range(cfg["num_res_blocks"] + 1):
+            resnet(f"decoder.up_blocks.{idx}", ch if j == 0 else out, out)
+            ch, idx = out, idx + 1
+        if i < len(rdims) - 1:
+            s.conv(f"decoder.up_blocks.{idx}.resample.1", out, out // 2, 3, 3)
+            if up_temporal[i]:
+                s.conv(f"decoder.up_blocks.{idx}.time_conv", out, out * 2, 3, 1, 1)
+            ch, idx = out // 2, idx + 1
+    gamma("decoder.norm_out", ch)
+    s.conv("decoder.conv_out", ch, 3, 3, 3, 3)
+    return s.items
+
+
+def clip_vision_spec(cfg: dict) -> Spec:
+    s = _Spec()
+    p, d, inter = "vision_model", cfg["hidden_size"], cfg["intermediate_size"]
+    n_pos = (cfg["image_size"] // cfg["patch_size"]) ** 2 + 1
+    s.add(f"{p}.embeddings.class_embedding", (d,), "b")
+    s.add(f"{p}.embeddings.patch_embedding.weight", (d, 3, cfg["patch_size"], cfg["patch_size"]))
+    s.add(f"{p}.embeddings.position_embedding.weight", (n_pos, d), "b")
+    s.norm(f"{p}.pre_layrnorm", d)  # [sic] the HF name
+    s.norm(f"{p}.post_layernorm", d)
+    for i in range(cfg["num_hidden_layers"]):
+        b = f"{p}.encoder.layers.{i}"
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            s.linear(f"{b}.self_attn.{nm}", d, d)
+        s.norm(f"{b}.layer_norm1", d)
+        s.norm(f"{b}.layer_norm2", d)
+        s.linear(f"{b}.mlp.fc1", inter, d)
+        s.linear(f"{b}.mlp.fc2", d, inter)
+    return s.items
+
+
+# -- writing --------------------------------------------------------------------------------
+
+
+def _draw(shape, kind: str, gen: torch.Generator, device) -> torch.Tensor:
+    if kind == "1":
+        return torch.ones(shape, device=device)
+    if kind == "0":
+        return torch.zeros(shape, device=device)
+    std = {"b": 0.02, "e": 1.0}.get(kind) or math.prod(shape[1:]) ** -0.5
+    return torch.randn(shape, generator=gen, device=device) * std
+
+
+def write_shard(root: str, sub: str, fname: str, cfg: dict, spec: Spec, gen: torch.Generator, device,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """``root/sub/config.json`` and ``root/sub/fname`` with ``spec``'s
+    tensors drawn from ``gen``; returns them (on ``device``, in ``dtype``)."""
+    os.makedirs(os.path.join(root, sub), exist_ok=True)
+    with open(os.path.join(root, sub, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    tensors = {name: _draw(shape, kind, gen, device).to(dtype) for name, shape, kind in spec}
+    save_safetensors(tensors, os.path.join(root, sub, fname))
+    return tensors
+
+
+def write_tokenizer(root: str, vocab_size: int, max_length: int = 16) -> None:
+    """``root/tokenizer``: a WordLevel vocabulary of ``vocab_size`` words
+    with a Whitespace pre-tokenizer, as the ``tokenizers`` package writes
+    it: ``<pad>`` 0, ``</s>`` 1, ``<unk>`` 2, ten common words of prompts
+    from 3, an added special ``<image>`` at 60 when the vocabulary has one,
+    ``tok<i>`` elsewhere."""
+    words = {"<pad>": 0, "</s>": 1, "<unk>": 2}
+    common = ["a", "red", "double", "decker", "bus", "driving", "down", "street", "the", "panda"]
+    for i in range(3, vocab_size):
+        j = i - 3
+        words["<image>" if i == 60 else common[j] if j < len(common) else f"tok{i}"] = i
+    added = [{"id": 60, "content": "<image>", "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True}] if vocab_size > 60 else []
+    data = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added, "normalizer": None,
+            "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None, "decoder": None,
+            "model": {"type": "WordLevel", "vocab": words, "unk_token": "<unk>"}}
+    tok_dir = os.path.join(root, "tokenizer")
+    os.makedirs(tok_dir, exist_ok=True)
+    with open(os.path.join(tok_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(data, f, ensure_ascii=False)
+    with open(os.path.join(tok_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>", "eos_token": "</s>",
+                   "unk_token": "<unk>", "model_max_length": max_length}, f)
+
+
+def write_cogvideox(root: str, config: dict = None, seed: int = 0, device="cpu",
+                    dtype=torch.bfloat16) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A CogVideoX-I2V (1.0) checkpoint at ``config``'s widths and depths
+    (:data:`TINY_COGVIDEOX` when None) under ``root``; returns the tensors
+    drawn, ``{subdirectory: {name: tensor}}``."""
+    cfg = copy.deepcopy(config or TINY_COGVIDEOX)
+    gen = torch.Generator(device).manual_seed(seed)
+    out = {
+        "transformer": write_shard(root, "transformer", "diffusion_pytorch_model.safetensors", cfg["transformer"],
+                                   cogvideox_transformer_spec(cfg["transformer"]), gen, device, dtype),
+        "vae": write_shard(root, "vae", "diffusion_pytorch_model.safetensors", cfg["vae"],
+                           cogvideox_vae_spec(cfg["vae"]), gen, device, dtype),
+        "text_encoder": write_shard(root, "text_encoder", "model.safetensors", cfg["text_encoder"],
+                                    t5_spec(cfg["text_encoder"]), gen, device, dtype),
+    }
+    write_tokenizer(root, cfg["text_encoder"]["vocab_size"], cfg["transformer"]["max_text_seq_length"])
+    os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(COGVIDEOX_SCHEDULER, f)
+    return out
+
+
+def write_wan(root: str, config: dict = None, seed: int = 0, device="cpu",
+              dtype=torch.bfloat16) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A Wan2.1-I2V checkpoint at ``config``'s widths and depths
+    (:data:`TINY_WAN` when None) under ``root``; returns the tensors drawn."""
+    cfg = copy.deepcopy(config or TINY_WAN)
+    gen = torch.Generator(device).manual_seed(seed)
+    out = {
+        "transformer": write_shard(root, "transformer", "diffusion_pytorch_model.safetensors", cfg["transformer"],
+                                   wan_transformer_spec(cfg["transformer"]), gen, device, dtype),
+        "vae": write_shard(root, "vae", "diffusion_pytorch_model.safetensors", cfg["vae"],
+                           wan_vae_spec(cfg["vae"]), gen, device, dtype),
+        "text_encoder": write_shard(root, "text_encoder", "model.safetensors", cfg["text_encoder"],
+                                    t5_spec(cfg["text_encoder"], per_layer_bias=True), gen, device, dtype),
+        "image_encoder": write_shard(root, "image_encoder", "model.safetensors", cfg["image_encoder"],
+                                     clip_vision_spec(cfg["image_encoder"]), gen, device, dtype),
+    }
+    write_tokenizer(root, cfg["text_encoder"]["vocab_size"])
+    return out

@@ -39,19 +39,22 @@ _PLAIN_TABLES = ("scale_shift_table", "gamma", "class_embedding", "position_embe
 _STACKED = ("blocks", "transformer_blocks", "single_transformer_blocks")  # as dicts; the same names as lists are lists
 
 
+def leaf_name(prefix: str, key: str) -> str:
+    """The module's name for the tree leaf ``key`` under ``prefix``."""
+    if key in ("kernel", "scale"):
+        return prefix + "weight"
+    if key == "bias" or key in _PLAIN_TABLES:
+        return prefix + key
+    return prefix + key + ".weight"
+
+
 def _leaf(prefix: str, key: str, arr) -> Tuple[str, np.ndarray]:
     arr = np.asarray(arr)
     if key == "kernel":
         if arr.ndim not in _KERNEL_PERM:
             raise ValueError(f"{prefix}kernel: no layout rule for a {arr.ndim}-D kernel")
-        return prefix + "weight", arr.transpose(_KERNEL_PERM[arr.ndim])
-    if key == "scale":
-        return prefix + "weight", arr
-    if key == "bias":
-        return prefix + "bias", arr
-    if key in _PLAIN_TABLES:
-        return prefix + key, arr
-    return prefix + key + ".weight", arr
+        arr = arr.transpose(_KERNEL_PERM[arr.ndim])
+    return leaf_name(prefix, key), arr
 
 
 def flatten_jax_tree(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -84,23 +87,31 @@ def _index(tree, i: int):
 
 
 @torch.no_grad()
-def load_jax_params(module: nn.Module, tree) -> nn.Module:
-    """Copy ``tree`` into ``module``'s parameters (cast to their dtype and
-    device); raises on missing or unused keys and on shape mismatches."""
-    flat = dict(flatten_jax_tree(tree))
+def copy_state_(module: nn.Module, flat) -> nn.Module:
+    """Copy ``flat`` (state-dict name -> tensor or numpy array) into
+    ``module``'s parameters, cast to their dtype and device; raises on
+    missing or unused names and on shape mismatches."""
     state = module.state_dict()
     missing, unused = sorted(set(state) - set(flat)), sorted(set(flat) - set(state))
     if missing or unused:
         raise KeyError(f"parameter trees differ: missing {missing[:8]} ({len(missing)}), "
                        f"unused {unused[:8]} ({len(unused)})")
-    for name, arr in flat.items():
+    for name, src in flat.items():
         dst = state[name]
-        if tuple(arr.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} does not fit {tuple(dst.shape)}")
-        if arr.dtype.name == "bfloat16":  # from_numpy has no ml_dtypes bf16; fp32 holds it exactly
-            arr = arr.astype(np.float32)
-        dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+        if not isinstance(src, torch.Tensor):
+            if src.dtype.name == "bfloat16":  # from_numpy has no ml_dtypes bf16; fp32 holds it exactly
+                src = src.astype(np.float32)
+            src = torch.from_numpy(np.ascontiguousarray(src))
+        dst.copy_(src)
     return module
+
+
+def load_jax_params(module: nn.Module, tree) -> nn.Module:
+    """Copy ``tree`` into ``module``'s parameters (cast to their dtype and
+    device); raises on missing or unused keys and on shape mismatches."""
+    return copy_state_(module, dict(flatten_jax_tree(tree)))
 
 
 def load_jax_lora(tree, device="cpu", requires_grad: bool = True):

@@ -172,10 +172,10 @@ def clip_preprocess(image, size: int = 224) -> np.ndarray:
     (CLIPImageProcessor defaults).
 
     Takes a PIL image or an array ([H, W, C], [C, H, W] or [B, C, H, W], in
-    [0, 1], [-1, 1] or uint8 range); arrays go through PIL for the resize."""
-    from PIL import Image
-
-    if not isinstance(image, Image.Image):
+    [0, 1], [-1, 1] or uint8 range); arrays go through PIL for the resize,
+    and an RGB array already ``size`` x ``size`` (whose resize and crop are
+    the identity) needs no PIL."""
+    if not type(image).__module__.startswith("PIL."):
         arr = np.asarray(image, np.float32)
         if arr.ndim == 4:
             arr = arr[0]
@@ -185,7 +185,13 @@ def clip_preprocess(image, size: int = 224) -> np.ndarray:
             arr = arr / 2.0 + 0.5
         if arr.max() <= 1.5:
             arr = arr * 255.0
-        image = Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8))
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+        if arr.shape == (size, size, 3):
+            return _clip_normalize(arr)
+        from PIL import Image
+
+        image = Image.fromarray(arr)
+    from PIL import Image
 
     w, h = image.size
     scale = size / min(w, h)
@@ -193,6 +199,11 @@ def clip_preprocess(image, size: int = 224) -> np.ndarray:
     w, h = image.size
     left, top = (w - size) // 2, (h - size) // 2
     image = image.crop((left, top, left + size, top + size))
-    arr = np.asarray(image.convert("RGB")).astype(np.float32) / 255.0
+    return _clip_normalize(np.asarray(image.convert("RGB")))
+
+
+def _clip_normalize(rgb: np.ndarray) -> np.ndarray:
+    """uint8 ``[size, size, 3]`` -> normalised fp32 ``[1, 3, size, size]``."""
+    arr = rgb.astype(np.float32) / 255.0
     arr = (arr - np.array(CLIP_IMAGE_MEAN)) / np.array(CLIP_IMAGE_STD)
     return arr.transpose(2, 0, 1)[None].astype(np.float32)

@@ -161,6 +161,50 @@ def tensor_core_lse_plain(q, k, scale: float, bias: Optional[torch.Tensor] = Non
     return lse, torch.where(seen & rounded, tie, torch.zeros_like(tie))
 
 
+def tensor_core_attention_plain(q, k, v, scale: float, bias: Optional[torch.Tensor] = None,
+                                kv_len: Optional[torch.Tensor] = None, causal: bool = False, stable: bool = True,
+                                key_tile: int = 64, rounded_sum: Optional[bool] = None):
+    """``(out, lse)``: the bf16 tensor-core forward's arithmetic
+    (``csrc/flash_attention_tc.cu``) step by step, over ``key_tile``-key
+    tiles: fp32 logits of the inputs times scale·log2e (plus bias·log2e,
+    masked); p = exp2(logit − running max) when ``stable`` (the accumulators
+    rescaled as the max moves; a max of -inf takes 0), else exp2(logit); P
+    rounded to bf16 before an fp32-accumulated P·V, as ``alg_tpu``'s kernel
+    does (``p.astype(v.dtype)``); the denominator the sum of the rounded p
+    (``rounded_sum``, by default at D = 64 and 80, the TPU kernel's ones
+    column) or of the fp32 p. The output in v's dtype (zeros for a row with
+    no visible key), the base-2 LSE in fp32 (-inf there). The kernel sums in
+    another order, so a p on a bf16 rounding tie may round the other way."""
+    if rounded_sum is None:
+        rounded_sum = q.shape[-1] % 128 != 0
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * LOG2E)
+    if bias is not None:
+        s = s + bias.float() * LOG2E
+    s, _ = mask_logits(s, kv_len, causal)
+    shape = s.shape[:-1] + (1,)
+    acc = torch.zeros(s.shape[:-1] + (v.shape[-1],), device=s.device)
+    l = torch.zeros(shape, device=s.device)
+    m = torch.full(shape, float("-inf"), device=s.device)
+    step = key_tile if stable else s.shape[-1]  # without a running max the tiles add alike
+    for k0 in range(0, s.shape[-1], step):
+        t = s[..., k0:k0 + step]
+        base = torch.zeros_like(m)
+        if stable:
+            m_new = torch.maximum(m, t.amax(dim=-1, keepdim=True))
+            base = torch.where(torch.isneginf(m_new), base, m_new)
+            alpha = torch.exp2(m - base)
+            acc, l, m = acc * alpha, l * alpha, m_new
+        p = torch.exp2(t - base)
+        p_bf16 = p.bfloat16().float()
+        acc = acc + torch.matmul(p_bf16, v[..., k0:k0 + step, :].float())
+        l = l + (p_bf16 if rounded_sum else p).sum(dim=-1, keepdim=True)
+    seen = l > 0
+    out = torch.where(seen, acc / torch.where(seen, l, torch.ones_like(l)), torch.zeros_like(acc))
+    base = torch.where(torch.isneginf(m), torch.zeros_like(m), m) if stable else torch.zeros_like(m)
+    lse = torch.where(seen, base + torch.log2(l), torch.full_like(l, float("-inf")))
+    return out.to(v.dtype), lse[..., 0]
+
+
 def apply_prolog_plain(q, k, prolog: dict, prolog_k: bool = True):
     """``(q, k)`` through the qk prolog in PyTorch ops: the per-head norm
     ``prolog["norm"]`` (``"layer"``, ``"rms"`` or None; ``eps``, affines

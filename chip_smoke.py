@@ -90,6 +90,20 @@ Phases, each of which must pass:
       against the unfused sequence, with exact launch counts (two
       ``qk_prolog`` launches, two tensor-core forwards, no CUDA-core
       forward);
+  F.  the entry point users call: ``io/hf_checkpoint.py`` writes a
+      CogVideoX-5b-I2V checkpoint at the published widths (DiT 48 x 64
+      heads, T5-XXL, the full VAE; DiT and T5 cut to 2 layers each; random
+      bf16 tensors from a seed, drawn on the card) to a temporary directory,
+      and ``cli.run`` loads it (``io/model_zoo.py``: safetensors mapped,
+      names converted, copied into modules built on the card) and runs the
+      shipped ALG config as a parsed mapping with phase C's cut (9 frames,
+      480x720, 4 steps) on a seeded RGB uint8 image to a written video;
+      checks every loaded parameter against the drawn tensor bit for bit,
+      the exact launch counts, and the written frames (9 of 480x720x3 uint8,
+      finite, not constant, in whatever form ``write_video`` chose: H.264,
+      MJPEG-AVI or ``.npy`` frames); prints the write's bytes and time, the
+      load's read, convert and copy time per component, each stage's time
+      and the peak device memory, with the card's name and power limit;
   D.  agreement: a small CogVideoX pipeline (head dim 64, two layers) run on
       the card through the kernels and on the CPU through the plain versions,
       fp32 with TF32 off; final latents within atol 2e-3, decoded frames
@@ -103,6 +117,10 @@ Phases, each of which must pass:
   D3. the same for a small HunyuanVideo pipeline (DiT and Llava head dim 128,
       CLIP text head dim 64, through ``encode_prompt``, true CFG with ALG so
       that 3- and 2-pass steps run), and again under int8 "full".
+  F2. agreement through the loader: a small CogVideoX and a small Wan
+      checkpoint from ``io/hf_checkpoint.py`` (head dims the kernels take),
+      each through ``cli.run`` on the card and on the CPU, fp32 with TF32
+      off; final latents within 2e-3, frames above 40 dB.
 
   E.  training slice: the full-width CogVideoX-5b DiT (bf16, frozen, random
       weights from a seed) with rank-8 LoRA adapters attached to the block
@@ -141,7 +159,8 @@ norm + RoPE, ``kv_len``) in bf16 and fp32 beside the unfused sequence, and
 the training kernels at
 ``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 and fp32 (for comparing
 two trees on one card, the parent's too: it does not require the
-tensor-core kernels; it prints no result line).
+tensor-core kernels; it prints no result line). ``python3 chip_smoke.py
+--cli`` builds the kernels and runs phases F and F2 alone (no result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
@@ -158,6 +177,7 @@ cannot be imported, or any phase fails.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -1979,6 +1999,311 @@ def phase_prolog_entry() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# F. the entry point users call: a checkpoint directory through cli.run
+# ---------------------------------------------------------------------------
+
+# configs/cogvideox_alg.yaml as a mapping (the card's machine has no PyYAML), with phase C's cut: 9 frames and
+# 4 steps at the config's own 480x720, the ALG interval's end raised to 0.4 (2 three-pass steps, 2 two-pass)
+CLI_CONFIG = {
+    "model": {"path": "THUDM/CogVideoX-5b-I2V", "dtype": "bfloat16"},
+    "generation": {"height": None, "width": None, "num_frames": 9, "num_inference_steps": 4, "guidance_scale": 6.0},
+    "alg": {"use_low_pass_guidance": True, "lp_filter_type": "down_up", "lp_filter_in_latent": True,
+            "lp_blur_sigma": None, "lp_blur_kernel_size": None, "lp_resize_factor": 0.25,
+            "lp_strength_schedule_type": "interval", "schedule_blur_kernel_size": False,
+            "schedule_interval_start_time": 0.0, "schedule_interval_end_time": 0.4,
+            "schedule_linear_start_weight": None, "schedule_linear_end_weight": None,
+            "schedule_linear_end_time": None},
+    "video": {"fps": 12},
+}
+CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH = 9, 480, 720
+
+
+class _CliProbe:
+    """Hooks for one ``cli.run``: the pipeline it loads (with the loader's
+    read / convert / copy times), its stage timer, the latents its decode is
+    given and the frames and path of its ``write_video``."""
+
+    def __init__(self, timer=None):
+        self.timer, self.timings, self.final, self.written = timer, {}, [], {}
+        self.pipe = self.load_s = None
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        import alg_tpu_torch.cli as cli
+        import alg_tpu_torch.io.video as video
+
+        self._load, self._write, self._hooks = cli.load_pipeline, video.write_video, []
+
+        def load(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe = self._load(*args, timings=self.timings, **kwargs)
+            torch.cuda.synchronize()
+            self.load_s = time.perf_counter() - t0
+            if self.timer is not None:
+                pipe.encode_prompt = self.timer.wrap("T5 encode", pipe.encode_prompt)
+                pipe.vae_encode_sample = self.timer.wrap("VAE encode + posterior draw", pipe.vae_encode_sample)
+                # args: x [B, F, C, H, W], text [B, S_text, D]: the joint [text; video] stream
+                self._hooks = self.timer.hook_dit(
+                    pipe.transformer,
+                    lambda m, a: a[1].shape[1] + a[0].shape[1] * a[0].shape[3] * a[0].shape[4] // m.cfg.patch_size ** 2)
+            decode = pipe.decode_latents
+            if self.timer is not None:
+                decode = self.timer.wrap("VAE tiled decode", decode)
+
+            def decode_kept(latents, *a):
+                self.final.append(latents.detach().float().cpu().numpy())
+                return decode(latents, *a)
+
+            pipe.decode_latents = decode_kept
+            self.pipe = pipe
+            return pipe
+
+        def write(path, frames, fps):
+            t0 = time.perf_counter()
+            out = self._write(path, frames, fps)
+            self.written.update(frames=np.asarray(frames), path=out, seconds=time.perf_counter() - t0)
+            return out
+
+        cli.load_pipeline, video.write_video = load, write
+        return self
+
+    def __exit__(self, *exc):
+        import alg_tpu_torch.cli as cli
+        import alg_tpu_torch.io.video as video
+
+        cli.load_pipeline, video.write_video = self._load, self._write
+        for h in self._hooks:
+            h.remove()
+        return False
+
+
+def _cli_args(root: str, device: str, out: str):
+    from alg_tpu_torch.cli import build_parser
+
+    return build_parser().parse_args(["--model_cache_dir", root, "--output_path", out, "--device", device])
+
+
+def _written_frames(path: str):
+    """What ``write_video`` left at ``path``: its form, and the frames it can
+    read back without PIL or ffmpeg (a directory of ``.npy`` frames), or the
+    frame count, width and height an MJPEG-AVI's headers state."""
+    import os
+    import struct
+
+    import numpy as np
+
+    if os.path.isdir(path):
+        names = sorted(f for f in os.listdir(path) if f.endswith(".npy"))
+        return "npy frames", np.stack([np.load(os.path.join(path, f)) for f in names])
+    if path.endswith(".avi"):
+        with open(path, "rb") as f:
+            head = f.read(4096)
+        i = head.index(b"avih") + 8
+        frames, width, height = (struct.unpack_from("<I", head, i + 4 * j)[0] for j in (4, 8, 9))
+        return "MJPEG-AVI", (frames, height, width)
+    return "H.264 (ffmpeg)", os.path.getsize(path)
+
+
+def phase_cli() -> dict:
+    """Write a CogVideoX-5b-I2V checkpoint at the published widths (DiT and
+    T5-XXL cut to 2 layers each; random bf16 tensors from a seed, drawn on the
+    card) to a temporary directory, and run ``cli.run`` over it with the
+    shipped ALG config at phase C's cut. Checks that every loaded parameter
+    is the tensor the writer drew, bit for bit; the exact kernel launch
+    counts of the run; the written video's frames. Prints the write, the
+    load (read, convert, copy per component), each stage and the peak device
+    memory. Returns the run's launch counts."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.cli import run
+    from alg_tpu_torch.io import hf_checkpoint as H
+    from alg_tpu_torch.io import weights as W
+
+    _set_tf32(False, True)
+    card = _card_line()
+    ck = copy.deepcopy(H.COGVIDEOX_5B_I2V)
+    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2  # of 42 and 24
+    tmp = tempfile.mkdtemp(prefix="alg_cli_")
+    try:
+        root = os.path.join(tmp, CLI_CONFIG["model"]["path"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drawn = H.write_cogvideox(root, ck, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        print(f"[F] wrote a CogVideoX-5b-I2V checkpoint at the published widths (DiT and T5 2 layers) on {card}: "
+              f"{nbytes} bytes in {write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s, drawing on the card included)",
+              flush=True)
+
+        timer = _StageTimer()
+        image = np.random.RandomState(0).randint(0, 256, (CLI_HEIGHT, CLI_WIDTH, 3)).astype(np.uint8)
+        torch.cuda.reset_peak_memory_stats()
+        with _CliProbe(timer) as probe:
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(_cli_args(tmp, "cuda", os.path.join(tmp, "out.mp4")), config=CLI_CONFIG, image=image)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            counts = _read_counts()
+        pipe = probe.pipe
+        for sub, t in probe.timings.items():
+            moved = t["read_s"] + t["convert_s"] + t["copy_s"]
+            print(f"[F] load {sub:<13} {t['bytes']:>11} bytes: read {t['read_s']:.3f} s, convert {t['convert_s']:.3f} s, "
+                  f"copy to the card {t['copy_s']:.3f} s ({t['bytes'] / moved / 1e9:.2f} GB/s over the three)", flush=True)
+        print(f"[F] load_pipeline {probe.load_s:.2f} s", flush=True)
+
+        # every parameter is the tensor the writer drew: bf16 bit for bit, the fp32 VAE the bf16 value
+        compared = 0
+        for sub, module, convert in (("transformer", pipe.transformer, W.convert_cogvideox_transformer),
+                                     ("vae", pipe.vae, W.convert_cogvideox_vae),
+                                     ("text_encoder", pipe.t5, W.convert_t5_encoder)):
+            want = dict(W.flatten_tree(convert(drawn[sub], module.cfg)))
+            got = module.state_dict()
+            if set(want) != set(got):
+                raise AssertionError(f"[F] {sub}: loaded names differ from the drawn ones")
+            for name, t in got.items():
+                w = want[name]
+                same = (torch.equal(t.view(torch.int16), w.view(torch.int16)) if t.dtype == torch.bfloat16
+                        else torch.equal(t, w.to(t.dtype)))
+                if not same or t.dtype != (torch.float32 if sub == "vae" else torch.bfloat16):
+                    raise AssertionError(f"[F] {sub}.{name} ({t.dtype}) is not the drawn tensor")
+                compared += t.numel()
+        print(f"[F] loaded parameters equal the drawn tensors bit for bit: {compared} values (DiT and T5 bf16, "
+              f"VAE the bf16 values in fp32): PASS", flush=True)
+        del drawn
+
+        for name, ms, dit_ms in timer.rows:
+            print(f"[F] {name:<36} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
+        print(f"[F] write_video {probe.written['seconds'] * 1e3:.1f} ms; cli.run total {total_s:.2f} s; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})", flush=True)
+
+        tcfg, t5cfg = pipe.transformer.cfg, pipe.t5.cfg
+        dit_fwd, t5_enc = timer.count("denoise step"), timer.count("T5 encode")
+        three, two = timer.count("denoise step (3-pass"), timer.count("denoise step (2-pass")
+        flash = tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc  # bf16: every one on the tensor cores
+        want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0, "flash_attention": flash,
+                "flash_attention_tc": flash, **_NO_TRAINING, **_NO_CUDA_CORES}
+        print(f"[F] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} T5 encodes)", flush=True)
+        if (dit_fwd, t5_enc, three, two) != (4, 2, 2, 2) or counts != want:
+            raise AssertionError(f"[F] stage counts ({dit_fwd}, {t5_enc}, {three}, {two}) or launches {counts} "
+                                 f"!= (4, 2, 2, 2), {want}")
+
+        frames = probe.written["frames"]
+        from alg_tpu_torch.io.video import _frames_to_uint8
+
+        u8 = _frames_to_uint8(frames)
+        form, back = _written_frames(out)
+        ok = (frames.shape == (CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH, 3) and bool(np.isfinite(frames).all())
+              and u8.dtype == np.uint8
+              and float(u8.std()) > 0 and bool(np.isfinite(probe.final[0]).all()))
+        if form == "npy frames":
+            ok = ok and back.shape == u8.shape and back.dtype == np.uint8 and np.array_equal(back, u8)
+        elif form == "MJPEG-AVI":
+            ok = ok and back == (CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH)
+        else:
+            ok = ok and back > 0
+        print(f"[F] wrote {out} as {form} ({back.shape if form == 'npy frames' else back}); frames {u8.shape} "
+              f"{u8.dtype}, mean {u8.mean():.2f} std {u8.std():.2f}, final latents {probe.final[0].shape} finite: "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("[F] the written video is not 9 finite, non-constant 480x720x3 uint8 frames")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+
+
+# small checkpoints whose head dims the kernels take (64 and 128; CLIP 80): phase D's and D2's widths
+SMALL_COGVIDEOX = {
+    "transformer": {"num_attention_heads": 2, "attention_head_dim": 64, "in_channels": 8, "out_channels": 4,
+                    "time_embed_dim": 32, "text_embed_dim": 64, "num_layers": 2, "attention_bias": True,
+                    "sample_width": 8, "sample_height": 8, "sample_frames": 9, "patch_size": 2, "patch_size_t": None,
+                    "max_text_seq_length": 8, "norm_eps": 1e-5, "use_rotary_positional_embeddings": True},
+    "vae": {"block_out_channels": [8, 16, 16, 32], "latent_channels": 4, "layers_per_block": 1, "norm_num_groups": 4,
+            "norm_eps": 1e-6, "temporal_compression_ratio": 4, "scaling_factor": 0.7, "invert_scale_latents": False},
+    "text_encoder": {"vocab_size": 128, "d_model": 64, "d_kv": 64, "d_ff": 128, "num_layers": 2, "num_heads": 2,
+                     "relative_attention_num_buckets": 8, "relative_attention_max_distance": 16},
+}
+SMALL_WAN = {
+    "transformer": {"num_attention_heads": 2, "attention_head_dim": 128, "in_channels": 12, "out_channels": 4,
+                    "num_layers": 2, "ffn_dim": 64, "freq_dim": 16, "text_dim": 64, "image_dim": 160,
+                    "patch_size": [1, 2, 2], "eps": 1e-6},
+    "vae": {"base_dim": 8, "z_dim": 4, "dim_mult": [1, 2, 2, 2], "num_res_blocks": 1,
+            "temperal_downsample": [False, True, True], "latents_mean": [-0.5, -0.1, 0.2, 0.5],
+            "latents_std": [1.0, 1.3, 1.7, 2.0]},
+    "text_encoder": {"vocab_size": 128, "d_model": 64, "d_kv": 64, "d_ff": 128, "num_layers": 2, "num_heads": 2,
+                     "relative_attention_num_buckets": 8, "relative_attention_max_distance": 16},
+    # 64 x 64 images need no resize (clip_preprocess without PIL); head dim 80, 17 tokens
+    "image_encoder": {"hidden_size": 160, "intermediate_size": 64, "num_hidden_layers": 2, "num_attention_heads": 2,
+                      "image_size": 64, "patch_size": 16, "hidden_act": "gelu"},
+}
+
+
+def _small_cli_config(path: str, **generation) -> dict:
+    cfg = copy.deepcopy(CLI_CONFIG)
+    cfg["model"] = {"path": path, "dtype": "float32"}
+    cfg["generation"] = {"height": 64, "width": 64, "num_inference_steps": 4, **generation}
+    cfg["video"] = {"fps": 8}
+    return cfg
+
+
+def phase_cli_agreement() -> None:
+    """A small CogVideoX and a small Wan checkpoint from ``hf_checkpoint``,
+    each through ``cli.run`` on the card (the kernels) and on the CPU (the
+    plain versions), fp32 with TF32 off: final latents within 2e-3, frames
+    above 40 dB, the card's exact launch counts and none on the CPU."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from alg_tpu_torch.cli import run
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    _set_tf32(False, False)
+    image = np.random.RandomState(3).randint(0, 256, (64, 64, 3)).astype(np.uint8)
+    tmp = tempfile.mkdtemp(prefix="alg_cli_small_")
+    try:
+        cases = (
+            # 4 DiT forwards x 2 layers (2 qk_prep each) + 2 T5 encodes x 2 layers
+            ("F2 CogVideoX", "SmallCogVideoX", H.write_cogvideox, SMALL_COGVIDEOX,
+             dict(num_frames=5, guidance_scale=6.0, max_sequence_length=8), {},
+             {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12}),
+            # 4 DiT forwards x 2 layers x (2 rope, 3 flash) + 2 UMT5 encodes x 2 layers + 2 CLIP layers
+            ("F2 Wan", "SmallWan", H.write_wan, SMALL_WAN,
+             dict(num_frames=9, guidance_scale=5.0, max_sequence_length=32), {"lp_resize_factor": 0.4},
+             {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 30}),
+        )
+        for tag, name, write, ck, generation, alg, want in cases:
+            write(os.path.join(tmp, name), ck, seed=4)
+            config = _small_cli_config(name, **generation)
+            config["alg"].update(alg)
+            results = {}
+            for dev in ("cpu", "cuda"):
+                with _CliProbe() as probe:
+                    _reset_counts()
+                    run(_cli_args(tmp, dev, os.path.join(tmp, f"{name}_{dev}.mp4")), config=config, image=image)
+                    counts = _read_counts()
+                results[dev] = (probe.final[0], probe.written["frames"].astype(np.float64), counts)
+            _compare_runs(tag, results, want)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+
+
+# ---------------------------------------------------------------------------
 # D. the same path on the card (kernels) and on the CPU (plain versions)
 # ---------------------------------------------------------------------------
 
@@ -2637,6 +2962,15 @@ def main() -> int:
             traceback.print_exc()
             return 1
         return 0
+    if sys.argv[1:] == ["--cli"]:
+        try:
+            phase_build()
+            phase_cli()
+            phase_cli_agreement()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2647,14 +2981,17 @@ def main() -> int:
         counts.update(phase_slice_wan())  # after the CogVideoX modules are freed
         counts.update(phase_slice_hunyuan())  # after the Wan modules are freed
         counts["prolog_entry"] = phase_prolog_entry()
+        counts["cli_cogvideox"] = phase_cli()
         counts.update(phase_agreement())  # the card's counts of its fp32 runs under the int8 modes
         phase_agreement_wan()
         counts.update(phase_agreement_hunyuan())
+        phase_cli_agreement()
         counts["train_cogvideox"] = phase_train()
         for name, n in phase_train_entry().items():
             counts["train_cogvideox"][name] += n
         counts["train_agreement_fp32"] = phase_train_agreement()
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
+                              ("cli_cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
                               ("hunyuan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
                               ("cogvideox_int8_qk", ("qk_prep", "flash_attention_tc", "flash_attention_int8_tc")),

@@ -813,7 +813,12 @@ PROLOG_MODES = [("layer", True, False, True), ("rms", True, True, True), (None, 
 def test_flash_kernel_with_the_qk_prolog(cuda, mode, has_rope, stable, prolog_k, d, dtype):
     """The prolog variant at a ragged S against ``apply_prolog_plain`` and
     the plain attention, alone and with ``kv_len`` and ``causal``; fp32 atol
-    5e-6 + rtol 1e-5, bf16 the bf16 attention tolerance."""
+    5e-6 + rtol 1e-5, bf16 the bf16 attention tolerance. A bf16 call runs the
+    tensor-core forward, which rounds the unnormalised P to bf16 before P·V
+    as ``alg_tpu``'s kernel does, so in bf16 the plain attention is
+    ``tensor_core_attention_plain``, which rounds P the same way (one that
+    keeps P in fp32 differs by more than the bound in a causal row of a few
+    keys whose output cancels)."""
     gen = torch.Generator().manual_seed(13)
     b, h, s = 2, 3, 300
     q, k, v = (_randn(gen, b, h, s, d).to(cuda, dtype) for _ in range(3))
@@ -838,10 +843,12 @@ def test_flash_kernel_with_the_qk_prolog(cuda, mode, has_rope, stable, prolog_k,
         out = FA.flash_attention(q, k_in, v, d ** -0.5, stable=stable, **kwargs, **extra)
         torch.cuda.synchronize()
         assert (FA.flash_attention.launches, by_route[which], FA.qk_prolog.launches) == tuple(n + 1 for n in counts)
-        ref = FA.attention_plain(qr, kr, v, d ** -0.5, None, extra.get("kv_len"), extra.get("causal", False))
         if dtype == torch.float32:
+            ref = FA.attention_plain(qr, kr, v, d ** -0.5, None, extra.get("kv_len"), extra.get("causal", False))
             torch.testing.assert_close(out, ref, atol=5e-6, rtol=1e-5)
         else:
+            ref = FA.tensor_core_attention_plain(qr, kr, v, d ** -0.5, None, extra.get("kv_len"),
+                                                 extra.get("causal", False), stable)[0]
             _assert_close_flash(out, ref, dtype)
 
 
@@ -1025,8 +1032,13 @@ def test_tensor_core_dq_matches_plain(cuda, case):
 def test_bf16_dit_gradient_card_matches_cpu(cuda):
     """The gradient of one LoRA loss on a 2-layer CogVideoX DiT (head dim 64)
     in bf16, at adapters with A and B nonzero: the card, where the forward
-    with the LSE, dq and dkv all run on the tensor cores, against the CPU's
-    plain versions, each leaf within the bf16 gradient tolerance."""
+    with the LSE, dq and dkv all run on the tensor cores, and the CPU's plain
+    versions, each held against the fp32 gradient at the same weights (the
+    bf16 weights and inputs in fp32, on the CPU). Each leaf's error on the
+    card is within the CPU's own largest bf16 error in that leaf plus the
+    bf16 gradient tolerance of the fp32 gradient: the card may differ from
+    the CPU by their two bf16 errors, which is not a fault, but not be
+    further from the exact gradient than bf16 arithmetic explains."""
     from alg_tpu_torch.models.cogvideox.transformer import (CogVideoXTransformer, CogVideoXTransformerConfig,
                                                             cogvideox_rope)
     from alg_tpu_torch.ops import flash_attention_bwd as FB
@@ -1050,24 +1062,31 @@ def test_bf16_dit_gradient_card_matches_cpu(cuda):
     routes = (FA.flash_attention.launches_by_route, FB.flash_attention_bwd_dq.launches_by_route,
               FB.flash_attention_bwd_dkv.launches_by_route)
     grads = {}
-    for dev in ("cpu", cuda):
-        dit = copy.deepcopy(model).to(dev)
+    for dev, dtype in (("cpu", torch.bfloat16), (cuda, torch.bfloat16), ("fp32", torch.float32)):
+        on = "cpu" if dev == "fp32" else dev
+        dit = copy.deepcopy(model).to(on, dtype)
         loss = make_lora_loss(make_cogvideox_vpred_loss(dit, rope_cos=cos, rope_sin=sin),
                               dict(dit.named_parameters()), scale=2.0, attach=True)
-        at = tree_map(lambda t: t.clone().to(dev).requires_grad_(), loras0)
+        at = tree_map(lambda t: t.clone().to(on).requires_grad_(), loras0)
         before = [dict(r) for r in routes]
-        value = loss(at, {n: t.to(dev, torch.bfloat16) for n, t in batch.items()},
-                     {n: t.to(dev) for n, t in draws.items()})
+        value = loss(at, {n: t.to(on, torch.bfloat16).to(dtype) for n, t in batch.items()},
+                     {n: t.to(on) for n, t in draws.items()})
         grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(value, tree_leaves(at))]
         torch.cuda.synchronize()
         want = [dict(r) for r in before]
-        if dev != "cpu":  # two layers: two forwards with the LSE, two dq and two dkv, all on the tensor cores
+        # on the card, two layers: two forwards with the LSE, two dq and two dkv, all on the tensor cores
+        if torch.device(on).type == "cuda":
             for r in want:
                 r["tc"] += 2
         assert [dict(r) for r in routes] == want
-    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+    for a, b, ref in zip(grads[str(cuda)], grads["cpu"], grads["fp32"]):
         assert float(b.abs().max()) > 0 and bool(torch.isfinite(a).all())
-        _assert_close_grad(a, b, torch.bfloat16)
+        atol, rtol = TOL[torch.bfloat16]
+        atol = max(TOL[torch.float32][0], min(atol, 0.05 * ref.abs().mean().item()))
+        card_err, cpu_err = (a.float() - ref).abs(), (b.float() - ref).abs()
+        excess = card_err - (cpu_err.max() + atol + rtol * ref.abs())
+        assert float(excess.max()) <= 0, (f"card error {card_err.max():.3e}, CPU bf16 error {cpu_err.max():.3e}, "
+                                          f"excess {excess.max():.3e} over atol {atol:.2e} + rtol {rtol}")
 
 
 def test_routes_on_the_card(cuda):

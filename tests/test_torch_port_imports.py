@@ -28,7 +28,9 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.training.losses", "alg_tpu_torch.training.lora", "alg_tpu_torch.training.train",
             "alg_tpu_torch.training.checkpoint", "alg_tpu_torch.training.data",
             "alg_tpu_torch.ops.flash_attention_int8", "alg_tpu_torch.ops.attention",
-            "alg_tpu_torch.ops.flash_attention"} <= set(mods)
+            "alg_tpu_torch.ops.flash_attention", "alg_tpu_torch.cli", "alg_tpu_torch.io.safetensors",
+            "alg_tpu_torch.io.weights", "alg_tpu_torch.io.hf_tokenizer", "alg_tpu_torch.io.model_zoo",
+            "alg_tpu_torch.io.video", "alg_tpu_torch.io.hf_checkpoint"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -36,11 +38,16 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['yaml'] = None\n"
         "sys.modules['PIL'] = None\n"
         "sys.modules['ftfy'] = None\n"
+        "sys.modules['regex'] = None\n"
+        "sys.modules['safetensors'] = None\n"
+        "sys.modules['tokenizers'] = None\n"
+        "sys.modules['alg_tpu'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "from alg_tpu_torch.ops.flash_attention import route\n"
         "from alg_tpu_torch.ops.flash_attention_bwd import dkv_route\n"
-        "assert not any(k == 'alg_tpu' or k.startswith('alg_tpu.') for k in sys.modules), 'imported alg_tpu'\n"
+        "assert not any((k == 'alg_tpu' or k.startswith('alg_tpu.')) and m is not None\n"
+        "               for k, m in sys.modules.items()), 'imported alg_tpu'\n"
         "assert sys.modules.get('optax') is None, 'imported optax'\n"
         "print('ok', len(sys.modules))\n"
     )

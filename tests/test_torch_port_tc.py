@@ -164,33 +164,6 @@ def interpret_jax_flash(monkeypatch):
     return JFA.flash_attention.__wrapped__
 
 
-def _tc_forward_model(q, k, v, scale, stable, block_k, rounded_sum):
-    """The tensor-core forward's arithmetic (``csrc/flash_attention_tc.cu``)
-    in torch over blocks of ``block_k`` keys: fp32 logits of the bf16 inputs
-    times scale·log2e; p = exp2(logit − running max) when ``stable`` (the
-    accumulators rescaled as the max moves), else exp2(logit); P rounded to
-    bf16 before an fp32-accumulated P·V; the denominator the sum of the
-    rounded p (``rounded_sum``) or of the fp32 p. Returns the output rounded
-    to bf16 and the base-2 LSE, as numpy fp32."""
-    q, k, v = (torch.from_numpy(a).float() for a in (q, k, v))
-    logits = torch.matmul(q, k.transpose(-1, -2)) * (scale * FA.LOG2E)
-    shape = q.shape[:-1] + (1,)
-    acc, l, m = torch.zeros(q.shape), torch.zeros(shape), torch.full(shape, -float("inf"))
-    for k0 in range(0, k.shape[2], block_k):
-        s = logits[..., k0:k0 + block_k]
-        alpha = torch.ones(shape)
-        if stable:
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha, m = torch.exp2(m - m_new), m_new
-            s = s - m
-        p = torch.exp2(s)
-        p_bf16 = p.bfloat16().float()
-        acc = acc * alpha + torch.matmul(p_bf16, v[..., k0:k0 + block_k, :])
-        l = l * alpha + (p_bf16 if rounded_sum else p).sum(-1, keepdim=True)
-    lse = torch.log2(l) + (m if stable else 0.0)
-    return (acc / l).bfloat16().float().numpy(), lse[..., 0].numpy()
-
-
 @pytest.mark.parametrize("stable", [False, True], ids=["bounded", "stable"])
 @pytest.mark.parametrize("d", [64, 80, 128])
 def test_tc_forward_denominator_matches_the_jax_kernel(d, stable, monkeypatch):
@@ -215,7 +188,9 @@ def test_tc_forward_denominator_matches_the_jax_kernel(d, stable, monkeypatch):
     out, lse = np.asarray(out.astype(jnp.float32)), np.asarray(lse)
     found = {}
     for rounded_sum in (True, False):
-        o, ls = _tc_forward_model(q, k, v, d ** -0.5, stable, 128, rounded_sum)
+        o, ls = FA.tensor_core_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), d ** -0.5, stable=stable,
+                                               key_tile=128, rounded_sum=rounded_sum)
+        o, ls = o.bfloat16().float().numpy(), ls.numpy()
         diff = np.abs(o - out)
         found[rounded_sum] = (int((diff > 0).sum()), float(diff.max()), float(np.abs(ls - lse).max()))
     want, other = found[d % 128 != 0], found[d % 128 == 0]
@@ -228,6 +203,40 @@ def test_tc_forward_denominator_matches_the_jax_kernel(d, stable, monkeypatch):
                                          key_tile=128)
     excess = np.abs(port.numpy() - lse) - tie.numpy() - 1e-4
     assert excess.max() <= 0, f"LSE out by {excess.max():.3e} beyond its bound"
+
+
+@pytest.mark.parametrize("case", [
+    dict(d=128, causal=True, kv_len=None, bias=False, stable=False),
+    dict(d=128, causal=False, kv_len=(200, 77), bias=False, stable=True),
+    dict(d=64, causal=True, kv_len=(256, 130), bias=False, stable=False),
+    dict(d=64, causal=False, kv_len=None, bias=True, stable=True),
+], ids=["d128-causal", "d128-kv_len-stable", "d64-causal-kv_len", "d64-bias-stable"])
+def test_tensor_core_attention_plain_matches_the_jax_kernel(case, monkeypatch):
+    """``tensor_core_attention_plain`` (P rounded to bf16 before P·V, the
+    denominator of the head dim) against ``alg_tpu``'s ``_fwd_kernel`` in
+    interpret mode on bf16 inputs, with the masks and the bias: within one
+    bf16 step of the outputs' largest magnitude, and closer than the plain
+    attention that keeps P in fp32 (both stated on failure)."""
+    jax_fwd = interpret_jax_flash(monkeypatch)
+    d, s = case["d"], 256
+    r = np.random.RandomState(d + 3 * case["causal"])
+    q, k, v = (torch.from_numpy(r.randn(2, 2, s, d).astype(np.float32)).bfloat16() for _ in range(3))
+    kv_len = None if case["kv_len"] is None else torch.tensor(case["kv_len"], dtype=torch.int32)
+    bias = torch.from_numpy(r.randn(1, 2, s, s).astype(np.float32)) if case["bias"] else None
+    scale = d ** -0.5
+    out = jax_fwd(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)), scale=scale,
+                  causal=case["causal"], kv_len=None if kv_len is None else jnp.asarray(kv_len.numpy()),
+                  bias=None if bias is None else jnp.asarray(bias.numpy()), block_q=128, block_k=128,
+                  stable=case["stable"])
+    out = np.asarray(out.astype(jnp.float32))
+    mine = FA.tensor_core_attention_plain(q, k, v, scale, bias, kv_len, case["causal"], case["stable"],
+                                          key_tile=128)[0].float().numpy()
+    fp32_p = FA.attention_plain(q, k, v, scale, bias, kv_len, case["causal"]).float().numpy()
+    step = BF16_STEP * np.abs(out).max()
+    said = (f"max|diff| against the JAX kernel: P rounded {np.abs(mine - out).max():.3e}, "
+            f"P in fp32 {np.abs(fp32_p - out).max():.3e}; one bf16 step {step:.3e}")
+    assert np.abs(mine - out).max() <= step, said
+    assert np.abs(mine - out).max() < np.abs(fp32_p - out).max(), said
 
 
 def _int8_a_operand(codes):
