@@ -148,3 +148,17 @@ def build_lp_plan(cfg: LPConfig, num_steps: int, height: int, width: int,
     return LPPlan(active=True, num_steps=num_steps, strengths=strengths, three_pass=three_pass,
                   m_h=np.stack(mh_list), m_w=np.stack(mw_list), m_idx=m_idx,
                   segments=_segments_from_mask(three_pass))
+
+
+def build_cache_schedule(num_steps: int, cache_interval: int, strengths=None) -> np.ndarray:
+    """Compute-step mask ``[T]`` of the opt-in step cache (``cache_interval >
+    1``): a full DiT forward on every ``cache_interval``-th step and the last
+    step, and on every step of nonzero ALG ``strengths`` (their conditioning
+    changes from step to step); the other steps reuse the previous
+    prediction. Shared by the three pipelines."""
+    compute = np.zeros(num_steps, bool)
+    compute[::cache_interval] = True
+    compute[-1] = True
+    if strengths is not None:
+        compute[np.asarray(strengths) != 0.0] = True
+    return compute

@@ -17,14 +17,15 @@ Everything runs on ``--device`` (``cuda`` unless asked otherwise);
 ``--random_init`` draws every tensor from a seed at the checkpoint's shapes
 instead of reading it, for smoke runs. ``--lora`` merges a peft-layout
 adapter (``.npz`` or ``.safetensors``) into the DiT, ``--int8_attn`` routes
-DiT self-attention through the int8 kernel and ``--guidance_microbatch``
-splits Wan's guidance passes.
+DiT self-attention through the int8 kernel, ``--guidance_microbatch``
+splits Wan's guidance passes and ``--checkpoint_path`` snapshots the denoise
+loop (``io/runstate.py``): the same command run again after an interruption
+resumes it.
 
 :func:`run` is the body: it also takes an already parsed config (the YAML
 file's mapping) and an RGB uint8 image array, for machines without PyYAML
 or PIL, and returns the path written. Not ported yet: ``--quantize``
-(ROADMAP.md, A12) and ``--checkpoint_path`` (ROADMAP.md, A-item 3), which
-raise.
+(ROADMAP.md, A12), which raises.
 """
 
 from __future__ import annotations
@@ -96,9 +97,6 @@ def run(args, config=None, image=None) -> str:
     from alg_tpu_torch.io.video import write_video
     from alg_tpu_torch.ops.attention import get_attention_int8, set_attention_int8
 
-    if args.checkpoint_path:
-        raise NotImplementedError("--checkpoint_path: denoise-state snapshots (io/runstate.py) are not ported yet "
-                                  "(ROADMAP.md, A-item 3)")
     cfg = run_config_from_dict(config) if config is not None else load_run_config(args.config)
     logger.info("Using device: %s", args.device)
     family = cfg.family
@@ -124,6 +122,8 @@ def run(args, config=None, image=None) -> str:
             pipe_image = preprocess_image(input_image, *input_image.shape[:2])
         pipe_kwargs = {"image": pipe_image, "prompt": args.prompt, "seed": 42}
         pipe_kwargs.update(cfg.pipeline_kwargs)
+        if args.checkpoint_path:
+            pipe_kwargs["checkpoint"] = args.checkpoint_path
         if family == "hunyuan" and "resolution" in (cfg.video or {}):
             # height and width bucketed from the image's aspect ratio; an explicit generation.height / width
             # applies when the config names no video.resolution
@@ -161,7 +161,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="run DiT self-attention through the int8 kernel (qk = int8 QK^T logits, "
                              "full = both attention products in int8)")
     parser.add_argument("--checkpoint_path", type=str, default=None,
-                        help="denoise-state snapshot file for resuming (not ported yet: raises)")
+                        help="denoise-state snapshot file: saved during the run, resumed by the same command")
     parser.add_argument("--guidance_microbatch", type=int, default=0,
                         help="run the CFG/ALG guidance passes in micro-batches of N samples instead of one "
                              "batched forward (Wan family)")

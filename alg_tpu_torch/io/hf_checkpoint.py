@@ -397,11 +397,13 @@ def write_tokenizer(root: str, vocab_size: int, max_length: int = 16) -> None:
                    "unk_token": "<unk>", "model_max_length": max_length}, f)
 
 
-def write_cogvideox(root: str, config: dict = None, seed: int = 0, device="cpu",
-                    dtype=torch.bfloat16) -> Dict[str, Dict[str, torch.Tensor]]:
+def write_cogvideox(root: str, config: dict = None, seed: int = 0, device="cpu", dtype=torch.bfloat16,
+                    scheduler_class: str = "CogVideoXDDIMScheduler") -> Dict[str, Dict[str, torch.Tensor]]:
     """A CogVideoX-I2V (1.0) checkpoint at ``config``'s widths and depths
     (:data:`TINY_COGVIDEOX` when None) under ``root``; returns the tensors
-    drawn, ``{subdirectory: {name: tensor}}``."""
+    drawn, ``{subdirectory: {name: tensor}}``. ``scheduler_class``: the
+    scheduler config's ``_class_name`` (``"CogVideoXDPMScheduler"`` for the
+    DPM checkpoints)."""
     cfg = copy.deepcopy(config or TINY_COGVIDEOX)
     gen = torch.Generator(device).manual_seed(seed)
     out = {
@@ -415,7 +417,7 @@ def write_cogvideox(root: str, config: dict = None, seed: int = 0, device="cpu",
     write_tokenizer(root, cfg["text_encoder"]["vocab_size"], cfg["transformer"]["max_text_seq_length"])
     os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
     with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
-        json.dump(COGVIDEOX_SCHEDULER, f)
+        json.dump({**COGVIDEOX_SCHEDULER, "_class_name": scheduler_class}, f)
     return out
 
 

@@ -140,8 +140,6 @@ def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None,
     )
     sc = _load_config(model_dir, "scheduler") if os.path.exists(
         os.path.join(model_dir, "scheduler", "config.json")) else _load_scheduler_cfg(model_dir)
-    if "DPM" in sc.get("_class_name", ""):
-        raise NotImplementedError(f"the DPM scheduler {_NOT_PORTED}")
     scfg = CogVideoXDDIMConfig(
         num_train_timesteps=sc.get("num_train_timesteps", 1000),
         beta_start=sc.get("beta_start", 0.00085),
@@ -162,7 +160,8 @@ def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None,
     t5 = _load_module(T5Encoder, t5cfg, model_dir, "text_encoder", W.convert_t5_encoder, dtype, device, timings,
                       gen)
     return CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=_make_tokenizer(model_dir),
-                             scheduler_cfg=scfg, dtype=dtype, device=device)
+                             scheduler="dpm" if "DPM" in sc.get("_class_name", "") else "ddim", scheduler_cfg=scfg,
+                             dtype=dtype, device=device)
 
 
 def load_wan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: float = 5.0, quantize=None, device="cuda",

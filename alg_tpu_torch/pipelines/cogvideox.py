@@ -6,16 +6,27 @@ encoding without a mask, VAE encode of the conditioning frame with a
 torch-ordered posterior draw, zero-padded image latents, and a Python loop
 over the denoise steps. CFG runs 3 passes on steps where ALG is active
 (``[uncond(clean image), uncond(filtered), text(filtered)]``) and 2 passes
-on the others, conditioning on the low-pass-filtered image latents; the
-filter is one separable operator pair per step from the run's plan. DDIM
-steps at η = 0. The decoded video is assembled from overlapping VAE tiles.
+on the others, conditioning on the low-pass-filtered image latents (the
+2-pass steps too: the reference's modulated filter, identity at strength 0);
+the filter is one separable operator pair per step from the run's plan.
+With ``lp_filter_in_latent=False`` (pixel-space ALG) each step filters the
+preprocessed RGB frame instead and VAE-encodes it again, with that step's
+own posterior draw. DDIM (η = 0 or stochastic, custom ``timesteps``) or the
+SDE-DPM++ scheduler (``scheduler="dpm"``); optional dynamic CFG. The decoded
+video is assembled from overlapping VAE tiles.
 
-Draw order follows the reference: the VAE posterior noise (``[B, C, F, h,
-w]``), then the initial latents, from one CPU ``torch.Generator``.
+Draw order follows the reference, from one CPU ``torch.Generator``: the VAE
+posterior noise (``[B, C, F, h, w]``), the initial latents, the per-step
+pixel-space posterior noise (``[B, C, 1, h, w]`` each), then the per-step
+scheduler noise (DPM, or DDIM at η > 0). Each stack is drawn whole before
+the loop: a resumed run redraws it and finds the same values.
 
-Not ported yet (queued in ROADMAP.md): DPM, η > 0, dynamic CFG, pixel-space
-ALG, ``patch_size_t``/ofs (CogVideoX-1.5), the step cache, checkpoints and
-step observers.
+Run control (``pipelines/denoise.py``): ``interrupt``, a ``step_observer``
+that may replace the latents, snapshots through ``checkpoint=`` and the
+opt-in step cache (``cache_interval > 1``: steps it skips launch no DiT).
+
+Not ported yet (queued in ROADMAP.md): ``patch_size_t`` and the ofs
+embedding (CogVideoX-1.5), DiTs without RoPE, ``invert_scale_latents``.
 """
 
 from __future__ import annotations
@@ -27,14 +38,17 @@ import numpy as np
 import torch
 
 from alg_tpu_torch.alg.matrices import apply_filter_matrices
-from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_lp_plan
+from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_cache_schedule, build_lp_plan
 from alg_tpu_torch.core.rng import NoiseSource
+from alg_tpu_torch.io.runstate import as_checkpoint, run_fingerprint
 from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, cogvideox_rope
 from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE
 from alg_tpu_torch.models.t5 import T5Encoder
 from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
 from alg_tpu_torch.pipelines import processing
-from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig, CogVideoXDDIMPlan, ddim_step, make_ddim_plan
+from alg_tpu_torch.pipelines.denoise import denoise_loop
+from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig, ddim_step, make_ddim_plan
+from alg_tpu_torch.schedulers.dpm_cogvideox import dpm_step, make_dpm_plan
 
 
 @dataclasses.dataclass
@@ -43,16 +57,25 @@ class CogVideoXPipeline:
 
     ``tokenize``: ``(prompts, max_len) -> int [B, max_len]`` token ids (the
     T5 tokenizer with max-length padding and truncation), injected so the
-    pipeline needs no tokenizer files. ``dtype`` is the DiT's activation
-    dtype; the VAE runs in the dtype of its own weights."""
+    pipeline needs no tokenizer files. ``scheduler``: ``"ddim"`` or
+    ``"dpm"``. ``dtype`` is the DiT's activation dtype; the VAE runs in the
+    dtype of its own weights. ``vae_encode_tiling``: True or False forces
+    tiled or whole VAE encoding; None tiles only clips large enough to be a
+    memory risk (``models/vae_tiling.auto_tile_encode``), so never the one
+    conditioning frame. ``interrupt``: set it (from a ``step_observer`` or
+    another thread) to stop the run after the current step; each call
+    resets it."""
 
     transformer: CogVideoXTransformer
     vae: CogVideoXVAE
     t5: Optional[T5Encoder] = None
     tokenize: Optional[Callable] = None
+    scheduler: str = "ddim"
     scheduler_cfg: CogVideoXDDIMConfig = dataclasses.field(default_factory=CogVideoXDDIMConfig)
     dtype: torch.dtype = torch.float32
     device: Union[str, torch.device] = "cuda"
+    vae_encode_tiling: Optional[bool] = None
+    interrupt: bool = dataclasses.field(default=False, compare=False)
 
     @property
     def vae_dtype(self) -> torch.dtype:
@@ -69,20 +92,30 @@ class CogVideoXPipeline:
         ids = torch.as_tensor(np.asarray(self.tokenize(prompts, max_sequence_length)), dtype=torch.long)
         return self.t5(ids.to(self.device)).to(self.dtype)
 
+    def _encode_moments(self, x_bfchw: torch.Tensor):
+        """VAE-encode ``[B, F, C, H, W]`` pixels on the device -> fp32 (mean,
+        logvar), each ``[B, F', h, w, C]``."""
+        x = x_bfchw.to(self.vae_dtype).permute(0, 1, 3, 4, 2)
+        if auto_tile_encode(x.shape[1], x.shape[2], x.shape[3], self.vae_encode_tiling):
+            mean, logvar = tiled_encode(self.vae.encode, x, self.vae.cfg.spatial_scale)
+        else:
+            mean, logvar = self.vae.encode(x)
+        return mean.float(), logvar.float()
+
+    @staticmethod
+    def _posterior_sample(mean: torch.Tensor, logvar: torch.Tensor, eps_bcfhw: torch.Tensor) -> torch.Tensor:
+        """``mean + std·eps`` with the noise drawn in torch's ``[B, C, F, h, w]``
+        order; returns ``[B, F, C, h, w]``."""
+        z = mean + torch.exp(0.5 * logvar.clamp(-30.0, 20.0)) * eps_bcfhw.to(mean.device).permute(0, 2, 3, 4, 1)
+        return z.permute(0, 1, 4, 2, 3)
+
     @torch.no_grad()
     def vae_encode_sample(self, image_bfchw: np.ndarray, noise: NoiseSource) -> torch.Tensor:
         """VAE-encode ``[B, F, C, H, W]`` pixels and draw the posterior sample
         with torch-ordered noise; returns latents ``[B, F', C, h, w]`` fp32."""
-        x = torch.as_tensor(image_bfchw, dtype=self.vae_dtype).to(self.device).permute(0, 1, 3, 4, 2)
-        if auto_tile_encode(x.shape[1], x.shape[2], x.shape[3]):
-            mean, logvar = tiled_encode(self.vae.encode, x, self.vae.cfg.spatial_scale)
-        else:
-            mean, logvar = self.vae.encode(x)
-        mean, logvar = mean.float(), logvar.float()
+        mean, logvar = self._encode_moments(torch.as_tensor(image_bfchw, dtype=torch.float32).to(self.device))
         b, f, h, w, c = mean.shape
-        eps = noise.randn((b, c, f, h, w)).to(self.device).permute(0, 2, 3, 4, 1)
-        z = mean + torch.exp(0.5 * logvar.clamp(-30.0, 20.0)) * eps
-        return z.permute(0, 1, 4, 2, 3)
+        return self._posterior_sample(mean, logvar, noise.randn((b, c, f, h, w)))
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
@@ -108,13 +141,21 @@ class CogVideoXPipeline:
         num_frames: Optional[int] = None,
         num_inference_steps: int = 50,
         guidance_scale: float = 6.0,
+        use_dynamic_cfg: bool = False,
+        eta: float = 0.0,
         seed: int = 42,
         noise_source: Optional[NoiseSource] = None,
         latents: Optional[np.ndarray] = None,
         prompt_embeds: Optional[torch.Tensor] = None,
         negative_prompt_embeds: Optional[torch.Tensor] = None,
+        timesteps=None,
         max_sequence_length: int = 226,
         output_type: str = "np",
+        attention_kwargs: Optional[dict] = None,
+        step_observer: Optional[Callable] = None,
+        checkpoint=None,
+        checkpoint_every: int = 8,
+        cache_interval: int = 1,
         use_low_pass_guidance: bool = False,
         lp_filter_type: str = "none",
         lp_filter_in_latent: bool = True,
@@ -131,7 +172,16 @@ class CogVideoXPipeline:
         schedule_exp_decay_rate: float = 5.0,
     ):
         """Generate a video; returns ``np`` frames ``[B, F, H, W, 3]`` in
-        [0, 1] or the final ``latent`` ``[B, F, C, h, w]``."""
+        [0, 1], ``pil`` frame lists or the final ``latent`` ``[B, F, C, h, w]``.
+
+        ``checkpoint``: a path (or ``io.runstate.RunCheckpoint``) where the
+        loop's carry is saved every ``checkpoint_every`` steps; a snapshot
+        of a call with the same arguments resumes there. ``cache_interval``
+        > 1: a DiT forward only on every ``cache_interval``-th step, the last
+        step and the ALG steps, the previous prediction reused between (an
+        approximation; 1 is exact)."""
+        self.interrupt = False
+        processing.validate_attention_kwargs(attention_kwargs)
         tcfg, vcfg = self.transformer.cfg, self.vae.cfg
         scale_s = vcfg.spatial_scale
         height = height or tcfg.sample_height * scale_s
@@ -143,12 +193,32 @@ class CogVideoXPipeline:
             raise ValueError("Provide an input image (I2V pipelines condition on it).")
         if prompt is None and prompt_embeds is None:
             raise ValueError("Provide prompt or prompt_embeds.")
-        if output_type not in ("np", "latent"):
-            raise ValueError(f"Unsupported output_type {output_type!r} (the port returns 'np' or 'latent')")
+        if output_type not in ("np", "pil", "latent"):
+            raise ValueError(f"Unknown output_type {output_type!r}")
+        if self.scheduler not in ("ddim", "dpm"):
+            raise ValueError(f"Unknown scheduler {self.scheduler!r}")
+        cache_interval = int(cache_interval)
+        if cache_interval < 1:
+            raise ValueError(f"cache_interval must be >= 1, got {cache_interval}")
         do_cfg = guidance_scale > 1.0
-        if use_low_pass_guidance and do_cfg and not lp_filter_in_latent:
-            raise NotImplementedError("pixel-space ALG (lp_filter_in_latent=False) is not ported yet")
         noise = noise_source or NoiseSource(seed=seed)
+        alg_kw = dict(use_low_pass_guidance=use_low_pass_guidance, lp_filter_type=lp_filter_type,
+                      lp_filter_in_latent=lp_filter_in_latent, lp_blur_sigma=lp_blur_sigma,
+                      lp_blur_kernel_size=lp_blur_kernel_size, lp_resize_factor=lp_resize_factor,
+                      lp_strength_schedule_type=lp_strength_schedule_type,
+                      schedule_blur_kernel_size=schedule_blur_kernel_size,
+                      schedule_interval_start_time=schedule_interval_start_time,
+                      schedule_interval_end_time=schedule_interval_end_time,
+                      schedule_linear_start_weight=schedule_linear_start_weight,
+                      schedule_linear_end_weight=schedule_linear_end_weight,
+                      schedule_linear_end_time=schedule_linear_end_time,
+                      schedule_exp_decay_rate=schedule_exp_decay_rate)
+        checkpoint = as_checkpoint(checkpoint, run_fingerprint(
+            "cogvideox", prompt=prompt, negative_prompt=negative_prompt, seed=seed, height=height, width=width,
+            num_frames=num_frames, num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            use_dynamic_cfg=use_dynamic_cfg, eta=eta, timesteps=timesteps, scheduler=self.scheduler,
+            **({"cache_interval": cache_interval} if cache_interval != 1 else {}), alg=tuple(alg_kw.values())),
+            checkpoint_every)
 
         # prompt embeds, negative first in the CFG batch
         if prompt_embeds is None:
@@ -180,35 +250,46 @@ class CogVideoXPipeline:
             latents0 = torch.as_tensor(np.asarray(latents, np.float32))
         latents0 = latents0.to(self.device)
 
-        sched_plan = make_ddim_plan(self.scheduler_cfg, num_inference_steps)
-        lp_cfg = LPConfig(
-            use_low_pass_guidance=use_low_pass_guidance and do_cfg,
-            lp_filter_type=lp_filter_type,
-            lp_filter_in_latent=lp_filter_in_latent,
-            lp_blur_sigma=lp_blur_sigma,
-            lp_blur_kernel_size=lp_blur_kernel_size,
-            lp_resize_factor=lp_resize_factor,
-            lp_strength_schedule_type=lp_strength_schedule_type,
-            schedule_blur_kernel_size=schedule_blur_kernel_size,
-            schedule_interval_start_time=schedule_interval_start_time,
-            schedule_interval_end_time=schedule_interval_end_time,
-            schedule_linear_start_weight=schedule_linear_start_weight,
-            schedule_linear_end_weight=schedule_linear_end_weight,
-            schedule_linear_end_time=schedule_linear_end_time,
-            schedule_exp_decay_rate=schedule_exp_decay_rate,
-        )
-        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, h_lat, w_lat, exp_shortcut=True)
+        if self.scheduler == "dpm":
+            sched_plan = make_dpm_plan(self.scheduler_cfg, num_inference_steps, timesteps)
+        else:
+            sched_plan = make_ddim_plan(self.scheduler_cfg, num_inference_steps, timesteps, eta=eta)
+        num_inference_steps = len(sched_plan.timesteps)
+        lp_cfg = LPConfig(**{**alg_kw, "use_low_pass_guidance": use_low_pass_guidance and do_cfg})
+        filter_h, filter_w = (h_lat, w_lat) if lp_filter_in_latent else (height, width)
+        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, filter_h, filter_w, exp_shortcut=True)
+
+        # pixel-space ALG: one posterior draw a step, drawn after the initial latents
+        pixel_image = pixel_noise = None
+        if lp_plan.active and not lp_filter_in_latent:
+            pixel_image = torch.from_numpy(image_vae_in).to(self.device)  # [B, 1, C, H, W]
+            pixel_noise = torch.stack([noise.randn((batch_size, c_lat, 1, h_lat, w_lat))
+                                       for _ in range(num_inference_steps)])
+
+        # the guidance scale of each step: dynamic CFG's cosine ramp over the timesteps, or constant
+        ts = sched_plan.timesteps
+        if do_cfg and use_dynamic_cfg:
+            ramp = (num_inference_steps - ts) / num_inference_steps
+            g = 1 + guidance_scale * ((1 - np.cos(np.pi * ramp**5.0)) / 2)
+        else:
+            g = np.full(num_inference_steps, guidance_scale)
+        g_table = g.astype(np.float32)
+
+        # the scheduler's own noise, one draw a step: DPM always, DDIM at eta > 0
+        step_noise = None
+        if self.scheduler == "dpm" or eta > 0.0:
+            step_noise = torch.stack([noise.randn(latents0.shape) for _ in range(num_inference_steps)])
 
         cos, sin = cogvideox_rope(tcfg, height, width, latent_frames)
         latents_out = self._sample(
-            latents0, image_latents, prompt_embeds, negative_prompt_embeds, sched_plan, lp_plan,
-            float(np.float32(guidance_scale)), torch.from_numpy(cos).to(self.device),
-            torch.from_numpy(sin).to(self.device), do_cfg,
-        )
+            latents0, image_latents, prompt_embeds, negative_prompt_embeds, sched_plan, lp_plan, g_table,
+            torch.from_numpy(cos).to(self.device), torch.from_numpy(sin).to(self.device), do_cfg,
+            step_noise=step_noise, pixel_image=pixel_image, pixel_noise=pixel_noise, step_observer=step_observer,
+            checkpoint=checkpoint, cache_interval=cache_interval)
         if output_type == "latent":
             return latents_out.cpu().numpy()
         video = self.decode_latents(latents_out)
-        return processing.postprocess_video(video.cpu().numpy())
+        return processing.postprocess_video(video.cpu().numpy(), output_type)
 
     # -- sampler -------------------------------------------------------------
 
@@ -217,10 +298,23 @@ class CogVideoXPipeline:
         timestep = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
         return self.transformer(x, embeds, timestep, rope_cos, rope_sin).float()
 
-    def _sample(self, latents0, image_latents, prompt_embeds, negative_prompt_embeds,
-                sched_plan: CogVideoXDDIMPlan, lp_plan: LPPlan, g: float, rope_cos, rope_sin,
-                do_cfg: bool) -> torch.Tensor:
+    def _pixel_condition(self, pixel_image, m_h, m_w, eps, latent_frames: int) -> torch.Tensor:
+        """Pixel-space ALG's condition for one step: the RGB frame filtered at
+        (H, W), VAE-encoded, the posterior sampled with the step's ``eps``,
+        scaled, zero-padded to ``latent_frames``."""
+        rgb = apply_filter_matrices(pixel_image, m_h, m_w)
+        z = self.vae.cfg.scaling_factor * self._posterior_sample(*self._encode_moments(rgb), eps)
+        return torch.cat([z, z.new_zeros((z.shape[0], latent_frames - z.shape[1]) + tuple(z.shape[2:]))], dim=1)
+
+    def _sample(self, latents0, image_latents, prompt_embeds, negative_prompt_embeds, sched_plan, lp_plan: LPPlan,
+                g_table: np.ndarray, rope_cos, rope_sin, do_cfg: bool, step_noise=None, pixel_image=None,
+                pixel_noise=None, step_observer=None, checkpoint=None, cache_interval: int = 1,
+                stop_after: Optional[int] = None) -> torch.Tensor:
+        """The denoise loop. ``step_noise``/``pixel_noise``: CPU stacks ``[T,
+        ...]`` of the scheduler's and the pixel posterior's draws.
+        ``stop_after``: return after that many steps (a warm-up call)."""
         alg = lp_plan.active
+        use_dpm = self.scheduler == "dpm"
         if do_cfg:
             embeds2 = torch.cat([negative_prompt_embeds, prompt_embeds])
             embeds3 = torch.cat([negative_prompt_embeds, negative_prompt_embeds, prompt_embeds]) if alg else None
@@ -229,27 +323,40 @@ class CogVideoXPipeline:
         if alg:
             m_h = torch.from_numpy(lp_plan.m_h).to(self.device)
             m_w = torch.from_numpy(lp_plan.m_w).to(self.device)
+        three = lp_plan.three_pass & do_cfg & alg
+        latent_frames = image_latents.shape[1]
 
-        latents = latents0
-        for seg in lp_plan.segments:
-            three_pass = seg.three_pass and do_cfg and alg
-            for i in range(seg.start, seg.stop):
-                t = int(sched_plan.timesteps[i])
-                cond = image_latents
-                if alg:
-                    j = int(lp_plan.m_idx[i])
-                    cond = apply_filter_matrices(image_latents, m_h[j], m_w[j])
-                if not do_cfg:
-                    noise_pred = self._dit(latents, cond, embeds2, t, rope_cos, rope_sin)
-                elif three_pass:
-                    pred = self._dit(torch.cat([latents] * 3), torch.cat([image_latents, cond, cond]),
-                                     embeds3, t, rope_cos, rope_sin)
-                    uncond_init, uncond, text = pred.chunk(3)
-                    noise_pred = uncond_init + g * (text - uncond)
+        def predict(i, latents):
+            t, g = int(sched_plan.timesteps[i]), float(g_table[i])
+            cond = image_latents
+            if alg:
+                j = int(lp_plan.m_idx[i])
+                if pixel_image is not None:
+                    cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], latent_frames)
                 else:
-                    pred = self._dit(torch.cat([latents] * 2), torch.cat([cond, cond]), embeds2, t,
-                                     rope_cos, rope_sin)
-                    uncond, text = pred.chunk(2)
-                    noise_pred = uncond + g * (text - uncond)
-                latents = ddim_step(sched_plan, i, noise_pred, latents)
-        return latents
+                    cond = apply_filter_matrices(image_latents, m_h[j], m_w[j])
+            if not do_cfg:
+                return self._dit(latents, cond, embeds2, t, rope_cos, rope_sin)
+            if three[i]:
+                pred = self._dit(torch.cat([latents] * 3), torch.cat([image_latents, cond, cond]), embeds3, t,
+                                 rope_cos, rope_sin)
+                uncond_init, uncond, text = pred.chunk(3)
+                return uncond_init + g * (text - uncond)
+            pred = self._dit(torch.cat([latents] * 2), torch.cat([cond, cond]), embeds2, t, rope_cos, rope_sin)
+            uncond, text = pred.chunk(2)
+            return uncond + g * (text - uncond)
+
+        def update(i, carry, noise_pred):
+            latents, old_pred = carry
+            if use_dpm:
+                return dpm_step(sched_plan, i, noise_pred, latents, old_pred, step_noise[i].to(self.device))
+            eps = step_noise[i].to(self.device) if sched_plan.eta > 0.0 else None
+            return ddim_step(sched_plan, i, noise_pred, latents, noise=eps), old_pred
+
+        compute = None
+        if cache_interval > 1:
+            compute = build_cache_schedule(len(sched_plan.timesteps), cache_interval,
+                                           lp_plan.strengths if alg else None)
+        return denoise_loop(self, len(sched_plan.timesteps), (latents0, torch.zeros_like(latents0)), predict, update,
+                            compute=compute, checkpoint=checkpoint, step_observer=step_observer,
+                            stop_after=stop_after)

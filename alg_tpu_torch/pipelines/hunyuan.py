@@ -26,9 +26,15 @@ Same semantics as the reference ``HunyuanVideoImageToVideoPipeline``
 latent frame or the first 4 pixel frames dropped from the output). The only
 noise drawn is the initial latents, from one CPU ``torch.Generator``.
 
-Not ported yet (queued in ROADMAP.md): pixel-space ALG, the step cache,
-checkpoints, step observers and interruption, PIL frame output, sharded
-attention.
+Pixel-space ALG (``lp_filter_in_latent=False``) filters the preprocessed RGB
+frame at (H, W) and takes the mode of its VAE posterior on each step that
+uses the filtered condition (``alg_tpu``'s repair of the reference, whose
+pixel branch fails on a PIL image); under ``latent_concat`` it is zero-padded
+to the latent frames. Run control (``pipelines/denoise.py``): ``interrupt``,
+a ``step_observer`` that may replace the latents, snapshots through
+``checkpoint=`` and the opt-in step cache.
+
+Not ported yet (queued in ROADMAP.md): sharded attention.
 """
 
 from __future__ import annotations
@@ -41,14 +47,16 @@ import numpy as np
 import torch
 
 from alg_tpu_torch.alg.matrices import apply_filter_matrices
-from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, LPSegment, build_lp_plan
+from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_cache_schedule, build_lp_plan
 from alg_tpu_torch.core.rng import NoiseSource
+from alg_tpu_torch.io.runstate import as_checkpoint, run_fingerprint
 from alg_tpu_torch.models.clip import CLIPTextModel, clip_preprocess
 from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer, hunyuan_rope
 from alg_tpu_torch.models.hunyuan.vae import HunyuanVAE
 from alg_tpu_torch.models.llama import LlavaModel
 from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
 from alg_tpu_torch.pipelines import processing
+from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.flow_match_euler import (FlowMatchEulerConfig, FlowMatchEulerPlan,
                                                        flow_match_euler_step, make_flow_match_euler_plan)
 
@@ -86,7 +94,10 @@ class HunyuanVideoPipeline:
 
     ``vae_encode_tiling``: True or False forces tiled or whole encoding of
     the image; None tiles only multi-frame clips large enough to be a memory
-    risk (``models/vae_tiling.auto_tile_encode``), so never the one frame."""
+    risk (``models/vae_tiling.auto_tile_encode``), so never the one frame.
+
+    ``interrupt``: set it (from a ``step_observer`` or another thread) to
+    stop the run after the current step; each call resets it."""
 
     transformer: HunyuanVideoTransformer
     vae: HunyuanVAE
@@ -100,6 +111,7 @@ class HunyuanVideoPipeline:
     dtype: torch.dtype = torch.float32
     device: Union[str, torch.device] = "cuda"
     vae_encode_tiling: Optional[bool] = None
+    interrupt: bool = dataclasses.field(default=False, compare=False)
 
     @property
     def vae_dtype(self) -> torch.dtype:
@@ -244,9 +256,37 @@ class HunyuanVideoPipeline:
         lp_on_noisy_latent: bool = False,
         enable_lp_img_embeds: bool = False,
         image_condition_type: str = "token_replace",
+        step_observer: Optional[Callable] = None,
+        checkpoint=None,
+        checkpoint_every: int = 8,
+        cache_interval: int = 1,
     ):
         """Generate a video; returns ``np`` frames ``[B, F, H, W, 3]`` in
-        [0, 1] or the final ``latent`` ``[B, C, F, h, w]``."""
+        [0, 1], ``pil`` frame lists or the final ``latent`` ``[B, C, F, h,
+        w]``. ``checkpoint``, ``checkpoint_every``, ``cache_interval``: as
+        in :meth:`CogVideoXPipeline.__call__`."""
+        self.interrupt = False
+        cache_interval = int(cache_interval)
+        if cache_interval < 1:
+            raise ValueError(f"cache_interval must be >= 1, got {cache_interval}")
+        alg_kw = dict(use_low_pass_guidance=use_low_pass_guidance, lp_filter_type=lp_filter_type,
+                      lp_filter_in_latent=lp_filter_in_latent, lp_blur_sigma=lp_blur_sigma,
+                      lp_blur_kernel_size=lp_blur_kernel_size, lp_resize_factor=lp_resize_factor,
+                      lp_strength_schedule_type=lp_strength_schedule_type,
+                      schedule_blur_kernel_size=schedule_blur_kernel_size,
+                      schedule_interval_start_time=schedule_interval_start_time,
+                      schedule_interval_end_time=schedule_interval_end_time,
+                      schedule_linear_start_weight=schedule_linear_start_weight,
+                      schedule_linear_end_weight=schedule_linear_end_weight,
+                      schedule_linear_end_time=schedule_linear_end_time,
+                      schedule_exp_decay_rate=schedule_exp_decay_rate)
+        checkpoint = as_checkpoint(checkpoint, run_fingerprint(
+            "hunyuan", prompt=prompt, prompt_2=prompt_2, negative_prompt=negative_prompt, seed=seed, height=height,
+            width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, true_cfg_scale=true_cfg_scale, i2v_stable=i2v_stable,
+            sigmas=None if sigmas is None else tuple(sigmas), image_condition_type=image_condition_type,
+            **({"cache_interval": cache_interval} if cache_interval != 1 else {}),
+            lp_on_noisy_latent=lp_on_noisy_latent, alg=tuple(alg_kw.values())), checkpoint_every)
         processing.validate_attention_kwargs(attention_kwargs)
         assert not enable_lp_img_embeds, (
             "Low-pass filter on image embeds is not supported in HunyuanVideo pipeline."
@@ -255,10 +295,8 @@ class HunyuanVideoPipeline:
             raise ValueError(f"Unknown image_condition_type: {image_condition_type!r}")
         if height % 16 != 0 or width % 16 != 0:
             raise ValueError(f"height and width must be divisible by 16 but are {height} and {width}.")
-        if output_type not in ("np", "latent"):
-            raise ValueError(f"Unsupported output_type {output_type!r} (the port returns 'np' or 'latent')")
-        if use_low_pass_guidance and not lp_filter_in_latent:
-            raise NotImplementedError("pixel-space ALG (lp_filter_in_latent=False) is not ported yet")
+        if output_type not in ("np", "pil", "latent"):
+            raise ValueError(f"Unknown output_type {output_type!r}")
         if true_cfg_scale > 1.0 and guidance_scale > 1.0:
             logging.getLogger(__name__).warning(
                 "Both true_cfg_scale > 1 and guidance_scale > 1: distilled guidance and true CFG are active "
@@ -276,12 +314,7 @@ class HunyuanVideoPipeline:
             image_tensor = processing.preprocess_image(image, height, width)
         else:
             image_tensor = np.asarray(image, np.float32)
-        x = torch.from_numpy(image_tensor).to(self.device, self.vae_dtype)[:, None].permute(0, 1, 3, 4, 2)  # BFHWC
-        if auto_tile_encode(x.shape[1], x.shape[2], x.shape[3], self.vae_encode_tiling):
-            (mean0,) = tiled_encode(lambda xt: self.vae.encode(xt)[:1], x, vcfg.spatial_scale)
-        else:
-            mean0 = self.vae.encode(x)[0]
-        image_latents = mean0.float().permute(0, 4, 1, 2, 3) * vcfg.scaling_factor  # [B, z, 1, h, w]
+        image_latents = self._encode_mode(torch.from_numpy(image_tensor).to(self.device)[:, None])  # [B, z, 1, h, w]
 
         # prompt embeds
         if prompt_embeds is None:
@@ -322,23 +355,13 @@ class HunyuanVideoPipeline:
         # plans
         sig = np.linspace(1.0, 0.0, num_inference_steps + 1)[:-1] if sigmas is None else np.asarray(sigmas)
         sched_plan = make_flow_match_euler_plan(self.scheduler_cfg, sigmas=sig)
-        lp_cfg = LPConfig(
-            use_low_pass_guidance=use_low_pass_guidance,  # the single-pass branch works without true CFG
-            lp_filter_type=lp_filter_type,
-            lp_filter_in_latent=lp_filter_in_latent,
-            lp_blur_sigma=lp_blur_sigma,
-            lp_blur_kernel_size=lp_blur_kernel_size,
-            lp_resize_factor=lp_resize_factor,
-            lp_strength_schedule_type=lp_strength_schedule_type,
-            schedule_blur_kernel_size=schedule_blur_kernel_size,
-            schedule_interval_start_time=schedule_interval_start_time,
-            schedule_interval_end_time=schedule_interval_end_time,
-            schedule_linear_start_weight=schedule_linear_start_weight,
-            schedule_linear_end_weight=schedule_linear_end_weight,
-            schedule_linear_end_time=schedule_linear_end_time,
-            schedule_exp_decay_rate=schedule_exp_decay_rate,
-        )
-        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, h_lat, w_lat, exp_shortcut=False)
+        lp_cfg = LPConfig(**alg_kw)  # the single-pass branch works without true CFG
+        filter_h, filter_w = (h_lat, w_lat) if lp_filter_in_latent else (height, width)
+        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, filter_h, filter_w, exp_shortcut=False)
+        # pixel-space ALG encodes the preprocessed tensor (the mode: no draws)
+        pixel_image = None
+        if lp_plan.active and not lp_filter_in_latent:
+            pixel_image = torch.from_numpy(image_tensor).to(self.device)[:, None]  # [B, 1, C, H, W]
         guidance = None
         if tcfg.guidance_embeds:
             guidance = torch.full((1,), guidance_scale * 1000.0, dtype=torch.float32, device=self.device)
@@ -347,7 +370,8 @@ class HunyuanVideoPipeline:
             latents0, image_latents, prompt_embeds, pooled_prompt_embeds, prompt_attention_mask,
             negative_prompt_embeds, negative_pooled_prompt_embeds, negative_prompt_attention_mask,
             sched_plan, lp_plan, true_cfg_scale, do_true_cfg, guidance, lp_on_noisy_latent,
-            image_condition_type, cond_mask)
+            image_condition_type, cond_mask, pixel_image=pixel_image, step_observer=step_observer,
+            checkpoint=checkpoint, cache_interval=cache_interval)
 
         latent_concat = image_condition_type == "latent_concat"
         if output_type == "latent":
@@ -355,7 +379,7 @@ class HunyuanVideoPipeline:
         video = self.decode_latents(latents_out)  # [B, C, F, H, W]
         if latent_concat:
             video = video[:, :, 4:]
-        return processing.postprocess_video(video.permute(0, 2, 1, 3, 4).cpu().numpy())
+        return processing.postprocess_video(video.permute(0, 2, 1, 3, 4).cpu().numpy(), output_type)
 
     # -- sampler ---------------------------------------------------------------
 
@@ -365,10 +389,32 @@ class HunyuanVideoPipeline:
         return self.transformer(lat_in.to(self.dtype), ts, embeds.to(self.dtype), mask, pooled.to(self.dtype),
                                 None if guidance is None else guidance.expand(n), rope_cos, rope_sin).float()
 
+    def _encode_mode(self, x_bfchw: torch.Tensor) -> torch.Tensor:
+        """The mode of the VAE posterior of ``[B, F, C, H, W]`` pixels on the
+        device, scaled -> ``[B, z, F', h, w]`` fp32."""
+        vcfg = self.vae.cfg
+        x = x_bfchw.to(self.vae_dtype).permute(0, 1, 3, 4, 2)  # BFHWC
+        if auto_tile_encode(x.shape[1], x.shape[2], x.shape[3], self.vae_encode_tiling):
+            (mean,) = tiled_encode(lambda xt: self.vae.encode(xt)[:1], x, vcfg.spatial_scale)
+        else:
+            mean = self.vae.encode(x)[0]
+        return mean.float().permute(0, 4, 1, 2, 3) * vcfg.scaling_factor
+
+    def _pixel_condition(self, pixel_image, m_h, m_w, latent_frames: int) -> torch.Tensor:
+        """Pixel-space ALG's condition for one step: the RGB frame filtered at
+        (H, W), the mode of its VAE posterior, scaled; zero-padded to
+        ``latent_frames`` (``latent_concat``)."""
+        z = self._encode_mode(apply_filter_matrices(pixel_image, m_h, m_w))
+        pad = z.new_zeros(tuple(z.shape[:2]) + (latent_frames - z.shape[2],) + tuple(z.shape[3:]))
+        return torch.cat([z, pad], dim=2)
+
     def _sample(self, latents0, image_latents, prompt_embeds, pooled, prompt_mask, neg_embeds, neg_pooled,
                 neg_mask, sched_plan: FlowMatchEulerPlan, lp_plan: LPPlan, true_cfg_scale: float,
                 do_true_cfg: bool, guidance, lp_on_noisy_latent: bool, image_condition_type: str,
-                cond_mask) -> torch.Tensor:
+                cond_mask, pixel_image=None, step_observer=None, checkpoint=None, cache_interval: int = 1,
+                stop_after: Optional[int] = None) -> torch.Tensor:
+        """The denoise loop. ``stop_after``: return after that many steps (a
+        warm-up call)."""
         alg = lp_plan.active
         latent_concat = image_condition_type == "latent_concat"
         batch = latents0.shape[0]
@@ -381,10 +427,7 @@ class HunyuanVideoPipeline:
         il = image_latents
 
         # 3-pass steps only under true CFG with ALG, and never with lp_on_noisy_latent
-        if do_true_cfg and alg and not lp_on_noisy_latent:
-            segments = lp_plan.segments
-        else:
-            segments = (LPSegment(0, lp_plan.num_steps, False),)
+        three = lp_plan.three_pass & (do_true_cfg and alg and not lp_on_noisy_latent)
         if do_true_cfg:
             embeds2, mask2, pool2 = (torch.cat([n, p]) for n, p in
                                      ((neg_embeds, prompt_embeds), (neg_mask, prompt_mask), (neg_pooled, pooled)))
@@ -401,35 +444,44 @@ class HunyuanVideoPipeline:
         def dit(lat_in, embeds, mask, pool, t):
             return self._dit(lat_in, embeds, mask, pool, t, guidance, rope_cos, rope_sin)
 
-        latents = latents0
-        for seg in segments:
-            for i in range(seg.start, seg.stop):
-                t = float(sched_plan.timesteps[i])
-                cond = il
-                if alg:  # the filtered first-frame latent
-                    j = int(lp_plan.m_idx[i])
-                    cond = apply_filter_matrices(il, m_h[j], m_w[j])
-                if do_true_cfg and seg.three_pass:
-                    pred = dit(assemble(torch.cat([latents] * 3), torch.cat([il, cond, cond])),
-                               embeds3, mask3, pool3, t)
-                    uncond_init, uncond, text = pred.chunk(3)
-                    noise_pred = uncond_init + true_cfg_scale * (text - uncond)
-                elif do_true_cfg:
-                    # 2-pass on the clean condition (strength 0, lp_on_noisy_latent, or no ALG)
-                    pred = dit(assemble(torch.cat([latents] * 2), torch.cat([il, il])), embeds2, mask2, pool2, t)
-                    uncond, text = pred.chunk(2)
-                    noise_pred = uncond + true_cfg_scale * (text - uncond)
-                else:
-                    # single pass: ALG replaces the condition
-                    noise_pred = dit(assemble(latents, cond), prompt_embeds, prompt_mask, pooled, t)
+        def filtered(i):  # the filtered first-frame latent
+            if not alg:
+                return il
+            j = int(lp_plan.m_idx[i])
+            if pixel_image is not None:
+                return self._pixel_condition(pixel_image, m_h[j], m_w[j], il.shape[2])
+            return apply_filter_matrices(il, m_h[j], m_w[j])
 
-                if latent_concat:  # a full scheduler step, frame 0 not re-pinned
-                    latents = flow_match_euler_step(sched_plan, i, noise_pred, latents)
-                else:  # token_replace: step frames 1+ and re-pin frame 0
-                    rest = flow_match_euler_step(sched_plan, i, noise_pred[:, :, 1:], latents[:, :, 1:])
-                    latents = torch.cat([il, rest], dim=2)
-                latents = latents.float()
-        return latents
+        def predict(i, latents):
+            t = float(sched_plan.timesteps[i])
+            if three[i]:
+                cond = filtered(i)
+                pred = dit(assemble(torch.cat([latents] * 3), torch.cat([il, cond, cond])), embeds3, mask3, pool3, t)
+                uncond_init, uncond, text = pred.chunk(3)
+                return uncond_init + true_cfg_scale * (text - uncond)
+            if do_true_cfg:
+                # 2-pass on the clean condition (strength 0, lp_on_noisy_latent, or no ALG)
+                pred = dit(assemble(torch.cat([latents] * 2), torch.cat([il, il])), embeds2, mask2, pool2, t)
+                uncond, text = pred.chunk(2)
+                return uncond + true_cfg_scale * (text - uncond)
+            # single pass: ALG replaces the condition
+            return dit(assemble(latents, filtered(i)), prompt_embeds, prompt_mask, pooled, t)
+
+        def update(i, carry, noise_pred):
+            (latents,) = carry
+            if latent_concat:  # a full scheduler step, frame 0 not re-pinned
+                latents = flow_match_euler_step(sched_plan, i, noise_pred, latents)
+            else:  # token_replace: step frames 1+ and re-pin frame 0
+                rest = flow_match_euler_step(sched_plan, i, noise_pred[:, :, 1:], latents[:, :, 1:])
+                latents = torch.cat([il, rest], dim=2)
+            return (latents.float(),)
+
+        compute = None
+        if cache_interval > 1:
+            compute = build_cache_schedule(len(sched_plan.timesteps), cache_interval,
+                                           lp_plan.strengths if alg else None)
+        return denoise_loop(self, len(sched_plan.timesteps), (latents0,), predict, update, compute=compute,
+                            checkpoint=checkpoint, step_observer=step_observer, stop_after=stop_after)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None) -> torch.Tensor:

@@ -2,8 +2,8 @@
 ``alg_tpu/pipelines/processing.py``).
 
 Images become fp32 ``[1, 3, H, W]`` in [-1, 1]; decoded frames in [-1, 1]
-map back to [0, 1]. ``PIL`` is imported only where a PIL image is handled.
-PIL frame output is not ported yet.
+map back to [0, 1], as arrays or as PIL frames. ``PIL`` is imported only
+where a PIL image is handled or made.
 """
 
 from __future__ import annotations
@@ -31,10 +31,25 @@ def preprocess_image(image, height: int, width: int) -> np.ndarray:
     return (arr * 2.0 - 1.0).transpose(2, 0, 1)[None]
 
 
-def postprocess_video(frames: np.ndarray) -> np.ndarray:
-    """``[B, F, C, H, W]`` fp32 in [-1, 1] -> ``[B, F, H, W, C]`` in [0, 1]
-    (the reference's ``output_type="np"``)."""
-    return np.clip(frames / 2.0 + 0.5, 0.0, 1.0).transpose(0, 1, 3, 4, 2)
+def postprocess_video(frames: np.ndarray, output_type: str = "np"):
+    """``[B, F, C, H, W]`` fp32 in [-1, 1] -> ``"np"``: ``[B, F, H, W, C]`` in
+    [0, 1]; ``"pil"``: one list of RGB PIL frames a sample (the reference's
+    default); ``"latent"``: ``frames`` unchanged.
+
+    The port's pipelines default to ``"np"``, not to the reference's
+    ``"pil"``: the GPU machines the port runs on have not always had PIL,
+    and an array needs no conversion on the way to ``io/video.write_video``."""
+    if output_type == "latent":
+        return frames
+    video = np.clip(frames / 2.0 + 0.5, 0.0, 1.0)
+    if output_type == "np":
+        return video.transpose(0, 1, 3, 4, 2)
+    if output_type == "pil":
+        from PIL import Image
+
+        return [[Image.fromarray(f) for f in (v.transpose(0, 2, 3, 1) * 255).round().astype(np.uint8)]
+                for v in video]
+    raise ValueError(f"Unknown output_type {output_type!r}")
 
 
 def validate_attention_kwargs(attention_kwargs) -> None:

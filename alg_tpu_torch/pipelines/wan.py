@@ -20,12 +20,23 @@ Same semantics as the reference ``WanImageToVideoPipeline``:
   * UniPC steps over fp32 latents in a Python loop, then de-normalise and
     VAE decode, tiled above 48×48 latents.
 
-``guidance_scale <= 1`` runs a single pass. The only noise drawn on this
-path is the initial latents, from one CPU ``torch.Generator``.
+``guidance_scale <= 1`` runs a single pass. Pixel-space ALG
+(``lp_filter_in_latent=False``) rebuilds the latent half of the condition on
+each 3-pass step: the RGB frame filtered at (H, W), ``num_frames - 1`` zero
+frames after it, a VAE encode through overlapping tiles one at a time
+(clips past ~8 frames of 480p), a posterior sample with that step's noise,
+the ``latents_mean``/``latents_std`` normalisation; the 4 mask channels are
+the clean condition's. As in ``alg_tpu``, that rebuild leaves a
+``last_image`` out of the video it encodes (the mask still marks it), where
+the reference encodes it filtered too: kept for parity (ROADMAP.md C, R10).
 
-Not ported yet (queued in ROADMAP.md): pixel-space ALG, the step cache,
-checkpoints, step observers and interruption, PIL frame output, sharded
-attention.
+Draws, from one CPU ``torch.Generator``: the initial latents, then (pixel
+mode) one posterior draw a step ``[B, z, F', h, w]``, all before the loop.
+Run control (``pipelines/denoise.py``): ``interrupt``, a ``step_observer``
+that may replace the latents, snapshots through ``checkpoint=`` (the UniPC
+history is part of the carry) and the opt-in step cache.
+
+Not ported yet (queued in ROADMAP.md): sharded attention.
 """
 
 from __future__ import annotations
@@ -39,14 +50,16 @@ import numpy as np
 import torch
 
 from alg_tpu_torch.alg.matrices import apply_filter_matrices
-from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_lp_plan
+from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_cache_schedule, build_lp_plan
 from alg_tpu_torch.core.rng import NoiseSource
+from alg_tpu_torch.io.runstate import as_checkpoint, run_fingerprint
 from alg_tpu_torch.models.clip import CLIPVisionModel, clip_preprocess
 from alg_tpu_torch.models.t5 import T5Encoder
 from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
 from alg_tpu_torch.models.wan.transformer import WanTransformer, wan_rope
 from alg_tpu_torch.models.wan.vae import WanVAE
 from alg_tpu_torch.pipelines import processing
+from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.unipc import UniPCConfig, UniPCPlan, make_unipc_plan, unipc_init_state, unipc_step
 
 
@@ -79,7 +92,10 @@ class WanPipeline:
 
     ``guidance_microbatch``: 0 runs a step's CFG/ALG passes as one batched
     DiT forward; N > 0 runs them one after another in micro-batches of N
-    samples, which lowers the peak activation memory."""
+    samples, which lowers the peak activation memory.
+
+    ``interrupt``: set it (from a ``step_observer`` or another thread) to
+    stop the run after the current step; each call resets it."""
 
     transformer: WanTransformer
     vae: WanVAE
@@ -91,6 +107,7 @@ class WanPipeline:
     device: Union[str, torch.device] = "cuda"
     vae_encode_tiling: Optional[bool] = None
     guidance_microbatch: int = 0
+    interrupt: bool = dataclasses.field(default=False, compare=False)
 
     @property
     def vae_dtype(self) -> torch.dtype:
@@ -157,9 +174,36 @@ class WanPipeline:
         schedule_linear_end_weight: float = 0.0,
         schedule_linear_end_time: float = 1.0,
         schedule_exp_decay_rate: float = 5.0,
+        step_observer: Optional[Callable] = None,
+        checkpoint=None,
+        checkpoint_every: int = 8,
+        cache_interval: int = 1,
     ):
         """Generate a video; returns ``np`` frames ``[B, F, H, W, 3]`` in
-        [0, 1] or the final ``latent`` ``[B, C, F, h, w]``."""
+        [0, 1], ``pil`` frame lists or the final ``latent`` ``[B, C, F, h,
+        w]``. ``checkpoint``, ``checkpoint_every``, ``cache_interval``: as
+        in :meth:`CogVideoXPipeline.__call__`."""
+        self.interrupt = False
+        cache_interval = int(cache_interval)
+        if cache_interval < 1:
+            raise ValueError(f"cache_interval must be >= 1, got {cache_interval}")
+        alg_kw = dict(use_low_pass_guidance=use_low_pass_guidance, lp_filter_type=lp_filter_type,
+                      lp_filter_in_latent=lp_filter_in_latent, lp_blur_sigma=lp_blur_sigma,
+                      lp_blur_kernel_size=lp_blur_kernel_size, lp_resize_factor=lp_resize_factor,
+                      lp_strength_schedule_type=lp_strength_schedule_type,
+                      schedule_blur_kernel_size=schedule_blur_kernel_size,
+                      schedule_interval_start_time=schedule_interval_start_time,
+                      schedule_interval_end_time=schedule_interval_end_time,
+                      schedule_linear_start_weight=schedule_linear_start_weight,
+                      schedule_linear_end_weight=schedule_linear_end_weight,
+                      schedule_linear_end_time=schedule_linear_end_time,
+                      schedule_exp_decay_rate=schedule_exp_decay_rate)
+        checkpoint = as_checkpoint(checkpoint, run_fingerprint(
+            "wan", prompt=prompt, negative_prompt=negative_prompt, seed=seed, height=height, width=width,
+            num_frames=num_frames, num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            has_last_image=last_image is not None,
+            **({"cache_interval": cache_interval} if cache_interval != 1 else {}), alg=tuple(alg_kw.values())),
+            checkpoint_every)
         processing.validate_attention_kwargs(attention_kwargs)
         if height % 16 != 0 or width % 16 != 0:
             raise ValueError(f"height and width must be divisible by 16 but are {height} and {width}.")
@@ -175,11 +219,9 @@ class WanPipeline:
             raise ValueError("Provide image (image_embeds only replaces the CLIP-vision embeds).")
         if negative_prompt is not None and not isinstance(negative_prompt, (str, list, tuple)):
             raise ValueError(f"negative_prompt must be str or list but is {type(negative_prompt)}")
-        if output_type not in ("np", "latent"):
-            raise ValueError(f"Unsupported output_type {output_type!r} (the port returns 'np' or 'latent')")
+        if output_type not in ("np", "pil", "latent"):
+            raise ValueError(f"Unknown output_type {output_type!r}")
         do_cfg = guidance_scale > 1.0
-        if use_low_pass_guidance and do_cfg and not lp_filter_in_latent:
-            raise NotImplementedError("pixel-space ALG (lp_filter_in_latent=False) is not ported yet")
         noise = noise_source or NoiseSource(seed=seed)
         vcfg = self.vae.cfg
 
@@ -217,31 +259,26 @@ class WanPipeline:
         condition = self._build_condition(np.asarray(image, np.float32), batch_size, num_frames, last_image)
 
         sched_plan = make_unipc_plan(self.scheduler_cfg, num_inference_steps)
-        lp_cfg = LPConfig(
-            use_low_pass_guidance=use_low_pass_guidance and do_cfg,
-            lp_filter_type=lp_filter_type,
-            lp_filter_in_latent=lp_filter_in_latent,
-            lp_blur_sigma=lp_blur_sigma,
-            lp_blur_kernel_size=lp_blur_kernel_size,
-            lp_resize_factor=lp_resize_factor,
-            lp_strength_schedule_type=lp_strength_schedule_type,
-            schedule_blur_kernel_size=schedule_blur_kernel_size,
-            schedule_interval_start_time=schedule_interval_start_time,
-            schedule_interval_end_time=schedule_interval_end_time,
-            schedule_linear_start_weight=schedule_linear_start_weight,
-            schedule_linear_end_weight=schedule_linear_end_weight,
-            schedule_linear_end_time=schedule_linear_end_time,
-            schedule_exp_decay_rate=schedule_exp_decay_rate,
-        )
+        lp_cfg = LPConfig(**{**alg_kw, "use_low_pass_guidance": use_low_pass_guidance and do_cfg})
+        filter_h, filter_w = (h_lat, w_lat) if lp_filter_in_latent else (height, width)
         # Wan has no 2-pass shortcut for the exponential schedule
-        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, h_lat, w_lat, exp_shortcut=False)
+        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, filter_h, filter_w, exp_shortcut=False)
+
+        # pixel-space ALG: one posterior draw a step, drawn after the initial latents
+        pixel_image = pixel_noise = None
+        if lp_plan.active and not lp_filter_in_latent:
+            pixel_image = torch.from_numpy(np.asarray(image, np.float32)).to(self.device)[:, None]  # [B, 1, C, H, W]
+            pixel_noise = torch.stack([noise.randn((batch_size, vcfg.z_dim, f_lat, h_lat, w_lat))
+                                       for _ in range(num_inference_steps)])
 
         latents_out = self._sample(latents0, condition, prompt_embeds, negative_prompt_embeds, image_embeds,
-                                   sched_plan, lp_plan, float(np.float32(guidance_scale)), do_cfg)
+                                   sched_plan, lp_plan, float(np.float32(guidance_scale)), do_cfg, num_frames,
+                                   pixel_image=pixel_image, pixel_noise=pixel_noise, step_observer=step_observer,
+                                   checkpoint=checkpoint, cache_interval=cache_interval)
         if output_type == "latent":
             return latents_out.cpu().numpy()
         video = self.decode_latents(latents_out)  # [B, C, F, H, W]
-        return processing.postprocess_video(video.permute(0, 2, 1, 3, 4).cpu().numpy())
+        return processing.postprocess_video(video.permute(0, 2, 1, 3, 4).cpu().numpy(), output_type)
 
     # -- condition construction ------------------------------------------------
 
@@ -257,18 +294,25 @@ class WanPipeline:
         mask = np.concatenate([np.repeat(mask[:, :, 0:1], t, axis=2), mask[:, :, 1:]], axis=2)  # [B, 1, F+3, h, w]
         return mask.reshape(batch_size, -1, t, h_lat, w_lat).transpose(0, 2, 1, 3, 4)
 
-    def _encode_video_condition(self, video_bfchw: torch.Tensor) -> torch.Tensor:
-        """Mode of the VAE posterior, normalised by ``latents_mean``/``std``
-        -> ``[B, z, F', h, w]`` fp32. The full-length condition video (first
-        frame, then zeros) is the largest encode of a run, so it goes
-        through overlapping spatial tiles, one at a time, unless it is small."""
+    def _encode_video_condition(self, video_bfchw: torch.Tensor, eps_bcfhw: Optional[torch.Tensor] = None):
+        """The mode of the VAE posterior (or, given ``eps``, a sample with it,
+        drawn in torch's ``[B, z, F', h, w]`` order), normalised by
+        ``latents_mean``/``std`` -> ``[B, z, F', h, w]`` fp32. The full-length
+        condition video (first frame, then zeros) is the largest encode of a
+        run, so it goes through overlapping spatial tiles, one at a time,
+        unless it is small."""
         vcfg = self.vae.cfg
         x = video_bfchw.permute(0, 1, 3, 4, 2).to(self.vae_dtype)  # BFHWC
+        encode = self.vae.encode if eps_bcfhw is not None else (lambda xt: self.vae.encode(xt)[:1])
         if auto_tile_encode(x.shape[1], x.shape[2], x.shape[3], self.vae_encode_tiling):
-            (mean,) = tiled_encode(lambda xt: self.vae.encode(xt)[:1], x, vcfg.spatial_scale)
+            moments = tiled_encode(encode, x, vcfg.spatial_scale)
         else:
-            mean = self.vae.encode(x)[0]
-        z = mean.float().permute(0, 4, 1, 2, 3)
+            moments = encode(x)
+        mean = moments[0].float()
+        if eps_bcfhw is not None:
+            std = torch.exp(0.5 * moments[1].float().clamp(-30.0, 20.0))
+            mean = mean + std * eps_bcfhw.to(mean.device).permute(0, 2, 3, 4, 1)
+        z = mean.permute(0, 4, 1, 2, 3)
         lm = torch.tensor(vcfg.latents_mean, dtype=torch.float32, device=z.device).view(1, -1, 1, 1, 1)
         ls = torch.tensor(vcfg.latents_std, dtype=torch.float32, device=z.device).view(1, -1, 1, 1, 1)
         return (z - lm) / ls
@@ -304,8 +348,22 @@ class WanPipeline:
                               for i in range(0, n, mb)])
         return fwd(x, embeds, img_embeds)
 
+    def _pixel_condition(self, pixel_image, m_h, m_w, eps, num_frames: int, mask) -> torch.Tensor:
+        """Pixel-space ALG's condition for one step: the RGB frame filtered at
+        (H, W) with ``num_frames - 1`` zero frames after it, encoded and
+        sampled with the step's ``eps``, normalised, behind the clean
+        condition's 4 ``mask`` channels."""
+        rgb = apply_filter_matrices(pixel_image, m_h, m_w)  # [B, 1, C, H, W]
+        video = torch.cat([rgb, rgb.new_zeros((rgb.shape[0], num_frames - 1) + tuple(rgb.shape[2:]))], dim=1)
+        return torch.cat([mask, self._encode_video_condition(video, eps)], dim=1)
+
     def _sample(self, latents0, condition, prompt_embeds, negative_prompt_embeds, image_embeds,
-                sched_plan: UniPCPlan, lp_plan: LPPlan, g: float, do_cfg: bool) -> torch.Tensor:
+                sched_plan: UniPCPlan, lp_plan: LPPlan, g: float, do_cfg: bool, num_frames: int, pixel_image=None,
+                pixel_noise=None, step_observer=None, checkpoint=None, cache_interval: int = 1,
+                stop_after: Optional[int] = None) -> torch.Tensor:
+        """The denoise loop. ``pixel_noise``: the CPU stack ``[T, ...]`` of
+        the pixel posterior's draws. ``stop_after``: return after that many
+        steps (a warm-up call)."""
         alg = lp_plan.active
         f_lat, h_lat, w_lat = latents0.shape[2:]
         rope_cos, rope_sin = (torch.from_numpy(a).to(self.device)
@@ -318,33 +376,42 @@ class WanPipeline:
         if alg:
             m_h = torch.from_numpy(lp_plan.m_h).to(self.device)
             m_w = torch.from_numpy(lp_plan.m_w).to(self.device)
+        three = lp_plan.three_pass & do_cfg & alg
 
         def img(n):
             return None if image_embeds is None else torch.cat([image_embeds] * n)
 
-        latents = latents0
-        state = unipc_init_state(sched_plan, latents0)
-        for seg in lp_plan.segments:
-            three_pass = seg.three_pass and do_cfg and alg
-            for i in range(seg.start, seg.stop):
-                t = float(sched_plan.timesteps[i])
-                if not do_cfg:  # ALG needs CFG: a single pass on the clean condition
-                    noise_pred = self._dit(latents, condition, embeds2, image_embeds, t, rope_cos, rope_sin)
-                elif three_pass:
-                    j = int(lp_plan.m_idx[i])
-                    cond = apply_filter_matrices(condition, m_h[j], m_w[j])
-                    pred = self._dit(torch.cat([latents] * 3), torch.cat([condition, cond, cond]), embeds3,
-                                     img(3), t, rope_cos, rope_sin)
-                    uncond_init, uncond, text = pred.chunk(3)
-                    noise_pred = uncond_init + g * (text - uncond)
+        def predict(i, latents):
+            t = float(sched_plan.timesteps[i])
+            if not do_cfg:  # ALG needs CFG: a single pass on the clean condition
+                return self._dit(latents, condition, embeds2, image_embeds, t, rope_cos, rope_sin)
+            if three[i]:
+                j = int(lp_plan.m_idx[i])
+                if pixel_image is not None:
+                    cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], num_frames,
+                                                 condition[:, :4])
                 else:
-                    # strength-0 steps condition on the clean condition
-                    pred = self._dit(torch.cat([latents] * 2), torch.cat([condition, condition]), embeds2,
-                                     img(2), t, rope_cos, rope_sin)
-                    uncond, text = pred.chunk(2)
-                    noise_pred = uncond + g * (text - uncond)
-                latents, state = unipc_step(sched_plan, i, noise_pred, latents, state)
-        return latents
+                    cond = apply_filter_matrices(condition, m_h[j], m_w[j])
+                pred = self._dit(torch.cat([latents] * 3), torch.cat([condition, cond, cond]), embeds3, img(3), t,
+                                 rope_cos, rope_sin)
+                uncond_init, uncond, text = pred.chunk(3)
+                return uncond_init + g * (text - uncond)
+            # strength-0 steps condition on the clean condition
+            pred = self._dit(torch.cat([latents] * 2), torch.cat([condition, condition]), embeds2, img(2), t,
+                             rope_cos, rope_sin)
+            uncond, text = pred.chunk(2)
+            return uncond + g * (text - uncond)
+
+        def update(i, carry, noise_pred):
+            return unipc_step(sched_plan, i, noise_pred, *carry)
+
+        compute = None
+        if cache_interval > 1:
+            compute = build_cache_schedule(len(sched_plan.timesteps), cache_interval,
+                                           lp_plan.strengths if alg else None)
+        return denoise_loop(self, len(sched_plan.timesteps), (latents0, unipc_init_state(sched_plan, latents0)),
+                            predict, update, compute=compute, checkpoint=checkpoint, step_observer=step_observer,
+                            stop_after=stop_after)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """CogVideoX DDIM scheduler (counterpart of ``alg_tpu/schedulers/ddim_cogvideox.py``).
 
-diffusers ``CogVideoXDDIMScheduler`` at η = 0: scaled-linear betas,
-SNR-shifted alphas_cumprod, zero-terminal-SNR rescale, v-prediction, and
-the deterministic update ``prev = a_t·sample + b_t·pred_x0`` with
+diffusers ``CogVideoXDDIMScheduler``: scaled-linear betas, SNR-shifted
+alphas_cumprod, zero-terminal-SNR rescale, v-prediction. At η = 0 the
+deterministic update ``prev = a_t·sample + b_t·pred_x0`` with
 ``a_t = sqrt((1 - ā_prev) / (1 - ā_t))`` and
-``b_t = sqrt(ā_prev) - sqrt(ā_t)·a_t``. The per-step coefficients are numpy
-tables built once per run; the step is two scalar multiply-adds in torch.
+``b_t = sqrt(ā_prev) - sqrt(ā_t)·a_t``; at η > 0 the stochastic update
+``sqrt(ā_prev)·x0 + sqrt(1 - ā_prev - σ²)·ε + σ·noise`` with
+``σ = η·sqrt((1 - ā_prev) / (1 - ā_t)·(1 - ā_t / ā_prev))`` and the step's
+noise drawn by the caller ahead of the loop. The per-step coefficients are
+numpy tables built once per run; the step is scalar multiply-adds in torch.
 """
 
 from __future__ import annotations
@@ -75,17 +78,31 @@ class CogVideoXDDIMPlan:
     sqrt_alpha: np.ndarray  # sqrt(ā_t)
     sqrt_beta: np.ndarray  # sqrt(1 - ā_t)
     prediction_type: str
+    eta: float = 0.0
+    sqrt_alpha_prev: np.ndarray = None  # sqrt(ā_prev)
+    eps_coef: np.ndarray = None  # sqrt(1 - ā_prev - σ²)
+    std: np.ndarray = None  # σ, scaled by η
 
 
-def make_ddim_plan(cfg: CogVideoXDDIMConfig, num_inference_steps: int) -> CogVideoXDDIMPlan:
+def make_ddim_plan(cfg: CogVideoXDDIMConfig, num_inference_steps: int, timesteps=None,
+                   eta: float = 0.0) -> CogVideoXDDIMPlan:
+    """``timesteps``: a custom descending grid in place of the configured
+    spacing (its length is the step count); ``eta``: DDIM stochasticity."""
     ac = make_alphas_cumprod(cfg)
-    ts = make_timesteps(cfg, num_inference_steps)
+    if timesteps is not None:
+        ts = np.asarray(timesteps, dtype=np.int64)
+        num_inference_steps = len(ts)
+    else:
+        ts = make_timesteps(cfg, num_inference_steps)
     final_alpha = 1.0 if cfg.set_alpha_to_one else float(ac[0])
     prev_ts = ts - cfg.num_train_timesteps // num_inference_steps
     alpha_t = ac[ts]
     alpha_prev = np.where(prev_ts >= 0, ac[np.clip(prev_ts, 0, None)], final_alpha)
     a_t = np.sqrt((1.0 - alpha_prev) / (1.0 - alpha_t))
     b_t = np.sqrt(alpha_prev) - np.sqrt(alpha_t) * a_t
+    var = (1.0 - alpha_prev) / (1.0 - alpha_t) * (1.0 - alpha_t / np.maximum(alpha_prev, 1e-20))
+    std = eta * np.sqrt(np.maximum(var, 0.0))
+    eps_coef = np.sqrt(np.maximum(1.0 - alpha_prev - std**2, 0.0))
     return CogVideoXDDIMPlan(
         timesteps=ts,
         a_t=a_t.astype(np.float32),
@@ -93,6 +110,10 @@ def make_ddim_plan(cfg: CogVideoXDDIMConfig, num_inference_steps: int) -> CogVid
         sqrt_alpha=np.sqrt(alpha_t).astype(np.float32),
         sqrt_beta=np.sqrt(1.0 - alpha_t).astype(np.float32),
         prediction_type=cfg.prediction_type,
+        eta=float(eta),
+        sqrt_alpha_prev=np.sqrt(alpha_prev).astype(np.float32),
+        eps_coef=eps_coef.astype(np.float32),
+        std=std.astype(np.float32),
     )
 
 
@@ -108,7 +129,26 @@ def predict_x0(plan: CogVideoXDDIMPlan, i: int, model_output: torch.Tensor, samp
     raise ValueError(f"Unsupported prediction_type {plan.prediction_type!r}")
 
 
-def ddim_step(plan: CogVideoXDDIMPlan, i: int, model_output: torch.Tensor, sample: torch.Tensor):
-    """One deterministic (η = 0) DDIM step at step index ``i``."""
+def predict_eps(plan: CogVideoXDDIMPlan, i: int, model_output: torch.Tensor, sample: torch.Tensor):
+    """Model output -> ε for the configured prediction type."""
+    sa, sb = float(plan.sqrt_alpha[i]), float(plan.sqrt_beta[i])
+    if plan.prediction_type == "v_prediction":
+        return sb * sample + sa * model_output
+    if plan.prediction_type == "epsilon":
+        return model_output
+    if plan.prediction_type == "sample":
+        return (sample - sa * model_output) / sb
+    raise ValueError(f"Unsupported prediction_type {plan.prediction_type!r}")
+
+
+def ddim_step(plan: CogVideoXDDIMPlan, i: int, model_output: torch.Tensor, sample: torch.Tensor,
+              noise: torch.Tensor = None):
+    """One DDIM step at step index ``i``; at η > 0 ``noise`` is the step's
+    standard-normal draw, shaped like ``sample``."""
     x0 = predict_x0(plan, i, model_output, sample)
-    return float(plan.a_t[i]) * sample + float(plan.b_t[i]) * x0
+    if plan.eta == 0.0:
+        return float(plan.a_t[i]) * sample + float(plan.b_t[i]) * x0
+    if noise is None:
+        raise ValueError("ddim_step with eta > 0 needs the step's noise")
+    eps = predict_eps(plan, i, model_output, sample)
+    return float(plan.sqrt_alpha_prev[i]) * x0 + float(plan.eps_coef[i]) * eps + float(plan.std[i]) * noise

@@ -65,6 +65,18 @@ Phases, each of which must pass:
       ``set_attention_int8("qk")`` and ``("full")`` (42 int8 launches a DiT
       forward and no bf16 flash launch from the DiT), with each step's time
       beside the bf16 run's and the drift of the final latents against it;
+      then the rest of the sampling surface on the same pipeline, each call
+      to the latents with exact launch counts (the plan's 3- and 2-pass
+      forwards times a forward's launches) and its peak memory: C-pixel,
+      BASELINE config #2 (gaussian blur sigma 3, kernel 0.1 of H, on the RGB
+      frame, re-encoded by the VAE on every step) under the linear (1 -> 0
+      by t = 0.5) and the exponential (rate 5, kernel scheduled) schedules,
+      with each step's pixel filter, VAE encode and DiT milliseconds;
+      C-sched, DPM, eta 0.5 and dynamic CFG; C-resume, the bf16 call's own
+      arguments with a snapshot every step and an observer that interrupts
+      after step 2, then the call that resumes it, held to the
+      uninterrupted bf16 latents bit for bit; C-cache, cache_interval 2
+      over 6 steps of the shipped interval (4 DiT forwards);
   C2. Wan slice: the full-width Wan2.1-I2V-14B pipeline (40-layer DiT and
       24-layer UMT5-XXL in bf16, CLIP ViT-H and VAE in fp32, random weights
       from a seed) driven once through ``WanPipeline.__call__`` with the
@@ -72,7 +84,11 @@ Phases, each of which must pass:
       two-pass), the prompt through ``encode_prompt`` with a prefix mask and
       the CLIP tower's penultimate output as ``image_embeds``; same checks;
       then the same call under int8 "qk" (40 int8 and 80 bf16 flash launches
-      a DiT forward: the two cross-attentions stay where they were);
+      a DiT forward: the two cross-attentions stay where they were); then
+      C2-pixel, the same settings on the RGB frame (the condition video
+      rebuilt, encoded tile by tile and sampled on each 3-pass step), and
+      one such rebuild at the shipped 81 frames, 480x832, with its time and
+      peak memory;
   C3. HunyuanVideo slice: the full-width HunyuanVideo-I2V pipeline (20 + 40
       block DiT and Llava-Llama3-8B with its CLIP ViT-L/14-336 tower in bf16,
       CLIP text and VAE in fp32, random weights from a seed) driven once
@@ -81,8 +97,9 @@ Phases, each of which must pass:
       frame, 2 on the clean one), the prompt through ``encode_prompt`` with
       tokenizer and image-processor hooks; same checks; then the same call
       under int8 "full" (60 int8 launches a DiT forward with ``kv_len`` at
-      head dim 128, 2 bf16 ones for the token refiner); then one DiT forward
-      at the shipped 129 frames (33 latent frames);
+      head dim 128, 2 bf16 ones for the token refiner); then C3-pixel, the
+      same settings on the RGB frame with the mode of its posterior on every
+      step; then one DiT forward at the shipped 129 frames (33 latent frames);
   C4. the qk prolog's path: no model passes a prolog, so its path is the
       entry point, ``attention(..., stable=False, prolog={...})``, on bf16
       tensors of the CogVideoX 9-frame shape (LayerNorm + RoPE) and the
@@ -111,12 +128,15 @@ Phases, each of which must pass:
       40 dB, latents within 1e-1 at the largest and 1e-2 on the mean: rounding
       ties fall differently in the two runs, see ``INT8_LATENT_MAX``); these
       fp32 runs take the CUDA-core int8 kernel, whose launches are the
-      ``agreement_*_int8_*`` paths of the JSON line;
+      ``agreement_*_int8_*`` paths of the JSON line; then the same without
+      int8 in pixel-space ALG (gaussian blur, linear schedule), with DPM and
+      with eta 0.5, within 2e-3 and 40 dB;
   D2. the same for a small Wan pipeline (DiT head dim 128, UMT5 with a mask,
-      CLIP head dim 80);
+      CLIP head dim 80), and again in pixel-space ALG;
   D3. the same for a small HunyuanVideo pipeline (DiT and Llava head dim 128,
       CLIP text head dim 64, through ``encode_prompt``, true CFG with ALG so
-      that 3- and 2-pass steps run), and again under int8 "full".
+      that 3- and 2-pass steps run), again under int8 "full" and again in
+      pixel-space ALG.
   F2. agreement through the loader: a small CogVideoX and a small Wan
       checkpoint from ``io/hf_checkpoint.py`` (head dims the kernels take),
       each through ``cli.run`` on the card and on the CPU, fp32 with TF32
@@ -1602,13 +1622,14 @@ def phase_slice() -> dict:
         lambda fwd: {"qk_prep": 2 * tcfg.num_layers * fwd, "rope_interleaved": 0,
                      "flash_attention": t5cfg.num_layers * t5_enc, "flash_attention_tc": t5cfg.num_layers * t5_enc,
                      **_NO_TRAINING, **_NO_CUDA_CORES, "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
+    surface = _cogvideox_surface(pipe, timer, image, tcfg, t5cfg, final[0])
     for h in hooks:
         h.remove()
 
     _headline_forward(dit, gen)
     del dit, t5, vae, pipe
     _free_device_memory()
-    return {"cogvideox": counts, **{f"cogvideox_int8_{mode}": n for mode, n in by_mode.items()}}
+    return {"cogvideox": counts, **{f"cogvideox_int8_{mode}": n for mode, n in by_mode.items()}, **surface}
 
 
 def _headline_forward(dit, gen) -> None:
@@ -1739,11 +1760,12 @@ def phase_slice_wan() -> dict:
                      "flash_attention": 2 * tcfg.num_layers * fwd + UMT5_XXL.num_layers * t5_enc,
                      "flash_attention_tc": 2 * tcfg.num_layers * fwd + UMT5_XXL.num_layers * t5_enc, **_NO_TRAINING,
                      **_NO_CUDA_CORES, "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
+    surface = _wan_surface(pipe, timer, image, image_embeds, tcfg)
     for h in hooks:
         h.remove()
     del dit, t5, clip, vae, pipe
     _free_device_memory()
-    return {"wan": counts, **{f"wan_int8_{mode}": n for mode, n in by_mode.items()}}
+    return {"wan": counts, **{f"wan_int8_{mode}": n for mode, n in by_mode.items()}, **surface}
 
 
 def _hunyuan_hooks(template, image_token, pad_token, vocab_low, vocab_high, clip_eos):
@@ -1892,6 +1914,15 @@ def phase_slice_hunyuan() -> dict:
                      "flash_attention_cuda_core": ccfg.num_hidden_layers * clip_runs, **_NO_TRAINING,
                      "flash_attention_int8": blocks * fwd},
         final[0].shape)
+
+    def want_of(fwd):  # as the call above, for the Llava and CLIP text runs of the call being counted
+        flash = (tcfg.num_refiner_layers + blocks) * fwd + (
+            lcfg.text.num_hidden_layers + lcfg.vision.num_hidden_layers) * timer.count("Llava")
+        clip_flash = ccfg.num_hidden_layers * timer.count("CLIP text")
+        return {"qk_prep": 0, "rope_interleaved": 2 * blocks * fwd, "flash_attention": flash + clip_flash,
+                "flash_attention_tc": flash, "flash_attention_cuda_core": clip_flash, **_NO_TRAINING}
+
+    surface = _hunyuan_surface(pipe, timer, image, want_of)
     for h in hooks:
         h.remove()
 
@@ -1900,7 +1931,7 @@ def phase_slice_hunyuan() -> dict:
     _headline_forward_hunyuan(dit, gen)
     del dit
     _free_device_memory()
-    return {"hunyuan": counts, **{f"hunyuan_int8_{mode}": n for mode, n in by_mode.items()}}
+    return {"hunyuan": counts, **{f"hunyuan_int8_{mode}": n for mode, n in by_mode.items()}, **surface}
 
 
 def _headline_forward_hunyuan(dit, gen) -> None:
@@ -1930,6 +1961,293 @@ def _headline_forward_hunyuan(dit, gen) -> None:
           f"launches {_read_counts()}, finite={finite}; card after it: {_card_state()}", flush=True)
     if not finite or out.shape != x.shape:
         raise AssertionError(f"headline forward: output {tuple(out.shape)}, finite={finite}")
+
+
+# ---------------------------------------------------------------------------
+# C-pixel, C-sched, C-resume, C-cache; C2 and C3 pixel: the rest of the sampling surface on the full-width
+# pipelines of phases C, C2 and C3, before each is freed
+# ---------------------------------------------------------------------------
+
+PIXEL_FILTER, VAE_ENCODE = "pixel filter", "VAE encode"
+
+
+def _print_steps(tag, rows) -> None:
+    """One line for the stages before the first denoise step, then one line a
+    step: the pixel filter and VAE encode of pixel-space ALG's condition
+    rebuild (where the step has one) and the step with its DiT forward; then
+    the means over the steps that rebuilt their condition."""
+    head, pending, k, rebuilt = [], [], 0, {PIXEL_FILTER: [], VAE_ENCODE: []}
+    for name, ms, dit_ms in rows:
+        if name.startswith("denoise step"):
+            if k == 0 and head:
+                print(f"[{tag}] before the loop: " + ", ".join(f"{n} {v:.1f} ms" for n, v in head))
+            for n, v in pending:
+                rebuilt.setdefault(n, []).append(v)
+            stages = "".join(f"{n} {v:.1f} ms, " for n, v in pending)
+            print(f"[{tag}] forward {k}: {stages}{name[13:]} {ms:.1f} ms (DiT forward {dit_ms:.1f} ms)")
+            pending, k = [], k + 1
+        elif k == 0 and not pending and name != PIXEL_FILTER:
+            head.append((name, ms))
+        else:
+            pending.append((name, ms))
+    if rebuilt[PIXEL_FILTER]:
+        mean = {n: statistics.mean(v) for n, v in rebuilt.items() if v}
+        print(f"[{tag}] condition rebuilt on {len(rebuilt[PIXEL_FILTER])} steps: mean pixel filter "
+              f"{mean[PIXEL_FILTER]:.2f} ms, mean VAE encode {mean.get(VAE_ENCODE, float('nan')):.1f} ms")
+
+
+def _surface_run(tag, timer, call, want_of, shape, passes):
+    """One pipeline call ``call()`` (to the latents, as numpy) with the launch
+    counts set to 0 just before it and read just after. ``want_of(forwards)``:
+    the exact counts for that many DiT forwards; ``passes``: the forwards
+    wanted by pass count ({3: n, 2: n, 1: n}, from the run's plan). Prints each
+    step, the call's wall time and peak device memory; checks the pass counts,
+    the launches and the latents. Returns (latents, counts)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    timer.close_step(time.perf_counter())
+    timer.rows = []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    latents = call()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    timer.close_step(time.perf_counter())
+    counts = _read_counts()
+    _print_steps(tag, timer.rows)
+    got = {n: timer.count(f"denoise step ({n}-pass") for n in (1, 2, 3)}
+    got = {n: c for n, c in got.items() if c}
+    want = want_of(sum(got.values()))
+    finite = bool(np.isfinite(latents).all())
+    print(f"[{tag}] call {total_s:.2f} s, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"DiT forwards by pass count {got} (plan {passes}); launches {counts} (want {want}); latents "
+          f"{latents.shape} finite={finite}", flush=True)
+    if got != passes or counts != want or latents.shape != shape or not finite:
+        raise AssertionError(f"[{tag}] forwards {got} != {passes}, launches {counts} != {want}, or latents "
+                             f"{latents.shape} (want {shape}) finite={finite}")
+    return latents, counts
+
+
+def _lp_plan(num_steps, h, w, exp_shortcut, **alg):
+    """The ALG plan of the pipeline keywords ``alg`` (others ignored) over an (h, w) filter."""
+    import dataclasses
+
+    from alg_tpu_torch.alg.schedule import LPConfig, build_lp_plan
+
+    fields = {f.name for f in dataclasses.fields(LPConfig)}
+    return build_lp_plan(LPConfig(**{k: v for k, v in alg.items() if k in fields}), num_steps, h, w, exp_shortcut)
+
+
+def _passes(plan, skipped=0) -> dict:
+    """{3: the plan's 3-pass steps, 2: its other steps less ``skipped``}."""
+    three = int(plan.three_pass.sum())
+    return {n: c for n, c in ((3, three), (2, plan.num_steps - three - skipped)) if c}
+
+
+def _add_counts(*runs) -> dict:
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+class _Patched:
+    """Set attributes for a ``with`` block and put the old values back after
+    (an attribute that lived in the class goes back to the class's)."""
+
+    def __init__(self, *triples):
+        self.triples, self.saved = triples, []
+
+    def __enter__(self):
+        for obj, name, value in self.triples:
+            self.saved.append((obj, name, obj.__dict__.get(name, _Patched)))
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in reversed(self.saved):
+            if old is _Patched:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+
+def _pixel_kwargs(**over):
+    """BASELINE config #2's pixel-space settings: gaussian blur, sigma 3.0,
+    kernel 0.1 of H, on the RGB frame."""
+    return _alg_kwargs(**{**dict(lp_filter_type="gaussian_blur", lp_filter_in_latent=False, lp_blur_sigma=3.0,
+                                 lp_blur_kernel_size=0.1), **over})
+
+
+PIXEL_SCHEDULES = {
+    "linear": dict(lp_strength_schedule_type="linear", schedule_linear_start_weight=1.0, schedule_linear_end_weight=0.0,
+                   schedule_linear_end_time=0.5),
+    "exponential": dict(lp_strength_schedule_type="exponential", schedule_exp_decay_rate=5.0,
+                        schedule_blur_kernel_size=True),
+}
+
+
+def _cogvideox_surface(pipe, timer, image, tcfg, t5cfg, uninterrupted) -> dict:
+    """C-pixel (BASELINE config #2 under both schedules), C-sched (DPM, eta,
+    dynamic CFG), C-resume (an interrupted call with snapshots, then the call
+    that resumes it, against ``uninterrupted``: phase C's bf16 latents, to
+    the bit) and C-cache on phase C's pipeline. Returns {path: counts}."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from alg_tpu_torch.alg.schedule import build_cache_schedule
+    from alg_tpu_torch.pipelines import cogvideox as CP
+
+    def want_of(fwd):
+        flash = tcfg.num_layers * fwd + t5cfg.num_layers * timer.count("T5 encode")
+        return {"qk_prep": 2 * tcfg.num_layers * fwd, "rope_interleaved": 0, "flash_attention": flash,
+                "flash_attention_tc": flash, **_NO_TRAINING, **_NO_CUDA_CORES}
+
+    def call(**kw):
+        return pipe(image=image, prompt=PROMPT, height=480, width=720, num_frames=9, output_type="latent", **kw)
+
+    shape, out = uninterrupted.shape, {}
+    t0 = time.perf_counter()
+    encode = timer.wrap(VAE_ENCODE, CP.CogVideoXPipeline._encode_moments.__get__(pipe))
+    with _Patched((CP, "apply_filter_matrices", timer.wrap(PIXEL_FILTER, CP.apply_filter_matrices)),
+                  (pipe, "_encode_moments", encode),
+                  (pipe, "vae_encode_sample", CP.CogVideoXPipeline.vae_encode_sample.__get__(pipe))):
+        runs = []
+        for name, sched in PIXEL_SCHEDULES.items():
+            kw = _pixel_kwargs(**sched)
+            runs.append(_surface_run(f"C-pixel {name}", timer, lambda: call(**kw), want_of, shape,
+                                     _passes(_lp_plan(4, 480, 720, True, **kw)))[1])
+    out["cogvideox_pixel"] = _add_counts(*runs)
+    print(f"[C-pixel] wall time {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    passes = _passes(_lp_plan(4, 60, 90, True, **_alg_kwargs()))
+    with _Patched((pipe, "scheduler", "dpm")):
+        out["cogvideox_dpm"] = _surface_run("C-sched dpm", timer, lambda: call(**_alg_kwargs()), want_of, shape,
+                                            passes)[1]
+    out["cogvideox_eta"] = _surface_run("C-sched eta 0.5", timer, lambda: call(eta=0.5, **_alg_kwargs()), want_of,
+                                        shape, passes)[1]
+    out["cogvideox_dyncfg"] = _surface_run("C-sched dynamic CFG", timer,
+                                           lambda: call(use_dynamic_cfg=True, **_alg_kwargs()), want_of, shape,
+                                           passes)[1]
+    print(f"[C-sched] wall time {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # C-resume: the bf16 call's own arguments with snapshots every step; the observer interrupts after step 2
+    t0 = time.perf_counter()
+    snap = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_runstate_"), "cogvideox.npz")
+
+    def interrupt_after_two(i, _latents):
+        if i == 1:
+            pipe.interrupt = True
+
+    first, n1 = _surface_run("C-resume 1/2 (interrupted)", timer,
+                             lambda: call(checkpoint=snap, checkpoint_every=1, step_observer=interrupt_after_two,
+                                          **_alg_kwargs()), want_of, shape, {3: 2})
+    if not os.path.exists(snap):
+        raise AssertionError("[C-resume] the interrupted call left no snapshot")
+    resumed, n2 = _surface_run("C-resume 2/2 (resumed at step 2)", timer,
+                               lambda: call(checkpoint=snap, checkpoint_every=1, **_alg_kwargs()), want_of, shape,
+                               {2: 2})
+    left = os.path.exists(snap)
+    if not left:
+        os.rmdir(os.path.dirname(snap))
+    out["cogvideox_resume"] = _add_counts(n1, n2)
+    diff = np.abs(resumed.astype(np.float64) - uninterrupted)
+    equal = bool(np.array_equal(resumed, uninterrupted))
+    print(f"[C-resume] resumed latents against phase C's uninterrupted bf16 run: bit-equal={equal}, max|diff| "
+          f"{diff.max():.3e}, {int((diff > 0).sum())} of {diff.size} values differ; snapshot removed at the end: "
+          f"{not left}; wall time {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # C-cache: the shipped interval (0.04: one ALG step) over 6 steps with cache_interval 2
+    t0 = time.perf_counter()
+    kw = _alg_kwargs(num_inference_steps=6, schedule_interval_end_time=0.04)
+    plan = _lp_plan(6, 60, 90, True, **kw)
+    compute = build_cache_schedule(6, 2, plan.strengths)
+    out["cogvideox_cache"] = _surface_run("C-cache interval 2", timer, lambda: call(cache_interval=2, **kw),
+                                          want_of, shape, _passes(plan, skipped=6 - int(compute.sum())))[1]
+    print(f"[C-cache] computed steps {np.flatnonzero(compute).tolist()} of 6; wall time "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not equal or left:
+        raise AssertionError(f"[C-resume] resumed run not bit-equal to the uninterrupted one (max|diff| "
+                             f"{diff.max():.3e}) or its snapshot left behind ({left})")
+    return out
+
+
+def _wan_surface(pipe, timer, image, image_embeds, tcfg) -> dict:
+    """C2-pixel on phase C2's pipeline (down_up 0.4 on the RGB frame, the
+    interval C2 runs), then one pixel condition rebuild at the shipped 81
+    frames, 480x832: filter, tiled encode, posterior draw, normalisation.
+    Returns {path: counts}."""
+    import torch
+
+    from alg_tpu_torch.models.t5 import UMT5_XXL
+    from alg_tpu_torch.pipelines import wan as WP
+
+    def want_of(fwd):  # the CLIP tower is not run again: image_embeds are given
+        flash = 3 * tcfg.num_layers * fwd + UMT5_XXL.num_layers * timer.count("UMT5 encode")
+        return {"qk_prep": 0, "rope_interleaved": 2 * tcfg.num_layers * fwd, "flash_attention": flash,
+                "flash_attention_tc": flash, **_NO_TRAINING, **_NO_CUDA_CORES}
+
+    t0 = time.perf_counter()
+    z = pipe.vae.cfg.z_dim
+    kw = _alg_kwargs(guidance_scale=5.0, lp_resize_factor=0.4, lp_filter_in_latent=False)
+    plan = _lp_plan(4, 480, 832, False, **kw)
+    encode = timer.wrap(VAE_ENCODE, WP.WanPipeline._encode_video_condition.__get__(pipe))
+    with _Patched((WP, "apply_filter_matrices", timer.wrap(PIXEL_FILTER, WP.apply_filter_matrices)),
+                  (pipe, "_encode_video_condition", encode)):
+        _, counts = _surface_run(
+            "C2-pixel", timer, lambda: pipe(image=image, prompt=PROMPT, image_embeds=image_embeds, height=480,
+                                            width=832, num_frames=9, output_type="latent", **kw),
+            want_of, (1, z, 3, 60, 104), _passes(plan))
+    print(f"[C2-pixel] wall time {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # R4's case: the rebuild at the shipped length, its tiles encoded one after another
+    t0 = time.perf_counter()
+    dev = pipe.device
+    j = int(plan.m_idx[0])
+    m_h, m_w = (torch.from_numpy(m[j]).to(dev) for m in (plan.m_h, plan.m_w))
+    eps = torch.randn((1, z, 21, 60, 104), generator=torch.Generator().manual_seed(4))
+    mask = torch.zeros((1, 4, 21, 60, 104), device=dev)
+    pixel_image = torch.from_numpy(image).to(dev)[:, None]
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        cond = pipe._pixel_condition(pixel_image, m_h, m_w, eps, 81, mask)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(cond).all())
+    print(f"[C2-pixel] condition rebuild at 81 frames, 480x832 (filter, 15 tiles encoded one at a time, posterior "
+          f"draw, normalisation): {ms:.1f} ms; peak device memory {peak / 2**30:.2f} GiB with {resident / 2**30:.2f} "
+          f"GiB resident before it ({(peak - resident) / 2**30:.2f} GiB for the rebuild); condition "
+          f"{tuple(cond.shape)} finite={finite}; wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    if tuple(cond.shape) != (1, 4 + z, 21, 60, 104) or not finite:
+        raise AssertionError(f"[C2-pixel] 81-frame condition {tuple(cond.shape)}, finite={finite}")
+    return {"wan_pixel": counts}
+
+
+def _hunyuan_surface(pipe, timer, image, want_of) -> dict:
+    """C3-pixel on phase C3's pipeline: the shipped single-pass settings with
+    the filter on the RGB frame and the mode of its posterior (the argmax
+    encode) on every step. ``want_of(forwards)``: phase C3's launch counts.
+    Returns {path: counts}."""
+    from alg_tpu_torch.pipelines import hunyuan as HP
+
+    t0 = time.perf_counter()
+    kw = _alg_kwargs(negative_prompt=None, lp_resize_factor=0.625, lp_filter_in_latent=False)
+    encode = timer.wrap(VAE_ENCODE, HP.HunyuanVideoPipeline._encode_mode.__get__(pipe))
+    with _Patched((HP, "apply_filter_matrices", timer.wrap(PIXEL_FILTER, HP.apply_filter_matrices)),
+                  (pipe, "_encode_mode", encode), (pipe.vae, "encode", type(pipe.vae).encode.__get__(pipe.vae))):
+        _, counts = _surface_run(
+            "C3-pixel", timer, lambda: pipe(image=image, prompt=PROMPT, height=352, width=608, num_frames=9,
+                                            output_type="latent", true_cfg_scale=1.0, i2v_stable=True, **kw),
+            want_of, (1, pipe.vae.cfg.latent_channels, 3, 44, 76), {1: 4})
+    print(f"[C3-pixel] wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"hunyuan_pixel": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -2373,6 +2691,7 @@ def _small_runs(make_pipe, kw, mode=None) -> dict:
 
 def phase_agreement() -> dict:
     import copy
+    import dataclasses
 
     import numpy as np
     import torch
@@ -2411,10 +2730,18 @@ def phase_agreement() -> dict:
             f"D int8 {mode}", _small_runs(make_pipe, kw, mode),
             {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 4, "flash_attention_int8": 8},
             atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])
+    # the sampling surface: pixel-space ALG (gaussian blur, linear schedule), DPM and stochastic DDIM
+    for name, scheduler, over in (("pixel", "ddim", _pixel_kwargs(**PIXEL_SCHEDULES["linear"])),
+                                  ("dpm", "dpm", {}), ("eta", "ddim", {"eta": 0.5})):
+        t0 = time.perf_counter()
+        runs = _small_runs(lambda dev: dataclasses.replace(make_pipe(dev), scheduler=scheduler), {**kw, **over})
+        counts[f"agreement_cogvideox_{name}"] = _compare_runs(
+            f"D {name}", runs, {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12})
+        print(f"[D {name}] wall time {time.perf_counter() - t0:.1f} s", flush=True)
     return counts
 
 
-def phase_agreement_wan() -> None:
+def phase_agreement_wan() -> dict:
     import copy
 
     import numpy as np
@@ -2445,19 +2772,28 @@ def phase_agreement_wan() -> None:
     pixels = torch.from_numpy(rng.randn(1, 3, 56, 56).astype(np.float32))
     kw = _alg_kwargs(image=image, prompt=PROMPT, height=64, width=64, num_frames=9, max_sequence_length=32,
                      guidance_scale=5.0, lp_resize_factor=0.4, output_type="latent")
-    results = {}
-    for dev in ("cpu", "cuda"):
-        dit, t5, clip, vae = (copy.deepcopy(m).to(dev) for m in mods)
-        pipe = WanPipeline(transformer=dit, vae=vae, t5=t5, clip=clip, tokenize=_seeded_tokenize_mask(t5cfg.vocab_size),
-                           device=dev)
-        _reset_counts()
-        with torch.no_grad():
-            image_embeds = clip(pixels.to(dev))[-2]
-        lat = pipe(image_embeds=image_embeds, **kw)
-        frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
-        results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+
+    def runs(**over):
+        results = {}
+        for dev in ("cpu", "cuda"):
+            dit, t5, clip, vae = (copy.deepcopy(m).to(dev) for m in mods)
+            pipe = WanPipeline(transformer=dit, vae=vae, t5=t5, clip=clip,
+                               tokenize=_seeded_tokenize_mask(t5cfg.vocab_size), device=dev)
+            _reset_counts()
+            with torch.no_grad():
+                image_embeds = clip(pixels.to(dev))[-2]
+            lat = pipe(image_embeds=image_embeds, **{**kw, **over})
+            frames = pipe.decode_latents(torch.from_numpy(lat).to(dev)).cpu().numpy()
+            results[dev] = (lat, np.clip(frames / 2 + 0.5, 0, 1), _read_counts())
+        return results
+
     # 4 DiT forwards x 2 layers x (2 rope, 3 flash) + 2 UMT5 encodes x 2 layers + 2 CLIP layers
-    _compare_runs("D2", results, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 30})
+    want = {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 30}
+    _compare_runs("D2", runs(), want)
+    t0 = time.perf_counter()
+    pixel = _compare_runs("D2 pixel", runs(lp_filter_in_latent=False), want)  # down_up 0.4 on the RGB frame
+    print(f"[D2 pixel] wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"agreement_wan_pixel": pixel}
 
 
 def phase_agreement_hunyuan() -> dict:
@@ -2510,12 +2846,18 @@ def phase_agreement_hunyuan() -> dict:
     # 4 DiT forwards x (1 refiner + 1 double + 1 single block; rope on q and k of the last two)
     # + 2 prompt encodes x (3 Llama + 2 CLIP vision + 2 CLIP text layers)
     base = _small_runs(make_pipe, kw)
-    _compare_runs("D3", base, {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 26})
+    want = {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 26}
+    _compare_runs("D3", base, want)
     # int8 "full" with kv_len at head dim 128: the double and the single block's joint attention (8 calls)
-    return {"agreement_hunyuan_int8_full": _compare_runs(
+    counts = {"agreement_hunyuan_int8_full": _compare_runs(
         "D3 int8 full", _small_runs(make_pipe, kw, "full"),
         {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 18, "flash_attention_int8": 8},
         atol=INT8_LATENT_MAX, mean_atol=INT8_LATENT_MEAN, exact=base["cpu"][0])}
+    t0 = time.perf_counter()  # pixel-space ALG with the argmax encode on the 3-pass steps
+    counts["agreement_hunyuan_pixel"] = _compare_runs(
+        "D3 pixel", _small_runs(make_pipe, {**kw, "lp_filter_in_latent": False}), want)
+    print(f"[D3 pixel] wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2983,7 +3325,7 @@ def main() -> int:
         counts["prolog_entry"] = phase_prolog_entry()
         counts["cli_cogvideox"] = phase_cli()
         counts.update(phase_agreement())  # the card's counts of its fp32 runs under the int8 modes
-        phase_agreement_wan()
+        counts.update(phase_agreement_wan())
         counts.update(phase_agreement_hunyuan())
         phase_cli_agreement()
         counts["train_cogvideox"] = phase_train()
@@ -3003,6 +3345,16 @@ def main() -> int:
                               ("agreement_cogvideox_int8_full", ("qk_prep", "flash_attention_int8_cuda_core")),
                               ("agreement_hunyuan_int8_full", ("rope_interleaved", "flash_attention_int8_cuda_core")),
                               ("prolog_entry", ("qk_prolog", "flash_attention_tc")),
+                              *((path, ("qk_prep", "flash_attention_tc")) for path in (
+                                  "cogvideox_pixel", "cogvideox_dpm", "cogvideox_eta", "cogvideox_dyncfg",
+                                  "cogvideox_resume", "cogvideox_cache")),
+                              ("wan_pixel", ("rope_interleaved", "flash_attention_tc")),
+                              ("hunyuan_pixel", ("rope_interleaved", "flash_attention_tc",
+                                                 "flash_attention_cuda_core")),
+                              *((f"agreement_cogvideox_{name}", ("qk_prep", "flash_attention_cuda_core"))
+                                for name in ("pixel", "dpm", "eta")),
+                              *((f"agreement_{family}_pixel", ("rope_interleaved", "flash_attention_cuda_core"))
+                                for family in ("wan", "hunyuan")),
                               ("train_cogvideox", ("qk_prep", "flash_attention_tc", "flash_attention_lse",
                                                    "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
                               ("train_agreement_fp32", ("flash_attention_cuda_core", "flash_attention_bwd_dq_cuda_core",

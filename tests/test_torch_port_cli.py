@@ -229,15 +229,36 @@ def test_hunyuan_size_buckets_come_from_the_image(family_ckpts, tmp_path, monkey
     assert seen[0] == get_hunyuan_video_size("360p", image) and seen[1] == seen[0]
 
 
-def test_flags_that_are_not_ported_raise(tiny_ckpt, tmp_path):
-    """``--quantize`` names ROADMAP A12 and ``--checkpoint_path`` A-item 3."""
+def test_flags_that_are_not_ported_raise(tiny_ckpt, tmp_path, captured, monkeypatch):
+    """``--quantize`` names ROADMAP A12. ``--checkpoint_path``, once refused,
+    snapshots the denoise loop: a run interrupted after its first step leaves
+    the snapshot, and the same command run again resumes it, to the
+    uninterrupted run's latents bit for bit, and removes it."""
+    from PIL import Image
+
     args = ["--output_path", str(tmp_path / "x.mp4"), "--device", "cpu"]
+    image = np.asarray(Image.open(IMAGE).convert("RGB").resize((32, 32)))
     with pytest.raises(NotImplementedError, match="A12"):
         TC.run(TC.build_parser().parse_args(args + ["--quantize", "w8"]), config=_config(tiny_ckpt),
                image=np.zeros((32, 32, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="A-item 3"):
-        TC.run(TC.build_parser().parse_args(args + ["--checkpoint_path", str(tmp_path / "s.npz")]),
-               config=_config(tiny_ckpt), image=np.zeros((32, 32, 3), np.uint8))
+    TC.run(TC.build_parser().parse_args(args), config=_config(tiny_ckpt), image=image)
+    whole = captured["port_latents"]
+    snap = tmp_path / "s.npz"
+    resume_args = TC.build_parser().parse_args(args + ["--checkpoint_path", str(snap)])
+    call = CogVideoXPipeline.__call__
+
+    def interrupted(self, **kwargs):
+        def stop(i, _latents):
+            self.interrupt = True
+
+        return call(self, step_observer=stop, **kwargs)
+
+    with monkeypatch.context() as m:
+        m.setattr(CogVideoXPipeline, "__call__", interrupted)
+        TC.run(resume_args, config=_config(tiny_ckpt), image=image)
+    assert snap.exists() and not np.array_equal(captured["port_latents"], whole)
+    TC.run(resume_args, config=_config(tiny_ckpt), image=image)
+    assert np.array_equal(captured["port_latents"], whole) and not snap.exists()
     with pytest.raises(ValueError, match="family"):
         TC.run(TC.build_parser().parse_args(args), config=_config(str(tmp_path)), image=np.zeros((32, 32, 3)))
 

@@ -1492,3 +1492,108 @@ def test_bf16_prolog_call_runs_the_tensor_core_forward(cuda, d):
     assert torch.equal(out, FA.flash_attention(*FA.qk_prolog(q, k, pro), v, d ** -0.5, stable=False))
     qr, kr = FA.apply_prolog_plain(q, k, pro)
     _assert_close_flash(out, FA.attention_plain(qr, kr, v, d ** -0.5), torch.bfloat16)
+
+
+# -- the sampling surface on the card: pixel-space ALG with a tiled encode, resumes across devices, DPM interrupted
+
+def _small_cogvideox(dev, **pipe_kw):
+    """A small CogVideoX pipeline (DiT head dim 64, two layers; T5 of two
+    layers; the tiny VAE) on ``dev`` in fp32, from seed 5, the same weights
+    on every device."""
+    import numpy as np
+
+    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, CogVideoXTransformerConfig
+    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
+    from alg_tpu_torch.models.t5 import T5Config, T5Encoder
+    from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
+
+    tcfg = CogVideoXTransformerConfig(num_attention_heads=2, attention_head_dim=64, in_channels=8, out_channels=4,
+                                      time_embed_dim=32, text_embed_dim=64, num_layers=2, sample_height=8,
+                                      sample_width=8, max_text_seq_length=8)
+    t5cfg = T5Config(vocab_size=128, d_model=64, d_kv=64, d_ff=128, num_layers=2, num_heads=2,
+                     relative_attention_num_buckets=8, relative_attention_max_distance=16)
+    vcfg = CogVideoXVAEConfig(block_out_channels=(8, 16, 16, 32), latent_channels=4, layers_per_block=1,
+                              norm_num_groups=4)
+    gen = torch.Generator().manual_seed(5)
+    dit, t5, vae = (L.init_random_(m, gen).to(dev) for m in (CogVideoXTransformer(tcfg), T5Encoder(t5cfg),
+                                                             CogVideoXVAE(vcfg)))
+
+    def tokenize(prompts, max_len):
+        return np.stack([np.random.RandomState(len(p) + 3).randint(0, 128, max_len) for p in prompts])
+
+    return CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=tokenize, device=dev, **pipe_kw)
+
+
+def _surface_kwargs(size=64, **over):
+    import numpy as np
+
+    image = np.random.RandomState(6).uniform(-1, 1, (1, 3, size, size)).astype(np.float32)
+    return {**dict(image=image, prompt="a red fox", negative_prompt="", height=size, width=size, num_frames=5,
+                   num_inference_steps=3, guidance_scale=6.0, seed=42, max_sequence_length=8, output_type="latent",
+                   use_low_pass_guidance=True, lp_filter_type="down_up", lp_resize_factor=0.25,
+                   lp_strength_schedule_type="interval", schedule_interval_end_time=0.5), **over}
+
+
+def test_pixel_step_with_a_tiled_encode_card_matches_cpu(cuda):
+    """Pixel-space ALG at 288 x 288 with ``vae_encode_tiling=True``: each
+    step's encode of the filtered frame runs as 2 x 2 overlapping tiles, on
+    the card through the kernels, on the CPU through the plain versions;
+    latents within the golden atol 2e-3."""
+    kw = _surface_kwargs(288, num_inference_steps=2, lp_filter_type="gaussian_blur", lp_filter_in_latent=False,
+                         lp_blur_sigma=3.0, lp_blur_kernel_size=0.1)
+    out, encodes = {}, {}
+    for dev in ("cpu", cuda):
+        pipe = _small_cogvideox(dev, vae_encode_tiling=True)
+        calls = []
+        encode = pipe.vae.encode
+        pipe.vae.encode = lambda x: (calls.append(tuple(x.shape)), encode(x))[1]
+        before = FA.flash_attention.launches
+        out[str(dev)] = pipe(**kw)
+        encodes[str(dev)] = calls
+        launched = FA.flash_attention.launches - before
+    # the image, then one rebuild a step: 3 encodes of 2 x 2 tiles of at most 256 x 256
+    assert encodes["cpu"] == encodes["cuda"] and len(encodes["cuda"]) == 12
+    assert all(shape[2] <= 256 and shape[3] <= 256 for shape in encodes["cuda"])
+    assert launched == 2 * 2 + 2 * 2  # 2 DiT forwards x 2 layers + 2 T5 encodes x 2 layers
+    torch.testing.assert_close(torch.from_numpy(out["cuda"]), torch.from_numpy(out["cpu"]), atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("first,second", [("cuda", "cpu"), ("cpu", "cuda")], ids=["card-then-cpu", "cpu-then-card"])
+def test_resume_across_devices(cuda, tmp_path, first, second):
+    """A run interrupted after step 1 with a snapshot every step, resumed on
+    the other device: equal to the resuming device's uninterrupted run within
+    the golden atol 2e-3 (the first step ran elsewhere), and the snapshot
+    removed at the end."""
+    snap = str(tmp_path / "run.npz")
+    kw = _surface_kwargs()
+    interrupted = _small_cogvideox(first)
+
+    def stop(i, _latents):
+        if i == 0:
+            interrupted.interrupt = True
+
+    interrupted(checkpoint=snap, checkpoint_every=1, step_observer=stop, **kw)
+    assert (tmp_path / "run.npz").exists()
+    resumed = _small_cogvideox(second)(checkpoint=snap, checkpoint_every=1, **kw)
+    assert not (tmp_path / "run.npz").exists()
+    whole = _small_cogvideox(second)(**kw)
+    torch.testing.assert_close(torch.from_numpy(resumed), torch.from_numpy(whole), atol=2e-3, rtol=0)
+
+
+def test_dpm_interrupted_at_step_zero_card_matches_cpu(cuda):
+    """DPM with an observer that interrupts after the first step: one
+    first-order step, the card through the kernels against the CPU; the
+    observer saw step 0 only."""
+    out, seen = {}, {}
+    for dev in ("cpu", cuda):
+        pipe = _small_cogvideox(dev, scheduler="dpm")
+        steps = []
+
+        def stop(i, _latents, pipe=pipe, steps=steps):
+            steps.append(i)
+            pipe.interrupt = True
+
+        out[str(dev)] = pipe(step_observer=stop, **_surface_kwargs())
+        seen[str(dev)] = steps
+    assert seen == {"cpu": [0], "cuda": [0]}
+    torch.testing.assert_close(torch.from_numpy(out["cuda"]), torch.from_numpy(out["cpu"]), atol=2e-3, rtol=0)

@@ -257,10 +257,15 @@ def test_hunyuan_np_output_and_unported_modes(pair):
     video = tpipe(output_type="np", **kw, **ALG_KW)
     assert video.shape == (1, 9, HEIGHT, WIDTH, 3) and np.isfinite(video).all()
     assert video.min() >= 0.0 and video.max() <= 1.0
-    with pytest.raises(NotImplementedError, match="pixel-space"):
-        tpipe(output_type="latent", **kw, **{**ALG_KW, "lp_filter_in_latent": False})
+    # pixel-space ALG and PIL frames, once refused, run: pixel mode agrees with alg_tpu
+    pixel = {**ALG_KW, "lp_filter_in_latent": False}
+    ref, out = _run_both(pair, **pixel)
+    np.testing.assert_allclose(out, ref, atol=LATENT_ATOL, rtol=LATENT_RTOL)
+    frames = tpipe(output_type="pil", **kw, **ALG_KW)
+    np.testing.assert_array_equal(np.stack([np.asarray(f) for f in frames[0]]),
+                                  np.round(video[0] * 255).astype(np.uint8))
     with pytest.raises(ValueError, match="output_type"):
-        tpipe(output_type="pil", **kw)
+        tpipe(output_type="pt", **kw)
     with pytest.raises(ValueError, match="divisible by 16"):
         tpipe(output_type="latent", **{**kw, "height": 40})
     with pytest.raises(ValueError, match="attention_kwargs"):

@@ -30,7 +30,9 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.ops.flash_attention_int8", "alg_tpu_torch.ops.attention",
             "alg_tpu_torch.ops.flash_attention", "alg_tpu_torch.cli", "alg_tpu_torch.io.safetensors",
             "alg_tpu_torch.io.weights", "alg_tpu_torch.io.hf_tokenizer", "alg_tpu_torch.io.model_zoo",
-            "alg_tpu_torch.io.video", "alg_tpu_torch.io.hf_checkpoint"} <= set(mods)
+            "alg_tpu_torch.io.video", "alg_tpu_torch.io.hf_checkpoint", "alg_tpu_torch.alg.filters",
+            "alg_tpu_torch.schedulers.dpm_cogvideox", "alg_tpu_torch.io.runstate",
+            "alg_tpu_torch.pipelines.denoise"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

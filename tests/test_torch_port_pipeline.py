@@ -65,11 +65,18 @@ def test_alg_changes_the_result(pair):
 
 
 def test_np_output_and_unported_mode(pair):
-    _, tpipe = pair
+    """``np`` frames in [0, 1]; pixel-space ALG and ``pil`` frames, once
+    refused, now run: pixel mode agrees with ``alg_tpu`` and differs from
+    latent mode, the PIL frames are the ``np`` frames in uint8."""
+    jpipe, tpipe = pair
     video = tpipe(output_type="np", **_kwargs(True))
     assert video.shape == (1, 5, 32, 32, 3) and np.isfinite(video).all()
     assert video.min() >= 0.0 and video.max() <= 1.0
-    with pytest.raises(NotImplementedError, match="pixel-space"):
-        tpipe(output_type="latent", **{**_kwargs(True), "lp_filter_in_latent": False})
-    with pytest.raises(ValueError, match="output_type"):
-        tpipe(output_type="pil", **_kwargs(True))
+    pixel = {**_kwargs(True), "lp_filter_in_latent": False}
+    out = tpipe(output_type="latent", **pixel)
+    np.testing.assert_allclose(out, np.asarray(jpipe(output_type="latent", **pixel)), atol=LATENT_ATOL, rtol=0)
+    assert np.abs(out - tpipe(output_type="latent", **_kwargs(True))).max() > 1e-3
+    frames = tpipe(output_type="pil", **_kwargs(True))
+    assert len(frames) == 1 and [f.size for f in frames[0]] == [(32, 32)] * 5
+    np.testing.assert_array_equal(np.stack([np.asarray(f) for f in frames[0]]),
+                                  np.round(video[0] * 255).astype(np.uint8))

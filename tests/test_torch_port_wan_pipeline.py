@@ -153,10 +153,16 @@ def test_wan_np_output_and_unported_mode(pair):
     video = tpipe(output_type="np", image_embeds=emb, **kw)
     assert video.shape == (1, 9, HEIGHT, WIDTH, 3) and np.isfinite(video).all()
     assert video.min() >= 0.0 and video.max() <= 1.0
-    with pytest.raises(NotImplementedError, match="pixel-space"):
-        tpipe(output_type="latent", image_embeds=emb, **{**kw, "lp_filter_in_latent": False})
+    # pixel-space ALG and PIL frames, once refused, run: pixel mode agrees with alg_tpu
+    pixel = {**kw, "lp_filter_in_latent": False}
+    ref = np.asarray(pair[0](output_type="latent", image_embeds=jnp.asarray(image_embeds), **pixel))
+    np.testing.assert_allclose(tpipe(output_type="latent", image_embeds=emb, **pixel), ref, atol=LATENT_ATOL,
+                               rtol=LATENT_RTOL)
+    frames = tpipe(output_type="pil", image_embeds=emb, **kw)
+    np.testing.assert_array_equal(np.stack([np.asarray(f) for f in frames[0]]),
+                                  np.round(video[0] * 255).astype(np.uint8))
     with pytest.raises(ValueError, match="output_type"):
-        tpipe(output_type="pil", image_embeds=emb, **kw)
+        tpipe(output_type="pt", image_embeds=emb, **kw)
     with pytest.raises(ValueError, match="divisible by 16"):
         tpipe(output_type="latent", image_embeds=emb, **{**kw, "height": 40})
     with pytest.raises(ValueError, match="attention_kwargs"):
