@@ -7,7 +7,7 @@ and Wan writers, at any width and depth: ``transformer/``, ``vae/``,
 tensor names, ``tokenizer/`` (a WordLevel ``tokenizer.json`` written as
 plain JSON) and CogVideoX's ``scheduler/``. The widths and depths come from
 a config dict (:data:`TINY_COGVIDEOX`, :data:`COGVIDEOX_5B_I2V`,
-:data:`TINY_WAN`): at the published widths it is a checkpoint that
+:data:`TINY_WAN`, :data:`WAN21_I2V_14B`): at the published widths it is a checkpoint that
 :mod:`alg_tpu_torch.io.model_zoo` loads as it would the published one.
 
 Tensors are drawn in order from one ``torch.Generator`` seeded with
@@ -30,6 +30,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from alg_tpu_torch.io.safetensors import save_safetensors
+from alg_tpu_torch.models.wan.vae import WAN21_LATENTS_MEAN, WAN21_LATENTS_STD
 
 TINY_COGVIDEOX = {
     "transformer": {
@@ -84,6 +85,28 @@ TINY_WAN = {
     "image_encoder": {
         "hidden_size": 16, "intermediate_size": 32, "num_hidden_layers": 2, "num_attention_heads": 4,
         "image_size": 28, "patch_size": 14, "hidden_act": "gelu",
+    },
+}
+
+# Wan-AI/Wan2.1-I2V-14B-480P-Diffusers' published widths and depths: the port's WanTransformerConfig,
+# WanVAEConfig, UMT5-XXL (models/t5.UMT5_XXL) and CLIP ViT-H/14 (CLIPVisionConfig) defaults
+WAN21_I2V_14B = {
+    "transformer": {
+        "num_attention_heads": 40, "attention_head_dim": 128, "in_channels": 36, "out_channels": 16, "num_layers": 40,
+        "ffn_dim": 13824, "freq_dim": 256, "text_dim": 4096, "image_dim": 1280, "patch_size": [1, 2, 2], "eps": 1e-6,
+    },
+    "vae": {
+        "base_dim": 96, "z_dim": 16, "dim_mult": [1, 2, 4, 4], "num_res_blocks": 2,
+        "temperal_downsample": [False, True, True],
+        "latents_mean": list(WAN21_LATENTS_MEAN), "latents_std": list(WAN21_LATENTS_STD),
+    },
+    "text_encoder": {
+        "vocab_size": 256384, "d_model": 4096, "d_kv": 64, "d_ff": 10240, "num_layers": 24, "num_heads": 64,
+        "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+    },
+    "image_encoder": {
+        "hidden_size": 1280, "intermediate_size": 5120, "num_hidden_layers": 32, "num_attention_heads": 16,
+        "image_size": 224, "patch_size": 14, "hidden_act": "gelu",
     },
 }
 

@@ -12,7 +12,8 @@ shard goes to a bf16 module without passing through any other type. The
 tokenizers are the port's own ``tokenizer.json`` interpreter
 (:mod:`alg_tpu_torch.io.hf_tokenizer`); a tokenizer directory without
 ``tokenizer.json`` raises. Nothing is downloaded: :func:`resolve_model_dir`
-finds local directories only.
+finds local directories only. :func:`load_transformer` loads the DiT
+alone, for fine-tuning.
 
 Not ported yet: ``quantize`` (W8A8 / W4A8 linears, ROADMAP.md A12), and
 what the port's models lack (ROADMAP.md, A-item 3): CogVideoX 1.5
@@ -85,23 +86,18 @@ def _random_generator(device) -> torch.Generator:
     return torch.Generator(device).manual_seed(0)
 
 
-def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None, device="cuda",
-                            timings: Optional[dict] = None, random_init: bool = False):
-    """CogVideoX-I2V checkpoint dir -> :class:`CogVideoXPipeline` on ``device``."""
-    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, CogVideoXTransformerConfig
-    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
-    from alg_tpu_torch.models.t5 import T5Config, T5Encoder
-    from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
-    from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig
+# -- the DiTs -----------------------------------------------------------------------
 
-    _refuse_quantize(quantize)
-    gen = _random_generator(device) if random_init else None
+
+def _cogvideox_transformer_cfg(model_dir: str):
+    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformerConfig
+
     tc = _load_config(model_dir, "transformer")
     if tc.get("patch_size_t") is not None or tc.get("ofs_embed_dim") is not None:
         raise NotImplementedError(f"CogVideoX 1.5 (patch_size_t, the ofs embedding) {_NOT_PORTED}")
     if not tc.get("attention_bias", True) or not tc.get("use_rotary_positional_embeddings", True):
         raise NotImplementedError(f"a CogVideoX DiT without attention biases or RoPE {_NOT_PORTED}")
-    tcfg = CogVideoXTransformerConfig(
+    return CogVideoXTransformerConfig(
         num_attention_heads=tc["num_attention_heads"],
         attention_head_dim=tc["attention_head_dim"],
         in_channels=tc["in_channels"],
@@ -115,6 +111,94 @@ def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None,
         max_text_seq_length=tc.get("max_text_seq_length", 226),
         norm_eps=tc.get("norm_eps", 1e-5),
     )
+
+
+def _wan_transformer_cfg(model_dir: str):
+    from alg_tpu_torch.models.wan.transformer import WanTransformerConfig
+
+    tc = _load_config(model_dir, "transformer")
+    return WanTransformerConfig(
+        num_attention_heads=tc["num_attention_heads"],
+        attention_head_dim=tc["attention_head_dim"],
+        in_channels=tc["in_channels"],
+        out_channels=tc["out_channels"],
+        num_layers=tc["num_layers"],
+        ffn_dim=tc["ffn_dim"],
+        freq_dim=tc["freq_dim"],
+        text_dim=tc["text_dim"],
+        image_dim=tc.get("image_dim"),
+        patch_size=tuple(tc["patch_size"]),
+        eps=tc.get("eps", 1e-6),
+    )
+
+
+def _hunyuan_transformer_cfg(model_dir: str):
+    from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformerConfig
+
+    tc = _load_config(model_dir, "transformer")
+    return HunyuanVideoTransformerConfig(
+        in_channels=tc["in_channels"],
+        out_channels=tc["out_channels"],
+        num_attention_heads=tc["num_attention_heads"],
+        attention_head_dim=tc["attention_head_dim"],
+        num_layers=tc["num_layers"],
+        num_single_layers=tc["num_single_layers"],
+        num_refiner_layers=tc.get("num_refiner_layers", 2),
+        mlp_ratio=tc.get("mlp_ratio", 4.0),
+        patch_size=tc.get("patch_size", 2),
+        patch_size_t=tc.get("patch_size_t", 1),
+        text_embed_dim=tc.get("text_embed_dim", 4096),
+        pooled_projection_dim=tc.get("pooled_projection_dim", 768),
+        guidance_embeds=tc.get("guidance_embeds", True),
+        rope_theta=tc.get("rope_theta", 256.0),
+        rope_axes_dim=tuple(tc.get("rope_axes_dim", (16, 56, 56))),
+        image_condition_type=tc.get("image_condition_type", "token_replace"),
+    )
+
+
+def _transformer_parts(family: str):
+    """(module class, config reader, name map) of the family's DiT."""
+    if family == "cogvideox":
+        from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer
+
+        return CogVideoXTransformer, _cogvideox_transformer_cfg, W.convert_cogvideox_transformer
+    if family == "wan":
+        from alg_tpu_torch.models.wan.transformer import WanTransformer
+
+        return WanTransformer, _wan_transformer_cfg, W.convert_wan_transformer
+    if family == "hunyuan":
+        from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer
+
+        return HunyuanVideoTransformer, _hunyuan_transformer_cfg, W.convert_hunyuan_transformer
+    raise ValueError(f"unknown model family {family!r}")
+
+
+def load_transformer(model_dir: str, family: str, dtype=torch.bfloat16, quantize=None, device="cuda",
+                     timings: Optional[dict] = None):
+    """The family's DiT alone from ``model_dir/transformer`` on ``device`` in
+    ``dtype``: what fine-tuning needs, without the text and image encoders
+    and the VAE. It goes through the config reader and name map of the
+    pipeline loaders, with their refusals, so the module is bit for bit the
+    ``transformer`` of :func:`load_cogvideox_pipeline`,
+    :func:`load_wan_pipeline` or :func:`load_hunyuan_pipeline` on the same
+    directory, dtype and device."""
+    _refuse_quantize(quantize)
+    cls, read_cfg, convert = _transformer_parts(family)
+    return _load_module(cls, read_cfg(model_dir), model_dir, "transformer", convert, dtype, device, timings)
+
+
+def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None, device="cuda",
+                            timings: Optional[dict] = None, random_init: bool = False):
+    """CogVideoX-I2V checkpoint dir -> :class:`CogVideoXPipeline` on ``device``."""
+    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer
+    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
+    from alg_tpu_torch.models.t5 import T5Config, T5Encoder
+    from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
+    from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig
+
+    _refuse_quantize(quantize)
+    gen = _random_generator(device) if random_init else None
+    tcfg = _cogvideox_transformer_cfg(model_dir)
     vc = _load_config(model_dir, "vae")
     if vc.get("invert_scale_latents", False):
         raise NotImplementedError(f"invert_scale_latents {_NOT_PORTED}")
@@ -170,27 +254,14 @@ def load_wan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: float = 
     CLIP vision tower and VAE, UniPC with ``flow_shift``."""
     from alg_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionModel
     from alg_tpu_torch.models.t5 import T5Config, T5Encoder
-    from alg_tpu_torch.models.wan.transformer import WanTransformer, WanTransformerConfig
+    from alg_tpu_torch.models.wan.transformer import WanTransformer
     from alg_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
     from alg_tpu_torch.pipelines.wan import WanPipeline
     from alg_tpu_torch.schedulers.unipc import UniPCConfig
 
     _refuse_quantize(quantize)
     gen = _random_generator(device) if random_init else None
-    tc = _load_config(model_dir, "transformer")
-    tcfg = WanTransformerConfig(
-        num_attention_heads=tc["num_attention_heads"],
-        attention_head_dim=tc["attention_head_dim"],
-        in_channels=tc["in_channels"],
-        out_channels=tc["out_channels"],
-        num_layers=tc["num_layers"],
-        ffn_dim=tc["ffn_dim"],
-        freq_dim=tc["freq_dim"],
-        text_dim=tc["text_dim"],
-        image_dim=tc.get("image_dim"),
-        patch_size=tuple(tc["patch_size"]),
-        eps=tc.get("eps", 1e-6),
-    )
+    tcfg = _wan_transformer_cfg(model_dir)
     vc = _load_config(model_dir, "vae")
     vcfg = WanVAEConfig(
         base_dim=vc.get("base_dim", 96),
@@ -244,7 +315,7 @@ def load_hunyuan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: floa
     flow-match Euler. The image processor is the pipeline's default
     (``clip_preprocess``, which needs PIL)."""
     from alg_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, CLIPVisionConfig
-    from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer, HunyuanVideoTransformerConfig
+    from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer
     from alg_tpu_torch.models.hunyuan.vae import HunyuanVAE, HunyuanVAEConfig
     from alg_tpu_torch.models.llama import LlamaConfig, LlavaConfig, LlavaModel
     from alg_tpu_torch.pipelines.hunyuan import HunyuanVideoPipeline
@@ -252,25 +323,7 @@ def load_hunyuan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: floa
 
     _refuse_quantize(quantize)
     gen = _random_generator(device) if random_init else None
-    tc = _load_config(model_dir, "transformer")
-    tcfg = HunyuanVideoTransformerConfig(
-        in_channels=tc["in_channels"],
-        out_channels=tc["out_channels"],
-        num_attention_heads=tc["num_attention_heads"],
-        attention_head_dim=tc["attention_head_dim"],
-        num_layers=tc["num_layers"],
-        num_single_layers=tc["num_single_layers"],
-        num_refiner_layers=tc.get("num_refiner_layers", 2),
-        mlp_ratio=tc.get("mlp_ratio", 4.0),
-        patch_size=tc.get("patch_size", 2),
-        patch_size_t=tc.get("patch_size_t", 1),
-        text_embed_dim=tc.get("text_embed_dim", 4096),
-        pooled_projection_dim=tc.get("pooled_projection_dim", 768),
-        guidance_embeds=tc.get("guidance_embeds", True),
-        rope_theta=tc.get("rope_theta", 256.0),
-        rope_axes_dim=tuple(tc.get("rope_axes_dim", (16, 56, 56))),
-        image_condition_type=tc.get("image_condition_type", "token_replace"),
-    )
+    tcfg = _hunyuan_transformer_cfg(model_dir)
     vc = _load_config(model_dir, "vae")
     vcfg = HunyuanVAEConfig(
         latent_channels=vc.get("latent_channels", 16),

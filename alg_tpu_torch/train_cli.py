@@ -6,26 +6,34 @@ batch keys (``training/losses.py``, without the batch axis), or
 ``--synthetic N`` random examples shaped by the model config and the
 config's ``generation`` section.
 
-    python -m alg_tpu_torch.train_cli --config configs/cogvideox_alg.yaml --random_init --synthetic 8 --steps 20 --remat --compute_dtype bfloat16 --output adapters.npz
+    python -m alg_tpu_torch.train_cli --config configs/cogvideox_alg.yaml --model_cache_dir /path/to/checkpoints --data latents/ --steps 1000 --remat --compute_dtype bfloat16 --output adapters.npz
 
-Only ``--random_init`` runs so far: full-size random weights from the seed,
-made on the device. Loading a checkpoint waits for ROADMAP A8 and raises.
-LoRA adapters are saved as a peft-layout ``.npz`` that ``io.lora.merge_lora_*``
-merges; a full fine-tune saves a path-keyed parameter ``.npz``
+The DiT comes from the checkpoint directory that ``model.path`` names
+(``io/model_zoo.resolve_model_dir`` with ``--model_cache_dir``), loaded alone
+in the config's dtype (``io/model_zoo.load_transformer``), or with
+``--random_init`` at the published size with random weights from the seed,
+made on the device. ``--data`` is what ``prepare_cli`` writes
+(``alg-tpu-torch-prepare``). LoRA adapters are saved as a peft-layout
+``.npz`` that ``io.lora.merge_lora_*`` and ``cli --lora`` merge; a full
+fine-tune saves a path-keyed parameter ``.npz``
 (``training.train.load_params_npz``). With ``--checkpoint_dir`` the run
 saves its state every ``--save_every`` steps and ``--resume`` continues from
 the newest one with the same data order and the same draws.
+``--val_frac`` holds out the last examples and logs their loss
+(``val_loss``) every ``--eval_every`` steps and at the last;
+``--profile_dir`` writes a ``torch.profiler`` trace of the steps after the
+first (``utils/profiling.trace_to``).
 
 :func:`run` is the body, callable with an already parsed config (a dict
 with ``model`` and ``generation`` sections) and, for tests, an already built
-DiT. Not ported yet: quantized bases (``--quantize``), the sharded and
-pipelined steps (``--dp/--tp/--pp``), the validation split and the profiler
-trace.
+DiT. Not ported yet: quantized bases (``--quantize``, ROADMAP.md A12) and
+the sharded and pipelined steps (``--dp/--tp/--pp``, A13), which raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -136,13 +144,29 @@ def memory_batches(examples, batch_size: int, steps: int, seed: int, start: int 
             yield {k: np.stack([examples[i][k] for i in idx]) for k in examples[0]}
 
 
+def validation_split(n: int, val_frac: float, batch_size: int):
+    """``(n_train, held out)``: the last ``max(1, int(n * val_frac))`` of
+    ``n`` examples are held out and the first ``n_train`` train; the held-out
+    indices are cycled to whole batches of ``batch_size``."""
+    n_val = max(1, int(n * val_frac))
+    if n_val >= n:
+        raise ValueError(f"--val_frac {val_frac} holds out all {n} examples")
+    held = list(range(n - n_val, n))
+    while len(held) % batch_size:
+        held.append(held[len(held) % n_val])
+    return n - n_val, held
+
+
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="alg_tpu_torch fine-tuning (LoRA or full)")
     p.add_argument("--config", type=str, required=True, help="run-style YAML (model and generation sections)")
+    p.add_argument("--model_cache_dir", type=str, default=None, help="where model.path's checkpoint directory lies")
     p.add_argument("--data", type=str, default=None, help="directory of per-example .npz files")
     p.add_argument("--synthetic", type=int, default=0, help="train on N random examples instead of --data")
     p.add_argument("--random_init", action="store_true", help="full-size random weights instead of a checkpoint")
     p.add_argument("--mode", choices=("lora", "full"), default="lora")
+    p.add_argument("--quantize", choices=("none", "w8", "w4"), default="none",
+                   help="QLoRA over a W8A8 / W4A8 base (not ported yet: raises)")
     p.add_argument("--rank", type=int, default=16, help="LoRA rank")
     p.add_argument("--lora_scale", type=float, default=1.0, help="alpha/rank scale")
     p.add_argument("--lr", type=float, default=1e-4)
@@ -154,6 +178,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true", help="checkpoint DiT blocks")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--shift", type=float, default=None, help="flow-matching timestep shift (default: the family's)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel axis (not ported yet: raises above 1)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel axis (not ported yet: raises above 1)")
+    p.add_argument("--pp", type=int, default=1, help="pipeline-parallel stages (not ported yet: raises above 1)")
+    p.add_argument("--pp_micro", type=int, default=None, help="pipeline microbatches (not ported yet: raises)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--output", type=str, required=True, help=".npz output (peft adapters | parameter tree)")
@@ -163,29 +191,45 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true", help="resume from the newest checkpoint in --checkpoint_dir")
     p.add_argument("--ema_decay", type=float, default=0.0, help="EMA decay; the EMA is exported when set")
     p.add_argument("--prefetch", type=int, default=2, help="host-side batch prefetch depth (0 = off)")
+    p.add_argument("--val_frac", type=float, default=0.0, help="hold out this fraction of examples for validation")
+    p.add_argument("--eval_every", type=int, default=50, help="validation-loss interval in steps (with --val_frac)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="torch.profiler trace of the second to fourth steps, written here")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
 
 def run(config: dict, args, transformer=None) -> dict:
     """Train as ``args`` (a :func:`make_parser` namespace) says over the
-    parsed ``config``; ``transformer`` replaces the full-size random DiT.
-    Returns ``{"losses", "trainable", "steps"}``."""
+    parsed ``config``; ``transformer`` replaces the DiT of the checkpoint
+    directory ``model.path`` names (or the random one of ``--random_init``).
+    Returns ``{"losses", "val_losses",
+    "trainable", "steps"}``: ``val_losses`` holds the mean validation loss
+    of each evaluation."""
     from alg_tpu_torch.core.config import resolve_dtype
+    from alg_tpu_torch.io import model_zoo
     from alg_tpu_torch.training import checkpoint as C
     from alg_tpu_torch.training.data import LatentDataset, prefetch, to_device
     from alg_tpu_torch.training.lora import FAMILY_PEFT, init_lora_params, make_lora_loss, to_peft_state
     from alg_tpu_torch.training.train import TrainConfig, make_train_step, save_params_npz, tree_leaves
+    from alg_tpu_torch.utils.profiling import trace_to
 
+    if args.quantize != "none":
+        raise NotImplementedError(f"--quantize {args.quantize}: a W8A8 / W4A8 base is not ported yet (ROADMAP.md, A12)")
+    if args.dp != 1 or args.tp != 1 or args.pp != 1 or args.pp_micro is not None:
+        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp} --pp {args.pp} --pp_micro {args.pp_micro}: the "
+                                  "sharded and pipelined steps are not ported yet (ROADMAP.md, A13)")
     model_cfg, gen_cfg = config.get("model", {}), dict(config.get("generation") or {})
     family = family_of(model_cfg["path"])
     device = torch.device(args.device)
     if transformer is None:
-        if not args.random_init:
-            raise NotImplementedError("training from a checkpoint directory is not ported yet (ROADMAP A8): "
-                                      "pass --random_init")
-        transformer = random_init_transformer(family, resolve_dtype(model_cfg.get("dtype", "bfloat16")), device,
-                                              args.seed)
+        dtype = resolve_dtype(model_cfg.get("dtype", "bfloat16"))
+        if args.random_init:
+            transformer = random_init_transformer(family, dtype, device, args.seed)
+        else:
+            model_dir = model_zoo.resolve_model_dir(model_cfg["path"], args.model_cache_dir)
+            logger.info("Loading the %s DiT from %s", family, model_dir)
+            transformer = model_zoo.load_transformer(model_dir, family, dtype=dtype, device=device)
     transformer = transformer.to(device).requires_grad_(False)
     logger.info("%s DiT, %.2f B parameters, %s mode", family,
                 sum(p.numel() for p in transformer.parameters()) / 1e9, args.mode)
@@ -194,11 +238,29 @@ def run(config: dict, args, transformer=None) -> dict:
     if args.synthetic:
         examples = synth_examples(family, transformer.cfg, args.synthetic, gen_cfg, args.seed)
         first = examples[0]
+        n_examples = len(examples)
     elif args.data:
         dataset = LatentDataset(args.data)
         first = dataset.example(0)
+        n_examples = len(dataset)
+        logger.info("Dataset: %d examples from %s", n_examples, args.data)
     else:
         raise ValueError("one of --data or --synthetic is required")
+
+    # the validation holdout: fixed batches of the last examples
+    val_batches = []
+    if args.val_frac > 0:
+        n_train, held = validation_split(n_examples, args.val_frac, args.batch_size)
+        if dataset is not None:
+            val_examples = [dataset.example(i) for i in held]
+            dataset.files = dataset.files[:n_train]
+        else:
+            val_examples, examples = [examples[i] for i in held], examples[:n_train]
+        for j in range(0, len(val_examples), args.batch_size):
+            chunk = val_examples[j:j + args.batch_size]
+            val_batches.append(to_device({k: np.stack([ex[k] for ex in chunk]) for k in sorted(chunk[0])}, device))
+        logger.info("Validation: %d examples (%d batches)", n_examples - n_train, len(val_batches))
+
     lat = first["latents"].shape
     geom = (lat[0], lat[2], lat[3]) if family == "cogvideox" else (lat[1], lat[2], lat[3])
     # float32 over a bf16 base casts the base up inside the loss, as JAX's promotion would: PyTorch's linears
@@ -211,18 +273,24 @@ def run(config: dict, args, transformer=None) -> dict:
 
     base = dict(transformer.named_parameters())
     if args.mode == "lora":
-        prefixes, peft_paths = FAMILY_PEFT[family]
+        prefixes = FAMILY_PEFT[family][0]
         trainable = init_lora_params(torch.Generator(device).manual_seed(args.seed), base, rank=args.rank,
                                      prefixes=prefixes)
         frozen = (base,)
-        step, opt = make_train_step(make_lora_loss(loss_fn, None, scale=args.lora_scale, attach=True), tc)
+        train_loss = make_lora_loss(loss_fn, None, scale=args.lora_scale, attach=True)
         logger.info("LoRA: rank %d over %d modules", args.rank, len(trainable))
     else:
-        trainable, frozen = {name: p.detach().clone() for name, p in base.items()}, ()
-        step, opt = make_train_step(loss_fn, tc)
+        trainable, frozen, train_loss = {name: p.detach().clone() for name, p in base.items()}, (), loss_fn
+    step, opt = make_train_step(train_loss, tc)
     for leaf in tree_leaves(trainable):
         leaf.requires_grad_()
     opt_state = opt.init(trainable)
+
+    @torch.no_grad()
+    def validation_loss(params) -> float:
+        vals = [float(train_loss(params, vb, train_loss.draw(vb, torch.Generator(device).manual_seed(10_000 + j)),
+                                 *frozen)) for j, vb in enumerate(val_batches)]
+        return float(np.mean(vals))
 
     ema = C.init_ema(trainable) if args.ema_decay else None
     ema_fn = C.make_ema_update(args.ema_decay) if args.ema_decay else None
@@ -243,22 +311,33 @@ def run(config: dict, args, transformer=None) -> dict:
     batch_iter = prefetch(batch_iter, args.prefetch, device) if args.prefetch else (
         to_device(b, device) for b in batch_iter)
 
-    losses, t0 = [], time.perf_counter()
-    for i, batch in enumerate(batch_iter, start=start):
-        draws = torch.Generator(device).manual_seed(args.seed * 1_000_003 + i)  # a step's draws depend on its index only
-        trainable, opt_state, m = step(trainable, opt_state, batch, draws, *frozen)
-        if ema_fn is not None:
-            ema = ema_fn(ema, trainable)
-        losses.append(float(m["loss"]))
-        if not np.isfinite(losses[-1]):
-            raise RuntimeError(f"non-finite loss at step {i + 1}")
-        if (i - start) % args.log_every == 0 or i == args.steps - 1:
-            logger.info("step %d/%d  loss %.5f  grad_norm %.4f  (%.2f s/step)", i + 1, args.steps, losses[-1],
-                        float(m["grad_norm"]), (time.perf_counter() - t0) / (i + 1 - start))
-        if args.checkpoint_dir and ((i + 1) % args.save_every == 0 or i + 1 == args.steps):
-            os.makedirs(args.checkpoint_dir, exist_ok=True)
-            C.save_train_state(C.checkpoint_path(args.checkpoint_dir, i + 1), i + 1, trainable, opt_state, ema)
-            C.prune_checkpoints(args.checkpoint_dir, args.keep)
+    losses, val_losses, t0 = [], [], time.perf_counter()
+    with contextlib.ExitStack() as tracing:
+        for i, batch in enumerate(batch_iter, start=start):
+            if args.profile_dir and i == start + 1:  # the first step warms up
+                tracing.enter_context(trace_to(args.profile_dir))
+                logger.info("Profiling steps %d-%d to %s", i + 1, min(i + 3, args.steps), args.profile_dir)
+            draws = torch.Generator(device).manual_seed(args.seed * 1_000_003 + i)  # a step's draws depend on its index only
+            trainable, opt_state, m = step(trainable, opt_state, batch, draws, *frozen)
+            if ema_fn is not None:
+                ema = ema_fn(ema, trainable)
+            if args.profile_dir and (i == start + 3 or i == args.steps - 1):  # closing an unopened stack is a no-op
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                tracing.close()
+            losses.append(float(m["loss"]))
+            if not np.isfinite(losses[-1]):
+                raise RuntimeError(f"non-finite loss at step {i + 1}")
+            if val_batches and ((i + 1) % args.eval_every == 0 or i + 1 == args.steps):
+                val_losses.append(validation_loss(trainable))
+                logger.info("step %d/%d  val_loss %.5f", i + 1, args.steps, val_losses[-1])
+            if (i - start) % args.log_every == 0 or i == args.steps - 1:
+                logger.info("step %d/%d  loss %.5f  grad_norm %.4f  (%.2f s/step)", i + 1, args.steps, losses[-1],
+                            float(m["grad_norm"]), (time.perf_counter() - t0) / (i + 1 - start))
+            if args.checkpoint_dir and ((i + 1) % args.save_every == 0 or i + 1 == args.steps):
+                os.makedirs(args.checkpoint_dir, exist_ok=True)
+                C.save_train_state(C.checkpoint_path(args.checkpoint_dir, i + 1), i + 1, trainable, opt_state, ema)
+                C.prune_checkpoints(args.checkpoint_dir, args.keep)
 
     export = ema if ema is not None else trainable
     if args.mode == "lora":
@@ -266,7 +345,8 @@ def run(config: dict, args, transformer=None) -> dict:
     else:
         save_params_npz(args.output, export)
     logger.info("Saved %s to %s", "peft adapters" if args.mode == "lora" else "the parameter tree", args.output)
-    return {"losses": losses, "trainable": trainable, "steps": start + len(losses)}
+    logger.info("Training complete.")
+    return {"losses": losses, "val_losses": val_losses, "trainable": trainable, "steps": start + len(losses)}
 
 
 def main(argv=None) -> None:

@@ -163,6 +163,30 @@ Phases, each of which must pass:
       off; losses within rtol 1e-4, adapters within atol 1e-4 (AdamW eps
       1e-4), and, with no optimizer between, the gradients of one loss at
       adapters with A and B nonzero within 1e-4 of each leaf's largest value.
+  G.  the fine-tuning workflow, prepare -> train -> merge, over checkpoint
+      directories written from a seed on the card: G1, a CogVideoX-5b-I2V
+      checkpoint at the published widths (phase F's cut: DiT 2 of 42 layers,
+      T5-XXL 2 of 24); ``prepare_cli.run`` over a manifest of 3 seeded uint8
+      480x720 clips (one of 51 frames, cut to 49): keys, shapes and dtypes
+      of ``alg_tpu``'s ``.npz`` files, exact launches, each example's T5 and
+      VAE encode times and peak memory; ``train_cli.run`` over the same
+      directory on those latents (no ``--random_init``): one example held
+      out, 4 steps, an evaluation every 2, rank 8, remat, bf16 compute and
+      ``--profile_dir``: finite losses and two validation means, exact
+      launches (the steps' and the validation forwards'), each step's time,
+      the trace naming the port's kernels; then ``cli.run --lora`` with the
+      adapters at phase F's cut: every adapted linear of the merged DiT
+      differs from the base and the rest is bit-equal, the video is written,
+      exact launches. G2, a Wan2.1-I2V-14B checkpoint at the published
+      widths (``hf_checkpoint.WAN21_I2V_14B``: DiT 2 of 40 layers, UMT5-XXL
+      2 of 24, CLIP ViT-H and the VAE whole): ``prepare_cli.run`` over two
+      seeded 81-frame 480x832 clips, the second with ``"flf2v": true``
+      (shapes, the mask blocks, the encode times including the two tiled
+      81-frame encodes, the peak), then 2 LoRA steps over the directory at
+      81 frames (S = 32,760), remat, bf16, with exact launches. G3, a small
+      CogVideoX and a small Wan checkpoint (phase F2's) through
+      ``prepare_cli.run`` on the card and on the CPU, fp32 with TF32 off:
+      every array within atol 1e-4 + rtol 1e-4, the mask blocks exact.
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only rope
 at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
@@ -180,7 +204,8 @@ the training kernels at
 ``[1,48,17776,64]`` and ``[1,40,4680,128]`` in bf16 and fp32 (for comparing
 two trees on one card, the parent's too: it does not require the
 tensor-core kernels; it prints no result line). ``python3 chip_smoke.py
---cli`` builds the kernels and runs phases F and F2 alone (no result line).
+--cli`` builds the kernels and runs phases F and F2 alone, ``python3
+chip_smoke.py --finetune`` phase G alone (neither prints a result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
@@ -2622,6 +2647,471 @@ def phase_cli_agreement() -> None:
 
 
 # ---------------------------------------------------------------------------
+# G. the fine-tuning workflow: prepare_cli over clips, train_cli over the checkpoint directory, cli.run --lora
+# ---------------------------------------------------------------------------
+
+
+def _write_manifest(tmp: str, clips) -> str:
+    """``clips``: [(file name, frames, height, width, seed, extra manifest keys)]: seeded uint8 ``.npy`` clips
+    and a JSONL manifest naming them; returns the manifest's path."""
+    import os
+
+    import numpy as np
+
+    lines = []
+    for name, frames, height, width, seed, extra in clips:
+        path = os.path.join(tmp, name)
+        np.save(path, np.random.RandomState(seed).randint(0, 256, (frames, height, width, 3)).astype(np.uint8))
+        lines.append(json.dumps({"video": path, "prompt": PROMPT, **extra}))
+    manifest = os.path.join(tmp, "manifest.jsonl")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return manifest
+
+
+def _run_prepare(config, root: str, manifest: str, out_dir: str, device: str, stages: dict):
+    """``prepare_cli.run`` over ``manifest`` on ``device``, each of the pipeline
+    methods named in ``stages`` ({method: label}) timed between synchronises.
+    Returns (the examples as dicts of arrays, the launch counts, one entry a
+    example: (ms, [(stage, ms)], peak GiB), the pipeline's load seconds)."""
+    import numpy as np
+    import torch
+
+    import alg_tpu_torch.cli as cli
+    from alg_tpu_torch import prepare_cli
+    from alg_tpu_torch.core.config import run_config_from_dict
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    family = run_config_from_dict(config).family
+    load0, encode0 = cli.load_pipeline, prepare_cli._ENCODERS[family]
+    rows, examples, load_s = [], [], []
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            shape = getattr(args[0], "shape", None) if args else None
+            frames = f" ({shape[1]} frame{'s' * (shape[1] != 1)})" if shape is not None and len(shape) == 5 else ""
+            rows.append((label + frames, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    def load(*args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        pipe = load0(*args, **kwargs)
+        sync()
+        load_s.append(time.perf_counter() - t0)
+        for method, label in stages.items():
+            setattr(pipe, method, timed(label, getattr(pipe, method)))
+        return pipe
+
+    def encode(*args, **kwargs):
+        rows.clear()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        out = encode0(*args, **kwargs)
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        examples.append(((time.perf_counter() - t0) * 1e3, list(rows), peak))
+        return out
+
+    args = prepare_cli.build_parser().parse_args(["--config", "-", "--model_cache_dir", root, "--manifest", manifest,
+                                                  "--output_dir", out_dir, "--device", device])
+    cli.load_pipeline, prepare_cli._ENCODERS[family] = load, encode
+    try:
+        _reset_counts()
+        written = prepare_cli.run(args, config)
+        counts = _read_counts()
+    finally:
+        cli.load_pipeline, prepare_cli._ENCODERS[family] = load0, encode0
+        if cuda:
+            _free_device_memory()
+    data = []
+    for path in written:
+        with np.load(path) as z:
+            data.append({k: z[k] for k in z.files})
+    return data, counts, examples, load_s[0]
+
+
+def _print_prepare(tag, examples, load_s, card) -> None:
+    print(f"[{tag}] prepare_cli.run: load_pipeline {load_s:.2f} s ({card})", flush=True)
+    for i, (ms, rows, peak) in enumerate(examples):
+        stages = ", ".join(f"{label} {stage_ms:.1f} ms" for label, stage_ms in rows)
+        print(f"[{tag}] example {i}: {ms:.1f} ms ({stages}); peak device memory {peak:.2f} GiB", flush=True)
+
+
+class _StepClock:
+    """Times each train step that ``train_cli.run`` takes, between device
+    synchronises, by wrapping the step that ``make_train_step`` returns."""
+
+    def __enter__(self):
+        import torch
+
+        import alg_tpu_torch.training.train as T
+
+        self.ms, self._make = [], T.make_train_step
+
+        def make(loss_fn, tc):
+            step, opt = self._make(loss_fn, tc)
+
+            def timed(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return timed, opt
+
+        T.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        import alg_tpu_torch.training.train as T
+
+        T.make_train_step = self._make
+        return False
+
+
+def _run_train(tag, config, root, data, out_path, extra, card):
+    """``train_cli.run`` over the checkpoint directory (no ``--random_init``)
+    with ``--data``; returns (its result, launch counts, step ms)."""
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch import train_cli
+
+    args = train_cli.make_parser().parse_args(
+        ["--config", "-", "--model_cache_dir", root, "--data", data, "--rank", "8", "--remat", "--compute_dtype",
+         "bfloat16", "--seed", "0", "--lr", "1e-3", "--log_every", "1", "--output", out_path, *extra])
+    torch.cuda.reset_peak_memory_stats()
+    with _StepClock() as clock:
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train_cli.run(config, args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _read_counts()
+    steps = ", ".join(f"{ms:.1f}" for ms in clock.ms)
+    print(f"[{tag}] train_cli.run over the checkpoint directory {' '.join(extra)}: {len(out['losses'])} steps of "
+          f"[{steps}] ms, {seconds:.1f} s with the DiT's load, losses {out['losses']}, validation means "
+          f"{out['val_losses']}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})",
+          flush=True)
+    if not (all(np.isfinite(out["losses"])) and all(np.isfinite(out["val_losses"]))):
+        raise AssertionError(f"[{tag}] a loss or a validation mean is not finite")
+    return out, counts, clock.ms
+
+
+def _wan_train_step_launches(layers: int) -> dict:
+    """Kernel launches of one Wan LoRA step with remat: a block's forward runs
+    twice (rope on q and k, then self-attention and the text and image
+    cross-attentions, each writing the LSE), then the three attentions'
+    backward kernels once; rope's backward is its plain version."""
+    return {"qk_prep": 0, "rope_interleaved": 4 * layers, "flash_attention": 6 * layers,
+            "flash_attention_lse": 6 * layers, "flash_attention_tc": 6 * layers,
+            "flash_attention_bwd_dq": 3 * layers, "flash_attention_bwd_dq_tc": 3 * layers,
+            "flash_attention_bwd_dkv": 3 * layers, "flash_attention_bwd_dkv_tc": 3 * layers, **_NO_OPT_IN,
+            **_NO_CUDA_CORES}
+
+
+def _with_zeros(want: dict) -> dict:
+    """``want`` over every counted kernel, the others at zero."""
+    return {**{name: 0 for name in _kernel_counters()}, **want}
+
+
+def _check_counts(tag, counts, want) -> None:
+    want = _with_zeros(want)
+    ok = counts == want
+    print(f"[{tag}] launches {counts} (want {want}): {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] launches {counts} != {want}")
+
+
+def _check_trace(tag, prof_dir: str, kernels) -> None:
+    """The Chrome trace ``--profile_dir`` holds names each of ``kernels`` among its device kernels."""
+    import os
+
+    names = sorted(os.listdir(prof_dir))
+    if len(names) != 1 or not names[0].endswith(".json"):
+        raise AssertionError(f"[{tag}] --profile_dir holds {names}, not one trace file")
+    with open(os.path.join(prof_dir, names[0])) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    found = {k: sum(1 for e in device if k in e.get("name", "")) for k in kernels}
+    ok = all(found.values())
+    print(f"[{tag}] trace {names[0]}: {os.path.getsize(os.path.join(prof_dir, names[0]))} bytes, {len(device)} device "
+          f"kernels; the port's kernels by launches {found}: {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] the trace names none of {[k for k, n in found.items() if not n]}")
+
+
+def phase_finetune_cogvideox() -> dict:
+    """G1: a CogVideoX-5b-I2V checkpoint at the published widths (phase F's
+    cut: DiT 2 of 42 layers, T5-XXL 2 of 24) written to a temporary
+    directory; ``prepare_cli.run`` over 3 seeded 480x720 uint8 clips (one of
+    51 frames, cut to 49); ``train_cli.run`` over the same directory on the
+    written latents (1 held out, 4 steps, evaluation every 2, rank 8, remat,
+    bf16, a profiler trace); then ``cli.run --lora`` with the adapters at
+    phase F's cut. Returns the launch counts of the three runs by path."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.cli import build_parser, run
+    from alg_tpu_torch.io import hf_checkpoint as H
+    from alg_tpu_torch.io import model_zoo
+
+    _set_tf32(False, True)
+    card = _card_line()
+    ck = copy.deepcopy(H.COGVIDEOX_5B_I2V)
+    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2  # of 42 and 24
+    layers, t5_layers = 2, 2
+    tmp = tempfile.mkdtemp(prefix="alg_finetune_")
+    counts = {}
+    try:
+        root = os.path.join(tmp, CLI_CONFIG["model"]["path"])
+        t0 = time.perf_counter()
+        H.write_cogvideox(root, ck, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[G1] wrote a CogVideoX-5b-I2V checkpoint at the published widths (DiT and T5 2 layers) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        _free_device_memory()
+        manifest = _write_manifest(tmp, [(f"clip{i}.npy", frames, 480, 720, 10 + i, {})
+                                         for i, frames in enumerate((49, 51, 49))])
+        config = {"model": dict(CLI_CONFIG["model"]),
+                  "generation": {"height": 480, "width": 720, "num_frames": 49, "guidance_scale": 6.0,
+                                 "max_sequence_length": 226}}
+        data_dir = os.path.join(tmp, "latents")
+        data, counts["prepare_cogvideox"], examples, load_s = _run_prepare(
+            config, tmp, manifest, data_dir, "cuda", {"encode_prompt": "T5 encode", "vae_encode_sample": "VAE encode"})
+        _print_prepare("G1", examples, load_s, card)
+        ok = True
+        for i, ex in enumerate(data):
+            shapes = {k: v.shape for k, v in ex.items()}
+            ok &= (shapes == {"latents": (13, 16, 60, 90), "image_latents": (13, 16, 60, 90),
+                              "encoder_hidden_states": (226, 4096)}
+                   and all(v.dtype == np.float32 and np.isfinite(v).all() for v in ex.values())
+                   and float(np.abs(ex["image_latents"][1:]).max()) == 0.0
+                   and float(np.abs(ex["image_latents"][0]).max()) > 0.0 and float(ex["latents"].std()) > 0.0)
+            print(f"[G1] example_{i:05d}.npz {shapes}", flush=True)
+        print(f"[G1] prepared latents: keys, shapes, float32, finite, image_latents zero past latent frame 0: "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("[G1] the prepared latents are not as alg_tpu writes them")
+        # a T5 encode of each example, every layer one tensor-core launch
+        _check_counts("G1 prepare", counts["prepare_cogvideox"],
+                      {"flash_attention": 3 * t5_layers, "flash_attention_tc": 3 * t5_layers})
+
+        adapters, prof = os.path.join(tmp, "adapters.npz"), os.path.join(tmp, "profile")
+        out, counts["train_ckpt_cogvideox"], _ = _run_train(
+            "G1", config, tmp, data_dir, adapters,
+            ["--val_frac", "0.34", "--steps", "4", "--eval_every", "2", "--profile_dir", prof], card)
+        if len(out["losses"]) != 4 or len(out["val_losses"]) != 2:
+            raise AssertionError(f"[G1] {len(out['losses'])} steps and {len(out['val_losses'])} validation means, "
+                                 "want 4 and 2")
+        step = _train_step_launches(layers)
+        val = {"qk_prep": 2 * layers, "flash_attention": layers, "flash_attention_tc": layers}  # no_grad forward
+        _check_counts("G1 train", counts["train_ckpt_cogvideox"],
+                      {k: 4 * step.get(k, 0) + 2 * val.get(k, 0) for k in set(step) | set(val)})
+        _check_trace("G1", prof, ("qk_prep_kernel", "flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                                  "flash_bwd_dkv_tc_kernel"))
+        adapted = [(path, i) for path, ab in out["trainable"].items() for i in range(ab["A"].shape[0])]
+        del out
+        _free_device_memory()
+
+        with _CliProbe() as probe:
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args = build_parser().parse_args(["--model_cache_dir", tmp, "--output_path", os.path.join(tmp, "out.mp4"),
+                                              "--device", "cuda", "--lora", adapters])
+            written = run(args, config=CLI_CONFIG)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            counts["cli_lora_cogvideox"] = _read_counts()
+        merged = probe.pipe.transformer.state_dict()
+        base = model_zoo.load_transformer(root, "cogvideox", dtype=torch.bfloat16, device="cuda").state_dict()
+        names = {f"{path.split('/')[0]}.{i}.{'.'.join(path.split('/')[1:])}.weight" for path, i in adapted}
+        moved = sum(not torch.equal(merged[n], base[n]) for n in names)
+        kept = all(torch.equal(t, base[n]) for n, t in merged.items() if n not in names)
+        form, back = _written_frames(written)
+        frames = probe.written["frames"]
+        ok = (moved == len(names) == 6 * layers and kept and frames.shape == (CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH, 3)
+              and bool(np.isfinite(frames).all()) and bool(np.isfinite(probe.final[0]).all()))
+        print(f"[G1] cli.run --lora {total_s:.2f} s ({card}): the merged DiT differs from the base in {moved} of "
+              f"{len(names)} adapted linears, the rest bit-equal: {kept}; wrote {written} as {form}, frames "
+              f"{frames.shape}: {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("[G1] cli.run --lora did not merge the adapters or write the video")
+        _check_counts("G1 cli --lora", counts["cli_lora_cogvideox"],
+                      {"qk_prep": 2 * layers * 4, "flash_attention": layers * 4 + t5_layers * 2,
+                       "flash_attention_tc": layers * 4 + t5_layers * 2})
+        del base, merged, probe
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+
+
+WAN_FINETUNE_CONFIG = {
+    "model": {"path": "Wan-AI/Wan2.1-I2V-14B-480P-Diffusers", "dtype": "bfloat16"},
+    "generation": {"height": 480, "width": 832, "num_frames": 81, "guidance_scale": 5.0, "max_sequence_length": 512},
+}
+
+
+def phase_finetune_wan() -> dict:
+    """G2: a Wan2.1-I2V-14B checkpoint at the published widths (DiT 2 of 40
+    layers, UMT5-XXL 2 of 24, CLIP ViT-H and the VAE whole) written to a
+    temporary directory; ``prepare_cli.run`` over two seeded 81-frame 480x832
+    uint8 clips, the second with ``"flf2v": true``; then 2 LoRA steps of
+    ``train_cli.run`` over the directory at 81 frames (S = 32,760), remat,
+    bf16. Returns the launch counts of both runs by path."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    _set_tf32(False, True)
+    card = _card_line()
+    ck = copy.deepcopy(H.WAN21_I2V_14B)
+    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2  # of 40 and 24
+    layers, t5_layers, clip_layers = 2, 2, ck["image_encoder"]["num_hidden_layers"]
+    tmp = tempfile.mkdtemp(prefix="alg_finetune_wan_")
+    counts = {}
+    try:
+        root = os.path.join(tmp, WAN_FINETUNE_CONFIG["model"]["path"])
+        t0 = time.perf_counter()
+        H.write_wan(root, ck, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        print(f"[G2] wrote a Wan2.1-I2V-14B checkpoint at the published widths (DiT and UMT5 2 layers, CLIP ViT-H "
+              f"and the VAE whole): {nbytes} bytes in {time.perf_counter() - t0:.2f} s", flush=True)
+        _free_device_memory()
+        manifest = _write_manifest(tmp, [("clip0.npy", 81, 480, 832, 20, {}),
+                                         ("clip1.npy", 81, 480, 832, 21, {"flf2v": True})])
+        data_dir = os.path.join(tmp, "latents")
+        data, counts["prepare_wan"], examples, load_s = _run_prepare(
+            WAN_FINETUNE_CONFIG, tmp, manifest, data_dir, "cuda",
+            {"encode_prompt": "UMT5 encode", "encode_image": "CLIP ViT-H encode",
+             "_encode_video_condition": "VAE encode"})
+        _print_prepare("G2", examples, load_s, card)
+        ok = True
+        for i, ex in enumerate(data):
+            shapes = {k: v.shape for k, v in ex.items()}
+            mask = ex["condition"][:4]
+            masked = mask[:, 0].min() == 1.0 and np.abs(mask[:, 1:-1]).max() == 0.0
+            if i == 1:  # FLF2V: the last pixel frame in the last latent frame's fourth t-channel
+                masked = masked and mask[3, -1].min() == 1.0 and np.abs(mask[:3, -1]).max() == 0.0
+                masked = masked and float(np.abs(ex["condition"][4:, -1]).max()) > 0.0
+            else:
+                masked = masked and np.abs(mask[:, -1]).max() == 0.0
+            ok &= (shapes == {"latents": (16, 21, 60, 104), "condition": (20, 21, 60, 104),
+                              "encoder_hidden_states": (512, 4096), "encoder_hidden_states_image": (257, 1280)}
+                   and all(v.dtype == np.float32 and np.isfinite(v).all() for v in ex.values()) and bool(masked))
+            print(f"[G2] example_{i:05d}.npz {shapes}, mask block as the reference builds it "
+                  f"({'FLF2V' if i == 1 else 'first frame'}): {bool(masked)}", flush=True)
+        print(f"[G2] prepared latents: keys, shapes, float32, finite, mask blocks: {'PASS' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError("[G2] the prepared latents are not as alg_tpu writes them")
+        # each example: a UMT5 encode (tensor cores) and a CLIP ViT-H encode in fp32 (CUDA cores)
+        _check_counts("G2 prepare", counts["prepare_wan"],
+                      {"flash_attention": 2 * (t5_layers + clip_layers), "flash_attention_tc": 2 * t5_layers,
+                       "flash_attention_cuda_core": 2 * clip_layers})
+
+        out, counts["train_ckpt_wan"], _ = _run_train("G2", WAN_FINETUNE_CONFIG, tmp, data_dir,
+                                                      os.path.join(tmp, "adapters.npz"), ["--steps", "2"], card)
+        if len(out["losses"]) != 2:
+            raise AssertionError(f"[G2] {len(out['losses'])} steps, want 2")
+        _check_counts("G2 train", counts["train_ckpt_wan"],
+                      {k: 2 * n for k, n in _wan_train_step_launches(layers).items()})
+        del out
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+
+
+def phase_finetune_agreement() -> None:
+    """G3: a small CogVideoX and a small Wan checkpoint (phase F2's) through
+    ``prepare_cli.run`` on the card (the kernels) and on the CPU (the plain
+    versions), fp32 with TF32 off: every array within atol 1e-4 + rtol 1e-4,
+    the mask blocks exact, the card's exact launch counts and none on the
+    CPU."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    _set_tf32(False, False)
+    tmp = tempfile.mkdtemp(prefix="alg_prepare_small_")
+    try:
+        cases = (
+            # one example: a T5 encode of 2 layers
+            ("G3 CogVideoX", "SmallCogVideoX", H.write_cogvideox, SMALL_COGVIDEOX, [("c0.npy", 9, 64, 64, 30, {})],
+             dict(max_sequence_length=8), {"flash_attention": 2, "flash_attention_cuda_core": 2}),
+            # two examples, the second FLF2V: a UMT5 encode of 2 layers and a CLIP encode of 2 layers each
+            ("G3 Wan", "SmallWan", H.write_wan, SMALL_WAN,
+             [("w0.npy", 9, 64, 64, 31, {}), ("w1.npy", 9, 64, 64, 32, {"flf2v": True})],
+             dict(max_sequence_length=32), {"flash_attention": 8, "flash_attention_cuda_core": 8}),
+        )
+        for tag, name, write, ck, clips, generation, want in cases:
+            write(os.path.join(tmp, name), ck, seed=4)
+            case_dir = os.path.join(tmp, tag.split()[1])
+            os.makedirs(case_dir)
+            manifest = _write_manifest(case_dir, clips)
+            config = {"model": {"path": name, "dtype": "float32"},
+                      "generation": {"height": 64, "width": 64, "num_frames": 9, **generation}}
+            runs = {dev: _run_prepare(config, tmp, manifest, os.path.join(case_dir, dev), dev, {})
+                    for dev in ("cpu", "cuda")}
+            (data_c, n_c, _, _), (data_g, n_g, _, _) = runs["cpu"], runs["cuda"]
+            ok, errs = len(data_c) == len(data_g) == len(clips), {}
+            for ex_c, ex_g in zip(data_c, data_g):
+                ok &= sorted(ex_c) == sorted(ex_g)
+                for k in ex_c:
+                    a, b = ex_c[k], ex_g[k]
+                    ok &= a.shape == b.shape and a.dtype == b.dtype
+                    errs[k] = max(errs.get(k, 0.0), float(np.abs(a.astype(np.float64) - b).max()))
+                    ok &= bool(np.allclose(b, a, atol=1e-4, rtol=1e-4))
+                if "condition" in ex_c:
+                    ok &= bool(np.array_equal(ex_c["condition"][:4], ex_g["condition"][:4]))
+            want = _with_zeros(want)
+            ok &= not any(n_c.values()) and n_g == want
+            print(f"[{tag}] prepare_cli.run card (kernels) vs CPU (plain), fp32, {len(clips)} example(s): max|diff| "
+                  f"by key {errs} (atol 1e-4 + rtol 1e-4; mask blocks exact), launches card {n_g} (want {want}) / "
+                  f"CPU {n_c}: {'PASS' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"[{tag}] the card's and the CPU's prepared latents disagree")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+
+
+# ---------------------------------------------------------------------------
 # D. the same path on the card (kernels) and on the CPU (plain versions)
 # ---------------------------------------------------------------------------
 
@@ -3313,6 +3803,16 @@ def main() -> int:
             traceback.print_exc()
             return 1
         return 0
+    if sys.argv[1:] == ["--finetune"]:
+        try:
+            phase_build()
+            phase_finetune_cogvideox()
+            phase_finetune_wan()
+            phase_finetune_agreement()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3332,6 +3832,9 @@ def main() -> int:
         for name, n in phase_train_entry().items():
             counts["train_cogvideox"][name] += n
         counts["train_agreement_fp32"] = phase_train_agreement()
+        counts.update(phase_finetune_cogvideox())  # prepare, train over the checkpoint, cli.run --lora
+        counts.update(phase_finetune_wan())
+        phase_finetune_agreement()
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("cli_cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
@@ -3358,7 +3861,14 @@ def main() -> int:
                               ("train_cogvideox", ("qk_prep", "flash_attention_tc", "flash_attention_lse",
                                                    "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
                               ("train_agreement_fp32", ("flash_attention_cuda_core", "flash_attention_bwd_dq_cuda_core",
-                                                        "flash_attention_bwd_dkv_cuda_core"))):
+                                                        "flash_attention_bwd_dkv_cuda_core")),
+                              ("prepare_cogvideox", ("flash_attention_tc",)),
+                              ("prepare_wan", ("flash_attention_tc", "flash_attention_cuda_core")),
+                              ("train_ckpt_cogvideox", ("qk_prep", "flash_attention_lse", "flash_attention_bwd_dq_tc",
+                                                        "flash_attention_bwd_dkv_tc")),
+                              ("train_ckpt_wan", ("rope_interleaved", "flash_attention_lse",
+                                                  "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
+                              ("cli_lora_cogvideox", ("qk_prep", "flash_attention_tc"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

@@ -32,7 +32,8 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.io.weights", "alg_tpu_torch.io.hf_tokenizer", "alg_tpu_torch.io.model_zoo",
             "alg_tpu_torch.io.video", "alg_tpu_torch.io.hf_checkpoint", "alg_tpu_torch.alg.filters",
             "alg_tpu_torch.schedulers.dpm_cogvideox", "alg_tpu_torch.io.runstate",
-            "alg_tpu_torch.pipelines.denoise"} <= set(mods)
+            "alg_tpu_torch.pipelines.denoise", "alg_tpu_torch.prepare_cli", "alg_tpu_torch.utils.profiling",
+            "alg_tpu_torch.train_cli"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
