@@ -1,13 +1,14 @@
 """Write random CogVideoX-I2V and Wan2.1-I2V checkpoints in HF repo layout.
 
-The port's counterpart of ``tools/make_tiny_checkpoint.py``'s CogVideoX 1.0
-and Wan writers, at any width and depth: ``transformer/``, ``vae/``,
+The port's counterpart of ``tools/make_tiny_checkpoint.py``'s CogVideoX (1.0
+and 1.5) and Wan writers, at any width and depth: ``transformer/``, ``vae/``,
 ``text_encoder/`` (and Wan's ``image_encoder/``), each with its
 ``config.json`` and one safetensors shard under the diffusers / transformers
 tensor names, ``tokenizer/`` (a WordLevel ``tokenizer.json`` written as
 plain JSON) and CogVideoX's ``scheduler/``. The widths and depths come from
 a config dict (:data:`TINY_COGVIDEOX`, :data:`COGVIDEOX_5B_I2V`,
-:data:`TINY_WAN`, :data:`WAN21_I2V_14B`): at the published widths it is a checkpoint that
+:data:`TINY_COGVIDEOX15`, :data:`COGVIDEOX15_5B_I2V`, :data:`TINY_WAN`,
+:data:`WAN21_I2V_14B`): at the published widths it is a checkpoint that
 :mod:`alg_tpu_torch.io.model_zoo` loads as it would the published one.
 
 Tensors are drawn in order from one ``torch.Generator`` seeded with
@@ -66,6 +67,25 @@ COGVIDEOX_5B_I2V = {
         "vocab_size": 32128, "d_model": 4096, "d_kv": 64, "d_ff": 10240, "num_layers": 24, "num_heads": 64,
         "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
     },
+}
+
+# tools/make_tiny_checkpoint.build(patch_size_t=2): the tiny 1.0 checkpoint with temporal patches of 2 and the ofs
+# embedding (a linear patch embed over C·pt·p·p, ofs_embedding as wide as the time embedding)
+TINY_COGVIDEOX15 = {**TINY_COGVIDEOX,
+                    "transformer": {**TINY_COGVIDEOX["transformer"], "patch_size_t": 2, "ofs_embed_dim": 16}}
+
+# THUDM/CogVideoX1.5-5B-I2V's published widths and depths (its transformer/, vae/, text_encoder/ and scheduler/
+# config.json): the DiT as 5b-I2V's but with temporal patches of 2, the ofs embedding (512) and no learned
+# positional embedding; the VAE and T5-XXL as 5b-I2V's, the VAE with invert_scale_latents. Not confirmed offline:
+# sample_height / sample_width 300 (the "slice" RoPE grid of 1.5 does not read them; the pipeline's default size
+# does) and the scheduler's snr_shift_scale 1.0.
+COGVIDEOX15_5B_I2V = {
+    "transformer": {**COGVIDEOX_5B_I2V["transformer"], "ofs_embed_dim": 512, "sample_width": 300,
+                    "sample_height": 300, "sample_frames": 81, "patch_size_t": 2,
+                    "use_learned_positional_embeddings": False},
+    "vae": {**COGVIDEOX_5B_I2V["vae"], "invert_scale_latents": True},
+    "text_encoder": dict(COGVIDEOX_5B_I2V["text_encoder"]),
+    "scheduler": {"snr_shift_scale": 1.0},
 }
 
 TINY_WAN = {
@@ -150,26 +170,33 @@ class _Spec:
 
 
 def cogvideox_transformer_spec(cfg: dict) -> Spec:
-    if cfg.get("patch_size_t") is not None:
-        raise NotImplementedError("CogVideoX 1.5 (patch_size_t) is not ported yet (ROADMAP.md, A-item 3)")
     s = _Spec()
     heads, hd = cfg["num_attention_heads"], cfg["attention_head_dim"]
     dim, te, p = heads * hd, cfg["time_embed_dim"], cfg["patch_size"]
-    s.conv("patch_embed.proj", cfg["in_channels"], dim, p, p)  # 1.0 ships a conv2d patch embed
+    pt, ofs = cfg.get("patch_size_t"), cfg.get("ofs_embed_dim")
+    if pt is None:
+        s.conv("patch_embed.proj", cfg["in_channels"], dim, p, p)  # 1.0 ships a conv2d patch embed
+    else:
+        s.linear("patch_embed.proj", dim, cfg["in_channels"] * pt * p * p)  # 1.5 a linear over (pt, p, p, C)
     s.linear("patch_embed.text_proj", dim, cfg["text_embed_dim"])
     s.linear("time_embedding.linear_1", te, dim)
     s.linear("time_embedding.linear_2", te, te)
     s.norm("norm_final", dim)
     s.linear("norm_out.linear", 2 * dim, te)
     s.norm("norm_out.norm", dim)
-    s.linear("proj_out", p * p * cfg["out_channels"], dim)
+    s.linear("proj_out", (pt or 1) * p * p * cfg["out_channels"], dim)
+    if ofs is not None:
+        s.linear("ofs_embedding.linear_1", ofs, ofs)
+        s.linear("ofs_embedding.linear_2", ofs, ofs)
+    qkv_bias = cfg.get("attention_bias", True)
     for i in range(cfg["num_layers"]):
         b = f"transformer_blocks.{i}"
         for nm in ("norm1", "norm2"):
             s.linear(f"{b}.{nm}.linear", 6 * dim, te)
             s.norm(f"{b}.{nm}.norm", dim)
-        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
-            s.linear(f"{b}.attn1.{nm}", dim, dim)
+        for nm in ("to_q", "to_k", "to_v"):
+            s.linear(f"{b}.attn1.{nm}", dim, dim, bias=qkv_bias)
+        s.linear(f"{b}.attn1.to_out.0", dim, dim)
         s.norm(f"{b}.attn1.norm_q", hd)
         s.norm(f"{b}.attn1.norm_k", hd)
         s.linear(f"{b}.ff.net.0.proj", 4 * dim, dim)
@@ -422,11 +449,13 @@ def write_tokenizer(root: str, vocab_size: int, max_length: int = 16) -> None:
 
 def write_cogvideox(root: str, config: dict = None, seed: int = 0, device="cpu", dtype=torch.bfloat16,
                     scheduler_class: str = "CogVideoXDDIMScheduler") -> Dict[str, Dict[str, torch.Tensor]]:
-    """A CogVideoX-I2V (1.0) checkpoint at ``config``'s widths and depths
+    """A CogVideoX-I2V checkpoint (1.0, or 1.5 when the transformer config
+    sets ``patch_size_t``) at ``config``'s widths and depths
     (:data:`TINY_COGVIDEOX` when None) under ``root``; returns the tensors
     drawn, ``{subdirectory: {name: tensor}}``. ``scheduler_class``: the
     scheduler config's ``_class_name`` (``"CogVideoXDPMScheduler"`` for the
-    DPM checkpoints)."""
+    DPM checkpoints); ``config["scheduler"]``, when present, overrides
+    fields of :data:`COGVIDEOX_SCHEDULER`."""
     cfg = copy.deepcopy(config or TINY_COGVIDEOX)
     gen = torch.Generator(device).manual_seed(seed)
     out = {
@@ -440,7 +469,7 @@ def write_cogvideox(root: str, config: dict = None, seed: int = 0, device="cpu",
     write_tokenizer(root, cfg["text_encoder"]["vocab_size"], cfg["transformer"]["max_text_seq_length"])
     os.makedirs(os.path.join(root, "scheduler"), exist_ok=True)
     with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
-        json.dump({**COGVIDEOX_SCHEDULER, "_class_name": scheduler_class}, f)
+        json.dump({**COGVIDEOX_SCHEDULER, **cfg.get("scheduler", {}), "_class_name": scheduler_class}, f)
     return out
 
 

@@ -13,12 +13,12 @@ tokenizers are the port's own ``tokenizer.json`` interpreter
 (:mod:`alg_tpu_torch.io.hf_tokenizer`); a tokenizer directory without
 ``tokenizer.json`` raises. Nothing is downloaded: :func:`resolve_model_dir`
 finds local directories only. :func:`load_transformer` loads the DiT
-alone, for fine-tuning.
+alone, for fine-tuning. The CogVideoX loader reads 1.0 and 1.5
+checkpoints (``patch_size_t``, ``ofs_embed_dim``, ``invert_scale_latents``),
+DiTs without RoPE or attention biases, and picks DDIM or DPM from the
+scheduler config.
 
-Not ported yet: ``quantize`` (W8A8 / W4A8 linears, ROADMAP.md A12), and
-what the port's models lack (ROADMAP.md, A-item 3): CogVideoX 1.5
-(``patch_size_t``, the ofs embedding), a DiT without RoPE or attention
-biases, ``invert_scale_latents``, the DPM scheduler.
+Not ported yet: ``quantize`` (W8A8 / W4A8 linears, ROADMAP.md A12).
 """
 
 from __future__ import annotations
@@ -32,9 +32,6 @@ import torch
 
 from alg_tpu_torch.io import weights as W
 from alg_tpu_torch.io.safetensors import load_safetensors_dir
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, A-item 3)"
-
 
 def _load_config(model_dir: str, sub: str) -> Dict[str, Any]:
     with open(os.path.join(model_dir, sub, "config.json")) as f:
@@ -89,27 +86,61 @@ def _random_generator(device) -> torch.Generator:
 # -- the DiTs -----------------------------------------------------------------------
 
 
+def cogvideox_configs(configs: Dict[str, Dict[str, Any]]):
+    """(DiT, VAE, T5) configs of a CogVideoX checkpoint from the contents of
+    its ``transformer``, ``vae`` and ``text_encoder`` ``config.json``, as a
+    dict of the three (the form of ``io/hf_checkpoint``'s constants)."""
+    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAEConfig
+    from alg_tpu_torch.models.t5 import T5Config
+
+    vc, te = configs["vae"], configs["text_encoder"]
+    vcfg = CogVideoXVAEConfig(
+        block_out_channels=tuple(vc["block_out_channels"]),
+        latent_channels=vc["latent_channels"],
+        layers_per_block=vc["layers_per_block"],
+        norm_num_groups=vc.get("norm_num_groups", 32),
+        norm_eps=vc.get("norm_eps", 1e-6),
+        temporal_compression_ratio=vc.get("temporal_compression_ratio", 4),
+        scaling_factor=vc.get("scaling_factor", 0.7),
+        invert_scale_latents=vc.get("invert_scale_latents", False),
+    )
+    t5cfg = T5Config(
+        vocab_size=te["vocab_size"],
+        d_model=te["d_model"],
+        d_kv=te["d_kv"],
+        d_ff=te["d_ff"],
+        num_layers=te["num_layers"],
+        num_heads=te["num_heads"],
+        relative_attention_num_buckets=te.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=te.get("relative_attention_max_distance", 128),
+    )
+    return _cogvideox_dit_cfg(configs["transformer"]), vcfg, t5cfg
+
+
 def _cogvideox_transformer_cfg(model_dir: str):
+    return _cogvideox_dit_cfg(_load_config(model_dir, "transformer"))
+
+
+def _cogvideox_dit_cfg(tc: Dict[str, Any]):
     from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformerConfig
 
-    tc = _load_config(model_dir, "transformer")
-    if tc.get("patch_size_t") is not None or tc.get("ofs_embed_dim") is not None:
-        raise NotImplementedError(f"CogVideoX 1.5 (patch_size_t, the ofs embedding) {_NOT_PORTED}")
-    if not tc.get("attention_bias", True) or not tc.get("use_rotary_positional_embeddings", True):
-        raise NotImplementedError(f"a CogVideoX DiT without attention biases or RoPE {_NOT_PORTED}")
     return CogVideoXTransformerConfig(
         num_attention_heads=tc["num_attention_heads"],
         attention_head_dim=tc["attention_head_dim"],
         in_channels=tc["in_channels"],
         out_channels=tc["out_channels"],
         time_embed_dim=tc["time_embed_dim"],
+        ofs_embed_dim=tc.get("ofs_embed_dim"),
         text_embed_dim=tc["text_embed_dim"],
         num_layers=tc["num_layers"],
+        attention_bias=tc.get("attention_bias", True),
         sample_width=tc["sample_width"],
         sample_height=tc["sample_height"],
         patch_size=tc["patch_size"],
+        patch_size_t=tc.get("patch_size_t"),
         max_text_seq_length=tc.get("max_text_seq_length", 226),
         norm_eps=tc.get("norm_eps", 1e-5),
+        use_rotary_positional_embeddings=tc.get("use_rotary_positional_embeddings", True),
     )
 
 
@@ -191,37 +222,15 @@ def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None,
                             timings: Optional[dict] = None, random_init: bool = False):
     """CogVideoX-I2V checkpoint dir -> :class:`CogVideoXPipeline` on ``device``."""
     from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer
-    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
-    from alg_tpu_torch.models.t5 import T5Config, T5Encoder
+    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE
+    from alg_tpu_torch.models.t5 import T5Encoder
     from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
     from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig
 
     _refuse_quantize(quantize)
     gen = _random_generator(device) if random_init else None
-    tcfg = _cogvideox_transformer_cfg(model_dir)
-    vc = _load_config(model_dir, "vae")
-    if vc.get("invert_scale_latents", False):
-        raise NotImplementedError(f"invert_scale_latents {_NOT_PORTED}")
-    vcfg = CogVideoXVAEConfig(
-        block_out_channels=tuple(vc["block_out_channels"]),
-        latent_channels=vc["latent_channels"],
-        layers_per_block=vc["layers_per_block"],
-        norm_num_groups=vc.get("norm_num_groups", 32),
-        norm_eps=vc.get("norm_eps", 1e-6),
-        temporal_compression_ratio=vc.get("temporal_compression_ratio", 4),
-        scaling_factor=vc.get("scaling_factor", 0.7),
-    )
-    te = _load_config(model_dir, "text_encoder")
-    t5cfg = T5Config(
-        vocab_size=te["vocab_size"],
-        d_model=te["d_model"],
-        d_kv=te["d_kv"],
-        d_ff=te["d_ff"],
-        num_layers=te["num_layers"],
-        num_heads=te["num_heads"],
-        relative_attention_num_buckets=te.get("relative_attention_num_buckets", 32),
-        relative_attention_max_distance=te.get("relative_attention_max_distance", 128),
-    )
+    tcfg, vcfg, t5cfg = cogvideox_configs({sub: _load_config(model_dir, sub)
+                                           for sub in ("transformer", "vae", "text_encoder")})
     sc = _load_config(model_dir, "scheduler") if os.path.exists(
         os.path.join(model_dir, "scheduler", "config.json")) else _load_scheduler_cfg(model_dir)
     scfg = CogVideoXDDIMConfig(

@@ -7,7 +7,7 @@ model, with one difference: the leaves are the checkpoint's tensors in
 torch layout, so nothing is transposed. An HF linear ``[out, in]``, a conv
 ``[out, in, (t,) h, w]`` and a norm's ``weight`` are already what the port's
 modules hold; only a few tensors are reshaped (the CogVideoX 1.0 conv2d
-patch embed flattened in ``(c, p, p)`` order, the Wan and HunyuanVideo conv3d
+patch embed flattened in ``(c, p, p)`` order (1.5's is a linear already), the Wan and HunyuanVideo conv3d
 patch embeds, Wan's ``scale_shift_table`` rows and its VAE's ``gamma`` and
 1x1 attention convs). Block stacks stay lists, one entry a layer.
 
@@ -67,7 +67,7 @@ conv3d = conv2d = linear  # torch keeps a conv as [out, in, (t,) h, w]: its name
 def _flat_kernel(state: Mapping, key: str):
     """A patch-embed conv ``[dim, C, (pt,) p, p]`` as the linear over its
     patch, ``[dim, C·(pt·)p·p]``: the ``(c, (t,) h, w)`` flatten order of the
-    DiTs' patchify."""
+    DiTs' patchify (a linear's ``[dim, n]`` stays as it is)."""
     w = state[key]
     return w.reshape(w.shape[0], -1)
 
@@ -175,12 +175,11 @@ def convert_llava(state: Mapping, cfg) -> Dict:
 
 
 def convert_cogvideox_transformer(state: Mapping, cfg) -> Dict:
-    """diffusers ``CogVideoXTransformer3DModel`` state dict, 1.0 layout (the
-    conv2d patch embed; the loader refuses 1.5's ``patch_size_t``)."""
-    pe_w = state["patch_embed.proj.weight"]
-    if pe_w.ndim != 4:
-        raise NotImplementedError("a linear patch embed (CogVideoX 1.5, patch_size_t) is not ported yet "
-                                  "(ROADMAP.md, A-item 3)")
+    """diffusers ``CogVideoXTransformer3DModel`` state dict: 1.0's conv2d
+    patch embed flattened to the linear over ``(c, p, p)``, 1.5's linear over
+    ``(pt, p, p, c)`` as it is, 1.5's ``ofs_embedding`` where the checkpoint
+    has one; q/k/v without biases where the checkpoint has none
+    (``attention_bias`` false)."""
 
     def block(i):
         b = f"transformer_blocks.{i}"
@@ -198,7 +197,7 @@ def convert_cogvideox_transformer(state: Mapping, cfg) -> Dict:
             "ff": {"fc_in": linear(state, f"{b}.ff.net.0.proj"), "fc_out": linear(state, f"{b}.ff.net.2")},
         }
 
-    return {
+    tree = {
         "patch_embed": {
             "proj": {"kernel": _flat_kernel(state, "patch_embed.proj.weight"), "bias": state["patch_embed.proj.bias"]},
             "text_proj": linear(state, "patch_embed.text_proj"),
@@ -210,6 +209,10 @@ def convert_cogvideox_transformer(state: Mapping, cfg) -> Dict:
         "norm_out": {"linear": linear(state, "norm_out.linear"), "norm": norm(state, "norm_out.norm")},
         "proj_out": linear(state, "proj_out"),
     }
+    if "ofs_embedding.linear_1.weight" in state:
+        tree["ofs_embedding"] = {"linear_1": linear(state, "ofs_embedding.linear_1"),
+                                 "linear_2": linear(state, "ofs_embedding.linear_2")}
+    return tree
 
 
 def convert_wan_transformer(state: Mapping, cfg) -> Dict:

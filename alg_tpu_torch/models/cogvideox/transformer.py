@@ -1,21 +1,27 @@
 """CogVideoX DiT (counterpart of ``alg_tpu/models/cogvideox/transformer.py``).
 
-diffusers ``CogVideoXTransformer3DModel`` as CogVideoX-5b-I2V uses it
-(defaults below): 2D patchify per frame plus a T5-text projection into one
-joint [text; video] token stream, ``num_layers`` blocks of AdaLN-zero
+diffusers ``CogVideoXTransformer3DModel`` as CogVideoX-5b-I2V (defaults
+below) and CogVideoX-1.5-5B-I2V use it: patchify plus a T5-text projection
+into one joint [text; video] token stream, ``num_layers`` blocks of AdaLN-zero
 modulation, joint self-attention with per-head LayerNorm on q/k and 3D RoPE
 on the video tokens, and a shared gelu-tanh FFN; then the final norm, the
-AdaLN head, a linear projection and unpatchify.
+AdaLN head, a linear projection and unpatchify. 1.0 patchifies each frame
+(a conv2d over ``(C, p, p)``); 1.5 (``patch_size_t`` set) takes temporal
+patches of ``patch_size_t`` frames through a linear over ``(pt, p, p, C)``,
+adds an ``ofs`` timestep embedding to the time embedding and positions its
+RoPE on the "slice" grid.
 
 Per block the DiT launches the two CUDA kernels of the port: the fused
 qk LayerNorm + RoPE (``ops/qk_prep``) on q and on k, and flash attention
-(``ops/flash_attention``) with ``stable=False``.
+(``ops/flash_attention``) with ``stable=False``. A DiT without RoPE
+normalises q and k with a plain LayerNorm and launches flash attention
+alone, as ``alg_tpu`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,14 +43,18 @@ class CogVideoXTransformerConfig:
     in_channels: int = 32  # 16 noisy latent + 16 image-condition channels
     out_channels: int = 16
     time_embed_dim: int = 512
+    ofs_embed_dim: Optional[int] = None  # 512 for CogVideoX-1.5-I2V
     text_embed_dim: int = 4096
     num_layers: int = 42
+    attention_bias: bool = True
     sample_width: int = 90
     sample_height: int = 60
     patch_size: int = 2
+    patch_size_t: Optional[int] = None  # 2 for CogVideoX-1.5
     max_text_seq_length: int = 226
     norm_eps: float = 1e-5
     qk_norm_eps: float = 1e-6
+    use_rotary_positional_embeddings: bool = True
     rope_theta: float = 10000.0
 
     @property
@@ -67,19 +77,26 @@ def _resize_crop_region_for_grid(grid_h: int, grid_w: int, base_h: int, base_w: 
 def cogvideox_rope(cfg: CogVideoXTransformerConfig, height: int, width: int,
                    num_latent_frames: int) -> Tuple[np.ndarray, np.ndarray]:
     """(cos, sin) ``[S_video, head_dim]`` fp32 tables for the video tokens:
-    dim_t = d/4 over frames, dim_h = dim_w = 3d/8 over the centred crop of
-    the (sample_height/p, sample_width/p) base grid ("crop" grid type)."""
+    dim_t = d/4 over the ``ceil(F / patch_size_t)`` temporal patches, dim_h =
+    dim_w = 3d/8 over the spatial grid. 1.0 positions the grid on the centred
+    crop of the (sample_height/p, sample_width/p) base grid ("crop" grid
+    type), 1.5 (``patch_size_t`` set) on its leading rows and columns
+    ("slice")."""
     d, p = cfg.attention_head_dim, cfg.patch_size
     grid_h, grid_w = height // (8 * p), width // (8 * p)
-    (top, left), (bottom, right) = _resize_crop_region_for_grid(
-        grid_h, grid_w, cfg.sample_height // p, cfg.sample_width // p)
-    t_pos = np.arange(num_latent_frames, dtype=np.float64)
-    h_pos = np.linspace(top, bottom, grid_h, endpoint=False, dtype=np.float64)
-    w_pos = np.linspace(left, right, grid_w, endpoint=False, dtype=np.float64)
+    pt = cfg.patch_size_t or 1
+    f = (num_latent_frames + pt - 1) // pt
+    t_pos = np.arange(f, dtype=np.float64)
+    if cfg.patch_size_t is None:
+        (top, left), (bottom, right) = _resize_crop_region_for_grid(
+            grid_h, grid_w, cfg.sample_height // p, cfg.sample_width // p)
+        h_pos = np.linspace(top, bottom, grid_h, endpoint=False, dtype=np.float64)
+        w_pos = np.linspace(left, right, grid_w, endpoint=False, dtype=np.float64)
+    else:
+        h_pos, w_pos = np.arange(grid_h, dtype=np.float64), np.arange(grid_w, dtype=np.float64)
     ang_t = R.rope_frequencies(d // 4, t_pos, cfg.rope_theta)
     ang_h = R.rope_frequencies(d // 8 * 3, h_pos, cfg.rope_theta)
     ang_w = R.rope_frequencies(d // 8 * 3, w_pos, cfg.rope_theta)
-    f = num_latent_frames
     shape = (f, grid_h, grid_w)
     angles = np.concatenate([
         np.broadcast_to(ang_t[:, None, None, :], shape + ang_t.shape[-1:]),
@@ -110,21 +127,23 @@ class JointAttention(nn.Module):
         super().__init__()
         dim, hd = cfg.inner_dim, cfg.attention_head_dim
         kw = dict(device=device, dtype=dtype)
-        self.to_q = L.Linear(dim, dim, **kw)
-        self.to_k = L.Linear(dim, dim, **kw)
-        self.to_v = L.Linear(dim, dim, **kw)
+        self.to_q = L.Linear(dim, dim, bias=cfg.attention_bias, **kw)
+        self.to_k = L.Linear(dim, dim, bias=cfg.attention_bias, **kw)
+        self.to_v = L.Linear(dim, dim, bias=cfg.attention_bias, **kw)
         self.to_out = L.Linear(dim, dim, **kw)
         self.norm_q = L.LayerNorm(hd, cfg.qk_norm_eps, **kw)
         self.norm_k = L.LayerNorm(hd, cfg.qk_norm_eps, **kw)
         self.nh, self.hd = cfg.num_attention_heads, hd
 
-    def forward(self, joint: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor):
+    def forward(self, joint: torch.Tensor, rope_cos: Optional[torch.Tensor], rope_sin: Optional[torch.Tensor]):
         b, s, dim = joint.shape
 
         def heads(x):  # [B, H, S, D] as a view of the [B, S, H·D] projection
             return x.view(b, s, self.nh, self.hd).transpose(1, 2)
 
         def prep(x, norm):  # the kernel reads the view through its strides and writes a contiguous result
+            if rope_cos is None:  # no RoPE: the LayerNorm alone, in PyTorch ops as alg_tpu runs it
+                return norm(heads(x)).contiguous()
             return qk_norm_rope(heads(x), norm.weight.float(), norm.bias.float(), rope_cos, rope_sin, norm.eps)
 
         q = prep(self.to_q(joint), self.norm_q)
@@ -157,44 +176,63 @@ class CogVideoXTransformer(nn.Module):
     def __init__(self, cfg: CogVideoXTransformerConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
-        dim, p = cfg.inner_dim, cfg.patch_size
+        dim, p, pt = cfg.inner_dim, cfg.patch_size, cfg.patch_size_t or 1
         kw = dict(device=device, dtype=dtype)
         self.patch_embed = nn.ModuleDict({
-            # conv2d with stride = kernel = p, as a linear over flattened patches
-            "proj": L.Linear(cfg.in_channels * p * p, dim, **kw),
+            # 1.0: a conv2d with stride = kernel = p, as a linear over flattened patches; 1.5: a linear
+            "proj": L.Linear(cfg.in_channels * pt * p * p, dim, **kw),
             "text_proj": L.Linear(cfg.text_embed_dim, dim, **kw),
         })
         self.time_embedding = L.TimestepEmbedding(dim, cfg.time_embed_dim, **kw)
+        if cfg.ofs_embed_dim is not None:
+            self.ofs_embedding = L.TimestepEmbedding(cfg.ofs_embed_dim, cfg.ofs_embed_dim, **kw)
         self.norm_final = L.LayerNorm(dim, cfg.norm_eps, **kw)
         self.norm_out = nn.ModuleDict({
             "linear": L.Linear(cfg.time_embed_dim, 2 * dim, **kw),
             "norm": L.LayerNorm(dim, cfg.norm_eps, **kw),
         })
-        self.proj_out = L.Linear(dim, p * p * cfg.out_channels, **kw)
+        self.proj_out = L.Linear(dim, pt * p * p * cfg.out_channels, **kw)
         self.blocks = nn.ModuleList(CogVideoXBlock(cfg, **kw) for _ in range(cfg.num_layers))
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                timestep: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor) -> torch.Tensor:
+                timestep: torch.Tensor, rope_cos: Optional[torch.Tensor] = None,
+                rope_sin: Optional[torch.Tensor] = None, ofs: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``hidden_states`` [B, F, C, H, W] (latents ⧺ image condition),
         ``encoder_hidden_states`` [B, S_text, text_dim], ``timestep`` [B],
-        ``rope_cos``/``rope_sin`` [S_video, head_dim] fp32 -> [B, F, out_c, H, W]."""
+        ``rope_cos``/``rope_sin`` [S_video, head_dim] fp32 (None without
+        RoPE), ``ofs`` [1] or [B] (1.5; its embedding is added to the time
+        embedding when given) -> [B, F, out_c, H, W]. With ``patch_size_t``
+        set F must be a multiple of it (the pipeline pads to one)."""
         cfg = self.cfg
         b, f, c, h, w = hidden_states.shape
-        p = cfg.patch_size
+        p, pt = cfg.patch_size, cfg.patch_size_t
+        if pt is not None and f % pt:
+            raise ValueError(f"{f} latent frames are not a multiple of the DiT's patch_size_t {pt}")
 
         t_emb = L.sinusoidal_timestep_embedding(timestep, cfg.inner_dim)
         temb = self.time_embedding(t_emb.to(hidden_states.dtype))
+        if cfg.ofs_embed_dim is not None and ofs is not None:
+            ofs_emb = L.sinusoidal_timestep_embedding(ofs, cfg.ofs_embed_dim)
+            temb = temb + self.ofs_embedding(ofs_emb.to(hidden_states.dtype))
 
-        # patchify: [B, F, C, H, W] -> [B, F·H/p·W/p, C·p·p] (conv2d weight order)
-        x = hidden_states.reshape(b, f, c, h // p, p, w // p, p).permute(0, 1, 3, 5, 2, 4, 6)
-        video = self.patch_embed["proj"](x.reshape(b, f * (h // p) * (w // p), c * p * p))
+        # patchify, in the minor order of the checkpoint's patch embed: 1.0 [B, F·H/p·W/p, C·p·p] (conv2d
+        # weight order), 1.5 [B, F/pt·H/p·W/p, pt·p·p·C] (CogVideoXPatchEmbed's linear)
+        if pt is None:
+            x = hidden_states.reshape(b, f, c, h // p, p, w // p, p).permute(0, 1, 3, 5, 2, 4, 6)
+            x = x.reshape(b, f * (h // p) * (w // p), c * p * p)
+        else:
+            x = hidden_states.permute(0, 1, 3, 4, 2).reshape(b, f // pt, pt, h // p, p, w // p, p, c)
+            x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, (f // pt) * (h // p) * (w // p), pt * p * p * c)
+        video = self.patch_embed["proj"](x)
         text = self.patch_embed["text_proj"](encoder_hidden_states.to(video.dtype))
 
         # identity rope rows over the text prefix: RoPE then covers the whole
         # joint stream and leaves the text tokens as they are
         text_len, d = text.shape[1], cfg.attention_head_dim
-        rc = torch.cat([rope_cos.new_ones(text_len, d), rope_cos.float()]).contiguous()
-        rs = torch.cat([rope_sin.new_zeros(text_len, d), rope_sin.float()]).contiguous()
+        rc = rs = None
+        if rope_cos is not None:
+            rc = torch.cat([rope_cos.new_ones(text_len, d), rope_cos.float()]).contiguous()
+            rs = torch.cat([rope_sin.new_zeros(text_len, d), rope_sin.float()]).contiguous()
 
         for blk in self.blocks:
             video, text = run_block(blk, video, text, temb, rc, rs)
@@ -202,8 +240,12 @@ class CogVideoXTransformer(nn.Module):
         video = self.norm_final(torch.cat([text, video], dim=1))[:, text_len:]
         shift, scale = self.norm_out["linear"](L.silu(temb)).chunk(2, dim=-1)
         video = self.norm_out["norm"](video) * (1 + scale[:, None]) + shift[:, None]
-        out = self.proj_out(video)  # [B, S, out_c·p·p]
+        out = self.proj_out(video)  # [B, S, (pt·)out_c·p·p]
 
+        # unpatchify: proj_out's minor order is (C, p, p) in 1.0, (C, pt, p, p) in 1.5
         oc = cfg.out_channels
-        out = out.reshape(b, f, h // p, w // p, oc, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+        if pt is None:
+            out = out.reshape(b, f, h // p, w // p, oc, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+        else:
+            out = out.reshape(b, f // pt, h // p, w // p, oc, pt, p, p).permute(0, 1, 5, 4, 2, 6, 3, 7)
         return out.reshape(b, f, oc, h, w)

@@ -35,6 +35,7 @@ class CogVideoXVAEConfig:
     norm_eps: float = 1e-6
     temporal_compression_ratio: int = 4
     scaling_factor: float = 0.7
+    invert_scale_latents: bool = False  # True for CogVideoX-1.5: latents are divided by scaling_factor
 
     @property
     def temporal_compress_level(self) -> int:

@@ -25,13 +25,18 @@ Run control (``pipelines/denoise.py``): ``interrupt``, a ``step_observer``
 that may replace the latents, snapshots through ``checkpoint=`` and the
 opt-in step cache (``cache_interval > 1``: steps it skips launch no DiT).
 
-Not ported yet (queued in ROADMAP.md): ``patch_size_t`` and the ofs
-embedding (CogVideoX-1.5), DiTs without RoPE, ``invert_scale_latents``.
+CogVideoX-1.5 (a DiT with ``patch_size_t``): the latent frames are padded up
+to a multiple of ``patch_size_t`` (the noise, the image latents and every
+snapshot hold the padded count), the DiT gets ``ofs = 2.0``, and the padded
+frames are dropped before the decode, so the video has the frames asked for.
+A VAE with ``invert_scale_latents`` divides the image latents by its scaling
+factor instead of multiplying. A DiT without RoPE gets no tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -76,10 +81,31 @@ class CogVideoXPipeline:
     device: Union[str, torch.device] = "cuda"
     vae_encode_tiling: Optional[bool] = None
     interrupt: bool = dataclasses.field(default=False, compare=False)
+    fusing_transformer: bool = dataclasses.field(default=False, compare=False)
 
     @property
     def vae_dtype(self) -> torch.dtype:
         return next(self.vae.parameters()).dtype
+
+    def fuse_qkv_projections(self) -> None:
+        """The reference pipeline's public QKV fusion switch, which scripts
+        written against that pipeline call, kept as a flag that changes
+        nothing: q, k and v stay three linears, as in ``alg_tpu``."""
+        self.fusing_transformer = True
+
+    def unfuse_qkv_projections(self) -> None:
+        """Clear the flag; warns, as the reference does, when it was not set."""
+        if not self.fusing_transformer:
+            logging.getLogger(__name__).warning(
+                "The Transformer was not initially fused for QKV projections. Doing nothing.")
+        else:
+            self.fusing_transformer = False
+
+    def _scale_latents(self, z: torch.Tensor) -> torch.Tensor:
+        """Encoded latents into the DiT's range: times the scaling factor, or
+        divided by it under ``invert_scale_latents`` (CogVideoX-1.5)."""
+        vcfg = self.vae.cfg
+        return z / vcfg.scaling_factor if vcfg.invert_scale_latents else z * vcfg.scaling_factor
 
     # -- encoders ------------------------------------------------------------
 
@@ -118,14 +144,16 @@ class CogVideoXPipeline:
         return self._posterior_sample(mean, logvar, noise.randn((b, c, f, h, w)))
 
     @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """``[B, F, C, h, w]`` -> ``[B, F_pix, C, H, W]`` fp32 in [-1, 1],
-        through overlapping tiles once the latent exceeds 48 x 48."""
+    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None) -> torch.Tensor:
+        """``[B, F, C, h, w]`` -> ``[B, F_pix, C, H, W]`` fp32 in [-1, 1]
+        (divided by the scaling factor, with or without
+        ``invert_scale_latents``, as the reference decodes). ``vae_tiling``:
+        True or False forces overlapping tiles or one whole decode; None
+        tiles once the latent exceeds 48 x 48."""
         z = (latents.float() / self.vae.cfg.scaling_factor).permute(0, 1, 3, 4, 2).to(self.vae_dtype)
-        if z.shape[2] * z.shape[3] > 48 * 48:
-            frames = tiled_decode(self.vae.decode, z, self.vae.cfg.spatial_scale)
-        else:
-            frames = self.vae.decode(z)
+        if vae_tiling is None:
+            vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
+        frames = tiled_decode(self.vae.decode, z, self.vae.cfg.spatial_scale) if vae_tiling else self.vae.decode(z)
         return frames.permute(0, 1, 4, 2, 3).float()
 
     # -- main entry ----------------------------------------------------------
@@ -229,6 +257,12 @@ class CogVideoXPipeline:
                 [neg] * prompt_embeds.shape[0] if isinstance(neg, str) else neg, max_sequence_length)
         batch_size = prompt_embeds.shape[0]
         latent_frames = (num_frames - 1) // vcfg.temporal_compression_ratio + 1
+        # 1.5: pad the latent frames up to whole temporal patches; the padding is dropped before the decode
+        patch_size_t = tcfg.patch_size_t
+        additional_frames = 0
+        if patch_size_t is not None and latent_frames % patch_size_t != 0:
+            additional_frames = patch_size_t - latent_frames % patch_size_t
+            latent_frames += additional_frames
 
         # image -> VAE posterior sample, scaled, zero-padded to latent_frames
         if not isinstance(image, np.ndarray):
@@ -238,9 +272,11 @@ class CogVideoXPipeline:
             image_vae_in = image_vae_in[:, None]  # [B, 1, C, H, W]
         if image_vae_in.shape[0] < batch_size:
             image_vae_in = np.repeat(image_vae_in, batch_size, axis=0)
-        image_latents = vcfg.scaling_factor * self.vae_encode_sample(image_vae_in, noise)
+        image_latents = self._scale_latents(self.vae_encode_sample(image_vae_in, noise))
         b, f_img, c_lat, h_lat, w_lat = image_latents.shape
         pad = image_latents.new_zeros((b, latent_frames - f_img, c_lat, h_lat, w_lat))
+        # the reference then front-pads the image latents to whole temporal patches: a no-op here, since
+        # latent_frames already is a multiple of patch_size_t (the pixel-ALG condition likewise)
         image_latents = torch.cat([image_latents, pad], dim=1)
 
         # initial noise, drawn after the posterior noise
@@ -280,39 +316,45 @@ class CogVideoXPipeline:
         if self.scheduler == "dpm" or eta > 0.0:
             step_noise = torch.stack([noise.randn(latents0.shape) for _ in range(num_inference_steps)])
 
-        cos, sin = cogvideox_rope(tcfg, height, width, latent_frames)
+        rope_cos = rope_sin = ofs = None
+        if tcfg.use_rotary_positional_embeddings:
+            rope_cos, rope_sin = (torch.from_numpy(a).to(self.device)
+                                  for a in cogvideox_rope(tcfg, height, width, latents0.shape[1]))
+        if tcfg.ofs_embed_dim is not None:
+            ofs = torch.full((1,), 2.0, dtype=torch.float32, device=self.device)
         latents_out = self._sample(
             latents0, image_latents, prompt_embeds, negative_prompt_embeds, sched_plan, lp_plan, g_table,
-            torch.from_numpy(cos).to(self.device), torch.from_numpy(sin).to(self.device), do_cfg,
-            step_noise=step_noise, pixel_image=pixel_image, pixel_noise=pixel_noise, step_observer=step_observer,
-            checkpoint=checkpoint, cache_interval=cache_interval)
-        if output_type == "latent":
+            rope_cos, rope_sin, do_cfg, step_noise=step_noise, pixel_image=pixel_image, pixel_noise=pixel_noise,
+            step_observer=step_observer, checkpoint=checkpoint, cache_interval=cache_interval, ofs=ofs)
+        if output_type == "latent":  # the padded latent frames too, as alg_tpu returns them
             return latents_out.cpu().numpy()
-        video = self.decode_latents(latents_out)
+        video = self.decode_latents(latents_out[:, additional_frames:])
         return processing.postprocess_video(video.cpu().numpy(), output_type)
 
     # -- sampler -------------------------------------------------------------
 
-    def _dit(self, latent_in, cond_in, embeds, t: int, rope_cos, rope_sin) -> torch.Tensor:
+    def _dit(self, latent_in, cond_in, embeds, t: int, rope_cos, rope_sin, ofs=None) -> torch.Tensor:
         x = torch.cat([latent_in, cond_in], dim=2).to(self.dtype)
         timestep = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
-        return self.transformer(x, embeds, timestep, rope_cos, rope_sin).float()
+        return self.transformer(x, embeds, timestep, rope_cos, rope_sin, ofs=ofs).float()
 
     def _pixel_condition(self, pixel_image, m_h, m_w, eps, latent_frames: int) -> torch.Tensor:
         """Pixel-space ALG's condition for one step: the RGB frame filtered at
         (H, W), VAE-encoded, the posterior sampled with the step's ``eps``,
         scaled, zero-padded to ``latent_frames``."""
         rgb = apply_filter_matrices(pixel_image, m_h, m_w)
-        z = self.vae.cfg.scaling_factor * self._posterior_sample(*self._encode_moments(rgb), eps)
+        z = self._scale_latents(self._posterior_sample(*self._encode_moments(rgb), eps))
         return torch.cat([z, z.new_zeros((z.shape[0], latent_frames - z.shape[1]) + tuple(z.shape[2:]))], dim=1)
 
     def _sample(self, latents0, image_latents, prompt_embeds, negative_prompt_embeds, sched_plan, lp_plan: LPPlan,
                 g_table: np.ndarray, rope_cos, rope_sin, do_cfg: bool, step_noise=None, pixel_image=None,
                 pixel_noise=None, step_observer=None, checkpoint=None, cache_interval: int = 1,
-                stop_after: Optional[int] = None) -> torch.Tensor:
+                stop_after: Optional[int] = None, ofs=None) -> torch.Tensor:
         """The denoise loop. ``step_noise``/``pixel_noise``: CPU stacks ``[T,
-        ...]`` of the scheduler's and the pixel posterior's draws.
-        ``stop_after``: return after that many steps (a warm-up call)."""
+        ...]`` of the scheduler's and the pixel posterior's draws; ``rope_cos``
+        / ``rope_sin`` None for a DiT without RoPE; ``ofs`` the 1.5 DiT's
+        ofs value. ``stop_after``: return after that many steps (a warm-up
+        call)."""
         alg = lp_plan.active
         use_dpm = self.scheduler == "dpm"
         if do_cfg:
@@ -336,13 +378,13 @@ class CogVideoXPipeline:
                 else:
                     cond = apply_filter_matrices(image_latents, m_h[j], m_w[j])
             if not do_cfg:
-                return self._dit(latents, cond, embeds2, t, rope_cos, rope_sin)
+                return self._dit(latents, cond, embeds2, t, rope_cos, rope_sin, ofs)
             if three[i]:
                 pred = self._dit(torch.cat([latents] * 3), torch.cat([image_latents, cond, cond]), embeds3, t,
-                                 rope_cos, rope_sin)
+                                 rope_cos, rope_sin, ofs)
                 uncond_init, uncond, text = pred.chunk(3)
                 return uncond_init + g * (text - uncond)
-            pred = self._dit(torch.cat([latents] * 2), torch.cat([cond, cond]), embeds2, t, rope_cos, rope_sin)
+            pred = self._dit(torch.cat([latents] * 2), torch.cat([cond, cond]), embeds2, t, rope_cos, rope_sin, ofs)
             uncond, text = pred.chunk(2)
             return uncond + g * (text - uncond)
 

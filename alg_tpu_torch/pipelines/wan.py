@@ -414,16 +414,16 @@ class WanPipeline:
                             stop_after=stop_after)
 
     @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None) -> torch.Tensor:
         """De-normalise and VAE decode: ``[B, z, F', h, w]`` -> ``[B, C, F, H,
-        W]`` fp32 in [-1, 1], through overlapping tiles once the latent
+        W]`` fp32 in [-1, 1]. ``vae_tiling``: True or False forces
+        overlapping tiles or one whole decode; None tiles once the latent
         exceeds 48 x 48."""
         vcfg = self.vae.cfg
         lm = torch.tensor(vcfg.latents_mean, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
         ls = torch.tensor(vcfg.latents_std, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
         z = (latents.float() * ls + lm).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
-        if z.shape[2] * z.shape[3] > 48 * 48:
-            frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale)
-        else:
-            frames = self.vae.decode(z)
+        if vae_tiling is None:
+            vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
+        frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale) if vae_tiling else self.vae.decode(z)
         return frames.permute(0, 4, 1, 2, 3).float()

@@ -134,13 +134,8 @@ def _np(t: torch.Tensor, dtype=np.float32) -> np.ndarray:
 
 @torch.no_grad()
 def encode_cogvideox(pipe, frames: np.ndarray, prompt: str, max_seq: int) -> dict:
-    scale = pipe.vae.cfg.scaling_factor
-    # the loader refuses checkpoints with invert_scale_latents (ROADMAP.md, A-item 3); read here as alg_tpu does
-    invert = getattr(pipe.vae.cfg, "invert_scale_latents", False)
-
-    def enc(clip_bfchw):
-        z = pipe.vae_encode_sample(clip_bfchw, _ZeroNoise())  # the mode, [B, F', C, h, w]
-        return z / scale if invert else z * scale
+    def enc(clip_bfchw):  # the mode, [B, F', C, h, w], scaled (divided under invert_scale_latents)
+        return pipe._scale_latents(pipe.vae_encode_sample(clip_bfchw, _ZeroNoise()))
 
     z = enc(frames[None])
     zi = enc(frames[:1][None])

@@ -112,9 +112,11 @@ def build_loss(model, family: str, geom, compute_dtype, shift: Optional[float], 
 
     f, h, w = geom
     if family == "cogvideox":
-        from alg_tpu_torch.models.cogvideox.transformer import cogvideox_rope
+        cos = sin = None
+        if model.cfg.use_rotary_positional_embeddings:
+            from alg_tpu_torch.models.cogvideox.transformer import cogvideox_rope
 
-        cos, sin = cogvideox_rope(model.cfg, h * 8, w * 8, f)
+            cos, sin = cogvideox_rope(model.cfg, h * 8, w * 8, f)
         return losses.make_cogvideox_vpred_loss(model, rope_cos=cos, rope_sin=sin, compute_dtype=compute_dtype)
     if family == "wan":
         from alg_tpu_torch.models.wan.transformer import wan_rope

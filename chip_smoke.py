@@ -55,7 +55,10 @@ Phases, each of which must pass:
       the forward kernel of the dtype) against ``apply_prolog_plain`` and the
       plain attention, beside the unfused sequence the DiTs run today, and
       the ``qk_prolog`` kernel alone against ``apply_prolog_plain`` with its
-      device time (``torch.profiler``) beside its byte bound;
+      device time (``torch.profiler``) beside its byte bound; and the
+      CogVideoX-1.5 shapes in bf16: qk_prep and the tensor-core forward at
+      [2, 48, S, 64] for S = 8,386 (9 frames at 768x1360) and 45,106 (the
+      model card's 81 frames), the LSE, dq and dkv at [1, 48, 45106, 64];
   C.  CogVideoX slice: the full-width CogVideoX-5b-I2V pipeline (42-layer DiT
       and 24-layer T5-XXL in bf16, VAE in fp32, random weights from a seed)
       driven once through ``CogVideoXPipeline.__call__`` with the shipped ALG
@@ -100,6 +103,16 @@ Phases, each of which must pass:
       head dim 128, 2 bf16 ones for the token refiner); then C3-pixel, the
       same settings on the RGB frame with the mode of its posterior on every
       step; then one DiT forward at the shipped 129 frames (33 latent frames);
+  C5. CogVideoX-1.5 slice: the full-width CogVideoX-1.5-5B-I2V pipeline
+      (42-layer DiT with temporal patches of 2 and the ofs embedding, T5-XXL,
+      both bf16; the VAE with ``invert_scale_latents`` in fp32; random
+      weights from a seed, built after C3's modules are freed) through
+      ``CogVideoXPipeline.__call__`` with the shipped ALG config at 9 frames
+      (3 latent frames padded to 4, S = 8,386), 768x1360, 4 steps: the
+      decoded frames [1, 9, 3, 768, 1360], finiteness, exact launch counts,
+      each stage's time and the peak memory; then one 2-pass DiT forward at
+      the model card's 81 frames (S = 45,106), timed, and profiled for the
+      tensor-core forward's share;
   C4. the qk prolog's path: no model passes a prolog, so its path is the
       entry point, ``attention(..., stable=False, prolog={...})``, on bf16
       tensors of the CogVideoX 9-frame shape (LayerNorm + RoPE) and the
@@ -137,6 +150,9 @@ Phases, each of which must pass:
       CLIP text head dim 64, through ``encode_prompt``, true CFG with ALG so
       that 3- and 2-pass steps run), again under int8 "full" and again in
       pixel-space ALG.
+  D4. the same for a small CogVideoX-1.5 pipeline (temporal patches, the
+      ofs embedding, a VAE with ``invert_scale_latents``; 9 frames, 3 latent
+      frames padded to 4) in latent and in pixel-space ALG.
   F2. agreement through the loader: a small CogVideoX and a small Wan
       checkpoint from ``io/hf_checkpoint.py`` (head dims the kernels take),
       each through ``cli.run`` on the card and on the CPU, fp32 with TF32
@@ -187,6 +203,13 @@ Phases, each of which must pass:
       CogVideoX and a small Wan checkpoint (phase F2's) through
       ``prepare_cli.run`` on the card and on the CPU, fp32 with TF32 off:
       every array within atol 1e-4 + rtol 1e-4, the mask blocks exact.
+  F3, G4. A CogVideoX-1.5-5B-I2V checkpoint at the published widths
+      (``hf_checkpoint.COGVIDEOX15_5B_I2V``, DiT and T5-XXL cut to 2 layers):
+      F3, ``cli.run`` over it at phase C5's cut (loaded bit for bit, exact
+      launches, 9 written 768x1360 frames); G4, ``prepare_cli.run`` over one seeded 85-frame 768x1360 clip (22
+      latent frames), then 2 LoRA steps of ``train_cli.run`` over the
+      directory at S = 45,106 (the LSE, dq and dkv at [1, 48, 45106, 64]),
+      with exact launches.
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only rope
 at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
@@ -205,7 +228,9 @@ the training kernels at
 two trees on one card, the parent's too: it does not require the
 tensor-core kernels; it prints no result line). ``python3 chip_smoke.py
 --cli`` builds the kernels and runs phases F and F2 alone, ``python3
-chip_smoke.py --finetune`` phase G alone (neither prints a result line).
+chip_smoke.py --finetune`` phase G alone, ``python3 chip_smoke.py
+--cogvideox15`` phase B's CogVideoX-1.5 shapes, C5, F3, G4 and D4 alone (none
+of them prints a result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
@@ -1336,12 +1361,40 @@ def phase_kernels() -> list:
     _attn_case(records, "flash_clip", (1, 16, 257, 80), fp32, gen, 80 ** -0.5, True)  # the tower runs in fp32
     _hunyuan_kernel_cases(records, gen)
     _training_kernel_cases(records, gen)
+    _cogvideox15_kernel_cases(records, gen)
     _int8_kernel_cases(records, gen)
     _prolog_kernel_cases(records, gen)
+    _require_all_ok(records)
+    return records
+
+
+def _require_all_ok(records) -> None:
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel comparison(s) out of tolerance: {bad}")
-    return records
+
+
+# CogVideoX-1.5-5B-I2V's joint lengths at 768 x 1360: 226 text tokens and (latent frames / 2) x 48 x 85 video
+# tokens; 9 frames are 3 latent frames padded to 4, the model card's 81 frames 21 padded to 22
+COGVIDEOX15_S = {9: 226 + 2 * 48 * 85, 81: 226 + 11 * 48 * 85}
+
+
+def _cogvideox15_kernel_cases(records, gen) -> None:
+    """The kernels of the CogVideoX-1.5 path at its shapes, in bf16 (the
+    path's dtype): qk_prep and the tensor-core forward at a 2-pass step's
+    [2, 48, S, 64] for phase C5's 9 frames (S = 8,386) and the shipped 81
+    (S = 45,106), then the LSE, dq and dkv of a train step at [1, 48, 45106,
+    64] (phase G4's)."""
+    import torch
+
+    _set_tf32(False, False)
+    for s in COGVIDEOX15_S.values():
+        _qk_case(records, (2, 48, s, 64), torch.bfloat16, gen)
+    _attn_case(records, "flash_dit", (2, 48, COGVIDEOX15_S[9], 64), torch.bfloat16, gen, 64 ** -0.5, False)
+    _attn_case(records, "flash_dit", (2, 48, COGVIDEOX15_S[81], 64), torch.bfloat16, gen, 64 ** -0.5, False, reps=1)
+    torch.cuda.empty_cache()
+    _attn_bwd_case(records, "dit", (1, 48, COGVIDEOX15_S[81], 64), torch.bfloat16, gen, 64 ** -0.5, reps=1)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1441,6 +1494,14 @@ class _StageTimer:
 
     def count(self, prefix):
         return sum(1 for name, _, _ in self.rows if name.startswith(prefix))
+
+
+def _cog_seq_len(dit, args) -> int:
+    """The CogVideoX DiT's joint [text; video] length for a forward's args (x [B, F, C, H, W], text [B, S_text,
+    D]): F / patch_size_t temporal patches (1.5) of (H/p)·(W/p) tokens each."""
+    cfg = dit.cfg
+    return args[1].shape[1] + (args[0].shape[1] // (cfg.patch_size_t or 1)) * args[0].shape[3] * args[0].shape[4] \
+        // cfg.patch_size ** 2
 
 
 def _kernel_counters() -> dict:
@@ -1571,112 +1632,177 @@ def _int8_reruns(tag, modes, run, timer, bf16_rows, bf16_latents, want_of, shape
     return out
 
 
-def phase_slice() -> dict:
-    """Drive the full-width pipeline once in bf16 and once under each int8
-    mode; return {path name: kernel launch counts of that run}."""
+C15_FRAMES, C15_HEIGHT, C15_WIDTH = 9, 768, 1360  # phase C's cut of the model card's 81 frames at 768 x 1360
+
+# the CogVideoX-I2V pipelines phase C drives: {path: (phase tag, io/hf_checkpoint's constant of the published
+# configs, the call's height and width, the model card's frames, S of a forward at those frames)}
+COG_SLICES = {"cogvideox": ("C", "COGVIDEOX_5B_I2V", 480, 720, 49, 226 + 13 * 30 * 45),
+              "cogvideox15": ("C5", "COGVIDEOX15_5B_I2V", C15_HEIGHT, C15_WIDTH, 81, COGVIDEOX15_S[81])}
+
+
+def phase_slice(path: str = "cogvideox") -> dict:
+    """Phase C (CogVideoX-5b-I2V at 480x720) or C5 (CogVideoX-1.5-5B-I2V at
+    768x1360, 3 latent frames padded to 4, S = 8,386): the full-width
+    pipeline of ``COG_SLICES[path]`` (42-layer DiT and T5-XXL in bf16, the
+    VAE in fp32, random weights from seed 0) driven once through
+    ``CogVideoXPipeline.__call__`` with the shipped ALG config at 9 frames, 4
+    steps. Checks the decoded frames, the latents given to the decode (the
+    padded latent frame dropped), the output's shape and finiteness and the
+    exact launch counts; prints each stage's time and the peak memory. For
+    5b the same call then runs under each int8 mode and over the sampling
+    surface. Last, with the T5 and VAE freed, one 2-pass DiT forward at the
+    model card's frame count. Returns {path name: kernel launch counts of
+    that run}."""
     import numpy as np
     import torch
 
+    from alg_tpu_torch.io import hf_checkpoint
+    from alg_tpu_torch.io.model_zoo import cogvideox_configs
     from alg_tpu_torch.models import layers as L
-    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, CogVideoXTransformerConfig
-    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
-    from alg_tpu_torch.models.t5 import T5Config, T5Encoder
+    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer
+    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE
+    from alg_tpu_torch.models.t5 import T5Encoder
     from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 
+    tag, config, height, width, card_frames, card_s = COG_SLICES[path]
+    frames = 9
     _set_tf32(False, True)  # PyTorch's defaults: fp32 matmuls in full fp32, cuDNN convs in TF32
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
     t0 = time.perf_counter()
-    tcfg, t5cfg, vcfg = CogVideoXTransformerConfig(), T5Config(), CogVideoXVAEConfig()
+    tcfg, vcfg, t5cfg = cogvideox_configs(getattr(hf_checkpoint, config))
     dit = L.init_random_(CogVideoXTransformer(tcfg, device=dev, dtype=torch.bfloat16), gen)
     t5 = L.init_random_(T5Encoder(t5cfg, device=dev, dtype=torch.bfloat16), gen)
     vae = L.init_random_(CogVideoXVAE(vcfg, device=dev, dtype=torch.float32), gen)
     torch.cuda.synchronize()
     n = {name: sum(p.numel() for p in m.parameters()) for name, m in (("dit", dit), ("t5", t5), ("vae", vae))}
-    print(f"[C] random init on the card in {time.perf_counter() - t0:.1f} s: DiT {n['dit'] / 1e9:.2f} B params "
-          f"(bf16), T5 {n['t5'] / 1e9:.2f} B (bf16), VAE {n['vae'] / 1e6:.1f} M (fp32); "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    print(f"[{tag}] {config} random init on the card in {time.perf_counter() - t0:.1f} s: DiT "
+          f"{n['dit'] / 1e9:.3f} B params (bf16, patch_size_t {tcfg.patch_size_t}, ofs {tcfg.ofs_embed_dim}), T5 "
+          f"{n['t5'] / 1e9:.2f} B (bf16), VAE {n['vae'] / 1e6:.1f} M (fp32, invert_scale_latents "
+          f"{vcfg.invert_scale_latents}); {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
 
     pipe = CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=_seeded_tokenize(t5cfg.vocab_size),
                              dtype=torch.bfloat16, device=dev)
     timer = _StageTimer()
     pipe.encode_prompt = timer.wrap("T5 encode", pipe.encode_prompt)
     pipe.vae_encode_sample = timer.wrap("VAE encode + posterior draw", pipe.vae_encode_sample)
-    final = []  # the latents the decode is given
-    pipe.decode_latents = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_keep_finite(final))
-    # args: x [B, F, C, H, W], text [B, S_text, D]: the joint [text; video] stream
-    hooks = timer.hook_dit(dit, lambda m, a: a[1].shape[1] + a[0].shape[1] * a[0].shape[3] * a[0].shape[4]
-                           // m.cfg.patch_size ** 2)
-    image = np.random.RandomState(0).uniform(-1, 1, (1, 3, 480, 720)).astype(np.float32)
+    final, decoded = [], []  # the latents each decode is given; the shape and finiteness of what it returns
+    decode = timer.wrap("VAE tiled decode", pipe.decode_latents, check=_keep_finite(final))
+
+    def decode_kept(*args, **kwargs):
+        out = decode(*args, **kwargs)
+        decoded.append((tuple(out.shape), bool(torch.isfinite(out).all())))
+        return out
+
+    pipe.decode_latents = decode_kept
+    hooks = timer.hook_dit(dit, _cog_seq_len)
+    image = np.random.RandomState(0).uniform(-1, 1, (1, 3, height, width)).astype(np.float32)
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    video = pipe(image=image, prompt=PROMPT, height=480, width=720, num_frames=9, output_type="np",
+    video = pipe(image=image, prompt=PROMPT, height=height, width=width, num_frames=frames, output_type="np",
                  **_alg_kwargs())
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = _read_counts()
 
     for name, ms, dit_ms in timer.rows:
-        print(f"[C] {name:<36} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
-    print(f"[C] pipeline call total {total_s:.2f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+        print(f"[{tag}] {name:<36} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
+    print(f"[{tag}] pipeline call total {total_s:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({_card_line()})", flush=True)
 
+    latent_frames = (frames - 1) // vcfg.temporal_compression_ratio + 1
+    tokens = (height // 8 // tcfg.patch_size) * (width // 8 // tcfg.patch_size)
+    call_s = tcfg.max_text_seq_length + -(-latent_frames // (tcfg.patch_size_t or 1)) * tokens  # 1.5: padded
     dit_fwd, t5_enc = timer.count("denoise step"), timer.count("T5 encode")
-    three, two = timer.count("denoise step (3-pass"), timer.count("denoise step (2-pass")
-    bf16_flash = tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc  # every one on the tensor cores
-    want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0, "flash_attention": bf16_flash,
-            "flash_attention_tc": bf16_flash, **_NO_TRAINING, **_NO_CUDA_CORES}
-    print(f"[C] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} T5 encodes)")
+    three = timer.count(f"denoise step (3-pass, S={call_s})")
+    two = timer.count(f"denoise step (2-pass, S={call_s})")
+    flash = tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc  # bf16: every one on the tensor cores
+    want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0, "flash_attention": flash,
+            "flash_attention_tc": flash, **_NO_TRAINING, **_NO_CUDA_CORES}
+    print(f"[{tag}] launches {counts} (want {want}: {dit_fwd} DiT forwards at S = {call_s}, {t5_enc} T5 encodes)")
     if (dit_fwd, t5_enc, three, two) != (4, 2, 2, 2):
-        raise AssertionError(f"stage counts: {dit_fwd} DiT forwards ({three} 3-pass, {two} 2-pass), "
+        raise AssertionError(f"[{tag}] stage counts: {dit_fwd} DiT forwards ({three} 3-pass, {two} 2-pass), "
                              f"{t5_enc} T5 encodes; want 4 (2, 2), 2")
     if counts != want:
-        raise AssertionError(f"kernel launches {counts} != {want}")
-    if video.shape != (1, 9, 480, 720, 3) or not np.isfinite(video).all():
-        raise AssertionError(f"output {video.shape}, finite={bool(np.isfinite(video).all())}")
-    print(f"[C] output {video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: PASS", flush=True)
+        raise AssertionError(f"[{tag}] kernel launches {counts} != {want}")
+    ok = (decoded == [((1, frames, 3, height, width), True)]
+          and final[0].shape == (1, latent_frames, vcfg.latent_channels, height // 8, width // 8)
+          and video.shape == (1, frames, height, width, 3) and bool(np.isfinite(video).all()))
+    print(f"[{tag}] decoded frames {decoded}, the latents given to the decode {final[0].shape}, output "
+          f"{video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: {'PASS' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] the output is not {frames} finite {width}x{height} frames")
+    out = {path: counts}
 
-    # the same call under the int8 modes: every DiT attention goes to the int8 kernel, T5's stays where it was
-    by_mode = _int8_reruns(
-        "C", ("qk", "full"),
-        lambda: pipe(image=image, prompt=PROMPT, height=480, width=720, num_frames=9, output_type="latent",
-                     **_alg_kwargs()),
-        timer, timer.rows, final[0],
-        lambda fwd: {"qk_prep": 2 * tcfg.num_layers * fwd, "rope_interleaved": 0,
-                     "flash_attention": t5cfg.num_layers * t5_enc, "flash_attention_tc": t5cfg.num_layers * t5_enc,
-                     **_NO_TRAINING, **_NO_CUDA_CORES, "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
-    surface = _cogvideox_surface(pipe, timer, image, tcfg, t5cfg, final[0])
+    if path == "cogvideox":
+        # the same call under the int8 modes: every DiT attention goes to the int8 kernel, T5's stays where it was
+        by_mode = _int8_reruns(
+            tag, ("qk", "full"),
+            lambda: pipe(image=image, prompt=PROMPT, height=height, width=width, num_frames=frames,
+                         output_type="latent", **_alg_kwargs()),
+            timer, timer.rows, final[0],
+            lambda fwd: {"qk_prep": 2 * tcfg.num_layers * fwd, "rope_interleaved": 0,
+                         "flash_attention": t5cfg.num_layers * t5_enc,
+                         "flash_attention_tc": t5cfg.num_layers * t5_enc, **_NO_TRAINING, **_NO_CUDA_CORES,
+                         "flash_attention_int8": tcfg.num_layers * fwd}, final[0].shape)
+        out.update({f"cogvideox_int8_{mode}": n for mode, n in by_mode.items()})
+        out.update(_cogvideox_surface(pipe, timer, image, tcfg, t5cfg, final[0]))
     for h in hooks:
         h.remove()
-
-    _headline_forward(dit, gen)
-    del dit, t5, vae, pipe
+    del pipe, t5, vae, decode, decode_kept  # the wrapped decode holds the pipeline, and with it T5 and the VAE
     _free_device_memory()
-    return {"cogvideox": counts, **{f"cogvideox_int8_{mode}": n for mode, n in by_mode.items()}, **surface}
+    _headline_forward(tag, dit, gen, card_frames, height, width, card_s)
+    del dit
+    _free_device_memory()
+    return out
 
 
-def _headline_forward(dit, gen) -> None:
-    """Time one 2-pass DiT forward at the shipped config's 49 frames (13
-    latent frames, S = 226 + 13·1350 = 17,776) on random inputs."""
+def _headline_forward(tag, dit, gen, frames, height, width, want_s) -> None:
+    """One 2-pass DiT forward at the model card's ``frames`` (5b: 49 frames at
+    480x720, 13 latent frames, S = 17,776; 1.5: 81 frames at 768x1360, 21
+    latent frames padded to 22, S = 45,106) on random inputs: a warm-up, one
+    timed by the host clock between synchronises, and one under
+    ``torch.profiler`` for the share of the tensor-core forward and of
+    qk_prep in the device time."""
     import torch
 
     from alg_tpu_torch.models.cogvideox.transformer import cogvideox_rope
 
     cfg, dev = dit.cfg, gen.device
-    x = torch.randn((2, 13, cfg.in_channels, 60, 90), generator=gen, device=dev).to(torch.bfloat16)
+    latent_frames = (frames - 1) // 4 + 1
+    latent_frames += -latent_frames % (cfg.patch_size_t or 1)  # 1.5: whole temporal patches, as the pipeline pads
+    x = torch.randn((2, latent_frames, cfg.in_channels, height // 8, width // 8), generator=gen,
+                    device=dev).to(torch.bfloat16)
     emb = torch.randn((2, cfg.max_text_seq_length, cfg.text_embed_dim), generator=gen, device=dev).to(torch.bfloat16)
-    cos, sin = (torch.from_numpy(a).to(dev) for a in cogvideox_rope(cfg, 480, 720, 13))
+    cos, sin = (torch.from_numpy(a).to(dev) for a in cogvideox_rope(cfg, height, width, latent_frames))
     ts = torch.full((2,), 999.0, device=dev)
+    ofs = None if cfg.ofs_embed_dim is None else torch.full((1,), 2.0, device=dev)  # the pipeline's ofs
+    s = _cog_seq_len(dit, (x, emb))
+    if s != want_s:
+        raise AssertionError(f"[{tag}] the {frames}-frame forward's S is {s}, not {want_s}")
     with torch.no_grad():
-        dit(x, emb, ts, cos, sin)  # warm-up
+        dit(x, emb, ts, cos, sin, ofs=ofs)  # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = dit(x, emb, ts, cos, sin)
+        out = dit(x, emb, ts, cos, sin, ofs=ofs)
         torch.cuda.synchronize()
-    print(f"[C] DiT forward at 49 frames (2-pass, B=2, S=17776): {(time.perf_counter() - t0) * 1e3:.1f} ms, "
-          f"finite={bool(torch.isfinite(out).all())}; card after it: {_card_state()}", flush=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, prof = _profiled(lambda: dit(x, emb, ts, cos, sin, ofs=ofs))
+    shares = {name: sum(k_ms for k, k_ms, _ in prof["kernels"] if name in k) for name in
+              ("flash_fwd_tc_kernel", "qk_prep_kernel")}
+    print(f"[{tag}] DiT forward at {frames} frames, {width}x{height} (2-pass, B=2, S={s}): {ms:.1f} ms, peak "
+          f"{peak:.1f} GiB, finite={bool(torch.isfinite(out).all())}; profiled: {prof['window_ms']:.1f} ms window, "
+          f"device busy {prof['busy_ms']:.1f} ms, flash forward {shares['flash_fwd_tc_kernel']:.1f} ms "
+          f"({shares['flash_fwd_tc_kernel'] / prof['window_ms']:.1%}), qk_prep {shares['qk_prep_kernel']:.1f} ms "
+          f"({shares['qk_prep_kernel'] / prof['window_ms']:.1%}); card after it: {_card_state()}", flush=True)
+    _print_profile(f"[{tag}] the {frames}-frame forward", prof)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[{tag}] the {frames}-frame forward is not finite")
 
 
 def _seeded_tokenize_mask(vocab_size: int):
@@ -2388,10 +2514,7 @@ class _CliProbe:
             if self.timer is not None:
                 pipe.encode_prompt = self.timer.wrap("T5 encode", pipe.encode_prompt)
                 pipe.vae_encode_sample = self.timer.wrap("VAE encode + posterior draw", pipe.vae_encode_sample)
-                # args: x [B, F, C, H, W], text [B, S_text, D]: the joint [text; video] stream
-                self._hooks = self.timer.hook_dit(
-                    pipe.transformer,
-                    lambda m, a: a[1].shape[1] + a[0].shape[1] * a[0].shape[3] * a[0].shape[4] // m.cfg.patch_size ** 2)
+                self._hooks = self.timer.hook_dit(pipe.transformer, _cog_seq_len)
             decode = pipe.decode_latents
             if self.timer is not None:
                 decode = self.timer.wrap("VAE tiled decode", decode)
@@ -2451,18 +2574,38 @@ def _written_frames(path: str):
 
 
 def phase_cli() -> dict:
-    """Write a CogVideoX-5b-I2V checkpoint at the published widths (DiT and
-    T5-XXL cut to 2 layers each; random bf16 tensors from a seed, drawn on the
-    card) to a temporary directory, and run ``cli.run`` over it with the
-    shipped ALG config at phase C's cut. Checks that every loaded parameter
-    is the tensor the writer drew, bit for bit; the exact kernel launch
-    counts of the run; the written video's frames. Prints the write, the
-    load (read, convert, copy per component), each stage and the peak device
-    memory. Returns the run's launch counts."""
-    import copy
+    """F: a CogVideoX-5b-I2V checkpoint at the published widths (DiT and
+    T5-XXL cut to 2 layers each) through ``cli.run`` with the shipped ALG
+    config at phase C's cut (:func:`_cli_over_checkpoint`). Returns the run's
+    launch counts."""
     import os
     import shutil
     import tempfile
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    ck = copy.deepcopy(H.COGVIDEOX_5B_I2V)
+    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2  # of 42 and 24
+    tmp = tempfile.mkdtemp(prefix="alg_cli_")
+    try:
+        return _cli_over_checkpoint("F", "CogVideoX-5b-I2V", ck, CLI_CONFIG, (CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH),
+                                    tmp)[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+
+
+def _cli_over_checkpoint(tag, name, ck, config, size, tmp):
+    """Write the checkpoint ``ck`` (random bf16 tensors from seed 0, drawn on
+    the card) under ``tmp`` at ``config``'s model path, and run ``cli.run``
+    over it with ``config`` as a parsed mapping on a seeded uint8 image of
+    ``size`` = (frames, height, width). Checks that every loaded parameter
+    is the tensor the writer drew, bit for bit; the exact kernel launch
+    counts of the run (4 DiT forwards: 2 three-pass, 2 two-pass; 2 T5
+    encodes); the written video's frames. Prints the write, the load (read,
+    convert, copy per component), each stage and the peak device memory.
+    Returns (the run's launch counts, the checkpoint's directory)."""
+    import os
 
     import numpy as np
     import torch
@@ -2473,98 +2616,92 @@ def phase_cli() -> dict:
 
     _set_tf32(False, True)
     card = _card_line()
-    ck = copy.deepcopy(H.COGVIDEOX_5B_I2V)
-    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2  # of 42 and 24
-    tmp = tempfile.mkdtemp(prefix="alg_cli_")
-    try:
-        root = os.path.join(tmp, CLI_CONFIG["model"]["path"])
+    frames_n, height, width = size
+    root = os.path.join(tmp, config["model"]["path"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drawn = H.write_cogvideox(root, ck, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    print(f"[{tag}] wrote a {name} checkpoint at the published widths (DiT {ck['transformer']['num_layers']} and T5 "
+          f"{ck['text_encoder']['num_layers']} layers) on {card}: {nbytes} bytes in {write_s:.2f} s "
+          f"({nbytes / write_s / 1e9:.2f} GB/s, drawing on the card included)", flush=True)
+
+    timer = _StageTimer()
+    image = np.random.RandomState(0).randint(0, 256, (height, width, 3)).astype(np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    with _CliProbe(timer) as probe:
+        _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        drawn = H.write_cogvideox(root, ck, seed=0, device="cuda")
+        out = run(_cli_args(tmp, "cuda", os.path.join(tmp, "out.mp4")), config=config, image=image)
         torch.cuda.synchronize()
-        write_s = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
-        print(f"[F] wrote a CogVideoX-5b-I2V checkpoint at the published widths (DiT and T5 2 layers) on {card}: "
-              f"{nbytes} bytes in {write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s, drawing on the card included)",
-              flush=True)
+        total_s = time.perf_counter() - t0
+        counts = _read_counts()
+    pipe = probe.pipe
+    for sub, t in probe.timings.items():
+        moved = t["read_s"] + t["convert_s"] + t["copy_s"]
+        print(f"[{tag}] load {sub:<13} {t['bytes']:>11} bytes: read {t['read_s']:.3f} s, convert {t['convert_s']:.3f} "
+              f"s, copy to the card {t['copy_s']:.3f} s ({t['bytes'] / moved / 1e9:.2f} GB/s over the three)", flush=True)
+    print(f"[{tag}] load_pipeline {probe.load_s:.2f} s", flush=True)
 
-        timer = _StageTimer()
-        image = np.random.RandomState(0).randint(0, 256, (CLI_HEIGHT, CLI_WIDTH, 3)).astype(np.uint8)
-        torch.cuda.reset_peak_memory_stats()
-        with _CliProbe(timer) as probe:
-            _reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = run(_cli_args(tmp, "cuda", os.path.join(tmp, "out.mp4")), config=CLI_CONFIG, image=image)
-            torch.cuda.synchronize()
-            total_s = time.perf_counter() - t0
-            counts = _read_counts()
-        pipe = probe.pipe
-        for sub, t in probe.timings.items():
-            moved = t["read_s"] + t["convert_s"] + t["copy_s"]
-            print(f"[F] load {sub:<13} {t['bytes']:>11} bytes: read {t['read_s']:.3f} s, convert {t['convert_s']:.3f} s, "
-                  f"copy to the card {t['copy_s']:.3f} s ({t['bytes'] / moved / 1e9:.2f} GB/s over the three)", flush=True)
-        print(f"[F] load_pipeline {probe.load_s:.2f} s", flush=True)
+    # every parameter is the tensor the writer drew: bf16 bit for bit, the fp32 VAE the bf16 value
+    compared = 0
+    for sub, module, convert in (("transformer", pipe.transformer, W.convert_cogvideox_transformer),
+                                 ("vae", pipe.vae, W.convert_cogvideox_vae),
+                                 ("text_encoder", pipe.t5, W.convert_t5_encoder)):
+        want = dict(W.flatten_tree(convert(drawn[sub], module.cfg)))
+        got = module.state_dict()
+        if set(want) != set(got):
+            raise AssertionError(f"[{tag}] {sub}: loaded names differ from the drawn ones")
+        for pname, t in got.items():
+            w = want[pname]
+            same = (torch.equal(t.view(torch.int16), w.view(torch.int16)) if t.dtype == torch.bfloat16
+                    else torch.equal(t, w.to(t.dtype)))
+            if not same or t.dtype != (torch.float32 if sub == "vae" else torch.bfloat16):
+                raise AssertionError(f"[{tag}] {sub}.{pname} ({t.dtype}) is not the drawn tensor")
+            compared += t.numel()
+    print(f"[{tag}] loaded parameters equal the drawn tensors bit for bit: {compared} values (DiT and T5 bf16, "
+          f"VAE the bf16 values in fp32): PASS", flush=True)
+    del drawn
 
-        # every parameter is the tensor the writer drew: bf16 bit for bit, the fp32 VAE the bf16 value
-        compared = 0
-        for sub, module, convert in (("transformer", pipe.transformer, W.convert_cogvideox_transformer),
-                                     ("vae", pipe.vae, W.convert_cogvideox_vae),
-                                     ("text_encoder", pipe.t5, W.convert_t5_encoder)):
-            want = dict(W.flatten_tree(convert(drawn[sub], module.cfg)))
-            got = module.state_dict()
-            if set(want) != set(got):
-                raise AssertionError(f"[F] {sub}: loaded names differ from the drawn ones")
-            for name, t in got.items():
-                w = want[name]
-                same = (torch.equal(t.view(torch.int16), w.view(torch.int16)) if t.dtype == torch.bfloat16
-                        else torch.equal(t, w.to(t.dtype)))
-                if not same or t.dtype != (torch.float32 if sub == "vae" else torch.bfloat16):
-                    raise AssertionError(f"[F] {sub}.{name} ({t.dtype}) is not the drawn tensor")
-                compared += t.numel()
-        print(f"[F] loaded parameters equal the drawn tensors bit for bit: {compared} values (DiT and T5 bf16, "
-              f"VAE the bf16 values in fp32): PASS", flush=True)
-        del drawn
+    for stage, ms, dit_ms in timer.rows:
+        print(f"[{tag}] {stage:<36} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
+    print(f"[{tag}] write_video {probe.written['seconds'] * 1e3:.1f} ms; cli.run total {total_s:.2f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})", flush=True)
 
-        for name, ms, dit_ms in timer.rows:
-            print(f"[F] {name:<36} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
-        print(f"[F] write_video {probe.written['seconds'] * 1e3:.1f} ms; cli.run total {total_s:.2f} s; peak device "
-              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})", flush=True)
+    tcfg, t5cfg = pipe.transformer.cfg, pipe.t5.cfg
+    dit_fwd, t5_enc = timer.count("denoise step"), timer.count("T5 encode")
+    three, two = timer.count("denoise step (3-pass"), timer.count("denoise step (2-pass")
+    flash = tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc  # bf16: every one on the tensor cores
+    want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0, "flash_attention": flash,
+            "flash_attention_tc": flash, **_NO_TRAINING, **_NO_CUDA_CORES}
+    print(f"[{tag}] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} T5 encodes)", flush=True)
+    if (dit_fwd, t5_enc, three, two) != (4, 2, 2, 2) or counts != want:
+        raise AssertionError(f"[{tag}] stage counts ({dit_fwd}, {t5_enc}, {three}, {two}) or launches {counts} "
+                             f"!= (4, 2, 2, 2), {want}")
 
-        tcfg, t5cfg = pipe.transformer.cfg, pipe.t5.cfg
-        dit_fwd, t5_enc = timer.count("denoise step"), timer.count("T5 encode")
-        three, two = timer.count("denoise step (3-pass"), timer.count("denoise step (2-pass")
-        flash = tcfg.num_layers * dit_fwd + t5cfg.num_layers * t5_enc  # bf16: every one on the tensor cores
-        want = {"qk_prep": 2 * tcfg.num_layers * dit_fwd, "rope_interleaved": 0, "flash_attention": flash,
-                "flash_attention_tc": flash, **_NO_TRAINING, **_NO_CUDA_CORES}
-        print(f"[F] launches {counts} (want {want}: {dit_fwd} DiT forwards, {t5_enc} T5 encodes)", flush=True)
-        if (dit_fwd, t5_enc, three, two) != (4, 2, 2, 2) or counts != want:
-            raise AssertionError(f"[F] stage counts ({dit_fwd}, {t5_enc}, {three}, {two}) or launches {counts} "
-                                 f"!= (4, 2, 2, 2), {want}")
+    frames = probe.written["frames"]
+    from alg_tpu_torch.io.video import _frames_to_uint8
 
-        frames = probe.written["frames"]
-        from alg_tpu_torch.io.video import _frames_to_uint8
-
-        u8 = _frames_to_uint8(frames)
-        form, back = _written_frames(out)
-        ok = (frames.shape == (CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH, 3) and bool(np.isfinite(frames).all())
-              and u8.dtype == np.uint8
-              and float(u8.std()) > 0 and bool(np.isfinite(probe.final[0]).all()))
-        if form == "npy frames":
-            ok = ok and back.shape == u8.shape and back.dtype == np.uint8 and np.array_equal(back, u8)
-        elif form == "MJPEG-AVI":
-            ok = ok and back == (CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH)
-        else:
-            ok = ok and back > 0
-        print(f"[F] wrote {out} as {form} ({back.shape if form == 'npy frames' else back}); frames {u8.shape} "
-              f"{u8.dtype}, mean {u8.mean():.2f} std {u8.std():.2f}, final latents {probe.final[0].shape} finite: "
-              f"{'PASS' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError("[F] the written video is not 9 finite, non-constant 480x720x3 uint8 frames")
-        return counts
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        _free_device_memory()
+    u8 = _frames_to_uint8(frames)
+    form, back = _written_frames(out)
+    ok = (frames.shape == (frames_n, height, width, 3) and bool(np.isfinite(frames).all()) and u8.dtype == np.uint8
+          and float(u8.std()) > 0 and bool(np.isfinite(probe.final[0]).all()))
+    if form == "npy frames":
+        ok = ok and back.shape == u8.shape and back.dtype == np.uint8 and np.array_equal(back, u8)
+    elif form == "MJPEG-AVI":
+        ok = ok and back == (frames_n, height, width)
+    else:
+        ok = ok and back > 0
+    print(f"[{tag}] wrote {out} as {form} ({back.shape if form == 'npy frames' else back}); frames {u8.shape} "
+          f"{u8.dtype}, mean {u8.mean():.2f} std {u8.std():.2f}, final latents {probe.final[0].shape} finite: "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] the written video is not {frames_n} finite, non-constant {height}x{width}x3 "
+                             "uint8 frames")
+    return counts, root
 
 
 # small checkpoints whose head dims the kernels take (64 and 128; CLIP 80): phase D's and D2's widths
@@ -2969,6 +3106,78 @@ def phase_finetune_cogvideox() -> dict:
         _free_device_memory()
 
 
+C15_CLI_CONFIG = {**CLI_CONFIG, "model": {"path": "THUDM/CogVideoX1.5-5B-I2V", "dtype": "bfloat16"},
+                  "generation": {**CLI_CONFIG["generation"], "num_frames": C15_FRAMES, "height": C15_HEIGHT,
+                                 "width": C15_WIDTH}}
+
+
+def phase_cogvideox15_checkpoint() -> dict:
+    """F3 and G4 over one CogVideoX-1.5-5B-I2V checkpoint at the published
+    widths (``hf_checkpoint.COGVIDEOX15_5B_I2V``: a linear patch embed over
+    32·2·2·2, the ofs embedding, a VAE with ``invert_scale_latents``; DiT and
+    T5-XXL cut to 2 layers). F3: ``cli.run`` over it at phase C5's cut (9
+    frames, 768x1360, 4 steps), loaded bit-equal, with exact launches and the
+    written frames (:func:`_cli_over_checkpoint`). G4: ``prepare_cli.run``
+    over one seeded 85-frame 768x1360 uint8 clip (22 latent frames, a
+    multiple of the temporal patch), then 2 LoRA steps of ``train_cli.run``
+    over the directory on that example (rank 8, remat, bf16): S = 45,106, so
+    the LSE, dq and dkv run at [1, 48, 45106, 64]. Returns the launch counts
+    by path."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    layers, t5_layers = 2, 2  # of 42 and 24
+    ck = copy.deepcopy(H.COGVIDEOX15_5B_I2V)
+    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = layers, t5_layers
+    tmp = tempfile.mkdtemp(prefix="alg_cogvideox15_")
+    counts = {}
+    try:
+        counts["cli_cogvideox15"], _ = _cli_over_checkpoint("F3", "CogVideoX-1.5-5B-I2V", ck, C15_CLI_CONFIG,
+                                                            (C15_FRAMES, C15_HEIGHT, C15_WIDTH), tmp)
+        _free_device_memory()
+        card = _card_line()
+        manifest = _write_manifest(tmp, [("clip0.npy", 85, C15_HEIGHT, C15_WIDTH, 40, {})])
+        config = {"model": dict(C15_CLI_CONFIG["model"]),
+                  "generation": {"height": C15_HEIGHT, "width": C15_WIDTH, "num_frames": 85, "guidance_scale": 6.0,
+                                 "max_sequence_length": 226}}
+        data_dir = os.path.join(tmp, "latents")
+        data, counts["prepare_cogvideox15"], examples, load_s = _run_prepare(
+            config, tmp, manifest, data_dir, "cuda", {"encode_prompt": "T5 encode", "vae_encode_sample": "VAE encode"})
+        _print_prepare("G4", examples, load_s, card)
+        ex = data[0]
+        shapes = {k: v.shape for k, v in ex.items()}
+        ok = (shapes == {"latents": (22, 16, 96, 170), "image_latents": (22, 16, 96, 170),
+                         "encoder_hidden_states": (226, 4096)}
+              and all(v.dtype == np.float32 and np.isfinite(v).all() for v in ex.values())
+              and float(np.abs(ex["image_latents"][1:]).max()) == 0.0 and float(ex["latents"].std()) > 0.0)
+        print(f"[G4] example_00000.npz {shapes}: 22 latent frames of 85, float32, finite, image_latents zero past "
+              f"latent frame 0: {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("[G4] the prepared 1.5 latents are not as alg_tpu writes them")
+        _check_counts("G4 prepare", counts["prepare_cogvideox15"],
+                      {"flash_attention": t5_layers, "flash_attention_tc": t5_layers})
+
+        s = 226 + ex["latents"].shape[0] // 2 * (ex["latents"].shape[2] // 2) * (ex["latents"].shape[3] // 2)
+        if s != COGVIDEOX15_S[81]:
+            raise AssertionError(f"[G4] the train step's S is {s}, not {COGVIDEOX15_S[81]}")
+        out, counts["train_ckpt_cogvideox15"], _ = _run_train(
+            "G4", config, tmp, data_dir, os.path.join(tmp, "adapters.npz"), ["--steps", "2"], card)
+        if len(out["losses"]) != 2:
+            raise AssertionError(f"[G4] {len(out['losses'])} steps, want 2")
+        step = _train_step_launches(layers)
+        print(f"[G4] 2 LoRA steps at S = {s}: the LSE, dq and dkv at [1, 48, {s}, 64]", flush=True)
+        _check_counts("G4 train", counts["train_ckpt_cogvideox15"], {k: 2 * n for k, n in step.items()})
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+
+
 WAN_FINETUNE_CONFIG = {
     "model": {"path": "Wan-AI/Wan2.1-I2V-14B-480P-Diffusers", "dtype": "bfloat16"},
     "generation": {"height": 480, "width": 832, "num_frames": 81, "guidance_scale": 5.0, "max_sequence_length": 512},
@@ -3228,6 +3437,54 @@ def phase_agreement() -> dict:
         counts[f"agreement_cogvideox_{name}"] = _compare_runs(
             f"D {name}", runs, {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12})
         print(f"[D {name}] wall time {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def phase_agreement_cogvideox15() -> dict:
+    """D4: a small CogVideoX-1.5 pipeline (head dim 64, 2 layers, temporal
+    patches of 2, the ofs embedding, a VAE with ``invert_scale_latents``) on
+    the card through the kernels and on the CPU through the plain versions,
+    fp32 with TF32 off, 9 frames (3 latent frames padded to 4) at 64x64:
+    latent ALG and pixel-space ALG, each within 2e-3 and above 40 dB with
+    exact launches (D's bounds). Returns the card's counts by path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, CogVideoXTransformerConfig
+    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE, CogVideoXVAEConfig
+    from alg_tpu_torch.models.t5 import T5Config, T5Encoder
+    from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
+
+    _set_tf32(False, False)
+    tcfg = CogVideoXTransformerConfig(num_attention_heads=2, attention_head_dim=64, in_channels=8, out_channels=4,
+                                      time_embed_dim=32, ofs_embed_dim=32, text_embed_dim=64, num_layers=2,
+                                      sample_height=300, sample_width=300, patch_size_t=2, max_text_seq_length=8)
+    t5cfg = T5Config(vocab_size=128, d_model=64, d_kv=64, d_ff=128, num_layers=2, num_heads=2,
+                     relative_attention_num_buckets=8, relative_attention_max_distance=16)
+    vcfg = CogVideoXVAEConfig(block_out_channels=(8, 16, 16, 32), latent_channels=4, layers_per_block=1,
+                              norm_num_groups=4, invert_scale_latents=True)
+    gen = torch.Generator("cpu").manual_seed(5)
+    mods = [L.init_random_(m, gen) for m in (CogVideoXTransformer(tcfg), T5Encoder(t5cfg), CogVideoXVAE(vcfg))]
+    image = np.random.RandomState(5).uniform(-1, 1, (1, 3, 64, 64)).astype(np.float32)
+    kw = _alg_kwargs(image=image, prompt=PROMPT, height=64, width=64, num_frames=9, max_sequence_length=8,
+                     output_type="latent")
+
+    def make_pipe(dev):
+        dit, t5, vae = (copy.deepcopy(m).to(dev) for m in mods)
+        return CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=_seeded_tokenize(t5cfg.vocab_size),
+                                 device=dev)
+
+    counts = {}
+    # 4 DiT forwards x 2 layers (2 qk_prep each) + 2 T5 encodes x 2 layers
+    for name, over in (("", {}), ("_pixel", _pixel_kwargs(**PIXEL_SCHEDULES["linear"]))):
+        runs = _small_runs(make_pipe, {**kw, **over})
+        if runs["cuda"][0].shape != (1, 4, 4, 8, 8):
+            raise AssertionError(f"[D4{name}] latents {runs['cuda'][0].shape}, want the 4 padded latent frames")
+        counts[f"agreement_cogvideox15{name}"] = _compare_runs(
+            f"D4{name.replace('_', ' ')}", runs, {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12})
     return counts
 
 
@@ -3733,7 +3990,7 @@ _FLASH_SHAPES = ("flash_dit", "flash_wan_self", "flash_wan_cross_text", "flash_w
                  "flash_umt5_bias_kvlen", "flash_llama_causal_kvlen", "flash_clip_text_causal", "flash_clip",
                  "flash_clip_l_vision", "flash_hunyuan_refiner", "flash_hunyuan_joint", "flash_square_causal",
                  "flash_square_dense")
-_ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES,
+_ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES, "qk_prep": ("qk_prep",),
          "rope_interleaved": ("rope_interleaved", "rope_hunyuan_joint"),
          "flash_attention_lse": tuple("flash_lse_" + n for n in _TRAIN_SHAPES),
          "flash_attention_bwd_dq_tc": tuple("flash_bwd_dq_" + n for n in _TRAIN_SHAPES),
@@ -3813,6 +4070,19 @@ def main() -> int:
             traceback.print_exc()
             return 1
         return 0
+    if sys.argv[1:] == ["--cogvideox15"]:
+        try:
+            phase_build()
+            records = []
+            _cogvideox15_kernel_cases(records, torch.Generator("cuda").manual_seed(0))
+            _require_all_ok(records)
+            phase_slice("cogvideox15")
+            phase_cogvideox15_checkpoint()
+            phase_agreement_cogvideox15()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3822,11 +4092,13 @@ def main() -> int:
         counts = phase_slice()  # the bf16 path and the int8 paths over the same pipeline
         counts.update(phase_slice_wan())  # after the CogVideoX modules are freed
         counts.update(phase_slice_hunyuan())  # after the Wan modules are freed
+        counts.update(phase_slice("cogvideox15"))  # after the Hunyuan modules are freed
         counts["prolog_entry"] = phase_prolog_entry()
         counts["cli_cogvideox"] = phase_cli()
         counts.update(phase_agreement())  # the card's counts of its fp32 runs under the int8 modes
         counts.update(phase_agreement_wan())
         counts.update(phase_agreement_hunyuan())
+        counts.update(phase_agreement_cogvideox15())
         phase_cli_agreement()
         counts["train_cogvideox"] = phase_train()
         for name, n in phase_train_entry().items():
@@ -3835,6 +4107,7 @@ def main() -> int:
         counts.update(phase_finetune_cogvideox())  # prepare, train over the checkpoint, cli.run --lora
         counts.update(phase_finetune_wan())
         phase_finetune_agreement()
+        counts.update(phase_cogvideox15_checkpoint())  # F3, G4
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("cli_cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
@@ -3868,7 +4141,13 @@ def main() -> int:
                                                         "flash_attention_bwd_dkv_tc")),
                               ("train_ckpt_wan", ("rope_interleaved", "flash_attention_lse",
                                                   "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
-                              ("cli_lora_cogvideox", ("qk_prep", "flash_attention_tc"))):
+                              ("cli_lora_cogvideox", ("qk_prep", "flash_attention_tc")),
+                              *((path, ("qk_prep", "flash_attention_tc")) for path in ("cogvideox15", "cli_cogvideox15")),
+                              ("prepare_cogvideox15", ("flash_attention_tc",)),
+                              ("train_ckpt_cogvideox15", ("qk_prep", "flash_attention_lse",
+                                                          "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
+                              *((path, ("qk_prep", "flash_attention_cuda_core"))
+                                for path in ("agreement_cogvideox15", "agreement_cogvideox15_pixel"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

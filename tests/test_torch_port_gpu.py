@@ -37,7 +37,10 @@ a key tile and one more; causal with Sq < Sk and Sq > Sk; a bias at both
 batch strides with ``stable`` both ways; D = 80; the LSE; each block height
 of the forward and dq, reached by the head count; Wan's cross-attention to
 512 and 257 keys; logits near ±100 in fp32), each counted once under
-``cuda_core``.
+``cuda_core``; and CogVideoX-1.5's joint lengths (S = 8,386 and 45,106 and
+one row either side: qk_prep on the head-split view and the bf16 forward's
+rows near both ends, the whole shipped [2, 48, 45106, 64] call) and a small
+1.5 DiT card against CPU.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -1597,3 +1600,92 @@ def test_dpm_interrupted_at_step_zero_card_matches_cpu(cuda):
         seen[str(dev)] = steps
     assert seen == {"cpu": [0], "cuda": [0]}
     torch.testing.assert_close(torch.from_numpy(out["cuda"]), torch.from_numpy(out["cpu"]), atol=2e-3, rtol=0)
+
+
+# -- CogVideoX-1.5's shapes: S = 8,386 (9 frames at 768 x 1360) and 45,106 (81 frames), their ragged last tiles ------
+
+# S = 226 text tokens + (latent frames / 2) x 48 x 85 video tokens
+COGVIDEOX15_S = {"9f": 226 + 2 * 48 * 85, "81f": 226 + 11 * 48 * 85}
+COGVIDEOX15_CASES = {f"{name}{d:+d}" if d else name: s + d for name, s in COGVIDEOX15_S.items() for d in (-1, 0, 1)}
+
+
+def _rows_near_the_ends(s):
+    """The first 64 query rows and the last 130: the tensor-core forward's last 128-row tile, ragged at these S."""
+    return torch.cat([torch.arange(64), torch.arange(max(64, s - 130), s)])
+
+
+@pytest.mark.parametrize("case", list(COGVIDEOX15_CASES))
+def test_qk_prep_and_forward_at_cogvideox15_lengths(cuda, case):
+    """qk_prep on the head-split view (bit-equal to the contiguous call,
+    within the bf16 tolerance of its plain version) and the bf16 tensor-core
+    forward, at 1.5's joint lengths and one row either side, B = 1, H = 2;
+    the forward's rows near both ends against the plain version over all
+    keys."""
+    s = COGVIDEOX15_CASES[case]
+    gen = torch.Generator(cuda).manual_seed(15)
+    base = torch.randn((1, s, 2, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    scale = 1.0 + 0.1 * torch.randn(64, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(64, generator=gen, device=cuda)
+    ang = torch.rand((s, 32), generator=gen, device=cuda) * 6.28
+    ang[:226] = 0.0
+    cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+    view = base.transpose(1, 2)
+    q = QK.qk_norm_rope(view, scale, bias, cos, sin, 1e-6)
+    assert torch.equal(q, QK.qk_norm_rope(view.contiguous(), scale, bias, cos, sin, 1e-6))
+    _assert_close(q, QK.qk_norm_rope_plain(view, scale, bias, cos, sin, 1e-6), torch.bfloat16)
+    k, v = (torch.randn((1, 2, s, 64), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = FA.flash_attention.launches_by_route["tc"]
+    out = FA.flash_attention(q, k, v, 64 ** -0.5, stable=False)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route["tc"] == before + 1 and bool(torch.isfinite(out).all())
+    rows = _rows_near_the_ends(s).to(cuda)
+    _assert_close_flash(out[:, :, rows], FA.attention_plain(q[:, :, rows], k, v, 64 ** -0.5), torch.bfloat16)
+
+
+def test_qk_prep_and_forward_at_the_shipped_cogvideox15_shape(cuda):
+    """[2, 48, 45106, 64] bf16, the shipped 2-pass call (277 M values a
+    tensor): qk_prep whole against its plain version, the forward's rows near
+    both ends of the last batch row and head against the plain version."""
+    b, h, s = 2, 48, COGVIDEOX15_S["81f"]
+    gen = torch.Generator(cuda).manual_seed(16)
+    x = torch.randn((b, h, s, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    scale, bias = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    ang = torch.rand((s, 32), generator=gen, device=cuda) * 6.28
+    cos, sin = (f(ang).repeat_interleave(2, -1).contiguous() for f in (torch.cos, torch.sin))
+    q = QK.qk_norm_rope(x, scale, bias, cos, sin, 1e-6)
+    for i in range(b):  # the plain version one batch row at a time
+        _assert_close(q[i:i + 1], QK.qk_norm_rope_plain(x[i:i + 1], scale, bias, cos, sin, 1e-6), torch.bfloat16)
+    del x
+    k = torch.randn((b, h, s, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((b, h, s, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    out = FA.flash_attention(q, k, v, 64 ** -0.5, stable=False)
+    torch.cuda.synchronize()
+    rows = _rows_near_the_ends(s).to(cuda)
+    last = (slice(b - 1, b), slice(h - 2, h))
+    ref = FA.attention_plain(q[last][:, :, rows], k[last], v[last], 64 ** -0.5)
+    _assert_close_flash(out[last][:, :, rows], ref, torch.bfloat16)
+
+
+def test_cogvideox15_dit_forward_card_matches_cpu(cuda):
+    """A 2-layer CogVideoX-1.5 DiT (temporal patches of 2, the ofs
+    embedding, the slice RoPE grid) with head dim 64, fp32: the card through
+    both kernels, the CPU through the plain versions, atol 1e-4."""
+    from alg_tpu_torch.models.cogvideox.transformer import (CogVideoXTransformer, CogVideoXTransformerConfig,
+                                                            cogvideox_rope)
+
+    cfg = CogVideoXTransformerConfig(num_attention_heads=2, attention_head_dim=64, in_channels=8, out_channels=4,
+                                     time_embed_dim=32, ofs_embed_dim=32, text_embed_dim=64, num_layers=2,
+                                     sample_height=300, sample_width=300, patch_size_t=2, max_text_seq_length=8)
+    gen = torch.Generator().manual_seed(3)
+    dit = L.init_random_(CogVideoXTransformer(cfg), gen)
+    x, text = _randn(gen, 2, 4, 8, 8, 12), _randn(gen, 2, 8, 64)
+    ts, ofs = torch.tensor([999.0, 400.0]), torch.tensor([2.0])
+    cos, sin = (torch.from_numpy(a) for a in cogvideox_rope(cfg, 64, 96, 4))
+    with torch.no_grad():
+        ref = dit(x, text, ts, cos, sin, ofs=ofs)
+        before = (QK.qk_norm_rope.launches, FA.flash_attention.launches)
+        out = copy.deepcopy(dit).to(cuda)(*(a.to(cuda) for a in (x, text, ts, cos, sin)), ofs=ofs.to(cuda))
+        torch.cuda.synchronize()
+    assert (QK.qk_norm_rope.launches - before[0], FA.flash_attention.launches - before[1]) == (4, 2)
+    assert out.shape == (2, 4, 4, 8, 12)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)

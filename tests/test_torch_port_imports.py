@@ -33,7 +33,8 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.io.video", "alg_tpu_torch.io.hf_checkpoint", "alg_tpu_torch.alg.filters",
             "alg_tpu_torch.schedulers.dpm_cogvideox", "alg_tpu_torch.io.runstate",
             "alg_tpu_torch.pipelines.denoise", "alg_tpu_torch.prepare_cli", "alg_tpu_torch.utils.profiling",
-            "alg_tpu_torch.train_cli"} <= set(mods)
+            "alg_tpu_torch.train_cli", "alg_tpu_torch.models.cogvideox.transformer",
+            "alg_tpu_torch.models.cogvideox.vae"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

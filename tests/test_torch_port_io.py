@@ -200,13 +200,14 @@ def test_loader_tokenizers_match_alg_tpu(tiny_dirs):
 
 
 def test_loaders_refuse_what_is_not_ported(tmp_path):
-    """A CogVideoX 1.5 checkpoint (``patch_size_t``) and ``quantize`` raise,
-    naming their ROADMAP items; a tokenizer directory without
-    ``tokenizer.json`` raises; an absent model names the cache flag."""
+    """``quantize`` raises, naming its ROADMAP item; a tokenizer directory
+    without ``tokenizer.json`` raises; an absent model names the cache flag.
+    (A CogVideoX 1.5 checkpoint, once refused, now loads:
+    ``tests/test_torch_port_cogvideox15.py``.)"""
     root = str(tmp_path / "TinyCogVideoX1.5")
     make_tiny_checkpoint.build(root, patch_size_t=2)
-    with pytest.raises(NotImplementedError, match="A-item 3"):
-        TZ.load_cogvideox_pipeline(root, dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        TZ.load_cogvideox_pipeline(root, dtype=torch.float32, quantize="w8", device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         TZ.load_wan_pipeline(root, quantize="w8", device="cpu")
     os.remove(os.path.join(root, "tokenizer", "tokenizer.json"))
@@ -229,7 +230,7 @@ def test_resolve_model_dir_finds_local_layouts(tmp_path):
 # -- the checkpoint writer against the tool ----------------------------------------------------
 
 
-@pytest.mark.parametrize("family", ["cogvideox", "wan"])
+@pytest.mark.parametrize("family", ["cogvideox", "cogvideox15", "wan"])
 def test_writer_matches_the_tiny_tool(family, tiny_dirs, tmp_path):
     """``hf_checkpoint`` at the tool's widths writes the same files, tensor
     names and shapes and config.json contents as
@@ -239,9 +240,15 @@ def test_writer_matches_the_tiny_tool(family, tiny_dirs, tmp_path):
     tokenizers = pytest.importorskip("tokenizers")
     from alg_tpu_torch.io.hf_tokenizer import load_tokenizer
 
-    tool = tiny_dirs[family]
-    mine = str(tmp_path / os.path.basename(tool))
-    drawn = (H.write_cogvideox if family == "cogvideox" else H.write_wan)(mine)
+    if family == "cogvideox15":  # the tool's CogVideoX with temporal patches (1.5)
+        tool = str(tmp_path / "tool" / "TinyCogVideoX1.5")
+        make_tiny_checkpoint.build(tool, patch_size_t=2)
+        mine = str(tmp_path / "TinyCogVideoX1.5")
+        drawn = H.write_cogvideox(mine, H.TINY_COGVIDEOX15)
+    else:
+        tool = tiny_dirs[family]
+        mine = str(tmp_path / os.path.basename(tool))
+        drawn = (H.write_cogvideox if family == "cogvideox" else H.write_wan)(mine)
     for sub in sorted(os.listdir(tool)):
         assert sorted(os.listdir(os.path.join(tool, sub))) == sorted(os.listdir(os.path.join(mine, sub))), sub
         cfg_path = os.path.join(tool, sub, "config.json")

@@ -196,8 +196,8 @@ def test_load_transformer_keeps_the_loaders_refusals(ckpts):
 
     with pytest.raises(NotImplementedError, match="A12"):
         model_zoo.load_transformer(ckpts["cogvideox"], "cogvideox", quantize="w8", device="cpu")
-    with pytest.raises(NotImplementedError, match="CogVideoX 1.5"):
-        model_zoo.load_transformer(ckpts["cogvideox-1.5"], "cogvideox", device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):  # the 1.5 DiT, once refused, loads; quantize does not
+        model_zoo.load_transformer(ckpts["cogvideox-1.5"], "cogvideox", quantize="w4", device="cpu")
     with pytest.raises(ValueError, match="family"):
         model_zoo.load_transformer(ckpts["cogvideox"], "svd", device="cpu")
 
