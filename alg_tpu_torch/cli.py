@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-import types
 
 import numpy as np
 
@@ -127,12 +126,9 @@ def run(args, config=None, image=None) -> str:
         if family == "hunyuan" and "resolution" in (cfg.video or {}):
             # height and width bucketed from the image's aspect ratio; an explicit generation.height / width
             # applies when the config names no video.resolution
-            from alg_tpu_torch.alg.hunyuan_size import get_hunyuan_video_size
+            from alg_tpu_torch.serving import hunyuan_size
 
-            sized = input_image
-            if isinstance(input_image, np.ndarray):
-                sized = types.SimpleNamespace(size=(input_image.shape[1], input_image.shape[0]))
-            pipe_kwargs["height"], pipe_kwargs["width"] = get_hunyuan_video_size(cfg.video["resolution"], sized)
+            pipe_kwargs["height"], pipe_kwargs["width"] = hunyuan_size(cfg.video["resolution"], input_image)
 
         logger.info("Starting video generation...")
         logger.info("Pipeline arguments: %s", {k: v for k, v in pipe_kwargs.items() if k != "image"})

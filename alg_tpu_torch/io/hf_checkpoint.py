@@ -1,15 +1,19 @@
-"""Write random CogVideoX-I2V and Wan2.1-I2V checkpoints in HF repo layout.
+"""Write random CogVideoX-I2V, Wan2.1-I2V and HunyuanVideo-I2V checkpoints in
+HF repo layout.
 
 The port's counterpart of ``tools/make_tiny_checkpoint.py``'s CogVideoX (1.0
-and 1.5) and Wan writers, at any width and depth: ``transformer/``, ``vae/``,
-``text_encoder/`` (and Wan's ``image_encoder/``), each with its
-``config.json`` and one safetensors shard under the diffusers / transformers
-tensor names, ``tokenizer/`` (a WordLevel ``tokenizer.json`` written as
-plain JSON) and CogVideoX's ``scheduler/``. The widths and depths come from
-a config dict (:data:`TINY_COGVIDEOX`, :data:`COGVIDEOX_5B_I2V`,
-:data:`TINY_COGVIDEOX15`, :data:`COGVIDEOX15_5B_I2V`, :data:`TINY_WAN`,
-:data:`WAN21_I2V_14B`): at the published widths it is a checkpoint that
-:mod:`alg_tpu_torch.io.model_zoo` loads as it would the published one.
+and 1.5), Wan and HunyuanVideo writers, at any width and depth:
+``transformer/``, ``vae/``, ``text_encoder/`` (and Wan's ``image_encoder/``,
+HunyuanVideo's ``text_encoder_2/``), each with its ``config.json`` and one
+safetensors shard under the diffusers / transformers tensor names,
+``tokenizer/`` (and HunyuanVideo's ``tokenizer_2/``: WordLevel
+``tokenizer.json`` files written as plain JSON) and CogVideoX's
+``scheduler/``. The widths and depths come from a config dict
+(:data:`TINY_COGVIDEOX`, :data:`COGVIDEOX_5B_I2V`, :data:`TINY_COGVIDEOX15`,
+:data:`COGVIDEOX15_5B_I2V`, :data:`TINY_WAN`, :data:`WAN21_I2V_14B`,
+:data:`TINY_HUNYUAN`, :data:`HUNYUAN_VIDEO_I2V`): at the published widths it
+is a checkpoint that :mod:`alg_tpu_torch.io.model_zoo` loads as it would the
+published one.
 
 Tensors are drawn in order from one ``torch.Generator`` seeded with
 ``seed`` on ``device``: linear and conv weights N(0, 1/fan_in), biases and
@@ -127,6 +131,63 @@ WAN21_I2V_14B = {
     "image_encoder": {
         "hidden_size": 1280, "intermediate_size": 5120, "num_hidden_layers": 32, "num_attention_heads": 16,
         "image_size": 224, "patch_size": 14, "hidden_act": "gelu",
+    },
+}
+
+# tools/make_tiny_checkpoint.build_hunyuan: the DiT, the HunyuanVideo VAE, Llava (a Llama with GQA and a CLIP
+# vision tower, the legacy language_model.model.* layout) and the CLIP text model, the <image> token at 60
+TINY_HUNYUAN = {
+    "transformer": {
+        "in_channels": 4, "out_channels": 4, "num_attention_heads": 2, "attention_head_dim": 8, "num_layers": 1,
+        "num_single_layers": 2, "num_refiner_layers": 1, "mlp_ratio": 2.0, "patch_size": 2, "patch_size_t": 1,
+        "text_embed_dim": 16, "pooled_projection_dim": 8, "guidance_embeds": True, "rope_theta": 256.0,
+        "rope_axes_dim": [2, 4, 2], "image_condition_type": "token_replace",
+    },
+    "vae": {
+        "latent_channels": 4, "block_out_channels": [8, 16, 16, 16], "layers_per_block": 1, "norm_num_groups": 4,
+        "scaling_factor": 0.476986, "temporal_compression_ratio": 4,
+    },
+    "text_encoder": {
+        "image_token_index": 60, "pad_token_id": 0,
+        "text_config": {"vocab_size": 64, "hidden_size": 16, "intermediate_size": 32, "num_hidden_layers": 2,
+                        "num_attention_heads": 4, "num_key_value_heads": 2, "rope_theta": 10000.0},
+        "vision_config": {"hidden_size": 12, "intermediate_size": 24, "num_hidden_layers": 2, "num_attention_heads": 4,
+                          "image_size": 28, "patch_size": 14, "hidden_act": "quick_gelu"},
+    },
+    "text_encoder_2": {
+        "vocab_size": 64, "hidden_size": 8, "intermediate_size": 16, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "max_position_embeddings": 16, "hidden_act": "quick_gelu", "eos_token_id": 1,
+    },
+}
+
+# HunyuanVideo-I2V's published widths and depths as the port's config defaults give them:
+# HunyuanVideoTransformerConfig() (20 double, 40 single and 2 refiner blocks, 24 x 128 heads), HunyuanVAEConfig(),
+# LlavaConfig() (Llama-3-8B with Llava's vocabulary, CLIP ViT-L/14-336) and CLIPTextConfig() (OpenAI ViT-L/14's
+# text model). Not confirmed offline: the DiT's in_channels 16 and image_condition_type "token_replace" (a
+# latent_concat release takes 2·16 + 1 channels), Llava's pad_token_id 128258 and the CLIP text model's
+# eos_token_id 49407; the tensors are written in the legacy language_model.model.* layout, which the loader
+# reads as it reads the newer model.language_model.* one.
+HUNYUAN_VIDEO_I2V = {
+    "transformer": {
+        "in_channels": 16, "out_channels": 16, "num_attention_heads": 24, "attention_head_dim": 128, "num_layers": 20,
+        "num_single_layers": 40, "num_refiner_layers": 2, "mlp_ratio": 4.0, "patch_size": 2, "patch_size_t": 1,
+        "text_embed_dim": 4096, "pooled_projection_dim": 768, "guidance_embeds": True, "rope_theta": 256.0,
+        "rope_axes_dim": [16, 56, 56], "image_condition_type": "token_replace",
+    },
+    "vae": {
+        "latent_channels": 16, "block_out_channels": [128, 256, 512, 512], "layers_per_block": 2,
+        "norm_num_groups": 32, "scaling_factor": 0.476986, "temporal_compression_ratio": 4,
+    },
+    "text_encoder": {
+        "image_token_index": 128257, "pad_token_id": 128258,
+        "text_config": {"vocab_size": 128320, "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+                        "num_attention_heads": 32, "num_key_value_heads": 8, "rope_theta": 500000.0},
+        "vision_config": {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+                          "num_attention_heads": 16, "image_size": 336, "patch_size": 14, "hidden_act": "quick_gelu"},
+    },
+    "text_encoder_2": {
+        "vocab_size": 49408, "hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "max_position_embeddings": 77, "hidden_act": "quick_gelu", "eos_token_id": 49407,
     },
 }
 
@@ -378,15 +439,162 @@ def wan_vae_spec(cfg: dict) -> Spec:
     return s.items
 
 
-def clip_vision_spec(cfg: dict) -> Spec:
+def clip_vision_spec(cfg: dict, p: str = "vision_model") -> Spec:
     s = _Spec()
-    p, d, inter = "vision_model", cfg["hidden_size"], cfg["intermediate_size"]
+    d, inter = cfg["hidden_size"], cfg["intermediate_size"]
     n_pos = (cfg["image_size"] // cfg["patch_size"]) ** 2 + 1
     s.add(f"{p}.embeddings.class_embedding", (d,), "b")
     s.add(f"{p}.embeddings.patch_embedding.weight", (d, 3, cfg["patch_size"], cfg["patch_size"]))
     s.add(f"{p}.embeddings.position_embedding.weight", (n_pos, d), "b")
     s.norm(f"{p}.pre_layrnorm", d)  # [sic] the HF name
     s.norm(f"{p}.post_layernorm", d)
+    for i in range(cfg["num_hidden_layers"]):
+        b = f"{p}.encoder.layers.{i}"
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            s.linear(f"{b}.self_attn.{nm}", d, d)
+        s.norm(f"{b}.layer_norm1", d)
+        s.norm(f"{b}.layer_norm2", d)
+        s.linear(f"{b}.mlp.fc1", inter, d)
+        s.linear(f"{b}.mlp.fc2", d, inter)
+    return s.items
+
+
+# -- HunyuanVideo ------------------------------------------------------------------------
+
+
+def hunyuan_transformer_spec(cfg: dict) -> Spec:
+    s = _Spec()
+    dim, hd = cfg["num_attention_heads"] * cfg["attention_head_dim"], cfg["attention_head_dim"]
+    mlp, p, pt = int(dim * cfg["mlp_ratio"]), cfg["patch_size"], cfg["patch_size_t"]
+    s.conv("x_embedder.proj", cfg["in_channels"], dim, pt, p, p)
+    s.linear("context_embedder.proj_in", dim, cfg["text_embed_dim"])
+    s.linear("context_embedder.time_text_embed.timestep_embedder.linear_1", dim, 256)
+    s.linear("context_embedder.time_text_embed.timestep_embedder.linear_2", dim, dim)
+    s.linear("context_embedder.time_text_embed.text_embedder.linear_1", dim, cfg["text_embed_dim"])
+    s.linear("context_embedder.time_text_embed.text_embedder.linear_2", dim, dim)
+    for i in range(cfg["num_refiner_layers"]):
+        b = f"context_embedder.token_refiner.refiner_blocks.{i}"
+        s.norm(f"{b}.norm1", dim)
+        s.norm(f"{b}.norm2", dim)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            s.linear(f"{b}.attn.{nm}", dim, dim)
+        s.linear(f"{b}.ff.net.0.proj", mlp, dim)
+        s.linear(f"{b}.ff.net.2", dim, mlp)
+        s.linear(f"{b}.norm_out.linear", 2 * dim, dim)
+    s.linear("time_text_embed.timestep_embedder.linear_1", dim, 256)
+    s.linear("time_text_embed.timestep_embedder.linear_2", dim, dim)
+    if cfg.get("guidance_embeds", True):
+        s.linear("time_text_embed.guidance_embedder.linear_1", dim, 256)
+        s.linear("time_text_embed.guidance_embedder.linear_2", dim, dim)
+    s.linear("time_text_embed.text_embedder.linear_1", dim, cfg["pooled_projection_dim"])
+    s.linear("time_text_embed.text_embedder.linear_2", dim, dim)
+    for i in range(cfg["num_layers"]):  # double-stream blocks: the image and the text stream
+        b = f"transformer_blocks.{i}"
+        s.linear(f"{b}.norm1.linear", 6 * dim, dim)
+        s.linear(f"{b}.norm1_context.linear", 6 * dim, dim)
+        for nm in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_out.0", "to_add_out"):
+            s.linear(f"{b}.attn.{nm}", dim, dim)
+        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            s.norm(f"{b}.attn.{nm}", hd, bias=False)
+        for ff in ("ff", "ff_context"):
+            s.linear(f"{b}.{ff}.net.0.proj", mlp, dim)
+            s.linear(f"{b}.{ff}.net.2", dim, mlp)
+    for i in range(cfg["num_single_layers"]):  # single-stream blocks: q/k/v beside the MLP's input
+        b = f"single_transformer_blocks.{i}"
+        s.linear(f"{b}.norm.linear", 3 * dim, dim)
+        for nm in ("to_q", "to_k", "to_v"):
+            s.linear(f"{b}.attn.{nm}", dim, dim)
+        s.norm(f"{b}.attn.norm_q", hd, bias=False)
+        s.norm(f"{b}.attn.norm_k", hd, bias=False)
+        s.linear(f"{b}.proj_mlp", mlp, dim)
+        s.linear(f"{b}.proj_out", dim, dim + mlp)
+    s.linear("norm_out.linear", 2 * dim, dim)
+    s.linear("proj_out", pt * p * p * cfg["out_channels"], dim)
+    return s.items
+
+
+def hunyuan_vae_spec(cfg: dict) -> Spec:
+    s = _Spec()
+    boc, z, n = cfg["block_out_channels"], cfg["latent_channels"], cfg["layers_per_block"]
+
+    def conv3d(name, cin, cout, k=3):
+        s.conv(name, cin, cout, k, k, k)
+
+    def resnet(name, cin, cout):
+        s.norm(f"{name}.norm1", cin)
+        conv3d(f"{name}.conv1", cin, cout)
+        s.norm(f"{name}.norm2", cout)
+        conv3d(f"{name}.conv2", cout, cout)
+        if cin != cout:
+            conv3d(f"{name}.conv_shortcut", cin, cout, k=1)
+
+    def mid(prefix, ch):
+        resnet(f"{prefix}.resnets.0", ch, ch)
+        a = f"{prefix}.attentions.0"
+        s.norm(f"{a}.group_norm", ch)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            s.linear(f"{a}.{nm}", ch, ch)
+        resnet(f"{prefix}.resnets.1", ch, ch)
+
+    conv3d("encoder.conv_in", 3, boc[0])
+    ch = boc[0]
+    for i, out in enumerate(boc):
+        for j in range(n):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", ch if j == 0 else out, out)
+        ch = out
+        if i < len(boc) - 1:
+            conv3d(f"encoder.down_blocks.{i}.downsamplers.0.conv", out, out)
+    mid("encoder.mid_block", ch)
+    s.norm("encoder.conv_norm_out", ch)
+    conv3d("encoder.conv_out", ch, 2 * z)
+    conv3d("quant_conv", 2 * z, 2 * z, k=1)
+    conv3d("post_quant_conv", z, z, k=1)
+    rev = list(reversed(boc))
+    conv3d("decoder.conv_in", z, rev[0])
+    mid("decoder.mid_block", rev[0])
+    ch = rev[0]
+    for i, out in enumerate(rev):
+        for j in range(n + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", ch if j == 0 else out, out)
+        ch = out
+        if i < len(rev) - 1:
+            conv3d(f"decoder.up_blocks.{i}.upsamplers.0.conv", out, out)
+    s.norm("decoder.conv_norm_out", ch)
+    conv3d("decoder.conv_out", ch, 3)
+    return s.items
+
+
+def llava_spec(cfg: dict) -> Spec:
+    """transformers ``LlavaForConditionalGeneration`` in the legacy layout:
+    the Llama decoder (no biases), the CLIP vision tower, the projector."""
+    s = _Spec()
+    t, v = cfg["text_config"], cfg["vision_config"]
+    d, inter = t["hidden_size"], t["intermediate_size"]
+    kv = t["num_key_value_heads"] * (d // t["num_attention_heads"])
+    lm = "language_model.model"
+    s.add(f"{lm}.embed_tokens.weight", (t["vocab_size"], d), "e")
+    for i in range(t["num_hidden_layers"]):
+        b = f"{lm}.layers.{i}"
+        s.norm(f"{b}.input_layernorm", d, bias=False)
+        s.norm(f"{b}.post_attention_layernorm", d, bias=False)
+        for nm, n_out in (("q_proj", d), ("k_proj", kv), ("v_proj", kv), ("o_proj", d)):
+            s.linear(f"{b}.self_attn.{nm}", n_out, d, bias=False)
+        s.linear(f"{b}.mlp.gate_proj", inter, d, bias=False)
+        s.linear(f"{b}.mlp.up_proj", inter, d, bias=False)
+        s.linear(f"{b}.mlp.down_proj", d, inter, bias=False)
+    s.norm(f"{lm}.norm", d, bias=False)
+    s.items += clip_vision_spec(v, "vision_tower.vision_model")
+    s.linear("multi_modal_projector.linear_1", d, v["hidden_size"])
+    s.linear("multi_modal_projector.linear_2", d, d)
+    return s.items
+
+
+def clip_text_spec(cfg: dict) -> Spec:
+    s = _Spec()
+    p, d, inter = "text_model", cfg["hidden_size"], cfg["intermediate_size"]
+    s.add(f"{p}.embeddings.token_embedding.weight", (cfg["vocab_size"], d), "e")
+    s.add(f"{p}.embeddings.position_embedding.weight", (cfg["max_position_embeddings"], d), "b")
+    s.norm(f"{p}.final_layer_norm", d)
     for i in range(cfg["num_hidden_layers"]):
         b = f"{p}.encoder.layers.{i}"
         for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
@@ -422,23 +630,24 @@ def write_shard(root: str, sub: str, fname: str, cfg: dict, spec: Spec, gen: tor
     return tensors
 
 
-def write_tokenizer(root: str, vocab_size: int, max_length: int = 16) -> None:
-    """``root/tokenizer``: a WordLevel vocabulary of ``vocab_size`` words
-    with a Whitespace pre-tokenizer, as the ``tokenizers`` package writes
-    it: ``<pad>`` 0, ``</s>`` 1, ``<unk>`` 2, ten common words of prompts
-    from 3, an added special ``<image>`` at 60 when the vocabulary has one,
-    ``tok<i>`` elsewhere."""
+def write_tokenizer(root: str, vocab_size: int, max_length: int = 16, image_token_id: int = 60,
+                    sub: str = "tokenizer") -> None:
+    """``root/sub``: a WordLevel vocabulary of ``vocab_size`` words with a
+    Whitespace pre-tokenizer, as the ``tokenizers`` package writes it:
+    ``<pad>`` 0, ``</s>`` 1, ``<unk>`` 2, ten common words of prompts from 3,
+    an added special ``<image>`` at ``image_token_id`` when the vocabulary
+    has one (Llava's ``image_token_index``), ``tok<i>`` elsewhere."""
     words = {"<pad>": 0, "</s>": 1, "<unk>": 2}
     common = ["a", "red", "double", "decker", "bus", "driving", "down", "street", "the", "panda"]
     for i in range(3, vocab_size):
         j = i - 3
-        words["<image>" if i == 60 else common[j] if j < len(common) else f"tok{i}"] = i
-    added = [{"id": 60, "content": "<image>", "single_word": False, "lstrip": False, "rstrip": False,
-              "normalized": False, "special": True}] if vocab_size > 60 else []
+        words["<image>" if i == image_token_id else common[j] if j < len(common) else f"tok{i}"] = i
+    added = [{"id": image_token_id, "content": "<image>", "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True}] if vocab_size > image_token_id else []
     data = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added, "normalizer": None,
             "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None, "decoder": None,
             "model": {"type": "WordLevel", "vocab": words, "unk_token": "<unk>"}}
-    tok_dir = os.path.join(root, "tokenizer")
+    tok_dir = os.path.join(root, sub)
     os.makedirs(tok_dir, exist_ok=True)
     with open(os.path.join(tok_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
         json.dump(data, f, ensure_ascii=False)
@@ -490,4 +699,29 @@ def write_wan(root: str, config: dict = None, seed: int = 0, device="cpu",
                                      clip_vision_spec(cfg["image_encoder"]), gen, device, dtype),
     }
     write_tokenizer(root, cfg["text_encoder"]["vocab_size"])
+    return out
+
+
+def write_hunyuan(root: str, config: dict = None, seed: int = 0, device="cpu",
+                  dtype=torch.bfloat16) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A HunyuanVideo-I2V checkpoint at ``config``'s widths and depths
+    (:data:`TINY_HUNYUAN` when None) under ``root``: the subdirectories
+    :func:`alg_tpu_torch.io.model_zoo.load_hunyuan_pipeline` reads, with the
+    Llava tokenizer's ``<image>`` at the config's ``image_token_index`` and a
+    CLIP tokenizer in ``tokenizer_2``; returns the tensors drawn."""
+    cfg = copy.deepcopy(config or TINY_HUNYUAN)
+    gen = torch.Generator(device).manual_seed(seed)
+    out = {
+        "transformer": write_shard(root, "transformer", "diffusion_pytorch_model.safetensors", cfg["transformer"],
+                                   hunyuan_transformer_spec(cfg["transformer"]), gen, device, dtype),
+        "vae": write_shard(root, "vae", "diffusion_pytorch_model.safetensors", cfg["vae"],
+                           hunyuan_vae_spec(cfg["vae"]), gen, device, dtype),
+        "text_encoder": write_shard(root, "text_encoder", "model.safetensors", cfg["text_encoder"],
+                                    llava_spec(cfg["text_encoder"]), gen, device, dtype),
+        "text_encoder_2": write_shard(root, "text_encoder_2", "model.safetensors", cfg["text_encoder_2"],
+                                      clip_text_spec(cfg["text_encoder_2"]), gen, device, dtype),
+    }
+    image_token, clip_len = cfg["text_encoder"]["image_token_index"], cfg["text_encoder_2"]["max_position_embeddings"]
+    write_tokenizer(root, cfg["text_encoder"]["text_config"]["vocab_size"], clip_len, image_token)
+    write_tokenizer(root, cfg["text_encoder_2"]["vocab_size"], clip_len, image_token, sub="tokenizer_2")
     return out

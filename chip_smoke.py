@@ -210,6 +210,30 @@ Phases, each of which must pass:
       latent frames), then 2 LoRA steps of ``train_cli.run`` over the
       directory at S = 45,106 (the LSE, dq and dkv at [1, 48, 45106, 64]),
       with exact launches.
+  S.  serving (``serving.serve_batch`` under ``serve_cli.run``, the
+      HTTP daemon's ``BatchingWorker``): S1, phase F's CogVideoX-5b-I2V
+      checkpoint through ``serve_cli.run`` with two requests (seeds 42 and
+      7, two prompts, seeded uint8 images) in one batch at phase C's cut:
+      parameters bit for bit, exact launches (the CFG batch of both requests
+      rides in each forward: one request's counts), two written videos that
+      differ; the seed-42 request alone (B = 1) against it in the batch (PSNR
+      and max|diff|, printed); the time a request takes at B = 1 and at B = 2
+      and the batch's peak memory. S2, the same for phase G2's Wan2.1-I2V-14B
+      checkpoint at 9 frames, 480x832 (CLIP ViT-H once a request). S3,
+      ``hf_checkpoint.HUNYUAN_VIDEO_I2V`` cut to 2 double, 2 single and 2
+      refiner blocks and Llava to 2 + 2 layers (CLIP text and VAE whole),
+      written on the card: ``cli.run`` with the shipped config at phase C3's
+      cut on a 352x608 image (360p buckets it to itself), then
+      ``serve_cli.run`` with two requests bucketed from the first; the
+      loaded pipeline's image processor is phase C3's seeded stand-in (Llava's
+      CLIP preprocessing of an image that is not 336 x 336 needs PIL). S4,
+      a ``BatchingWorker`` with ``max_batch=2`` on S1's pipeline: three
+      requests from threads run as micro-batches of 2 and 1, each bit for bit
+      a ``serve_batch`` of the same micro-batch. S5, small CogVideoX, Wan and
+      HunyuanVideo checkpoints (head dims the kernels take) through
+      ``serve_batch`` with two requests on the card and on the CPU, fp32 with
+      TF32 off: final latents within 2e-3, frames above 40 dB, and each
+      request's card output within the same bounds of it served alone.
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only rope
 at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
@@ -229,8 +253,9 @@ two trees on one card, the parent's too: it does not require the
 tensor-core kernels; it prints no result line). ``python3 chip_smoke.py
 --cli`` builds the kernels and runs phases F and F2 alone, ``python3
 chip_smoke.py --finetune`` phase G alone, ``python3 chip_smoke.py
---cogvideox15`` phase B's CogVideoX-1.5 shapes, C5, F3, G4 and D4 alone (none
-of them prints a result line).
+--cogvideox15`` phase B's CogVideoX-1.5 shapes, C5, F3, G4 and D4 alone,
+``python3 chip_smoke.py --serve`` phases S1-S5 alone (none of them prints a
+result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
@@ -1433,9 +1458,10 @@ class _StageTimer:
     combine, the DDIM update and the next step's input preparation (ALG
     filter, concatenation)."""
 
-    def __init__(self):
+    def __init__(self, batch: int = 1):
         self.rows = []  # (stage, ms, DiT ms or None)
         self._step = None  # [label, start, DiT ms]
+        self.batch = batch  # requests a call serves: a k-pass step's DiT forward holds k times as many rows
 
     def close_step(self, now):
         if self._step is not None:
@@ -1467,7 +1493,8 @@ class _StageTimer:
             torch.cuda.synchronize()
             now = time.perf_counter()
             self.close_step(now)
-            self._step = [f"denoise step ({args[0].shape[0]}-pass, S={seq_len(module, args)})", now, None]
+            self._step = [f"denoise step ({args[0].shape[0] // self.batch}-pass, S={seq_len(module, args)})", now,
+                          None]
 
         def post(module, args, out):
             torch.cuda.synchronize()
@@ -2487,13 +2514,21 @@ CLI_CONFIG = {
 CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH = 9, 480, 720
 
 
-class _CliProbe:
-    """Hooks for one ``cli.run``: the pipeline it loads (with the loader's
-    read / convert / copy times), its stage timer, the latents its decode is
-    given and the frames and path of its ``write_video``."""
+# the CogVideoX pipeline's encode stages, timed by _CliProbe
+COG_STAGES = {"encode_prompt": "T5 encode", "vae_encode_sample": "VAE encode + posterior draw"}
 
-    def __init__(self, timer=None):
-        self.timer, self.timings, self.final, self.written = timer, {}, [], {}
+
+class _CliProbe:
+    """Hooks for one ``cli.run`` (or ``serve_cli.run``): the pipeline it
+    loads (with the loader's read / convert / copy times), its stage timer
+    (the pipeline methods ``stages`` names, the DiT's forwards at
+    ``seq_len``), the latents its decode is given and the frames and path of
+    its ``write_video`` calls (``written`` the last, ``writes`` all).
+    ``on_load(pipe)`` runs on the loaded pipeline."""
+
+    def __init__(self, timer=None, stages=COG_STAGES, seq_len=_cog_seq_len, on_load=None):
+        self.timer, self.timings, self.final, self.written, self.writes = timer, {}, [], {}, []
+        self.stages, self.seq_len, self.on_load = stages, seq_len, on_load
         self.pipe = self.load_s = None
 
     def __enter__(self):
@@ -2511,10 +2546,12 @@ class _CliProbe:
             pipe = self._load(*args, timings=self.timings, **kwargs)
             torch.cuda.synchronize()
             self.load_s = time.perf_counter() - t0
+            if self.on_load is not None:
+                self.on_load(pipe)
             if self.timer is not None:
-                pipe.encode_prompt = self.timer.wrap("T5 encode", pipe.encode_prompt)
-                pipe.vae_encode_sample = self.timer.wrap("VAE encode + posterior draw", pipe.vae_encode_sample)
-                self._hooks = self.timer.hook_dit(pipe.transformer, _cog_seq_len)
+                for attr, label in self.stages.items():
+                    setattr(pipe, attr, self.timer.wrap(label, getattr(pipe, attr)))
+                self._hooks = self.timer.hook_dit(pipe.transformer, self.seq_len)
             decode = pipe.decode_latents
             if self.timer is not None:
                 decode = self.timer.wrap("VAE tiled decode", decode)
@@ -2530,7 +2567,8 @@ class _CliProbe:
         def write(path, frames, fps):
             t0 = time.perf_counter()
             out = self._write(path, frames, fps)
-            self.written.update(frames=np.asarray(frames), path=out, seconds=time.perf_counter() - t0)
+            self.written = dict(frames=np.asarray(frames), path=out, seconds=time.perf_counter() - t0)
+            self.writes.append(self.written)
             return out
 
         cli.load_pipeline, video.write_video = load, write
@@ -2595,6 +2633,77 @@ def phase_cli() -> dict:
         _free_device_memory()
 
 
+# the subdirectories the loaders build in fp32 (VAEs, CLIP towers); the rest in the config's bf16
+FP32_SUBS = ("vae", "image_encoder", "text_encoder_2")
+
+
+def _loaded_parts(pipe):
+    """(checkpoint subdirectory, module, name map) of each model a loaded pipeline holds."""
+    from alg_tpu_torch.io import weights as W
+
+    family = type(pipe).__name__
+    if family == "CogVideoXPipeline":
+        return (("transformer", pipe.transformer, W.convert_cogvideox_transformer),
+                ("vae", pipe.vae, W.convert_cogvideox_vae), ("text_encoder", pipe.t5, W.convert_t5_encoder))
+    if family == "WanPipeline":
+        return (("transformer", pipe.transformer, W.convert_wan_transformer), ("vae", pipe.vae, W.convert_wan_vae),
+                ("text_encoder", pipe.t5, W.convert_t5_encoder),
+                ("image_encoder", pipe.clip, W.convert_clip_vision))
+    return (("transformer", pipe.transformer, W.convert_hunyuan_transformer),
+            ("vae", pipe.vae, W.convert_hunyuan_vae), ("text_encoder", pipe.llava, W.convert_llava),
+            ("text_encoder_2", pipe.clip, W.convert_clip_text))
+
+
+def _check_loaded(tag, pipe, drawn) -> None:
+    """Every parameter of the loaded ``pipe`` is the tensor the writer drew:
+    bf16 bit for bit, the fp32 modules (``FP32_SUBS``) the bf16 values."""
+    import torch
+
+    from alg_tpu_torch.io import weights as W
+
+    compared = {}
+    for sub, module, convert in _loaded_parts(pipe):
+        want = dict(W.flatten_tree(convert(drawn[sub], module.cfg)))
+        got = module.state_dict()
+        if set(want) != set(got):
+            raise AssertionError(f"[{tag}] {sub}: loaded names differ from the drawn ones")
+        dtype = torch.float32 if sub in FP32_SUBS else torch.bfloat16
+        for pname, t in got.items():
+            w = want[pname]
+            same = (torch.equal(t.view(torch.int16), w.view(torch.int16)) if t.dtype == torch.bfloat16
+                    else torch.equal(t, w.to(t.dtype)))
+            if not same or t.dtype != dtype:
+                raise AssertionError(f"[{tag}] {sub}.{pname} ({t.dtype}) is not the drawn tensor")
+        compared[f"{sub} ({str(dtype).replace('torch.', '')})"] = sum(t.numel() for t in got.values())
+    print(f"[{tag}] loaded parameters equal the drawn tensors bit for bit (fp32 modules the bf16 values): "
+          f"{compared} values: PASS", flush=True)
+
+
+def _print_load(tag, probe) -> None:
+    for sub, t in probe.timings.items():
+        moved = t["read_s"] + t["convert_s"] + t["copy_s"]
+        print(f"[{tag}] load {sub:<14} {t['bytes']:>11} bytes: read {t['read_s']:.3f} s, convert {t['convert_s']:.3f} "
+              f"s, copy to the card {t['copy_s']:.3f} s ({t['bytes'] / moved / 1e9:.2f} GB/s over the three)", flush=True)
+    print(f"[{tag}] load_pipeline {probe.load_s:.2f} s", flush=True)
+
+
+def _write_checkpoint(tag, name, write, ck, root):
+    """``write(root, ck)`` from seed 0, drawn on the card; prints its bytes and time; returns the tensors drawn."""
+    import os
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drawn = write(root, ck, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    print(f"[{tag}] wrote a {name} checkpoint on {_card_line()}: {nbytes} bytes in {write_s:.2f} s "
+          f"({nbytes / write_s / 1e9:.2f} GB/s, drawing on the card included)", flush=True)
+    return drawn
+
+
 def _cli_over_checkpoint(tag, name, ck, config, size, tmp):
     """Write the checkpoint ``ck`` (random bf16 tensors from seed 0, drawn on
     the card) under ``tmp`` at ``config``'s model path, and run ``cli.run``
@@ -2612,21 +2721,13 @@ def _cli_over_checkpoint(tag, name, ck, config, size, tmp):
 
     from alg_tpu_torch.cli import run
     from alg_tpu_torch.io import hf_checkpoint as H
-    from alg_tpu_torch.io import weights as W
 
     _set_tf32(False, True)
     card = _card_line()
     frames_n, height, width = size
     root = os.path.join(tmp, config["model"]["path"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    drawn = H.write_cogvideox(root, ck, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    write_s = time.perf_counter() - t0
-    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
-    print(f"[{tag}] wrote a {name} checkpoint at the published widths (DiT {ck['transformer']['num_layers']} and T5 "
-          f"{ck['text_encoder']['num_layers']} layers) on {card}: {nbytes} bytes in {write_s:.2f} s "
-          f"({nbytes / write_s / 1e9:.2f} GB/s, drawing on the card included)", flush=True)
+    drawn = _write_checkpoint(tag, f"{name} (the published widths, DiT {ck['transformer']['num_layers']} and T5 "
+                                   f"{ck['text_encoder']['num_layers']} layers)", H.write_cogvideox, ck, root)
 
     timer = _StageTimer()
     image = np.random.RandomState(0).randint(0, 256, (height, width, 3)).astype(np.uint8)
@@ -2635,35 +2736,14 @@ def _cli_over_checkpoint(tag, name, ck, config, size, tmp):
         _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = run(_cli_args(tmp, "cuda", os.path.join(tmp, "out.mp4")), config=config, image=image)
+        run(_cli_args(tmp, "cuda", os.path.join(tmp, "out.mp4")), config=config, image=image)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         counts = _read_counts()
     pipe = probe.pipe
-    for sub, t in probe.timings.items():
-        moved = t["read_s"] + t["convert_s"] + t["copy_s"]
-        print(f"[{tag}] load {sub:<13} {t['bytes']:>11} bytes: read {t['read_s']:.3f} s, convert {t['convert_s']:.3f} "
-              f"s, copy to the card {t['copy_s']:.3f} s ({t['bytes'] / moved / 1e9:.2f} GB/s over the three)", flush=True)
-    print(f"[{tag}] load_pipeline {probe.load_s:.2f} s", flush=True)
+    _print_load(tag, probe)
 
-    # every parameter is the tensor the writer drew: bf16 bit for bit, the fp32 VAE the bf16 value
-    compared = 0
-    for sub, module, convert in (("transformer", pipe.transformer, W.convert_cogvideox_transformer),
-                                 ("vae", pipe.vae, W.convert_cogvideox_vae),
-                                 ("text_encoder", pipe.t5, W.convert_t5_encoder)):
-        want = dict(W.flatten_tree(convert(drawn[sub], module.cfg)))
-        got = module.state_dict()
-        if set(want) != set(got):
-            raise AssertionError(f"[{tag}] {sub}: loaded names differ from the drawn ones")
-        for pname, t in got.items():
-            w = want[pname]
-            same = (torch.equal(t.view(torch.int16), w.view(torch.int16)) if t.dtype == torch.bfloat16
-                    else torch.equal(t, w.to(t.dtype)))
-            if not same or t.dtype != (torch.float32 if sub == "vae" else torch.bfloat16):
-                raise AssertionError(f"[{tag}] {sub}.{pname} ({t.dtype}) is not the drawn tensor")
-            compared += t.numel()
-    print(f"[{tag}] loaded parameters equal the drawn tensors bit for bit: {compared} values (DiT and T5 bf16, "
-          f"VAE the bf16 values in fp32): PASS", flush=True)
+    _check_loaded(tag, pipe, drawn)
     del drawn
 
     for stage, ms, dit_ms in timer.rows:
@@ -2682,13 +2762,24 @@ def _cli_over_checkpoint(tag, name, ck, config, size, tmp):
         raise AssertionError(f"[{tag}] stage counts ({dit_fwd}, {t5_enc}, {three}, {two}) or launches {counts} "
                              f"!= (4, 2, 2, 2), {want}")
 
-    frames = probe.written["frames"]
+    _check_video(tag, probe.written, probe.final[0], size)
+    return counts, root
+
+
+def _check_video(tag, written, final, size):
+    """One ``write_video`` call's record (``_CliProbe.writes``): ``size`` =
+    (frames, height, width) finite, non-constant frames, in whatever form
+    ``write_video`` chose, and finite final latents. Returns the uint8 frames."""
+    import numpy as np
+
     from alg_tpu_torch.io.video import _frames_to_uint8
 
+    frames_n, height, width = size
+    frames, out = written["frames"], written["path"]
     u8 = _frames_to_uint8(frames)
     form, back = _written_frames(out)
     ok = (frames.shape == (frames_n, height, width, 3) and bool(np.isfinite(frames).all()) and u8.dtype == np.uint8
-          and float(u8.std()) > 0 and bool(np.isfinite(probe.final[0]).all()))
+          and float(u8.std()) > 0 and bool(np.isfinite(final).all()))
     if form == "npy frames":
         ok = ok and back.shape == u8.shape and back.dtype == np.uint8 and np.array_equal(back, u8)
     elif form == "MJPEG-AVI":
@@ -2696,12 +2787,12 @@ def _cli_over_checkpoint(tag, name, ck, config, size, tmp):
     else:
         ok = ok and back > 0
     print(f"[{tag}] wrote {out} as {form} ({back.shape if form == 'npy frames' else back}); frames {u8.shape} "
-          f"{u8.dtype}, mean {u8.mean():.2f} std {u8.std():.2f}, final latents {probe.final[0].shape} finite: "
+          f"{u8.dtype}, mean {u8.mean():.2f} std {u8.std():.2f}, final latents {final.shape} finite: "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"[{tag}] the written video is not {frames_n} finite, non-constant {height}x{width}x3 "
                              "uint8 frames")
-    return counts, root
+    return u8
 
 
 # small checkpoints whose head dims the kernels take (64 and 128; CLIP 80): phase D's and D2's widths
@@ -3337,6 +3428,13 @@ def phase_finetune_agreement() -> None:
 INT8_LATENT_MAX, INT8_LATENT_MEAN = 1e-1, 1e-2
 
 
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+
+
 def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None) -> dict:
     """``results[dev] = (latents, frames in [0, 1], launch counts)``: the card
     against the CPU, and the launch counts of both. ``mean_atol`` also
@@ -3347,8 +3445,7 @@ def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None
 
     (lat_c, fr_c, n_c), (lat_g, fr_g, n_g) = results["cpu"], results["cuda"]
     err, mean_err = float(np.abs(lat_g - lat_c).max()), float(np.abs(lat_g - lat_c).mean())
-    mse = float(np.mean((fr_g.astype(np.float64) - fr_c) ** 2))
-    psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    psnr = _psnr(fr_g, fr_c)
     # an fp32 run: every flash launch is one of the CUDA-core kernel
     want_card = {**_NO_TRAINING, **_NO_TENSOR_CORES, **want_card,
                  "flash_attention_cuda_core": want_card["flash_attention"],
@@ -3937,6 +4034,446 @@ def phase_train_agreement() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# S. serving: serve_cli.run over checkpoint directories of the three families, the HTTP daemon's batching
+# worker, and serve_batch card against CPU
+# ---------------------------------------------------------------------------
+
+SERVE_PROMPTS = (PROMPT, "a panda eats bamboo in the rain")
+SERVE_SEEDS = (42, 7)
+
+# configs/wan_alg.yaml and configs/hunyuan_video_alg.yaml as parsed mappings, cut as phases C2 and C3 cut them:
+# 9 frames, 4 steps, the ALG interval's end raised to 0.4 (Wan: two 3-pass and two 2-pass steps; HunyuanVideo:
+# 2 of its 4 single-pass steps on the filtered first frame)
+SERVE_WAN_CONFIG = {
+    "model": {"path": "Wan-AI/Wan2.1-I2V-14B-480P-Diffusers", "dtype": "bfloat16"},
+    "generation": {"num_frames": 9, "num_inference_steps": 4, "guidance_scale": 5.0, "height": 480, "width": 832},
+    "alg": {**CLI_CONFIG["alg"], "lp_resize_factor": 0.4},
+    "video": {"fps": 16},
+}
+SERVE_HY_CONFIG = {
+    "model": {"path": "hunyuanvideo-community/HunyuanVideo-I2V", "dtype": "bfloat16", "flow_shift": 7.0,
+              "flow_reverse": False},
+    "generation": {"num_frames": 9, "num_inference_steps": 4, "guidance_scale": 6.0, "i2v_stable": True,
+                   "true_cfg_scale": 1.0},
+    "alg": {**CLI_CONFIG["alg"], "lp_resize_factor": 0.625},
+    "video": {"resolution": "360p", "fps": 30},
+}
+SERVE_HY_SIZE = (352, 608)  # an image of this aspect buckets to itself at 360p, phase C3's size
+
+WAN_STAGES = {"encode_prompt": "UMT5 encode", "encode_image": "CLIP ViT-H encode",
+              "_encode_video_condition": "VAE encode of the condition video"}
+HY_STAGES = {"encode_prompt": "Llava + CLIP text encode", "_encode_mode": "VAE encode (mode)"}
+
+
+def _wan_seq_len(m, a) -> int:
+    return a[0].shape[2] * a[0].shape[3] * a[0].shape[4] // (m.cfg.patch_size[0] * m.cfg.patch_size[1]
+                                                             * m.cfg.patch_size[2])
+
+
+class _HunyuanLengths:
+    """The DiT's joint length for a forward's args (x [B, C, F, h, w], timestep, text [B, S_text, D], text mask),
+    recording each forward's text length and valid text positions, and each Llava run's input length."""
+
+    def __init__(self):
+        self.text, self.llava = [], []
+
+    def __call__(self, m, a) -> int:
+        self.text.append((a[2].shape[1], int(a[3][0].sum())))
+        return a[2].shape[1] + a[0].shape[2] * a[0].shape[3] * a[0].shape[4] // m.cfg.patch_size ** 2
+
+    def hook_llava(self, llava):
+        return llava.register_forward_pre_hook(lambda _m, args: self.llava.append(args[0].shape[1]))
+
+
+def _hunyuan_image_processor(pipe) -> None:
+    """Llava's CLIP preprocessing of an image that is not 336 x 336 needs PIL, which the card's machine may lack:
+    phase C3's seeded processor stands in for it; the tokenizers and every model still come from the directory."""
+    from alg_tpu_torch.pipelines.hunyuan import DEFAULT_PROMPT_TEMPLATE
+
+    cfg = pipe.llava.cfg
+    pipe.image_processor = _hunyuan_hooks(DEFAULT_PROMPT_TEMPLATE, cfg.image_token_index, cfg.pad_token_id, 0, 1,
+                                          pipe.clip.cfg.eos_token_id)[2]
+    print("  the loaded pipeline's image_processor is phase C3's seeded stand-in (no PIL needed)", flush=True)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _serve_over_checkpoint(tag, config, images, tmp, drawn, probe_kw, want, size):
+    """``serve_cli.run`` over the checkpoint under ``tmp`` with ``config`` as
+    a parsed mapping and two requests (``SERVE_PROMPTS`` at ``SERVE_SEEDS`` on
+    the uint8 ``images``) in one batch. Checks the loaded parameters against
+    ``drawn``, 4 DiT forwards and the exact launches ``want``, and the two
+    written videos of ``size`` = (frames, height, width): finite, not
+    constant, different from each other. Then, on the loaded pipeline, the
+    seed-42 request alone (``serve_batch`` at B = 1: the PSNR of its frames
+    and the max|diff| of its final latents against the batch's, printed), and
+    the time a request takes at B = 1 and at B = 2 (each call's second run,
+    host clock between synchronises) with the peak memory of the batch of
+    two. Returns (the run's launch counts, the pipeline, its keywords, the
+    requests)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch import serve_cli, serving
+    from alg_tpu_torch.core.config import run_config_from_dict
+
+    reqs = [serving.BatchRequest(p, img, negative_prompt="", seed=seed)
+            for p, img, seed in zip(SERVE_PROMPTS, images, SERVE_SEEDS)]
+    timer = _StageTimer(batch=len(reqs))
+    args = serve_cli.build_parser().parse_args(["--config", "-", "--model_cache_dir", tmp, "--output_dir",
+                                                os.path.join(tmp, "served"), "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    with _CliProbe(timer, **probe_kw) as probe:
+        _reset_counts()
+        written, total_s = _timed(lambda: serve_cli.run(args, config=config, requests=reqs))
+        counts = _read_counts()
+    pipe = probe.pipe
+    _print_load(tag, probe)
+    if drawn is not None:
+        _check_loaded(tag, pipe, drawn)
+    for stage, ms, dit_ms in timer.rows:
+        print(f"[{tag}] {stage:<40} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
+    print(f"[{tag}] serve_cli.run (B = 2, the load included) {total_s:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    fwd = timer.count("denoise step")
+    if fwd != 4:
+        raise AssertionError(f"[{tag}] {fwd} DiT forwards, want 4")
+    _check_counts(f"{tag} serve_cli.run, B = 2", counts, want)
+    names = [os.path.basename(os.path.splitext(w)[0]) for w in written]
+    if len(probe.writes) != 2 or names != ["000", "001"]:
+        raise AssertionError(f"[{tag}] wrote {written}, want 000 and 001")
+    u8 = [_check_video(f"{tag} request {i}", w, probe.final[0][i], size) for i, w in enumerate(probe.writes)]
+    if np.array_equal(u8[0], u8[1]):
+        raise AssertionError(f"[{tag}] the two requests' videos are the same")
+
+    for attr in probe_kw.get("stages", COG_STAGES):  # the timed wrappers off: the calls below run bare
+        delattr(pipe, attr)
+    cfg = run_config_from_dict(config)
+    kw = dict(cfg.pipeline_kwargs)
+    if cfg.family == "hunyuan" and "resolution" in cfg.video:
+        kw["height"], kw["width"] = serving.hunyuan_size(cfg.video["resolution"], images[0])
+    alone, _ = _timed(lambda: serving.serve_batch(pipe, reqs[:1], **kw))
+    err = float(np.abs(probe.final[-1][0] - probe.final[0][0]).max())
+    print(f"[{tag}] the seed-42 request alone (B = 1) against it in the batch of two: frames PSNR "
+          f"{_psnr(alone[0], probe.writes[0]['frames']):.1f} dB, final latents max|diff| {err:.3e} (bf16 at two batch "
+          "sizes: a record; phase S5 holds the fp32 bound)", flush=True)
+    _, b1_s = _timed(lambda: serving.serve_batch(pipe, reqs[:1], **kw))
+    torch.cuda.reset_peak_memory_stats()
+    _, b2_s = _timed(lambda: serving.serve_batch(pipe, reqs, **kw))
+    print(f"[{tag}] seconds per request ({_card_line()}): B = 1 {b1_s:.3f} s; B = 2 {b2_s / 2:.3f} s "
+          f"({b2_s:.3f} s a batch); peak device memory of the batch of two "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del probe
+    return counts, pipe, kw, reqs
+
+
+def _serve_cogvideox(tmp) -> dict:
+    """S1: phase F's CogVideoX-5b-I2V checkpoint (DiT 2 of 42 layers, T5-XXL 2 of 24) served at phase C's cut,
+    then S4 on its pipeline."""
+    import numpy as np
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    ck = copy.deepcopy(H.COGVIDEOX_5B_I2V)
+    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2
+    root = f"{tmp}/{CLI_CONFIG['model']['path']}"
+    drawn = _write_checkpoint("S1", "CogVideoX-5b-I2V (DiT and T5 2 layers)", H.write_cogvideox, ck, root)
+    images = [np.random.RandomState(30 + i).randint(0, 256, (CLI_HEIGHT, CLI_WIDTH, 3)).astype(np.uint8)
+              for i in range(2)]
+    # 4 DiT forwards x 2 layers (2 qk_prep, 1 flash each) + 2 T5 encodes (prompts, negatives) x 2 layers: the CFG
+    # batch of the two requests rides in each forward, so the counts are those of one request (phase F)
+    flash = 2 * 4 + 2 * 2
+    counts, pipe, kw, reqs = _serve_over_checkpoint(
+        "S1", CLI_CONFIG, images, tmp, drawn, {}, {"qk_prep": 16, "flash_attention": flash, "flash_attention_tc": flash},
+        (CLI_FRAMES, CLI_HEIGHT, CLI_WIDTH))
+    del drawn
+    out = {"serve_cogvideox": counts, "serve_worker_cogvideox": _serve_worker("S4", pipe, kw, images, counts)}
+    del pipe
+    _free_device_memory()
+    return out
+
+
+def _serve_worker(tag, pipe, kw, images, batch_counts) -> dict:
+    """S4: a ``BatchingWorker`` with ``max_batch=2`` on the pipeline; three requests submitted from threads within
+    one window run as two micro-batches (2 + 1), each at its real size, and each result is bit for bit a
+    ``serve_batch`` of the same micro-batch. Returns the worker's launch counts (twice ``batch_counts``: the CFG
+    batch rides in each forward whatever the micro-batch's size)."""
+    import threading
+
+    import numpy as np
+
+    from alg_tpu_torch import serving
+    from alg_tpu_torch.http_serving import BatchingWorker
+
+    reqs = [serving.BatchRequest(f"{PROMPT}, take {i}", images[i % 2], negative_prompt="", seed=11 + i)
+            for i in range(3)]
+    ran, serve = [], serving.serve_batch
+
+    def recorded(pipeline, requests, **gen_kwargs):
+        out = serve(pipeline, requests, **gen_kwargs)
+        ran.append((list(requests), np.array(out)))
+        return out
+
+    serving.serve_batch = recorded  # the worker reads it when it starts
+    try:
+        worker = BatchingWorker(pipe, kw, max_batch=2, batch_window=1.0)
+        worker.start()
+        pending = [None] * 3
+
+        def submit(i):
+            pending[i] = worker.submit(reqs[i])
+            pending[i].done.wait()
+
+        _reset_counts()
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(3)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        total_s = time.perf_counter() - t0
+        counts = _read_counts()
+        worker.shutdown()
+        worker.join(timeout=60)
+    finally:
+        serving.serve_batch = serve
+    errors = [p.error for p in pending if p.error is not None]
+    if errors or worker.batches != [2, 1] or len(ran) != 2:
+        raise AssertionError(f"[{tag}] micro-batches {worker.batches}, errors {errors}; want [2, 1] and none")
+    same = []
+    for requests, out in ran:
+        again = np.asarray(serve(pipe, requests, **kw))
+        mine = [next(p for p, q in zip(pending, reqs) if q is r) for r in requests]
+        same.append(np.array_equal(again, out) and all(np.array_equal(p.result, out[j]) for j, p in enumerate(mine)))
+    print(f"[{tag}] BatchingWorker(max_batch=2): 3 requests from threads in {total_s:.2f} s as micro-batches "
+          f"{worker.batches}; each result bit-equal to serve_batch of its micro-batch: {same}", flush=True)
+    if not all(same):
+        raise AssertionError(f"[{tag}] a micro-batch's results differ from serve_batch's")
+    _check_counts(tag, counts, {k: 2 * n for k, n in batch_counts.items()})
+    return counts
+
+
+def _serve_wan(tmp) -> dict:
+    """S2: phase G2's Wan2.1-I2V-14B checkpoint (DiT 2 of 40 layers, UMT5-XXL 2 of 24, CLIP ViT-H and the VAE
+    whole) served at 9 frames, 480x832, 4 steps."""
+    import numpy as np
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    ck = copy.deepcopy(H.WAN21_I2V_14B)
+    ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2
+    root = f"{tmp}/{SERVE_WAN_CONFIG['model']['path']}"
+    drawn = _write_checkpoint("S2", "Wan2.1-I2V-14B (DiT and UMT5 2 layers)", H.write_wan, ck, root)
+    images = [np.random.RandomState(40 + i).randint(0, 256, (480, 832, 3)).astype(np.uint8) for i in range(2)]
+    clip_layers = ck["image_encoder"]["num_hidden_layers"]
+    # 4 DiT forwards x 2 layers (2 rope; self, text and image attention) + 2 UMT5 encodes x 2 layers on the tensor
+    # cores; the fp32 CLIP ViT-H tower once a request on the CUDA cores
+    tc, cc = 3 * 2 * 4 + 2 * 2, clip_layers * 2
+    counts = _serve_over_checkpoint(
+        "S2", SERVE_WAN_CONFIG, images, tmp, drawn, {"stages": WAN_STAGES, "seq_len": _wan_seq_len},
+        {"rope_interleaved": 16, "flash_attention": tc + cc, "flash_attention_tc": tc,
+         "flash_attention_cuda_core": cc}, (9, 480, 832))[0]
+    del drawn
+    _free_device_memory()
+    return {"serve_wan": counts}
+
+
+def _serve_hunyuan(tmp) -> dict:
+    """S3: ``hf_checkpoint.HUNYUAN_VIDEO_I2V`` cut to 2 double, 2 single and 2 refiner blocks, Llava's Llama to 2
+    of 32 layers and its vision tower to 2 of 24 (the CLIP text model and the VAE whole): ``cli.run`` with
+    the shipped config at phase C3's cut on a 352x608 image (bucketed to itself at 360p), then ``serve_cli.run``
+    with two requests bucketed from the first."""
+    import os
+
+    import numpy as np
+
+    from alg_tpu_torch.cli import build_parser, run
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    ck = copy.deepcopy(H.HUNYUAN_VIDEO_I2V)
+    t, lc = ck["transformer"], ck["text_encoder"]
+    t["num_layers"], t["num_single_layers"], t["num_refiner_layers"] = 2, 2, 2
+    lc["text_config"]["num_hidden_layers"], lc["vision_config"]["num_hidden_layers"] = 2, 2
+    root = os.path.join(tmp, SERVE_HY_CONFIG["model"]["path"])
+    drawn = _write_checkpoint("S3", "HunyuanVideo-I2V (2 + 2 + 2 DiT blocks, Llava 2 + 2 layers)", H.write_hunyuan,
+                              ck, root)
+    images = [np.random.RandomState(50 + i).randint(0, 256, (*SERVE_HY_SIZE, 3)).astype(np.uint8) for i in range(2)]
+    blocks, clip_layers = t["num_layers"] + t["num_single_layers"], ck["text_encoder_2"]["num_hidden_layers"]
+    llava_layers = lc["text_config"]["num_hidden_layers"] + lc["vision_config"]["num_hidden_layers"]
+
+    def want(requests):  # 4 single-pass DiT forwards; Llava and the CLIP text model once a request
+        tc, cc = (t["num_refiner_layers"] + blocks) * 4 + llava_layers * requests, clip_layers * requests
+        return {"rope_interleaved": 2 * blocks * 4, "flash_attention": tc + cc, "flash_attention_tc": tc,
+                "flash_attention_cuda_core": cc}
+
+    lengths = _HunyuanLengths()
+    timer = _StageTimer()
+
+    def on_load(pipe):
+        _hunyuan_image_processor(pipe)
+        hooks.append(lengths.hook_llava(pipe.llava))
+
+    hooks = []
+    args = build_parser().parse_args(["--model_cache_dir", tmp, "--output_path", os.path.join(tmp, "cli.mp4"),
+                                      "--device", "cuda"])
+    with _CliProbe(timer, stages=HY_STAGES, seq_len=lengths, on_load=on_load) as probe:
+        _reset_counts()
+        _, total_s = _timed(lambda: run(args, config=SERVE_HY_CONFIG, image=images[0]))
+        cli_counts = _read_counts()
+    _print_load("S3", probe)
+    _check_loaded("S3", probe.pipe, drawn)
+    for stage, ms, dit_ms in timer.rows:
+        print(f"[S3] {stage:<40} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
+    print(f"[S3] cli.run {total_s:.2f} s; Llava sees {lengths.llava} positions; the DiT's text {lengths.text[:1]} "
+          "(length, valid positions) from the written tokenizers", flush=True)
+    if timer.count("denoise step (1-pass") != 4:
+        raise AssertionError(f"[S3] {timer.count('denoise step')} DiT forwards, want 4 single-pass")
+    _check_counts("S3 cli.run", cli_counts, want(1))
+    _check_video("S3 cli.run", probe.written, probe.final[0][0], (9, *SERVE_HY_SIZE))
+    for h in hooks:
+        h.remove()
+    del probe
+    _free_device_memory()
+
+    serve_counts = _serve_over_checkpoint(
+        "S3", SERVE_HY_CONFIG, images, tmp, drawn,
+        {"stages": HY_STAGES, "seq_len": _HunyuanLengths(), "on_load": _hunyuan_image_processor}, want(2),
+        (9, *SERVE_HY_SIZE))[0]
+    del drawn
+    _free_device_memory()
+    return {"cli_hunyuan": cli_counts, "serve_hunyuan": serve_counts}
+
+
+# a small HunyuanVideo checkpoint whose head dims the kernels take (DiT and Llava 128, the vision tower and the CLIP
+# text model 64) at phase D3's widths, its vision tower at 64 x 64 (the requests' size: no resize, no PIL)
+SMALL_HUNYUAN = {
+    "transformer": {"in_channels": 4, "out_channels": 4, "num_attention_heads": 2, "attention_head_dim": 128,
+                    "num_layers": 1, "num_single_layers": 1, "num_refiner_layers": 1, "mlp_ratio": 2.0,
+                    "patch_size": 2, "patch_size_t": 1, "text_embed_dim": 256, "pooled_projection_dim": 128,
+                    "guidance_embeds": True, "rope_theta": 256.0, "rope_axes_dim": [16, 56, 56],
+                    "image_condition_type": "token_replace"},
+    "vae": {"latent_channels": 4, "block_out_channels": [8, 16, 16, 16], "layers_per_block": 1, "norm_num_groups": 4,
+            "scaling_factor": 0.476986, "temporal_compression_ratio": 4},
+    "text_encoder": {"image_token_index": 120, "pad_token_id": 0,
+                     "text_config": {"vocab_size": 128, "hidden_size": 256, "intermediate_size": 128,
+                                     "num_hidden_layers": 3, "num_attention_heads": 2, "num_key_value_heads": 1,
+                                     "rope_theta": 10000.0},
+                     "vision_config": {"hidden_size": 128, "intermediate_size": 64, "num_hidden_layers": 2,
+                                       "num_attention_heads": 2, "image_size": 64, "patch_size": 32,
+                                       "hidden_act": "quick_gelu"}},
+    "text_encoder_2": {"vocab_size": 64, "hidden_size": 128, "intermediate_size": 64, "num_hidden_layers": 2,
+                       "num_attention_heads": 2, "max_position_embeddings": 16, "hidden_act": "quick_gelu",
+                       "eos_token_id": 63},
+}
+# phase D3's chat template cut to the small Llava: an 8-token head, the image block (2 x 2 patches) at [5, 9)
+SMALL_HY_TEMPLATE = {"template": "{}", "crop_start": 8, "image_emb_start": 5, "image_emb_end": 9, "image_emb_len": 4,
+                     "double_return_token_id": 7}
+
+
+def phase_serve_agreement() -> dict:
+    """S5: small CogVideoX, Wan and HunyuanVideo checkpoints from ``hf_checkpoint`` (head dims the kernels take),
+    each loaded on the card and on the CPU; ``serve_batch`` with two requests on each, fp32 with TF32 off: final
+    latents (``output_type="latent"``) within 2e-3 and frames (a second call) above 40 dB, exact launches on the
+    card and none on the CPU; and each request's card output within the same bounds of a B = 1 serve of it on the
+    card. Returns the card's counts by path."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from alg_tpu_torch import serving
+    from alg_tpu_torch.cli import load_pipeline
+    from alg_tpu_torch.core.config import run_config_from_dict
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    _set_tf32(False, False)
+    images = [np.random.RandomState(60 + i).randint(0, 256, (64, 64, 3)).astype(np.uint8) for i in range(2)]
+    reqs = [serving.BatchRequest(p, img, negative_prompt="", seed=seed)
+            for p, img, seed in zip(SERVE_PROMPTS, images, SERVE_SEEDS)]
+    hy_config = _small_cli_config("SmallHunyuanVideo", num_frames=9, guidance_scale=1.0, true_cfg_scale=2.0,
+                                  i2v_stable=True, max_sequence_length=20, prompt_template=SMALL_HY_TEMPLATE)
+    hy_config["model"].update(flow_shift=7.0, flow_reverse=False)
+    hy_config["alg"]["lp_resize_factor"] = 0.625
+    wan_config = _small_cli_config("SmallWan", num_frames=9, guidance_scale=5.0)
+    wan_config["alg"]["lp_resize_factor"] = 0.4
+    cases = (
+        # 4 DiT forwards x 2 layers (2 qk_prep each) + 2 T5 encodes x 2 layers
+        ("S5 CogVideoX", "cogvideox", "SmallCogVideoX", H.write_cogvideox, SMALL_COGVIDEOX,
+         _small_cli_config("SmallCogVideoX", num_frames=5, guidance_scale=6.0),
+         {"qk_prep": 16, "rope_interleaved": 0, "flash_attention": 12}),
+        # 4 DiT forwards x 2 layers x (2 rope, 3 flash) + 2 UMT5 encodes x 2 layers + 2 CLIP layers a request
+        ("S5 Wan", "wan", "SmallWan", H.write_wan, SMALL_WAN, wan_config,
+         {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 24 + 4 + 2 * 2}),
+        # true CFG: 4 DiT forwards x (1 refiner, 1 double, 1 single block; rope on q and k of the last two) + 4
+        # prompt encodes (each request's, and its negative against a black image) x (3 Llama + 2 vision tower + 2
+        # CLIP text layers)
+        ("S5 HunyuanVideo", "hunyuan", "SmallHunyuanVideo", H.write_hunyuan, SMALL_HUNYUAN, hy_config,
+         {"qk_prep": 0, "rope_interleaved": 16, "flash_attention": 4 * 3 + 4 * 7}),
+    )
+    tmp = tempfile.mkdtemp(prefix="alg_serve_small_")
+    counts = {}
+    try:
+        for tag, family, name, write, ck, config, want in cases:
+            write(os.path.join(tmp, name), ck, seed=4)
+            cfg = run_config_from_dict(config)
+            kw = cfg.pipeline_kwargs
+            results, pipes = {}, {}
+            for dev in ("cpu", "cuda"):
+                pipes[dev] = load_pipeline(cfg, tmp, device=dev)
+                _reset_counts()
+                lat = serving.serve_batch(pipes[dev], reqs, **kw, output_type="latent")
+                n = _read_counts()
+                frames = serving.serve_batch(pipes[dev], reqs, **kw, output_type="np")
+                results[dev] = (lat, frames, n)
+            counts[f"agreement_serve_{family}"] = _compare_runs(tag, results, want)
+            lat2, fr2 = results["cuda"][:2]
+            for i, req in enumerate(reqs):
+                lat1 = serving.serve_batch(pipes["cuda"], [req], **kw, output_type="latent")
+                fr1 = serving.serve_batch(pipes["cuda"], [req], **kw, output_type="np")
+                err, psnr = float(np.abs(lat1[0] - lat2[i]).max()), _psnr(fr1[0], fr2[i])
+                ok = err <= 2e-3 and psnr > 40.0
+                print(f"[{tag}] request {i} alone (B = 1) against it in the batch of two, on the card: latents "
+                      f"max|diff| {err:.3e} (atol 2e-3), frames PSNR {psnr:.1f} dB (> 40): {'PASS' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"[{tag}] request {i} served alone differs from it in the batch")
+            del pipes
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+    return counts
+
+
+def phase_serve() -> dict:
+    """S1-S5 (``python3 chip_smoke.py --serve`` runs them alone); returns the launch counts by path."""
+    import shutil
+    import tempfile
+
+    _set_tf32(False, True)
+    counts = {}
+    for serve_family in (_serve_cogvideox, _serve_wan, _serve_hunyuan):
+        tmp = tempfile.mkdtemp(prefix="alg_serve_")
+        try:
+            counts.update(serve_family(tmp))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            _free_device_memory()
+    counts.update(phase_serve_agreement())
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4070,6 +4607,14 @@ def main() -> int:
             traceback.print_exc()
             return 1
         return 0
+    if sys.argv[1:] == ["--serve"]:
+        try:
+            phase_build()
+            phase_serve()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     if sys.argv[1:] == ["--cogvideox15"]:
         try:
             phase_build()
@@ -4108,6 +4653,7 @@ def main() -> int:
         counts.update(phase_finetune_wan())
         phase_finetune_agreement()
         counts.update(phase_cogvideox15_checkpoint())  # F3, G4
+        counts.update(phase_serve())  # S1-S5
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("cli_cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
@@ -4147,7 +4693,14 @@ def main() -> int:
                               ("train_ckpt_cogvideox15", ("qk_prep", "flash_attention_lse",
                                                           "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
                               *((path, ("qk_prep", "flash_attention_cuda_core"))
-                                for path in ("agreement_cogvideox15", "agreement_cogvideox15_pixel"))):
+                                for path in ("agreement_cogvideox15", "agreement_cogvideox15_pixel")),
+                              *((path, ("qk_prep", "flash_attention_tc"))
+                                for path in ("serve_cogvideox", "serve_worker_cogvideox")),
+                              *((path, ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core"))
+                                for path in ("serve_wan", "cli_hunyuan", "serve_hunyuan")),
+                              ("agreement_serve_cogvideox", ("qk_prep", "flash_attention_cuda_core")),
+                              *((f"agreement_serve_{family}", ("rope_interleaved", "flash_attention_cuda_core"))
+                                for family in ("wan", "hunyuan"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

@@ -49,7 +49,8 @@ from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 from alg_tpu_torch.training import lora as TL
 from alg_tpu_torch.training import train as TT
 
-from torch_port_common import build_pair, build_wan_pair, port_cfg, port_module, psnr, random_tree
+from torch_port_common import (build_pair, one_torch_thread, port_cfg, port_module, psnr, random_tree, tiny_configs,
+                               tiny_wan_configs)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import make_tiny_checkpoint  # noqa: E402
@@ -389,17 +390,44 @@ def test_train_cli_over_the_1_5_directory(ckpts, tmp_path):
 # -- decode_latents(vae_tiling=) and the fusion flags -------------------------------------------------
 
 
+def _vae_pair(family):
+    """(JAX pipeline, port pipeline) holding only a VAE: ``decode_latents``
+    needs nothing else. Each is ``build_pair``'s or ``build_wan_pair``'s cut
+    to its first two levels (spatial scale 2), whose reference traces and
+    compiles in half the time at each tile shape."""
+    from alg_tpu.models.cogvideox import init_cogvideox_vae
+    from alg_tpu.models.wan import init_wan_vae
+
+    from alg_tpu_torch.pipelines.wan import WanPipeline
+
+    if family == "cogvideox":
+        tcfg, vcfg, t5cfg = tiny_configs()
+        vcfg = dataclasses.replace(vcfg, block_out_channels=vcfg.block_out_channels[:2], layers_per_block=0)
+        vp = random_tree(lambda k: init_cogvideox_vae(k, vcfg), 2)
+        return (JP.CogVideoXPipeline(transformer_cfg=tcfg, transformer_params=None, vae_cfg=vcfg, vae_params=vp,
+                                     t5_cfg=t5cfg, t5_params=None, tokenize=None),
+                CogVideoXPipeline(transformer=None, vae=port_module("vae", vcfg, vp), device="cpu"))
+    tcfg, vcfg, t5cfg, _ = tiny_wan_configs()
+    vcfg = dataclasses.replace(vcfg, dim_mult=vcfg.dim_mult[:2], temperal_downsample=vcfg.temperal_downsample[:1])
+    vp = random_tree(lambda k: init_wan_vae(k, vcfg), 12)
+    return (JP.WanPipeline(transformer_cfg=tcfg, transformer_params=None, vae_cfg=vcfg, vae_params=vp, t5_cfg=t5cfg,
+                           t5_params=None, tokenize=None),
+            WanPipeline(transformer=None, vae=port_module("wan_vae", vcfg, vp), device="cpu"))
+
+
 @pytest.mark.parametrize("family", ["cogvideox", "wan"])
 def test_decode_latents_vae_tiling_matches_alg_tpu(family):
-    """A 40 x 40 latent (below the 48 x 48 of the automatic rule): forced
-    tiles (32 wide at stride 24) and one whole decode, each against
-    ``alg_tpu``'s with the same flag; the two differ at the seams."""
-    jpipe, tpipe = build_pair() if family == "cogvideox" else build_wan_pair()
-    shape = (1, 1, 4, 40, 40) if family == "cogvideox" else (1, 4, 1, 40, 40)
+    """A 34 x 34 latent (below the 48 x 48 of the automatic rule): forced
+    tiles (32 wide at stride 24, a seam each way) and one whole decode, each
+    against ``alg_tpu``'s with the same flag; the two differ at the seams.
+    The pipelines hold the VAE alone."""
+    jpipe, tpipe = _vae_pair(family)
+    shape = (1, 1, 4, 34, 34) if family == "cogvideox" else (1, 4, 1, 34, 34)
     z = np.random.RandomState(2).randn(*shape).astype(np.float32)
     outs = {}
     for tiling in (True, False, None):
-        got = tpipe.decode_latents(torch.from_numpy(z), vae_tiling=tiling).numpy()
+        with one_torch_thread():
+            got = tpipe.decode_latents(torch.from_numpy(z), vae_tiling=tiling).numpy()
         want = np.asarray(jpipe.decode_latents(jnp.asarray(z), vae_tiling=tiling))
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=0, err_msg=str(tiling))

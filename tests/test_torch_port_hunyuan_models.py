@@ -40,8 +40,8 @@ from alg_tpu_torch.models import vae_tiling as T
 from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformerConfig as TCfg, hunyuan_rope
 from alg_tpu_torch.schedulers import flow_match_euler as F
 
-from torch_port_common import (HY_IMG, HY_PAD, hunyuan_trees, port_module, random_tree, tiny_hunyuan_configs,
-                               tokenize_clip_stub)
+from torch_port_common import (HY_IMG, HY_PAD, hunyuan_trees, one_torch_thread, port_module, random_tree,
+                               tiny_hunyuan_configs, tokenize_clip_stub)
 
 OP_ATOL, FWD_ATOL = 1e-5, 1e-4
 
@@ -378,16 +378,21 @@ def test_hunyuan_vae_decode(tiny, lat_frames):
 
 
 def test_hunyuan_vae_tiled_decode_matches_tiled_decode(tiny):
-    """A 5 x 7 latent in 4-latent tiles at stride 3 (2 x 3 tiles, ragged
-    edges), blended as the JAX package blends them."""
+    """A 5 x 7 latent frame in 4-latent tiles at stride 3 (2 x 3 tiles,
+    ragged edges), blended as the JAX package blends them. The reference
+    decoder is jitted: one compile a tile shape, where op-by-op dispatch
+    compiles each of its ops at each (the temporal decode is
+    ``test_hunyuan_vae_decode``'s)."""
+    import jax
+
     vcfg, vp = tiny[0][1], tiny[1][1]
-    z = _rand(1, 2, 5, 7, vcfg.latent_channels, seed=8)
-    ref = JT.tiled_decode(lambda zt: hunyuan_vae_decode(vp, vcfg, zt), jnp.asarray(z), vcfg.spatial_scale,
+    z = _rand(1, 1, 5, 7, vcfg.latent_channels, seed=8)
+    ref = JT.tiled_decode(jax.jit(lambda zt: hunyuan_vae_decode(vp, vcfg, zt)), jnp.asarray(z), vcfg.spatial_scale,
                           tile_latent=4, stride_latent=3)
     vae = port_module("hunyuan_vae", vcfg, vp)
-    with torch.no_grad():
+    with one_torch_thread(), torch.no_grad():
         out = T.tiled_decode(vae.decode, torch.from_numpy(z), vcfg.spatial_scale, tile_latent=4, stride_latent=3)
-    assert out.shape == (1, 5, 40, 56, 3)
+    assert out.shape == (1, 1, 40, 56, 3)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=FWD_ATOL, rtol=0)
 
 

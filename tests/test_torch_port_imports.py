@@ -34,7 +34,8 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.schedulers.dpm_cogvideox", "alg_tpu_torch.io.runstate",
             "alg_tpu_torch.pipelines.denoise", "alg_tpu_torch.prepare_cli", "alg_tpu_torch.utils.profiling",
             "alg_tpu_torch.train_cli", "alg_tpu_torch.models.cogvideox.transformer",
-            "alg_tpu_torch.models.cogvideox.vae"} <= set(mods)
+            "alg_tpu_torch.models.cogvideox.vae", "alg_tpu_torch.serving", "alg_tpu_torch.serve_cli",
+            "alg_tpu_torch.http_serving"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -230,13 +230,13 @@ def test_resolve_model_dir_finds_local_layouts(tmp_path):
 # -- the checkpoint writer against the tool ----------------------------------------------------
 
 
-@pytest.mark.parametrize("family", ["cogvideox", "cogvideox15", "wan"])
+@pytest.mark.parametrize("family", ["cogvideox", "cogvideox15", "wan", "hunyuan"])
 def test_writer_matches_the_tiny_tool(family, tiny_dirs, tmp_path):
     """``hf_checkpoint`` at the tool's widths writes the same files, tensor
     names and shapes and config.json contents as
-    ``tools/make_tiny_checkpoint.py`` (tensors in bf16), and a tokenizer that
-    encodes as the tool's does, in the port's interpreter and in the
-    ``tokenizers`` package."""
+    ``tools/make_tiny_checkpoint.py`` (tensors in bf16), and tokenizers
+    (HunyuanVideo's two) that encode as the tool's do, in the port's
+    interpreter and in the ``tokenizers`` package."""
     tokenizers = pytest.importorskip("tokenizers")
     from alg_tpu_torch.io.hf_tokenizer import load_tokenizer
 
@@ -248,7 +248,7 @@ def test_writer_matches_the_tiny_tool(family, tiny_dirs, tmp_path):
     else:
         tool = tiny_dirs[family]
         mine = str(tmp_path / os.path.basename(tool))
-        drawn = (H.write_cogvideox if family == "cogvideox" else H.write_wan)(mine)
+        drawn = {"cogvideox": H.write_cogvideox, "wan": H.write_wan, "hunyuan": H.write_hunyuan}[family](mine)
     for sub in sorted(os.listdir(tool)):
         assert sorted(os.listdir(os.path.join(tool, sub))) == sorted(os.listdir(os.path.join(mine, sub))), sub
         cfg_path = os.path.join(tool, sub, "config.json")
@@ -259,34 +259,49 @@ def test_writer_matches_the_tiny_tool(family, tiny_dirs, tmp_path):
             assert all(v.dtype == torch.bfloat16 for v in b.values())
             assert all(_same_bits(drawn[sub][k], v) for k, v in b.items())
     prompts = ["a red double decker bus driving down the street", "the panda <image> x", "zebra"]
-    for a, b in zip(load_tokenizer(os.path.join(tool, "tokenizer"))(prompts, 16),
-                    load_tokenizer(os.path.join(mine, "tokenizer"))(prompts, 16)):
-        assert np.array_equal(a, b)
-    ref = tokenizers.Tokenizer.from_file(os.path.join(mine, "tokenizer", "tokenizer.json"))
-    assert [ref.encode(p).ids for p in prompts] == [
-        tokenizers.Tokenizer.from_file(os.path.join(tool, "tokenizer", "tokenizer.json")).encode(p).ids for p in prompts]
+    for sub in ("tokenizer", "tokenizer_2") if family == "hunyuan" else ("tokenizer",):
+        for a, b in zip(load_tokenizer(os.path.join(tool, sub))(prompts, 16),
+                        load_tokenizer(os.path.join(mine, sub))(prompts, 16)):
+            assert np.array_equal(a, b)
+        ref = tokenizers.Tokenizer.from_file(os.path.join(mine, sub, "tokenizer.json"))
+        assert [ref.encode(p).ids for p in prompts] == [
+            tokenizers.Tokenizer.from_file(os.path.join(tool, sub, "tokenizer.json")).encode(p).ids for p in prompts]
 
 
 def test_writer_draws_load_bit_for_bit(tmp_path):
-    """What ``write_cogvideox`` draws is what the loader puts in the modules:
-    bf16 parameters bit for bit, the fp32 VAE the bf16 values (phase F's
-    check on the card, here at the tiny widths); the draws follow the seed."""
+    """What ``write_cogvideox`` and ``write_hunyuan`` draw is what the
+    loaders put in the modules: bf16 parameters bit for bit, the fp32 VAEs
+    and CLIP text model the bf16 values (phases F's and S3's check on the
+    card, here at the tiny widths); the draws follow the seed; the Llava
+    tokenizer maps ``<image>`` to the config's ``image_token_index``."""
+    from alg_tpu_torch.io.hf_tokenizer import load_tokenizer
+
     root = str(tmp_path / "TinyCogVideoX")
     drawn = H.write_cogvideox(root, seed=5)
     pipe = TZ.load_cogvideox_pipeline(root, dtype=torch.bfloat16, device="cpu")
-    for sub, module, convert in (("transformer", pipe.transformer, W.convert_cogvideox_transformer),
-                                 ("vae", pipe.vae, W.convert_cogvideox_vae),
-                                 ("text_encoder", pipe.t5, W.convert_t5_encoder)):
-        want = dict(W.flatten_tree(convert(drawn[sub], module.cfg)))
+    hy_root = str(tmp_path / "TinyHunyuanVideo")
+    hy_drawn = H.write_hunyuan(hy_root, H.TINY_HUNYUAN, seed=5)
+    hy = TZ.load_hunyuan_pipeline(hy_root, dtype=torch.bfloat16, device="cpu")
+    for drawn_sub, sub, module, convert in (
+            (drawn, "transformer", pipe.transformer, W.convert_cogvideox_transformer),
+            (drawn, "vae", pipe.vae, W.convert_cogvideox_vae),
+            (drawn, "text_encoder", pipe.t5, W.convert_t5_encoder),
+            (hy_drawn, "transformer", hy.transformer, W.convert_hunyuan_transformer),
+            (hy_drawn, "vae", hy.vae, W.convert_hunyuan_vae),
+            (hy_drawn, "text_encoder", hy.llava, W.convert_llava),
+            (hy_drawn, "text_encoder_2", hy.clip, W.convert_clip_text)):
+        want = dict(W.flatten_tree(convert(drawn_sub[sub], module.cfg)))
         got = module.state_dict()
         assert set(want) == set(got)
         for name, t in got.items():
-            if sub == "vae":
+            if sub in ("vae", "text_encoder_2"):
                 assert t.dtype == torch.float32 and torch.equal(t, want[name].float()), name
             else:
                 assert _same_bits(t, want[name]), name
     again = H.write_cogvideox(str(tmp_path / "again"), seed=5)
     assert all(_same_bits(again["vae"][k], v) for k, v in drawn["vae"].items())
+    ids, _ = load_tokenizer(os.path.join(hy_root, "tokenizer"))(["the panda <image> x"], 8)
+    assert ids[0, 2] == hy.llava.cfg.image_token_index == H.TINY_HUNYUAN["text_encoder"]["image_token_index"]
 
 
 # -- video export against alg_tpu's ----------------------------------------------------------

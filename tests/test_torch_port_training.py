@@ -35,7 +35,8 @@ from alg_tpu_torch.training import lora as TL
 from alg_tpu_torch.training import losses as TLoss
 from alg_tpu_torch.training import train as TT
 
-from torch_port_common import (port_module, random_tree, tiny_configs, tiny_hunyuan_configs, tiny_wan_configs)
+from torch_port_common import (one_torch_thread, port_module, random_tree, tiny_configs, tiny_hunyuan_configs,
+                               tiny_wan_configs)
 
 LOSS_RTOL, ATOL = 1e-5, 1e-5
 
@@ -399,6 +400,7 @@ def test_io_lora_merges_the_other_families_like_jax(family):
 
 def _jax_steps(jloss, tc, jloras, batches, keys):
     step, opt = JT.make_train_step(jloss, JT.TrainConfig(**tc))
+    step = jax.jit(step)  # one compile, where op-by-op dispatch compiles every op of the step
     params = jax.tree.map(jnp.asarray, jloras)
     state, out = opt.init(params), []
     for batch, key in zip(batches, keys):
@@ -454,7 +456,8 @@ def test_full_finetune_step_matches_jax_without_clip():
     params = _params(model)
     state = opt.init(params)
     for i, (batch, key) in enumerate(zip(batches, keys)):
-        params, state, m = step(params, state, _tensors(batch), _cog_draws(key, batch["latents"].shape))
+        with one_torch_thread():
+            params, state, m = step(params, state, _tensors(batch), _cog_draws(key, batch["latents"].shape))
         np.testing.assert_allclose(float(m["loss"]), jmetrics[i][0], rtol=LOSS_RTOL)
         np.testing.assert_allclose(float(m["grad_norm"]), jmetrics[i][1], rtol=1e-4)
     ref = dict(flatten_jax_tree(jparams))

@@ -31,7 +31,8 @@ from alg_tpu_torch.models import vae_tiling as T
 from alg_tpu_torch.models.wan.transformer import WanTransformerConfig as TCfg, wan_rope
 from alg_tpu_torch.schedulers import unipc as U
 
-from torch_port_common import port_module, random_tree, tiny_wan_configs, tokenize_mask_stub, wan_trees
+from torch_port_common import (one_torch_thread, port_module, random_tree, tiny_wan_configs, tokenize_mask_stub,
+                               wan_trees)
 
 OP_ATOL, FWD_ATOL = 1e-5, 1e-4
 
@@ -255,13 +256,17 @@ def test_wan_vae_decode(tiny, lat_frames):
 
 def test_wan_vae_tiled_encode_matches_tiled_encode(tiny):
     """A 40x56 clip in 32-pixel tiles at stride 24 (2 x 3 tiles, ragged
-    edges), the mean only, as the pipeline encodes its condition video."""
+    edges), the mean only, as the pipeline encodes its condition video. The
+    reference encoder is jitted: one compile a tile shape, where op-by-op
+    dispatch compiles each of its ops at each."""
+    import jax
+
     vcfg, vp = tiny[0][1], tiny[1][1]
     v = np.random.RandomState(8).uniform(-1, 1, (1, 5, 40, 56, 3)).astype(np.float32)
-    ref = JT.tiled_encode(lambda xt: wan_vae_encode(vp, vcfg, xt)[0], jnp.asarray(v), vcfg.spatial_scale,
+    ref = JT.tiled_encode(jax.jit(lambda xt: wan_vae_encode(vp, vcfg, xt)[0]), jnp.asarray(v), vcfg.spatial_scale,
                           tile_px=32, stride_px=24)
     vae = port_module("wan_vae", vcfg, vp)
-    with torch.no_grad():
+    with one_torch_thread(), torch.no_grad():
         (out,) = T.tiled_encode(lambda xt: vae.encode(xt)[:1], torch.from_numpy(v), vcfg.spatial_scale,
                                 tile_px=32, stride_px=24)
     assert out.shape == (1, 2, 5, 7, vcfg.z_dim)

@@ -6,11 +6,27 @@ trees (the tree shapes come from ``jax.eval_shape`` of its ``init_*``
 functions, which compiles nothing), so both packages run the same numbers
 and the port gets them through its own weights bridge."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
 
 import jax
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """PyTorch on one thread inside the block. The suite's workers share the
+    machine, and there a small op's parallel region waits until every one of
+    PyTorch's threads is scheduled: tiny tensors run faster on one."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def port_cfg(port_cls, jax_cfg):
