@@ -16,7 +16,9 @@ local HF-layout directory (``io/model_zoo.py``); nothing is downloaded.
 Everything runs on ``--device`` (``cuda`` unless asked otherwise);
 ``--random_init`` draws every tensor from a seed at the checkpoint's shapes
 instead of reading it, for smoke runs. ``--lora`` merges a peft-layout
-adapter (``.npz`` or ``.safetensors``) into the DiT, ``--int8_attn`` routes
+adapter (``.npz`` or ``.safetensors``) into the DiT, ``--quantize w8|w4``
+makes the DiT's big block linears W8A8 / W4A8 at load (``ops/quant.py``;
+not together with ``--lora``), ``--int8_attn`` routes
 DiT self-attention through the int8 kernel, ``--guidance_microbatch``
 splits Wan's guidance passes and ``--checkpoint_path`` snapshots the denoise
 loop (``io/runstate.py``): the same command run again after an interruption
@@ -24,8 +26,7 @@ resumes it.
 
 :func:`run` is the body: it also takes an already parsed config (the YAML
 file's mapping) and an RGB uint8 image array, for machines without PyYAML
-or PIL, and returns the path written. Not ported yet: ``--quantize``
-(ROADMAP.md, A12), which raises.
+or PIL, and returns the path written.
 """
 
 from __future__ import annotations
@@ -42,17 +43,21 @@ logger = logging.getLogger(__name__)
 def load_pipeline(cfg, model_cache_dir=None, quantize=None, lora=None, lora_scale=1.0, device="cuda",
                   random_init=False, timings=None):
     """The family's pipeline from its checkpoint directory on ``device``,
-    with a peft-layout adapter (``lora``: ``.npz`` or ``.safetensors``)
-    merged into the DiT at ``lora_scale``. ``timings``: see
+    with its DiT's block linears quantized (``quantize``: "w8" | "w4") or a
+    peft-layout adapter (``lora``: ``.npz`` or ``.safetensors``) merged into
+    the DiT at ``lora_scale``. ``timings``: see
     :func:`alg_tpu_torch.io.model_zoo.load_cogvideox_pipeline`."""
     from alg_tpu_torch.io import model_zoo
 
-    if quantize is not None:
-        raise NotImplementedError(f"--quantize {quantize}: the W8A8 / W4A8 linears are not ported yet "
-                                  "(ROADMAP.md, A12)")
+    if lora is not None and quantize is not None:
+        raise ValueError(
+            "--lora with --quantize is unsupported: adapters must merge into "
+            "the float kernels before quantization. Merge offline "
+            "(alg_tpu_torch.io.lora), save the tree, then quantize that checkpoint."
+        )
     model_dir = model_zoo.resolve_model_dir(cfg.model_path, model_cache_dir)
     family = cfg.family
-    common = dict(dtype=cfg.model_dtype, device=device, random_init=random_init, timings=timings)
+    common = dict(dtype=cfg.model_dtype, quantize=quantize, device=device, random_init=random_init, timings=timings)
     if family == "cogvideox":
         pipe = model_zoo.load_cogvideox_pipeline(model_dir, **common)
     elif family == "wan":
@@ -152,7 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output_path", type=str, default="output.mp4")
     parser.add_argument("--model_cache_dir", type=str, default=None)
     parser.add_argument("--quantize", type=str, choices=("w8", "w4"), default=None,
-                        help="quantize the DiT blocks at load (not ported yet: raises)")
+                        help="quantize the DiT blocks at load: W8A8 (w8) or W4A8 int4 storage (w4); "
+                             "not with --lora")
     parser.add_argument("--int8_attn", type=str, choices=("qk", "full"), default=None,
                         help="run DiT self-attention through the int8 kernel (qk = int8 QK^T logits, "
                              "full = both attention products in int8)")

@@ -14,6 +14,13 @@ mapping is by rule:
   * ``kernel`` becomes ``weight``: ``[in, out]`` transposed to ``[out, in]``,
     DHWIO conv kernels to ``[out, in, D, H, W]``, HWIO to ``[out, in, H, W]``;
   * ``scale`` becomes ``weight``; ``bias`` stays;
+  * a quantized linear of ``alg_tpu/ops/quant.py`` (``kernel_q`` with
+    ``w_scale``, or ``kernel_q4`` with ``w_scale4`` and ``w_scale``) becomes a
+    :class:`~alg_tpu_torch.models.layers.QuantizedLinear` in the linear's
+    place: ``kernel_q`` -> ``weight_q`` and ``kernel_q4`` -> ``weight_q4``
+    (``[in, out]`` / ``[in/2, out]`` transposed; the int4 codes stay packed
+    along IN), ``w_scale4`` ``[G, out]`` transposed, ``w_scale`` ``[1, out]``
+    flattened;
   * plain tables keep their name and layout: ``scale_shift_table``, the Wan
     VAE's ``gamma``, CLIP's ``class_embedding`` and ``position_embedding``;
   * any other array leaf (T5's and Llama's ``embed``, CLIP text's
@@ -39,10 +46,15 @@ _PLAIN_TABLES = ("scale_shift_table", "gamma", "class_embedding", "position_embe
 _STACKED = ("blocks", "transformer_blocks", "single_transformer_blocks")  # as dicts; the same names as lists are lists
 
 
+_QUANTIZED = {"kernel_q": "weight_q", "kernel_q4": "weight_q4", "w_scale": "w_scale", "w_scale4": "w_scale4"}
+
+
 def leaf_name(prefix: str, key: str) -> str:
     """The module's name for the tree leaf ``key`` under ``prefix``."""
     if key in ("kernel", "scale"):
         return prefix + "weight"
+    if key in _QUANTIZED:
+        return prefix + _QUANTIZED[key]
     if key == "bias" or key in _PLAIN_TABLES:
         return prefix + key
     return prefix + key + ".weight"
@@ -54,6 +66,10 @@ def _leaf(prefix: str, key: str, arr) -> Tuple[str, np.ndarray]:
         if arr.ndim not in _KERNEL_PERM:
             raise ValueError(f"{prefix}kernel: no layout rule for a {arr.ndim}-D kernel")
         arr = arr.transpose(_KERNEL_PERM[arr.ndim])
+    elif key in ("kernel_q", "kernel_q4", "w_scale4"):
+        arr = arr.T
+    elif key == "w_scale":
+        arr = arr.reshape(-1)
     return leaf_name(prefix, key), arr
 
 
@@ -108,10 +124,32 @@ def copy_state_(module: nn.Module, flat) -> nn.Module:
     return module
 
 
+def _swap_quantized_(module: nn.Module, flat) -> None:
+    """Put a :class:`QuantizedLinear` wherever ``flat`` holds a quantized
+    weight and ``module`` a linear."""
+    from alg_tpu_torch.models.layers import QuantizedLinear
+
+    for name in flat:
+        path, _, leaf = name.rpartition(".")
+        if leaf not in ("weight_q", "weight_q4"):
+            continue
+        parent_path, _, attr = path.rpartition(".")
+        parent = module.get_submodule(parent_path)
+        linear = getattr(parent, attr)
+        if isinstance(linear, nn.Linear):
+            setattr(parent, attr, QuantizedLinear(linear.in_features, linear.out_features,
+                                                  "w8" if leaf == "weight_q" else "w4", bias=linear.bias is not None,
+                                                  device=linear.weight.device, dtype=linear.weight.dtype))
+
+
 def load_jax_params(module: nn.Module, tree) -> nn.Module:
     """Copy ``tree`` into ``module``'s parameters (cast to their dtype and
-    device); raises on missing or unused keys and on shape mismatches."""
-    return copy_state_(module, dict(flatten_jax_tree(tree)))
+    device), the linears that ``tree`` holds quantized made
+    :class:`~alg_tpu_torch.models.layers.QuantizedLinear` first; raises on
+    missing or unused keys and on shape mismatches."""
+    flat = dict(flatten_jax_tree(tree))
+    _swap_quantized_(module, flat)
+    return copy_state_(module, flat)
 
 
 def load_jax_lora(tree, device="cpu", requires_grad: bool = True):

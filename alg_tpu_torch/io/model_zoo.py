@@ -16,9 +16,11 @@ finds local directories only. :func:`load_transformer` loads the DiT
 alone, for fine-tuning. The CogVideoX loader reads 1.0 and 1.5
 checkpoints (``patch_size_t``, ``ofs_embed_dim``, ``invert_scale_latents``),
 DiTs without RoPE or attention biases, and picks DDIM or DPM from the
-scheduler config.
-
-Not ported yet: ``quantize`` (W8A8 / W4A8 linears, ROADMAP.md A12).
+scheduler config. ``quantize`` ("w8" | "w4") replaces the DiT's big block
+linears with W8A8 / W4A8 ones (``ops/quant.quantize_transformer_``, without
+the modulation linears, as the JAX package's loaders do) after the copy-in,
+one linear at a time on the device, so the bf16 and the quantized blocks are
+never held whole together.
 """
 
 from __future__ import annotations
@@ -38,10 +40,13 @@ def _load_config(model_dir: str, sub: str) -> Dict[str, Any]:
         return json.load(f)
 
 
-def _refuse_quantize(quantize) -> None:
-    if quantize is not None:
-        raise NotImplementedError(f"quantize={quantize!r}: the W8A8 / W4A8 linears are not ported yet "
-                                  "(ROADMAP.md, A12)")
+def _quantized(dit, quantize):
+    """``dit`` with its block linears quantized (``quantize`` "w8" | "w4"), or as it is (None)."""
+    if quantize is None:
+        return dit
+    from alg_tpu_torch.ops.quant import quantize_transformer_
+
+    return quantize_transformer_(dit, mode=quantize)
 
 
 def _sync(device) -> None:
@@ -212,10 +217,10 @@ def load_transformer(model_dir: str, family: str, dtype=torch.bfloat16, quantize
     pipeline loaders, with their refusals, so the module is bit for bit the
     ``transformer`` of :func:`load_cogvideox_pipeline`,
     :func:`load_wan_pipeline` or :func:`load_hunyuan_pipeline` on the same
-    directory, dtype and device."""
-    _refuse_quantize(quantize)
+    directory, dtype, device and ``quantize``."""
     cls, read_cfg, convert = _transformer_parts(family)
-    return _load_module(cls, read_cfg(model_dir), model_dir, "transformer", convert, dtype, device, timings)
+    return _quantized(_load_module(cls, read_cfg(model_dir), model_dir, "transformer", convert, dtype, device,
+                                   timings), quantize)
 
 
 def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None, device="cuda",
@@ -227,7 +232,6 @@ def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None,
     from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
     from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig
 
-    _refuse_quantize(quantize)
     gen = _random_generator(device) if random_init else None
     tcfg, vcfg, t5cfg = cogvideox_configs({sub: _load_config(model_dir, sub)
                                            for sub in ("transformer", "vae", "text_encoder")})
@@ -246,8 +250,8 @@ def load_cogvideox_pipeline(model_dir: str, dtype=torch.bfloat16, quantize=None,
         prediction_type=sc.get("prediction_type", "v_prediction"),
     )
 
-    dit = _load_module(CogVideoXTransformer, tcfg, model_dir, "transformer", W.convert_cogvideox_transformer,
-                       dtype, device, timings, gen)
+    dit = _quantized(_load_module(CogVideoXTransformer, tcfg, model_dir, "transformer",
+                                  W.convert_cogvideox_transformer, dtype, device, timings, gen), quantize)
     vae = _load_module(CogVideoXVAE, vcfg, model_dir, "vae", W.convert_cogvideox_vae, torch.float32, device,
                        timings, gen)
     t5 = _load_module(T5Encoder, t5cfg, model_dir, "text_encoder", W.convert_t5_encoder, dtype, device, timings,
@@ -268,7 +272,6 @@ def load_wan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: float = 
     from alg_tpu_torch.pipelines.wan import WanPipeline
     from alg_tpu_torch.schedulers.unipc import UniPCConfig
 
-    _refuse_quantize(quantize)
     gen = _random_generator(device) if random_init else None
     tcfg = _wan_transformer_cfg(model_dir)
     vc = _load_config(model_dir, "vae")
@@ -306,8 +309,8 @@ def load_wan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: float = 
         hidden_act=ic.get("hidden_act", "gelu"),
     )
 
-    dit = _load_module(WanTransformer, tcfg, model_dir, "transformer", W.convert_wan_transformer, dtype, device,
-                       timings, gen)
+    dit = _quantized(_load_module(WanTransformer, tcfg, model_dir, "transformer", W.convert_wan_transformer, dtype,
+                                  device, timings, gen), quantize)
     vae = _load_module(WanVAE, vcfg, model_dir, "vae", W.convert_wan_vae, torch.float32, device, timings, gen)
     t5 = _load_module(T5Encoder, t5cfg, model_dir, "text_encoder", W.convert_t5_encoder, dtype, device, timings,
                       gen)
@@ -330,7 +333,6 @@ def load_hunyuan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: floa
     from alg_tpu_torch.pipelines.hunyuan import HunyuanVideoPipeline
     from alg_tpu_torch.schedulers.flow_match_euler import FlowMatchEulerConfig
 
-    _refuse_quantize(quantize)
     gen = _random_generator(device) if random_init else None
     tcfg = _hunyuan_transformer_cfg(model_dir)
     vc = _load_config(model_dir, "vae")
@@ -379,8 +381,8 @@ def load_hunyuan_pipeline(model_dir: str, dtype=torch.bfloat16, flow_shift: floa
         eos_token_id=c2.get("eos_token_id", 49407),
     )
 
-    dit = _load_module(HunyuanVideoTransformer, tcfg, model_dir, "transformer", W.convert_hunyuan_transformer,
-                       dtype, device, timings, gen)
+    dit = _quantized(_load_module(HunyuanVideoTransformer, tcfg, model_dir, "transformer",
+                                  W.convert_hunyuan_transformer, dtype, device, timings, gen), quantize)
     vae = _load_module(HunyuanVAE, vcfg, model_dir, "vae", W.convert_hunyuan_vae, torch.float32, device, timings,
                        gen)
     llava = _load_module(LlavaModel, lcfg, model_dir, "text_encoder", W.convert_llava, dtype, device, timings, gen)

@@ -97,6 +97,79 @@ class Linear(nn.Linear):
         return y
 
 
+class QuantizedLinear(nn.Module):
+    """A W8A8 (``mode="w8"``) or W4A8 (``"w4"``) linear
+    (``alg_tpu/ops/quant.py:quantized_linear``), the frozen form
+    ``ops.quant.quantize_transformer_`` gives a block linear. Buffers, in
+    the port's ``[out, in]`` layout: ``weight_q`` int8 ``[out, in]``, or
+    ``weight_q4`` int8 ``[out, in/2]`` (two int4 codes a byte along IN) and
+    ``w_scale4`` fp32 ``[out, in/128]``; ``w_scale`` fp32 ``[out]``. The bias
+    stays a parameter in the model's dtype. An attached adapter (``lora_A``,
+    ``lora_B``) adds its term as :class:`Linear` does; it is never merged."""
+
+    def __init__(self, in_features: int, out_features: int, mode: str = "w8", bias: bool = True, device=None,
+                 dtype=None):
+        from alg_tpu_torch.ops.quant import GROUP
+
+        super().__init__()
+        self.in_features, self.out_features, self.mode = in_features, out_features, mode
+        if mode == "w8":
+            self.register_buffer("weight_q", torch.empty(out_features, in_features, dtype=torch.int8, device=device))
+            self.register_buffer("w_scale4", None)
+        elif mode == "w4":
+            self.register_buffer("weight_q4", torch.empty(out_features, in_features // 2, dtype=torch.int8,
+                                                          device=device))
+            self.register_buffer("w_scale4", torch.empty(out_features, in_features // GROUP, dtype=torch.float32,
+                                                         device=device))
+        else:
+            raise ValueError(f"unknown quantization mode {mode!r}")
+        self.register_buffer("w_scale", torch.empty(out_features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.empty(out_features, device=device, dtype=dtype),
+                                 requires_grad=False) if bias else None
+        self.register_buffer("lora_A", None, persistent=False)
+        self.register_buffer("lora_B", None, persistent=False)
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, linear: nn.Linear, mode: str = "w8") -> "QuantizedLinear":
+        """``linear``'s weight quantized on its device; the bias carried as it is."""
+        from alg_tpu_torch.ops import quant
+
+        w = linear.weight
+        out = cls(linear.in_features, linear.out_features, mode, bias=linear.bias is not None, device="meta",
+                  dtype=w.dtype)
+        if mode == "w8":
+            out.weight_q, out.w_scale = quant.quantize_kernel(w)
+        else:
+            out.weight_q4, out.w_scale4, out.w_scale = quant.quantize_kernel_w4(w)
+        if linear.bias is not None:
+            out.bias = nn.Parameter(linear.bias.detach(), requires_grad=False)
+        return out
+
+    @property
+    def weight_codes(self) -> torch.Tensor:
+        """``weight_q`` (W8) or the packed ``weight_q4`` (W4): the weight ``ops.quant`` takes beside
+        ``w_scale4`` (None in W8)."""
+        return self.weight_q if self.w_scale4 is None else self.weight_q4
+
+    def int8_weight(self) -> torch.Tensor:
+        """The int8 ``[out, in]`` weight the product takes (a w4 weight unpacked)."""
+        from alg_tpu_torch.ops.quant import int8_weight
+
+        return int8_weight(self.weight_codes, self.w_scale4, self.w_scale)
+
+    def forward(self, x):
+        from alg_tpu_torch.ops.quant import quantized_linear
+
+        y = quantized_linear(x, self.weight_codes, self.w_scale4, self.w_scale, self.bias)
+        if self.lora_A is not None:
+            y = y + ((x.float() @ self.lora_A.float()) @ self.lora_B.float()).to(y.dtype)
+        return y
+
+    def extra_repr(self) -> str:
+        return f"in_features={self.in_features}, out_features={self.out_features}, mode={self.mode}"
+
+
 class LayerNorm(nn.Module):
     """``affine=False`` holds no parameters (the JAX package's ``{}`` norm)."""
 

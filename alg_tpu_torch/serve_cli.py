@@ -23,8 +23,9 @@ batch has one shape, so it comes from the first request's image.
 :func:`run` is the body: it also takes an already parsed config and a list
 of :class:`~alg_tpu_torch.serving.BatchRequest` whose images are RGB uint8
 arrays, for machines without PyYAML or PIL. Everything runs on ``--device``
-(``cuda`` unless asked otherwise). Not ported yet: ``--quantize`` (ROADMAP.md,
-A12) and the device-mesh and multi-host flags ``--dp``, ``--sp``,
+(``cuda`` unless asked otherwise); ``--quantize w8|w4`` loads the DiT with
+W8A8 / W4A8 block linears (``cli.load_pipeline``). Not ported yet: the
+device-mesh and multi-host flags ``--dp``, ``--sp``,
 ``--sp_mode``, ``--tp``, ``--multihost``, ``--coordinator``,
 ``--num_processes`` and ``--process_id`` (A13), which raise.
 """
@@ -173,7 +174,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output_dir", type=str, default="serve_out")
     parser.add_argument("--model_cache_dir", type=str, default=None)
     parser.add_argument("--quantize", type=str, choices=("w8", "w4"), default=None,
-                        help="quantize the DiT blocks at load (not ported yet: raises)")
+                        help="quantize the DiT blocks at load: W8A8 (w8) or W4A8 int4 storage (w4); "
+                             "not with --lora")
     parser.add_argument("--int8_attn", type=str, choices=("qk", "full"), default=None,
                         help="run DiT self-attention through the int8 kernel (qk = int8 QK^T logits, "
                              "full = both attention products in int8)")

@@ -26,8 +26,12 @@ first (``utils/profiling.trace_to``).
 
 :func:`run` is the body, callable with an already parsed config (a dict
 with ``model`` and ``generation`` sections) and, for tests, an already built
-DiT. Not ported yet: quantized bases (``--quantize``, ROADMAP.md A12) and
-the sharded and pipelined steps (``--dp/--tp/--pp``, A13), which raise.
+DiT. ``--quantize w8|w4`` (``--mode lora`` only) trains the adapters over
+a frozen W8A8 / W4A8 base (QLoRA, ``ops/quant.py``): a loaded or given DiT
+is quantized without its modulation linears; with ``--random_init`` each
+block is made and quantized before the next, HunyuanVideo's modulation
+linears too. Not ported yet: the sharded and pipelined steps
+(``--dp/--tp/--pp``, ROADMAP.md A13), which raise.
 """
 
 from __future__ import annotations
@@ -57,8 +61,11 @@ def family_of(model_path: str) -> str:
     raise ValueError(f"Cannot infer model family from path {model_path!r}")
 
 
-def random_init_transformer(family: str, dtype: torch.dtype, device, seed: int):
-    """The family's DiT at its published size with random weights from ``seed``, made on ``device``."""
+def random_init_transformer(family: str, dtype: torch.dtype, device, seed: int, quantize: Optional[str] = None):
+    """The family's DiT at its published size with random weights from ``seed``, made on ``device``. With
+    ``quantize`` ("w8" | "w4") each block is made and its linears quantized before the next
+    (``ops.quant.random_init_quantized``), HunyuanVideo's modulation linears too, as
+    ``alg_tpu/train_cli.py:random_init_pipeline`` does: the bf16 block stacks never exist whole."""
     from alg_tpu_torch.models import layers as L
 
     if family == "cogvideox":
@@ -72,6 +79,11 @@ def random_init_transformer(family: str, dtype: torch.dtype, device, seed: int):
     else:
         raise ValueError(family)
     gen = torch.Generator(device).manual_seed(seed)
+    if quantize is not None:
+        from alg_tpu_torch.ops.quant import random_init_quantized
+
+        return random_init_quantized(Cls(Cfg(), device="meta", dtype=dtype), gen, quantize,
+                                     modulation=family == "hunyuan")
     return L.init_random_(Cls(Cfg(), device=device, dtype=dtype), gen)
 
 
@@ -168,7 +180,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--random_init", action="store_true", help="full-size random weights instead of a checkpoint")
     p.add_argument("--mode", choices=("lora", "full"), default="lora")
     p.add_argument("--quantize", choices=("none", "w8", "w4"), default="none",
-                   help="QLoRA over a W8A8 / W4A8 base (not ported yet: raises)")
+                   help="QLoRA: freeze the base DiT as W8A8 / W4A8 and train adapters over it; --mode lora only")
     p.add_argument("--rank", type=int, default=16, help="LoRA rank")
     p.add_argument("--lora_scale", type=float, default=1.0, help="alpha/rank scale")
     p.add_argument("--lr", type=float, default=1e-4)
@@ -212,12 +224,13 @@ def run(config: dict, args, transformer=None) -> dict:
     from alg_tpu_torch.io import model_zoo
     from alg_tpu_torch.training import checkpoint as C
     from alg_tpu_torch.training.data import LatentDataset, prefetch, to_device
-    from alg_tpu_torch.training.lora import FAMILY_PEFT, init_lora_params, make_lora_loss, to_peft_state
+    from alg_tpu_torch.training.lora import FAMILY_PEFT, init_lora_params, lora_base, make_lora_loss, to_peft_state
     from alg_tpu_torch.training.train import TrainConfig, make_train_step, save_params_npz, tree_leaves
     from alg_tpu_torch.utils.profiling import trace_to
 
-    if args.quantize != "none":
-        raise NotImplementedError(f"--quantize {args.quantize}: a W8A8 / W4A8 base is not ported yet (ROADMAP.md, A12)")
+    quantize = None if args.quantize == "none" else args.quantize
+    if quantize is not None and args.mode != "lora":
+        make_parser().error("--quantize requires --mode lora (the quantized base is frozen; train adapters)")
     if args.dp != 1 or args.tp != 1 or args.pp != 1 or args.pp_micro is not None:
         raise NotImplementedError(f"--dp {args.dp} --tp {args.tp} --pp {args.pp} --pp_micro {args.pp_micro}: the "
                                   "sharded and pipelined steps are not ported yet (ROADMAP.md, A13)")
@@ -227,14 +240,20 @@ def run(config: dict, args, transformer=None) -> dict:
     if transformer is None:
         dtype = resolve_dtype(model_cfg.get("dtype", "bfloat16"))
         if args.random_init:
-            transformer = random_init_transformer(family, dtype, device, args.seed)
+            transformer = random_init_transformer(family, dtype, device, args.seed, quantize)
         else:
             model_dir = model_zoo.resolve_model_dir(model_cfg["path"], args.model_cache_dir)
             logger.info("Loading the %s DiT from %s", family, model_dir)
-            transformer = model_zoo.load_transformer(model_dir, family, dtype=dtype, device=device)
+            transformer = model_zoo.load_transformer(model_dir, family, dtype=dtype, quantize=quantize,
+                                                     device=device)
+    elif quantize is not None:  # a given DiT is quantized in place, as a loaded one is
+        from alg_tpu_torch.ops.quant import quantize_transformer_
+
+        quantize_transformer_(transformer, mode=quantize)
     transformer = transformer.to(device).requires_grad_(False)
-    logger.info("%s DiT, %.2f B parameters, %s mode", family,
-                sum(p.numel() for p in transformer.parameters()) / 1e9, args.mode)
+    base = lora_base(transformer)
+    logger.info("%s DiT, %.2f GiB, %s mode%s", family, sum(t.numel() * t.element_size() for t in base.values()) / 2**30,
+                args.mode, f" over a {quantize} base (QLoRA)" if quantize else "")
 
     dataset = examples = None
     if args.synthetic:
@@ -273,7 +292,6 @@ def run(config: dict, args, transformer=None) -> dict:
     tc = TrainConfig(learning_rate=args.lr, weight_decay=args.weight_decay, grad_clip=args.grad_clip,
                      accum_steps=args.accum, remat=args.remat)
 
-    base = dict(transformer.named_parameters())
     if args.mode == "lora":
         prefixes = FAMILY_PEFT[family][0]
         trainable = init_lora_params(torch.Generator(device).manual_seed(args.seed), base, rank=args.rank,

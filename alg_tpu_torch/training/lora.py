@@ -17,8 +17,10 @@ in]``) to tensors, which the losses run through
 merged weights, :func:`attach_lora` one with the adapters beside the untouched
 weights (``<module>.lora_A`` / ``.lora_B``, read by ``models.layers.Linear``).
 
-Quantized bases (W8A8, W4A8) are not ported: ``kernel_q``/``kernel_q4``
-entries raise ``NotImplementedError``.
+Over a quantized base (QLoRA: W8A8 / W4A8 block linears, ``ops/quant.py``)
+the adapters attach and are never merged: :func:`lora_base` gives the base
+with the quantized weights and scales, :func:`has_quantized_kernels` tells
+it apart, and :func:`make_lora_loss` attaches over it by default.
 """
 
 from __future__ import annotations
@@ -36,17 +38,36 @@ DEFAULT_TARGETS: Tuple[str, ...] = (
 )
 
 _STACKED = ("blocks", "transformer_blocks", "single_transformer_blocks")
-_QUANTIZED_LEAVES = ("kernel_q", "kernel_q4")
+# a linear's weight leaf, and how many IN values a stored column holds (two int4 codes a byte)
+_KERNEL_LEAVES = {"weight": 1, "weight_q": 1, "weight_q4": 2}
+# the port's quantized weights (ops/quant.py) and the JAX package's leaf names for them
+_QUANTIZED_LEAVES = ("weight_q", "weight_q4", "kernel_q", "kernel_q4")
 
 
 def has_quantized_kernels(params) -> bool:
-    """True when the dict holds W8A8/W4A8 kernels (the JAX package's ``ops.quant`` layouts)."""
+    """True when the dict holds W8A8/W4A8 weights (the port's ``QuantizedLinear`` buffers or the JAX package's
+    ``ops.quant`` leaf names)."""
     return any(name.rsplit(".", 1)[-1] in _QUANTIZED_LEAVES for name in params)
 
 
-def _refuse_quantized(params) -> None:
-    if has_quantized_kernels(params):
-        raise NotImplementedError("LoRA over a quantized (W8A8/W4A8) base is not ported yet")
+def lora_base(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The frozen base of a LoRA loss over ``module``: its parameters, and the
+    weights and scales of its quantized linears (``ops.quant.QUANT_BUFFERS``),
+    so that the adapters find those linears and the loss's ``compute_dtype``
+    casts their scales as it casts the parameters."""
+    from alg_tpu_torch.ops.quant import QUANT_BUFFERS
+
+    base = dict(module.named_parameters())
+    base.update((name, b) for name, b in module.named_buffers() if name.rsplit(".", 1)[-1] in QUANT_BUFFERS)
+    return base
+
+
+def _kernel(params, name: str) -> Tuple[Optional[str], Optional[torch.Tensor]]:
+    """(leaf, stored weight) of the linear ``name`` in ``params``, or (None, None)."""
+    for leaf in _KERNEL_LEAVES:
+        if f"{name}.{leaf}" in params:
+            return leaf, params[f"{name}.{leaf}"]
+    return None, None
 
 
 def _tree_path(module_name: str) -> Tuple[str, Optional[int]]:
@@ -68,18 +89,17 @@ def _module_names(path: str, stacked_layers: Optional[int]) -> Iterator[Tuple[Op
             yield i, ".".join(parts[:1] + [str(i)] + parts[1:])
 
 
-def _targets(params, targets: Sequence[str], prefixes=None) -> Dict[str, Dict[Optional[int], torch.Tensor]]:
-    """{adapter path: {layer or None: weight [out, in]}} of every targeted linear."""
-    _refuse_quantized(params)
-    found: Dict[str, Dict[Optional[int], torch.Tensor]] = {}
+def _targets(params, targets: Sequence[str], prefixes=None) -> Dict[str, Dict[Optional[int], Tuple[int, int]]]:
+    """{adapter path: {layer or None: (out, in)}} of every targeted linear, plain or quantized."""
+    found: Dict[str, Dict[Optional[int], Tuple[int, int]]] = {}
     for name, w in params.items():
         parts = name.split(".")
-        if len(parts) < 2 or parts[-1] != "weight" or parts[-2] not in targets or w.dim() != 2:
+        if len(parts) < 2 or parts[-1] not in _KERNEL_LEAVES or parts[-2] not in targets or w.dim() != 2:
             continue
         if prefixes is not None and parts[0] not in prefixes:
             continue
-        path, layer = _tree_path(name[:-len(".weight")])
-        found.setdefault(path, {})[layer] = w
+        path, layer = _tree_path(name[:-len(parts[-1]) - 1])
+        found.setdefault(path, {})[layer] = (w.shape[0], w.shape[1] * _KERNEL_LEAVES[parts[-1]])
     return found
 
 
@@ -93,7 +113,7 @@ def init_lora_params(generator: torch.Generator, params, rank: int = 8,
     ``("blocks",)`` adapts the DiT block stack but not the output head."""
     loras = {}
     for path, layers in sorted(_targets(params, targets, prefixes).items()):
-        out_dim, in_dim = next(iter(layers.values())).shape
+        out_dim, in_dim = next(iter(layers.values()))
         lead = () if None in layers else (len(layers),)
         a = torch.randn(lead + (in_dim, rank), generator=generator, device=generator.device) * (1.0 / rank)
         b = torch.zeros(lead + (rank, out_dim), device=generator.device)
@@ -108,7 +128,7 @@ def _adapter_slices(params, loras):
     for path, ab in loras.items():
         a, b = ab["A"], ab["B"]
         for layer, name in _module_names(path, a.shape[0] if a.dim() == 3 else None):
-            if name + ".weight" not in params:
+            if _kernel(params, name)[0] is None:
                 raise KeyError(f"adapter {path!r}: the base has no parameter {name}.weight")
             yield name, (a if layer is None else a[layer]), (b if layer is None else b[layer])
 
@@ -117,11 +137,14 @@ def apply_lora(params, loras, scale: float = 1.0):
     """A parameter dict with ``W + scale·A@B`` at every adapted linear.
 
     Differentiable in ``loras``; the base is untouched. ``scale`` is ``α/r``.
-    The delta is computed in fp32 and cast to the weight's dtype."""
-    _refuse_quantized(params)
+    The delta is computed in fp32 and cast to the weight's dtype. A quantized
+    linear cannot take a merged delta without a float copy of its weight:
+    adapting one raises (attach it, :func:`attach_lora`)."""
     out = dict(params)
     for name, a, b in _adapter_slices(params, loras):
-        w = params[name + ".weight"]
+        leaf, w = _kernel(params, name)
+        if leaf != "weight":
+            raise ValueError(f"{name} is quantized ({leaf}): attach its adapter (attach_lora), it cannot merge")
         out[name + ".weight"] = w + (torch.matmul(a, b) * scale).transpose(-1, -2).to(w.dtype)
     return out
 
@@ -130,8 +153,8 @@ def attach_lora(params, loras, scale: float = 1.0):
     """A parameter dict with unmerged adapters attached: each adapted module
     gains ``lora_A`` and ``lora_B·scale``, which ``models.layers.Linear``
     reads as ``y += (x·A)·B``. Same function as :func:`apply_lora`, but the
-    base weights are neither copied nor differentiated."""
-    _refuse_quantized(params)
+    base weights are neither copied nor differentiated; the QLoRA form over
+    a quantized base."""
     out = dict(params)
     for name, a, b in _adapter_slices(params, loras):
         out[name + ".lora_A"] = a

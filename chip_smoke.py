@@ -235,6 +235,42 @@ Phases, each of which must pass:
       TF32 off: final latents within 2e-3, frames above 40 dB, and each
       request's card output within the same bounds of it served alone.
 
+  Q.  the opt-in W8A8 / W4A8 linears and QLoRA (``ops/quant.py``; no hand
+      kernel: the int8 product is ``torch._int_mm``), after S: Q1, the
+      linear in bf16 at CogVideoX-5b's [35552, 3072] -> 3072 and 12288 and
+      [35552, 12288] -> 3072, Wan's [65520, 5120] -> 13824 and Hunyuan's
+      modulation [1, 3072] -> 18432 (the padded path): the int32
+      accumulators bit-equal to the int8 operands' fp64 product on the
+      card, 24 rows against the CPU's plain version, the drift from bf16
+      ``F.linear`` under ``tests/test_quant.py``'s 2% (w8) and 20% (w4) of its
+      largest value, and the times of ``F.linear``, the W8A8 and W4A8
+      calls, the activation quantizer, ``_int_mm``, ``w4_to_int8`` and the
+      epilogue beside their bounds (1,979 TOP/s int8, 989 TFLOP/s bf16,
+      3.35 TB/s); Q2, phase C's full-width CogVideoX-5b-I2V pipeline at its
+      cut in bf16, then ``quantize_pipeline`` w8 and w4 (the DiT drawn again
+      for w4): each call's latents against the bf16 run's
+      (``tests/test_quant.py``'s correlation and mean|d| / RMS), the DiT's
+      bytes, and the 49-frame 2-pass forward in bf16 and under W8A8, timed
+      and profiled; Q3, ``cli.run --quantize w8`` over phase F's checkpoint,
+      ``serve_cli.run --quantize w4`` over S2's Wan directory and ``--quantize
+      w8`` over S3's Hunyuan directory, each bit for bit the same run over
+      ``quantize_pipeline`` of the unquantized load, exact launches; Q4,
+      ``train_cli.run --mode lora --quantize w8`` over that Hunyuan
+      directory at ``configs/train/qlora_hunyuan_smoke.yaml``'s 17 frames,
+      320x480, then at full depth with ``--random_init``: the 12.82 B
+      Hunyuan DiT (w8, modulation too) and CogVideoX-5b (w4), built block by
+      block on the card, 2 steps each: step times, peak memory, trainable
+      values, and no gradient in the base; Q5, small checkpoints of the
+      three families through ``serve_batch`` under w8 and w4 and one QLoRA
+      step, card against CPU in fp32, each quantized linear call of the
+      card fed the input and output of the CPU's (a code that rounds the
+      other way at a tie moves a row by 1/127 of its largest value) and its
+      own input held within 1e-4 of the fed one (``tests/quant_feed.py``):
+      latents within 2e-3 and frames above 40 dB; the loss within rtol 1e-5,
+      the gradients within 1e-4 of each leaf's largest, and the step within
+      atol 1e-5 of the CPU's optimizer on the card's gradients (AdamW lr
+      1e-2, eps 1e-4).
+
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only rope
 at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
 (with its device time from ``torch.profiler``), qk_prep in bf16 at
@@ -254,8 +290,8 @@ tensor-core kernels; it prints no result line). ``python3 chip_smoke.py
 --cli`` builds the kernels and runs phases F and F2 alone, ``python3
 chip_smoke.py --finetune`` phase G alone, ``python3 chip_smoke.py
 --cogvideox15`` phase B's CogVideoX-1.5 shapes, C5, F3, G4 and D4 alone,
-``python3 chip_smoke.py --serve`` phases S1-S5 alone (none of them prints a
-result line).
+``python3 chip_smoke.py --serve`` phases S1-S5 alone, ``python3 chip_smoke.py
+--quant`` phases Q1-Q5 alone (none of them prints a result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
@@ -485,7 +521,7 @@ def tol_name(dtype) -> str:
 # Published peaks of one H100 SXM (dense): device memory rate, and operations
 # per second by the type the inputs come in (fp32 outside the tensor cores).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def _bound(ops: float, nbytes: float, dtype: str):
@@ -899,7 +935,7 @@ def _training_kernel_cases(records, gen) -> None:
 
 
 # Published int8 tensor-core rate of one H100 SXM (dense), for the int8 products' bounds.
-PEAK_INT8_OPS_PER_S = 1979e12
+PEAK_INT8_OPS_PER_S = PEAK_OPS_PER_S["int8"]
 # The int8 kernels against their plain version. fp32 inputs (the CUDA-core kernel), "qk": the same codes and
 # scales, only the order of the fp32 sums differs. "full": a P code on a rounding tie may flip (one code is
 # 1/127 of a row's largest p), so the mean and the largest difference are bounded, as in the JAX package's own
@@ -928,12 +964,13 @@ def _dit_like_qkv(shape, dtype, gen):
 
 
 def _int8_bound(shape, kept, pv_int8, element_size, with_kv_len):
-    """(least ms, what bounds it) of one int8 call: QKᵀ at the int8 rate plus P·V at the bf16 rate ("qk") or
-    the int8 rate ("full") over the visible pairs, or the bytes of q, k, v and the output if that is more."""
+    """(least ms, what bounds it) of one int8 call: QKᵀ at the int8 rate plus P·V at the rate of the inputs'
+    type ("qk": bf16 on the tensor cores, fp32 on the CUDA cores) or the int8 rate ("full") over the visible
+    pairs, or the bytes of q, k, v and the output if that is more."""
     b, h, s, d = shape
     pairs = sum(s * n for n in kept)
-    ops_ms = (2.0 * h * pairs * d / PEAK_INT8_OPS_PER_S
-              + 2.0 * h * pairs * d / (PEAK_INT8_OPS_PER_S if pv_int8 else PEAK_OPS_PER_S["bfloat16"])) * 1e3
+    pv_rate = PEAK_INT8_OPS_PER_S if pv_int8 else PEAK_OPS_PER_S["float32" if element_size == 4 else "bfloat16"]
+    ops_ms = (2.0 * h * pairs * d / PEAK_INT8_OPS_PER_S + 2.0 * h * pairs * d / pv_rate) * 1e3
     nbytes = (2 * b * h * s * d + 2 * h * sum(kept) * d) * element_size + (4 * b if with_kv_len else 0)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
@@ -948,7 +985,7 @@ def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=
     quantizers' own time (they run inside every call; printed apart, with the
     transposed copy of V's codes that the tensor-core route's "full" mode
     makes), the bf16 flash kernel and ``scaled_dot_product_attention`` in
-    bf16 on the same tensors. The plain version's time is that of the one run
+    the call's type (fp32 with TF32 off) on the same values. The plain version's time is that of the one run
     that is compared. ``tile_block`` also times "full" mode with ``block_k``
     equal to the kernels' key tile, where a key block is staged once."""
     import torch
@@ -964,13 +1001,7 @@ def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=
     kept = [s] * b if kv_len is None else [min(n, s) for n in kv_len]
     group = max(1, min(h, 2 ** 19 // s))  # heads a plain call takes: [group, 512, S] fp32 logits (1 GiB) and a few like it
     qb, kb, vb = _dit_like_qkv(shape, torch.bfloat16, gen)
-    mask = None
-    if lens is not None:
-        keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
-        mask = torch.zeros((b, 1, s, s), device="cuda").masked_fill(~keep[:, None, None, :], float("-inf")).bfloat16()
     bf16_ms = _time_ms(lambda: flash_attention(qb, kb, vb, scale, stable=False, kv_len=lens), reps)
-    sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale), reps)
-    del mask
     # exact attention in fp32 on the same values, for the drift, kept on the card as the inputs' dtype allows
     exact = torch.empty(shape, dtype=torch.float32, device="cuda")
     q_chunk = max(1, min(s, 2 ** 28 // (group * s)))
@@ -985,6 +1016,14 @@ def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t.to(dtype) for t in (qb, kb, vb))
         name_dt = tol_name(dtype)
+        # the yardstick in the type of the call (fp32 with TF32 off), a dense mask for kv_len
+        mask = None
+        if lens is not None:
+            keep = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+            mask = torch.zeros((b, 1, s, s), device="cuda").masked_fill(~keep[:, None, None, :],
+                                                                        float("-inf")).to(dtype)
+        sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), reps)
+        del mask
         quant_qk_ms = _time_ms(lambda: quantize_qk_int8(q, k, scale, 512, 1024, lens), reps)
         quant_v_ms = _time_ms(lambda: quantize_v_int8(v, lens), reps)
         v_codes = quantize_v_int8(v, lens)[0]
@@ -4474,6 +4513,533 @@ def phase_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Q. the opt-in W8A8 / W4A8 linears and QLoRA (ops/quant.py, models.layers.QuantizedLinear): no hand kernel, the
+# int8 product is torch._int_mm; the attention kernels of each path are counted as in the bf16 runs
+# ---------------------------------------------------------------------------
+
+# (name, rows M, in K, out N) of the linears the main paths give the W8A8 / W4A8 linear: a CogVideoX-5b 2-pass
+# forward at 49 frames (S = 17,776), a Wan2.1-14B 2-pass forward at 81 frames (S = 32,760), and a HunyuanVideo
+# modulation linear (one conditioning row a sample; it takes the padded path)
+Q1_SHAPES = (("CogVideoX-5b attention", 2 * 17776, 3072, 3072), ("CogVideoX-5b ff.fc_in", 2 * 17776, 3072, 12288),
+             ("CogVideoX-5b ff.fc_out", 2 * 17776, 12288, 3072), ("Wan2.1-14B ffn.fc_in", 2 * 32760, 5120, 13824),
+             ("HunyuanVideo norm1_linear", 1, 3072, 18432))
+Q1_PLAIN_ROWS = 24  # rows the CPU's plain version recomputes
+# the bounds against the float product, max|quantized - float| over max|float|: W8A8 2%
+# (tests/test_quant.py:33-35), W4A8 20% (tests/test_quant.py:239-241: int4's grid)
+Q_FP_REL = {"w8": 0.02, "w4": 0.2}
+
+
+def _q1_case(name, m, k, n, gen) -> dict:
+    """One shape: the int32 accumulators of ``torch._int_mm`` (W8 and W4 weights) bit-equal to the exact product
+    (the int8 operands in fp64 on the card), the W8A8 and W4A8 calls against the CPU's plain version on
+    ``Q1_PLAIN_ROWS`` rows and against bf16 ``F.linear``, and the times of the parts beside their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from alg_tpu_torch.models.layers import QuantizedLinear
+    from alg_tpu_torch.ops import quant as Q
+
+    dev = gen.device
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    lin = torch.nn.Linear(k, n, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((n, k), generator=gen, device=dev) * k ** -0.5)
+        lin.bias.copy_(torch.randn((n,), generator=gen, device=dev) * 0.1)
+    mods = {mode: QuantizedLinear.from_linear(lin, mode) for mode in ("w8", "w4")}
+    xq, xs = Q.quantize_rows(x)
+    rec = {"name": name, "shape": [m, k, n]}
+    with torch.no_grad():
+        ref = F.linear(x, lin.weight, lin.bias)
+        for mode, ql in mods.items():
+            w8 = ql.int8_weight()
+            acc = Q.int8_matmul(xq, w8)
+            exact = xq.double() @ w8.double().t()
+            same = bool(torch.equal(acc.double(), exact))
+            del exact
+            y = ql(x)
+            rows = min(m, Q1_PLAIN_ROWS)
+            plain = QuantizedLinear.from_linear(copy.deepcopy(lin).cpu(), mode)(x[:rows].cpu())
+            err, close = _close(y[:rows].cpu(), plain, TOL["bfloat16"])
+            differ = int((y[:rows].cpu() != plain).sum())
+            fp_rel = float((y.float() - ref.float()).abs().max() / ref.float().abs().max())
+            ok = same and close and fp_rel < Q_FP_REL[mode] and bool(torch.isfinite(y).all())
+            print(f"[Q1] {name:<36} {mode} [{m}, {k}] -> {n}: int32 accumulators bit-equal to the exact fp64 "
+                  f"product: {same}; {rows} rows against the CPU's plain version max|diff| {err:.3e} (atol "
+                  f"{TOL['bfloat16'][0]}, rtol {TOL['bfloat16'][1]}; {differ} values differ); max|{mode} - bf16| over "
+                  f"max|bf16| {fp_rel:.4f} (< {Q_FP_REL[mode]}): {'PASS' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"[Q1] {name} {mode} disagrees")
+            rec[f"{mode}_fp_rel"], rec[f"{mode}_max_abs_err"] = fp_rel, err
+            del acc, y
+        b = 2  # bytes of a bf16 value
+        mkn = 2.0 * m * k * n
+        parts = {  # each with its bound: the int8 or bf16 product's operations, or the bytes of a pass
+            "bf16 F.linear": (lambda: F.linear(x, lin.weight, lin.bias),
+                              _bound(mkn, b * (m * k + n * k + m * n), "bfloat16")),
+            "W8A8 call": (lambda: mods["w8"](x), _bound(mkn, b * m * k + n * k + b * m * n, "int8")),
+            "W4A8 call": (lambda: mods["w4"](x), _bound(mkn, b * m * k + n * k // 2 + b * m * n, "int8")),
+            "activation quantizer": (lambda: Q.quantize_rows(x), _bound(0, b * m * k + m * k + 4 * m, "int8")),
+            "_int_mm": (lambda: Q.int8_matmul(xq, mods["w8"].weight_q), _bound(mkn, m * k + n * k + 4 * m * n, "int8")),
+            "w4_to_int8": (lambda: mods["w4"].int8_weight(), _bound(0, n * k // 2 + n * k, "int8")),
+        }
+        acc = Q.int8_matmul(xq, mods["w8"].weight_q)
+        parts["epilogue"] = (lambda: Q._epilogue(acc, xs, mods["w8"].w_scale, lin.bias, x.dtype),
+                             _bound(0, 4 * m * n + b * m * n, "int8"))
+        times = {}
+        for part, (fn, bound) in parts.items():
+            times[part] = _time_ms(fn, reps=10)
+            print(f"[Q1] {name:<36} {part:<22} {times[part]:9.3f} ms  bound {bound[0]:.4f} ms ({bound[1]})",
+                  flush=True)
+        rec["ms"] = times
+        del acc
+    print(f"[Q1] {name}: W8A8 / bf16 time {times['W8A8 call'] / times['bf16 F.linear']:.2f}, W4A8 / bf16 "
+          f"{times['W4A8 call'] / times['bf16 F.linear']:.2f}; W8A8's parts: quantizer + _int_mm + epilogue "
+          f"{times['activation quantizer'] + times['_int_mm'] + times['epilogue']:.3f} ms ({_card_line()})", flush=True)
+    return rec
+
+
+def phase_quant_linear() -> list:
+    """Q1: the W8A8 / W4A8 linear at the shipped shapes, bf16 (:func:`_q1_case`); the layout ``_int_mm`` takes the
+    weight in, ``ops.quant.WEIGHT_LAYOUT``, checked first."""
+    import torch
+
+    from alg_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    a = torch.randint(-127, 128, (64, 256), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (128, 256), generator=gen, device="cuda", dtype=torch.int8)
+    exact = (a.double() @ w.double().t())
+    for label, operand in (("weight_q.t() (a view)", w.t()), ("weight_q.t().contiguous()", w.t().contiguous())):
+        try:
+            ok = bool(torch.equal(torch._int_mm(a, operand).double(), exact))
+            print(f"[Q1] torch._int_mm takes {label}: exact {ok}", flush=True)
+        except RuntimeError as e:
+            print(f"[Q1] torch._int_mm refuses {label}: {str(e).splitlines()[0]}", flush=True)
+    print(f"[Q1] the port passes {Q.WEIGHT_LAYOUT}", flush=True)
+    records = [_q1_case(name, m, k, n, gen) for name, m, k, n in Q1_SHAPES]
+    _free_device_memory()
+    return records
+
+
+def _dit_bytes(dit) -> int:
+    from alg_tpu_torch.training.lora import lora_base
+
+    return sum(t.numel() * t.element_size() for t in lora_base(dit).values())
+
+
+def _drift(q, fp):
+    """(within ``tests/test_quant.py:60-107``'s bounds, its drift of quantized latents against the bf16 run's)."""
+    import numpy as np
+
+    q, fp = np.asarray(q, np.float64).ravel(), np.asarray(fp, np.float64).ravel()
+    corr = float(np.corrcoef(q, fp)[0, 1])
+    mean_abs, rms = float(np.abs(q - fp).mean()), float(np.sqrt(np.mean(fp ** 2)))
+    ok = corr > 0.95 and mean_abs < 0.25 * rms
+    return ok, (f"corr {corr:.4f} (> 0.95), mean|d| {mean_abs:.4f} over the bf16 RMS {rms:.4f} = {mean_abs / rms:.4f} "
+                f"(< 0.25), max|d| {float(np.abs(q - fp).max()):.4f}")
+
+
+def phase_quant_pipeline() -> dict:
+    """Q2: phase C's CogVideoX-5b-I2V pipeline (42-layer DiT and T5-XXL in bf16, VAE fp32, seed 0) at phase C's
+    cut, in bf16 and then with ``quantize_pipeline`` w8 and w4 (the DiT drawn again from the seed for w4): the
+    latents' drift against the bf16 run, the DiT's bytes before and after, each call's time; then the 49-frame
+    2-pass forward (S = 17,776) in bf16 and under W8A8, timed and profiled. Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.io import hf_checkpoint
+    from alg_tpu_torch.io.model_zoo import cogvideox_configs
+    from alg_tpu_torch.models import layers as L
+    from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer
+    from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE
+    from alg_tpu_torch.models.t5 import T5Encoder
+    from alg_tpu_torch.ops.quant import quantize_pipeline
+    from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
+
+    _set_tf32(False, True)
+    dev = torch.device("cuda")
+    tcfg, vcfg, t5cfg = cogvideox_configs(hf_checkpoint.COGVIDEOX_5B_I2V)
+
+    def draw_dit():
+        gen = torch.Generator(dev).manual_seed(0)  # phase C's order: the DiT first from seed 0
+        return L.init_random_(CogVideoXTransformer(tcfg, device=dev, dtype=torch.bfloat16), gen), gen
+
+    dit, gen = draw_dit()
+    t5 = L.init_random_(T5Encoder(t5cfg, device=dev, dtype=torch.bfloat16), gen)
+    vae = L.init_random_(CogVideoXVAE(vcfg, device=dev, dtype=torch.float32), gen)
+    pipe = CogVideoXPipeline(transformer=dit, vae=vae, t5=t5, tokenize=_seeded_tokenize(t5cfg.vocab_size),
+                             dtype=torch.bfloat16, device=dev)
+    image = np.random.RandomState(0).uniform(-1, 1, (1, 3, 480, 720)).astype(np.float32)
+
+    def call():
+        return pipe(image=image, prompt=PROMPT, height=480, width=720, num_frames=9, output_type="latent",
+                    **_alg_kwargs())
+
+    want = {"qk_prep": 2 * tcfg.num_layers * 4, "flash_attention": tcfg.num_layers * 4 + t5cfg.num_layers * 2,
+            "flash_attention_tc": tcfg.num_layers * 4 + t5cfg.num_layers * 2}
+    runs, counts, bf16_bytes = {}, {}, _dit_bytes(dit)
+    s49 = 226 + 13 * 30 * 45
+    for mode in ("bf16", "w8", "w4"):
+        if mode == "w4":  # the bf16 DiT again, from the seed
+            pipe.transformer = dit = None
+            _free_device_memory()
+            pipe.transformer = dit = draw_dit()[0]
+        q_s = 0.0
+        if mode != "bf16":
+            _, q_s = _timed(lambda: quantize_pipeline(pipe, mode))
+            _free_device_memory()
+        _reset_counts()
+        latents, seconds = _timed(call)
+        counts[mode] = _read_counts()
+        _check_counts(f"Q2 {mode}", counts[mode], want)
+        runs[mode] = np.asarray(latents, np.float32)
+        line = f"[Q2] {mode}: call {seconds:.2f} s; the DiT {_dit_bytes(dit) / 2**30:.2f} GiB"
+        if mode != "bf16":
+            n = sum(type(mm).__name__ == "QuantizedLinear" for mm in dit.modules())
+            ok, drift = _drift(runs[mode], runs["bf16"])
+            line += (f" (bf16 {bf16_bytes / 2**30:.2f} GiB; {n} linears quantized in place in {q_s:.2f} s); "
+                     f"latents against the bf16 run: {drift}: {'PASS' if ok else 'FAIL'}")
+            if not ok or not np.isfinite(runs[mode]).all():
+                raise AssertionError(f"[Q2] the {mode} latents drift past tests/test_quant.py's bounds")
+        print(line + f" ({_card_line()})", flush=True)
+        if mode in ("bf16", "w8"):  # the 49-frame 2-pass forward in bf16, then under W8A8
+            _headline_forward(f"Q2 {mode}", dit, torch.Generator(dev).manual_seed(1), 49, 480, 720, s49)
+    del pipe, t5, vae, dit
+    _free_device_memory()
+    return {f"quant_pipeline_cogvideox_{mode}": counts[mode] for mode in ("w8", "w4")}
+
+
+def _quant_entry(tag, run_fn, probe_kw, mode, want):
+    """``run_fn(quantize)`` (a ``cli.run`` or ``serve_cli.run``) with ``--quantize mode`` and again without it over
+    a pipeline that ``on_load`` quantizes with ``quantize_pipeline``: the final latents of the two bit for bit, the
+    exact launches ``want`` in both. Returns the ``--quantize`` run's counts."""
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch.ops.quant import quantize_pipeline
+
+    finals, counts = {}, {}
+    extra = probe_kw.pop("on_load", None)
+    for how in ("--quantize", "quantize_pipeline"):
+        def on_load(pipe, how=how):
+            if extra is not None:
+                extra(pipe)
+            if how == "quantize_pipeline":
+                quantize_pipeline(pipe, mode)
+
+        torch.cuda.reset_peak_memory_stats()
+        with _CliProbe(None, on_load=on_load, **probe_kw) as probe:
+            _reset_counts()
+            _, seconds = _timed(lambda: run_fn(mode if how == "--quantize" else None))
+            counts[how] = _read_counts()
+        dit = probe.pipe.transformer
+        n = {m.mode for m in dit.modules() if type(m).__name__ == "QuantizedLinear"}
+        finals[how] = [np.asarray(f) for f in probe.final]
+        print(f"[{tag}] {how} {mode}: {seconds:.2f} s with the load ({probe.load_s:.2f} s), the DiT "
+              f"{_dit_bytes(dit) / 2**30:.3f} GiB with {mode} linears {sorted(n)}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({_card_line()})", flush=True)
+        _check_counts(f"{tag} {how}", counts[how], want)
+        del probe, dit
+        _free_device_memory()
+    same = len(finals["--quantize"]) == len(finals["quantize_pipeline"]) and all(
+        np.array_equal(a, b) for a, b in zip(finals["--quantize"], finals["quantize_pipeline"]))
+    print(f"[{tag}] --quantize {mode} against quantize_pipeline of the unquantized load: final latents bit for bit: "
+          f"{'PASS' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError(f"[{tag}] --quantize and quantize_pipeline differ")
+    return counts["--quantize"]
+
+
+def phase_quant_entry() -> dict:
+    """Q3: ``cli.run --quantize w8`` over phase F's CogVideoX-5b-I2V checkpoint, ``serve_cli.run --quantize w4``
+    over S2's Wan2.1-I2V-14B directory with two requests, ``serve_cli.run --quantize w8`` over S3's
+    HunyuanVideo-I2V directory with two requests (:func:`_quant_entry`). Returns {path: launch counts}."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from alg_tpu_torch import serve_cli, serving
+    from alg_tpu_torch.cli import build_parser, run
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="alg_quant_")
+    try:
+        ck = copy.deepcopy(H.COGVIDEOX_5B_I2V)
+        ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2
+        _write_checkpoint("Q3", "CogVideoX-5b-I2V (DiT and T5 2 layers)", H.write_cogvideox, ck,
+                          f"{tmp}/{CLI_CONFIG['model']['path']}")
+        _free_device_memory()
+        image = np.random.RandomState(0).randint(0, 256, (CLI_HEIGHT, CLI_WIDTH, 3)).astype(np.uint8)
+
+        def cli_run(quantize):
+            argv = ["--model_cache_dir", tmp, "--output_path", os.path.join(tmp, "q.mp4"), "--device", "cuda"]
+            return run(build_parser().parse_args(argv + (["--quantize", quantize] if quantize else [])),
+                       config=CLI_CONFIG, image=image)
+
+        out["cli_cogvideox_w8"] = _quant_entry("Q3 cli.run CogVideoX-5b-I2V", cli_run, {}, "w8",
+                                               {"qk_prep": 16, "flash_attention": 12, "flash_attention_tc": 12})
+
+        def serve_run(config, images, outdir):
+            reqs = [serving.BatchRequest(p, img, negative_prompt="", seed=seed)
+                    for p, img, seed in zip(SERVE_PROMPTS, images, SERVE_SEEDS)]
+
+            def go(quantize):
+                argv = ["--config", "-", "--model_cache_dir", tmp, "--output_dir", os.path.join(tmp, outdir),
+                        "--device", "cuda"]
+                return serve_cli.run(serve_cli.build_parser().parse_args(
+                    argv + (["--quantize", quantize] if quantize else [])), config=config, requests=reqs)
+
+            return go
+
+        ck = copy.deepcopy(H.WAN21_I2V_14B)
+        ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2
+        _write_checkpoint("Q3", "Wan2.1-I2V-14B (DiT and UMT5 2 layers)", H.write_wan, ck,
+                          f"{tmp}/{SERVE_WAN_CONFIG['model']['path']}")
+        _free_device_memory()
+        images = [np.random.RandomState(40 + i).randint(0, 256, (480, 832, 3)).astype(np.uint8) for i in range(2)]
+        cc = ck["image_encoder"]["num_hidden_layers"] * 2
+        out["serve_wan_w4"] = _quant_entry(
+            "Q3 serve_cli.run Wan2.1-I2V-14B", serve_run(SERVE_WAN_CONFIG, images, "wan"),
+            {"stages": WAN_STAGES, "seq_len": _wan_seq_len}, "w4",
+            {"rope_interleaved": 16, "flash_attention": 28 + cc, "flash_attention_tc": 28,
+             "flash_attention_cuda_core": cc})
+        shutil.rmtree(f"{tmp}/{SERVE_WAN_CONFIG['model']['path']}", ignore_errors=True)
+
+        ck = copy.deepcopy(H.HUNYUAN_VIDEO_I2V)
+        t, lc = ck["transformer"], ck["text_encoder"]
+        t["num_layers"], t["num_single_layers"], t["num_refiner_layers"] = 2, 2, 2
+        lc["text_config"]["num_hidden_layers"], lc["vision_config"]["num_hidden_layers"] = 2, 2
+        _write_checkpoint("Q3", "HunyuanVideo-I2V (2 + 2 + 2 DiT blocks, Llava 2 + 2 layers)", H.write_hunyuan, ck,
+                          os.path.join(tmp, SERVE_HY_CONFIG["model"]["path"]))
+        _free_device_memory()
+        images = [np.random.RandomState(50 + i).randint(0, 256, (*SERVE_HY_SIZE, 3)).astype(np.uint8)
+                  for i in range(2)]
+        cc = ck["text_encoder_2"]["num_hidden_layers"] * 2
+        tc = (2 + 4) * 4 + 4 * 2
+        out["serve_hunyuan_w8"] = _quant_entry(
+            "Q3 serve_cli.run HunyuanVideo-I2V", serve_run(SERVE_HY_CONFIG, images, "hy"),
+            {"stages": HY_STAGES, "seq_len": _HunyuanLengths(), "on_load": _hunyuan_image_processor}, "w8",
+            {"rope_interleaved": 32, "flash_attention": tc + cc, "flash_attention_tc": tc,
+             "flash_attention_cuda_core": cc})
+        # Q4's first run trains over this directory
+        out.update(_qlora_over_checkpoint(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+    return out
+
+
+QLORA_HY_CONFIG = {  # configs/train/qlora_hunyuan_smoke.yaml as a mapping (the card's machine may lack PyYAML)
+    "model": {"path": "hunyuanvideo-community/HunyuanVideo-I2V", "dtype": "bfloat16"},
+    "generation": {"height": 320, "width": 480, "num_frames": 17, "num_inference_steps": 50, "guidance_scale": 6.0,
+                   "max_sequence_length": 256},
+}
+QLORA_COG_CONFIG = {  # configs/train/qlora_cogvideox_smoke.yaml
+    "model": {"path": "THUDM/CogVideoX-5b-I2V", "dtype": "bfloat16"},
+    "generation": {"height": 320, "width": 480, "num_frames": 17, "num_inference_steps": 50, "guidance_scale": 6.0,
+                   "max_sequence_length": 226},
+}
+
+
+def _qlora_run(tag, config, extra, transformer=None):
+    """``train_cli.run --mode lora`` with ``extra`` (2 synthetic examples, 2 steps, remat, bf16 compute); checks finite
+    losses, that every adapter moved and that the base took no gradient and did not move. Returns (launch counts,
+    step ms)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch import train_cli
+    from alg_tpu_torch.training.lora import lora_base
+
+    import alg_tpu_torch.io.model_zoo as model_zoo
+
+    seen = [] if transformer is None else [transformer]  # the run's DiT: given, or loaded (read back below)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_cli.make_parser().parse_args(
+            ["--config", "-", "--synthetic", "2", "--steps", "2", "--remat", "--compute_dtype", "bfloat16", "--seed",
+             "0", "--lr", "1e-3", "--log_every", "1", "--mode", "lora", "--output", f"{tmp}/a.npz", *extra])
+        load_transformer = model_zoo.load_transformer
+
+        def keep(*a, **kw):
+            seen.append(load_transformer(*a, **kw))
+            return seen[-1]
+
+        model_zoo.load_transformer = keep
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with _StepClock() as clock:
+                _reset_counts()
+                out, seconds = _timed(lambda: train_cli.run(config, args, transformer=transformer))
+                counts = _read_counts()
+        finally:
+            model_zoo.load_transformer = load_transformer
+    dit = seen[-1]
+    base = lora_base(dit)
+    trainable = sum(t.numel() for ab in out["trainable"].values() for t in ab.values())
+    quantized = sorted({m.mode for m in dit.modules() if type(m).__name__ == "QuantizedLinear"})
+    no_grad = all(t.grad is None and not t.requires_grad for t in base.values())
+    moved = all(bool(ab["B"].abs().max() > 0) for ab in out["trainable"].values())
+    ok = no_grad and moved and bool(np.isfinite(out["losses"]).all()) and quantized
+    print(f"[{tag}] train_cli.run {' '.join(extra)}: steps [{', '.join(f'{ms:.1f}' for ms in clock.ms)}] ms, "
+          f"{seconds:.1f} s in all; losses {out['losses']}; base {_dit_bytes(dit) / 2**30:.2f} GiB ({quantized} "
+          f"linears), {trainable} trainable adapter values; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({_card_line()}); the base took no gradient: "
+          f"{no_grad}, every adapter moved: {moved}: {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] the QLoRA run failed its checks")
+    return counts, clock.ms
+
+
+def _qlora_over_checkpoint(tmp) -> dict:
+    """Q4's first run: 2 QLoRA steps (w8) over Q3's written HunyuanVideo-I2V directory at
+    ``qlora_hunyuan_smoke.yaml``'s geometry (17 frames, 320x480)."""
+    config = copy.deepcopy(QLORA_HY_CONFIG)
+    counts, _ = _qlora_run("Q4 HunyuanVideo-I2V directory", config, ["--model_cache_dir", tmp, "--quantize", "w8"])
+    return {"qlora_ckpt_hunyuan": counts}
+
+
+def phase_qlora() -> dict:
+    """Q4 at full depth: ``--random_init --quantize w8`` at ``qlora_hunyuan_smoke.yaml`` (the 12.82 B DiT with its
+    modulation linears quantized, built block by block on the card) and ``--random_init --quantize w4`` at
+    ``qlora_cogvideox_smoke.yaml``, 2 steps each. Returns {path: launch counts}."""
+    import torch
+
+    from alg_tpu_torch import train_cli
+
+    out = {}
+    for tag, family, config, mode, path in (
+            ("Q4 HunyuanVideo full depth", "hunyuan", QLORA_HY_CONFIG, "w8", "qlora_hunyuan_full_w8"),
+            ("Q4 CogVideoX-5b full depth", "cogvideox", QLORA_COG_CONFIG, "w4", "qlora_cogvideox_full_w4")):
+        torch.cuda.reset_peak_memory_stats()
+        dit, build_s = _timed(lambda: train_cli.random_init_transformer(family, torch.bfloat16, torch.device("cuda"),
+                                                                        0, mode))
+        block = next(m for m in dit.modules() if type(m).__name__ == "QuantizedLinear")
+        snapshot = {n: b.clone() for n, b in block.named_buffers()}
+        print(f"[{tag}] random_init_transformer(quantize={mode}) built and quantized block by block in {build_s:.1f} "
+              f"s: {_dit_bytes(dit) / 2**30:.2f} GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        counts, _ = _qlora_run(tag, copy.deepcopy(config), ["--random_init", "--quantize", mode], transformer=dit)
+        if not all(torch.equal(b, snapshot[n]) for n, b in block.named_buffers()):
+            raise AssertionError(f"[{tag}] a quantized weight moved")
+        out[path] = counts
+        del dit, block, snapshot
+        _free_device_memory()
+    return out
+
+
+def _quant_feed():
+    """``tests/quant_feed.py``, jax-free and shared with the on-card tests: ``QuantFeed`` feeds each quantized
+    linear call the input and output another run's call of the same weight took and gave, checking each against
+    the call's own, and ``qlora_step_agreement`` is Q5's QLoRA step."""
+    import importlib
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("quant_feed")
+
+
+def phase_quant_agreement() -> dict:
+    """Q5: small CogVideoX, Wan and HunyuanVideo checkpoints (S5's) loaded with ``quantize`` w8 and w4 on the card
+    and on the CPU, fp32 with TF32 off, ``serve_batch`` of two requests, the card's quantized linears fed the CPU
+    run's inputs and outputs (``quant_feed.QuantFeed``, each checked against the card's own: inputs within 1e-4
+    of their largest value, at most 1e-3 of the codes and of the product's rows rounding the other way): final latents within 2e-3, frames above 40 dB;
+    then one QLoRA step of a small CogVideoX DiT (w8, rank 4, remat, AdamW lr 1e-2 and eps 1e-4 as E2) card
+    against CPU (``quant_feed.qlora_step_agreement``): loss rtol 1e-5, gradients within 1e-4 of each leaf's
+    largest, the card's step within atol 1e-5 of the CPU's optimizer on the card's gradients. Returns {path: the
+    card's launch counts}."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from alg_tpu_torch import serving
+    from alg_tpu_torch.cli import load_pipeline
+    from alg_tpu_torch.core.config import run_config_from_dict
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    _set_tf32(False, False)
+    images = [np.random.RandomState(60 + i).randint(0, 256, (64, 64, 3)).astype(np.uint8) for i in range(2)]
+    reqs = [serving.BatchRequest(p, img, negative_prompt="", seed=seed)
+            for p, img, seed in zip(SERVE_PROMPTS, images, SERVE_SEEDS)]
+    hy_config = _small_cli_config("SmallHunyuanVideo", num_frames=9, guidance_scale=1.0, true_cfg_scale=2.0,
+                                  i2v_stable=True, max_sequence_length=20, prompt_template=SMALL_HY_TEMPLATE)
+    hy_config["model"].update(flow_shift=7.0, flow_reverse=False)
+    hy_config["alg"]["lp_resize_factor"] = 0.625
+    wan_config = _small_cli_config("SmallWan", num_frames=9, guidance_scale=5.0)
+    wan_config["alg"]["lp_resize_factor"] = 0.4
+    cases = (("cogvideox", "SmallCogVideoX", H.write_cogvideox, SMALL_COGVIDEOX,
+              _small_cli_config("SmallCogVideoX", num_frames=5, guidance_scale=6.0), ("qk_prep",)),
+             ("wan", "SmallWan", H.write_wan, SMALL_WAN, wan_config, ("rope_interleaved",)),
+             ("hunyuan", "SmallHunyuanVideo", H.write_hunyuan, SMALL_HUNYUAN, hy_config, ("rope_interleaved",)))
+    tmp = tempfile.mkdtemp(prefix="alg_quant_small_")
+    counts = {}
+    try:
+        for family, name, write, ck, config, _ in cases:
+            write(os.path.join(tmp, name), ck, seed=4)
+            cfg = run_config_from_dict(config)
+            kw = cfg.pipeline_kwargs
+            for mode in ("w8", "w4"):
+                feed, results = _quant_feed().QuantFeed(), {}
+                for dev, fed in (("cpu", feed.recording), ("cuda", feed.feeding)):
+                    pipe = load_pipeline(cfg, tmp, quantize=mode, device=dev)
+                    with fed():
+                        _reset_counts()
+                        lat = serving.serve_batch(pipe, reqs, **kw, output_type="latent")
+                        n = _read_counts()
+                        frames = serving.serve_batch(pipe, reqs, **kw, output_type="np")
+                    results[dev] = (lat, frames, n)
+                    del pipe
+                lat_c, fr_c, n_c = results["cpu"]
+                lat_g, fr_g, n_g = results["cuda"]
+                err, psnr = float(np.abs(lat_g - lat_c).max()), _psnr(fr_g, fr_c)
+                ok = err <= 2e-3 and psnr > 40.0 and not any(n_c.values()) and any(n_g.values())
+                print(f"[Q5 {family} {mode}] serve_batch of two, card vs CPU, fp32, the card's quantized linear calls "
+                      f"fed the CPU's ({feed.report()}): latents max|diff| {err:.3e} (atol 2e-3), frames PSNR "
+                      f"{psnr:.1f} dB (> 40), launches card {n_g} / CPU {n_c}: {'PASS' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"[Q5 {family} {mode}] card and CPU disagree")
+                feed.check()
+                counts[f"agreement_serve_{family}_{mode}"] = n_g
+        counts["agreement_qlora_cogvideox"] = _qlora_agreement()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+    return counts
+
+
+def _qlora_agreement() -> dict:
+    """Q5's QLoRA step (``quant_feed.qlora_step_agreement``, w8, seed 4); returns the card's launch counts."""
+    _reset_counts()
+    out = _quant_feed().qlora_step_agreement("cuda", "w8", seed=4)
+    n_g = _read_counts()
+    ok = out["ok"] and n_g["flash_attention_lse"] > 0
+    print(f"[Q5 QLoRA] one step over a small CogVideoX DiT, card vs CPU, fp32, the card's quantized linear calls fed "
+          f"the CPU's: {out['line']}; launches card {n_g}: {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("[Q5 QLoRA] card and CPU disagree")
+    return n_g
+
+
+def phase_quant() -> dict:
+    """Q1-Q5 (``python3 chip_smoke.py --quant`` runs them alone); returns the launch counts by path."""
+    phase_quant_linear()
+    counts = phase_quant_pipeline()
+    counts.update(phase_quant_entry())  # Q3, and Q4's run over Q3's Hunyuan directory
+    counts.update(phase_qlora())
+    counts.update(phase_quant_agreement())
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4615,6 +5181,14 @@ def main() -> int:
             traceback.print_exc()
             return 1
         return 0
+    if sys.argv[1:] == ["--quant"]:
+        try:
+            phase_build()
+            phase_quant()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     if sys.argv[1:] == ["--cogvideox15"]:
         try:
             phase_build()
@@ -4654,6 +5228,7 @@ def main() -> int:
         phase_finetune_agreement()
         counts.update(phase_cogvideox15_checkpoint())  # F3, G4
         counts.update(phase_serve())  # S1-S5
+        counts.update(phase_quant())  # Q1-Q5
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("cli_cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
@@ -4700,7 +5275,25 @@ def main() -> int:
                                 for path in ("serve_wan", "cli_hunyuan", "serve_hunyuan")),
                               ("agreement_serve_cogvideox", ("qk_prep", "flash_attention_cuda_core")),
                               *((f"agreement_serve_{family}", ("rope_interleaved", "flash_attention_cuda_core"))
-                                for family in ("wan", "hunyuan"))):
+                                for family in ("wan", "hunyuan")),
+                              # Q: the quantized paths launch the attention kernels their bf16 runs launch
+                              *((f"quant_pipeline_cogvideox_{mode}", ("qk_prep", "flash_attention_tc"))
+                                for mode in ("w8", "w4")),
+                              ("cli_cogvideox_w8", ("qk_prep", "flash_attention_tc")),
+                              *((path, ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core"))
+                                for path in ("serve_wan_w4", "serve_hunyuan_w8")),
+                              *((path, ("rope_interleaved", "flash_attention_lse", "flash_attention_bwd_dq_tc",
+                                        "flash_attention_bwd_dkv_tc"))
+                                for path in ("qlora_ckpt_hunyuan", "qlora_hunyuan_full_w8")),
+                              ("qlora_cogvideox_full_w4", ("qk_prep", "flash_attention_lse", "flash_attention_bwd_dq_tc",
+                                                           "flash_attention_bwd_dkv_tc")),
+                              *((f"agreement_serve_cogvideox_{mode}", ("qk_prep", "flash_attention_cuda_core"))
+                                for mode in ("w8", "w4")),
+                              *((f"agreement_serve_{family}_{mode}", ("rope_interleaved", "flash_attention_cuda_core"))
+                                for family in ("wan", "hunyuan") for mode in ("w8", "w4")),
+                              ("agreement_qlora_cogvideox", ("qk_prep", "flash_attention_cuda_core",
+                                                             "flash_attention_bwd_dq_cuda_core",
+                                                             "flash_attention_bwd_dkv_cuda_core"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

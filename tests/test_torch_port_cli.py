@@ -31,6 +31,9 @@ from alg_tpu_torch.pipelines.wan import WanPipeline
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import make_tiny_checkpoint  # noqa: E402
 
+from torch_port_common import one_thread
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMAGE = os.path.join(REPO, "assets", "a red double decker bus driving down a street.jpg")
 PROMPT = "a red double decker bus driving down the street"
@@ -230,7 +233,8 @@ def test_hunyuan_size_buckets_come_from_the_image(family_ckpts, tmp_path, monkey
 
 
 def test_flags_that_are_not_ported_raise(tiny_ckpt, tmp_path, captured, monkeypatch):
-    """``--quantize`` names ROADMAP A12. ``--checkpoint_path``, once refused,
+    """``--quantize``, once refused (ROADMAP A12), runs, and with ``--lora``
+    raises ``alg_tpu``'s ``ValueError``. ``--checkpoint_path``, once refused,
     snapshots the denoise loop: a run interrupted after its first step leaves
     the snapshot, and the same command run again resumes it, to the
     uninterrupted run's latents bit for bit, and removes it."""
@@ -238,9 +242,11 @@ def test_flags_that_are_not_ported_raise(tiny_ckpt, tmp_path, captured, monkeypa
 
     args = ["--output_path", str(tmp_path / "x.mp4"), "--device", "cpu"]
     image = np.asarray(Image.open(IMAGE).convert("RGB").resize((32, 32)))
-    with pytest.raises(NotImplementedError, match="A12"):
-        TC.run(TC.build_parser().parse_args(args + ["--quantize", "w8"]), config=_config(tiny_ckpt),
-               image=np.zeros((32, 32, 3), np.uint8))
+    with pytest.raises(ValueError, match="--lora with --quantize is unsupported"):
+        TC.run(TC.build_parser().parse_args(args + ["--quantize", "w8", "--lora", str(tmp_path / "a.npz")]),
+               config=_config(tiny_ckpt), image=np.zeros((32, 32, 3), np.uint8))
+    assert TC.run(TC.build_parser().parse_args(args + ["--quantize", "w8"]), config=_config(tiny_ckpt),
+                  image=image) == str(tmp_path / "x.avi")
     TC.run(TC.build_parser().parse_args(args), config=_config(tiny_ckpt), image=image)
     whole = captured["port_latents"]
     snap = tmp_path / "s.npz"

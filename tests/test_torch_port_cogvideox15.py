@@ -49,11 +49,12 @@ from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 from alg_tpu_torch.training import lora as TL
 from alg_tpu_torch.training import train as TT
 
-from torch_port_common import (build_pair, one_torch_thread, port_cfg, port_module, psnr, random_tree, tiny_configs,
-                               tiny_wan_configs)
+from torch_port_common import (build_pair, one_thread, one_torch_thread, port_cfg, port_module, psnr, random_tree,
+                               tiny_configs, tiny_wan_configs)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import make_tiny_checkpoint  # noqa: E402
+
 
 FWD_ATOL, ROPE_ATOL, LATENT_ATOL, MIN_PSNR_DB = 1e-4, 1e-6, 2e-3, 40.0
 PROMPT = "a red double decker bus driving down the street"

@@ -21,6 +21,9 @@ from alg_tpu.alg import filters as JF
 from alg_tpu_torch.alg import filters as TF
 from alg_tpu_torch.alg.matrices import apply_filter_matrices, bilinear_resize_matrix, filter_matrices
 
+from torch_port_common import one_thread
+
+
 ATOL = 1e-6
 
 FILTERS = {

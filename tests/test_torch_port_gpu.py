@@ -40,7 +40,10 @@ of the forward and dq, reached by the head count; Wan's cross-attention to
 ``cuda_core``; and CogVideoX-1.5's joint lengths (S = 8,386 and 45,106 and
 one row either side: qk_prep on the head-split view and the bf16 forward's
 rows near both ends, the whole shipped [2, 48, 45106, 64] call) and a small
-1.5 DiT card against CPU.
+1.5 DiT card against CPU; the W8A8 / W4A8 linear (``ops/quant.py``) at rows
+either side of ``torch._int_mm``'s least 17, its accumulators bit-equal to
+the exact product and its backward against the CPU's, and a QLoRA step card
+against CPU.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -66,6 +69,8 @@ from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.ops import flash_attention as FA
 from alg_tpu_torch.ops import qk_prep as QK
 from alg_tpu_torch.ops import rope as RO
+
+from quant_feed import qlora_step_agreement
 
 pytestmark = pytest.mark.gpu
 
@@ -1689,3 +1694,56 @@ def test_cogvideox15_dit_forward_card_matches_cpu(cuda):
     assert (QK.qk_norm_rope.launches - before[0], FA.flash_attention.launches - before[1]) == (4, 2)
     assert out.shape == (2, 4, 4, 8, 12)
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)
+
+
+# -- the W8A8 / W4A8 linears (ops/quant.py) -------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17, 33, 4097])
+@pytest.mark.parametrize("mode", ["w8", "w4"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_quantized_linear_on_the_card(cuda, rows, mode, dtype):
+    """``QuantizedLinear`` with in = 128·3 and out = 8·33 at rows either side of ``torch._int_mm``'s least 17
+    (fewer rows take the padded path): the weight quantized on the card bit-equal to the CPU's; the int32
+    accumulators bit-equal to the int8 operands' fp64 product on the card and to the CPU's int32 product; the
+    output and the QLoRA backward's ``dx`` against the CPU's plain version."""
+    from alg_tpu_torch.models.layers import QuantizedLinear
+    from alg_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator().manual_seed(rows)
+    k, n = 3 * 128, 33 * 8
+    lin = torch.nn.Linear(k, n, dtype=dtype)
+    with torch.no_grad():
+        lin.weight.copy_(_randn(gen, n, k, scale=k ** -0.5))
+        lin.bias.copy_(_randn(gen, n, scale=0.1))
+    plain = QuantizedLinear.from_linear(lin, mode)
+    card = QuantizedLinear.from_linear(copy.deepcopy(lin).to(cuda), mode)
+    for name, buf in plain.named_buffers():
+        assert torch.equal(card.get_buffer(name).cpu(), buf), name
+    x = _randn(gen, rows, k).to(dtype)
+    xq, _ = Q.quantize_rows(x.to(cuda))
+    acc = Q.int8_matmul(xq, card.int8_weight())
+    assert acc.dtype == torch.int32 and acc.shape == (rows, n)
+    assert torch.equal(acc.double(), xq.double() @ card.int8_weight().double().t())
+    assert torch.equal(acc.cpu(), Q.int8_matmul(Q.quantize_rows(x)[0], plain.int8_weight()))
+    xg, xc = x.to(cuda).requires_grad_(), x.clone().requires_grad_()
+    yg, yc = card(xg), plain(xc)
+    assert yg.dtype == dtype
+    _assert_close(yg, yc, dtype)
+    g = _randn(gen, rows, n).to(dtype)
+    yg.backward(g.to(cuda))
+    yc.backward(g)
+    _assert_close(xg.grad, xc.grad, dtype)
+    assert card.bias.grad is None
+
+
+@pytest.mark.parametrize("mode", ["w8", "w4"])
+def test_qlora_step_card_matches_cpu(cuda, mode):
+    """One QLoRA step (rank 4, remat, AdamW lr 1e-2, eps 1e-4) over a small CogVideoX DiT quantized in place (block
+    linears of 128 and 512), card against CPU in fp32, the card's quantized linears fed the CPU run's inputs
+    (``quant_feed.qlora_step_agreement``, as ``chip_smoke.py``'s Q5): loss rtol 1e-5, gradients within 1e-4 of each
+    leaf's largest, the card's step within atol 1e-5 of the CPU's optimizer on the card's gradients, and the
+    quantized base takes no gradient."""
+    out = qlora_step_agreement(cuda, mode, seed=6)
+    print(out["line"])
+    assert out["ok"], out["line"]

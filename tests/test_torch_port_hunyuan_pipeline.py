@@ -18,11 +18,12 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_common import (HY_DRT, HY_IMG, HY_PAD, HY_TEMPLATE, build_hunyuan_pair, hunyuan_trees, port_module,
-                               psnr, tiny_hunyuan_configs)
+from torch_port_common import (HY_DRT, HY_IMG, HY_PAD, HY_TEMPLATE, build_hunyuan_pair, hunyuan_trees, one_thread,
+                               port_module, psnr, tiny_hunyuan_configs)
 
 LATENT_ATOL, LATENT_RTOL, MIN_PSNR_DB = 2e-3, 1e-4, 40.0
 HEIGHT = WIDTH = 32
+
 
 ALG_KW = dict(use_low_pass_guidance=True, lp_filter_type="down_up", lp_filter_in_latent=True, lp_resize_factor=0.625,
               lp_strength_schedule_type="interval", schedule_interval_start_time=0.0,

@@ -35,7 +35,7 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.pipelines.denoise", "alg_tpu_torch.prepare_cli", "alg_tpu_torch.utils.profiling",
             "alg_tpu_torch.train_cli", "alg_tpu_torch.models.cogvideox.transformer",
             "alg_tpu_torch.models.cogvideox.vae", "alg_tpu_torch.serving", "alg_tpu_torch.serve_cli",
-            "alg_tpu_torch.http_serving"} <= set(mods)
+            "alg_tpu_torch.http_serving", "alg_tpu_torch.ops.quant"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -49,6 +49,8 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['alg_tpu'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "sys.path.insert(0, 'tests')\n"
+        "importlib.import_module('quant_feed')  # chip_smoke.py's Q5 imports it\n"
         "from alg_tpu_torch.ops.flash_attention import route\n"
         "from alg_tpu_torch.ops.flash_attention_bwd import dkv_route\n"
         "assert not any((k == 'alg_tpu' or k.startswith('alg_tpu.')) and m is not None\n"

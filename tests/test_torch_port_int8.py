@@ -41,7 +41,8 @@ from alg_tpu.ops.flash_attention_int8 import quantize_v_int8 as jax_quantize_v_i
 from alg_tpu_torch.ops import attention as A
 from alg_tpu_torch.ops import flash_attention_int8 as I8
 
-from torch_port_common import port_module, random_tree, tiny_hunyuan_configs
+from torch_port_common import one_thread, port_module, random_tree, tiny_hunyuan_configs
+
 
 jax_attention_module = sys.modules["alg_tpu.ops.attention"]  # the package exports the function under this name
 

@@ -30,6 +30,9 @@ from alg_tpu_torch.io.jax_params import flatten_jax_tree
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import make_tiny_checkpoint  # noqa: E402
 
+from torch_port_common import one_thread
+
+
 safetensors_torch = pytest.importorskip("safetensors.torch")
 
 
@@ -200,16 +203,19 @@ def test_loader_tokenizers_match_alg_tpu(tiny_dirs):
 
 
 def test_loaders_refuse_what_is_not_ported(tmp_path):
-    """``quantize`` raises, naming its ROADMAP item; a tokenizer directory
-    without ``tokenizer.json`` raises; an absent model names the cache flag.
-    (A CogVideoX 1.5 checkpoint, once refused, now loads:
-    ``tests/test_torch_port_cogvideox15.py``.)"""
+    """``quantize``, once refused (ROADMAP A12), loads, and an unknown mode
+    raises; a tokenizer directory without ``tokenizer.json`` raises; an
+    absent model names the cache flag. (A CogVideoX 1.5 checkpoint, once
+    refused, now loads: ``tests/test_torch_port_cogvideox15.py``; quantized
+    widths: ``tests/test_torch_port_quant.py``.)"""
     root = str(tmp_path / "TinyCogVideoX1.5")
     make_tiny_checkpoint.build(root, patch_size_t=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        TZ.load_cogvideox_pipeline(root, dtype=torch.float32, quantize="w8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TZ.load_wan_pipeline(root, quantize="w8", device="cpu")
+    # the tiny DiT's linears are narrower than 128: none is quantized
+    got = TZ.load_cogvideox_pipeline(root, dtype=torch.float32, quantize="w8", device="cpu").transformer.state_dict()
+    want = TZ.load_cogvideox_pipeline(root, dtype=torch.float32, device="cpu").transformer.state_dict()
+    assert list(got) == list(want) and all(torch.equal(got[n], want[n]) for n in want)
+    with pytest.raises(ValueError, match="quantization mode"):
+        TZ.load_cogvideox_pipeline(root, dtype=torch.float32, quantize="w2", device="cpu")
     os.remove(os.path.join(root, "tokenizer", "tokenizer.json"))
     with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         TZ._make_tokenizer(root)

@@ -26,6 +26,9 @@ from test_hf_tokenizer import TEXTS, _clip_style, _darts_unit, _llama3_style, _t
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import make_tiny_checkpoint  # noqa: E402
 
+from torch_port_common import one_thread
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

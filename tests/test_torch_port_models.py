@@ -20,7 +20,7 @@ from alg_tpu_torch.io.jax_params import load_jax_params
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 
-from torch_port_common import jax_trees, port_module, random_tree, tiny_configs
+from torch_port_common import jax_trees, one_thread, port_module, random_tree, tiny_configs
 
 OP_ATOL, FWD_ATOL = 1e-5, 1e-4
 

@@ -29,6 +29,9 @@ from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.qk_prep import qk_norm_rope
 from alg_tpu_torch.ops.rope import rope_interleaved
 
+from torch_port_common import one_thread
+
+
 ATOL = 1e-5
 
 

@@ -31,6 +31,9 @@ from alg_tpu_torch.ops.flash_attention_bwd import (FlashAttentionFunction, flash
 from alg_tpu_torch.ops.qk_prep import qk_norm_rope
 from alg_tpu_torch.ops.rope import rope_interleaved
 
+from torch_port_common import one_thread
+
+
 GRAD_TOL = dict(atol=2e-4, rtol=1e-4)
 
 # name: (b, h, sq, sk, d, causal, kv_len)

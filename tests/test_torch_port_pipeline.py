@@ -14,7 +14,8 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_common import build_pair, psnr
+from torch_port_common import build_pair, one_thread, psnr
+
 
 LATENT_ATOL, MIN_PSNR_DB = 2e-3, 40.0
 

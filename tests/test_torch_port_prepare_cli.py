@@ -32,6 +32,9 @@ import make_tiny_checkpoint  # noqa: E402
 PIL = pytest.importorskip("PIL")
 from PIL import Image  # noqa: E402
 
+from torch_port_common import one_thread
+
+
 PROMPT = "a red double decker bus driving down the street"
 MAX_SEQ = 8
 ATOL = RTOL = 1e-4

@@ -29,6 +29,9 @@ from alg_tpu_torch.ops import flash_attention as FA
 
 from test_torch_port_tc import BF16_STEP, interpret_jax_flash
 
+from torch_port_common import one_thread
+
+
 ATOL = 5e-6
 MODES = [("layer", True, False, True), ("rms", True, True, True), (None, True, False, True),
          ("layer", False, False, True), ("layer", True, False, False)]

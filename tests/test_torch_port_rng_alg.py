@@ -23,6 +23,9 @@ from alg_tpu_torch.alg import schedule as TS
 from alg_tpu_torch.core.rng import NoiseSource
 from alg_tpu_torch.schedulers import ddim_cogvideox as TD
 
+from torch_port_common import one_thread
+
+
 MAT_ATOL = 1e-5
 
 

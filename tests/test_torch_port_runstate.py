@@ -21,6 +21,9 @@ from alg_tpu.io import runstate as JR
 from alg_tpu_torch.io import runstate as TR
 from alg_tpu_torch.schedulers.unipc import UniPCState
 
+from torch_port_common import one_thread
+
+
 ARGS = [
     dict(prompt="a cat", negative_prompt="", seed=42, height=480, width=720, num_frames=49, num_inference_steps=50,
          guidance_scale=6.0, use_dynamic_cfg=False, eta=0.0, timesteps=None, scheduler="ddim",

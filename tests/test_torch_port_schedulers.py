@@ -19,6 +19,9 @@ from alg_tpu_torch.alg.schedule import build_cache_schedule
 from alg_tpu_torch.schedulers import ddim_cogvideox as TDDIM
 from alg_tpu_torch.schedulers import dpm_cogvideox as TDPM
 
+from torch_port_common import one_thread
+
+
 ATOL = 1e-6
 TIMESTEPS = {"spaced": None, "custom": [999, 850, 600, 300, 120, 10]}
 

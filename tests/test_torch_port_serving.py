@@ -30,7 +30,7 @@ from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 from alg_tpu_torch.pipelines.hunyuan import HunyuanVideoPipeline
 from alg_tpu_torch.pipelines.wan import WanPipeline
 
-from torch_port_common import one_torch_thread
+from torch_port_common import one_thread
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import make_tiny_checkpoint  # noqa: E402
@@ -54,12 +54,6 @@ def _config(path, **generation):
                 "schedule_interval_start_time": 0.0, "schedule_interval_end_time": 0.5},
         "video": {"fps": 8},
     }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    with one_torch_thread():
-        yield
 
 
 class _Checkpoints:

@@ -30,9 +30,10 @@ from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 from alg_tpu_torch.pipelines.hunyuan import HunyuanVideoPipeline
 from alg_tpu_torch.pipelines.wan import WanPipeline
 
-from torch_port_common import build_pair, psnr
+from torch_port_common import build_pair, one_thread, psnr
 
 LATENT_ATOL, MIN_PSNR_DB = 2e-3, 40.0
+
 
 PIXEL = dict(lp_filter_type="gaussian_blur", lp_filter_in_latent=False, lp_blur_sigma=3.0, lp_blur_kernel_size=0.1)
 CASES = {

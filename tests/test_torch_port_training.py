@@ -35,8 +35,8 @@ from alg_tpu_torch.training import lora as TL
 from alg_tpu_torch.training import losses as TLoss
 from alg_tpu_torch.training import train as TT
 
-from torch_port_common import (one_torch_thread, port_module, random_tree, tiny_configs, tiny_hunyuan_configs,
-                               tiny_wan_configs)
+from torch_port_common import (one_thread, one_torch_thread, port_module, random_tree, tiny_configs,
+                               tiny_hunyuan_configs, tiny_wan_configs)
 
 LOSS_RTOL, ATOL = 1e-5, 1e-5
 
@@ -333,11 +333,15 @@ def test_lora_loss_base_as_call_argument_and_errors():
     assert TL.make_lora_loss(loss_fn, None, attach=True).draw is loss_fn.draw
     with pytest.raises(ValueError):
         TL.make_lora_loss(loss_fn, None)
-    quantized = dict(base, **{"blocks.0.attn.to_q.kernel_q": torch.zeros(1)})
+    # a quantized to_q (once refused): attached, never merged
+    quantized = {n: t for n, t in base.items() if n != "blocks.0.attn.to_q.weight"}
+    quantized["blocks.0.attn.to_q.weight_q"] = torch.zeros(base["blocks.0.attn.to_q.weight"].shape, dtype=torch.int8)
     assert TL.has_quantized_kernels(quantized) and not TL.has_quantized_kernels(base)
-    for fn in (TL.apply_lora, TL.attach_lora):
-        with pytest.raises(NotImplementedError):
-            fn(quantized, loras)
+    assert TL.has_quantized_kernels({"blocks.attn.to_q.kernel_q": torch.zeros(1)})
+    with pytest.raises(ValueError, match="attach"):
+        TL.apply_lora(quantized, loras)
+    attached = TL.attach_lora(quantized, loras)
+    assert torch.equal(attached["blocks.0.attn.to_q.lora_A"], loras["blocks/attn/to_q"]["A"][0])
     with pytest.raises(KeyError):
         TL.attach_lora(base, {"blocks/attn/nope": loras["blocks/attn/to_q"]})
 

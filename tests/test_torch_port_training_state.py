@@ -23,7 +23,7 @@ from alg_tpu_torch.training import lora as TL
 from alg_tpu_torch.training import losses as TLoss
 from alg_tpu_torch.training import train as TT
 
-from torch_port_common import port_module, random_tree, tiny_configs
+from torch_port_common import one_thread, port_module, random_tree, tiny_configs
 
 
 def _setup(accum=1, **tc):

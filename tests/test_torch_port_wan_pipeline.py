@@ -17,7 +17,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_common import build_wan_pair, psnr
+from torch_port_common import build_wan_pair, one_thread, psnr
 
 LATENT_ATOL, LATENT_RTOL, MIN_PSNR_DB = 2e-3, 1e-4, 40.0
 HEIGHT = WIDTH = 32

@@ -16,7 +16,8 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_common import build_wan_pair
+from torch_port_common import build_wan_pair, one_thread
+
 
 LATENT_ATOL, LATENT_RTOL = 2e-3, 1e-4
 HEIGHT = WIDTH = 32

@@ -10,8 +10,11 @@ import contextlib
 import dataclasses
 
 import numpy as np
+import pytest
 
 import jax
+
+from quant_feed import QuantFeed, kernel_key
 
 
 @contextlib.contextmanager
@@ -27,6 +30,13 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """:func:`one_torch_thread` over a whole module: a test module takes it by importing this name."""
+    with one_torch_thread():
+        yield
 
 
 def port_cfg(port_cls, jax_cfg):
@@ -309,3 +319,72 @@ def build_hunyuan_pair(with_encoders=False, **dit_over):
 def psnr(a, b, peak=1.0):
     mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
     return float("inf") if mse == 0 else 10 * np.log10(peak**2 / mse)
+
+
+# -- quantized DiTs -----------------------------------------------------------------
+
+
+def quant_dit_configs():
+    """JAX DiT configs whose block linears are wide enough to quantize (in and
+    out at least 128), with in-dims that are and are not multiples of 128
+    (W4A8's int8 fallback), and modulation linears of at least 128 in."""
+    from alg_tpu.models.cogvideox import CogVideoXTransformerConfig
+    from alg_tpu.models.hunyuan import HunyuanVideoTransformerConfig
+    from alg_tpu.models.wan import WanTransformerConfig
+
+    return {
+        # inner 192 (to_q falls back in w4), ff 768 (fc_out takes w4), norm linears 128 -> 1152
+        "cogvideox": CogVideoXTransformerConfig(num_attention_heads=3, attention_head_dim=64, in_channels=8,
+                                                out_channels=4, time_embed_dim=128, text_embed_dim=16, num_layers=2,
+                                                sample_height=4, sample_width=4, max_text_seq_length=4),
+        # inner 128 (w4), ffn 320 (fc_out falls back)
+        "wan": WanTransformerConfig(num_attention_heads=2, attention_head_dim=64, in_channels=12, out_channels=4,
+                                    num_layers=2, ffn_dim=320, freq_dim=16, text_dim=16, image_dim=16),
+        # inner 128, mlp 320: proj_out's in 448 falls back, ff's fc_out too; modulation 128 -> 768
+        "hunyuan": HunyuanVideoTransformerConfig(in_channels=4, out_channels=4, num_attention_heads=2,
+                                                 attention_head_dim=64, num_layers=1, num_single_layers=2,
+                                                 num_refiner_layers=1, mlp_ratio=2.5, text_embed_dim=16,
+                                                 pooled_projection_dim=8, rope_axes_dim=(16, 24, 24)),
+    }
+
+
+_QUANT_FAMILIES = {
+    "cogvideox": ("alg_tpu.models.cogvideox", "init_cogvideox_transformer", "dit"),
+    "wan": ("alg_tpu.models.wan", "init_wan_transformer", "wan_dit"),
+    "hunyuan": ("alg_tpu.models.hunyuan", "init_hunyuan_transformer", "hunyuan_dit"),
+}
+
+
+def quant_dit(family, seed=21):
+    """(JAX config of :func:`quant_dit_configs`, its seeded numpy tree, tree -> the port's DiT on the CPU in
+    fp32 loaded through the weights bridge; a quantized tree gives ``QuantizedLinear`` modules)."""
+    import importlib
+
+    jmod, jinit, kind = _QUANT_FAMILIES[family]
+    cfg = quant_dit_configs()[family]
+    tree = random_tree(lambda k: getattr(importlib.import_module(jmod), jinit)(k, cfg), seed)
+    return cfg, tree, lambda t: port_module(kind, cfg, t)
+
+
+class QuantTeacher(QuantFeed):
+    """A :class:`quant_feed.QuantFeed` of the JAX package's run: records the input and output of each quantized
+    linear call of its forward, by weight and in call order; :meth:`feeding` feeds them to the port's, each checked
+    against the port's own as ``quant_feed`` says. What is left of the comparison is the rest of the model and
+    which linears run where, held at the usual bounds (``test_torch_port_quant.py`` holds the linears themselves
+    bit-equal on one input)."""
+
+    def __init__(self, monkeypatch):
+        from alg_tpu.ops import quant as JQ
+
+        super().__init__()
+        original = JQ.quantized_linear
+
+        def store(kernel, x, y):
+            self.put(kernel_key(np.asarray(kernel)), np.array(x), np.array(y))
+
+        def recorded(p, x):  # the values reach the host in program order, under jit too
+            y = original(p, x)
+            jax.debug.callback(store, p.get("kernel_q", p.get("kernel_q4")), x, y, ordered=True)
+            return y
+
+        monkeypatch.setattr(JQ, "quantized_linear", recorded)
