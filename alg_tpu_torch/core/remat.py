@@ -47,9 +47,13 @@ def remat_blocks(enable: bool = True):
         _REMAT = prev
 
 
-def run_block(block: torch.nn.Module, *args):
-    """``block(*args)``, checkpointed when remat is on and a gradient is being recorded."""
-    if not (_REMAT and torch.is_grad_enabled()):
+def run_block(block: torch.nn.Module, *args, params=None):
+    """``block(*args)``, checkpointed when remat is on and a gradient is
+    being recorded; ``params`` (name -> tensor) stand in for the block's own
+    (a pipeline stage's differentiable copies)."""
+    remat = _REMAT and torch.is_grad_enabled()
+    if params is None and not remat:
         return block(*args)
-    state = {**dict(block.named_parameters()), **dict(block.named_buffers())}
-    return checkpoint(lambda *a: torch.func.functional_call(block, state, a), *args, use_reentrant=False)
+    state = {**dict(block.named_parameters()), **dict(block.named_buffers()), **(params or {})}
+    call = lambda *a: torch.func.functional_call(block, state, a)  # noqa: E731
+    return checkpoint(call, *args, use_reentrant=False) if remat else call(*args)

@@ -30,6 +30,13 @@ Protocol (JSON over HTTP, standard library only):
 
 Start it with ``alg-tpu-torch-serve --config ... --listen 8000 [--max_batch
 4 --batch_window 0.2]``.
+
+Over a device mesh (``torchrun`` with ``--dp/--sp/--tp``) rank 0 serves
+HTTP: its worker broadcasts each micro-batch and its keywords to every rank
+(``broadcast_object_list``), and the other ranks run :func:`follow`, so all
+ranks enter each ``serve_batch`` together. Under dp a micro-batch is padded
+to a multiple of dp with copies of its last request, whose videos are
+dropped.
 """
 
 from __future__ import annotations
@@ -74,13 +81,14 @@ class BatchingWorker(threading.Thread):
     ``batches`` lists the size of each micro-batch run, in order."""
 
     def __init__(self, pipeline, gen_kwargs, *, max_batch: int = 1, batch_window: float = 0.2,
-                 hunyuan_resolution=None):
+                 hunyuan_resolution=None, mesh=None):
         super().__init__(daemon=True, name="alg-tpu-torch-batcher")
         self.pipeline = pipeline
         self.gen_kwargs = dict(gen_kwargs)
         self.max_batch = max(1, int(max_batch))
         self.batch_window = float(batch_window)
         self.hunyuan_resolution = hunyuan_resolution
+        self.mesh = mesh
         self.queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self.served = 0
         self.batches = []
@@ -94,6 +102,18 @@ class BatchingWorker(threading.Thread):
     def shutdown(self):
         self._stopping.set()
         self.queue.put(None)  # unblock the drain loop
+
+    def _serve(self, requests, kw):
+        """``serve_batch`` on this rank, after handing the micro-batch to the
+        mesh's other ranks (padded to a multiple of dp)."""
+        from alg_tpu_torch.serving import serve_batch
+
+        if self.mesh is None:
+            return serve_batch(self.pipeline, requests, **kw)
+        n, dp = len(requests), self.mesh.size("dp")
+        padded = requests + [requests[-1]] * (-n % dp)
+        _broadcast((padded, kw), self.mesh)
+        return serve_batch(self.pipeline, padded, **kw)[:n]
 
     # -- internals ----------------------------------------------------------
 
@@ -126,15 +146,24 @@ class BatchingWorker(threading.Thread):
         return kw
 
     def run(self):
-        from alg_tpu_torch.serving import serve_batch
+        if self.mesh is not None and self.mesh.device.type == "cuda":
+            import torch
 
+            torch.cuda.set_device(self.mesh.device)  # a thread starts on card 0
+        try:
+            self._loop()
+        finally:
+            if self.mesh is not None:
+                _broadcast(None, self.mesh)  # the followers stop
+
+    def _loop(self):
         while not self._stopping.is_set():
             batch = self._drain_batch()
             if not batch:
                 continue
             n = len(batch)
             try:
-                videos = serve_batch(self.pipeline, [p.request for p in batch], **self._gen_kwargs_for(batch))
+                videos = self._serve([p.request for p in batch], self._gen_kwargs_for(batch))
                 self.batches.append(n)
                 for p, frames in zip(batch, videos):
                     p.result = frames
@@ -145,6 +174,33 @@ class BatchingWorker(threading.Thread):
                 for p in batch:
                     p.error = f"{type(exc).__name__}: {exc}"
                     p.done.set()
+
+
+def _broadcast(obj, mesh):
+    """``obj`` from rank 0 to every rank of the default group; returns it."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, device=mesh.device if mesh.device.type == "cuda" else None)
+    return box[0]
+
+
+def follow(pipeline, mesh) -> int:
+    """A rank other than 0 of a serving mesh: run each micro-batch rank 0's
+    worker broadcasts, until it stops; returns the number of micro-batches."""
+    from alg_tpu_torch.serving import serve_batch
+
+    n = 0
+    while True:
+        item = _broadcast(None, mesh)
+        if item is None:
+            return n
+        requests, kw = item
+        try:
+            serve_batch(pipeline, requests, **kw)
+        except Exception:  # rank 0 reports the failure to its clients
+            logger.exception("micro-batch of %d failed on rank %d", len(requests), mesh.rank)
+        n += 1
 
 
 def _encode_video_bytes(frames, fps: int):
@@ -211,10 +267,12 @@ def make_handler(worker: BatchingWorker, fps: int, family: str):
 
 
 def serve_http(pipeline, cfg, *, host: str = "127.0.0.1", port: int = 8000, max_batch: int = 1,
-               batch_window: float = 0.2) -> ThreadingHTTPServer:
+               batch_window: float = 0.2, mesh=None) -> ThreadingHTTPServer:
     """Build and return the bound server (call ``serve_forever`` to run it).
     ``cfg``: a :class:`alg_tpu_torch.core.config.RunConfig`; the generation
-    and ALG keywords and the fps come from it, as in the batch entry point."""
+    and ALG keywords and the fps come from it, as in the batch entry point.
+    ``mesh``: the sharded pipeline's mesh, on rank 0 (the other ranks run
+    :func:`follow`)."""
     gen_kwargs = dict(cfg.pipeline_kwargs)
     hunyuan_resolution = None
     if cfg.family == "hunyuan" and "resolution" in (cfg.video or {}):
@@ -222,7 +280,7 @@ def serve_http(pipeline, cfg, *, host: str = "127.0.0.1", port: int = 8000, max_
         gen_kwargs.pop("height", None)
         gen_kwargs.pop("width", None)
     worker = BatchingWorker(pipeline, gen_kwargs, max_batch=max_batch, batch_window=batch_window,
-                            hunyuan_resolution=hunyuan_resolution)
+                            hunyuan_resolution=hunyuan_resolution, mesh=mesh)
     worker.start()
     handler = make_handler(worker, fps=int(cfg.video["fps"]), family=cfg.family)
     server = ThreadingHTTPServer((host, port), handler)

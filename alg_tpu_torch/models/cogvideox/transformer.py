@@ -27,11 +27,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from alg_tpu_torch.core.remat import run_block
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.qk_prep import qk_norm_rope
+from alg_tpu_torch.sharding.pipeline import run_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +136,7 @@ class JointAttention(nn.Module):
         self.nh, self.hd = cfg.num_attention_heads, hd
 
     def forward(self, joint: torch.Tensor, rope_cos: Optional[torch.Tensor], rope_sin: Optional[torch.Tensor]):
-        b, s, dim = joint.shape
+        b, s, _ = joint.shape
 
         def heads(x):  # [B, H, S, D] as a view of the [B, S, H·D] projection
             return x.view(b, s, self.nh, self.hd).transpose(1, 2)
@@ -149,7 +149,7 @@ class JointAttention(nn.Module):
         q = prep(self.to_q(joint), self.norm_q)
         k = prep(self.to_k(joint), self.norm_k)
         o = attention(q, k, heads(self.to_v(joint)).contiguous(), stable=False)
-        return self.to_out(o.transpose(1, 2).reshape(b, s, dim))
+        return self.to_out(o.transpose(1, 2).reshape(b, s, -1))  # -1: H/tp heads under tensor parallelism
 
 
 class CogVideoXBlock(nn.Module):
@@ -234,8 +234,7 @@ class CogVideoXTransformer(nn.Module):
             rc = torch.cat([rope_cos.new_ones(text_len, d), rope_cos.float()]).contiguous()
             rs = torch.cat([rope_sin.new_zeros(text_len, d), rope_sin.float()]).contiguous()
 
-        for blk in self.blocks:
-            video, text = run_block(blk, video, text, temb, rc, rs)
+        video, text = run_blocks(self.blocks, (video, text), (temb,), (rc, rs))
 
         video = self.norm_final(torch.cat([text, video], dim=1))[:, text_len:]
         shift, scale = self.norm_out["linear"](L.silu(temb)).chunk(2, dim=-1)

@@ -35,11 +35,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from alg_tpu_torch.core.remat import run_block
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.rope import rope_interleaved
+from alg_tpu_torch.sharding.pipeline import run_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -355,11 +355,9 @@ class HunyuanVideoTransformer(nn.Module):
             rs = torch.cat([torch.as_tensor(rope_sin, dtype=torch.float32, device=dev),
                             torch.zeros((seq_t, hd), dtype=torch.float32, device=dev)]).contiguous()
 
-        for blk in self.transformer_blocks:
-            x, text = run_block(blk, x, text, temb, temb_tr, kv_len, rc, rs, first_len)
-        joint = torch.cat([x, text], dim=1)
-        for blk in self.single_transformer_blocks:
-            joint = run_block(blk, joint, temb, temb_tr, kv_len, rc, rs, first_len)
+        ctx = (temb, temb_tr, kv_len)
+        x, text = run_blocks(self.transformer_blocks, (x, text), ctx, (rc, rs, first_len))
+        (joint,) = run_blocks(self.single_transformer_blocks, (torch.cat([x, text], dim=1),), ctx, (rc, rs, first_len))
         x = joint[:, :seq_v]
 
         # output head: the modulation's first half is the scale

@@ -170,6 +170,66 @@ class QuantizedLinear(nn.Module):
         return f"in_features={self.in_features}, out_features={self.out_features}, mode={self.mode}"
 
 
+class ColumnParallelLinear(Linear):
+    """A linear whose output features are sharded over the ``tp`` group
+    ``group``: this rank holds ``out / tp`` rows of the weight and bias. Its
+    input passes through Megatron's identity-forward, all-reduce-backward
+    function, so the replicated layers that feed it get whole gradients."""
+
+    group = None
+
+    def forward(self, x):
+        from alg_tpu_torch.sharding.collectives import copy_to
+
+        return super().forward(copy_to(x, self.group))
+
+
+class RowParallelLinear(Linear):
+    """A linear whose input features are sharded over ``group``: this rank
+    holds ``in / tp`` columns of the weight and the whole bias. The partial
+    products are summed by Megatron's all-reduce-forward,
+    identity-backward function before the bias is added once."""
+
+    group = None
+
+    def forward(self, x):
+        from alg_tpu_torch.sharding.collectives import reduce_from
+
+        if self.lora_A is not None:
+            raise NotImplementedError("adapters attach to unsharded linears only (merge them before sharding)")
+        y = reduce_from(F.linear(x, self.weight), self.group)
+        return y if self.bias is None else y + self.bias
+
+
+class ColumnParallelQuantizedLinear(QuantizedLinear):
+    """:class:`QuantizedLinear` with its output features (codes, scales and
+    bias) sharded over ``group``; the activation rows are whole, so each
+    rank quantizes them as the unsharded linear does."""
+
+    group = None
+
+    def forward(self, x):
+        from alg_tpu_torch.sharding.collectives import copy_to
+
+        return super().forward(copy_to(x, self.group))
+
+
+class RowParallelQuantizedLinear(QuantizedLinear):
+    """:class:`QuantizedLinear` with its input features sharded over
+    ``group`` (W4: whole 128-element groups a rank). The activation scale is
+    the all-reduced max over the whole row and the int32 accumulators are
+    summed before the epilogue, so the result is the unsharded linear's."""
+
+    group = None
+
+    def forward(self, x):
+        from alg_tpu_torch.ops.quant import quantized_linear_forward
+
+        if self.lora_A is not None or (torch.is_grad_enabled() and x.requires_grad):
+            raise NotImplementedError("a row-parallel quantized linear runs forward only, without adapters")
+        return quantized_linear_forward(x, self.int8_weight(), self.w_scale, self.bias, group=self.group)
+
+
 class LayerNorm(nn.Module):
     """``affine=False`` holds no parameters (the JAX package's ``{}`` norm)."""
 
@@ -193,6 +253,23 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return t5_layer_norm(x, self.weight, self.eps)
+
+
+class TensorParallelRMSNorm(RMSNorm):
+    """An RMS norm over ``full_dim`` features of which this rank holds a
+    slice (and that slice of the scale): the sum of squares is all-reduced
+    over ``group`` in both directions (Wan's q/k norm over a tp-sharded
+    inner dim)."""
+
+    group = None
+    full_dim = 0
+
+    def forward(self, x):
+        from alg_tpu_torch.sharding.collectives import all_reduce
+
+        xf = x.float()
+        ms = all_reduce(xf.square().sum(-1, keepdim=True), self.group) / self.full_dim
+        return (xf * torch.rsqrt(ms + self.eps) * self.weight.float()).to(x.dtype)
 
 
 class GroupNorm(nn.Module):

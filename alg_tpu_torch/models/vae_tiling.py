@@ -45,15 +45,40 @@ def _assemble(rows, overlap: int, stride: int) -> torch.Tensor:
     return torch.cat(out_rows, dim=2)
 
 
+def _decode_spread(decode_fn, tiles, mesh):
+    """Decode ``tiles`` with the tile list spread over the ranks of the
+    mesh that hold the same latents (its ``("pp", "sp", "tp")`` group):
+    rank ``j`` decodes tiles ``j, j + n, ...``, and the decoded tiles are
+    exchanged so that every rank holds all of them. Each tile goes through
+    ``decode_fn`` as it would one after another."""
+    from alg_tpu_torch.sharding.collectives import gather_objects
+
+    axes = ("pp", "sp", "tp")
+    n, j = mesh.size(axes), mesh.local_rank(axes)
+    mine = {i: decode_fn(t).cpu() for i, t in enumerate(tiles) if i % n == j}
+    out = {}
+    for part in gather_objects(mine, mesh.group(axes)):
+        out.update(part)
+    return [out[i].to(tiles[0].device) for i in range(len(tiles))]
+
+
 def tiled_decode(decode_fn: Callable[[torch.Tensor], torch.Tensor], z: torch.Tensor,
-                 spatial_scale: int, tile_latent: int = 32, stride_latent: int = 24) -> torch.Tensor:
+                 spatial_scale: int, tile_latent: int = 32, stride_latent: int = 24, mesh=None) -> torch.Tensor:
     """Decode ``z`` [B, F', h, w, C] in overlapping ``tile_latent``² windows;
-    returns the assembled [B, F, h·scale, w·scale, 3] video."""
+    returns the assembled [B, F, h·scale, w·scale, 3] video. With a
+    ``mesh`` the tiles spread over the ranks that hold these latents
+    (``alg_tpu/models/vae_tiling.py:_decode_tiles_sharded``); the result is
+    the sequential one."""
     _, _, h, w, _ = z.shape
     if h <= tile_latent and w <= tile_latent:
         return decode_fn(z)
-    rows = [[decode_fn(z[:, :, i:i + tile_latent, j:j + tile_latent]) for j in range(0, w, stride_latent)]
-            for i in range(0, h, stride_latent)]
+    coords = [[(i, j) for j in range(0, w, stride_latent)] for i in range(0, h, stride_latent)]
+    tiles = [z[:, :, i:i + tile_latent, j:j + tile_latent] for row in coords for i, j in row]
+    if mesh is not None and len(tiles) > 1 and mesh.size(("pp", "sp", "tp")) > 1:
+        decoded = iter(_decode_spread(decode_fn, tiles, mesh))
+    else:
+        decoded = map(decode_fn, tiles)
+    rows = [[next(decoded) for _ in row] for row in coords]
     out = _assemble(rows, (tile_latent - stride_latent) * spatial_scale, stride_latent * spatial_scale)
     return out[:, :, : h * spatial_scale, : w * spatial_scale]
 

@@ -29,11 +29,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from alg_tpu_torch.core.remat import run_block
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.rope import rope_interleaved
+from alg_tpu_torch.sharding.pipeline import run_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +101,7 @@ class WanAttention(nn.Module):
             self.norm_added_k = L.RMSNorm(dim, cfg.eps, **kw)
 
     def forward(self, q_in, kv_in, rope_cos=None, rope_sin=None, extra_kv=None):
-        b, sq, dim = q_in.shape
+        b, sq, _ = q_in.shape
 
         def heads(x):  # [B, S, dim] -> a [B, H, S, D] view
             return x.view(b, -1, self.nh, self.hd).transpose(1, 2)
@@ -118,7 +118,7 @@ class WanAttention(nn.Module):
         if extra_kv is not None:
             k_img = heads(self.norm_added_k(self.add_k_proj(extra_kv)))
             out = out + attention(qh, k_img, heads(self.add_v_proj(extra_kv)), stable=False)
-        return self.to_out(out.transpose(1, 2).reshape(b, sq, dim))
+        return self.to_out(out.transpose(1, 2).reshape(b, sq, -1))  # -1: H/tp heads under tensor parallelism
 
 
 class WanBlock(nn.Module):
@@ -225,8 +225,7 @@ class WanTransformer(nn.Module):
 
         rc = None if rope_cos is None else rope_cos.float().contiguous()
         rs = None if rope_sin is None else rope_sin.float().contiguous()
-        for blk in self.blocks:
-            x = run_block(blk, x, temb6, text, img, rc, rs)
+        (x,) = run_blocks(self.blocks, (x,), (temb6, text, img), (rc, rs))
 
         # output head: shift/scale from temb (not silu'd) plus the table, added in fp32
         head = self.scale_shift_table.float()[None] + temb.float()[:, None]

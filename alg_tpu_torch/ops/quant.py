@@ -97,11 +97,18 @@ def w4_to_int8(packed: torch.Tensor, w_scale4: torch.Tensor, w_scale: torch.Tens
     return torch.clamp(torch.round(wf * mult[..., None]), -127, 127).to(torch.int8).reshape(q4.shape)
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 of the activations: ``x [..., K]`` -> (int8
-    ``[..., K]``, fp32 ``[..., 1]``), ``xs = max(absmax / 127, 1e-12)``."""
+    ``[..., K]``, fp32 ``[..., 1]``), ``xs = max(absmax / 127, 1e-12)``; with
+    a process ``group`` the rows' features are sharded over it and the
+    absmax is all-reduced."""
     xf = x.float()
-    xs = torch.clamp_min(_div(xf.abs().amax(-1, keepdim=True), 127.0), 1e-12)
+    amax = xf.abs().amax(-1, keepdim=True)
+    if group is not None:
+        from alg_tpu_torch.sharding.collectives import all_reduce_
+
+        all_reduce_(amax, group, torch.distributed.ReduceOp.MAX)
+    xs = torch.clamp_min(_div(amax, 127.0), 1e-12)
     return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
 
 
@@ -127,13 +134,19 @@ def _epilogue(acc: torch.Tensor, xs: torch.Tensor, w_scale: torch.Tensor, bias: 
 
 
 def quantized_linear_forward(x: torch.Tensor, weight_q: torch.Tensor, w_scale: torch.Tensor,
-                             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                             bias: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """W8A8 ``x @ (weight_q·w_scale)ᵀ + bias`` in ``x``'s dtype, as
     ``alg_tpu/ops/quant.py:_quantized_linear_impl``: per-row int8 ``x``, the
-    int32 product, ``acc·xs·w_scale (+ bias)`` in fp32."""
+    int32 product, ``acc·xs·w_scale (+ bias)`` in fp32. With a process
+    ``group`` the input features are sharded over it (a row-parallel
+    linear): the absmax and the int32 accumulators are all-reduced."""
     lead = x.shape[:-1]
-    xq, xs = quantize_rows(x.reshape(-1, x.shape[-1]))
+    xq, xs = quantize_rows(x.reshape(-1, x.shape[-1]), group)
     acc = int8_matmul(xq, weight_q)
+    if group is not None:
+        from alg_tpu_torch.sharding.collectives import all_reduce_
+
+        all_reduce_(acc, group)
     return _epilogue(acc, xs, w_scale, bias, x.dtype).reshape(lead + (weight_q.shape[0],))
 
 

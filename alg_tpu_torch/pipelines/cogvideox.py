@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable, Optional, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, cog
 from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE
 from alg_tpu_torch.models.t5 import T5Encoder
 from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
+from alg_tpu_torch.ops.attention import pipeline_mesh_scope
 from alg_tpu_torch.pipelines import processing
 from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig, ddim_step, make_ddim_plan
@@ -80,6 +81,10 @@ class CogVideoXPipeline:
     dtype: torch.dtype = torch.float32
     device: Union[str, torch.device] = "cuda"
     vae_encode_tiling: Optional[bool] = None
+    # the DiT's device mesh (set by serving.shard_pipeline over a DiT from
+    # sharding.partition.shard_transformer) and the sequence-parallel mode on its sp axis
+    attn_mesh: Any = dataclasses.field(default=None, compare=False)
+    sp_mode: str = "gather"
     interrupt: bool = dataclasses.field(default=False, compare=False)
     fusing_transformer: bool = dataclasses.field(default=False, compare=False)
 
@@ -144,16 +149,18 @@ class CogVideoXPipeline:
         return self._posterior_sample(mean, logvar, noise.randn((b, c, f, h, w)))
 
     @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None) -> torch.Tensor:
+    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None, mesh=None) -> torch.Tensor:
         """``[B, F, C, h, w]`` -> ``[B, F_pix, C, H, W]`` fp32 in [-1, 1]
         (divided by the scaling factor, with or without
         ``invert_scale_latents``, as the reference decodes). ``vae_tiling``:
         True or False forces overlapping tiles or one whole decode; None
-        tiles once the latent exceeds 48 x 48."""
+        tiles once the latent exceeds 48 x 48. ``mesh`` (by default the
+        pipeline's ``attn_mesh``) spreads the tiles over its ranks."""
+        mesh = self.attn_mesh if mesh is None else mesh
         z = (latents.float() / self.vae.cfg.scaling_factor).permute(0, 1, 3, 4, 2).to(self.vae_dtype)
         if vae_tiling is None:
             vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        frames = tiled_decode(self.vae.decode, z, self.vae.cfg.spatial_scale) if vae_tiling else self.vae.decode(z)
+        frames = tiled_decode(self.vae.decode, z, self.vae.cfg.spatial_scale, mesh=mesh) if vae_tiling else self.vae.decode(z)
         return frames.permute(0, 1, 4, 2, 3).float()
 
     # -- main entry ----------------------------------------------------------
@@ -336,7 +343,8 @@ class CogVideoXPipeline:
     def _dit(self, latent_in, cond_in, embeds, t: int, rope_cos, rope_sin, ofs=None) -> torch.Tensor:
         x = torch.cat([latent_in, cond_in], dim=2).to(self.dtype)
         timestep = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
-        return self.transformer(x, embeds, timestep, rope_cos, rope_sin, ofs=ofs).float()
+        with pipeline_mesh_scope(self):
+            return self.transformer(x, embeds, timestep, rope_cos, rope_sin, ofs=ofs).float()
 
     def _pixel_condition(self, pixel_image, m_h, m_w, eps, latent_frames: int) -> torch.Tensor:
         """Pixel-space ALG's condition for one step: the RGB frame filtered at

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable, Optional, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,6 +55,7 @@ from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer, hu
 from alg_tpu_torch.models.hunyuan.vae import HunyuanVAE
 from alg_tpu_torch.models.llama import LlavaModel
 from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
+from alg_tpu_torch.ops.attention import pipeline_mesh_scope
 from alg_tpu_torch.pipelines import processing
 from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.flow_match_euler import (FlowMatchEulerConfig, FlowMatchEulerPlan,
@@ -111,6 +112,10 @@ class HunyuanVideoPipeline:
     dtype: torch.dtype = torch.float32
     device: Union[str, torch.device] = "cuda"
     vae_encode_tiling: Optional[bool] = None
+    # the DiT's device mesh (set by serving.shard_pipeline over a DiT from
+    # sharding.partition.shard_transformer) and the sequence-parallel mode on its sp axis
+    attn_mesh: Any = dataclasses.field(default=None, compare=False)
+    sp_mode: str = "gather"
     interrupt: bool = dataclasses.field(default=False, compare=False)
 
     @property
@@ -386,8 +391,9 @@ class HunyuanVideoPipeline:
     def _dit(self, lat_in, embeds, mask, pooled, t: float, guidance, rope_cos, rope_sin) -> torch.Tensor:
         n = lat_in.shape[0]
         ts = torch.full((n,), t, dtype=torch.float32, device=lat_in.device)
-        return self.transformer(lat_in.to(self.dtype), ts, embeds.to(self.dtype), mask, pooled.to(self.dtype),
-                                None if guidance is None else guidance.expand(n), rope_cos, rope_sin).float()
+        with pipeline_mesh_scope(self):
+            return self.transformer(lat_in.to(self.dtype), ts, embeds.to(self.dtype), mask, pooled.to(self.dtype),
+                                    None if guidance is None else guidance.expand(n), rope_cos, rope_sin).float()
 
     def _encode_mode(self, x_bfchw: torch.Tensor) -> torch.Tensor:
         """The mode of the VAE posterior of ``[B, F, C, H, W]`` pixels on the
@@ -484,13 +490,15 @@ class HunyuanVideoPipeline:
                             checkpoint=checkpoint, step_observer=step_observer, stop_after=stop_after)
 
     @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None) -> torch.Tensor:
+    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None, mesh=None) -> torch.Tensor:
         """Divide by the scaling factor and VAE decode: ``[B, z, F', h, w]``
-        -> ``[B, C, F, H, W]`` fp32 in [-1, 1], through overlapping tiles,
-        one at a time, once the latent exceeds 48 x 48."""
+        -> ``[B, C, F, H, W]`` fp32 in [-1, 1], through overlapping tiles
+        once the latent exceeds 48 x 48, spread over the ranks of ``mesh``
+        (by default the pipeline's ``attn_mesh``)."""
+        mesh = self.attn_mesh if mesh is None else mesh
         vcfg = self.vae.cfg
         z = (latents.float() / vcfg.scaling_factor).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
         if vae_tiling is None:
             vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale) if vae_tiling else self.vae.decode(z)
+        frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling else self.vae.decode(z)
         return frames.permute(0, 4, 1, 2, 3).float()

@@ -44,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import html
 import re
-from typing import Callable, Optional, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -58,6 +58,7 @@ from alg_tpu_torch.models.t5 import T5Encoder
 from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
 from alg_tpu_torch.models.wan.transformer import WanTransformer, wan_rope
 from alg_tpu_torch.models.wan.vae import WanVAE
+from alg_tpu_torch.ops.attention import pipeline_mesh_scope
 from alg_tpu_torch.pipelines import processing
 from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.unipc import UniPCConfig, UniPCPlan, make_unipc_plan, unipc_init_state, unipc_step
@@ -107,6 +108,10 @@ class WanPipeline:
     device: Union[str, torch.device] = "cuda"
     vae_encode_tiling: Optional[bool] = None
     guidance_microbatch: int = 0
+    # the DiT's device mesh (set by serving.shard_pipeline over a DiT from
+    # sharding.partition.shard_transformer) and the sequence-parallel mode on its sp axis
+    attn_mesh: Any = dataclasses.field(default=None, compare=False)
+    sp_mode: str = "gather"
     interrupt: bool = dataclasses.field(default=False, compare=False)
 
     @property
@@ -343,10 +348,11 @@ class WanPipeline:
                                     rope_cos, rope_sin).float()
 
         n, mb = x.shape[0], int(self.guidance_microbatch or 0)
-        if 0 < mb < n and n % mb == 0:
-            return torch.cat([fwd(x[i:i + mb], embeds[i:i + mb], None if img_embeds is None else img_embeds[i:i + mb])
-                              for i in range(0, n, mb)])
-        return fwd(x, embeds, img_embeds)
+        with pipeline_mesh_scope(self):
+            if 0 < mb < n and n % mb == 0:
+                return torch.cat([fwd(x[i:i + mb], embeds[i:i + mb],
+                                      None if img_embeds is None else img_embeds[i:i + mb]) for i in range(0, n, mb)])
+            return fwd(x, embeds, img_embeds)
 
     def _pixel_condition(self, pixel_image, m_h, m_w, eps, num_frames: int, mask) -> torch.Tensor:
         """Pixel-space ALG's condition for one step: the RGB frame filtered at
@@ -414,16 +420,18 @@ class WanPipeline:
                             stop_after=stop_after)
 
     @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None) -> torch.Tensor:
+    def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None, mesh=None) -> torch.Tensor:
         """De-normalise and VAE decode: ``[B, z, F', h, w]`` -> ``[B, C, F, H,
         W]`` fp32 in [-1, 1]. ``vae_tiling``: True or False forces
         overlapping tiles or one whole decode; None tiles once the latent
-        exceeds 48 x 48."""
+        exceeds 48 x 48. ``mesh`` (by default the pipeline's ``attn_mesh``)
+        spreads the tiles over its ranks."""
+        mesh = self.attn_mesh if mesh is None else mesh
         vcfg = self.vae.cfg
         lm = torch.tensor(vcfg.latents_mean, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
         ls = torch.tensor(vcfg.latents_std, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
         z = (latents.float() * ls + lm).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
         if vae_tiling is None:
             vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale) if vae_tiling else self.vae.decode(z)
+        frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling else self.vae.decode(z)
         return frames.permute(0, 4, 1, 2, 3).float()

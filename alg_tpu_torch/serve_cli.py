@@ -24,10 +24,21 @@ batch has one shape, so it comes from the first request's image.
 of :class:`~alg_tpu_torch.serving.BatchRequest` whose images are RGB uint8
 arrays, for machines without PyYAML or PIL. Everything runs on ``--device``
 (``cuda`` unless asked otherwise); ``--quantize w8|w4`` loads the DiT with
-W8A8 / W4A8 block linears (``cli.load_pipeline``). Not ported yet: the
-device-mesh and multi-host flags ``--dp``, ``--sp``,
-``--sp_mode``, ``--tp``, ``--multihost``, ``--coordinator``,
-``--num_processes`` and ``--process_id`` (A13), which raise.
+W8A8 / W4A8 block linears (``cli.load_pipeline``).
+
+Several GPUs: one process per GPU under ``torchrun``, e.g. ``torchrun
+--nproc_per_node 4 -m alg_tpu_torch.serve_cli ... --dp 2 --sp 2
+--sp_mode ring``. ``--dp``, ``--sp`` and ``--tp`` (0: the ranks the others
+leave) lay out a mesh over the ranks (``sharding.make_mesh``); a launch with
+several ranks and none of them fills tp. The DiT shards over it
+(``serving.shard_pipeline``), the requests split over dp, and rank 0 writes
+the videos. ``--multihost`` serves a contiguous block of the requests on
+each host, over a mesh of that host's ranks, with the process group from
+``--coordinator host:port``, ``--num_processes`` and ``--process_id`` (or
+``torchrun``'s environment); each host's first rank writes its block.
+``--listen`` serves HTTP from rank 0 while the other ranks follow its
+micro-batches (``http_serving.follow``); it is single-host, as in
+``alg_tpu``.
 """
 
 from __future__ import annotations
@@ -40,11 +51,6 @@ import os
 import sys
 
 logger = logging.getLogger(__name__)
-
-# the mesh and multi-host flags with their defaults: any other value raises until A13 lands
-_MESH_DEFAULTS = {"dp": 1, "sp": 1, "sp_mode": "gather", "tp": 0, "multihost": False, "coordinator": None,
-                  "num_processes": None, "process_id": None}
-
 
 def load_requests(path):
     """``(requests, output names)`` from a JSONL file; images opened with PIL."""
@@ -73,11 +79,27 @@ def load_requests(path):
     return requests, outputs
 
 
-def _refuse_mesh_flags(args) -> None:
-    changed = [f"--{k}" for k, default in _MESH_DEFAULTS.items() if getattr(args, k) != default]
-    if changed:
-        raise NotImplementedError(f"{', '.join(changed)}: multi-device and multi-host serving are not ported yet "
-                                  "(ROADMAP.md, A13)")
+def _mesh(args):
+    """``(mesh or None, writes)``: the mesh the flags ask for (with
+    ``--multihost``, over this host's ranks, after joining the process
+    group) and whether this rank writes the videos."""
+    import torch.distributed as dist
+
+    from alg_tpu_torch.sharding import local_mesh, make_mesh, multihost_initialize
+
+    if args.multihost:
+        if args.listen is not None:
+            raise ValueError("--listen is single-process (front it with a router for multihost)")
+        rank, world = multihost_initialize(args.coordinator, args.num_processes, args.process_id, device=args.device)
+        logger.info("Multihost: process %d/%d", rank, world)
+        mesh = local_mesh(dp=args.dp, sp=args.sp, tp=args.tp or None, device=args.device)
+        return mesh, int(mesh.devices.flat[0]) == rank
+    world = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
+    if args.dp == 1 and args.sp == 1 and args.tp == 0 and world == 1:
+        return None, True
+    mesh = make_mesh(dp=args.dp, sp=args.sp, tp=args.tp or None, device=args.device)
+    logger.info("Serving on mesh %s", mesh.shape)
+    return mesh, mesh.rank == 0
 
 
 def run(args, config=None, requests=None) -> list:
@@ -91,9 +113,8 @@ def run(args, config=None, requests=None) -> list:
     from alg_tpu_torch.core.config import load_run_config, run_config_from_dict
     from alg_tpu_torch.io.video import write_video
     from alg_tpu_torch.ops.attention import get_attention_int8, set_attention_int8
-    from alg_tpu_torch.serving import hunyuan_size, serve_batch
+    from alg_tpu_torch.serving import hunyuan_size, serve_batch, shard_pipeline
 
-    _refuse_mesh_flags(args)
     cfg = run_config_from_dict(config) if config is not None else load_run_config(args.config)
     logger.info("Using device: %s", args.device)
     if args.listen is None and requests is None:
@@ -103,6 +124,21 @@ def run(args, config=None, requests=None) -> list:
         logger.info("Loaded %d requests from %s", len(requests), args.requests)
     elif requests is not None:
         outputs = [f"{i:03d}.mp4" for i in range(len(requests))]
+    mesh, writes = _mesh(args)
+    if args.multihost and requests is not None:
+        from alg_tpu_torch.sharding import local_request_slice
+
+        sl = local_request_slice(len(requests))
+        requests, outputs = requests[sl], outputs[sl]
+        logger.info("Multihost: this host serves requests [%d, %d)", sl.start, sl.stop)
+        if not requests:
+            logger.info("Multihost: no requests for this host. Run complete.")
+            return []
+    if mesh is not None and requests is not None and len(requests) % mesh.size("dp"):
+        raise ValueError(f"{len(requests)} requests do not lay out on dp={mesh.size('dp')}; the batch size must be "
+                         "divisible by dp")
+    if args.sp_mode != "gather" and (mesh is None or mesh.size("sp") == 1):
+        logger.warning("--sp_mode %s has no effect without --sp > 1", args.sp_mode)
 
     int8_before = get_attention_int8()
     if args.int8_attn:
@@ -111,8 +147,10 @@ def run(args, config=None, requests=None) -> list:
         pipe = load_pipeline(cfg, args.model_cache_dir, quantize=args.quantize, lora=args.lora,
                              lora_scale=args.lora_scale, device=args.device, random_init=args.random_init)
         logger.info("Pipeline loaded successfully.")
+        if mesh is not None:
+            pipe = shard_pipeline(pipe, mesh, sp_mode=args.sp_mode)
         if args.listen is not None:
-            _serve_forever(pipe, cfg, args)
+            _serve_forever(pipe, cfg, args, mesh)
             return []
 
         gen_kwargs = dict(cfg.pipeline_kwargs)
@@ -133,6 +171,8 @@ def run(args, config=None, requests=None) -> list:
     finally:
         set_attention_int8(int8_before)
 
+    if not writes:
+        return []
     os.makedirs(args.output_dir, exist_ok=True)
     written = []
     for name, frames in zip(outputs, videos):
@@ -142,11 +182,14 @@ def run(args, config=None, requests=None) -> list:
     return written
 
 
-def _serve_forever(pipe, cfg, args) -> None:
-    from alg_tpu_torch.http_serving import serve_http
+def _serve_forever(pipe, cfg, args, mesh=None) -> None:
+    from alg_tpu_torch.http_serving import follow, serve_http
 
+    if mesh is not None and mesh.rank != 0:
+        follow(pipe, mesh)  # until rank 0 shuts down
+        return
     server = serve_http(pipe, cfg, host=args.host, port=args.listen, max_batch=args.max_batch,
-                        batch_window=args.batch_window)
+                        batch_window=args.batch_window, mesh=mesh)
     logger.info("Listening on http://%s:%d", *server.server_address[:2])
     try:
         server.serve_forever()
@@ -182,15 +225,20 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--lora", type=str, default=None,
                         help="peft-layout adapter (.npz or .safetensors) merged into the DiT before serving")
     parser.add_argument("--lora_scale", type=float, default=1.0)
-    parser.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis (not ported yet: raises)")
-    parser.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh axis (not ported yet: raises)")
+    parser.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis (requests)")
+    parser.add_argument("--sp", type=int, default=1, help="sequence-parallel mesh axis (DiT tokens in attention)")
     parser.add_argument("--sp_mode", type=str, choices=("gather", "ring", "ulysses"), default="gather",
-                        help="sequence-parallel KV strategy (not ported yet: raises)")
-    parser.add_argument("--tp", type=int, default=0, help="tensor-parallel mesh axis (not ported yet: raises)")
+                        help="sequence-parallel KV strategy: gather = all-gathered KV; ring = ring attention over "
+                             "the flash kernel's LSE; ulysses = all-to-all head exchange (needs heads/tp "
+                             "divisible by sp)")
+    parser.add_argument("--tp", type=int, default=0,
+                        help="tensor-parallel mesh axis (0 = the ranks the other axes leave)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace (Chrome format) of the batched generation here")
-    parser.add_argument("--multihost", action="store_true", help="multi-process serving (not ported yet: raises)")
-    parser.add_argument("--coordinator", type=str, default=None)
+    parser.add_argument("--multihost", action="store_true",
+                        help="each host serves a contiguous block of the requests on a mesh of its own ranks")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="process-group address host:port (default: torchrun's environment)")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda", help="torch device to run on (cuda unless asked)")

@@ -23,8 +23,12 @@ As in ``alg_tpu``, CogVideoX and Wan prompts are encoded at
 config's ``max_sequence_length`` says, where HunyuanVideo honours it
 (ROADMAP.md C, R13).
 
-Not ported yet (ROADMAP.md, A13): a device mesh (``mesh``, ``sp_mode``) and
-``shard_pipeline``, which raise.
+Over a device mesh (:func:`shard_pipeline`, ``serve_batch(mesh=...)``) the
+DiT holds this rank's tensor-parallel shards, its attention splits the
+tokens over sp in ``sp_mode``, and the requests split over dp: each dp group
+serves its contiguous share and the videos are gathered back, so every rank
+returns the whole batch. Each request's seed drives its own noise stream,
+so the dp split changes no draw.
 """
 
 from __future__ import annotations
@@ -149,10 +153,6 @@ class _BatchNoise:
         return torch.stack([s.randn(shape[1:]) for s in self.sources])
 
 
-def _refuse_mesh(what: str):
-    raise NotImplementedError(f"{what}: multi-device serving is not ported yet (ROADMAP.md, A13)")
-
-
 def serve_batch(pipeline, requests: Sequence[BatchRequest], mesh=None, sp_mode: Optional[str] = None,
                 **gen_kwargs) -> List[Any]:
     """Run a batch of I2V requests through one pipeline call; returns what
@@ -161,14 +161,34 @@ def serve_batch(pipeline, requests: Sequence[BatchRequest], mesh=None, sp_mode: 
 
     Each request's seed drives its own noise stream; prompts are encoded as
     a batch. ``gen_kwargs`` are the pipeline's keywords (a config's
-    ``pipeline_kwargs``). ``mesh`` and ``sp_mode`` are not ported
-    (ROADMAP.md, A13) and raise."""
+    ``pipeline_kwargs``).
+
+    ``mesh`` arms the pipeline with :func:`shard_pipeline` (unless it is
+    armed with that mesh and mode already); a pipeline armed before serves
+    on its own mesh. ``sp_mode`` ("gather", "ring" or "ulysses") defaults
+    to None, which keeps the pipeline's mode, so a ring- or Ulysses-armed
+    pipeline is never put back to gathered keys. Under a mesh the batch
+    must divide by dp."""
     family = type(pipeline).__name__
     if family not in _ENCODERS:
         raise ValueError(f"Unsupported pipeline type for serving: {family}")
-    if mesh is not None or sp_mode is not None:
-        _refuse_mesh(f"serve_batch(mesh={mesh!r}, sp_mode={sp_mode!r})")
+    if mesh is not None:
+        want_mode = pipeline.sp_mode if sp_mode is None else sp_mode
+        if pipeline.attn_mesh is not mesh or pipeline.sp_mode != want_mode:
+            pipeline = shard_pipeline(pipeline, mesh, sp_mode=want_mode)
+    mesh = pipeline.attn_mesh
+    if mesh is not None and mesh.size("dp") > 1:
+        dp, r = mesh.size("dp"), mesh.local_rank("dp")
+        if len(requests) % dp:
+            raise ValueError(f"{len(requests)} requests do not lay out on dp={dp}; the batch size must be "
+                             "divisible by dp")
+        share = len(requests) // dp
+        return _gather_batch(_serve(pipeline, family, requests[r * share:(r + 1) * share], gen_kwargs), mesh)
+    return _serve(pipeline, family, requests, gen_kwargs)
 
+
+def _serve(pipeline, family: str, requests, gen_kwargs: dict):
+    """One pipeline call over ``requests`` on this rank (its dp share under a mesh)."""
     n = len(requests)
     def_h, def_w = _DEFAULT_HW[family]
     height = gen_kwargs.get("height") or def_h
@@ -188,6 +208,37 @@ def serve_batch(pipeline, requests: Sequence[BatchRequest], mesh=None, sp_mode: 
     return pipeline(image=images, noise_source=_BatchNoise([r.seed for r in requests]), **encoded, **gen_kwargs)
 
 
+def _gather_batch(out, mesh):
+    """Every dp group's share of the batch, in dp order, on every rank."""
+    from alg_tpu_torch.sharding.collectives import gather_objects
+
+    parts = gather_objects(out.cpu() if isinstance(out, torch.Tensor) else out, mesh.group("dp"))
+    if isinstance(out, torch.Tensor):
+        return torch.cat(parts).to(out.device)
+    if isinstance(out, np.ndarray):
+        return np.concatenate(parts)
+    return [item for part in parts for item in part]
+
+
 def shard_pipeline(pipeline, mesh, sp_mode: str = "gather"):
-    """Not ported yet: multi-device serving comes with ROADMAP.md A13."""
-    _refuse_mesh("shard_pipeline")
+    """A copy of ``pipeline`` whose DiT holds this rank's shards over
+    ``mesh`` (``sharding.partition.shard_transformer``; the family's specs)
+    and whose DiT calls run under the mesh with ``sp_mode`` on its sp axis:
+    ``"gather"`` (keys and values all-gathered), ``"ring"`` (ring
+    attention over the flash kernel's LSE) or ``"ulysses"`` (all-to-all
+    head exchange; needs the local heads to divide by sp, else gathered).
+    The encoders and the VAE stay whole on every rank; the tiled decode
+    spreads its tiles over the ranks that hold the same latents. A pipeline
+    already armed with ``mesh`` only changes its mode; one armed with
+    another mesh raises."""
+    from alg_tpu_torch.ops.attention import SEQ_MODES
+    from alg_tpu_torch.sharding.partition import shard_transformer
+
+    if sp_mode not in SEQ_MODES:
+        raise ValueError(f"sp_mode {sp_mode!r} (want one of {SEQ_MODES})")
+    if pipeline.attn_mesh is mesh:
+        return dataclasses.replace(pipeline, sp_mode=sp_mode)
+    if pipeline.attn_mesh is not None:
+        raise ValueError("the pipeline is sharded over another mesh; shard the unsharded pipeline")
+    return dataclasses.replace(pipeline, transformer=shard_transformer(pipeline.transformer, mesh), attn_mesh=mesh,
+                               sp_mode=sp_mode)

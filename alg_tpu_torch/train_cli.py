@@ -30,8 +30,20 @@ DiT. ``--quantize w8|w4`` (``--mode lora`` only) trains the adapters over
 a frozen W8A8 / W4A8 base (QLoRA, ``ops/quant.py``): a loaded or given DiT
 is quantized without its modulation linears; with ``--random_init`` each
 block is made and quantized before the next, HunyuanVideo's modulation
-linears too. Not ported yet: the sharded and pipelined steps
-(``--dp/--tp/--pp``, ROADMAP.md A13), which raise.
+linears too.
+
+Several GPUs (``--mode full``): one process per GPU under ``torchrun``,
+e.g. ``torchrun --nproc_per_node 8 -m alg_tpu_torch.train_cli ... --mode full
+--dp 2 --tp 2 --pp 2 --pp_micro 4``. The DiT shards over the ``(dp, pp, 1,
+tp)`` mesh (``sharding.partition.shard_transformer``): each rank loads it
+on the host and puts only its own shards on its card, where they are
+trained in place. Each rank reads the same batches and trains on its dp rows
+(``training.train.make_sharded_train_step``; GPipe over pp with
+``--pp_micro`` microbatches), and rank 0 writes the whole parameter tree.
+With ``--checkpoint_dir`` each rank keeps its shards in ``rank{r}/`` under
+it. A launch with several ranks and no mesh flags is data-parallel over all
+of them. LoRA runs on one rank: ``--dp/--tp/--pp`` above 1 with ``--mode
+lora`` raise (``alg_tpu`` leaves them unused).
 """
 
 from __future__ import annotations
@@ -143,6 +155,27 @@ def build_loss(model, family: str, geom, compute_dtype, shift: Optional[float], 
                                          rope_cos=cos, rope_sin=sin, compute_dtype=compute_dtype)
 
 
+def _train_mesh(args):
+    """The mesh for a sharded full fine-tune: the flags', or dp over every
+    rank of a launch with several; None when the flags ask for no mesh in a
+    one-rank launch, and for a LoRA run."""
+    import torch.distributed as dist
+
+    from alg_tpu_torch.sharding import make_mesh
+
+    flags = args.dp * args.tp * args.pp > 1 or args.pp_micro is not None
+    if args.mode != "full":
+        if flags:
+            raise ValueError(f"--dp {args.dp} --tp {args.tp} --pp {args.pp} --pp_micro {args.pp_micro}: the mesh "
+                             "shards a full fine-tune (--mode full); LoRA runs on one rank")
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
+    if not (flags or world > 1):
+        return None
+    dp = args.dp if flags else world
+    return make_mesh(dp=dp, tp=args.tp, pp=args.pp, sp=1, device=args.device)
+
+
 def memory_batches(examples, batch_size: int, steps: int, seed: int, start: int = 0):
     """Shuffled epochs over in-memory examples, stacked into host batches;
     ``start`` skips batches, so a resumed run keeps the data order."""
@@ -192,10 +225,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true", help="checkpoint DiT blocks")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--shift", type=float, default=None, help="flow-matching timestep shift (default: the family's)")
-    p.add_argument("--dp", type=int, default=1, help="data-parallel axis (not ported yet: raises above 1)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel axis (not ported yet: raises above 1)")
-    p.add_argument("--pp", type=int, default=1, help="pipeline-parallel stages (not ported yet: raises above 1)")
-    p.add_argument("--pp_micro", type=int, default=None, help="pipeline microbatches (not ported yet: raises)")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis (full mode)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis (full mode)")
+    p.add_argument("--pp", type=int, default=1, help="pipeline-parallel stages over the DiT blocks (full mode)")
+    p.add_argument("--pp_micro", type=int, default=None, help="GPipe microbatches (default: --pp)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--output", type=str, required=True, help=".npz output (peft adapters | parameter tree)")
@@ -213,47 +246,55 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def run(config: dict, args, transformer=None) -> dict:
+def run(config: dict, args, transformer=None, mesh=None) -> dict:
     """Train as ``args`` (a :func:`make_parser` namespace) says over the
     parsed ``config``; ``transformer`` replaces the DiT of the checkpoint
     directory ``model.path`` names (or the random one of ``--random_init``).
+    ``mesh`` (``sharding.make_mesh``) shards a full fine-tune over it in
+    place of the mesh the flags ask for.
     Returns ``{"losses", "val_losses",
     "trainable", "steps"}``: ``val_losses`` holds the mean validation loss
-    of each evaluation."""
+    of each evaluation.
+
+    Under a mesh the DiT is loaded (or drawn) on the host and only this
+    rank's shards go to its card (``sharding.partition.shard_transformer``),
+    where the step trains them in place; a given DiT is left as it is."""
     from alg_tpu_torch.core.config import resolve_dtype
     from alg_tpu_torch.io import model_zoo
     from alg_tpu_torch.training import checkpoint as C
     from alg_tpu_torch.training.data import LatentDataset, prefetch, to_device
     from alg_tpu_torch.training.lora import FAMILY_PEFT, init_lora_params, lora_base, make_lora_loss, to_peft_state
-    from alg_tpu_torch.training.train import TrainConfig, make_train_step, save_params_npz, tree_leaves
+    from alg_tpu_torch.training.train import (TrainConfig, make_sharded_train_step, make_train_step, save_params_npz,
+                                              shard_batch, tree_leaves)
     from alg_tpu_torch.utils.profiling import trace_to
 
     quantize = None if args.quantize == "none" else args.quantize
     if quantize is not None and args.mode != "lora":
         make_parser().error("--quantize requires --mode lora (the quantized base is frozen; train adapters)")
-    if args.dp != 1 or args.tp != 1 or args.pp != 1 or args.pp_micro is not None:
-        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp} --pp {args.pp} --pp_micro {args.pp_micro}: the "
-                                  "sharded and pipelined steps are not ported yet (ROADMAP.md, A13)")
+    if mesh is None:
+        mesh = _train_mesh(args)
+    elif args.mode != "full":
+        raise ValueError("a mesh shards a full fine-tune (--mode full); LoRA runs on one rank")
     model_cfg, gen_cfg = config.get("model", {}), dict(config.get("generation") or {})
     family = family_of(model_cfg["path"])
     device = torch.device(args.device)
     if transformer is None:
         dtype = resolve_dtype(model_cfg.get("dtype", "bfloat16"))
+        made_on = device if mesh is None else torch.device("cpu")  # under a mesh only the shards reach the card
         if args.random_init:
-            transformer = random_init_transformer(family, dtype, device, args.seed, quantize)
+            transformer = random_init_transformer(family, dtype, made_on, args.seed, quantize)
         else:
             model_dir = model_zoo.resolve_model_dir(model_cfg["path"], args.model_cache_dir)
             logger.info("Loading the %s DiT from %s", family, model_dir)
             transformer = model_zoo.load_transformer(model_dir, family, dtype=dtype, quantize=quantize,
-                                                     device=device)
+                                                     device=made_on)
     elif quantize is not None:  # a given DiT is quantized in place, as a loaded one is
         from alg_tpu_torch.ops.quant import quantize_transformer_
 
         quantize_transformer_(transformer, mode=quantize)
-    transformer = transformer.to(device).requires_grad_(False)
-    base = lora_base(transformer)
-    logger.info("%s DiT, %.2f GiB, %s mode%s", family, sum(t.numel() * t.element_size() for t in base.values()) / 2**30,
-                args.mode, f" over a {quantize} base (QLoRA)" if quantize else "")
+    transformer = transformer.requires_grad_(False)
+    if mesh is None:
+        transformer = transformer.to(device)
 
     dataset = examples = None
     if args.synthetic:
@@ -288,37 +329,63 @@ def run(config: dict, args, transformer=None) -> dict:
     # do not mix dtypes
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     guidance = gen_cfg.get("guidance_scale")
-    loss_fn = build_loss(transformer, family, geom, compute_dtype, args.shift, 6.0 if guidance is None else float(guidance))
+    guidance = 6.0 if guidance is None else float(guidance)
     tc = TrainConfig(learning_rate=args.lr, weight_decay=args.weight_decay, grad_clip=args.grad_clip,
                      accum_steps=args.accum, remat=args.remat)
 
-    if args.mode == "lora":
-        prefixes = FAMILY_PEFT[family][0]
-        trainable = init_lora_params(torch.Generator(device).manual_seed(args.seed), base, rank=args.rank,
-                                     prefixes=prefixes)
-        frozen = (base,)
-        train_loss = make_lora_loss(loss_fn, None, scale=args.lora_scale, attach=True)
-        logger.info("LoRA: rank %d over %d modules", args.rank, len(trainable))
+    if mesh is not None:  # the sharded full fine-tune: this rank's shards, on its card, trained in place
+        from alg_tpu_torch.sharding.partition import add_pp, shard_transformer, transformer_specs
+
+        specs = transformer_specs(transformer)
+        sharded = shard_transformer(transformer, mesh, specs, copy_all=True)
+        transformer = None  # a DiT on the host goes here: the card holds the shards alone
+        train_loss = build_loss(sharded, family, geom, compute_dtype, args.shift, guidance)
+        trainable = dict(sharded.named_parameters())
+        step, opt_state = make_sharded_train_step(train_loss, tc, mesh, trainable, specs, args.pp_micro)
+        frozen, specs = (), add_pp(specs) if mesh.size("pp") > 1 else specs
+        logger.info("%s DiT, this rank's shards %.2f GiB, sharded full fine-tune over mesh %s", family,
+                    sum(t.numel() * t.element_size() for t in trainable.values()) / 2**30, mesh.shape)
     else:
-        trainable, frozen, train_loss = {name: p.detach().clone() for name, p in base.items()}, (), loss_fn
-    step, opt = make_train_step(train_loss, tc)
-    for leaf in tree_leaves(trainable):
-        leaf.requires_grad_()
-    opt_state = opt.init(trainable)
+        base = lora_base(transformer)
+        logger.info("%s DiT, %.2f GiB, %s mode%s", family,
+                    sum(t.numel() * t.element_size() for t in base.values()) / 2**30, args.mode,
+                    f" over a {quantize} base (QLoRA)" if quantize else "")
+        loss_fn = build_loss(transformer, family, geom, compute_dtype, args.shift, guidance)
+        if args.mode == "lora":
+            prefixes = FAMILY_PEFT[family][0]
+            trainable = init_lora_params(torch.Generator(device).manual_seed(args.seed), base, rank=args.rank,
+                                         prefixes=prefixes)
+            frozen = (base,)
+            train_loss = make_lora_loss(loss_fn, None, scale=args.lora_scale, attach=True)
+            logger.info("LoRA: rank %d over %d modules", args.rank, len(trainable))
+        else:
+            trainable, frozen, train_loss = {name: p.detach().clone() for name, p in base.items()}, (), loss_fn
+        step, opt = make_train_step(train_loss, tc)
+        for leaf in tree_leaves(trainable):
+            leaf.requires_grad_()
+        opt_state = opt.init(trainable)
 
     @torch.no_grad()
     def validation_loss(params) -> float:
-        vals = [float(train_loss(params, vb, train_loss.draw(vb, torch.Generator(device).manual_seed(10_000 + j)),
-                                 *frozen)) for j, vb in enumerate(val_batches)]
+        vals = []
+        for j, vb in enumerate(val_batches):
+            draws = train_loss.draw(vb, torch.Generator(device).manual_seed(10_000 + j))
+            if mesh is None:
+                vals.append(float(train_loss(params, vb, draws, *frozen)))
+            else:  # the global batch's draws, this rank's rows
+                vals.append(float(step.loss(params, shard_batch(vb, mesh), shard_batch(draws, mesh))))
         return float(np.mean(vals))
 
     ema = C.init_ema(trainable) if args.ema_decay else None
     ema_fn = C.make_ema_update(args.ema_decay) if args.ema_decay else None
     start = 0
+    ckpt_dir = args.checkpoint_dir
+    if ckpt_dir and mesh is not None and mesh.devices.size > 1:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{mesh.rank}")  # each rank's shards
     if args.resume:
-        if not args.checkpoint_dir:
+        if not ckpt_dir:
             raise ValueError("--resume requires --checkpoint_dir")
-        path = C.latest_checkpoint(args.checkpoint_dir)
+        path = C.latest_checkpoint(ckpt_dir)
         if path is not None:
             start, trainable, opt_state, r_ema = C.load_train_state(path, trainable, opt_state, ema)
             ema = r_ema if r_ema is not None else ema
@@ -328,8 +395,8 @@ def run(config: dict, args, transformer=None) -> dict:
         batch_iter = dataset.batches(args.batch_size, args.steps, args.seed, start=start)
     else:
         batch_iter = memory_batches(examples, args.batch_size, args.steps, args.seed, start=start)
-    batch_iter = prefetch(batch_iter, args.prefetch, device) if args.prefetch else (
-        to_device(b, device) for b in batch_iter)
+    batch_iter = prefetch(batch_iter, args.prefetch, device, mesh=mesh) if args.prefetch else (
+        to_device(b if mesh is None else shard_batch(b, mesh), device) for b in batch_iter)
 
     losses, val_losses, t0 = [], [], time.perf_counter()
     with contextlib.ExitStack() as tracing:
@@ -354,12 +421,18 @@ def run(config: dict, args, transformer=None) -> dict:
             if (i - start) % args.log_every == 0 or i == args.steps - 1:
                 logger.info("step %d/%d  loss %.5f  grad_norm %.4f  (%.2f s/step)", i + 1, args.steps, losses[-1],
                             float(m["grad_norm"]), (time.perf_counter() - t0) / (i + 1 - start))
-            if args.checkpoint_dir and ((i + 1) % args.save_every == 0 or i + 1 == args.steps):
-                os.makedirs(args.checkpoint_dir, exist_ok=True)
-                C.save_train_state(C.checkpoint_path(args.checkpoint_dir, i + 1), i + 1, trainable, opt_state, ema)
-                C.prune_checkpoints(args.checkpoint_dir, args.keep)
+            if ckpt_dir and ((i + 1) % args.save_every == 0 or i + 1 == args.steps):
+                os.makedirs(ckpt_dir, exist_ok=True)
+                C.save_train_state(C.checkpoint_path(ckpt_dir, i + 1), i + 1, trainable, opt_state, ema)
+                C.prune_checkpoints(ckpt_dir, args.keep)
 
     export = ema if ema is not None else trainable
+    if mesh is not None:
+        from alg_tpu_torch.sharding.partition import gather_params
+
+        export = gather_params(export, specs, mesh)
+        if mesh.rank != 0:  # rank 0 writes the whole tree
+            return {"losses": losses, "val_losses": val_losses, "trainable": trainable, "steps": start + len(losses)}
     if args.mode == "lora":
         np.savez(args.output, **to_peft_state(export, FAMILY_PEFT[family][1]))
     else:

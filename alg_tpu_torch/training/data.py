@@ -77,9 +77,14 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
-def prefetch(batch_iter: Iterator[dict], depth: int = 2, device="cuda") -> Iterator[dict]:
+def prefetch(batch_iter: Iterator[dict], depth: int = 2, device="cuda", mesh=None) -> Iterator[dict]:
     """Background-thread prefetch: host batches -> tensors on ``device``,
-    ``depth`` ahead of the consumer."""
+    ``depth`` ahead of the consumer; with a ``mesh``, only this rank's dp
+    rows of each batch (``training.train.shard_batch``)."""
+    if mesh is not None:
+        from alg_tpu_torch.training.train import shard_batch
+
+        batch_iter = (shard_batch(b, mesh) for b in batch_iter)
     q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
 
     def worker():

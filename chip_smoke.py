@@ -270,6 +270,27 @@ Phases, each of which must pass:
       the gradients within 1e-4 of each leaf's largest, and the step within
       atol 1e-5 of the CPU's optimizer on the card's gradients (AdamW lr
       1e-2, eps 1e-4).
+  H.  the HunyuanVideo prepare: H1, ``HUNYUAN_VIDEO_I2V`` cut as S3 cuts it,
+      ``prepare_cli.run`` over one seeded 129-frame 352x608 clip passed as an
+      array at the generated size (Llava's image processor C3's seeded one):
+      stage times, peak memory, the example's shapes; H2, a small HunyuanVideo
+      checkpoint through ``prepare_cli.run`` card against CPU in fp32.
+  M.  multi-device (``alg_tpu_torch/sharding``) on the one card: M1, the
+      ring of ``ops.attention._ring_attention_local`` with one process
+      playing the sp ranks in turn (an injected rotation hands over the
+      previous rank's chunk), each launching the bf16 forward with its LSE
+      once a chunk, at ``[2,48,17776,64]`` and the Hunyuan joint
+      ``[1,24,28128,128]`` with ``kv_len`` (one row's chunks wholly past it)
+      at sp = 2 and 4: against the ring over
+      ``tensor_core_attention_plain`` and one whole kernel call within one
+      bf16 step, a rank's launches and time against the one call; M2, a
+      world of one rank with an NCCL process group (every collective the
+      identity, so none runs): ``train_cli.run(mesh=make_mesh())`` over H1's
+      example bit for bit against the unsharded run and with a peak memory
+      not above it, ``serve_batch(mesh=make_mesh())`` of the three families
+      at the published widths (2 DiT layers) bit for bit against
+      ``mesh=None``, and ``serve_cli --dp 1 --tp 1`` under ``torchrun
+      --nproc_per_node 1``.
 
 ``python3 chip_smoke.py --dense-flash`` builds the kernels and times only rope
 at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
@@ -291,7 +312,8 @@ tensor-core kernels; it prints no result line). ``python3 chip_smoke.py
 chip_smoke.py --finetune`` phase G alone, ``python3 chip_smoke.py
 --cogvideox15`` phase B's CogVideoX-1.5 shapes, C5, F3, G4 and D4 alone,
 ``python3 chip_smoke.py --serve`` phases S1-S5 alone, ``python3 chip_smoke.py
---quant`` phases Q1-Q5 alone (none of them prints a result line).
+--quant`` phases Q1-Q5 alone, ``python3 chip_smoke.py --multi`` phases H and M
+alone (none of them prints a result line).
 
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
@@ -2936,7 +2958,7 @@ def _write_manifest(tmp: str, clips) -> str:
     return manifest
 
 
-def _run_prepare(config, root: str, manifest: str, out_dir: str, device: str, stages: dict):
+def _run_prepare(config, root: str, manifest: str, out_dir: str, device: str, stages: dict, on_load=None):
     """``prepare_cli.run`` over ``manifest`` on ``device``, each of the pipeline
     methods named in ``stages`` ({method: label}) timed between synchronises.
     Returns (the examples as dicts of arrays, the launch counts, one entry a
@@ -2978,6 +3000,8 @@ def _run_prepare(config, root: str, manifest: str, out_dir: str, device: str, st
         load_s.append(time.perf_counter() - t0)
         for method, label in stages.items():
             setattr(pipe, method, timed(label, getattr(pipe, method)))
+        if on_load is not None:
+            on_load(pipe)
         return pipe
 
     def encode(*args, **kwargs):
@@ -5110,6 +5134,360 @@ _ONE_TYPE = ("flash_attention_tc", "flash_attention", "flash_attention_bwd_dq_tc
              "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv", "flash_attention_int8_tc", "flash_attention_int8")
 
 
+# ---------------------------------------------------------------------------
+# H. the HunyuanVideo prepare on the card; M. multi-device (A13) on one card
+# ---------------------------------------------------------------------------
+
+# phase S3's HunyuanVideo-I2V config at the shipped 129 frames (the 352x608 clip buckets to itself at 360p)
+PREP_HY_CONFIG = {**SERVE_HY_CONFIG, "generation": {**SERVE_HY_CONFIG["generation"], "num_frames": 129}}
+
+
+def phase_hunyuan_prepare(tmp) -> dict:
+    """H1: ``hf_checkpoint.HUNYUAN_VIDEO_I2V`` cut as phase S3 cuts it (2 double, 2 single and 2 refiner blocks,
+    Llava 2 + 2 layers) written under ``tmp``; ``prepare_cli.run`` over one seeded 129-frame 352x608 clip, an
+    array at the generated size (no PIL), Llava's image processor phase C3's seeded one: the stage times, the
+    peak memory and the example's shapes. H2: a small HunyuanVideo checkpoint through ``prepare_cli.run`` on the
+    card and on the CPU, fp32 with TF32 off, as G3 holds CogVideoX and Wan. Returns ``{"root", "data", counts}``
+    for phase M2, which trains over the written example."""
+    import os
+
+    import numpy as np
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    ck = copy.deepcopy(H.HUNYUAN_VIDEO_I2V)
+    t, lc = ck["transformer"], ck["text_encoder"]
+    t["num_layers"], t["num_single_layers"], t["num_refiner_layers"] = 2, 2, 2
+    lc["text_config"]["num_hidden_layers"], lc["vision_config"]["num_hidden_layers"] = 2, 2
+    root = os.path.join(tmp, "h1")
+    drawn = _write_checkpoint("H1", "HunyuanVideo-I2V (2 + 2 + 2 DiT blocks, Llava 2 + 2 layers)", H.write_hunyuan,
+                              ck, os.path.join(root, PREP_HY_CONFIG["model"]["path"]))
+    del drawn
+    clip_dir = os.path.join(tmp, "h1_clip")
+    os.makedirs(clip_dir)
+    manifest = _write_manifest(clip_dir, [("h.npy", 129, *SERVE_HY_SIZE, 70, {})])
+    data_dir = os.path.join(tmp, "h1_latents")
+    examples, counts, rows, load_s = _run_prepare(PREP_HY_CONFIG, root, manifest, data_dir, "cuda", HY_STAGES,
+                                                  on_load=_hunyuan_image_processor)
+    _print_prepare("H1", rows, load_s, _card_line())
+    shapes = {k: tuple(v.shape) for k, v in examples[0].items()}
+    print(f"[H1] the example: {shapes}; launches {counts}", flush=True)
+    lat = examples[0]["latents"]
+    if lat.shape[1:] != (33, 44, 76) or not all(np.isfinite(v).all() for v in examples[0].values()):
+        raise AssertionError(f"[H1] the prepared example is not 33 latent frames of 44 x 76, or not finite: {shapes}")
+    if not counts["flash_attention"]:
+        raise AssertionError("[H1] the Llava and CLIP text encodes launched no flash-attention kernel")
+    _free_device_memory()
+
+    _set_tf32(False, False)
+    small = os.path.join(tmp, "h2")
+    H.write_hunyuan(os.path.join(small, "SmallHunyuanVideo"), SMALL_HUNYUAN, seed=4)
+    case_dir = os.path.join(tmp, "h2_clip")
+    os.makedirs(case_dir)
+    manifest = _write_manifest(case_dir, [("h0.npy", 9, 64, 64, 71, {})])
+    config = {"model": {"path": "SmallHunyuanVideo", "dtype": "float32"},
+              "generation": {"height": 64, "width": 64, "num_frames": 9, "max_sequence_length": 20}}
+    runs = {dev: _run_prepare(config, small, manifest, os.path.join(case_dir, dev), dev, {}) for dev in ("cpu", "cuda")}
+    (data_c, n_c, _, _), (data_g, n_g, _, _) = runs["cpu"], runs["cuda"]
+    ok, errs = len(data_c) == len(data_g) == 1 and sorted(data_c[0]) == sorted(data_g[0]), {}
+    for k in data_c[0]:
+        a, b = data_c[0][k], data_g[0][k]
+        ok &= a.shape == b.shape and a.dtype == b.dtype
+        errs[k] = float(np.abs(a.astype(np.float64) - b).max())
+        ok &= bool(np.allclose(b, a, atol=1e-4, rtol=1e-4))
+    ok &= bool(np.array_equal(data_c[0]["encoder_attention_mask"], data_g[0]["encoder_attention_mask"]))
+    ok &= not any(n_c.values()) and n_g["flash_attention"] > 0
+    print(f"[H2] prepare_cli.run of a small HunyuanVideo checkpoint, card (kernels) vs CPU (plain), fp32: "
+          f"max|diff| by key {errs} (atol 1e-4 + rtol 1e-4; the attention mask exact), launches card {n_g} / CPU "
+          f"{n_c}: {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("[H2] the card's and the CPU's prepared HunyuanVideo latents disagree")
+    _free_device_memory()
+    return {"root": root, "data": data_dir, "counts": counts}
+
+
+def _bf16_steps(a, b) -> float:
+    """max|a - b| in bf16 steps at the largest magnitude of ``b`` (one step: 2^(floor(log2 max|b|) - 7))."""
+    import math
+
+    top = float(b.float().abs().max())
+    return float((a.float() - b.float()).abs().max()) / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _ring_case(name, shape, sp, gen, kv_len=None, stable=False, reps=3) -> dict:
+    """M1: one process plays the ``sp`` ranks of a ring in turn (``_ring_attention_local`` with a rotation that
+    hands over the previous rank's chunk), each launching the flash forward with its LSE once a chunk, against
+    the same ring whose chunks go through ``tensor_core_attention_plain`` and against one unsharded kernel call.
+    Returns the record: errors, times, launches."""
+    import torch
+
+    from alg_tpu_torch.ops.attention import _ring_attention_local
+    from alg_tpu_torch.ops.flash_attention import flash_attention, tensor_core_attention_plain
+
+    b, h, s, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    scale, chunk = d ** -0.5, s // sp
+    kc, vc = ([t.contiguous() for t in x.split(chunk, dim=2)] for x in (k, v))
+    qc = [t.contiguous() for t in q.split(chunk, dim=2)]
+
+    def ring(chunk_attention=None):
+        outs = []
+        for idx in range(sp):
+            rotate = lambda r, k_, v_, i=idx: (lambda: (kc[(i - r - 1) % sp], vc[(i - r - 1) % sp]))  # noqa: E731
+            outs.append(_ring_attention_local(qc[idx], kc[idx], vc[idx], kvl,
+                                              scale=scale, stable=stable, sp=sp, index=idx, rotate=rotate,
+                                              chunk_attention=chunk_attention))
+        return torch.cat(outs, dim=2)
+
+    def plain(q_, k_, v_, kv, heads=4):  # a few heads at a time: the fp32 logits of a chunk pair are 30 GB whole
+        parts = [tensor_core_attention_plain(q_[:, i:i + heads], k_[:, i:i + heads], v_[:, i:i + heads], scale,
+                                             kv_len=kv, stable=stable) for i in range(0, h, heads)]
+        return torch.cat([o for o, _ in parts], dim=1), torch.cat([lse for _, lse in parts], dim=1)
+
+    _reset_counts()
+    out = ring()
+    torch.cuda.synchronize()
+    n = _read_counts()
+    ref_ring = ring(plain)
+    one = flash_attention(q, k, v, scale, stable=stable, kv_len=kvl)
+    steps_plain, steps_one = _bf16_steps(out, ref_ring), _bf16_steps(out, one)
+    finite = bool(torch.isfinite(out).all())
+    want = sp * sp  # every rank launches the forward once a chunk
+    ok = finite and steps_plain <= 1.0 and steps_one <= 1.0 and n["flash_attention_lse"] == want == \
+        n["flash_attention_tc"]
+    ring_ms = _time_ms(lambda: ring(), reps) / sp  # one rank's share: its sp launches
+    one_ms = _time_ms(lambda: flash_attention(q, k, v, scale, stable=stable, kv_len=kvl), reps)
+    print(f"[M1] {name} [{b},{h},{s},{d}] bf16 sp={sp}{'' if kv_len is None else f' kv_len={kv_len}'}: ring "
+          f"(kernel chunks) vs plain ring {steps_plain:.3f} and vs one unsharded kernel call {steps_one:.3f} bf16 "
+          f"steps (at most 1), finite {finite}; launches {n['flash_attention_lse']} forward-with-LSE (want "
+          f"{want}, {sp} a rank); one rank's ring {ring_ms:.3f} ms ({sp} launches) vs one whole call "
+          f"{one_ms:.3f} ms ({_card_line()}): {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[M1] the ring over the kernel disagrees at {name} sp={sp}")
+    return {"name": name, "shape": list(shape), "sp": sp, "kv_len": kv_len, "steps_vs_plain_ring": steps_plain,
+            "steps_vs_one_call": steps_one, "rank_ring_ms": ring_ms, "one_call_ms": one_ms,
+            "launches": n["flash_attention_lse"]}
+
+
+def phase_ring() -> list:
+    """M1 at the CogVideoX-5b shape [2, 48, 17776, 64] (``stable=False``) at sp = 2 and 4, and at HunyuanVideo's
+    joint [1, 24, 28128, 128] with ``kv_len``: the shipped text (27,872 video and 256 text positions, 118 of them
+    real) and a row whose last chunks at sp = 4 lie wholly past ``kv_len`` (20,000), where the kernel must give
+    zeros and an LSE of -inf. Returns the records."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(80)
+    records = []
+    for sp in (2, 4):
+        records.append(_ring_case("CogVideoX-5b 49 frames", (2, 48, 17776, 64), sp, gen))
+        records.append(_ring_case("HunyuanVideo 129 frames joint", (1, 24, 28128, 128), sp, gen, kv_len=[27990]))
+    records.append(_ring_case("HunyuanVideo joint, chunks past kv_len", (1, 24, 28128, 128), 4, gen, kv_len=[20000]))
+    _free_device_memory()
+    return records
+
+
+def _serve_script(tmp) -> str:
+    """A launcher for ``serve_cli.run`` with a parsed config and uint8 requests (no PyYAML or PIL needed), for
+    ``torchrun``: argv[1] is a JSON spec of the flags, the config, the prompts, seeds and an ``.npy`` of images."""
+    import os
+
+    path = os.path.join(tmp, "serve_under_torchrun.py")
+    with open(path, "w") as f:
+        f.write(
+            "import json, sys\n"
+            "import numpy as np\n"
+            "from alg_tpu_torch import serve_cli\n"
+            "from alg_tpu_torch.serving import BatchRequest\n"
+            "spec = json.load(open(sys.argv[1]))\n"
+            "images = np.load(spec['images'])\n"
+            "reqs = [BatchRequest(p, img, negative_prompt='', seed=s)\n"
+            "        for p, img, s in zip(spec['prompts'], images, spec['seeds'])]\n"
+            "paths = serve_cli.run(serve_cli.build_parser().parse_args(spec['argv']), config=spec['config'],\n"
+            "                      requests=reqs)\n"
+            "print('WROTE ' + json.dumps(paths), flush=True)\n")
+    return path
+
+
+def _multi_serve_cases(tmp, hy_root):
+    """M2's checkpoints at the published widths, cut to 2 DiT layers as phases S1-S3 cut them: (family, config, the
+    model cache directory, the requests' images). CogVideoX-5b-I2V (DiT and T5 2 layers) and Wan2.1-I2V-14B (DiT and
+    UMT5 2 layers) are written under ``tmp``; HunyuanVideo-I2V is phase H1's directory ``hy_root``."""
+    import os
+
+    import numpy as np
+
+    from alg_tpu_torch.io import hf_checkpoint as H
+
+    cases = []
+    for tag, name, family, write, base, config, size in (
+            ("M2", "CogVideoX-5b-I2V (DiT and T5 2 layers)", "cogvideox", H.write_cogvideox, H.COGVIDEOX_5B_I2V,
+             CLI_CONFIG, (CLI_HEIGHT, CLI_WIDTH)),
+            ("M2", "Wan2.1-I2V-14B (DiT and UMT5 2 layers)", "wan", H.write_wan, H.WAN21_I2V_14B, SERVE_WAN_CONFIG,
+             (480, 832))):
+        ck = copy.deepcopy(base)
+        ck["transformer"]["num_layers"], ck["text_encoder"]["num_layers"] = 2, 2
+        root = os.path.join(tmp, family)
+        _write_checkpoint(tag, name, write, ck, os.path.join(root, config["model"]["path"]))  # the drawn tensors go
+        cases.append((family, config, root, size))
+    cases.append(("hunyuan", SERVE_HY_CONFIG, hy_root, SERVE_HY_SIZE))
+    return [(family, config, root, [np.random.RandomState(70 + i).randint(0, 256, (*size, 3)).astype(np.uint8)
+                                    for i in range(2)]) for family, config, root, size in cases]
+
+
+def phase_multi(prepared: dict) -> dict:
+    """M2: the mesh entry points in a world of one rank over NCCL (``sharding.init_process_group``). In such a world
+    every axis holds one rank, so the mesh makes no process group and every collective is the identity, and at tp =
+    1 the DiTs keep their unsharded modules: no NCCL collective, ring exchange or tensor-parallel layer runs here
+    (the CPU tests run them over gloo). What runs is the mesh's plumbing on the card: the NCCL process group,
+    ``make_mesh``, ``shard_pipeline`` and the mesh branches of ``serve_batch``, ``train_cli.run`` and
+    ``make_sharded_train_step``, and ``serve_cli`` under ``torchrun``.
+
+    * ``train_cli.run(mesh=make_mesh())`` over phase H1's example (the HunyuanVideo DiT of 2 + 2 + 2 blocks at the
+      published width, loaded on the host and sharded onto the card) against the unsharded ``train_cli.run`` (the
+      DiT loaded onto the card) of the same flags: losses and parameters bit for bit, and the sharded run's peak
+      device memory not above the unsharded one's.
+    * ``serve_batch(mesh=make_mesh(), sp_mode="ring")`` of the three families at the published widths, 2 DiT
+      layers (:func:`_multi_serve_cases`), bit for bit ``mesh=None``.
+    * ``serve_cli --dp 1 --tp 1`` under ``torchrun --nproc_per_node 1`` over the CogVideoX checkpoint.
+
+    Returns the launch counts by path."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import alg_tpu_torch.training.train as T
+    from alg_tpu_torch import serving, train_cli
+    from alg_tpu_torch.cli import load_pipeline
+    from alg_tpu_torch.core.config import run_config_from_dict
+    from alg_tpu_torch.sharding import init_process_group, make_mesh
+    from alg_tpu_torch.sharding.mesh import free_port
+
+    counts = {}
+    init_process_group(0, 1, f"tcp://127.0.0.1:{free_port()}", "cuda")
+    print(f"[M2] process group: backend {dist.get_backend()}, world {dist.get_world_size()}", flush=True)
+    train_argv = ["--config", "-", "--model_cache_dir", prepared["root"], "--data", prepared["data"], "--mode",
+                  "full", "--remat", "--compute_dtype", "bfloat16", "--seed", "0", "--lr", "1e-5", "--steps", "2",
+                  "--log_every", "1", "--prefetch", "0", "--output", os.devnull, "--dp", "1", "--tp", "1", "--pp", "1"]
+    args = train_cli.make_parser().parse_args(train_argv)
+    if train_cli._train_mesh(args) is not None:
+        raise AssertionError("[M2] --dp 1 --tp 1 --pp 1 in a one-rank launch asked for a mesh")
+    save = T.save_params_npz
+    T.save_params_npz = lambda path, params: None  # 4.4 GB of fp32 parameters, compared in memory instead
+    try:
+        runs = {}
+        for tag, mesh in (("unsharded", None), ("mesh", make_mesh(device="cuda"))):
+            _free_device_memory()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = train_cli.run(PREP_HY_CONFIG, args, mesh=mesh)
+            torch.cuda.synchronize()
+            elapsed, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+            out["trainable"] = {k: v.detach().cpu() for k, v in out["trainable"].items()}  # off the card: the
+            runs[tag] = (out, _read_counts(), elapsed, peak)  # next run's peak counts its own tensors alone
+    finally:
+        T.save_params_npz = save
+    (a, n_a, s_a, m_a), (b, n_b, s_b, m_b) = runs["unsharded"], runs["mesh"]
+    same = a["losses"] == b["losses"] and set(a["trainable"]) == set(b["trainable"]) and all(
+        torch.equal(a["trainable"][k], b["trainable"][k]) for k in a["trainable"])
+    ok = same and n_a == n_b and all(np.isfinite(a["losses"])) and m_b <= m_a
+    print(f"[M2] train_cli.run --mode full over H1's example (HunyuanVideo 2 + 2 + 2 blocks, S = 28,128), 2 steps: "
+          f"unsharded (the DiT loaded onto the card) {s_a:.1f} s, peak {m_a:.2f} GiB; mesh=make_mesh() (the DiT "
+          f"loaded on the host, its shards put on the card) {s_b:.1f} s, peak {m_b:.2f} GiB (want at most the "
+          f"unsharded peak); losses {a['losses']} / {b['losses']}; parameters bit for bit {same}; launches {n_b} "
+          f"({_card_line()}): {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("[M2] the sharded step at world size 1 is not the unsharded step, or holds more memory")
+    counts["multi_train_hunyuan"] = n_b
+    del runs, a, b
+    _free_device_memory()
+
+    mesh = make_mesh(device="cuda")
+    tmp = tempfile.mkdtemp(prefix="alg_multi_serve_")
+    cases = _multi_serve_cases(tmp, prepared["root"])
+    for family, config, root, images in cases:
+        reqs = [serving.BatchRequest(p, img, negative_prompt="", seed=seed)
+                for p, img, seed in zip(SERVE_PROMPTS, images, SERVE_SEEDS)]
+        cfg = run_config_from_dict(config)
+        pipe = load_pipeline(cfg, root, device="cuda")
+        if family == "hunyuan":
+            _hunyuan_image_processor(pipe)
+        kw = dict(cfg.pipeline_kwargs)
+        if family == "hunyuan":
+            kw["height"], kw["width"] = serving.hunyuan_size(cfg.video["resolution"], images[0])
+        single, single_s = _timed(lambda: serving.serve_batch(pipe, reqs, **kw, output_type="latent"))
+        _reset_counts()
+        sharded, sharded_s = _timed(lambda: serving.serve_batch(pipe, reqs, mesh=mesh, sp_mode="ring", **kw,
+                                                                output_type="latent"))
+        n = _read_counts()
+        single, sharded = np.asarray(single), np.asarray(sharded)
+        same = bool(np.array_equal(single, sharded))
+        ok = same and bool(np.isfinite(sharded).all()) and n["flash_attention_tc"] > 0
+        print(f"[M2] serve_batch(mesh=make_mesh(), sp_mode='ring') of the {family} checkpoint at the published widths "
+              f"(2 DiT layers), bf16, two requests, latents {tuple(sharded.shape)}: against mesh=None bit for bit "
+              f"{same}; {sharded_s:.2f} s against {single_s:.2f} s ({_card_line()}); launches {n}: "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"[M2] serving over a one-rank mesh changed the {family} output")
+        counts[f"multi_serve_{family}"] = n
+        del pipe
+        _free_device_memory()
+
+    # serve_cli under torchrun: a mesh of the launch's one rank, in its own process
+    _, cog_config, cog_root, images = cases[0]
+    spec = os.path.join(tmp, "spec.json")
+    np.save(os.path.join(tmp, "images.npy"), np.stack(images))
+    with open(spec, "w") as f:
+        json.dump({"argv": ["--config", "-", "--model_cache_dir", cog_root, "--output_dir", os.path.join(tmp, "out"),
+                            "--device", "cuda", "--dp", "1", "--tp", "1"], "config": cog_config,
+                   "prompts": list(SERVE_PROMPTS), "seeds": list(SERVE_SEEDS),
+                   "images": os.path.join(tmp, "images.npy")}, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_port",
+                           str(free_port()), _serve_script(tmp), spec], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wrote = [json.loads(line[6:]) for line in proc.stdout.splitlines() if line.startswith("WROTE ")]
+    ok = proc.returncode == 0 and len(wrote) == 1 and len(wrote[0]) == 2 and all(os.path.exists(p) for p in wrote[0])
+    print(f"[M2] torchrun --nproc_per_node 1 serve_cli --dp 1 --tp 1 (CogVideoX-5b-I2V at the published widths, DiT "
+          f"and T5 2 layers, bf16, two requests): exit {proc.returncode}, wrote {wrote} in "
+          f"{time.perf_counter() - t0:.1f} s: {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+        raise AssertionError("[M2] serve_cli under torchrun failed")
+    dist.destroy_process_group()
+    shutil.rmtree(tmp, ignore_errors=True)
+    _free_device_memory()
+    return counts
+
+
+def phase_multi_all() -> dict:
+    """H then M (``python3 chip_smoke.py --multi`` runs them alone); returns the launch counts by path."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="alg_multi_")
+    try:
+        t0 = time.perf_counter()
+        prepared = phase_hunyuan_prepare(tmp)
+        t1 = time.perf_counter()
+        ring = phase_ring()
+        t2 = time.perf_counter()
+        counts = phase_multi(prepared)
+        counts["prepare_hunyuan"] = prepared["counts"]
+        print(f"[H/M] H {t1 - t0:.1f} s, M1 {t2 - t1:.1f} s, M2 {time.perf_counter() - t2:.1f} s; the ring records: "
+              f"{json.dumps(ring)}", flush=True)
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _kernel_json(records, counts_by_path) -> dict:
     """``counts_by_path``: {path name: launch counts of that path's run}."""
     out = []
@@ -5189,6 +5567,14 @@ def main() -> int:
             traceback.print_exc()
             return 1
         return 0
+    if sys.argv[1:] == ["--multi"]:
+        try:
+            phase_build()
+            phase_multi_all()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     if sys.argv[1:] == ["--cogvideox15"]:
         try:
             phase_build()
@@ -5229,6 +5615,7 @@ def main() -> int:
         counts.update(phase_cogvideox15_checkpoint())  # F3, G4
         counts.update(phase_serve())  # S1-S5
         counts.update(phase_quant())  # Q1-Q5
+        counts.update(phase_multi_all())  # H1-H2, M1-M2
         for path, kernels in (("cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("cli_cogvideox", ("qk_prep", "flash_attention_tc")),
                               ("wan", ("rope_interleaved", "flash_attention_tc", "flash_attention_cuda_core")),
@@ -5293,7 +5680,14 @@ def main() -> int:
                                 for family in ("wan", "hunyuan") for mode in ("w8", "w4")),
                               ("agreement_qlora_cogvideox", ("qk_prep", "flash_attention_cuda_core",
                                                              "flash_attention_bwd_dq_cuda_core",
-                                                             "flash_attention_bwd_dkv_cuda_core"))):
+                                                             "flash_attention_bwd_dkv_cuda_core")),
+                              # H, M: the prepare's encoders, the sharded step and the mesh-routed serving
+                              ("prepare_hunyuan", ("flash_attention_tc",)),
+                              ("multi_train_hunyuan", ("rope_interleaved", "flash_attention_lse",
+                                                       "flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc")),
+                              ("multi_serve_cogvideox", ("qk_prep", "flash_attention_tc")),
+                              *((f"multi_serve_{family}", ("rope_interleaved", "flash_attention_tc"))
+                                for family in ("wan", "hunyuan"))):
             idle = [k for k in kernels if not counts[path][k]]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")

@@ -1747,3 +1747,70 @@ def test_qlora_step_card_matches_cpu(cuda, mode):
     out = qlora_step_agreement(cuda, mode, seed=6)
     print(out["line"])
     assert out["ok"], out["line"]
+
+
+def _ring(q, k, v, sp, kv_len, stable, chunk_attention=None):
+    """The ring of ``sp`` ranks played in turn in one process (``ops.attention._ring_attention_local`` with a
+    rotation that hands over the previous rank's chunk); the ranks' outputs concatenated."""
+    from alg_tpu_torch.ops.attention import _ring_attention_local
+
+    chunk = k.shape[2] // sp
+    kc, vc = k.split(chunk, dim=2), v.split(chunk, dim=2)
+    outs = []
+    for idx in range(sp):
+        rotate = lambda r, k_, v_, i=idx: (lambda: (kc[(i - r - 1) % sp], vc[(i - r - 1) % sp]))  # noqa: E731
+        outs.append(_ring_attention_local(q[:, :, idx * chunk:(idx + 1) * chunk], kc[idx], vc[idx], kv_len,
+                                          scale=q.shape[-1] ** -0.5, stable=stable, sp=sp, index=idx, rotate=rotate,
+                                          chunk_attention=chunk_attention))
+    return torch.cat(outs, dim=2)
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=2, h=3, s=300, d=64, sp=2, kv_len=None, stable=False),
+    dict(b=1, h=2, s=243, d=128, sp=3, kv_len=[200], stable=False),
+    dict(b=2, h=2, s=256, d=128, sp=4, kv_len=[60, 256], stable=True),
+    dict(b=1, h=2, s=40, d=80, sp=4, kv_len=[0], stable=False),
+], ids=["dense-sp2", "ragged-sq-sp3", "chunks-past-kv_len-sp4", "no-key-sp4"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_ring_attention_on_the_kernel_matches_plain(cuda, case, dtype):
+    """Ring attention over the forward kernel's LSE, one process playing every rank: against the same ring over
+    the plain residual version, and against the plain attention of the whole sequence. A query length of 243
+    at sp = 3 (chunks of 81, no multiple of the kernel's tiles); row 0's kv_len of 60 at sp = 4 leaves its
+    chunks 1-3 wholly past it, which the kernel must return as zeros with an LSE of -inf for the merge to stay
+    finite; a row with no key at all comes out as zeros."""
+    gen = torch.Generator().manual_seed(90)
+    shape = (case["b"], case["h"], case["s"], case["d"])
+    q, k, v = (_randn(gen, *shape).to(dtype) for _ in range(3))
+    kv_len = None if case["kv_len"] is None else torch.tensor(case["kv_len"], dtype=torch.int32)
+    scale = case["d"] ** -0.5
+
+    def plain_chunk(q_, k_, v_, kvl):
+        return FA.attention_plain_residuals(q_, k_, v_, scale, kv_len=kvl)
+
+    FA.flash_attention.residual_launches = 0
+    out = _ring(q.to(cuda), k.to(cuda), v.to(cuda), case["sp"], None if kv_len is None else kv_len.to(cuda),
+                case["stable"])
+    assert FA.flash_attention.residual_launches == case["sp"] ** 2
+    assert bool(torch.isfinite(out).all())
+    plain_ring = _ring(q, k, v, case["sp"], kv_len, case["stable"], plain_chunk)
+    whole = FA.attention_plain(q, k, v, scale, kv_len=kv_len)
+    _assert_close_flash(out, plain_ring, dtype)
+    _assert_close_flash(out, whole, dtype)
+    if case["kv_len"] == [0]:
+        assert bool((out == 0).all())
+
+
+def test_flash_kernel_gives_zeros_and_minus_inf_lse_on_a_chunk_past_kv_len(cuda):
+    """The ring's per-chunk call with ``kv_len`` 0 for one row and a partial count for the other: zeros and
+    -inf where no key is seen, the plain residual version's output and LSE elsewhere, in both types."""
+    gen = torch.Generator().manual_seed(91)
+    for dtype in DTYPES:
+        q, k, v = (_randn(gen, 2, 2, 64, 128).to(dtype) for _ in range(3))
+        kvl = torch.tensor([0, 17], dtype=torch.int32)
+        out, lse = FA.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), 128 ** -0.5, stable=False,
+                                      kv_len=kvl.to(cuda), return_residuals=True)
+        ref_out, ref_lse = FA.attention_plain_residuals(q, k, v, 128 ** -0.5, kv_len=kvl)
+        assert bool((out[0] == 0).all()) and bool(torch.isneginf(lse[0]).all())
+        _assert_close_flash(out, ref_out, dtype)
+        torch.testing.assert_close(lse[1].cpu(), ref_lse[1], atol=2e-3 if dtype == torch.bfloat16 else 1e-4,
+                                   rtol=1e-4)

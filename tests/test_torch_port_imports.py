@@ -35,7 +35,9 @@ def test_every_module_imports_with_jax_blocked():
             "alg_tpu_torch.pipelines.denoise", "alg_tpu_torch.prepare_cli", "alg_tpu_torch.utils.profiling",
             "alg_tpu_torch.train_cli", "alg_tpu_torch.models.cogvideox.transformer",
             "alg_tpu_torch.models.cogvideox.vae", "alg_tpu_torch.serving", "alg_tpu_torch.serve_cli",
-            "alg_tpu_torch.http_serving", "alg_tpu_torch.ops.quant"} <= set(mods)
+            "alg_tpu_torch.http_serving", "alg_tpu_torch.ops.quant", "alg_tpu_torch.sharding",
+            "alg_tpu_torch.sharding.mesh", "alg_tpu_torch.sharding.collectives", "alg_tpu_torch.sharding.partition",
+            "alg_tpu_torch.sharding.pipeline", "alg_tpu_torch.sharding.multihost"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -51,6 +53,7 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "sys.path.insert(0, 'tests')\n"
         "importlib.import_module('quant_feed')  # chip_smoke.py's Q5 imports it\n"
+        "importlib.import_module('torch_dist_workers')  # the sharding tests' ranks\n"
         "from alg_tpu_torch.ops.flash_attention import route\n"
         "from alg_tpu_torch.ops.flash_attention_bwd import dkv_route\n"
         "assert not any((k == 'alg_tpu' or k.startswith('alg_tpu.')) and m is not None\n"

@@ -1,7 +1,8 @@
 """The port's serving entry points (``alg_tpu_torch/serve_cli.py`` and
 ``alg_tpu_torch/http_serving.py``) on tiny checkpoints, on the CPU: ``run``
 end to end over a JSONL file (a video named by its request and one by its
-index), its parser against ``alg_tpu``'s, the flags that are not ported yet,
+index), its parser against ``alg_tpu``'s, the mesh and multi-host flags over
+gloo ranks (``torch_dist_workers``),
 HunyuanVideo's size bucket from the first request's image, and the HTTP
 daemon as ``tests/test_http_serving.py`` holds ``alg_tpu``'s: ``/healthz``,
 ``/generate`` with base64 and path images, a micro-batch of two, equal
@@ -142,18 +143,56 @@ def test_parser_keeps_alg_tpus_flags_and_defaults():
     assert port["device"] == "cuda" and port["random_init"] is False
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp", "2"], ["--tp", "4"], ["--sp_mode", "ring"],
+# flag -> the ranks it runs on and what each writes (multi-host: each rank a host of one rank)
+MESH_FLAGS = {"--dp": (2, [["bus.avi", "001.avi"], []]), "--sp": (2, [["bus.avi", "001.avi"], []]),
+              "--tp": (2, [["bus.avi", "001.avi"], []]), "--sp_mode": (1, [["bus.avi", "001.avi"]]),
+              "--multihost": (2, [["bus.avi"], ["001.avi"]])}
+
+
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--sp", "2"], ["--tp", "2"], ["--sp_mode", "ring"],
                                   ["--multihost"], ["--quantize", "w8"]])
-def test_flags_that_are_not_ported_raise(flag, setup, tmp_path):
-    """The mesh and multi-host flags name ROADMAP A13. ``--quantize``, once
-    refused (A12), serves both requests."""
+def test_flags_that_are_not_ported_raise(flag, setup, tmp_path, monkeypatch):
+    """The mesh and multi-host flags, once refused (A13), serve both
+    requests over gloo ranks: rank 0 writes the videos (under
+    ``--multihost`` each host its block), each within 3e-5 of the unsharded
+    run's frames (``--tp 2``: the tiny DiT has 2 heads; ``--sp_mode ring``
+    alone warns and runs on one rank). A mesh larger than the launch raises
+    naming torchrun. ``--quantize``, once refused (A12), serves both
+    requests."""
     argv = ["--config", setup["config"], "--requests", setup["requests"], "--output_dir", str(tmp_path), "--device",
             "cpu", *flag]
     if flag[0] == "--quantize":
         assert [os.path.basename(p) for p in TSC.run(_args(*argv))] == ["bus.avi", "001.avi"]
         return
-    with pytest.raises(NotImplementedError, match="A13"):
-        TSC.run(_args(*argv))
+    import torch_dist_workers as W
+
+    world, writes = MESH_FLAGS[flag[0]]
+    ranks = W.Ranks(W.cli_run, world, tmp_path / "ranks", "serve_cli", argv)
+    frames, write = {}, TV.write_video
+
+    def record(path, video, fps=8):
+        frames[os.path.basename(path)] = np.asarray(video)
+        return write(path, video, fps=fps)
+
+    monkeypatch.setattr(TV, "write_video", record)
+    TSC.run(_args("--config", setup["config"], "--requests", setup["requests"], "--output_dir",
+                  str(tmp_path / "single"), "--device", "cpu"))
+    got = {}
+    for (paths, recorded), want in zip(ranks.results(), writes):
+        assert [os.path.basename(p) for p in paths] == want
+        got.update(recorded)
+    assert set(got) == set(frames)
+    for name, video in frames.items():
+        np.testing.assert_allclose(got[name], np.asarray(video), atol=3e-5, err_msg=name)
+    if flag[0] == "--dp":
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            TSC.run(_args(*argv))
+
+
+def test_listen_with_multihost_is_refused(setup):
+    """``alg_tpu``'s rule: the daemon is single-process, front it with a router for multi-host serving."""
+    with pytest.raises(ValueError, match="--listen is single-process"):
+        TSC.run(_args("--config", setup["config"], "--listen", "0", "--multihost", "--device", "cpu"))
 
 
 def test_requests_are_required_without_listen(setup):

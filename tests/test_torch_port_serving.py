@@ -224,11 +224,14 @@ def test_prompt_length_is_the_encoders_default_r13(ck, monkeypatch):
     assert lengths["jax hunyuan 8"] == lengths["port hunyuan 8"] < lengths["port hunyuan 16"]
 
 
-def test_bad_batches_raise_as_alg_tpu_does(ck):
+def test_bad_batches_raise_as_alg_tpu_does(ck, tmp_path):
     """The same ``ValueError``s as ``alg_tpu``'s: ``last_image`` on some
     requests only, ``last_image`` on a family other than Wan, a pipeline that
-    is not one of the three; a mesh raises naming A13; a draw that does not
-    lead with the batch raises; each request's stream is its own seed's."""
+    is not one of the three; a draw that does not lead with the batch
+    raises; each request's stream is its own seed's. Over a mesh of one gloo
+    rank (this process) ``serve_batch`` is bit for bit the unsharded call,
+    ``shard_pipeline`` arms a copy and re-arms only the mode, and an
+    unknown mode raises."""
     cases = []
     for package, mod in (("jax", JS), ("port", TS)):
         mixed = _requests(mod)
@@ -240,10 +243,24 @@ def test_bad_batches_raise_as_alg_tpu_does(ck):
                 mod.serve_batch(pipe, reqs, **ck.gen_kwargs("cogvideox"))
             cases.append((package, str(exc.value)))
     assert [m for p, m in cases if p == "jax"] == [m for p, m in cases if p == "port"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        TS.serve_batch(ck.pipe("port", "cogvideox"), _requests(TS), mesh=object())
-    with pytest.raises(NotImplementedError, match="A13"):
-        TS.shard_pipeline(ck.pipe("port", "cogvideox"), object())
+    import torch.distributed as dist
+
+    from alg_tpu_torch.sharding import init_process_group, make_mesh
+
+    init_process_group(0, 1, f"file://{tmp_path}/store", "cpu")
+    try:
+        mesh, pipe = make_mesh(device="cpu"), ck.pipe("port", "cogvideox")
+        armed = TS.shard_pipeline(pipe, mesh)
+        assert armed.attn_mesh is mesh and armed.sp_mode == "gather" and pipe.attn_mesh is None
+        assert TS.shard_pipeline(armed, mesh, "ring").transformer is armed.transformer
+        with pytest.raises(ValueError, match="sp_mode"):
+            TS.shard_pipeline(pipe, mesh, "bogus")
+        gen = ck.gen_kwargs("cogvideox", output_type="latent")
+        with torch.no_grad():
+            np.testing.assert_array_equal(TS.serve_batch(pipe, _requests(TS), mesh=mesh, sp_mode="ring", **gen),
+                                          TS.serve_batch(pipe, _requests(TS), **gen))
+    finally:
+        dist.destroy_process_group()
     noise = TS._BatchNoise(SEEDS)
     with pytest.raises(ValueError, match="batch-leading"):
         noise.randn((3, 4))

@@ -140,8 +140,10 @@ def test_run_refuses_what_is_not_ported_and_bad_input(tmp_path):
     with pytest.raises(SystemExit):  # alg_tpu's parser error: --quantize trains adapters only
         train_cli.run(config, _args(tmp_path, "--synthetic", "2", "--quantize", "w8", "--mode", "full"),
                       transformer=model)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="shards a full fine-tune"):  # LoRA runs on one rank
         train_cli.run(config, _args(tmp_path, "--synthetic", "2", "--tp", "2"), transformer=model)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):  # a mesh larger than the launch
+        train_cli.run(config, _args(tmp_path, "--synthetic", "2", "--tp", "2", "--mode", "full"), transformer=model)
     with pytest.raises(ValueError, match="--data or --synthetic"):
         train_cli.run(config, _args(tmp_path), transformer=model)
     with pytest.raises(ValueError, match="--checkpoint_dir"):
