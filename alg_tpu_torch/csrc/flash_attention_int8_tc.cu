@@ -1,21 +1,27 @@
-// Int8 flash attention on the tensor cores for bf16 inputs, for one head dim
-// D fixed at compile time. The build reads the next line and makes one object
-// per value, each with its own C entry point.
+// Int8 flash attention on the tensor cores, for bf16 and fp32 inputs, for one
+// head dim D fixed at compile time: every CUDA call of
+// ops/flash_attention_int8.py (route() sends bf16 to the entry
+// alg_flash_attention_int8_tc_d<D> and fp32 to alg_flash_attention_int8_tc_fp32_d<D>;
+// each refuses the other type). The build reads the next line and makes one
+// object per value, each with both entry points.
 //
 // build-variants: ALG_INT8_HEAD_DIM=64,128
 //
-// Replaces the TPU kernel alg_tpu/ops/flash_attention_int8.py:_kernel for bf16
-// inputs (fp32 inputs keep the CUDA-core kernel, flash_attention_int8.cu: fp32
-// "qk" mode needs a full-precision P·V, which no tensor-core product gives).
-// The function is the one flash_attention_int8.cu states: the int8 codes of q
-// and k with one fp32 scale a (b·h, block of block_q rows) and a (b·h, block of
-// block_k keys), the q scales carrying scale·log2e; exact int32 logits;
-// p = exp2(logit · sq · sk) in fp32 with no running max; keys at or past
-// min(S, kv_len[b]) give p = 0; o = acc / (l == 0 ? 1 : l).
+// Replaces the TPU kernel alg_tpu/ops/flash_attention_int8.py:_kernel. Inputs
+// are the int8 codes of q and k with one fp32 scale a (b·h, block of block_q
+// rows) and a (b·h, block of block_k keys), as
+// ops/flash_attention_int8.py:quantize_qk_int8 makes them (the q scales carry
+// scale·log2e). The logits are exact int32 sums of code products,
+// p = exp2(logit · sq · sk) in fp32 with no running max (the bounded-logit
+// path), keys at or past min(S, kv_len[b]) give p = 0, and
+// o = acc / (l == 0 ? 1 : l), so a row that sees no key writes zeros. Two
+// modes for the second product:
 //
-//   "qk"   (pv_int8 = 0): V in bf16. P is rounded to bf16 before P·V, as the
-//          TPU kernel does (p.astype(v.dtype)), with fp32 accumulation;
-//          l = Σ p in fp32, before the rounding.
+//   "qk"   (pv_int8 = 0): V in the inputs' type. bf16: P is rounded to bf16
+//          before P·V, as the TPU kernel does (p.astype(v.dtype)), with fp32
+//          accumulation. fp32: P stays fp32 and P·V is fp32 FMAs (the TPU
+//          kernel's rounding of P to the value type is the identity), with no
+//          TF32 and no bf16 rounding anywhere. l = Σ p in fp32 in both.
 //   "full" (pv_int8 = 1): V as int8 codes with one fp32 scale a (b·h,
 //          channel), handed over transposed, [B·H][D][v_keys], with the keys
 //          of every 32-key chunk in the order of int8_pv_key_order
@@ -24,56 +30,77 @@
 //          min(127, rint(p · (127 / srow))) where p > 0 and 0 elsewhere, an
 //          exact int32 product of the codes with V's, and
 //          acc += acc32 · (srow / 127) · sv, l += Σ codes · (srow / 127).
+//          Only the output's type differs between bf16 and fp32: one body, so
+//          the fp32 output rounded to bf16 is the bf16 output on the same codes.
 //
-// Bound on the H100: tensor-core operations, 2·D a visible (query, key) pair
-// for QKᵀ at the int8 rate plus 2·D for P·V at the bf16 ("qk") or int8
-// ("full") rate. What paces this design at D = 64 is neither: it is the one
-// exp2 a logit, which runs on the SM's 16-a-clock special-function units
+// Bound on the H100: operations, 2·D a visible (query, key) pair for QKᵀ at
+// the int8 rate plus 2·D for P·V at the bf16 ("qk", bf16), the int8 ("full")
+// or the fp32 rate ("qk", fp32: 67 TFLOP/s outside the tensor cores, which
+// take no exact fp32 product; there P·V is 30 times QKᵀ's share of the
+// bound). What paces the tensor-core products at D = 64 is neither: it is the
+// one exp2 a logit, which runs on the SM's 16-a-clock special-function units
 // (S²·B·H of them: about 8 ms at [2,48,17776,64] on 132 SMs at 1.755 GHz).
+// fp32 "qk" is bound by its FMAs, and its design feeds them 16 FMAs for each
+// 16-byte shared-memory read.
 //
 // Design (the shape of flash_attention_tc.cu). One block of 4 warps a
 // (b·h, tile of query rows), kRowTiles m16 row tiles a warp (two; one in
 // "full" mode at D = 128, whose int32 and fp32 accumulators would not both fit
-// the registers of two), the q codes' A fragments in registers for the whole
-// key loop. K codes (and V) come in 64-key tiles through a two-stage cp.async
-// ring in dynamic shared memory. Int8 rows are handled as rows of D / 2 b16
-// units, so mma.cuh's tiles and b16 ldmatrix serve them: a 16-byte chunk of
-// codes is exactly the k32 A or B fragment's share of 8 rows. For each 32-key
-// chunk of a tile: S = q·kᵀ by mma.sync.m16n8k32.s8 (exact int32); each
-// logit to fp32 by an integer add and a float subtract (|logit| <= 127²·128 <
-// 2^22, so 2^23 + 2^22 + logit is a float whose low mantissa bits are the
-// logit: exact, and without the I2F conversion, which runs at the exp2's
-// rate); p = exp2 of it times the row's fp32 scale, as the plain version
-// computes it, and the key mask.
-//   "qk": p is packed to bf16 pairs, which are the A fragments of
+// the registers of two, and one in fp32 "qk" mode at D = 128, whose 16 x 128
+// fp32 tile is 64 accumulators a lane), the q codes' A fragments in registers
+// for the whole key loop. K codes (and V) come in 64-key tiles through a
+// two-stage cp.async ring in dynamic shared memory. Int8 rows are handled as
+// rows of D / 2 b16 units, so mma.cuh's tiles and b16 ldmatrix serve them: a
+// 16-byte chunk of codes is exactly the k32 A or B fragment's share of 8 rows.
+// For each 32-key chunk of a tile: S = q·kᵀ by mma.sync.m16n8k32.s8 (exact
+// int32); each logit to fp32 by an integer add and a float subtract
+// (|logit| <= 127²·128 < 2^22, so 2^23 + 2^22 + logit is a float whose low
+// mantissa bits are the logit: exact, and without the I2F conversion, which
+// runs at the exp2's rate); p = exp2 of it times the row's fp32 scale, as the
+// plain version computes it, and the key mask.
+//   "qk", bf16: p is packed to bf16 pairs, which are the A fragments of
 //   m16n8k16 for P·V (the C and A fragments share a layout); V's B
 //   fragments by ldmatrix.trans.
-//   "full": each key block is swept twice, as in flash_attention_int8.cu:
-//   first the row's largest visible logit (a lane's maximum, then two xor
-//   shuffles inside the quad), then the codes, rounded as the plain version
-//   rounds them (an fp32 product, then rint by adding and subtracting 1.5·2^23:
-//   two roundings, never one fused multiply-add), packed four to a register
-//   as the A fragment of m16n8k32 for P·V against V's codes. A lane's C
-//   fragment holds keys 2t, 2t+1, 8+2t, 9+2t (and 16 more) of a 32-key chunk
-//   where the k32 A fragment wants 4t..4t+3 (and 16 more): integer sums do
-//   not depend on the order of the keys, so the wrapper hands V's codes over
-//   with every chunk in the order the codes arrive in (int8_pv_key_order), and
-//   the codes need no shuffle. ldmatrix has no 8-bit transpose, so V's codes
-//   come transposed, [channel][key], from the wrapper too, one copy a call.
-//   The codes' int32 sums over a key block are folded into the fp32
-//   accumulator at the block's end.
+//   "qk", fp32: the warp writes its chunk of p, transposed ([key][row]), to a
+//   slice of shared memory of its own and, after a __syncwarp, reads it back
+//   in the layout of the second product: the lanes form D / 8 column groups
+//   and 32 / (D / 8) row groups, and a lane owns an 8 x 8 tile of O (rows
+//   8 rg..8 rg + 7 of the warp's, columns 4 cg..4 cg + 3 and D / 2 + 4 cg..),
+//   so that a key costs it two 16-byte reads of P and two of V (staged as fp32
+//   beside K's codes) for 64 FMAs (flash_simt.cuh's register tiling, inside a
+//   warp). The row sums of p stay in the C fragments' layout and meet the
+//   output rows once, at the end, through the same slice.
+//   "full": each key block is swept twice: first the row's largest visible
+//   logit (a lane's maximum, then two xor shuffles inside the quad), then
+//   the codes, rounded as the plain version rounds them (an fp32 product,
+//   then rint by adding and subtracting 1.5·2^23: two roundings, never one
+//   fused multiply-add), packed four to a register as the A fragment of
+//   m16n8k32 for P·V against V's codes. A lane's C fragment holds keys 2t,
+//   2t+1, 8+2t, 9+2t (and 16 more) of a 32-key chunk where the k32 A fragment
+//   wants 4t..4t+3 (and 16 more): integer sums do not depend on the order of
+//   the keys, so the wrapper hands V's codes over with every chunk in the
+//   order the codes arrive in (int8_pv_key_order), and the codes need no
+//   shuffle. ldmatrix has no 8-bit transpose, so V's codes come transposed,
+//   [channel][key], from the wrapper too, one copy a call. The codes' int32
+//   sums over a key block are folded into the fp32 accumulator at the block's
+//   end.
 //
 // block_q and block_k are part of the result (ops/flash_attention_int8.py):
 // a row reads its own q scale, and block_k is a multiple of the 64-key tile,
-// so that a tile lies in one key block. A key block of one tile is staged
-// once for both sweeps. kv_len: keys past it are zero-filled in shared memory
-// and masked; a row with no visible key writes zeros, a key block with none
-// adds nothing.
+// so that a tile lies in one key block. In "full" mode the row maximum of p
+// over a key block is exp2 of the largest integer logit there (exp2 is
+// monotone and sq · sk is one positive number for the pair of blocks). A key
+// block of one tile is staged once for both sweeps. kv_len: keys past it are
+// zero-filled in shared memory and masked; a row with no visible key writes
+// zeros, a key block with none adds nothing.
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "flash_simt.cuh"
 #include "mma.cuh"
 
 #ifndef ALG_INT8_HEAD_DIM
@@ -99,22 +126,35 @@ constexpr int kMagic = 0x4B400000;     // the bits of 1.5·2^23
 constexpr float kMagicF = 12582912.0f;  // 1.5·2^23
 
 using TileQK = Tile<kD / 2>;     // int8 rows of kD codes, as kD / 2 b16 units
-using TileV = Tile<kD>;          // bf16 rows of V ("qk")
+using TileV = Tile<kD>;          // bf16 rows of V ("qk", bf16)
 using TileVt = Tile<kTile / 2>;  // V's codes transposed: a channel's kTile keys ("full")
+constexpr int kVFloatStride = alg::simt::stride(kD);  // floats a row of V in fp32 ("qk", fp32)
 
 static_assert(kD == 64 || kD == 128, "head dims the int8 path serves");
 
-template <bool kFull>
+// kFull: the mode; T: the type of the output and, in "qk" mode, of V.
+template <bool kFull, typename T>
 struct Shape {
-  static constexpr int kRowTiles = kFull && kD == 128 ? 1 : 2;  // m16 row tiles a warp
+  static constexpr bool kSimt = !kFull && std::is_same<T, float>::value;  // "qk" in fp32: P·V in fp32 FMAs
+  static constexpr int kRowTiles = kD == 128 && (kFull || kSimt) ? 1 : 2;  // m16 row tiles a warp
   static constexpr int kWarpRows = 16 * kRowTiles;
   static constexpr int kBlockQ = kWarps * kWarpRows;
   static constexpr int kQBytes = TileQK::bytes(kBlockQ);
   static constexpr int kKBytes = TileQK::bytes(kTile);
-  static constexpr int kVBytes = kFull ? TileVt::bytes(kD) : TileV::bytes(kTile);
+  static constexpr int kVBytes =
+      kFull ? TileVt::bytes(kD) : kSimt ? kTile * kVFloatStride * (int)sizeof(float) : TileV::bytes(kTile);
   static constexpr int kStageBytes = kKBytes + kVBytes;
-  static constexpr int kSmemBytes = kQBytes + 2 * kStageBytes;  // q, then two stages of (K, V)
+  // "qk", fp32: a warp's slice of P, a 32-key chunk transposed, [key][row] with rows padded by 4 floats (the
+  // C fragments' stores of a warp then fall in 32 different banks); it also carries the row sums at the end
+  static constexpr int kPStride = kWarpRows + 4;
+  static constexpr int kPBytes = kSimt ? kWarps * 32 * kPStride * (int)sizeof(float) : 0;
+  static constexpr int kSmemBytes = kQBytes + 2 * kStageBytes + kPBytes;  // q, two stages of (K, V), P
   static_assert(kSmemBytes <= 227 * 1024, "shared memory of one block");
+  // "qk", fp32: the second product's lanes, kColGroups column groups of 8 columns by kRowGroups row groups
+  // of 8 rows
+  static constexpr int kColGroups = kD / 8;
+  static constexpr int kRowGroups = 32 / kColGroups;
+  static_assert(!kSimt || kRowGroups * 8 == kWarpRows, "an 8 x 8 tile of O a lane");
 };
 
 // An int32 logit as fp32, exactly (|s| < 2^22), by an integer add and a float subtract.
@@ -180,7 +220,8 @@ __device__ __forceinline__ void chunk_max(const int (&sacc)[kRowTiles][4][4], in
 // 2 (j / 2) + hf) and summed into lsum. The fast path (kExact false) takes exp2 as one MUFU.EX2 that flushes
 // subnormal p to zero: with srow >= 2^-118 a p below 2^-126 has the code 0 either way, every p·inv is at most
 // 127 after rounding, and p = 0 gives 0, so the low byte of the magic sum is the code. The exact path (for a
-// warp with a row of smaller srow, where 127 / srow may overflow) rounds as flash_attention_int8.cu does.
+// warp with a row of smaller srow, where 127 / srow may overflow) takes exp2f, then the minimum with 127 and
+// code 0 where p == 0, as the plain version does.
 template <int kRowTiles, bool kMasked, bool kExact>
 __device__ __forceinline__ void chunk_codes(const int (&sacc)[kRowTiles][4][4], const float (&sc)[kRowTiles][2],
                                             const float (&inv)[kRowTiles][2], int key0, int n_keys,
@@ -222,16 +263,40 @@ struct Step {
   int kb0, kb_end, k0, phase;
 };
 
-template <bool kFull>
+// "qk", fp32: o[i][c] += Σ over the chunk's 32 keys n of P[8 rg + i][n] · V[n][column c], the lane's 8 x 8 tile
+// (columns 4 cg..4 cg + 3 and kD / 2 + 4 cg..), P transposed in the warp's slice pw ([key][row], kPStride
+// floats a key), V at vs ([key][kD], kVFloatStride floats a key). Each sum runs over the keys in ascending order.
+template <int kPStride>
+__device__ __forceinline__ void chunk_pv_fp32(float (&o)[8][8], const float* pw, const float* vs, int rg, int cg) {
+#pragma unroll 4
+  for (int n = 0; n < 32; ++n) {
+    const float4 p0 = *reinterpret_cast<const float4*>(pw + n * kPStride + 8 * rg);
+    const float4 p1 = *reinterpret_cast<const float4*>(pw + n * kPStride + 8 * rg + 4);
+    const float4 v0 = *reinterpret_cast<const float4*>(vs + n * kVFloatStride + 4 * cg);
+    const float4 v1 = *reinterpret_cast<const float4*>(vs + n * kVFloatStride + kD / 2 + 4 * cg);
+    const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[i][c] = fmaf(pr[i], vv[c], o[i][c]);
+  }
+}
+
+template <bool kFull, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_int8_tc_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k, const void* __restrict__ v,
                      const float* __restrict__ sq, const float* __restrict__ sk, const float* __restrict__ sv,
-                     const int* __restrict__ kv_len, bf16* __restrict__ out, int heads, int s, int block_q,
+                     const int* __restrict__ kv_len, T* __restrict__ out, int heads, int s, int block_q,
                      int block_k, int v_keys) {
-  using Sh = Shape<kFull>;
+  using Sh = Shape<kFull, T>;
   constexpr int kRowTiles = Sh::kRowTiles;
+  constexpr bool kSimt = Sh::kSimt;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s_q = smem_addr(smem), s_ring = s_q + Sh::kQBytes;
+  // "qk", fp32: this warp's slice of P
+  float* const pw = reinterpret_cast<float*>(smem + Sh::kQBytes + 2 * Sh::kStageBytes) +
+                    threadIdx.x / 32 * 32 * Sh::kPStride;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, quad = lane % 4;
   const int bh = blockIdx.y;
@@ -267,6 +332,9 @@ flash_int8_tc_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
         const int r = i / (kTile / 16), c = i % (kTile / 16);
         cp_async16(dst + Sh::kKBytes + TileVt::offset(r, c), vt + (long long)r * v_keys + 16 * c, true);
       }
+    } else if constexpr (kSimt) {
+      alg::simt::stage<kTile, kD>(reinterpret_cast<float*>(smem + (dst - s_q) + Sh::kKBytes),
+                                  static_cast<const float*>(v) + (long long)bh * s * kD, st.k0, n_keys);
     } else {
       TileV::stage<kTile, kThreads>(dst + Sh::kKBytes, static_cast<const bf16*>(v) + (long long)bh * s * kD,
                                              st.k0, n_keys);
@@ -302,14 +370,22 @@ flash_int8_tc_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
       sq_row[mt][hf] = row < s ? sq[(long long)bh * nq + row / block_q] : 0.0f;
     }
 
-  float o[kRowTiles][kDTiles][4];
+  // O in the C fragments' layout (tensor-core P·V), or as the lane's 8 x 8 tile ("qk", fp32: os[i][c], row
+  // 8 rg + i of the warp's, column 4 cg + c, or kD / 2 + 4 cg + c - 4 for c >= 4)
+  constexpr int kOT = kSimt ? 1 : kRowTiles, kODT = kSimt ? 1 : kDTiles, kOS = kSimt ? 8 : 1;
+  float o[kOT][kODT][4], os[kOS][kOS];
   float l[kRowTiles][2];  // "qk": this lane's part of Σ p; "full": the row's Σ codes · w over the blocks so far
 #pragma unroll
-  for (int mt = 0; mt < kRowTiles; ++mt) {
+  for (int mt = 0; mt < kOT; ++mt)
 #pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) o[mt][dt][0] = o[mt][dt][1] = o[mt][dt][2] = o[mt][dt][3] = 0.0f;
-    l[mt][0] = l[mt][1] = 0.0f;
-  }
+    for (int dt = 0; dt < kODT; ++dt) o[mt][dt][0] = o[mt][dt][1] = o[mt][dt][2] = o[mt][dt][3] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kOS; ++i)
+#pragma unroll
+    for (int c = 0; c < kOS; ++c) os[i][c] = 0.0f;
+#pragma unroll
+  for (int mt = 0; mt < kRowTiles; ++mt) l[mt][0] = l[mt][1] = 0.0f;
+  const int rg = lane / Sh::kColGroups, cg = lane % Sh::kColGroups;  // "qk", fp32: the lane's tile of O
   // "full" mode: the key block's int32 P·V and code sums, the row's largest logit, its P scale as 127 / srow
   // and srow / 127, and whether the codes may take the fast path (every row of the warp with srow >= 2^-118)
   constexpr int kF = kFull ? kRowTiles : 1;
@@ -447,6 +523,33 @@ flash_int8_tc_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
           }
         }
       }
+    } else if constexpr (kSimt) {
+      const float* vs = reinterpret_cast<const float*>(smem + (s_v - s_q));  // this tile's V in fp32
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        int sacc[kRowTiles][4][4];
+        logits(s_k, c, sacc);
+        const int key0 = k0 + 32 * c + 2 * quad;
+        float p[kRowTiles][4][4];
+        if (masked) {
+          chunk_p<kRowTiles, true>(sacc, sc, key0, n_keys, p, l);
+        } else {
+          chunk_p<kRowTiles, false>(sacc, sc, key0, n_keys, p, l);
+        }
+        // P into the warp's slice, transposed: row 16 mt + 8 hf + lane / 4, key 8 j + 2 quad + e of the chunk
+        __syncwarp();  // the previous chunk's P is read
+#pragma unroll
+        for (int mt = 0; mt < kRowTiles; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                pw[(8 * j + 2 * quad + e) * Sh::kPStride + 16 * mt + 8 * hf + lane / 4] = p[mt][j][2 * hf + e];
+        __syncwarp();
+        chunk_pv_fp32<Sh::kPStride>(os, pw, vs + 32 * c * kVFloatStride, rg, cg);
+      }
     } else {
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
@@ -489,31 +592,56 @@ flash_int8_tc_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
   }
   cp_async_wait<0>();
 
+  if constexpr (kSimt) {
+    // the row sums, whole in each lane of a quad, through the warp's slice to the lanes that own the rows
+    __syncwarp();  // the last chunk's P is read
 #pragma unroll
-  for (int mt = 0; mt < kRowTiles; ++mt)
+    for (int mt = 0; mt < kRowTiles; ++mt)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float lsum_row = l[mt][hf];
-      if constexpr (!kFull) {  // "full" folded whole rows already
+      for (int hf = 0; hf < 2; ++hf) {
+        float lsum_row = l[mt][hf];
         lsum_row += __shfl_xor_sync(0xffffffffu, lsum_row, 1);
         lsum_row += __shfl_xor_sync(0xffffffffu, lsum_row, 2);
+        if (quad == 0) pw[16 * mt + 8 * hf + lane / 4] = lsum_row;
       }
-      const int row = first + 16 * mt + 8 * hf;
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + warp * Sh::kWarpRows + 8 * rg + i;
+      const float lsum_row = pw[8 * rg + i];
       if (row >= s) continue;
       const float denom = lsum_row == 0.0f ? 1.0f : lsum_row;  // a row with no visible key: o = 0
-      bf16* orow = out + ((long long)bh * s + row) * kD + 2 * quad;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt)
-        alg::store2(orow + 8 * dt, o[mt][dt][2 * hf] / denom, o[mt][dt][2 * hf + 1] / denom);
+      T* orow = out + ((long long)bh * s + row) * kD + 4 * cg;
+      alg::store4(orow, os[i][0] / denom, os[i][1] / denom, os[i][2] / denom, os[i][3] / denom);
+      alg::store4(orow + kD / 2, os[i][4] / denom, os[i][5] / denom, os[i][6] / denom, os[i][7] / denom);
     }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < kRowTiles; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float lsum_row = l[mt][hf];
+        if constexpr (!kFull) {  // "full" folded whole rows already
+          lsum_row += __shfl_xor_sync(0xffffffffu, lsum_row, 1);
+          lsum_row += __shfl_xor_sync(0xffffffffu, lsum_row, 2);
+        }
+        const int row = first + 16 * mt + 8 * hf;
+        if (row >= s) continue;
+        const float denom = lsum_row == 0.0f ? 1.0f : lsum_row;  // a row with no visible key: o = 0
+        T* orow = out + ((long long)bh * s + row) * kD + 2 * quad;
+#pragma unroll
+        for (int dt = 0; dt < kDTiles; ++dt)
+          alg::store2(orow + 8 * dt, o[mt][dt][2 * hf] / denom, o[mt][dt][2 * hf + 1] / denom);
+      }
+  }
 }
 
-template <bool kFull>
+template <bool kFull, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* sq, const void* sk, const void* sv,
                    const void* kv_len, void* out, int batch, int heads, int s, int block_q, int block_k, int v_keys,
                    cudaStream_t stream) {
-  using Sh = Shape<kFull>;
-  auto kernel = flash_int8_tc_kernel<kFull>;
+  using Sh = Shape<kFull, T>;
+  auto kernel = flash_int8_tc_kernel<kFull, T>;
   // above 48 KB a block's dynamic shared memory needs this attribute, once per device and instantiation
   static unsigned long long configured = 0;  // a bit per device
   int device = 0;
@@ -528,33 +656,50 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* sq, 
   kernel<<<grid, kThreads, Sh::kSmemBytes, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), v, static_cast<const float*>(sq),
       static_cast<const float*>(sk), static_cast<const float*>(sv), static_cast<const int*>(kv_len),
-      static_cast<bf16*>(out), heads, s, block_q, block_k, v_keys);
+      static_cast<T*>(out), heads, s, block_q, block_k, v_keys);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// alg_flash_attention_int8_tc_d<D>: the arguments of alg_flash_attention_int8_d<D>
-// (flash_attention_int8.cu) for dtype alg::kBFloat16 (anything else returns
-// cudaErrorInvalidValue), and v_keys. q, k: int8 codes [B·H, S, D]; v: bf16
-// [B·H, S, D] (pv_int8 == 0) or V's int8 codes transposed, [B·H, D, v_keys],
-// the keys of every 32-key chunk in the order of int8_pv_key_order and zero
-// past S (pv_int8 != 0; v_keys a multiple of 64, at least S); sq: fp32
-// [B·H, ceil(S / block_q)] with scale·log2e folded in; sk: fp32
-// [B·H, ceil(S / block_k)]; sv: fp32 [B·H, D], read only when pv_int8 != 0;
-// kv_len: null, or int32 [B] on the device (clamped to [0, S]); out: bf16
-// [B·H, S, D]. All contiguous and 16-byte aligned. block_k must be a multiple
-// of 64 and at most 65,536. Returns the launch's cudaError_t.
-extern "C" int ALG_CAT(alg_flash_attention_int8_tc_d, ALG_INT8_HEAD_DIM)(
-    int dtype, const void* q, const void* k, const void* v, const void* sq, const void* sk, const void* sv,
-    const void* kv_len, void* out, int batch, int heads, int s, int block_q, int block_k, int pv_int8, int v_keys,
-    void* stream) {
-  if (dtype != alg::kBFloat16 || batch <= 0 || heads <= 0 || s <= 0 || (long long)batch * heads > 65535 ||
-      block_q <= 0 || block_k < kTile || block_k % kTile != 0 || block_k > 65536 ||
+// Both entry points: the checks, then the instantiation of the mode for output type T (`want`, the only
+// dtype the entry takes).
+template <typename T>
+int entry(int want, int dtype, const void* q, const void* k, const void* v, const void* sq, const void* sk,
+          const void* sv, const void* kv_len, void* out, int batch, int heads, int s, int block_q, int block_k,
+          int pv_int8, int v_keys, void* stream) {
+  if (dtype != want || batch <= 0 || heads <= 0 || s <= 0 || (long long)batch * heads > 65535 || block_q <= 0 ||
+      block_k < kTile || block_k % kTile != 0 || block_k > 65536 ||
       (pv_int8 != 0 && (sv == nullptr || v_keys < s || v_keys % kTile != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(pv_int8 != 0
-                   ? launch<true>(q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k, v_keys, st)
-                   : launch<false>(q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k, v_keys, st));
+                   ? launch<true, T>(q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k, v_keys, st)
+                   : launch<false, T>(q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k, v_keys,
+                                      st));
+}
+
+}  // namespace
+
+// alg_flash_attention_int8_tc_d<D> (bf16) and alg_flash_attention_int8_tc_fp32_d<D> (fp32). dtype: the
+// inputs' type, alg::kBFloat16 or alg::kFloat32 as the name says (the other returns cudaErrorInvalidValue).
+// q, k: int8 codes [B·H, S, D]; v: [B·H, S, D] of that type (pv_int8 == 0) or V's int8 codes transposed,
+// [B·H, D, v_keys], the keys of every 32-key chunk in the order of int8_pv_key_order and zero past S
+// (pv_int8 != 0; v_keys a multiple of 64, at least S); sq: fp32 [B·H, ceil(S / block_q)] with scale·log2e
+// folded in; sk: fp32 [B·H, ceil(S / block_k)]; sv: fp32 [B·H, D], read only when pv_int8 != 0; kv_len: null,
+// or int32 [B] on the device (clamped to [0, S]); out: [B·H, S, D] of that type. All contiguous and 16-byte
+// aligned. block_k must be a multiple of 64 and at most 65,536 (the int32 P·V sum of a key block). Returns
+// the launch's cudaError_t.
+extern "C" int ALG_CAT(alg_flash_attention_int8_tc_d, ALG_INT8_HEAD_DIM)(
+    int dtype, const void* q, const void* k, const void* v, const void* sq, const void* sk, const void* sv,
+    const void* kv_len, void* out, int batch, int heads, int s, int block_q, int block_k, int pv_int8, int v_keys,
+    void* stream) {
+  return entry<bf16>(alg::kBFloat16, dtype, q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k,
+                     pv_int8, v_keys, stream);
+}
+
+extern "C" int ALG_CAT(alg_flash_attention_int8_tc_fp32_d, ALG_INT8_HEAD_DIM)(
+    int dtype, const void* q, const void* k, const void* v, const void* sq, const void* sk, const void* sv,
+    const void* kv_len, void* out, int batch, int heads, int s, int block_q, int block_k, int pv_int8, int v_keys,
+    void* stream) {
+  return entry<float>(alg::kFloat32, dtype, q, k, v, sq, sk, sv, kv_len, out, batch, heads, s, block_q, block_k,
+                      pv_int8, v_keys, stream);
 }

@@ -11,13 +11,15 @@ row, key block), and V, per (batch·head, channel), so that both products are
 integer products. The accuracy scheme is the JAX package's (per-block scales
 and K mean-centring over the sequence, which softmax is invariant to).
 
-``flash_attention_int8`` picks its implementation in :func:`route`: bf16
-CUDA tensors launch the tensor-core kernel ``csrc/flash_attention_int8_tc.cu``,
-fp32 CUDA tensors the CUDA-core kernel ``csrc/flash_attention_int8.cu``, and
-CPU tensors run :func:`flash_attention_int8_plain`; any other device
-raises. Self-attention only, head dims 64 and 128, fp32 or bf16 inputs, any
-S >= 1, an optional per-batch key count ``kv_len``; no autograd (an input
-that requires a gradient raises). The quantizers are PyTorch ops on the
+``flash_attention_int8`` picks its implementation in :func:`route`: CUDA
+tensors launch the tensor-core kernel ``csrc/flash_attention_int8_tc.cu``
+(Q·Kᵀ, and ``"full"`` mode's P·V, on the int8 tensor cores), through its bf16
+entry point for bf16 and its fp32 entry point for fp32 (there ``"qk"`` mode's
+P·V is exact fp32 FMAs), and CPU tensors run
+:func:`flash_attention_int8_plain`; any other device raises. Self-attention
+only, head dims 64 and 128, fp32 or bf16 inputs, any S >= 1, an optional
+per-batch key count ``kv_len``; no autograd (an input that requires a
+gradient raises). The quantizers are PyTorch ops on the
 tensors' device, as they are XLA ops in the JAX package.
 
 ``block_q`` and ``block_k`` are part of the numerical contract: they set the
@@ -41,10 +43,10 @@ Where this differs from the JAX package, on purpose:
 * the denominator of ``"qk"`` mode is ``Σ p`` in fp32 at both head dims, and
   of ``"full"`` mode the sum of the same codes as the numerator's at both;
 * ``"qk"`` mode rounds P to the value dtype before P·V, as the JAX package
-  does, in the plain version and in the tensor-core kernel alike (in fp32 the
-  rounding is the identity, so the CUDA-core kernel keeps P as it is).
+  does, in the plain version and in the kernel alike (in fp32 the rounding
+  is the identity, so the fp32 instantiation keeps P as it is).
 
-For ``"full"`` mode the tensor-core kernel takes V's codes transposed,
+For ``"full"`` mode the kernel, in both types, takes V's codes transposed,
 ``[B·H, D, keys]``, and with the keys of every 32-key chunk in the order in
 which its P codes arrive from the Q·Kᵀ product (:func:`int8_pv_key_order`):
 the wrapper makes that copy once a call.
@@ -62,11 +64,11 @@ from alg_tpu_torch.ops import _build
 from alg_tpu_torch.ops._autograd import needs_grad
 from alg_tpu_torch.ops.flash_attention import LOG2E
 
-HEAD_DIMS = (64, 128)  # the variants both int8 sources declare, one entry point each
+HEAD_DIMS = (64, 128)  # the variants the int8 source declares, two entry points each (bf16, fp32)
 KEY_TILE = 64  # keys the kernels stage at a time: block_k must be a multiple
 
 # the C entry point of each route, "{d}" the head dim
-_ENTRY_NAMES = {"tc": "alg_flash_attention_int8_tc_d{d}", "cuda_core": "alg_flash_attention_int8_d{d}"}
+_ENTRY_NAMES = {"tc": "alg_flash_attention_int8_tc_d{d}", "tc_fp32": "alg_flash_attention_int8_tc_fp32_d{d}"}
 
 
 def _valid_keys(kv_len: torch.Tensor, s: int) -> torch.Tensor:
@@ -186,8 +188,9 @@ def flash_attention_int8_plain(q, k, v, scale: float, block_q: int = 512, block_
 
 def route(q: torch.Tensor, pv_int8: bool = False) -> str:
     """Which implementation a call on ``q`` takes, in either mode: ``"plain"``
-    for a CPU tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for
-    bf16 and ``"cuda_core"`` for fp32. Raises for any other device or dtype."""
+    for a CPU tensor; on a CUDA tensor the tensor-core kernel, ``"tc"`` (its
+    bf16 entry point) for bf16 and ``"tc_fp32"`` (its fp32 one) for fp32.
+    Raises for any other device or dtype."""
     del pv_int8  # both modes take the same route
     if q.device.type == "cpu":
         return "plain"
@@ -195,7 +198,7 @@ def route(q: torch.Tensor, pv_int8: bool = False) -> str:
         raise RuntimeError(f"flash_attention_int8: no kernel for device {q.device}")
     if q.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"int8 flash kernel takes float32 or bfloat16, got {q.dtype}")
-    return "tc" if q.dtype == torch.bfloat16 else "cuda_core"
+    return "tc" if q.dtype == torch.bfloat16 else "tc_fp32"
 
 
 def int8_pv_key_order(n_keys: int, device=None) -> torch.Tensor:
@@ -229,8 +232,7 @@ def pv_codes_for_tc(v_int: torch.Tensor) -> torch.Tensor:
 def _entry(head_dim: int, which: str):
     """The C entry point of a head dim for a route of :func:`route`."""
     fn = getattr(_build.load(), _ENTRY_NAMES[which].format(d=head_dim))
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * (7 if which == "tc" else 6) + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -279,16 +281,12 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     _check(q, k, v, block_q, block_k, kv_len)
     b, h, s, d = q.shape
     q_int, k_int, sq_blk, sk_blk = quantize_qk_int8(q, k, scale, block_q, block_k, kv_len)
-    v_keys = ()  # the tensor-core entry's last argument: the keys of a row of V's transposed codes
     if pv_int8:
-        v_arg, sv = quantize_v_int8(v, kv_len)
-        if which == "tc":
-            v_arg = pv_codes_for_tc(v_arg)
-            v_keys = (v_arg.shape[-1],)
+        v_int, sv = quantize_v_int8(v, kv_len)
+        v_arg = pv_codes_for_tc(v_int)
+        v_keys = v_arg.shape[-1]  # the keys of a row of V's transposed codes
     else:
-        v_arg, sv = v.contiguous(), None
-        if which == "tc":
-            v_keys = (0,)
+        v_arg, sv, v_keys = v.contiguous(), None, 0
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     for t in (q_int, k_int, v_arg, out):
         if t.data_ptr() % 16:
@@ -298,7 +296,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
             _build.DTYPE_CODE[q.dtype], q_int.data_ptr(), k_int.data_ptr(), v_arg.data_ptr(), sq_blk.data_ptr(),
             sk_blk.data_ptr(), None if sv is None else sv.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), b, h, s, block_q, block_k, int(pv_int8),
-            *v_keys, torch.cuda.current_stream().cuda_stream,
+            v_keys, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, f"int8 flash-attention kernel ({which})")
     flash_attention_int8.launches += 1
@@ -307,4 +305,4 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
 
 
 flash_attention_int8.launches = 0  # every launch of the int8 kernels
-flash_attention_int8.launches_by_route = {"tc": 0, "cuda_core": 0}  # the same launches by route()
+flash_attention_int8.launches_by_route = {"tc": 0, "tc_fp32": 0}  # the same launches by route()

@@ -12,13 +12,14 @@ Phases, each of which must pass:
       unit, side by side) and print the build time and the compiler's
       register/shared-memory report, with one line for each instantiation
       of the register-tiled fp32 forward, dq and dkv kernels, the bf16
-      tensor-core forward and the qk prolog kernel (registers, spilled
-      bytes, head dim), and the compile units; then ``cuobjdump -sass`` of
-      the library:
+      tensor-core forward, the int8 kernel (both modes, both types) and the
+      qk prolog kernel (registers, spilled bytes, head dim), and the compile
+      units; then ``cuobjdump -sass`` of the library:
       every kernel of the tensor-core entry points must hold tensor-core
       instructions, whose counts are printed per kernel: HMMA in the bf16
-      forward, dq and dkv, IMMA in both modes of the int8 kernel and HMMA in
-      its "qk" mode as well (P·V in bf16);
+      forward, dq and dkv, IMMA in both modes of the int8 kernel in both
+      types and HMMA in its bf16 "qk" mode as well (P·V in bf16); its fp32
+      "qk" mode must hold no HMMA (P·V in exact fp32 FMAs, no TF32);
   B.  kernels: each CUDA kernel against its plain PyTorch version on the
       card, in bf16 and fp32 (fp32 with TF32 off; bf16 attention and bf16
       dq and dkv run the tensor-core kernels, fp32 the CUDA-core ones), at
@@ -40,9 +41,9 @@ Phases, each of which must pass:
       call with ``kv_len`` 0 in a batch row), with the backward time of
       ``scaled_dot_product_attention`` under autograd as the yardstick (its
       forward on inputs that require a gradient for the LSE call);
-      then the int8 attention kernels against ``flash_attention_int8_plain``
-      (the tensor-core kernel on bf16 inputs, the CUDA-core one on the same
-      values in fp32), modes "qk" and "full", at the self-attention
+      then the int8 attention kernel against ``flash_attention_int8_plain``
+      (its bf16 entry on bf16 inputs, its fp32 entry on the same values in
+      fp32), modes "qk" and "full", at the self-attention
       shapes of the three DiTs at 9 frames and at the shipped lengths (the
       Hunyuan ones with ``kv_len``) and with ``kv_len`` 0 in a batch row, on
       DiT-like inputs, with their drift against exact attention beside the JAX
@@ -140,8 +141,8 @@ Phases, each of which must pass:
       above 40 dB; then the same under int8 "qk" and "full" (frames above
       40 dB, latents within 1e-1 at the largest and 1e-2 on the mean: rounding
       ties fall differently in the two runs, see ``INT8_LATENT_MAX``); these
-      fp32 runs take the CUDA-core int8 kernel, whose launches are the
-      ``agreement_*_int8_*`` paths of the JSON line; then the same without
+      fp32 runs take the int8 kernel's fp32 entry (``"tc_fp32"``), whose
+      launches are the ``agreement_*_int8_*`` paths of the JSON line; then the same without
       int8 in pixel-space ALG (gaussian blur, linear schedule), with DPM and
       with eta 0.5, within 2e-3 and 40 dB;
   D2. the same for a small Wan pipeline (DiT head dim 128, UMT5 with a mask,
@@ -297,9 +298,10 @@ at ``[2,40,32760,128]``, ``[1,24,28128,128]`` and ``[2,40,4680,128]`` in bf16
 (with its device time from ``torch.profiler``), qk_prep in bf16 at
 ``[2,48,17776,64]`` and ``[2,48,4276,64]`` (device time; on a contiguous
 input, then on the head-split view beside the transposing copy it saves),
-``flash_attention_int8`` in bf16 in both modes at ``[2,48,17776,64]`` and
+``flash_attention_int8`` in bf16 and in fp32, in both modes, at ``[2,48,17776,64]`` and
 ``[2,40,32760,128]`` (the call with its quantizers, and the kernel's device
-time), the
+time, beside fp32 SDPA with TF32 off and the bf16 flash kernel on the same
+values), the
 dense flash calls of phase B at head dims 64 and 128, the fp32 CLIP calls
 ``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), the qk prolog calls of
 phase B at ``[2,48,4276,64]`` (LayerNorm + RoPE) and ``[1,24,3048,128]`` (RMS
@@ -318,7 +320,7 @@ alone (none of them prints a result line).
 Prints the card's name and power limit first, a JSON line of kernel records
 before the last line (one entry a kernel; the tensor-core forward, dq and
 dkv kernels (bf16 records), the CUDA-core ones (fp32 records), the int8
-kernels (the tensor-core one's bf16 records, the CUDA-core one's fp32) and
+kernel's two entry points (bf16 records, fp32 records) and
 the qk prolog kernel (the prolog calls' records along),
 have entries of their own; ``launches_by_path`` names the run each count
 comes from, the int8 runs of the three pipelines among them; ``also``
@@ -415,14 +417,19 @@ def _set_tf32(matmul: bool, cudnn: bool) -> None:
 # ---------------------------------------------------------------------------
 
 
-# The tensor-core kernels: the C entry point that launches them, a part of their kernels' names, and the
-# tensor-core instructions each must hold (HMMA: bf16 products; IMMA: int8 products). The int8 kernel's two
-# instantiations by mode: "qk" (template argument false) takes QKᵀ in int8 and P·V in bf16, "full" both in int8.
-TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": ("flash_fwd_tc_kernel", ("HMMA",)),
-              "alg_flash_attention_bwd_dq_tc_d<D>": ("flash_bwd_dq_tc_kernel", ("HMMA",)),
-              "alg_flash_attention_bwd_dkv_tc_d<D>": ("flash_bwd_dkv_tc_kernel", ("HMMA",)),
-              "alg_flash_attention_int8_tc_d<D> qk": ("flash_int8_tc_kernelILb0E", ("IMMA", "HMMA")),
-              "alg_flash_attention_int8_tc_d<D> full": ("flash_int8_tc_kernelILb1E", ("IMMA",))}
+# The tensor-core kernels: the C entry point that launches them, a part of their kernels' names, the
+# tensor-core instructions each must hold (HMMA: bf16 products; IMMA: int8 products) and those it must not. The
+# int8 kernel's instantiations by mode and output type: "qk" (template arguments false, bf16) takes QKᵀ in int8
+# and P·V in bf16, "full" both in int8 in either type; fp32 "qk" (false, float) QKᵀ in int8 and P·V in exact fp32
+# FMAs, so no HMMA (a TF32 or bf16 product) may appear in it.
+TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": ("flash_fwd_tc_kernel", ("HMMA",), ()),
+              "alg_flash_attention_bwd_dq_tc_d<D>": ("flash_bwd_dq_tc_kernel", ("HMMA",), ()),
+              "alg_flash_attention_bwd_dkv_tc_d<D>": ("flash_bwd_dkv_tc_kernel", ("HMMA",), ()),
+              "alg_flash_attention_int8_tc_d<D> qk": ("flash_int8_tc_kernelILb0E13__nv_bfloat16E", ("IMMA", "HMMA"),
+                                                      ()),
+              "alg_flash_attention_int8_tc_d<D> full": ("flash_int8_tc_kernelILb1E13__nv_bfloat16E", ("IMMA",), ()),
+              "alg_flash_attention_int8_tc_fp32_d<D> qk": ("flash_int8_tc_kernelILb0EfE", ("IMMA",), ("HMMA",)),
+              "alg_flash_attention_int8_tc_fp32_d<D> full": ("flash_int8_tc_kernelILb1EfE", ("IMMA",), ())}
 
 
 def _sass_hmma(lib) -> dict:
@@ -452,10 +459,15 @@ def _sass_hmma(lib) -> dict:
 
 # Kernels whose instantiations phase A names one by one, by a part of their mangled names: the register-tiled
 # fp32 forward (csrc/flash_attention.cu; not the tensor-core forward), dq and dkv (csrc/flash_attention_bwd.cu;
-# not the tensor-core ones), the bf16 tensor-core forward and the qk prolog kernel.
+# not the tensor-core ones), the bf16 tensor-core forward, the int8 kernel's four instantiations and the qk
+# prolog kernel.
 FP32_KERNELS = {"fp32 forward": r"\d+flash_fwd_kernelI", "fp32 dq": r"\d+flash_bwd_dq_kernelI",
                 "fp32 dkv": r"\d+flash_bwd_dkv_kernel[EI]"}
-RESOURCE_KERNELS = {**FP32_KERNELS, "bf16 tc forward": r"\d+flash_fwd_tc_kernelI", "qk prolog": r"\d+qk_prolog_kernelI"}
+RESOURCE_KERNELS = {**FP32_KERNELS, "bf16 tc forward": r"\d+flash_fwd_tc_kernelI",
+                    "int8 qk bf16": r"flash_int8_tc_kernelILb0E13__nv_bfloat16E",
+                    "int8 full bf16": r"flash_int8_tc_kernelILb1E13__nv_bfloat16E",
+                    "int8 qk fp32": r"flash_int8_tc_kernelILb0EfE", "int8 full fp32": r"flash_int8_tc_kernelILb1EfE",
+                    "qk prolog": r"\d+qk_prolog_kernelI"}
 
 
 def _kernel_resources(log: str) -> list:
@@ -508,12 +520,14 @@ def phase_build(require_tensor_cores: bool = True) -> None:
         for line in _kernel_resources(log.read_text()):
             print(line)
     sass = _sass_hmma(path)
-    for entry, (part, wanted) in TC_KERNELS.items():
+    for entry, (part, wanted, unwanted) in TC_KERNELS.items():
         kernels = {name: n for name, n in sass.items() if part in name}
         for name, n in sorted(kernels.items()):
             print(f"[A] {entry}: {n['HMMA']} HMMA and {n['IMMA']} IMMA instructions in {name}")
-        if require_tensor_cores and (not kernels or not all(n[op] for n in kernels.values() for op in wanted)):
-            raise AssertionError(f"{entry}: kernels {kernels} (want each with {' and '.join(wanted)} instructions)")
+        if require_tensor_cores and (not kernels or not all(n[op] for n in kernels.values() for op in wanted)
+                                     or any(n[op] for n in kernels.values() for op in unwanted)):
+            raise AssertionError(f"{entry}: kernels {kernels} (want each with {' and '.join(wanted)} instructions"
+                                 + (f" and none of {' or '.join(unwanted)}" if unwanted else "") + ")")
 
 
 # ---------------------------------------------------------------------------
@@ -958,10 +972,10 @@ def _training_kernel_cases(records, gen) -> None:
 
 # Published int8 tensor-core rate of one H100 SXM (dense), for the int8 products' bounds.
 PEAK_INT8_OPS_PER_S = PEAK_OPS_PER_S["int8"]
-# The int8 kernels against their plain version. fp32 inputs (the CUDA-core kernel), "qk": the same codes and
+# The int8 kernel against its plain version. fp32 inputs (its fp32 entry), "qk": the same codes and
 # scales, only the order of the fp32 sums differs. "full": a P code on a rounding tie may flip (one code is
 # 1/127 of a row's largest p), so the mean and the largest difference are bounded, as in the JAX package's own
-# tests. bf16 inputs (the tensor-core kernel), "qk": one bf16 step of the plain version (rtol 2**-7, atol
+# tests. bf16 inputs (its bf16 entry), "qk": one bf16 step of the plain version (rtol 2**-7, atol
 # 2**-7 of the output's mean magnitude), since both round P to bf16 alike and differ only in the order of the
 # fp32 sums of P·V and in the plain version's rounding of that product to bf16; "full": the bf16 attention
 # tolerance above.
@@ -987,7 +1001,7 @@ def _dit_like_qkv(shape, dtype, gen):
 
 def _int8_bound(shape, kept, pv_int8, element_size, with_kv_len):
     """(least ms, what bounds it) of one int8 call: QKᵀ at the int8 rate plus P·V at the rate of the inputs'
-    type ("qk": bf16 on the tensor cores, fp32 on the CUDA cores) or the int8 rate ("full") over the visible
+    type ("qk": bf16 on the tensor cores, fp32 FMAs outside them) or the int8 rate ("full") over the visible
     pairs, or the bytes of q, k, v and the output if that is more."""
     b, h, s, d = shape
     pairs = sum(s * n for n in kept)
@@ -999,14 +1013,13 @@ def _int8_bound(shape, kept, pv_int8, element_size, with_kv_len):
 
 
 def _int8_shape_cases(records, tag, shape, gen, kv_len=None, reps=3, tile_block=False):
-    """The int8 kernels at one shape, on one draw of bf16 values: the
-    tensor-core route on the bf16 tensors and the CUDA-core route on the same
-    values in fp32, both modes, each against ``flash_attention_int8_plain``
+    """The int8 kernel at one shape, on one draw of bf16 values: its bf16
+    route on the bf16 tensors and its fp32 route on the same values in fp32,
+    both modes, each against ``flash_attention_int8_plain``
     on the card (taken over groups of batch·heads, one block of query rows at
     a time), with its drift against exact fp32 attention, its bound, the
     quantizers' own time (they run inside every call; printed apart, with the
-    transposed copy of V's codes that the tensor-core route's "full" mode
-    makes), the bf16 flash kernel and ``scaled_dot_product_attention`` in
+    transposed copy of V's codes that "full" mode makes), the bf16 flash kernel and ``scaled_dot_product_attention`` in
     the call's type (fp32 with TF32 off) on the same values. The plain version's time is that of the one run
     that is compared. ``tile_block`` also times "full" mode with ``block_k``
     equal to the kernels' key tile, where a key block is staged once."""
@@ -1344,36 +1357,48 @@ def _qk_dense_case(records, shape, gen, reps=20) -> None:
 
 
 def _int8_dense_case(shape, gen, reps=3) -> None:
-    """``flash_attention_int8`` on bf16 DiT-like inputs in both modes through
-    its public function (quantizers included), and the device time of the
-    kernel alone (``torch.profiler``), beside the bf16 flash kernel on the
-    same tensors. Printed only: the outputs must be finite."""
+    """``flash_attention_int8`` on DiT-like inputs in bf16 and on the same
+    values in fp32, in both modes, through its public function (quantizers
+    included), and the device time of the kernel alone (``torch.profiler``),
+    beside the bf16 flash kernel on the bf16 tensors and
+    ``scaled_dot_product_attention`` in fp32 (TF32 off) on the fp32 ones, the
+    yardstick of exact attention. Printed only: the outputs must be finite."""
     import torch
+    import torch.nn.functional as F
 
     from alg_tpu_torch.ops.flash_attention import flash_attention
     from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
 
-    q, k, v = _dit_like_qkv(shape, torch.bfloat16, gen)
+    qb, kb, vb = _dit_like_qkv(shape, torch.bfloat16, gen)
     scale = shape[-1] ** -0.5
-    bf16_ms = _time_ms(lambda: flash_attention(q, k, v, scale, stable=False), reps)
-    for pv_int8 in (False, True):
-        out = flash_attention_int8(q, k, v, scale, pv_int8=pv_int8)
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"int8 {shape}: non-finite output")
-        del out
-        ms = _time_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8), reps)
-        device_ms = _device_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8), "flash_int8", reps=reps)
-        print(f"[dense] int8 {'full' if pv_int8 else 'qk':<4} bf16 {str(shape):<22} call {ms:.3f} ms (quantizers "
-              f"included), kernel device time {'not measured' if device_ms is None else f'{device_ms:.3f} ms'} "
-              f"(torch.profiler); bf16 flash kernel on the same tensors {bf16_ms:.3f} ms", flush=True)
-    del q, k, v
+    bf16_ms = _time_ms(lambda: flash_attention(qb, kb, vb, scale, stable=False), reps)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(dtype) for t in (qb, kb, vb))
+        sdpa_ms = (_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps)
+                   if dtype == torch.float32 else None)
+        for pv_int8 in (False, True):
+            out = flash_attention_int8(q, k, v, scale, pv_int8=pv_int8)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"int8 {shape} {dtype}: non-finite output")
+            del out
+            ms = _time_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8), reps)
+            device_ms = _device_ms(lambda: flash_attention_int8(q, k, v, scale, pv_int8=pv_int8), "flash_int8",
+                                   reps=reps)
+            beside = (f"bf16 flash kernel on the same tensors {bf16_ms:.3f} ms" if sdpa_ms is None else
+                      f"fp32 SDPA (TF32 off) on the same tensors {sdpa_ms:.3f} ms")
+            print(f"[dense] int8 {'full' if pv_int8 else 'qk':<4} {tol_name(dtype):<8} {str(shape):<22} call {ms:.3f} "
+                  f"ms (quantizers included), kernel device time "
+                  f"{'not measured' if device_ms is None else f'{device_ms:.3f} ms'} (torch.profiler); {beside}",
+                  flush=True)
+        del q, k, v
+    del qb, kb, vb
     torch.cuda.empty_cache()
 
 
 def phase_dense_flash() -> None:
     """Only rope in bf16 at the shipped Wan and Hunyuan shapes and at 9 Wan
     frames, qk_prep in bf16 at the shipped and 9-frame CogVideoX shapes, the
-    int8 kernel in bf16 in both modes at the shipped CogVideoX and Wan
+    int8 kernel in bf16 and fp32 in both modes at the shipped CogVideoX and Wan
     self-attention shapes, the dense flash calls of phase B at head dims 64 and 128, the
     fp32 CLIP calls, the qk prolog calls of phase B at the CogVideoX (LayerNorm
     + RoPE) and Hunyuan (RMS norm + RoPE, ``kv_len``) 9-frame shapes in bf16 and
@@ -1617,17 +1642,17 @@ def _kernel_counters() -> dict:
             "flash_attention_bwd_dkv_tc": (dkv, "tc"), "flash_attention_bwd_dkv_cuda_core": (dkv, "cuda_core"),
             "flash_attention_int8": (flash_attention_int8.__dict__, "launches"),
             "flash_attention_int8_tc": (flash_attention_int8.launches_by_route, "tc"),
-            "flash_attention_int8_cuda_core": (flash_attention_int8.launches_by_route, "cuda_core")}
+            "flash_attention_int8_tc_fp32": (flash_attention_int8.launches_by_route, "tc_fp32")}
 
 
 # what a path with the int8 mode off and no caller of the qk prolog leaves at zero
-_NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_int8_tc": 0, "flash_attention_int8_cuda_core": 0,
+_NO_OPT_IN = {"flash_attention_int8": 0, "flash_attention_int8_tc": 0, "flash_attention_int8_tc_fp32": 0,
               "qk_prolog": 0}
 # what a sampling path in bf16 leaves at zero: it takes no gradient either
 _NO_TRAINING = {"flash_attention_lse": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dq_tc": 0,
                 "flash_attention_bwd_dq_cuda_core": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_tc": 0,
                 "flash_attention_bwd_dkv_cuda_core": 0, **_NO_OPT_IN}
-# what an fp32 path leaves at zero: the tensor-core kernels take bf16 only
+# what an fp32 path leaves at zero: the tensor-core forward, dq and dkv take bf16 only
 _NO_TENSOR_CORES = {"flash_attention_tc": 0, "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dkv_tc": 0}
 # what a bf16 path leaves at zero: no bf16 call reaches a CUDA-core forward, dq or dkv kernel
 _NO_CUDA_CORES = {"flash_attention_cuda_core": 0, "flash_attention_bwd_dq_cuda_core": 0,
@@ -3509,10 +3534,10 @@ def _compare_runs(tag, results, want_card, atol=2e-3, mean_atol=None, exact=None
     (lat_c, fr_c, n_c), (lat_g, fr_g, n_g) = results["cpu"], results["cuda"]
     err, mean_err = float(np.abs(lat_g - lat_c).max()), float(np.abs(lat_g - lat_c).mean())
     psnr = _psnr(fr_g, fr_c)
-    # an fp32 run: every flash launch is one of the CUDA-core kernel
+    # an fp32 run: every flash launch is one of the CUDA-core kernel, every int8 launch one of the fp32 entry
     want_card = {**_NO_TRAINING, **_NO_TENSOR_CORES, **want_card,
                  "flash_attention_cuda_core": want_card["flash_attention"],
-                 "flash_attention_int8_cuda_core": want_card.get("flash_attention_int8", 0)}
+                 "flash_attention_int8_tc_fp32": want_card.get("flash_attention_int8", 0)}
     ok = (err <= atol and (mean_atol is None or mean_err <= mean_atol) and psnr > 40.0 and not any(n_c.values())
           and n_g == want_card)
     mean_txt = "" if mean_atol is None else f", mean|diff| {mean_err:.3e} (atol {mean_atol:g})"
@@ -5096,14 +5121,15 @@ _KERNELS = {
     "flash_attention_bwd_dkv": ("alg_tpu_torch/csrc/flash_attention_bwd.cu", "alg_tpu/ops/flash_attention_bwd.py:144",
                                 "flash_bwd_dkv_dit", [1, 48, 17776, 64], "float32",
                                 "flash_attention_bwd_dkv_cuda_core"),
-    # the int8 kernels, "qk" mode, at the shape a 2-pass CogVideoX step gives them; the other mode and shapes ride
-    # along: the tensor-core kernel (bf16, the sampling paths under the int8 modes) and the CUDA-core one (fp32,
-    # the agreement runs under the int8 modes)
+    # the int8 kernel, "qk" mode, at the shape a 2-pass CogVideoX step gives it; the other mode and shapes ride
+    # along: its bf16 instantiations (the sampling paths under the int8 modes) and its fp32 ones (the agreement
+    # runs under the int8 modes)
     "flash_attention_int8_tc": ("alg_tpu_torch/csrc/flash_attention_int8_tc.cu",
                                 "alg_tpu/ops/flash_attention_int8.py:109", "flash_int8_qk_dit", [2, 48, 4276, 64],
                                 "bfloat16", "flash_attention_int8_tc"),
-    "flash_attention_int8": ("alg_tpu_torch/csrc/flash_attention_int8.cu", "alg_tpu/ops/flash_attention_int8.py:109",
-                             "flash_int8_qk_dit", [2, 48, 4276, 64], "float32", "flash_attention_int8_cuda_core"),
+    "flash_attention_int8_tc_fp32": ("alg_tpu_torch/csrc/flash_attention_int8_tc.cu",
+                                     "alg_tpu/ops/flash_attention_int8.py:109", "flash_int8_qk_dit",
+                                     [2, 48, 4276, 64], "float32", "flash_attention_int8_tc_fp32"),
     # the qk prolog kernel, the transform of the forward kernel's prolog variant: LayerNorm + RoPE at the
     # CogVideoX shape; the prolog calls (prolog kernel and forward) ride along
     "qk_prolog": ("alg_tpu_torch/csrc/qk_prolog.cu", "alg_tpu/ops/flash_attention.py:138", "qk_prolog_layer_rope",
@@ -5126,12 +5152,13 @@ _ALSO = {"flash_attention_tc": _FLASH_SHAPES, "flash_attention": _FLASH_SHAPES, 
          "flash_attention_bwd_dkv": tuple("flash_bwd_dkv_" + n for n in _TRAIN_SHAPES),
          **{name: tuple(f"flash_int8_{mode}_{tag}" for mode in ("qk", "full", "full_bk64")
                         for tag in ("dit", "wan_self", "hunyuan_joint", "kvlen_zero_row"))
-            for name in ("flash_attention_int8_tc", "flash_attention_int8")},
+            for name in ("flash_attention_int8_tc", "flash_attention_int8_tc_fp32")},
          "qk_prolog": tuple(f"{kind}_prolog_{suffix}" for kind in ("qk", "flash")
                             for suffix in ("layer_rope", "rms_rope_stable", "rope", "layer", "layer_rope_q_only",
                                            "rms_rope"))}
 _ONE_TYPE = ("flash_attention_tc", "flash_attention", "flash_attention_bwd_dq_tc", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv", "flash_attention_int8_tc", "flash_attention_int8")
+             "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dkv", "flash_attention_int8_tc",
+             "flash_attention_int8_tc_fp32")
 
 
 # ---------------------------------------------------------------------------
@@ -5625,9 +5652,9 @@ def main() -> int:
                               ("wan_int8_qk", ("rope_interleaved", "flash_attention_tc", "flash_attention_int8_tc")),
                               ("hunyuan_int8_full", ("rope_interleaved", "flash_attention_tc",
                                                      "flash_attention_int8_tc")),
-                              ("agreement_cogvideox_int8_qk", ("qk_prep", "flash_attention_int8_cuda_core")),
-                              ("agreement_cogvideox_int8_full", ("qk_prep", "flash_attention_int8_cuda_core")),
-                              ("agreement_hunyuan_int8_full", ("rope_interleaved", "flash_attention_int8_cuda_core")),
+                              ("agreement_cogvideox_int8_qk", ("qk_prep", "flash_attention_int8_tc_fp32")),
+                              ("agreement_cogvideox_int8_full", ("qk_prep", "flash_attention_int8_tc_fp32")),
+                              ("agreement_hunyuan_int8_full", ("rope_interleaved", "flash_attention_int8_tc_fp32")),
                               ("prolog_entry", ("qk_prolog", "flash_attention_tc")),
                               *((path, ("qk_prep", "flash_attention_tc")) for path in (
                                   "cogvideox_pixel", "cogvideox_dpm", "cogvideox_eta", "cogvideox_dyncfg",

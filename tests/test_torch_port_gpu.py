@@ -11,10 +11,11 @@ CPU, and the training kernels: the forward's LSE output and the dq and dkv
 backward kernels at ragged shapes (Sq = 1, Sk = 1, ``kv_len`` 0/1/Sk, causal
 with Sq > Sk, three head dims), the autograd graph that the three kernel
 wrappers keep on the card, and a small LoRA train step card against CPU;
-the int8 attention kernels against their plain version (the tensor-core
-kernel for bf16, the CUDA-core one for fp32; S = 1, 31-33, 63-65, 127-129 and
-1,500, ``kv_len`` 0 / 1 / S, at key-tile and key-block edges and with whole
-key blocks masked, both modes, both head dims, ``block_k`` 64 and 1,024), their
+the int8 attention kernel against its plain version (its bf16 and its fp32
+entry point; S = 1, 15-17, 31-33, 63-65, 127-129 and 1,500, ``kv_len`` 0 / 1 /
+S, at chunk, key-tile and key-block edges and with whole key blocks masked,
+both modes, both head dims, ``block_k`` 64 and 1,024), the fp32 ``"full"``
+output rounded to bf16 against the bf16 route's bit for bit, their
 routes and launch counts, the route through ``set_attention_int8`` and what
 it refuses, and the flash kernel's qk prolog
 (five combinations of norm, RoPE, ``stable`` and ``prolog_k`` at three head
@@ -31,7 +32,7 @@ whose maximum moves in every key tile, D = 80, the LSE, and the LSE held to
 the denominator of the TPU kernel at each head dim; dq and dkv at
 ragged Sq and Sk with ``kv_len`` and causal), a bf16 gradient through a small
 DiT card against CPU, the routes and the CUDA-core entry points' refusal of
-bf16 (the int8 one's too); and the register-tiled fp32 forward, dq and dkv kernels at the edges
+bf16 (and each int8 entry's of the other type); and the register-tiled fp32 forward, dq and dkv kernels at the edges
 of their tiles (S = 63, 64, 65 and a key tile ± 1; Sq = 1; ``kv_len`` 0, 1,
 a key tile and one more; causal with Sq < Sk and Sq > Sk; a bias at both
 batch strides with ``stable`` both ways; D = 80; the LSE; each block height
@@ -668,6 +669,9 @@ def _dit_like_qkv(gen, b, h, s, d):
 
 INT8_CASES = {
     "one-row": dict(b=2, h=2, s=1, kv_len=None),
+    "s15": dict(b=1, h=2, s=15, kv_len=None),
+    "s16": dict(b=1, h=3, s=16, kv_len=None),  # one m16 row tile: a warp's rows in fp32 "qk" at D = 128
+    "s17": dict(b=1, h=2, s=17, kv_len=None),
     "s31": dict(b=1, h=2, s=31, kv_len=None),
     "s32": dict(b=1, h=2, s=32, kv_len=None),  # one 32-key chunk of a key tile
     "s33": dict(b=1, h=2, s=33, kv_len=None),
@@ -679,6 +683,7 @@ INT8_CASES = {
     "s129": dict(b=1, h=2, s=129, kv_len=None),
     "s1500": dict(b=2, h=2, s=1500, kv_len=None),  # no multiple of 64, 512 or 1024
     "kvlen-0-1-s": dict(b=3, h=2, s=200, kv_len=[0, 1, 200]),
+    "kvlen-chunk-edges": dict(b=3, h=2, s=200, kv_len=[31, 32, 33]),  # a 32-key chunk of P
     "kvlen-tile-edges": dict(b=3, h=2, s=200, kv_len=[63, 64, 65]),
     "kvlen-block-edges": dict(b=3, h=1, s=1100, kv_len=[1023, 1024, 1025]),  # at block_k = 1,024
     "kvlen-blocks-past": dict(b=2, h=2, s=1100, kv_len=[70, 1030]),  # whole tiles and a whole key block masked
@@ -701,8 +706,8 @@ def full_fp32_reductions(cuda):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 def test_int8_kernel_matches_plain(cuda, full_fp32_reductions, case, block_k, pv_int8, d, dtype):
-    """The int8 kernels against their plain version on the card: bf16 inputs
-    on the tensor-core kernel, fp32 on the CUDA-core one. fp32 ``"qk"``:
+    """The int8 kernel against its plain version on the card: bf16 inputs
+    through its bf16 entry, fp32 through its fp32 one. fp32 ``"qk"``:
     atol 2e-5 + rtol 2e-5 (the same codes and scales; only the order of the
     fp32 sums differs). ``"full"``: mean under 1e-5 and max under 2e-3 in
     fp32, since a P code on a rounding tie may flip (one code is 1/127 of a
@@ -717,7 +722,7 @@ def test_int8_kernel_matches_plain(cuda, full_fp32_reductions, case, block_k, pv
     gen = torch.Generator().manual_seed(11)
     q, k, v = (t.to(cuda, dtype) for t in _dit_like_qkv(gen, c["b"], c["h"], c["s"], d))
     kv_len = None if c["kv_len"] is None else torch.tensor(c["kv_len"], dtype=torch.int32, device=cuda)
-    which = "tc" if dtype == torch.bfloat16 else "cuda_core"
+    which = "tc" if dtype == torch.bfloat16 else "tc_fp32"
     assert I8.route(q, pv_int8) == which
     before = (I8.flash_attention_int8.launches, I8.flash_attention_int8.launches_by_route[which])
     out = I8.flash_attention_int8(q, k, v, d ** -0.5, block_q=128, block_k=block_k, pv_int8=pv_int8, kv_len=kv_len)
@@ -786,26 +791,57 @@ def test_int8_route_and_refusals_on_the_card(cuda):
     assert I8.flash_attention_int8.launches == counts[0] + 2
 
 
+@pytest.mark.parametrize("case", ["s1500", "kvlen-0-1-s", "kvlen-block-edges"])
+@pytest.mark.parametrize("block_k", [64, 1024], ids=["bk64", "bk1024"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_fp32_full_rounds_to_the_bf16_route(cuda, case, block_k, d):
+    """``"full"`` mode in fp32 and in bf16 share one kernel body; only the
+    output's type differs. On bf16-representable values both routes get the
+    same codes and scales, and the fp32 output rounded to bf16 is the bf16
+    route's output bit for bit."""
+    from alg_tpu_torch.ops import flash_attention_int8 as I8
+
+    c = INT8_CASES[case]
+    gen = torch.Generator().manual_seed(14)
+    qb, kb, vb = (t.to(cuda, torch.bfloat16) for t in _dit_like_qkv(gen, c["b"], c["h"], c["s"], d))
+    q, k, v = (t.float() for t in (qb, kb, vb))
+    kv_len = None if c["kv_len"] is None else torch.tensor(c["kv_len"], dtype=torch.int32, device=cuda)
+    for got, want in zip(I8.quantize_qk_int8(q, k, d ** -0.5, 128, block_k, kv_len),
+                         I8.quantize_qk_int8(qb, kb, d ** -0.5, 128, block_k, kv_len)):
+        assert torch.equal(got, want)
+    for got, want in zip(I8.quantize_v_int8(v, kv_len), I8.quantize_v_int8(vb, kv_len)):
+        assert torch.equal(got, want)
+    counts = dict(I8.flash_attention_int8.launches_by_route)
+    out = I8.flash_attention_int8(q, k, v, d ** -0.5, block_q=128, block_k=block_k, pv_int8=True, kv_len=kv_len)
+    out_bf16 = I8.flash_attention_int8(qb, kb, vb, d ** -0.5, block_q=128, block_k=block_k, pv_int8=True,
+                                       kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert I8.flash_attention_int8.launches_by_route == {key: n + 1 for key, n in counts.items()}
+    assert out.dtype == torch.float32 and out_bf16.dtype == torch.bfloat16
+    assert torch.equal(out.to(torch.bfloat16), out_bf16)
+
+
 @pytest.mark.parametrize("pv_int8", [False, True], ids=["qk", "full"])
 def test_int8_routes_on_the_card(cuda, pv_int8):
-    """bf16 takes the tensor-core kernel and fp32 the CUDA-core one, in both
+    """bf16 takes the kernel's bf16 entry and fp32 its fp32 entry, in both
     modes; each launch is counted once in ``launches`` and once under its
     route; the two routes agree to the int8 drift (mean difference under 5%
-    of the output's rms: bf16 inputs quantize to slightly other codes)."""
+    of the output's rms: bf16 inputs quantize to slightly other codes, and
+    in ``"qk"`` mode the bf16 route rounds P to bf16)."""
     from alg_tpu_torch.ops import flash_attention_int8 as I8
 
     gen = torch.Generator().manual_seed(13)
     q, k, v = (t.to(cuda) for t in _dit_like_qkv(gen, 2, 2, 300, 64))
     counts = (I8.flash_attention_int8.launches, dict(I8.flash_attention_int8.launches_by_route))
     outs = {}
-    for dtype, which in ((torch.float32, "cuda_core"), (torch.bfloat16, "tc")):
+    for dtype, which in ((torch.float32, "tc_fp32"), (torch.bfloat16, "tc")):
         args = [t.to(dtype) for t in (q, k, v)]
         assert I8.route(args[0], pv_int8) == which
         outs[which] = I8.flash_attention_int8(*args, 0.125, block_q=128, block_k=128, pv_int8=pv_int8)
     torch.cuda.synchronize()
     assert I8.flash_attention_int8.launches == counts[0] + 2
     assert I8.flash_attention_int8.launches_by_route == {key: n + 1 for key, n in counts[1].items()}
-    ref = outs["cuda_core"]
+    ref = outs["tc_fp32"]
     assert bool(torch.isfinite(outs["tc"]).all())
     assert (outs["tc"].float() - ref).abs().mean().item() < 5e-2 * ref.pow(2).mean().sqrt().item()
 
@@ -1364,20 +1400,25 @@ def test_fp32_dq_tiles_match_plain(cuda, case, rows):
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_core_int8_entry_refuses_bf16(cuda, d):
-    """The CUDA-core int8 entry has no bf16 instantiation: a direct bf16 call
-    returns cudaErrorInvalidValue and launches nothing; bf16 int8 attention
-    takes the tensor-core kernel (``flash_attention_int8.route``)."""
+    """No int8 entry runs on the CUDA cores any more (the ``__dp4a`` kernel
+    is retired), and each of the tensor-core kernel's two entries takes its
+    own type alone: a direct bf16 call of the fp32 entry, or an fp32 call of
+    the bf16 one, returns cudaErrorInvalidValue and launches nothing; bf16
+    int8 attention takes the bf16 entry and fp32 the fp32 one
+    (``flash_attention_int8.route``)."""
     from alg_tpu_torch.ops import flash_attention_int8 as I8
 
-    x = torch.zeros(1, 2, 64, d, dtype=torch.bfloat16, device=cuda)
+    assert set(I8._ENTRY_NAMES) == {"tc", "tc_fp32"}
     scales = torch.ones(2, 1, device=cuda)
-    bf16 = FA._build.DTYPE_CODE[torch.bfloat16]
-    rc = I8._entry(d, "cuda_core")(bf16, x.data_ptr(), x.data_ptr(), x.data_ptr(), scales.data_ptr(),
-                                   scales.data_ptr(), None, None, x.data_ptr(), 1, 2, 64, 64, 64, 0,
-                                   torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    assert rc == 1  # cudaErrorInvalidValue
-    assert I8.route(x) == "tc"
+    for dtype, other in ((torch.bfloat16, "tc_fp32"), (torch.float32, "tc")):
+        x = torch.full((1, 2, 64, d), 7.0, dtype=dtype, device=cuda)
+        rc = I8._entry(d, other)(FA._build.DTYPE_CODE[dtype], x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                 scales.data_ptr(), scales.data_ptr(), None, None, x.data_ptr(), 1, 2, 64, 64, 64,
+                                 0, 0, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 1  # cudaErrorInvalidValue
+        assert bool((x == 7.0).all())  # nothing was written
+        assert I8.route(x) == ("tc" if dtype == torch.bfloat16 else "tc_fp32")
 
 
 # -- the tensor-core forward's denominator: the TPU kernel's at each head dim ------------------------------------

@@ -77,10 +77,11 @@ def test_dq_route(device, dtype, want):
 @pytest.mark.parametrize("pv_int8", [False, True], ids=["qk", "full"])
 @pytest.mark.parametrize("device,dtype,want", [
     ("cpu", torch.bfloat16, "plain"), ("cpu", torch.float32, "plain"), ("cuda", torch.bfloat16, "tc"),
-    ("cuda", torch.float32, "cuda_core"),
+    ("cuda", torch.float32, "tc_fp32"),
 ], ids=["cpu-bf16", "cpu-fp32", "cuda-bf16", "cuda-fp32"])
 def test_int8_route(device, dtype, pv_int8, want):
-    """bf16 int8 attention takes the tensor-core kernel in both modes; fp32 keeps the CUDA-core kernel."""
+    """int8 attention takes the tensor-core kernel in both modes and both types: bf16 through its bf16 entry
+    point, fp32 through its fp32 one (Q·Kᵀ on the int8 tensor cores, "qk" P·V in exact fp32 FMAs)."""
     assert I8.route(_on(device, dtype), pv_int8) == want
 
 
@@ -129,15 +130,27 @@ def test_compile_units_list_the_tensor_core_units(src, macro, dims):
     for d in dims:
         assert units[f"{src}.{macro}_{d}"] == (f"-D{macro}={d}",)
     assert "mma.cuh" in {p.name for p in _build._sources()[1]}
+    if macro == "ALG_INT8_HEAD_DIM":  # one int8 unit a head dim: both types' entry points in it
+        assert {stem for stem in units if macro in stem} == {f"{src}.{macro}_{d}" for d in dims}
 
 
 def test_cuda_core_int8_unit_has_no_bf16_instantiation():
-    """bf16 int8 attention runs on the tensor cores (``flash_attention_int8_tc.cu``);
-    the CUDA-core unit instantiates fp32 alone, so its entry returns
-    cudaErrorInvalidValue for bf16 as the other CUDA-core entries do."""
-    src = (_build.SOURCE_DIR / "flash_attention_int8.cu").read_text()
-    assert "__nv_bfloat16" not in src and "kBFloat16" not in src
-    assert re.search(r"case alg::kFloat32:\s*return \(int\)launch<float>", src)
+    """The CUDA-core int8 unit (``flash_attention_int8.cu``, its products by
+    ``__dp4a``) is retired: fp32 int8 attention runs on the int8 tensor cores
+    too, through the fp32 entry of ``flash_attention_int8_tc.cu``. Each entry
+    instantiates the kernel on its own type alone (the fp32 entry returns
+    cudaErrorInvalidValue for bf16, the bf16 one for fp32), and no source
+    takes a product by ``__dp4a``: the one left sums a register's four P
+    codes against 0x01010101."""
+    sources = [*_build._sources()[0], *_build._sources()[1]]
+    assert "flash_attention_int8.cu" not in {p.name for p in sources}
+    src = (_build.SOURCE_DIR / "flash_attention_int8_tc.cu").read_text()
+    for stem, kind, code in (("alg_flash_attention_int8_tc_fp32_d", "float", "kFloat32"),
+                             ("alg_flash_attention_int8_tc_d", "bf16", "kBFloat16")):
+        assert re.search(rf"ALG_CAT\({stem}, ALG_INT8_HEAD_DIM\)\([^{{]*\{{\s*return entry<{kind}>\(alg::{code},", src)
+    assert re.search(r"if \(dtype != want \|\|", src)
+    dp4a = [line for p in sources for line in p.read_text().splitlines() if "__dp4a(" in line]
+    assert dp4a and all("0x01010101" in line for line in dp4a), dp4a
 
 
 class _InterpretPallas:
@@ -302,6 +315,43 @@ def test_int8_pv_fragments_give_the_plain_integer_product(s):
         for dt in range(d // 8):
             got[:, 8 * dt:8 * dt + 8] += a @ _int8_b_operand(vt[8 * dt:8 * dt + 8, 32 * c:32 * c + 32])
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_fp32_pv_tiles_give_the_plain_product(d):
+    """A numpy model of the fp32 ``"qk"`` instantiation's P·V over one
+    32-key chunk of a warp (``csrc/flash_attention_int8_tc.cu``): lane
+    ``4g + t`` writes its Q·Kᵀ accumulators' p (rows ``16 mt + 8 hf + g``,
+    keys ``8 j + 2 t + e``) transposed into the warp's slice at
+    ``key · (R + 4) + row`` (R the warp's rows: 32 at D = 64, 16 at 128),
+    each cell once and the 32 stores of a step in 32 different banks; lane
+    ``(rg, cg)`` (``D / 8`` column groups) then owns rows ``8 rg..8 rg + 7``
+    and columns ``4 cg..4 cg + 3`` and ``D / 2 + 4 cg..``, each output once,
+    and its sums over the chunk give P·V."""
+    rows = 32 if d == 64 else 16
+    stride, col_groups = rows + 4, d // 8
+    rng = np.random.RandomState(5)
+    p, v = rng.rand(rows, 32), rng.randn(32, d)
+    pw = np.full(32 * stride, np.nan)
+    for mt in range(rows // 16):
+        for j in range(4):
+            for hf in range(2):
+                for e in range(2):
+                    at = [(8 * j + 2 * (lane % 4) + e) * stride + 16 * mt + 8 * hf + lane // 4 for lane in range(32)]
+                    assert len({a % 32 for a in at}) == 32  # one bank a lane
+                    for lane, a in enumerate(at):
+                        assert np.isnan(pw[a])  # each cell once
+                        pw[a] = p[16 * mt + 8 * hf + lane // 4, 8 * j + 2 * (lane % 4) + e]
+    out, owners = np.zeros((rows, d)), np.zeros((rows, d), np.int64)
+    for lane in range(32):
+        rg, cg = divmod(lane, col_groups)
+        cols = [4 * cg + c for c in range(4)] + [d // 2 + 4 * cg + c for c in range(4)]
+        for i in range(8):
+            for c, col in enumerate(cols):
+                out[8 * rg + i, col] = sum(pw[n * stride + 8 * rg + i] * v[n, col] for n in range(32))
+                owners[8 * rg + i, col] += 1
+    assert (owners == 1).all()
+    np.testing.assert_allclose(out, p @ v, rtol=1e-12, atol=1e-12)
 
 
 def test_int8_pv_key_order_is_a_permutation_within_each_chunk():

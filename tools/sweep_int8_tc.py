@@ -33,7 +33,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = "flash_attention_int8_tc.cu"
 EXP2 = "          const float pv = exp2f(exponent<kRowTiles, kMasked>(sacc, sc, key0, n_keys, mt, j, hf, e));"
-ROWS = "  static constexpr int kRowTiles = kFull && kD == 128 ? 1 : 2;  // m16 row tiles a warp"
+ROWS = "  static constexpr int kRowTiles = kD == 128 && (kFull || kSimt) ? 1 : 2;  // m16 row tiles a warp"
 WARPS = "constexpr int kWarps = 4;"
 PV_QK = "              mma_bf16(o[mt][2 * dp + 1], pa[mt], bv[2], bv[3]);"
 PHASE = "    st.phase = !kFull ? 1 : st.kb_end - kb0 <= kTile ? 2 : 0;"
@@ -48,11 +48,12 @@ VARIANTS = {
     "nopv": [(PV_QK, "")],
     # "full": no separate sweep for the row maximum, each tile taken as a key block of its own (wrong)
     "nomax": [(PHASE, "    st.phase = !kFull ? 1 : 2;")],
-    # "full": the P codes always on the exact path (exp2f, the minimum and the select of flash_attention_int8.cu)
+    # "full": the P codes always on the exact path (exp2f, then the minimum and the select, as the plain version)
     "exact_codes": [(FAST, "          fast = false;")],
-    # one m16 row tile a warp, in both modes or in "full" mode only (64-row blocks)
-    "rows1": [(ROWS, "  static constexpr int kRowTiles = 1;")],
-    "full_rows1": [(ROWS, "  static constexpr int kRowTiles = kFull ? 1 : 2;")],
+    # one m16 row tile a warp in both bf16 modes, or in "full" mode only (64-row blocks); fp32 "qk" keeps its
+    # 8 x 8 tiles of O
+    "rows1": [(ROWS, "  static constexpr int kRowTiles = kSimt && kD == 64 ? 2 : 1;")],
+    "full_rows1": [(ROWS, "  static constexpr int kRowTiles = kFull || (kSimt && kD == 128) ? 1 : 2;")],
     # 8 warps a block: twice the query rows share each staged K and V tile
     "warps8": [(WARPS, "constexpr int kWarps = 8;")],
 }
@@ -94,7 +95,8 @@ def time_one(name: str) -> None:
     for line in path.with_suffix(".log").read_text().splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
-            kernel = "full" if "ILb1E" in found.group(1) else "qk"
+            name = found.group(1)
+            kernel = ("full" if "ILb1E" in name else "qk") + (" fp32" if "EfE" in name else " bf16")
         used = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kernel and (used or spill):
