@@ -16,6 +16,13 @@ qk LayerNorm + RoPE (``ops/qk_prep``) on q and on k, and flash attention
 (``ops/flash_attention``) with ``stable=False``. A DiT without RoPE
 normalises q and k with a plain LayerNorm and launches flash attention
 alone, as ``alg_tpu`` does.
+
+Under a recording profiler (``utils/profiling.py``) the forward is spans
+``dit.embed``, one ``dit.block`` a block (``block`` its index) and
+``dit.final``; a block's stages are ``block.norm`` (each AdaLN-zero
+modulation), ``block.attention`` (the joint stream's concatenation, then
+``attention.qkv``, ``attention.kernel`` and ``attention.out``), ``block.gate``
+(each pair of gated residuals) and ``block.ff`` (concatenation and MLP).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.qk_prep import qk_norm_rope
 from alg_tpu_torch.sharding.pipeline import run_blocks
+from alg_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,15 +154,20 @@ class JointAttention(nn.Module):
                 return norm(heads(x)).contiguous()
             return qk_norm_rope(heads(x), norm.weight.float(), norm.bias.float(), rope_cos, rope_sin, norm.eps)
 
-        q = prep(self.to_q(joint), self.norm_q)
-        k = prep(self.to_k(joint), self.norm_k)
-        o = attention(q, k, heads(self.to_v(joint)).contiguous(), stable=False)
-        return self.to_out(o.transpose(1, 2).reshape(b, s, -1))  # -1: H/tp heads under tensor parallelism
+        with span("attention.qkv"):
+            q = prep(self.to_q(joint), self.norm_q)
+            k = prep(self.to_k(joint), self.norm_k)
+            v = heads(self.to_v(joint)).contiguous()
+        with span("attention.kernel"):
+            o = attention(q, k, v, stable=False)
+        with span("attention.out"):
+            return self.to_out(o.transpose(1, 2).reshape(b, s, -1))  # -1: H/tp heads under tensor parallelism
 
 
 class CogVideoXBlock(nn.Module):
-    def __init__(self, cfg: CogVideoXTransformerConfig, device=None, dtype=None):
+    def __init__(self, cfg: CogVideoXTransformerConfig, index: int = 0, device=None, dtype=None):
         super().__init__()
+        self.index = index  # the block's place in the DiT, for its span
         kw = dict(device=device, dtype=dtype)
         self.norm1 = AdaNormZero(cfg.time_embed_dim, cfg.inner_dim, cfg.norm_eps, **kw)
         self.attn = JointAttention(cfg, **kw)
@@ -163,13 +176,20 @@ class CogVideoXBlock(nn.Module):
 
     def forward(self, hidden, encoder, temb, rope_cos, rope_sin):
         text_len = encoder.shape[1]
-        hn, en, gate, e_gate = self.norm1(hidden, encoder, temb)
-        o = self.attn(torch.cat([en, hn], dim=1), rope_cos, rope_sin)
-        encoder = encoder + e_gate * o[:, :text_len]
-        hidden = hidden + gate * o[:, text_len:]
-        hn, en, gate, e_gate = self.norm2(hidden, encoder, temb)
-        ff = self.ff(torch.cat([en, hn], dim=1))
-        return hidden + gate * ff[:, text_len:], encoder + e_gate * ff[:, :text_len]
+        with span("dit.block", block=self.index):
+            with span("block.norm"):
+                hn, en, gate, e_gate = self.norm1(hidden, encoder, temb)
+            with span("block.attention"):
+                o = self.attn(torch.cat([en, hn], dim=1), rope_cos, rope_sin)
+            with span("block.gate"):
+                encoder = encoder + e_gate * o[:, :text_len]
+                hidden = hidden + gate * o[:, text_len:]
+            with span("block.norm"):
+                hn, en, gate, e_gate = self.norm2(hidden, encoder, temb)
+            with span("block.ff"):
+                ff = self.ff(torch.cat([en, hn], dim=1))
+            with span("block.gate"):
+                return hidden + gate * ff[:, text_len:], encoder + e_gate * ff[:, :text_len]
 
 
 class CogVideoXTransformer(nn.Module):
@@ -192,7 +212,7 @@ class CogVideoXTransformer(nn.Module):
             "norm": L.LayerNorm(dim, cfg.norm_eps, **kw),
         })
         self.proj_out = L.Linear(dim, pt * p * p * cfg.out_channels, **kw)
-        self.blocks = nn.ModuleList(CogVideoXBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(CogVideoXBlock(cfg, i, **kw) for i in range(cfg.num_layers))
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 timestep: torch.Tensor, rope_cos: Optional[torch.Tensor] = None,
@@ -209,42 +229,44 @@ class CogVideoXTransformer(nn.Module):
         if pt is not None and f % pt:
             raise ValueError(f"{f} latent frames are not a multiple of the DiT's patch_size_t {pt}")
 
-        t_emb = L.sinusoidal_timestep_embedding(timestep, cfg.inner_dim)
-        temb = self.time_embedding(t_emb.to(hidden_states.dtype))
-        if cfg.ofs_embed_dim is not None and ofs is not None:
-            ofs_emb = L.sinusoidal_timestep_embedding(ofs, cfg.ofs_embed_dim)
-            temb = temb + self.ofs_embedding(ofs_emb.to(hidden_states.dtype))
+        with span("dit.embed"):
+            t_emb = L.sinusoidal_timestep_embedding(timestep, cfg.inner_dim)
+            temb = self.time_embedding(t_emb.to(hidden_states.dtype))
+            if cfg.ofs_embed_dim is not None and ofs is not None:
+                ofs_emb = L.sinusoidal_timestep_embedding(ofs, cfg.ofs_embed_dim)
+                temb = temb + self.ofs_embedding(ofs_emb.to(hidden_states.dtype))
 
-        # patchify, in the minor order of the checkpoint's patch embed: 1.0 [B, F·H/p·W/p, C·p·p] (conv2d
-        # weight order), 1.5 [B, F/pt·H/p·W/p, pt·p·p·C] (CogVideoXPatchEmbed's linear)
-        if pt is None:
-            x = hidden_states.reshape(b, f, c, h // p, p, w // p, p).permute(0, 1, 3, 5, 2, 4, 6)
-            x = x.reshape(b, f * (h // p) * (w // p), c * p * p)
-        else:
-            x = hidden_states.permute(0, 1, 3, 4, 2).reshape(b, f // pt, pt, h // p, p, w // p, p, c)
-            x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, (f // pt) * (h // p) * (w // p), pt * p * p * c)
-        video = self.patch_embed["proj"](x)
-        text = self.patch_embed["text_proj"](encoder_hidden_states.to(video.dtype))
+            # patchify, in the minor order of the checkpoint's patch embed: 1.0 [B, F·H/p·W/p, C·p·p] (conv2d
+            # weight order), 1.5 [B, F/pt·H/p·W/p, pt·p·p·C] (CogVideoXPatchEmbed's linear)
+            if pt is None:
+                x = hidden_states.reshape(b, f, c, h // p, p, w // p, p).permute(0, 1, 3, 5, 2, 4, 6)
+                x = x.reshape(b, f * (h // p) * (w // p), c * p * p)
+            else:
+                x = hidden_states.permute(0, 1, 3, 4, 2).reshape(b, f // pt, pt, h // p, p, w // p, p, c)
+                x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, (f // pt) * (h // p) * (w // p), pt * p * p * c)
+            video = self.patch_embed["proj"](x)
+            text = self.patch_embed["text_proj"](encoder_hidden_states.to(video.dtype))
 
-        # identity rope rows over the text prefix: RoPE then covers the whole
-        # joint stream and leaves the text tokens as they are
-        text_len, d = text.shape[1], cfg.attention_head_dim
-        rc = rs = None
-        if rope_cos is not None:
-            rc = torch.cat([rope_cos.new_ones(text_len, d), rope_cos.float()]).contiguous()
-            rs = torch.cat([rope_sin.new_zeros(text_len, d), rope_sin.float()]).contiguous()
+            # identity rope rows over the text prefix: RoPE then covers the whole
+            # joint stream and leaves the text tokens as they are
+            text_len, d = text.shape[1], cfg.attention_head_dim
+            rc = rs = None
+            if rope_cos is not None:
+                rc = torch.cat([rope_cos.new_ones(text_len, d), rope_cos.float()]).contiguous()
+                rs = torch.cat([rope_sin.new_zeros(text_len, d), rope_sin.float()]).contiguous()
 
         video, text = run_blocks(self.blocks, (video, text), (temb,), (rc, rs))
 
-        video = self.norm_final(torch.cat([text, video], dim=1))[:, text_len:]
-        shift, scale = self.norm_out["linear"](L.silu(temb)).chunk(2, dim=-1)
-        video = self.norm_out["norm"](video) * (1 + scale[:, None]) + shift[:, None]
-        out = self.proj_out(video)  # [B, S, (pt·)out_c·p·p]
+        with span("dit.final"):
+            video = self.norm_final(torch.cat([text, video], dim=1))[:, text_len:]
+            shift, scale = self.norm_out["linear"](L.silu(temb)).chunk(2, dim=-1)
+            video = self.norm_out["norm"](video) * (1 + scale[:, None]) + shift[:, None]
+            out = self.proj_out(video)  # [B, S, (pt·)out_c·p·p]
 
-        # unpatchify: proj_out's minor order is (C, p, p) in 1.0, (C, pt, p, p) in 1.5
-        oc = cfg.out_channels
-        if pt is None:
-            out = out.reshape(b, f, h // p, w // p, oc, p, p).permute(0, 1, 4, 2, 5, 3, 6)
-        else:
-            out = out.reshape(b, f // pt, h // p, w // p, oc, pt, p, p).permute(0, 1, 5, 4, 2, 6, 3, 7)
-        return out.reshape(b, f, oc, h, w)
+            # unpatchify: proj_out's minor order is (C, p, p) in 1.0, (C, pt, p, p) in 1.5
+            oc = cfg.out_channels
+            if pt is None:
+                out = out.reshape(b, f, h // p, w // p, oc, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+            else:
+                out = out.reshape(b, f // pt, h // p, w // p, oc, pt, p, p).permute(0, 1, 5, 4, 2, 6, 3, 7)
+            return out.reshape(b, f, oc, h, w)

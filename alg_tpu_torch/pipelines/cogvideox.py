@@ -31,6 +31,12 @@ snapshot hold the padded count), the DiT gets ``ofs = 2.0``, and the padded
 frames are dropped before the decode, so the video has the frames asked for.
 A VAE with ``invert_scale_latents`` divides the image latents by its scaling
 factor instead of multiplying. A DiT without RoPE gets no tables.
+
+Under a recording profiler (``utils/profiling.py``) a call is a
+``pipeline.request`` span (family, batch rows, frames, height, width,
+steps) whose ``pipeline.prepare`` part holds the frame's ``vae.encode``;
+a step's prediction holds ``alg.filter``, ``dit.forward`` (its passes and
+text and video tokens) and ``cfg.combine``; the decode is ``vae.decode``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ from alg_tpu_torch.pipelines import processing
 from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig, ddim_step, make_ddim_plan
 from alg_tpu_torch.schedulers.dpm_cogvideox import dpm_step, make_dpm_plan
+from alg_tpu_torch.utils import profiling
+from alg_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -144,9 +152,10 @@ class CogVideoXPipeline:
     def vae_encode_sample(self, image_bfchw: np.ndarray, noise: NoiseSource) -> torch.Tensor:
         """VAE-encode ``[B, F, C, H, W]`` pixels and draw the posterior sample
         with torch-ordered noise; returns latents ``[B, F', C, h, w]`` fp32."""
-        mean, logvar = self._encode_moments(torch.as_tensor(image_bfchw, dtype=torch.float32).to(self.device))
-        b, f, h, w, c = mean.shape
-        return self._posterior_sample(mean, logvar, noise.randn((b, c, f, h, w)))
+        with span("vae.encode", frames=image_bfchw.shape[1], h=image_bfchw.shape[3], w=image_bfchw.shape[4]):
+            mean, logvar = self._encode_moments(torch.as_tensor(image_bfchw, dtype=torch.float32).to(self.device))
+            b, f, h, w, c = mean.shape
+            return self._posterior_sample(mean, logvar, noise.randn((b, c, f, h, w)))
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None, mesh=None) -> torch.Tensor:
@@ -160,12 +169,15 @@ class CogVideoXPipeline:
         z = (latents.float() / self.vae.cfg.scaling_factor).permute(0, 1, 3, 4, 2).to(self.vae_dtype)
         if vae_tiling is None:
             vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        frames = tiled_decode(self.vae.decode, z, self.vae.cfg.spatial_scale, mesh=mesh) if vae_tiling else self.vae.decode(z)
+        with span("vae.decode"):
+            frames = (tiled_decode(self.vae.decode, z, self.vae.cfg.spatial_scale, mesh=mesh) if vae_tiling
+                      else self.vae.decode(z))
         return frames.permute(0, 1, 4, 2, 3).float()
 
     # -- main entry ----------------------------------------------------------
 
     @torch.no_grad()
+    @profiling.request_span("cogvideox")
     def __call__(
         self,
         image=None,
@@ -329,6 +341,8 @@ class CogVideoXPipeline:
                                   for a in cogvideox_rope(tcfg, height, width, latents0.shape[1]))
         if tcfg.ofs_embed_dim is not None:
             ofs = torch.full((1,), 2.0, dtype=torch.float32, device=self.device)
+        profiling.annotate(profiling.REQUEST, rows=batch_size, frames=num_frames, height=height, width=width,
+                           steps=num_inference_steps)
         latents_out = self._sample(
             latents0, image_latents, prompt_embeds, negative_prompt_embeds, sched_plan, lp_plan, g_table,
             rope_cos, rope_sin, do_cfg, step_noise=step_noise, pixel_image=pixel_image, pixel_noise=pixel_noise,
@@ -343,8 +357,12 @@ class CogVideoXPipeline:
     def _dit(self, latent_in, cond_in, embeds, t: int, rope_cos, rope_sin, ofs=None) -> torch.Tensor:
         x = torch.cat([latent_in, cond_in], dim=2).to(self.dtype)
         timestep = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
+        b, f, _, h, w = x.shape
+        p, pt = self.transformer.cfg.patch_size, self.transformer.cfg.patch_size_t or 1
         with pipeline_mesh_scope(self):
-            return self.transformer(x, embeds, timestep, rope_cos, rope_sin, ofs=ofs).float()
+            with span("dit.forward", passes=b, s_text=embeds.shape[1], s_video=f // pt * (h // p) * (w // p)):
+                out = self.transformer(x, embeds, timestep, rope_cos, rope_sin, ofs=ofs)
+            return out.float()
 
     def _pixel_condition(self, pixel_image, m_h, m_w, eps, latent_frames: int) -> torch.Tensor:
         """Pixel-space ALG's condition for one step: the RGB frame filtered at
@@ -381,20 +399,23 @@ class CogVideoXPipeline:
             cond = image_latents
             if alg:
                 j = int(lp_plan.m_idx[i])
-                if pixel_image is not None:
-                    cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], latent_frames)
-                else:
-                    cond = apply_filter_matrices(image_latents, m_h[j], m_w[j])
+                with span("alg.filter", strength=float(lp_plan.strengths[i])):
+                    if pixel_image is not None:
+                        cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], latent_frames)
+                    else:
+                        cond = apply_filter_matrices(image_latents, m_h[j], m_w[j])
             if not do_cfg:
                 return self._dit(latents, cond, embeds2, t, rope_cos, rope_sin, ofs)
             if three[i]:
                 pred = self._dit(torch.cat([latents] * 3), torch.cat([image_latents, cond, cond]), embeds3, t,
                                  rope_cos, rope_sin, ofs)
-                uncond_init, uncond, text = pred.chunk(3)
-                return uncond_init + g * (text - uncond)
+                with span("cfg.combine"):
+                    uncond_init, uncond, text = pred.chunk(3)
+                    return uncond_init + g * (text - uncond)
             pred = self._dit(torch.cat([latents] * 2), torch.cat([cond, cond]), embeds2, t, rope_cos, rope_sin, ofs)
-            uncond, text = pred.chunk(2)
-            return uncond + g * (text - uncond)
+            with span("cfg.combine"):
+                uncond, text = pred.chunk(2)
+                return uncond + g * (text - uncond)
 
         def update(i, carry, noise_pred):
             latents, old_pred = carry

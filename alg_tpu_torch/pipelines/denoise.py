@@ -8,6 +8,12 @@ a step the step cache skips, the previous step's is reused; the scheduler
 update gives the new carry; a ``step_observer`` sees the latents and may
 replace them; the carry may be snapshotted; ``stop_after`` may end the loop.
 A finished loop removes its snapshot.
+
+Under a recording profiler (``utils/profiling.py``) the loop's start ends
+the request's ``pipeline.prepare`` span, and each step is a
+``denoise.step`` span (``computed`` False on a step the cache skips) holding
+the prediction, ``scheduler.update``, ``denoise.observer`` (with the copy of
+the latents to the host) and ``denoise.checkpoint``.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import numpy as np
 import torch
 
 from alg_tpu_torch.io.runstate import RunCheckpoint
+from alg_tpu_torch.utils import profiling
+from alg_tpu_torch.utils.profiling import span
 
 
 def denoise_loop(pipe, num_steps: int, carry: tuple, predict: Callable, update: Callable, *,
@@ -39,23 +47,29 @@ def denoise_loop(pipe, num_steps: int, carry: tuple, predict: Callable, update: 
     start = 0
     if checkpoint is not None:
         start, carry = checkpoint.restore(carry)
+    profiling.end(profiling.PREPARE)
     for i in range(start, num_steps):
         if pipe.interrupt:
             return carry[0]
-        if compute is not None:
-            noise_pred = predict(i, carry[0]) if compute[i] else carry[-1]
-            carry = update(i, carry[:-1], noise_pred) + (noise_pred,)
-        else:
-            carry = update(i, carry, predict(i, carry[0]))
-        if step_observer is not None:
-            latents = carry[0]
-            ret = step_observer(i, latents.cpu().numpy())
-            new = ret.get("latents") if isinstance(ret, dict) else ret
-            if new is not None:
-                new = torch.as_tensor(np.asarray(new), dtype=latents.dtype).reshape(latents.shape)
-                carry = (new.to(latents.device),) + carry[1:]
-        if checkpoint is not None:
-            checkpoint.maybe_save(i + 1, carry)
+        computed = compute is None or bool(compute[i])
+        with span("denoise.step", step=i, computed=computed):
+            noise_pred = predict(i, carry[0]) if computed else carry[-1]
+            with span("scheduler.update"):
+                if compute is not None:
+                    carry = update(i, carry[:-1], noise_pred) + (noise_pred,)
+                else:
+                    carry = update(i, carry, noise_pred)
+            if step_observer is not None:
+                with span("denoise.observer"):
+                    latents = carry[0]
+                    ret = step_observer(i, latents.cpu().numpy())
+                    new = ret.get("latents") if isinstance(ret, dict) else ret
+                    if new is not None:
+                        new = torch.as_tensor(np.asarray(new), dtype=latents.dtype).reshape(latents.shape)
+                        carry = (new.to(latents.device),) + carry[1:]
+            if checkpoint is not None:
+                with span("denoise.checkpoint"):
+                    checkpoint.maybe_save(i + 1, carry)
         if stop_after is not None and i + 1 >= stop_after:
             return carry[0]
     if checkpoint is not None:

@@ -35,6 +35,12 @@ a ``step_observer`` that may replace the latents, snapshots through
 ``checkpoint=`` and the opt-in step cache.
 
 Not ported yet (queued in ROADMAP.md): sharded attention.
+
+Under a recording profiler (``utils/profiling.py``) a call is a
+``pipeline.request`` span (family, batch rows, frames, height, width,
+steps) whose ``pipeline.prepare`` part holds the frame's ``vae.encode``;
+a step's prediction holds ``alg.filter``, ``dit.forward`` (its passes and
+text and video tokens) and ``cfg.combine``; the decode is ``vae.decode``.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ from alg_tpu_torch.pipelines import processing
 from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.flow_match_euler import (FlowMatchEulerConfig, FlowMatchEulerPlan,
                                                        flow_match_euler_step, make_flow_match_euler_plan)
+from alg_tpu_torch.utils import profiling
+from alg_tpu_torch.utils.profiling import span
 
 DEFAULT_PROMPT_TEMPLATE = {
     "template": (
@@ -216,6 +224,7 @@ class HunyuanVideoPipeline:
     # -- main entry ----------------------------------------------------------
 
     @torch.no_grad()
+    @profiling.request_span("hunyuan")
     def __call__(
         self,
         image=None,
@@ -319,7 +328,8 @@ class HunyuanVideoPipeline:
             image_tensor = processing.preprocess_image(image, height, width)
         else:
             image_tensor = np.asarray(image, np.float32)
-        image_latents = self._encode_mode(torch.from_numpy(image_tensor).to(self.device)[:, None])  # [B, z, 1, h, w]
+        with span("vae.encode", frames=1, h=image_tensor.shape[2], w=image_tensor.shape[3]):  # -> [B, z, 1, h, w]
+            image_latents = self._encode_mode(torch.from_numpy(image_tensor).to(self.device)[:, None])
 
         # prompt embeds
         if prompt_embeds is None:
@@ -371,6 +381,8 @@ class HunyuanVideoPipeline:
         if tcfg.guidance_embeds:
             guidance = torch.full((1,), guidance_scale * 1000.0, dtype=torch.float32, device=self.device)
 
+        profiling.annotate(profiling.REQUEST, rows=batch_size, frames=num_frames, height=height, width=width,
+                           steps=num_inference_steps)
         latents_out = self._sample(
             latents0, image_latents, prompt_embeds, pooled_prompt_embeds, prompt_attention_mask,
             negative_prompt_embeds, negative_pooled_prompt_embeds, negative_prompt_attention_mask,
@@ -389,11 +401,15 @@ class HunyuanVideoPipeline:
     # -- sampler ---------------------------------------------------------------
 
     def _dit(self, lat_in, embeds, mask, pooled, t: float, guidance, rope_cos, rope_sin) -> torch.Tensor:
-        n = lat_in.shape[0]
+        n, _, f, h, w = lat_in.shape
         ts = torch.full((n,), t, dtype=torch.float32, device=lat_in.device)
+        p, pt = self.transformer.cfg.patch_size, self.transformer.cfg.patch_size_t
+        lat_in, embeds, pooled = lat_in.to(self.dtype), embeds.to(self.dtype), pooled.to(self.dtype)
         with pipeline_mesh_scope(self):
-            return self.transformer(lat_in.to(self.dtype), ts, embeds.to(self.dtype), mask, pooled.to(self.dtype),
-                                    None if guidance is None else guidance.expand(n), rope_cos, rope_sin).float()
+            with span("dit.forward", passes=n, s_text=embeds.shape[1], s_video=f // pt * (h // p) * (w // p)):
+                out = self.transformer(lat_in, ts, embeds, mask, pooled,
+                                       None if guidance is None else guidance.expand(n), rope_cos, rope_sin)
+            return out.float()
 
     def _encode_mode(self, x_bfchw: torch.Tensor) -> torch.Tensor:
         """The mode of the VAE posterior of ``[B, F, C, H, W]`` pixels on the
@@ -454,22 +470,25 @@ class HunyuanVideoPipeline:
             if not alg:
                 return il
             j = int(lp_plan.m_idx[i])
-            if pixel_image is not None:
-                return self._pixel_condition(pixel_image, m_h[j], m_w[j], il.shape[2])
-            return apply_filter_matrices(il, m_h[j], m_w[j])
+            with span("alg.filter", strength=float(lp_plan.strengths[i])):
+                if pixel_image is not None:
+                    return self._pixel_condition(pixel_image, m_h[j], m_w[j], il.shape[2])
+                return apply_filter_matrices(il, m_h[j], m_w[j])
 
         def predict(i, latents):
             t = float(sched_plan.timesteps[i])
             if three[i]:
                 cond = filtered(i)
                 pred = dit(assemble(torch.cat([latents] * 3), torch.cat([il, cond, cond])), embeds3, mask3, pool3, t)
-                uncond_init, uncond, text = pred.chunk(3)
-                return uncond_init + true_cfg_scale * (text - uncond)
+                with span("cfg.combine"):
+                    uncond_init, uncond, text = pred.chunk(3)
+                    return uncond_init + true_cfg_scale * (text - uncond)
             if do_true_cfg:
                 # 2-pass on the clean condition (strength 0, lp_on_noisy_latent, or no ALG)
                 pred = dit(assemble(torch.cat([latents] * 2), torch.cat([il, il])), embeds2, mask2, pool2, t)
-                uncond, text = pred.chunk(2)
-                return uncond + true_cfg_scale * (text - uncond)
+                with span("cfg.combine"):
+                    uncond, text = pred.chunk(2)
+                    return uncond + true_cfg_scale * (text - uncond)
             # single pass: ALG replaces the condition
             return dit(assemble(latents, filtered(i)), prompt_embeds, prompt_mask, pooled, t)
 
@@ -500,5 +519,7 @@ class HunyuanVideoPipeline:
         z = (latents.float() / vcfg.scaling_factor).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
         if vae_tiling is None:
             vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling else self.vae.decode(z)
+        with span("vae.decode"):
+            frames = (tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling
+                      else self.vae.decode(z))
         return frames.permute(0, 4, 1, 2, 3).float()

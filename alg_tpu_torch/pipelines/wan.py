@@ -37,6 +37,12 @@ that may replace the latents, snapshots through ``checkpoint=`` (the UniPC
 history is part of the carry) and the opt-in step cache.
 
 Not ported yet (queued in ROADMAP.md): sharded attention.
+
+Under a recording profiler (``utils/profiling.py``) a call is a
+``pipeline.request`` span (family, batch rows, frames, height, width,
+steps) whose ``pipeline.prepare`` part holds the condition's ``vae.encode``;
+a step's prediction holds ``alg.filter``, ``dit.forward`` (its passes and
+text and video tokens) and ``cfg.combine``; the decode is ``vae.decode``.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ from alg_tpu_torch.ops.attention import pipeline_mesh_scope
 from alg_tpu_torch.pipelines import processing
 from alg_tpu_torch.pipelines.denoise import denoise_loop
 from alg_tpu_torch.schedulers.unipc import UniPCConfig, UniPCPlan, make_unipc_plan, unipc_init_state, unipc_step
+from alg_tpu_torch.utils import profiling
+from alg_tpu_torch.utils.profiling import span
 
 
 def prompt_clean(text: str) -> str:
@@ -145,6 +153,7 @@ class WanPipeline:
     # -- main entry ----------------------------------------------------------
 
     @torch.no_grad()
+    @profiling.request_span("wan")
     def __call__(
         self,
         image=None,
@@ -276,6 +285,8 @@ class WanPipeline:
             pixel_noise = torch.stack([noise.randn((batch_size, vcfg.z_dim, f_lat, h_lat, w_lat))
                                        for _ in range(num_inference_steps)])
 
+        profiling.annotate(profiling.REQUEST, rows=batch_size, frames=num_frames, height=height, width=width,
+                           steps=num_inference_steps)
         latents_out = self._sample(latents0, condition, prompt_embeds, negative_prompt_embeds, image_embeds,
                                    sched_plan, lp_plan, float(np.float32(guidance_scale)), do_cfg, num_frames,
                                    pixel_image=pixel_image, pixel_noise=pixel_noise, step_observer=step_observer,
@@ -330,7 +341,9 @@ class WanPipeline:
         frames.append(img.new_zeros((img.shape[0], n_zero) + tuple(img.shape[2:])))
         if last_image is not None:
             frames.append(torch.from_numpy(np.asarray(last_image, np.float32)).to(self.device)[:, None])
-        latent_cond = self._encode_video_condition(torch.cat(frames, dim=1))
+        video = torch.cat(frames, dim=1)
+        with span("vae.encode", frames=video.shape[1], h=video.shape[3], w=video.shape[4]):
+            latent_cond = self._encode_video_condition(video)
         if latent_cond.shape[0] < batch_size:
             latent_cond = latent_cond.repeat_interleave(batch_size, dim=0)
         h_lat, w_lat = latent_cond.shape[3:]
@@ -342,10 +355,15 @@ class WanPipeline:
     def _dit(self, latent_in, cond_in, embeds, img_embeds, t: float, rope_cos, rope_sin) -> torch.Tensor:
         x = torch.cat([latent_in, cond_in], dim=1).to(self.dtype)
 
+        pt, ph, pw = self.transformer.cfg.patch_size
+        s_video = x.shape[2] // pt * (x.shape[3] // ph) * (x.shape[4] // pw)
+
         def fwd(xb, eb, ib):
             ts = torch.full((xb.shape[0],), t, dtype=torch.float32, device=xb.device)
-            return self.transformer(xb, ts, eb.to(self.dtype), None if ib is None else ib.to(self.dtype),
-                                    rope_cos, rope_sin).float()
+            eb, ib = eb.to(self.dtype), None if ib is None else ib.to(self.dtype)
+            with span("dit.forward", passes=xb.shape[0], s_text=eb.shape[1], s_video=s_video):
+                out = self.transformer(xb, ts, eb, ib, rope_cos, rope_sin)
+            return out.float()
 
         n, mb = x.shape[0], int(self.guidance_microbatch or 0)
         with pipeline_mesh_scope(self):
@@ -393,20 +411,23 @@ class WanPipeline:
                 return self._dit(latents, condition, embeds2, image_embeds, t, rope_cos, rope_sin)
             if three[i]:
                 j = int(lp_plan.m_idx[i])
-                if pixel_image is not None:
-                    cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], num_frames,
-                                                 condition[:, :4])
-                else:
-                    cond = apply_filter_matrices(condition, m_h[j], m_w[j])
+                with span("alg.filter", strength=float(lp_plan.strengths[i])):
+                    if pixel_image is not None:
+                        cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], num_frames,
+                                                     condition[:, :4])
+                    else:
+                        cond = apply_filter_matrices(condition, m_h[j], m_w[j])
                 pred = self._dit(torch.cat([latents] * 3), torch.cat([condition, cond, cond]), embeds3, img(3), t,
                                  rope_cos, rope_sin)
-                uncond_init, uncond, text = pred.chunk(3)
-                return uncond_init + g * (text - uncond)
+                with span("cfg.combine"):
+                    uncond_init, uncond, text = pred.chunk(3)
+                    return uncond_init + g * (text - uncond)
             # strength-0 steps condition on the clean condition
             pred = self._dit(torch.cat([latents] * 2), torch.cat([condition, condition]), embeds2, img(2), t,
                              rope_cos, rope_sin)
-            uncond, text = pred.chunk(2)
-            return uncond + g * (text - uncond)
+            with span("cfg.combine"):
+                uncond, text = pred.chunk(2)
+                return uncond + g * (text - uncond)
 
         def update(i, carry, noise_pred):
             return unipc_step(sched_plan, i, noise_pred, *carry)
@@ -433,5 +454,7 @@ class WanPipeline:
         z = (latents.float() * ls + lm).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
         if vae_tiling is None:
             vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        frames = tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling else self.vae.decode(z)
+        with span("vae.decode"):
+            frames = (tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling
+                      else self.vae.decode(z))
         return frames.permute(0, 4, 1, 2, 3).float()

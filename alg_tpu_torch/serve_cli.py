@@ -234,7 +234,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tp", type=int, default=0,
                         help="tensor-parallel mesh axis (0 = the ranks the other axes leave)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a torch.profiler trace (Chrome format) of the batched generation here")
+                        help="write a torch.profiler trace (Chrome format) of the batched generation here, "
+                             "and the program's spans beside it (spans_*.json)")
     parser.add_argument("--multihost", action="store_true",
                         help="each host serves a contiguous block of the requests on a mesh of its own ranks")
     parser.add_argument("--coordinator", type=str, default=None,

@@ -22,7 +22,7 @@ the newest one with the same data order and the same draws.
 ``--val_frac`` holds out the last examples and logs their loss
 (``val_loss``) every ``--eval_every`` steps and at the last;
 ``--profile_dir`` writes a ``torch.profiler`` trace of the steps after the
-first (``utils/profiling.trace_to``).
+first and the program's spans beside it (``utils/profiling.trace_to``).
 
 :func:`run` is the body, callable with an already parsed config (a dict
 with ``model`` and ``generation`` sections) and, for tests, an already built
@@ -241,7 +241,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_frac", type=float, default=0.0, help="hold out this fraction of examples for validation")
     p.add_argument("--eval_every", type=int, default=50, help="validation-loss interval in steps (with --val_frac)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="torch.profiler trace of the second to fourth steps, written here")
+                   help="torch.profiler trace of the second to fourth steps, and their spans (spans_*.json), "
+                        "written here")
     p.add_argument("--device", type=str, default="cuda")
     return p
 

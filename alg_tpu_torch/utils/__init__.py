@@ -1,3 +1,3 @@
-from alg_tpu_torch.utils.profiling import StepTimer, trace_to
+from alg_tpu_torch.utils.profiling import span, spans, trace_to
 
-__all__ = ["StepTimer", "trace_to"]
+__all__ = ["span", "spans", "trace_to"]

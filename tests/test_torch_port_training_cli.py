@@ -24,7 +24,7 @@ from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, Cog
 from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer, HunyuanVideoTransformerConfig
 from alg_tpu_torch.models.wan.transformer import WanTransformer, WanTransformerConfig
 from alg_tpu_torch.training.train import load_params_npz
-from alg_tpu_torch.utils.profiling import StepTimer, trace_to
+from alg_tpu_torch.utils.profiling import span, trace_to
 
 from torch_port_common import one_thread
 
@@ -347,30 +347,30 @@ def test_profile_dir_writes_a_trace(tmp_path):
     out = train_cli.run(config, _args(tmp_path, "--synthetic", "2", "--steps", "3", "--rank", "2",
                                       "--profile_dir", str(prof)), transformer=model)
     assert len(out["losses"]) == 3
-    traces = os.listdir(prof)
-    assert len(traces) == 1 and traces[0].endswith(".json")
-    with open(prof / traces[0]) as f:
+    trace, spans_file = sorted(os.listdir(prof), reverse=True)  # the Chrome trace, and the spans beside it
+    assert trace.startswith("trace_") and trace.endswith(".json") and spans_file == "spans_" + trace[len("trace_"):]
+    with open(prof / trace) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    with open(prof / spans_file) as f:  # the spans of the traced steps
+        assert any(r["name"] == "dit.block" for r in json.load(f))
     # a run of one step has no step after the warm-up to trace
     train_cli.run(config, _args(tmp_path, "--synthetic", "2", "--steps", "1", "--profile_dir", str(tmp_path / "p1")),
                   transformer=model)
     assert not os.path.exists(tmp_path / "p1") or not os.listdir(tmp_path / "p1")
 
 
-def test_trace_to_and_step_timer(tmp_path):
+def test_trace_to_writes_spans(tmp_path):
+    """``trace_to`` writes the Chrome trace and, beside it, the spans made inside the block."""
     with trace_to(str(tmp_path / "t")):
-        torch.ones(8, 8) @ torch.ones(8, 8)
-    (name,) = os.listdir(tmp_path / "t")
-    with open(tmp_path / "t" / name) as f:
-        assert any(e.get("name") == "aten::mm" for e in json.load(f)["traceEvents"])
-
-    timer = StepTimer()
-    for _ in range(2):
-        with timer.section("encode"):
-            timer.sync({"x": [torch.zeros(2)]})  # a CPU tensor: nothing to wait for
-    with timer.section("step"):
-        timer.sync()
-    rows = json.loads(timer.report())
-    assert rows["encode"]["count"] == 2 and rows["step"]["count"] == 1
-    assert rows["encode"]["total_s"] >= rows["encode"]["mean_s"] >= 0.0
+        with span("operator.stage", rows=2):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+    trace, spans_file = sorted(os.listdir(tmp_path / "t"), reverse=True)
+    assert spans_file == "spans_" + trace[len("trace_"):]
+    with open(tmp_path / "t" / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"aten::mm", "operator.stage"} <= names
+    with open(tmp_path / "t" / spans_file) as f:
+        (rec,) = json.load(f)
+    assert rec["name"] == "operator.stage" and rec["attrs"] == {"rows": 2} and rec["parent"] is None
+    assert rec["device_ms"] >= 0.0 and rec["clock"] == "host"
