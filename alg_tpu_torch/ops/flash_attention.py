@@ -1,11 +1,15 @@
 """Flash-attention forward: the CUDA kernels and their plain PyTorch version.
 
 ``flash_attention`` picks its implementation in :func:`route`: CPU tensors
-run :func:`attention_plain`; CUDA bf16 tensors launch the tensor-core kernel
-``csrc/flash_attention_tc.cu`` (``mma.sync`` with ``ldmatrix`` and
-``cp.async``), CUDA fp32 tensors the register-tiled CUDA-core kernel
-``csrc/flash_attention.cu``; anything else raises. There is no fallback
-between them: a kernel that fails to build or launch raises.
+run :func:`attention_plain`; on CUDA tensors :func:`kernel_route` decides by
+dtype, head dim and whether a bias is given: bf16 at D = 64 without a bias
+(every CogVideoX DiT self-attention) launches the Hopper kernel
+``csrc/flash_attention_wgmma.cu`` (``wgmma``, TMA, warp specialisation),
+other bf16 calls the tensor-core kernel ``csrc/flash_attention_tc.cu``
+(``mma.sync`` with ``ldmatrix`` and ``cp.async``), fp32 calls the
+register-tiled CUDA-core kernel ``csrc/flash_attention.cu``; anything else
+raises. There is no fallback between them: a kernel that fails to build or
+launch raises.
 The kernels replace the TPU kernel
 ``alg_tpu/ops/flash_attention.py:_fwd_kernel`` at head dims 64, 80 and 128:
 ``stable`` (running max) or not (bounded logits, the DiTs' fast path),
@@ -45,11 +49,13 @@ fp32 logits times ``scale`` plus ``bias``, keys past the causal diagonal or
 at or past ``kv_len`` masked to -inf, an fp32 softmax, probabilities cast to
 the value dtype, then ``P·V``. A row with no visible key (``kv_len`` 0, or a
 causal row when Sq > Sk) comes out as zeros, as from the kernels on both
-machines; ``_xla_attention`` gives NaN there. The tensor-core kernel rounds
-the unnormalised P to bf16 before P·V and takes the TPU kernel's denominator
-(at D = 64 and 80 the sum of the rounded p, at 128 of the fp32 p); the plain
+machines; ``_xla_attention`` gives NaN there. The bf16 kernels round the
+unnormalised P to bf16 before P·V and take the TPU kernel's denominator (at
+D = 64 and 80 the sum of the rounded p, at 128 of the fp32 p); the plain
 version rounds the normalised probabilities, so in bf16 the two differ by
-those roundings and that of the output.
+those roundings and that of the output. The two bf16 kernels differ only in
+their key tiles (``KEY_TILE``), against which a ``stable`` call's running
+max moves.
 :func:`attention_plain_residuals` mirrors ``_xla_attention_residuals`` (base-2
 logits, explicit max, the LSE beside the output), with ``causal`` and ``bias``
 as well.
@@ -67,6 +73,7 @@ from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops import _build
 from alg_tpu_torch.ops._autograd import needs_grad
+from alg_tpu_torch.utils.profiling import annotate
 
 HEAD_DIMS = (64, 80, 128)  # the variants csrc/flash_attention*.cu and csrc/qk_prolog.cu declare
 LOG2E = 1.4426950408889634
@@ -126,8 +133,9 @@ def tensor_core_lse_plain(q, k, scale: float, bias: Optional[torch.Tensor] = Non
                           kv_len: Optional[torch.Tensor] = None, causal: bool = False, stable: bool = True,
                           key_tile: int = 64):
     """``(lse, tie)``, fp32 ``[B, H, Sq]``: the base-2 LSE that the bf16
-    tensor-core forward writes (``csrc/flash_attention_tc.cu``), step by step
-    in fp32, and the most that one p on a bf16 rounding tie can move it. The
+    tensor-core forwards write (``csrc/flash_attention_tc.cu`` with 64-key
+    tiles, ``csrc/flash_attention_wgmma.cu`` with 128: ``KEY_TILE``), step by
+    step in fp32, and the most that one p on a bf16 rounding tie can move it. The
     denominator is the TPU kernel's: at D = 64 and 80 the sum of the
     bf16-rounded p, taken over ``key_tile``-key tiles against the running
     max when ``stable`` (else against 0), at D = 128 the sum of the fp32 p
@@ -164,10 +172,11 @@ def tensor_core_lse_plain(q, k, scale: float, bias: Optional[torch.Tensor] = Non
 def tensor_core_attention_plain(q, k, v, scale: float, bias: Optional[torch.Tensor] = None,
                                 kv_len: Optional[torch.Tensor] = None, causal: bool = False, stable: bool = True,
                                 key_tile: int = 64, rounded_sum: Optional[bool] = None):
-    """``(out, lse)``: the bf16 tensor-core forward's arithmetic
-    (``csrc/flash_attention_tc.cu``) step by step, over ``key_tile``-key
-    tiles: fp32 logits of the inputs times scale·log2e (plus bias·log2e,
-    masked); p = exp2(logit − running max) when ``stable`` (the accumulators
+    """``(out, lse)``: the bf16 tensor-core forwards' arithmetic
+    (``csrc/flash_attention_tc.cu``, ``csrc/flash_attention_wgmma.cu``) step by
+    step, over ``key_tile``-key tiles (``KEY_TILE`` of the kernel): fp32
+    logits of the inputs times scale·log2e (plus bias·log2e, masked);
+    p = exp2(logit − running max) when ``stable`` (the accumulators
     rescaled as the max moves; a max of -inf takes 0), else exp2(logit); P
     rounded to bf16 before an fp32-accumulated P·V, as ``alg_tpu``'s kernel
     does (``p.astype(v.dtype)``); the denominator the sum of the rounded p
@@ -237,24 +246,37 @@ _FWD_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong] + [_PTR] * 3 + [_INT] 
 _PROLOG_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong, _INT, _INT, _INT, ctypes.c_float] + [_PTR] * 6 + [_INT, _PTR]
 
 # the C entry point of each route, "{d}" the head dim
-_ENTRY_NAMES = {"tc": "alg_flash_attention_tc_fwd_d{d}", "cuda_core": "alg_flash_attention_fwd_d{d}"}
+_ENTRY_NAMES = {"wgmma": "alg_flash_attention_wgmma_fwd_d{d}", "tc": "alg_flash_attention_tc_fwd_d{d}",
+                "cuda_core": "alg_flash_attention_fwd_d{d}"}
 PROLOG_ENTRY_NAME = "alg_qk_prolog_d{d}"  # csrc/qk_prolog.cu
+WGMMA_HEAD_DIM = 64  # the head dim csrc/flash_attention_wgmma.cu is built for
+KEY_TILE = {"wgmma": 128, "tc": 64}  # keys a tile of each bf16 kernel: the steps of a stable call's running max
 
 
-def route(q: torch.Tensor, prolog: bool = False) -> str:
-    """Which implementation a call on ``q`` takes: ``"plain"`` for a CPU
-    tensor; on a CUDA tensor ``"tc"`` (the tensor-core kernel) for bf16 and
-    ``"cuda_core"`` for fp32. A qk prolog does not change it: :func:`qk_prolog`
-    runs first, and the forward is a call without one. Raises for any other
-    device or dtype."""
+def kernel_route(dtype: torch.dtype, head_dim: int, has_bias: bool) -> str:
+    """The kernel a CUDA call takes, from what it can observe: ``"wgmma"``
+    (``csrc/flash_attention_wgmma.cu``) for bf16 at D = 64 without a bias,
+    ``"tc"`` (``csrc/flash_attention_tc.cu``) for the other bf16 calls, and
+    ``"cuda_core"`` (``csrc/flash_attention.cu``) for fp32. Raises for any
+    other dtype."""
+    if dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"flash kernel takes float32 or bfloat16, got {dtype}")
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    return "wgmma" if head_dim == WGMMA_HEAD_DIM and not has_bias else "tc"
+
+
+def route(q: torch.Tensor, prolog: bool = False, bias: Optional[torch.Tensor] = None) -> str:
+    """Which implementation a call on ``q`` (with ``bias``) takes:
+    ``"plain"`` for a CPU tensor, :func:`kernel_route` for a CUDA tensor. A
+    qk prolog does not change it: :func:`qk_prolog` runs first, and the
+    forward is a call without one. Raises for any other device or dtype."""
     del prolog  # the same route with and without a prolog
     if q.device.type == "cpu":
         return "plain"
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    if q.dtype not in _build.DTYPE_CODE:
-        raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
-    return "tc" if q.dtype == torch.bfloat16 else "cuda_core"
+    return kernel_route(q.dtype, q.shape[-1], bias is not None)
 
 
 @functools.cache
@@ -405,7 +427,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if qk_norm is not None or rope_cos is not None or rope_sin is not None:
         prolog = {"norm": qk_norm, "eps": norm_eps, "q_scale": q_norm_scale, "q_bias": q_norm_bias,
                   "k_scale": k_norm_scale, "k_bias": k_norm_bias, "cos": rope_cos, "sin": rope_sin}
-    which = route(q)
+    which = route(q, bias=bias)
+    annotate("attention.kernel", route=which)  # the route of the DiT's attention span, when one is open
     if which == "plain":
         if prolog is not None:
             q, k = apply_prolog_plain(q, k, prolog, prolog_k)
@@ -443,5 +466,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
 
 
 flash_attention.launches = 0  # every launch of the forward kernels
-flash_attention.launches_by_route = {"tc": 0, "cuda_core": 0}  # the same launches by route()
+flash_attention.launches_by_route = {"wgmma": 0, "tc": 0, "cuda_core": 0}  # the same launches by route()
 flash_attention.residual_launches = 0  # those of them that also wrote the LSE

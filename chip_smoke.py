@@ -12,12 +12,14 @@ Phases, each of which must pass:
       unit, side by side) and print the build time and the compiler's
       register/shared-memory report, with one line for each instantiation
       of the register-tiled fp32 forward, dq and dkv kernels, the bf16
-      tensor-core forward, the int8 kernel (both modes, both types) and the
-      qk prolog kernel (registers, spilled bytes, head dim), and the compile
-      units; then ``cuobjdump -sass`` of the library:
+      tensor-core forward, the Hopper forward, the int8 kernel (both modes,
+      both types) and the qk prolog kernel (registers, spilled bytes, head
+      dim), and the compile units; then ``cuobjdump -sass`` of the library:
       every kernel of the tensor-core entry points must hold tensor-core
-      instructions, whose counts are printed per kernel: HMMA in the bf16
-      forward, dq and dkv, IMMA in both modes of the int8 kernel in both
+      instructions, whose counts are printed per kernel: HGMMA and no HMMA
+      in the Hopper forward (``csrc/flash_attention_wgmma.cu``, the bf16 calls
+      at D = 64 without a bias), HMMA and no HGMMA in the bf16 mma.sync
+      forward, HMMA in dq and dkv, IMMA in both modes of the int8 kernel in both
       types and HMMA in its bf16 "qk" mode as well (P·V in bf16); its fp32
       "qk" mode must hold no HMMA (P·V in exact fp32 FMAs, no TF32);
   B.  kernels: each CUDA kernel against its plain PyTorch version on the
@@ -301,8 +303,10 @@ input, then on the head-split view beside the transposing copy it saves),
 ``flash_attention_int8`` in bf16 and in fp32, in both modes, at ``[2,48,17776,64]`` and
 ``[2,40,32760,128]`` (the call with its quantizers, and the kernel's device
 time, beside fp32 SDPA with TF32 off and the bf16 flash kernel on the same
-values), the
-dense flash calls of phase B at head dims 64 and 128, the fp32 CLIP calls
+values), the bf16 DiT calls at ``[3,48,18002,64]`` and ``[2,48,45106,64]``, the
+dense flash calls of phase B at head dims 64 and 128 (each bf16 call at D = 64
+on the Hopper forward beside the ``"tc"`` kernel on the same tensors, through
+its entry point, and SDPA), the fp32 CLIP calls
 ``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), the qk prolog calls of
 phase B at ``[2,48,4276,64]`` (LayerNorm + RoPE) and ``[1,24,3048,128]`` (RMS
 norm + RoPE, ``kv_len``) in bf16 and fp32 beside the unfused sequence, and
@@ -417,12 +421,15 @@ def _set_tf32(matmul: bool, cudnn: bool) -> None:
 # ---------------------------------------------------------------------------
 
 
-# The tensor-core kernels: the C entry point that launches them, a part of their kernels' names, the
-# tensor-core instructions each must hold (HMMA: bf16 products; IMMA: int8 products) and those it must not. The
+# The tensor-core kernels: the C entry point that launches them, a part of their kernels' mangled names, the
+# tensor-core instructions each must hold (HMMA: bf16 products by mma.sync; HGMMA: bf16 warpgroup products by
+# wgmma; IMMA: int8 products) and those it must not. "flash_fwd_tc_kernelI" is the mma.sync forward alone (its
+# template arguments follow the name), "flash_fwd_tc_kernel_wgmmaI" the Hopper forward. The
 # int8 kernel's instantiations by mode and output type: "qk" (template arguments false, bf16) takes QKᵀ in int8
 # and P·V in bf16, "full" both in int8 in either type; fp32 "qk" (false, float) QKᵀ in int8 and P·V in exact fp32
 # FMAs, so no HMMA (a TF32 or bf16 product) may appear in it.
-TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": ("flash_fwd_tc_kernel", ("HMMA",), ()),
+TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": ("flash_fwd_tc_kernelI", ("HMMA",), ("HGMMA",)),
+              "alg_flash_attention_wgmma_fwd_d64": ("flash_fwd_tc_kernel_wgmmaI", ("HGMMA",), ("HMMA",)),
               "alg_flash_attention_bwd_dq_tc_d<D>": ("flash_bwd_dq_tc_kernel", ("HMMA",), ()),
               "alg_flash_attention_bwd_dkv_tc_d<D>": ("flash_bwd_dkv_tc_kernel", ("HMMA",), ()),
               "alg_flash_attention_int8_tc_d<D> qk": ("flash_int8_tc_kernelILb0E13__nv_bfloat16E", ("IMMA", "HMMA"),
@@ -433,8 +440,8 @@ TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": ("flash_fwd_tc_kernel", ("HMMA"
 
 
 def _sass_hmma(lib) -> dict:
-    """{kernel: {"HMMA": n, "IMMA": m}}, the tensor-core instructions in the SASS of every kernel of the built
-    library (``cuobjdump -sass``)."""
+    """{kernel: {"HMMA": n, "HGMMA": g, "IMMA": m}}, the tensor-core instructions in the SASS of every kernel of
+    the built library (``cuobjdump -sass``)."""
     import re
     from pathlib import Path
 
@@ -449,9 +456,9 @@ def _sass_hmma(lib) -> dict:
         found = re.search(r"Function : (\S+)", line)
         if found:
             current = found.group(1)
-            counts[current] = {"HMMA": 0, "IMMA": 0}
+            counts[current] = {"HMMA": 0, "HGMMA": 0, "IMMA": 0}
         elif current is not None:
-            for op in ("HMMA", "IMMA"):
+            for op in ("HMMA", "HGMMA", "IMMA"):
                 if op in line:
                     counts[current][op] += 1
     return counts
@@ -459,11 +466,12 @@ def _sass_hmma(lib) -> dict:
 
 # Kernels whose instantiations phase A names one by one, by a part of their mangled names: the register-tiled
 # fp32 forward (csrc/flash_attention.cu; not the tensor-core forward), dq and dkv (csrc/flash_attention_bwd.cu;
-# not the tensor-core ones), the bf16 tensor-core forward, the int8 kernel's four instantiations and the qk
-# prolog kernel.
+# not the tensor-core ones), the bf16 tensor-core forward, the Hopper forward, the int8 kernel's four
+# instantiations and the qk prolog kernel.
 FP32_KERNELS = {"fp32 forward": r"\d+flash_fwd_kernelI", "fp32 dq": r"\d+flash_bwd_dq_kernelI",
                 "fp32 dkv": r"\d+flash_bwd_dkv_kernel[EI]"}
 RESOURCE_KERNELS = {**FP32_KERNELS, "bf16 tc forward": r"\d+flash_fwd_tc_kernelI",
+                    "bf16 wgmma forward": r"\d+flash_fwd_tc_kernel_wgmmaI",
                     "int8 qk bf16": r"flash_int8_tc_kernelILb0E13__nv_bfloat16E",
                     "int8 full bf16": r"flash_int8_tc_kernelILb1E13__nv_bfloat16E",
                     "int8 qk fp32": r"flash_int8_tc_kernelILb0EfE", "int8 full fp32": r"flash_int8_tc_kernelILb1EfE",
@@ -473,14 +481,15 @@ RESOURCE_KERNELS = {**FP32_KERNELS, "bf16 tc forward": r"\d+flash_fwd_tc_kernelI
 def _kernel_resources(log: str) -> list:
     """Lines naming the registers and spilled bytes of every instantiation of
     the kernels of ``RESOURCE_KERNELS``, from the build log's ``ptxas -v``
-    report (the head dim from the unit's ``-DALG_*_HEAD_DIM``)."""
+    report (the head dim from the unit's ``-DALG_*_HEAD_DIM``; "-" for a unit
+    of one head dim)."""
     import re
 
     lines, head_dim, kernel, props = [], None, None, None
     for line in log.splitlines():
         unit = re.search(r"-DALG_\w+_HEAD_DIM=(\d+)", line)
-        if unit and "nvcc" in line:
-            head_dim = unit.group(1)
+        if "nvcc" in line and " -c " in line:
+            head_dim = unit.group(1) if unit else "-"
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
             kernel, props = found.group(1), None
@@ -523,7 +532,7 @@ def phase_build(require_tensor_cores: bool = True) -> None:
     for entry, (part, wanted, unwanted) in TC_KERNELS.items():
         kernels = {name: n for name, n in sass.items() if part in name}
         for name, n in sorted(kernels.items()):
-            print(f"[A] {entry}: {n['HMMA']} HMMA and {n['IMMA']} IMMA instructions in {name}")
+            print(f"[A] {entry}: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA and {n['IMMA']} IMMA instructions in {name}")
         if require_tensor_cores and (not kernels or not all(n[op] for n in kernels.values() for op in wanted)
                                      or any(n[op] for n in kernels.values() for op in unwanted)):
             raise AssertionError(f"{entry}: kernels {kernels} (want each with {' and '.join(wanted)} instructions"
@@ -662,7 +671,9 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     """Kernel vs plain attention, and the time of one
     ``scaled_dot_product_attention`` call on the same tensors (bias,
     ``kv_len`` and a causal mask beside ``kv_len`` as its ``attn_mask``; a
-    causal mask alone as ``is_causal``). The plain version, which holds the
+    causal mask alone as ``is_causal``); a call on the Hopper kernel's route
+    (``"wgmma"``) also times the ``"tc"`` kernel it replaced on the same
+    tensors, through that kernel's entry point. The plain version, which holds the
     fp32 logits, runs over query chunks (per batch element) of at most
     2 GiB of logits; a causal chunk takes the keys up to its last row's
     limit, which keeps the diagonal where it is. In bf16 the absolute
@@ -673,6 +684,7 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     import torch
     import torch.nn.functional as F
 
+    from alg_tpu_torch.ops import flash_attention as FA
     from alg_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
     b, h, sq, d = shape_q
@@ -735,6 +747,17 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     ms = _time_ms(kernel, reps=reps)
     plain_ms = _time_ms(plain, reps=reps)
     library_ms = _time_ms(library, reps=reps)  # a yardstick only: the port never calls it
+    tc_ms = None  # a tree without the Hopper forward (copied there by --dense-flash) has no "wgmma" route
+    if "wgmma" in FA.flash_attention.launches_by_route and FA.kernel_route(dtype, d, bias is not None) == "wgmma":
+        tc_out = torch.empty_like(q)
+
+        def tc_kernel():
+            rc = FA._entry(d, "tc")(FA._build.DTYPE_CODE[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None, 0,
+                                    None if lens is None else lens.data_ptr(), tc_out.data_ptr(), None, b, h, sq, sk,
+                                    float(scale), int(stable), int(causal), torch.cuda.current_stream().cuda_stream)
+            FA._build.check(rc, "the tc flash kernel")
+
+        tc_ms = _time_ms(tc_kernel, reps=reps)
     # what this call's data needs: batch row b reads its first min(kv_len[b], Sk) keys and values and as
     # many columns of the bias (one bias for all batch rows: the most any row needs); q and the output whole.
     # Under the causal mask query i multiplies only with its first min(kept, i + Sk - Sq + 1) keys.
@@ -746,6 +769,11 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     shape = tuple(shape_q) if sk == sq else (b, h, f"{sq}->{sk}", d)
     _report(records, name, tol_name(dtype), shape, err, ok, (atol, tol[1]), ms, plain_ms, bound, library_ms,
             ref_size=statistics.fmean(sizes))
+    if tc_ms is not None:
+        records[-1]["tc_ms"] = tc_ms
+        print(f"[B] {name:<22} wgmma {ms:.3f} ms ({bound[0] / ms:.1%} of the bound) against the tc kernel {tc_ms:.3f} "
+              f"ms ({bound[0] / tc_ms:.1%}) and sdpa {library_ms:.3f} ms ({bound[0] / library_ms:.1%}); "
+              f"{_card_line()}", flush=True)
 
 
 # The HunyuanVideo path's sequence lengths, as the pipeline's prompt bookkeeping gives them (phase C3
@@ -1418,6 +1446,8 @@ def phase_dense_flash() -> None:
     _qk_dense_case(records, (2, 48, 4276, 64), gen)
     _int8_dense_case((2, 48, 17776, 64), gen)
     _int8_dense_case((2, 40, 32760, 128), gen, reps=1)
+    _attn_case(records, "flash_dit_b3", (3, 48, 18002, 64), torch.bfloat16, gen, 64 ** -0.5, False)
+    _attn_case(records, "flash_dit", (2, 48, COGVIDEOX15_S[81], 64), torch.bfloat16, gen, 64 ** -0.5, False, reps=1)
     for dtype in (torch.bfloat16, torch.float32):
         _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False, reps=5)
         _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
@@ -1450,6 +1480,8 @@ def phase_kernels() -> list:
         _attn_case(records, "flash_t5_bias_stable", (1, 64, 226, 64), dtype, gen, 1.0, True, with_bias=True)
         _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False)
         _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
+        if dtype == bf16:  # a 3-pass ALG step of the shipped config, on the Hopper forward
+            _attn_case(records, "flash_dit_b3", (3, 48, 18002, 64), dtype, gen, 64 ** -0.5, False, reps=2)
         # Wan path: 9 frames (S = 4,680) and the shipped 81 frames (S = 32,760)
         for shape in ((2, 40, 4680, 128), (2, 40, 32760, 128)):
             _rope_case(records, shape, dtype, gen)
@@ -1618,11 +1650,12 @@ def _cog_seq_len(dit, args) -> int:
 
 
 def _kernel_counters() -> dict:
-    """{kernel name: (dict, key) of its launch count}. A forward launch is
-    counted twice: as a launch of the forward wrapper, and under the route
-    its wrapper took (tensor cores or CUDA cores); one that wrote the LSE
-    also under that name. Likewise a dq, dkv or int8 launch, under its
-    route. The qk prolog kernel has its own count."""
+    """{kernel name: (dict, key or keys) of its launch count}. A forward
+    launch is counted twice: as a launch of the forward wrapper, and under
+    the route its wrapper took (tensor cores, either the Hopper kernel or the
+    mma.sync one, or CUDA cores); one that wrote the LSE also under that
+    name. Likewise a dq, dkv or int8 launch, under its route. The qk prolog
+    kernel has its own count."""
     from alg_tpu_torch.ops.flash_attention import flash_attention, qk_prolog
     from alg_tpu_torch.ops.flash_attention_bwd import flash_attention_bwd_dkv, flash_attention_bwd_dq
     from alg_tpu_torch.ops.flash_attention_int8 import flash_attention_int8
@@ -1634,7 +1667,7 @@ def _kernel_counters() -> dict:
     return {"qk_prep": (qk_norm_rope.__dict__, "launches"), "rope_interleaved": (rope_interleaved.__dict__, "launches"),
             "flash_attention": (flash_attention.__dict__, "launches"),
             "flash_attention_lse": (flash_attention.__dict__, "residual_launches"),
-            "qk_prolog": (qk_prolog.__dict__, "launches"), "flash_attention_tc": (fwd, "tc"),
+            "qk_prolog": (qk_prolog.__dict__, "launches"), "flash_attention_tc": (fwd, ("wgmma", "tc")),
             "flash_attention_cuda_core": (fwd, "cuda_core"),
             "flash_attention_bwd_dq": (flash_attention_bwd_dq.__dict__, "launches"),
             "flash_attention_bwd_dq_tc": (dq, "tc"), "flash_attention_bwd_dq_cuda_core": (dq, "cuda_core"),
@@ -1659,13 +1692,18 @@ _NO_CUDA_CORES = {"flash_attention_cuda_core": 0, "flash_attention_bwd_dq_cuda_c
                   "flash_attention_bwd_dkv_cuda_core": 0}
 
 
+def _keys(key) -> tuple:
+    return key if isinstance(key, tuple) else (key,)
+
+
 def _reset_counts() -> None:
     for counts, key in _kernel_counters().values():
-        counts[key] = 0
+        for k in _keys(key):
+            counts[k] = 0
 
 
 def _read_counts() -> dict:
-    return {name: counts[key] for name, (counts, key) in _kernel_counters().items()}
+    return {name: sum(counts[k] for k in _keys(key)) for name, (counts, key) in _kernel_counters().items()}
 
 
 def _free_device_memory() -> None:
@@ -1840,6 +1878,14 @@ def phase_slice(path: str = "cogvideox") -> dict:
                              f"{t5_enc} T5 encodes; want 4 (2, 2), 2")
     if counts != want:
         raise AssertionError(f"[{tag}] kernel launches {counts} != {want}")
+    from alg_tpu_torch.ops.flash_attention import flash_attention
+
+    # of the tensor-core forwards, the DiT's (head dim 64, no bias) on the Hopper kernel, T5's (a bias) on mma.sync
+    by_route = dict(flash_attention.launches_by_route)
+    if (by_route["wgmma"], by_route["tc"]) != (tcfg.num_layers * dit_fwd, t5cfg.num_layers * t5_enc):
+        raise AssertionError(f"[{tag}] forward launches by route {by_route}: want the DiT's "
+                             f"{tcfg.num_layers * dit_fwd} on wgmma, T5's {t5cfg.num_layers * t5_enc} on tc")
+    print(f"[{tag}] forward launches by route {by_route}")
     ok = (decoded == [((1, frames, 3, height, width), True)]
           and final[0].shape == (1, latent_frames, vcfg.latent_channels, height // 8, width // 8)
           and video.shape == (1, frames, height, width, 3) and bool(np.isfinite(video).all()))
@@ -3155,12 +3201,16 @@ def _check_counts(tag, counts, want) -> None:
 
 
 def _check_trace(tag, prof_dir: str, kernels) -> None:
-    """The Chrome trace ``--profile_dir`` holds names each of ``kernels`` among its device kernels."""
+    """The Chrome trace ``--profile_dir`` holds (``trace_*.json``, beside the
+    program's spans in ``spans_*.json``, ``utils/profiling.trace_to``) names
+    each of ``kernels`` among its device kernels."""
     import os
 
     names = sorted(os.listdir(prof_dir))
-    if len(names) != 1 or not names[0].endswith(".json"):
-        raise AssertionError(f"[{tag}] --profile_dir holds {names}, not one trace file")
+    traces = [n for n in names if n.startswith("trace_") and n.endswith(".json")]
+    if len(traces) != 1 or any(not (n.startswith("spans_") and n.endswith(".json")) for n in names if n not in traces):
+        raise AssertionError(f"[{tag}] --profile_dir holds {names}, not one trace file and its spans")
+    names = traces
     with open(os.path.join(prof_dir, names[0])) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace

@@ -44,7 +44,13 @@ rows near both ends, the whole shipped [2, 48, 45106, 64] call) and a small
 1.5 DiT card against CPU; the W8A8 / W4A8 linear (``ops/quant.py``) at rows
 either side of ``torch._int_mm``'s least 17, its accumulators bit-equal to
 the exact product and its backward against the CPU's, and a QLoRA step card
-against CPU.
+against CPU; and the Hopper forward (``csrc/flash_attention_wgmma.cu``,
+bf16 at D = 64 without a bias) against the tensor-core arithmetic over its
+128-key tiles at ragged S (1, 193, 1,000, 4,276), Sq != Sk both ways,
+``kv_len`` at 0, 1 and either side of a key tile, causal with Sq < Sk and
+Sq > Sk, ``stable`` both ways and the LSE, bit-equal to the ``"tc"`` kernel
+without a running max, at the DiT's full lengths ([3, 48, 18002, 64] and
+[2, 48, 45106, 64]), and its entry point's refusals.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -454,16 +460,23 @@ def _assert_close_grad(out, ref, dtype):
     torch.testing.assert_close(out.float().cpu(), ref.float().cpu(), atol=atol, rtol=rtol)
 
 
+def _key_tile(q, bias=None):
+    """Keys a tile of the bf16 kernel a call on the card takes (``FA.route``): the steps of a stable call's
+    running max."""
+    return FA.KEY_TILE[FA.route(q, bias=bias)]
+
+
 def _assert_lse_close(lse, q, k, scale, bias, kv_len, causal, stable):
     """The forward's LSE within 1e-4 (base-2 units) of its plain version on
     the rows that see a key, with -inf on the same rows. The plain version
-    is the kernel's denominator: for bf16 (the tensor-core forward)
-    ``tensor_core_lse_plain``, the TPU kernel's, which at D = 64 and 80 sums
+    is the kernel's denominator: for bf16 (the tensor-core forwards, over the
+    key tiles of the one the call takes) ``tensor_core_lse_plain``, the TPU
+    kernel's, which at D = 64 and 80 sums
     the bf16-rounded p, so a p on a rounding tie may round the other way in
     the kernel and add that function's ``tie`` to the bound; for fp32
     ``attention_plain_residuals``."""
     if q.dtype == torch.bfloat16:
-        ref, tie = FA.tensor_core_lse_plain(q, k, scale, bias, kv_len, causal, stable)
+        ref, tie = FA.tensor_core_lse_plain(q, k, scale, bias, kv_len, causal, stable, key_tile=_key_tile(q, bias))
     else:
         ref, tie = FA.attention_plain_residuals(q, k, k, scale, bias, kv_len, causal)[1], 0.0
     assert torch.equal(torch.isneginf(lse), torch.isneginf(ref))
@@ -892,7 +905,7 @@ def test_flash_kernel_with_the_qk_prolog(cuda, mode, has_rope, stable, prolog_k,
             torch.testing.assert_close(out, ref, atol=5e-6, rtol=1e-5)
         else:
             ref = FA.tensor_core_attention_plain(qr, kr, v, d ** -0.5, None, extra.get("kv_len"),
-                                                 extra.get("causal", False), stable)[0]
+                                                 extra.get("causal", False), stable, key_tile=_key_tile(q))[0]
             _assert_close_flash(out, ref, dtype)
 
 
@@ -955,7 +968,8 @@ TC_CASES = {
 
 @pytest.mark.parametrize("case", list(TC_CASES))
 def test_tensor_core_forward_matches_plain(cuda, case):
-    """bf16 without a prolog launches the tensor-core kernel: its output
+    """bf16 without a prolog launches a tensor-core kernel (``"wgmma"`` at
+    D = 64 without a bias, else ``"tc"``, counted under it): its output
     within the bf16 attention tolerance of the plain version, its LSE within
     1e-4 (base-2 units) of the kernel's denominator with -inf on the same
     rows (``_assert_lse_close``), zero rows where no key is visible, and the
@@ -969,12 +983,15 @@ def test_tensor_core_forward_matches_plain(cuda, case):
         bias = _randn(gen, b if bias_kind == "per_batch" else 1, h, sq, sk, scale=2.0).to(cuda)
     lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
     scale = 1.0 / 8 if bias is not None else d ** -0.5
-    counts = (FA.flash_attention.launches, FA.flash_attention.launches_by_route["tc"])
+    which = "wgmma" if d == 64 and bias is None else "tc"
+    assert FA.route(q, bias=bias) == which
+    counts = (FA.flash_attention.launches, FA.flash_attention.launches_by_route[which])
     out, lse = FA.flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, causal=causal,
                                   return_residuals=True)
     alone = FA.flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, causal=causal)
     torch.cuda.synchronize()
-    assert (FA.flash_attention.launches, FA.flash_attention.launches_by_route["tc"]) == (counts[0] + 2, counts[1] + 2)
+    assert (FA.flash_attention.launches, FA.flash_attention.launches_by_route[which]) == (counts[0] + 2,
+                                                                                          counts[1] + 2)
     assert torch.equal(out, alone) and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
     _assert_close_flash(out, FA.attention_plain(q, k, v, scale, bias, lens, causal), torch.bfloat16)
     seen = _assert_lse_close(lse, q, k, scale, bias, lens, causal, stable)
@@ -997,10 +1014,11 @@ def test_tensor_core_forward_rescales_across_tiles(cuda, d):
     v = _randn(gen, b, h, s, d).to(cuda, torch.bfloat16)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     assert 90.0 < float(logits.abs().max()) <= 100.5
-    before = FA.flash_attention.launches_by_route["tc"]
+    which = FA.route(q)
+    before = FA.flash_attention.launches_by_route[which]
     out = FA.flash_attention(q, k, v, 1.0, stable=True)
     torch.cuda.synchronize()
-    assert FA.flash_attention.launches_by_route["tc"] == before + 1 and bool(torch.isfinite(out).all())
+    assert FA.flash_attention.launches_by_route[which] == before + 1 and bool(torch.isfinite(out).all())
     _assert_close_flash(out, FA.attention_plain(q, k, v, 1.0), torch.bfloat16)
 
 
@@ -1118,10 +1136,11 @@ def test_bf16_dit_gradient_card_matches_cpu(cuda):
         grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(value, tree_leaves(at))]
         torch.cuda.synchronize()
         want = [dict(r) for r in before]
-        # on the card, two layers: two forwards with the LSE, two dq and two dkv, all on the tensor cores
+        # on the card, two layers: two forwards with the LSE (head dim 64, no bias: the Hopper forward), two dq
+        # and two dkv, all on the tensor cores
         if torch.device(on).type == "cuda":
-            for r in want:
-                r["tc"] += 2
+            for r, key in zip(want, ("wgmma", "tc", "tc")):
+                r[key] += 2
         assert [dict(r) for r in routes] == want
     for a, b, ref in zip(grads[str(cuda)], grads["cpu"], grads["fp32"]):
         assert float(b.abs().max()) > 0 and bool(torch.isfinite(a).all())
@@ -1136,7 +1155,8 @@ def test_bf16_dit_gradient_card_matches_cpu(cuda):
 def test_routes_on_the_card(cuda):
     """fp32 takes the CUDA-core kernels, each counted under its route and
     none as a tensor-core launch, and bf16 with a prolog the qk prolog kernel
-    and then the tensor-core forward; the CUDA-core entry points refuse bf16
+    and then the forward of its route (D = 64 without a bias: the Hopper
+    kernel, ``"wgmma"``); the CUDA-core entry points refuse bf16
     outright (cudaErrorInvalidValue), so no bf16 call can land on them
     unseen."""
     from alg_tpu_torch.ops import flash_attention_bwd as FB
@@ -1153,7 +1173,7 @@ def test_routes_on_the_card(cuda):
     FA.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), 0.125, qk_norm="rms", q_norm_scale=ones,
                        k_norm_scale=ones)
     torch.cuda.synchronize()
-    assert fwd == {**counts[0], "cuda_core": counts[0]["cuda_core"] + 1, "tc": counts[0]["tc"] + 1}
+    assert fwd == {**counts[0], "cuda_core": counts[0]["cuda_core"] + 1, "wgmma": counts[0]["wgmma"] + 1}
     assert FA.qk_prolog.launches == prologs + 1
     assert dq == {**counts[1], "cuda_core": counts[1]["cuda_core"] + 1}
     assert dkv == {**counts[2], "cuda_core": counts[2]["cuda_core"] + 1}
@@ -1441,7 +1461,7 @@ def test_tensor_core_lse_takes_the_tpu_kernels_denominator(cuda, d, stable):
     torch.cuda.synchronize()
     _assert_lse_close(lse, q, k, scale, None, None, False, stable)
     if d % 128:
-        want = FA.tensor_core_lse_plain(q, k, scale, stable=stable)[0]
+        want = FA.tensor_core_lse_plain(q, k, scale, stable=stable, key_tile=_key_tile(q))[0]
         fp32_sum = FA.attention_plain_residuals(q, k, v, scale)[1]
         err, err_fp32 = (float((lse - ref).abs().mean()) for ref in (want, fp32_sum))
         assert err < 0.1 * err_fp32, f"mean |LSE diff|: the rounded sum's {err:.3e}, the fp32 sum's {err_fp32:.3e}"
@@ -1522,7 +1542,7 @@ def test_qk_prolog_refuses_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("d", [64, 128])
 def test_bf16_prolog_call_runs_the_tensor_core_forward(cuda, d):
     """A bf16 call with a prolog is the qk prolog kernel and then the
-    tensor-core forward, which rounds P to bf16 before P·V as the TPU kernel
+    tensor-core forward of its route, which rounds P to bf16 before P·V as the TPU kernel
     does: bit-equal to the forward without a prolog on ``qk_prolog``'s q and
     k, and within the bf16 attention tolerance of the plain composition."""
     gen = torch.Generator().manual_seed(25)
@@ -1537,7 +1557,8 @@ def test_bf16_prolog_call_runs_the_tensor_core_forward(cuda, d):
                              k_norm_scale=ks, k_norm_bias=kb, rope_cos=cos, rope_sin=sin)
     torch.cuda.synchronize()
     assert FA.qk_prolog.launches == counts[0] + 1
-    assert FA.flash_attention.launches_by_route == {**counts[1], "tc": counts[1]["tc"] + 1}
+    which = FA.route(q)
+    assert FA.flash_attention.launches_by_route == {**counts[1], which: counts[1][which] + 1}
     assert torch.equal(out, FA.flash_attention(*FA.qk_prolog(q, k, pro), v, d ** -0.5, stable=False))
     qr, kr = FA.apply_prolog_plain(q, k, pro)
     _assert_close_flash(out, FA.attention_plain(qr, kr, v, d ** -0.5), torch.bfloat16)
@@ -1663,8 +1684,8 @@ def _rows_near_the_ends(s):
 @pytest.mark.parametrize("case", list(COGVIDEOX15_CASES))
 def test_qk_prep_and_forward_at_cogvideox15_lengths(cuda, case):
     """qk_prep on the head-split view (bit-equal to the contiguous call,
-    within the bf16 tolerance of its plain version) and the bf16 tensor-core
-    forward, at 1.5's joint lengths and one row either side, B = 1, H = 2;
+    within the bf16 tolerance of its plain version) and the bf16 Hopper
+    forward (``"wgmma"``), at 1.5's joint lengths and one row either side, B = 1, H = 2;
     the forward's rows near both ends against the plain version over all
     keys."""
     s = COGVIDEOX15_CASES[case]
@@ -1680,10 +1701,10 @@ def test_qk_prep_and_forward_at_cogvideox15_lengths(cuda, case):
     assert torch.equal(q, QK.qk_norm_rope(view.contiguous(), scale, bias, cos, sin, 1e-6))
     _assert_close(q, QK.qk_norm_rope_plain(view, scale, bias, cos, sin, 1e-6), torch.bfloat16)
     k, v = (torch.randn((1, 2, s, 64), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
-    before = FA.flash_attention.launches_by_route["tc"]
+    before = FA.flash_attention.launches_by_route["wgmma"]
     out = FA.flash_attention(q, k, v, 64 ** -0.5, stable=False)
     torch.cuda.synchronize()
-    assert FA.flash_attention.launches_by_route["tc"] == before + 1 and bool(torch.isfinite(out).all())
+    assert FA.flash_attention.launches_by_route["wgmma"] == before + 1 and bool(torch.isfinite(out).all())
     rows = _rows_near_the_ends(s).to(cuda)
     _assert_close_flash(out[:, :, rows], FA.attention_plain(q[:, :, rows], k, v, 64 ** -0.5), torch.bfloat16)
 
@@ -1855,3 +1876,121 @@ def test_flash_kernel_gives_zeros_and_minus_inf_lse_on_a_chunk_past_kv_len(cuda)
         _assert_close_flash(out, ref_out, dtype)
         torch.testing.assert_close(lse[1].cpu(), ref_lse[1], atol=2e-3 if dtype == torch.bfloat16 else 1e-4,
                                    rtol=1e-4)
+
+
+# -- the Hopper forward: csrc/flash_attention_wgmma.cu (bf16, D = 64, no bias) ----------------------------------
+
+WGMMA_CASES = {
+    # name: (b, h, sq, sk, kv_len, causal, stable); 192 query rows a block, 128 keys a tile
+    "s1000": (2, 3, 1000, 1000, None, False, False),
+    "s1000-stable": (2, 3, 1000, 1000, None, False, True),
+    "s4276": (1, 3, 4276, 4276, None, False, False),
+    "s4276-stable": (1, 3, 4276, 4276, None, False, True),
+    "one-row": (3, 2, 1, 1, None, False, True),
+    "block-edges": (1, 2, 193, 257, None, False, False),
+    "sq70-sk300": (2, 2, 70, 300, None, False, True),
+    "sq300-sk70": (2, 2, 300, 70, None, False, False),
+    "sq1000-sk4276": (1, 2, 1000, 4276, None, False, True),
+    "kvlen-tile-edges": (7, 2, 200, 300, [0, 1, 127, 128, 129, 255, 300], False, False),
+    "kvlen-tile-edges-stable": (7, 2, 150, 300, [0, 1, 127, 128, 129, 257, 300], False, True),
+    "causal-square": (2, 2, 500, 500, None, True, True),
+    "causal-sq200-sk600": (2, 2, 200, 600, None, True, False),
+    "causal-sq600-sk200": (1, 3, 600, 200, None, True, True),  # its first 400 rows see no key
+    "causal-kvlen": (2, 2, 400, 400, [400, 0], True, False),
+}
+
+
+def _tc_forward(q, k, v, scale, stable, kv_len=None, causal=False):
+    """The same call through the ``"tc"`` kernel's entry point (``csrc/flash_attention_tc.cu``), which the
+    wrapper no longer routes it to."""
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    rc = FA._entry(d, "tc")(FA._build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None, 0,
+                            None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), None, b, h, sq,
+                            k.shape[2], float(scale), int(stable), int(causal),
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_wgmma_forward_matches_the_tensor_core_arithmetic(cuda, case):
+    """bf16 at D = 64 without a bias takes the Hopper kernel and no ``"tc"``
+    launch: its output within the bf16 attention tolerance of
+    ``tensor_core_attention_plain`` over its 128-key tiles, its LSE within
+    1e-4 of the kernel's denominator (``_assert_lse_close``) with -inf and
+    zero rows where no key is visible, the same output with and without the
+    LSE; without a running max, where the key tiles do not enter the
+    arithmetic, bit-equal to the ``"tc"`` kernel it replaces."""
+    b, h, sq, sk, kv_len, causal, stable = WGMMA_CASES[case]
+    gen = torch.Generator().manual_seed(23)
+    q = _randn(gen, b, h, sq, 64).to(cuda, torch.bfloat16)
+    k, v = (_randn(gen, b, h, sk, 64).to(cuda, torch.bfloat16) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    scale = 64 ** -0.5
+    assert FA.route(q) == "wgmma" and FA.KEY_TILE["wgmma"] == 128
+    counts = dict(FA.flash_attention.launches_by_route)
+    out, lse = FA.flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal, return_residuals=True)
+    alone = FA.flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route == {**counts, "wgmma": counts["wgmma"] + 2}
+    assert torch.equal(out, alone) and out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    ref = FA.tensor_core_attention_plain(q, k, v, scale, None, lens, causal, stable, key_tile=128)[0]
+    _assert_close_flash(out, ref, torch.bfloat16)
+    seen = _assert_lse_close(lse, q, k, scale, None, lens, causal, stable)
+    assert not out[~seen].any()
+    if not stable:
+        assert torch.equal(out, _tc_forward(q, k, v, scale, stable, lens, causal))
+
+
+def _plain_heads(q, k, v, scale, stable, heads, rows=4096):
+    """``tensor_core_attention_plain`` (128-key tiles) of the (batch, head) pairs ``heads``, over row chunks."""
+    out = {}
+    for bi, hi in heads:
+        kk, vv = k[bi:bi + 1, hi:hi + 1], v[bi:bi + 1, hi:hi + 1]
+        out[bi, hi] = torch.cat([FA.tensor_core_attention_plain(q[bi:bi + 1, hi:hi + 1, i:i + rows], kk, vv, scale,
+                                                                stable=stable, key_tile=128)[0]
+                                 for i in range(0, q.shape[2], rows)], dim=2)
+    return out
+
+
+@pytest.mark.parametrize("stable", [False, True], ids=["unstable", "stable"])
+@pytest.mark.parametrize("shape", [(3, 48, 18002, 64), (2, 48, 45106, 64)], ids=["cogvideox-b3", "cogvideox15"])
+def test_wgmma_forward_at_the_shipped_lengths(cuda, shape, stable):
+    """The DiT's calls at their full lengths (CogVideoX's 3-pass step at S =
+    18,002, CogVideoX-1.5's at 45,106): every row of three heads (the first,
+    one in the middle, the last) within the bf16 attention tolerance of
+    ``tensor_core_attention_plain``; the whole output against the ``"tc"``
+    kernel, bit-equal without a running max, within the tolerance with one."""
+    b, h, s, d = shape
+    gen = torch.Generator(cuda).manual_seed(24)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
+    before = FA.flash_attention.launches_by_route["wgmma"]
+    out = FA.flash_attention(q, k, v, d ** -0.5, stable=stable)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route["wgmma"] == before + 1 and bool(torch.isfinite(out).all())
+    heads = [(0, 0), (b // 2, h // 2), (b - 1, h - 1)]
+    for (bi, hi), ref in _plain_heads(q, k, v, d ** -0.5, stable, heads).items():
+        _assert_close_flash(out[bi:bi + 1, hi:hi + 1], ref, torch.bfloat16)
+    tc = _tc_forward(q, k, v, d ** -0.5, stable)
+    if stable:
+        _assert_close_flash(out, tc, torch.bfloat16)
+    else:
+        assert torch.equal(out, tc)
+
+
+def test_wgmma_entry_refuses_what_it_does_not_take(cuda):
+    """The Hopper entry point takes bf16 without a bias only: fp32, or a bias pointer, returns
+    cudaErrorInvalidValue and writes nothing."""
+    x = torch.full((1, 2, 40, 64), 7.0, device=cuda)
+    fn = FA._entry(64, "wgmma")
+    stream = torch.cuda.current_stream().cuda_stream
+    fp32 = FA._build.DTYPE_CODE[torch.float32]
+    assert fn(fp32, *([x.data_ptr()] * 3), None, 0, None, x.data_ptr(), None, 1, 2, 40, 40, 0.125, 0, 0, stream) == 1
+    y = x.bfloat16()
+    bias = torch.zeros((1, 2, 40, 40), device=cuda)
+    bf16 = FA._build.DTYPE_CODE[torch.bfloat16]
+    assert fn(bf16, *([y.data_ptr()] * 3), bias.data_ptr(), 0, None, y.data_ptr(), None, 1, 2, 40, 40, 0.125, 0, 0,
+              stream) == 1
+    torch.cuda.synchronize()
+    assert bool((x == 7.0).all()) and bool((y == 7.0).all())

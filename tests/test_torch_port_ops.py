@@ -387,7 +387,8 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
     assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "flash_attention_bwd.cu",
                                                       "flash_attention_bwd_dq_tc.cu", "flash_attention_bwd_tc.cu",
                                                       "flash_attention_int8_tc.cu", "flash_attention_tc.cu",
-                                                      "qk_prep.cu", "qk_prolog.cu", "rope.cu"}
+                                                      "flash_attention_wgmma.cu", "qk_prep.cu", "qk_prolog.cu",
+                                                      "rope.cu"}
     assert {p.name for p in _build._sources()[1]} == {"common.cuh", "flash_simt.cuh", "mma.cuh"}
     # the flash sources declare their head dims in a ``// build-variants:`` line: one unit each
     assert [(u[0], u[2]) for u in _build.compile_units()] == [
@@ -396,6 +397,7 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
           for d in FA.HEAD_DIMS),
         *((f"flash_attention_int8_tc.ALG_INT8_HEAD_DIM_{d}", (f"-DALG_INT8_HEAD_DIM={d}",)) for d in I8.HEAD_DIMS),
         *((f"flash_attention_tc.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",)) for d in FA.HEAD_DIMS),
+        ("flash_attention_wgmma", ()),  # D = 64 only
         ("qk_prep", ()),
         *((f"qk_prolog.ALG_QK_HEAD_DIM_{d}", (f"-DALG_QK_HEAD_DIM={d}",)) for d in FA.HEAD_DIMS),
         ("rope", ())]

@@ -39,25 +39,50 @@ from test_torch_port_ops_bwd import CASES
 BF16_STEP = 2.0 ** -7  # the spacing of bf16 values in [1, 2)
 
 
-def _on(device, dtype):
-    """A stand-in for a tensor on ``device``: the routing reads device and dtype only."""
-    return types.SimpleNamespace(device=torch.device(device), dtype=dtype)
+def _on(device, dtype, head_dim=64):
+    """A stand-in for a [1, 1, 1, head_dim] tensor on ``device``: the routing reads device, dtype and head dim
+    only."""
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype, shape=(1, 1, 1, head_dim))
 
 
 @pytest.mark.parametrize("device,dtype,prolog,want", [
     ("cpu", torch.bfloat16, False, "plain"),
     ("cpu", torch.float32, True, "plain"),
-    ("cuda", torch.bfloat16, False, "tc"),
+    ("cuda", torch.bfloat16, False, "wgmma"),
     ("cuda", torch.float32, False, "cuda_core"),
-    ("cuda", torch.bfloat16, True, "tc"),
+    ("cuda", torch.bfloat16, True, "wgmma"),
     ("cuda", torch.float32, True, "cuda_core"),
 ], ids=["cpu-bf16", "cpu-fp32-prolog", "cuda-bf16", "cuda-fp32", "cuda-bf16-prolog", "cuda-fp32-prolog"])
 def test_forward_route(device, dtype, prolog, want):
-    """Every CUDA bf16 call takes the tensor-core kernel, every fp32 one the
-    CUDA-core kernel: a qk prolog runs as a launch of its own ahead of the
-    forward (``qk_prolog``), so a bf16 call with one rounds P to bf16 before
-    P·V as the TPU kernel does."""
+    """Every CUDA bf16 call at D = 64 without a bias takes the Hopper kernel
+    (``csrc/flash_attention_wgmma.cu``), every fp32 one the CUDA-core kernel:
+    a qk prolog runs as a launch of its own ahead of the forward
+    (``qk_prolog``), so a bf16 call with one rounds P to bf16 before P·V as
+    the TPU kernel does."""
     assert FA.route(_on(device, dtype), prolog) == want
+
+
+@pytest.mark.parametrize("has_bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("head_dim", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_forward_kernel_route_table(dtype, head_dim, has_bias):
+    """``kernel_route`` on what a call can observe: bf16 at D = 64 without a
+    bias (the CogVideoX DiTs, CLIP-L vision, the D = 64 training and ring
+    calls) takes ``"wgmma"``; bf16 with a bias (T5, UMT5) or at D = 80 or 128
+    (Wan, HunyuanVideo, Llama, CLIP ViT-H) ``"tc"``; fp32 ``"cuda_core"``
+    whatever else it has. ``route`` agrees on a CUDA tensor with a bias."""
+    want = "cuda_core" if dtype == torch.float32 else "wgmma" if head_dim == 64 and not has_bias else "tc"
+    assert FA.kernel_route(dtype, head_dim, has_bias) == want
+    bias = torch.zeros(1) if has_bias else None
+    assert FA.route(_on("cuda", dtype, head_dim), bias=bias) == want
+    if want != "cuda_core":
+        assert FA.KEY_TILE[want] in (64, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8, torch.float64], ids=["fp16", "int8", "fp64"])
+def test_forward_kernel_route_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError):
+        FA.kernel_route(dtype, 64, False)
 
 
 @pytest.mark.parametrize("device,dtype,want", [
@@ -96,13 +121,17 @@ def test_routes_raise_for_other_devices_and_dtypes(route):
 
 
 def test_each_route_names_an_entry_point_of_the_sources():
-    """Every C entry point the wrappers can reach is defined in a source, one per head dim."""
+    """Every C entry point the wrappers can reach is defined in a source, one per head dim; the Hopper
+    forward's (``"wgmma"``) at its one head dim, ``WGMMA_HEAD_DIM``."""
     defined = "".join(p.read_text() for p in _build._sources()[0])
-    for names, macro in ((FA._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"), (FB._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"),
+    forward = {key: name for key, name in FA._ENTRY_NAMES.items() if key != "wgmma"}
+    for names, macro in ((forward, "ALG_FLASH_HEAD_DIM"), (FB._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"),
                          (I8._ENTRY_NAMES, "ALG_INT8_HEAD_DIM"), ({"prolog": FA.PROLOG_ENTRY_NAME}, "ALG_QK_HEAD_DIM")):
         for name in names.values():
             stem = name.format(d="")
             assert f"ALG_CAT({stem}, {macro})" in defined, stem
+    wgmma = FA._ENTRY_NAMES["wgmma"].format(d=FA.WGMMA_HEAD_DIM)
+    assert re.search(rf'extern "C" int {wgmma}\(', defined), wgmma
 
 
 def test_only_the_prolog_unit_includes_the_cuda_core_forward_body():

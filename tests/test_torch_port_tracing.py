@@ -138,6 +138,8 @@ def test_profiled_call_records_request_steps_forwards_and_blocks(pipe):
             (attention,) = _children(recs, block, "block.attention")
             assert [c["name"] for c in _children(recs, attention)] == ["attention.qkv", "attention.kernel",
                                                                         "attention.out"]
+            # the forward records the route it took on the span: "plain" on the CPU
+            assert _only(_children(recs, attention), "attention.kernel")["attrs"] == {"route": "plain"}
 
 
 def test_step_cache_skips_the_forward_span(pipe):
