@@ -18,10 +18,23 @@ LayerNorms compute in fp32. Per block the DiT launches the port's rope
 kernel (``ops/rope``) on q and on k of the self-attention and flash
 attention (``ops/flash_attention``, ``stable=False``) three times: self,
 text cross, image cross.
+
+Under a recording profiler (``utils/profiling.py``) a forward is the spans
+``dit.embed``, one ``dit.block`` a block (``block``: its place) and
+``dit.final``, and a block's stages are spans named as the CogVideoX DiT
+names the same work: ``block.norm`` (the modulation added in fp32, the
+LayerNorms, scale and shift, and ``norm2``), ``block.attention`` (the
+self-attention: ``attention.qkv`` with the q/k RMSNorm and the RoPE
+launches, ``attention.kernel`` with its ``route``, ``attention.out``),
+``block.gate`` (the residual adds: two gated, the cross-attention's not) and
+``block.ff``; ``attention.cross`` holds the whole text-plus-image
+cross-attention (its q, both k/v projections and norms, both kernel
+launches, the sum and ``to_out``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -34,6 +47,14 @@ from alg_tpu_torch.models import rope as R
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.rope import rope_interleaved
 from alg_tpu_torch.sharding.pipeline import run_blocks
+from alg_tpu_torch.utils.profiling import span
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _unrecorded(name: str):
+    """What a stage of the cross-attention opens: nothing (its block records it as ``attention.cross``)."""
+    return _NO_SPAN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,28 +123,33 @@ class WanAttention(nn.Module):
 
     def forward(self, q_in, kv_in, rope_cos=None, rope_sin=None, extra_kv=None):
         b, sq, _ = q_in.shape
+        stage = span if rope_cos is not None else _unrecorded  # the self-attention's stages are spans
 
         def heads(x):  # [B, S, dim] -> a [B, H, S, D] view
             return x.view(b, -1, self.nh, self.hd).transpose(1, 2)
 
-        qh = heads(self.norm_q(self.to_q(q_in)))
-        kh = heads(self.norm_k(self.to_k(kv_in)))
-        vh = heads(self.to_v(kv_in))
-        if rope_cos is not None:
-            qh = rope_interleaved(qh, rope_cos, rope_sin)
-            kh = rope_interleaved(kh, rope_cos, rope_sin)
-        else:
-            qh = qh.contiguous()  # shared by the two cross-attentions
-        out = attention(qh, kh, vh, stable=False)
+        with stage("attention.qkv"):
+            qh = heads(self.norm_q(self.to_q(q_in)))
+            kh = heads(self.norm_k(self.to_k(kv_in)))
+            vh = heads(self.to_v(kv_in))
+            if rope_cos is not None:
+                qh = rope_interleaved(qh, rope_cos, rope_sin)
+                kh = rope_interleaved(kh, rope_cos, rope_sin)
+            else:
+                qh = qh.contiguous()  # shared by the two cross-attentions
+        with stage("attention.kernel"):
+            out = attention(qh, kh, vh, stable=False)
         if extra_kv is not None:
             k_img = heads(self.norm_added_k(self.add_k_proj(extra_kv)))
             out = out + attention(qh, k_img, heads(self.add_v_proj(extra_kv)), stable=False)
-        return self.to_out(out.transpose(1, 2).reshape(b, sq, -1))  # -1: H/tp heads under tensor parallelism
+        with stage("attention.out"):
+            return self.to_out(out.transpose(1, 2).reshape(b, sq, -1))  # -1: H/tp heads under tensor parallelism
 
 
 class WanBlock(nn.Module):
-    def __init__(self, cfg: WanTransformerConfig, device=None, dtype=None):
+    def __init__(self, cfg: WanTransformerConfig, index: int = 0, device=None, dtype=None):
         super().__init__()
+        self.index = index  # the block's place in the DiT, for its span
         dim = cfg.inner_dim
         kw = dict(device=device, dtype=dtype)
         self.eps = cfg.eps
@@ -134,18 +160,28 @@ class WanBlock(nn.Module):
         self.ffn = L.MLP(dim, cfg.ffn_dim, **kw)
 
     def forward(self, x, temb6, text, img, rope_cos, rope_sin):
-        # modulation added in fp32, then cast
-        mod = self.scale_shift_table.float()[None] + temb6.float()
-        shift, scale, gate, c_shift, c_scale, c_gate = (m.to(x.dtype) for m in mod.chunk(6, dim=1))
-
-        xn = L.layer_norm(x, None, None, self.eps) * (1 + scale) + shift
-        x = x + gate * self.attn1(xn, xn, rope_cos, rope_sin)
-
-        xn = self.norm2(x)
-        x = x + self.attn2(xn, text, extra_kv=img)
-
-        xn = L.layer_norm(x, None, None, self.eps) * (1 + c_scale) + c_shift
-        return x + c_gate * self.ffn(xn)
+        with span("dit.block", block=self.index):
+            with span("block.norm"):
+                # modulation added in fp32, then cast
+                mod = self.scale_shift_table.float()[None] + temb6.float()
+                shift, scale, gate, c_shift, c_scale, c_gate = (m.to(x.dtype) for m in mod.chunk(6, dim=1))
+                xn = L.layer_norm(x, None, None, self.eps) * (1 + scale) + shift
+            with span("block.attention"):
+                o = self.attn1(xn, xn, rope_cos, rope_sin)
+            with span("block.gate"):
+                x = x + gate * o
+            with span("block.norm"):
+                xn = self.norm2(x)
+            with span("attention.cross"):
+                o = self.attn2(xn, text, extra_kv=img)
+            with span("block.gate"):
+                x = x + o
+            with span("block.norm"):
+                xn = L.layer_norm(x, None, None, self.eps) * (1 + c_scale) + c_shift
+            with span("block.ff"):
+                o = self.ffn(xn)
+            with span("block.gate"):
+                return x + c_gate * o
 
 
 class _TextEmbedder(nn.Module):
@@ -195,7 +231,7 @@ class WanTransformer(nn.Module):
         self.condition_embedder = _ConditionEmbedder(cfg, **kw)
         self.scale_shift_table = L.table((2, dim), dim ** -0.5, **kw)
         self.proj_out = L.Linear(dim, pt * ph * pw * cfg.out_channels, **kw)
-        self.blocks = nn.ModuleList(WanBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(WanBlock(cfg, i, **kw) for i in range(cfg.num_layers))
 
     def forward(self, hidden_states: torch.Tensor, timestep: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 encoder_hidden_states_image: Optional[torch.Tensor] = None,
@@ -211,28 +247,30 @@ class WanTransformer(nn.Module):
         dim = cfg.inner_dim
         ce = self.condition_embedder
 
-        # patchify: patches flattened in (C, pt, ph, pw) order
-        x = hidden_states.reshape(b, c, f // pt, pt, h // ph, ph, w // pw, pw).permute(0, 2, 4, 6, 1, 3, 5, 7)
-        x = self.patch_embedding(x.reshape(b, (f // pt) * (h // ph) * (w // pw), c * pt * ph * pw))
+        with span("dit.embed"):
+            # patchify: patches flattened in (C, pt, ph, pw) order
+            x = hidden_states.reshape(b, c, f // pt, pt, h // ph, ph, w // pw, pw).permute(0, 2, 4, 6, 1, 3, 5, 7)
+            x = self.patch_embedding(x.reshape(b, (f // pt) * (h // ph) * (w // pw), c * pt * ph * pw))
 
-        t_freq = L.sinusoidal_timestep_embedding(timestep, cfg.freq_dim)
-        temb = ce.time_embedder(t_freq.to(x.dtype))
-        temb6 = ce.time_proj(L.silu(temb)).reshape(b, 6, dim)
-        text = ce.text_embedder(encoder_hidden_states.to(x.dtype))
-        img = None
-        if encoder_hidden_states_image is not None and cfg.image_dim is not None:
-            img = ce.image_embedder(encoder_hidden_states_image.to(x.dtype))
+            t_freq = L.sinusoidal_timestep_embedding(timestep, cfg.freq_dim)
+            temb = ce.time_embedder(t_freq.to(x.dtype))
+            temb6 = ce.time_proj(L.silu(temb)).reshape(b, 6, dim)
+            text = ce.text_embedder(encoder_hidden_states.to(x.dtype))
+            img = None
+            if encoder_hidden_states_image is not None and cfg.image_dim is not None:
+                img = ce.image_embedder(encoder_hidden_states_image.to(x.dtype))
 
-        rc = None if rope_cos is None else rope_cos.float().contiguous()
-        rs = None if rope_sin is None else rope_sin.float().contiguous()
+            rc = None if rope_cos is None else rope_cos.float().contiguous()
+            rs = None if rope_sin is None else rope_sin.float().contiguous()
         (x,) = run_blocks(self.blocks, (x,), (temb6, text, img), (rc, rs))
 
-        # output head: shift/scale from temb (not silu'd) plus the table, added in fp32
-        head = self.scale_shift_table.float()[None] + temb.float()[:, None]
-        shift, scale = (m.to(x.dtype) for m in head.chunk(2, dim=1))
-        x = L.layer_norm(x, None, None, cfg.eps) * (1 + scale) + shift
-        x = self.proj_out(x)  # [B, S, pt·ph·pw·out]
+        with span("dit.final"):
+            # output head: shift/scale from temb (not silu'd) plus the table, added in fp32
+            head = self.scale_shift_table.float()[None] + temb.float()[:, None]
+            shift, scale = (m.to(x.dtype) for m in head.chunk(2, dim=1))
+            x = L.layer_norm(x, None, None, cfg.eps) * (1 + scale) + shift
+            x = self.proj_out(x)  # [B, S, pt·ph·pw·out]
 
-        oc = cfg.out_channels
-        x = x.reshape(b, f // pt, h // ph, w // pw, pt, ph, pw, oc).permute(0, 7, 1, 4, 2, 5, 3, 6)
-        return x.reshape(b, oc, f, h, w)
+            oc = cfg.out_channels
+            x = x.reshape(b, f // pt, h // ph, w // pw, pt, ph, pw, oc).permute(0, 7, 1, 4, 2, 5, 3, 6)
+            return x.reshape(b, oc, f, h, w)
