@@ -2,14 +2,15 @@
 
 ``flash_attention`` picks its implementation in :func:`route`: CPU tensors
 run :func:`attention_plain`; on CUDA tensors :func:`kernel_route` decides by
-dtype, head dim and whether a bias is given: bf16 at D = 64 without a bias
-(every CogVideoX DiT self-attention) launches the Hopper kernel
+dtype, head dim and whether a bias is given: bf16 at D = 64 or 128 without a
+bias (every CogVideoX DiT self-attention; the Wan DiT's self- and
+cross-attention, the HunyuanVideo DiT's, Llama's) launches the Hopper kernel
 ``csrc/flash_attention_wgmma.cu`` (``wgmma``, TMA, warp specialisation),
-other bf16 calls the tensor-core kernel ``csrc/flash_attention_tc.cu``
-(``mma.sync`` with ``ldmatrix`` and ``cp.async``), fp32 calls the
-register-tiled CUDA-core kernel ``csrc/flash_attention.cu``; anything else
-raises. There is no fallback between them: a kernel that fails to build or
-launch raises.
+other bf16 calls (with a bias: T5, UMT5; at D = 80) the tensor-core kernel
+``csrc/flash_attention_tc.cu`` (``mma.sync`` with ``ldmatrix`` and
+``cp.async``), fp32 calls the register-tiled CUDA-core kernel
+``csrc/flash_attention.cu``; anything else raises. There is no fallback
+between them: a kernel that fails to build or launch raises.
 The kernels replace the TPU kernel
 ``alg_tpu/ops/flash_attention.py:_fwd_kernel`` at head dims 64, 80 and 128:
 ``stable`` (running max) or not (bounded logits, the DiTs' fast path),
@@ -55,7 +56,7 @@ D = 64 and 80 the sum of the rounded p, at 128 of the fp32 p); the plain
 version rounds the normalised probabilities, so in bf16 the two differ by
 those roundings and that of the output. The two bf16 kernels differ only in
 their key tiles (``KEY_TILE``), against which a ``stable`` call's running
-max moves.
+max moves, and at D = 128 in the order of the denominator's fp32 sums.
 :func:`attention_plain_residuals` mirrors ``_xla_attention_residuals`` (base-2
 logits, explicit max, the LSE beside the output), with ``causal`` and ``bias``
 as well.
@@ -249,21 +250,21 @@ _PROLOG_ARGTYPES = [_INT] + [_PTR] * 4 + [ctypes.c_longlong, _INT, _INT, _INT, c
 _ENTRY_NAMES = {"wgmma": "alg_flash_attention_wgmma_fwd_d{d}", "tc": "alg_flash_attention_tc_fwd_d{d}",
                 "cuda_core": "alg_flash_attention_fwd_d{d}"}
 PROLOG_ENTRY_NAME = "alg_qk_prolog_d{d}"  # csrc/qk_prolog.cu
-WGMMA_HEAD_DIM = 64  # the head dim csrc/flash_attention_wgmma.cu is built for
+WGMMA_HEAD_DIMS = (64, 128)  # the head dims csrc/flash_attention_wgmma.cu is built for
 KEY_TILE = {"wgmma": 128, "tc": 64}  # keys a tile of each bf16 kernel: the steps of a stable call's running max
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int, has_bias: bool) -> str:
     """The kernel a CUDA call takes, from what it can observe: ``"wgmma"``
-    (``csrc/flash_attention_wgmma.cu``) for bf16 at D = 64 without a bias,
-    ``"tc"`` (``csrc/flash_attention_tc.cu``) for the other bf16 calls, and
-    ``"cuda_core"`` (``csrc/flash_attention.cu``) for fp32. Raises for any
-    other dtype."""
+    (``csrc/flash_attention_wgmma.cu``) for bf16 at D = 64 or 128 without a
+    bias, ``"tc"`` (``csrc/flash_attention_tc.cu``) for the other bf16 calls
+    (a bias, D = 80), and ``"cuda_core"`` (``csrc/flash_attention.cu``) for
+    fp32. Raises for any other dtype."""
     if dtype not in _build.DTYPE_CODE:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {dtype}")
     if dtype != torch.bfloat16:
         return "cuda_core"
-    return "wgmma" if head_dim == WGMMA_HEAD_DIM and not has_bias else "tc"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS and not has_bias else "tc"
 
 
 def route(q: torch.Tensor, prolog: bool = False, bias: Optional[torch.Tensor] = None) -> str:

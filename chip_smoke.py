@@ -18,7 +18,8 @@ Phases, each of which must pass:
       every kernel of the tensor-core entry points must hold tensor-core
       instructions, whose counts are printed per kernel: HGMMA and no HMMA
       in the Hopper forward (``csrc/flash_attention_wgmma.cu``, the bf16 calls
-      at D = 64 without a bias), HMMA and no HGMMA in the bf16 mma.sync
+      at D = 64 and 128 without a bias; one kernel a head dim and mode),
+      HMMA and no HGMMA in the bf16 mma.sync
       forward, HMMA in dq and dkv, IMMA in both modes of the int8 kernel in both
       types and HMMA in its bf16 "qk" mode as well (P·V in bf16); its fp32
       "qk" mode must hold no HMMA (P·V in exact fp32 FMAs, no TF32);
@@ -34,7 +35,10 @@ Phases, each of which must pass:
       least time the card could take: bytes over 3.35 TB/s or operations over
       the peak rate of the type, whichever is larger) and, for attention, the
       time of ``torch.nn.functional.scaled_dot_product_attention`` on the
-      same tensors, a yardstick that the port never calls;
+      same tensors, a yardstick that the port never calls (a call on the
+      Hopper forward also times the ``"tc"`` kernel on the same tensors; the
+      Wan DiT's three attentions of a 3-pass step at the shipped 81 frames,
+      ``[3,40,32760,128]`` to 32,760, 512 and 257 keys, among them);
       then the training kernels: the forward's LSE output against the plain
       residual version, and the dq and dkv backward kernels against their
       plain versions, at the attention shapes a training step of each family
@@ -88,8 +92,9 @@ Phases, each of which must pass:
       from a seed) driven once through ``WanPipeline.__call__`` with the
       shipped ALG settings at 9 frames, 480x832, 4 steps (2 three-pass, 2
       two-pass), the prompt through ``encode_prompt`` with a prefix mask and
-      the CLIP tower's penultimate output as ``image_embeds``; same checks;
-      then the same call under int8 "qk" (40 int8 and 80 bf16 flash launches
+      the CLIP tower's penultimate output as ``image_embeds``; same checks,
+      and the DiT's 120 flash launches a forward on the Hopper kernel, UMT5's
+      (a bias) on mma.sync; then the same call under int8 "qk" (40 int8 and 80 bf16 flash launches
       a DiT forward: the two cross-attentions stay where they were); then
       C2-pixel, the same settings on the RGB frame (the condition video
       rebuilt, encoded tile by tile and sampled on each 3-pass step), and
@@ -304,8 +309,10 @@ input, then on the head-split view beside the transposing copy it saves),
 ``[2,40,32760,128]`` (the call with its quantizers, and the kernel's device
 time, beside fp32 SDPA with TF32 off and the bf16 flash kernel on the same
 values), the bf16 DiT calls at ``[3,48,18002,64]`` and ``[2,48,45106,64]``, the
-dense flash calls of phase B at head dims 64 and 128 (each bf16 call at D = 64
-on the Hopper forward beside the ``"tc"`` kernel on the same tensors, through
+Wan DiT's three bf16 attentions of a 3-pass step at ``[3,40,32760,128]`` (self,
+cross to 512 and to 257 keys), the
+dense flash calls of phase B at head dims 64 and 128 (each bf16 call on the
+Hopper forward beside the ``"tc"`` kernel on the same tensors, through
 its entry point, and SDPA), the fp32 CLIP calls
 ``[1,16,257,80]`` and ``[1,12,77,64]`` (causal), the qk prolog calls of
 phase B at ``[2,48,4276,64]`` (LayerNorm + RoPE) and ``[1,24,3048,128]`` (RMS
@@ -424,12 +431,14 @@ def _set_tf32(matmul: bool, cudnn: bool) -> None:
 # The tensor-core kernels: the C entry point that launches them, a part of their kernels' mangled names, the
 # tensor-core instructions each must hold (HMMA: bf16 products by mma.sync; HGMMA: bf16 warpgroup products by
 # wgmma; IMMA: int8 products) and those it must not. "flash_fwd_tc_kernelI" is the mma.sync forward alone (its
-# template arguments follow the name), "flash_fwd_tc_kernel_wgmmaI" the Hopper forward. The
+# template arguments follow the name), "flash_fwd_tc_kernel_wgmmaILi64E" and "...ILi128E" the Hopper forward at
+# each head dim (its first template argument). The
 # int8 kernel's instantiations by mode and output type: "qk" (template arguments false, bf16) takes QKᵀ in int8
 # and P·V in bf16, "full" both in int8 in either type; fp32 "qk" (false, float) QKᵀ in int8 and P·V in exact fp32
 # FMAs, so no HMMA (a TF32 or bf16 product) may appear in it.
 TC_KERNELS = {"alg_flash_attention_tc_fwd_d<D>": ("flash_fwd_tc_kernelI", ("HMMA",), ("HGMMA",)),
-              "alg_flash_attention_wgmma_fwd_d64": ("flash_fwd_tc_kernel_wgmmaI", ("HGMMA",), ("HMMA",)),
+              "alg_flash_attention_wgmma_fwd_d64": ("flash_fwd_tc_kernel_wgmmaILi64E", ("HGMMA",), ("HMMA",)),
+              "alg_flash_attention_wgmma_fwd_d128": ("flash_fwd_tc_kernel_wgmmaILi128E", ("HGMMA",), ("HMMA",)),
               "alg_flash_attention_bwd_dq_tc_d<D>": ("flash_bwd_dq_tc_kernel", ("HMMA",), ()),
               "alg_flash_attention_bwd_dkv_tc_d<D>": ("flash_bwd_dkv_tc_kernel", ("HMMA",), ()),
               "alg_flash_attention_int8_tc_d<D> qk": ("flash_int8_tc_kernelILb0E13__nv_bfloat16E", ("IMMA", "HMMA"),
@@ -481,7 +490,8 @@ RESOURCE_KERNELS = {**FP32_KERNELS, "bf16 tc forward": r"\d+flash_fwd_tc_kernelI
 def _kernel_resources(log: str) -> list:
     """Lines naming the registers and spilled bytes of every instantiation of
     the kernels of ``RESOURCE_KERNELS``, from the build log's ``ptxas -v``
-    report (the head dim from the unit's ``-DALG_*_HEAD_DIM``; "-" for a unit
+    report (the head dim from the unit's ``-DALG_*_HEAD_DIM``, else from a
+    kernel templated on it, the Hopper forward's ``ILi<D>E``; "-" for a unit
     of one head dim)."""
     import re
 
@@ -501,7 +511,9 @@ def _kernel_resources(log: str) -> list:
             for what, pattern in RESOURCE_KERNELS.items():
                 if re.search(pattern, kernel):
                     stores, loads = props or ("?", "?")
-                    lines.append(f"[A] {what} D={head_dim} {kernel}: {used.group(1)} registers, {stores} bytes spill "
+                    templated = re.search(r"wgmmaILi(\d+)E", kernel)
+                    dim = templated.group(1) if head_dim == "-" and templated else head_dim
+                    lines.append(f"[A] {what} D={dim} {kernel}: {used.group(1)} registers, {stores} bytes spill "
                                  f"stores, {loads} bytes spill loads")
             kernel = None
     return lines
@@ -672,8 +684,10 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     ``scaled_dot_product_attention`` call on the same tensors (bias,
     ``kv_len`` and a causal mask beside ``kv_len`` as its ``attn_mask``; a
     causal mask alone as ``is_causal``); a call on the Hopper kernel's route
-    (``"wgmma"``) also times the ``"tc"`` kernel it replaced on the same
-    tensors, through that kernel's entry point. The plain version, which holds the
+    (``"wgmma"``) also times it and the ``"tc"`` kernel it replaced on the
+    same tensors through their entry points alone, in turns (a call under a
+    millisecond 50 times back to back, its device time rather than the host's
+    per call). The plain version, which holds the
     fp32 logits, runs over query chunks (per batch element) of at most
     2 GiB of logits; a causal chunk takes the keys up to its last row's
     limit, which keeps the diagonal where it is. In bf16 the absolute
@@ -747,17 +761,23 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     ms = _time_ms(kernel, reps=reps)
     plain_ms = _time_ms(plain, reps=reps)
     library_ms = _time_ms(library, reps=reps)  # a yardstick only: the port never calls it
-    tc_ms = None  # a tree without the Hopper forward (copied there by --dense-flash) has no "wgmma" route
+    entry_ms = {}  # a tree without the Hopper forward (copied there by --dense-flash) has no "wgmma" route
     if "wgmma" in FA.flash_attention.launches_by_route and FA.kernel_route(dtype, d, bias is not None) == "wgmma":
-        tc_out = torch.empty_like(q)
+        entry_out = torch.empty_like(q)
+        # both bf16 kernels through their entry points alone, in turns, so that neither pays the wrapper's host
+        # time; a call under a millisecond is launched 50 times back to back, so that its device time shows
+        launches = 1 if ms > 1.0 else 50
 
-        def tc_kernel():
-            rc = FA._entry(d, "tc")(FA._build.DTYPE_CODE[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None, 0,
-                                    None if lens is None else lens.data_ptr(), tc_out.data_ptr(), None, b, h, sq, sk,
-                                    float(scale), int(stable), int(causal), torch.cuda.current_stream().cuda_stream)
-            FA._build.check(rc, "the tc flash kernel")
+        def entries(which):
+            for _ in range(launches):
+                rc = FA._entry(d, which)(FA._build.DTYPE_CODE[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                         0, None if lens is None else lens.data_ptr(), entry_out.data_ptr(), None, b,
+                                         h, sq, sk, float(scale), int(stable), int(causal),
+                                         torch.cuda.current_stream().cuda_stream)
+                FA._build.check(rc, f"the {which} flash kernel")
 
-        tc_ms = _time_ms(tc_kernel, reps=reps)
+        for which in ("tc", "wgmma", "wgmma", "tc"):
+            entry_ms.setdefault(which, []).append(_time_ms(lambda: entries(which), reps=reps) / launches)
     # what this call's data needs: batch row b reads its first min(kv_len[b], Sk) keys and values and as
     # many columns of the bias (one bias for all batch rows: the most any row needs); q and the output whole.
     # Under the causal mask query i multiplies only with its first min(kept, i + Sk - Sq + 1) keys.
@@ -769,11 +789,13 @@ def _attn_case(records, name, shape_q, dtype, gen, scale, stable, sk=None, with_
     shape = tuple(shape_q) if sk == sq else (b, h, f"{sq}->{sk}", d)
     _report(records, name, tol_name(dtype), shape, err, ok, (atol, tol[1]), ms, plain_ms, bound, library_ms,
             ref_size=statistics.fmean(sizes))
-    if tc_ms is not None:
-        records[-1]["tc_ms"] = tc_ms
-        print(f"[B] {name:<22} wgmma {ms:.3f} ms ({bound[0] / ms:.1%} of the bound) against the tc kernel {tc_ms:.3f} "
-              f"ms ({bound[0] / tc_ms:.1%}) and sdpa {library_ms:.3f} ms ({bound[0] / library_ms:.1%}); "
-              f"{_card_line()}", flush=True)
+    if entry_ms:
+        wgmma_ms, tc_ms = min(entry_ms["wgmma"]), min(entry_ms["tc"])
+        records[-1].update(wgmma_entry_ms=wgmma_ms, tc_ms=tc_ms)
+        print(f"[B] {name:<22} entry points alone ({launches} launches back to back, in turns): wgmma "
+              f"{', '.join(f'{t:.4f}' for t in entry_ms['wgmma'])} ms ({bound[0] / wgmma_ms:.1%} of the bound) against "
+              f"the tc kernel {', '.join(f'{t:.4f}' for t in entry_ms['tc'])} ms ({bound[0] / tc_ms:.1%}); sdpa "
+              f"{library_ms:.3f} ms ({bound[0] / library_ms:.1%}); {_card_line()}", flush=True)
 
 
 # The HunyuanVideo path's sequence lengths, as the pipeline's prompt bookkeeping gives them (phase C3
@@ -1448,6 +1470,7 @@ def phase_dense_flash() -> None:
     _int8_dense_case((2, 40, 32760, 128), gen, reps=1)
     _attn_case(records, "flash_dit_b3", (3, 48, 18002, 64), torch.bfloat16, gen, 64 ** -0.5, False)
     _attn_case(records, "flash_dit", (2, 48, COGVIDEOX15_S[81], 64), torch.bfloat16, gen, 64 ** -0.5, False, reps=1)
+    _wan_shipped_attention(records, gen, reps=3)
     for dtype in (torch.bfloat16, torch.float32):
         _attn_case(records, "flash_dit", (2, 48, 4276, 64), dtype, gen, 64 ** -0.5, False, reps=5)
         _attn_case(records, "flash_dit", (2, 48, 17776, 64), dtype, gen, 64 ** -0.5, False)
@@ -1485,6 +1508,8 @@ def phase_kernels() -> list:
         # Wan path: 9 frames (S = 4,680) and the shipped 81 frames (S = 32,760)
         for shape in ((2, 40, 4680, 128), (2, 40, 32760, 128)):
             _rope_case(records, shape, dtype, gen)
+        if dtype == bf16:  # a 3-pass ALG step of the shipped config: its three attentions, on the Hopper forward
+            _wan_shipped_attention(records, gen)
         _attn_case(records, "flash_wan_self", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False)
         _attn_case(records, "flash_wan_self", (2, 40, 32760, 128), dtype, gen, 128 ** -0.5, False, reps=1)
         _attn_case(records, "flash_wan_cross_text", (2, 40, 4680, 128), dtype, gen, 128 ** -0.5, False, sk=512)
@@ -1509,6 +1534,18 @@ def phase_kernels() -> list:
     _prolog_kernel_cases(records, gen)
     _require_all_ok(records)
     return records
+
+
+def _wan_shipped_attention(records, gen, reps=1) -> None:
+    """The Wan DiT's three bf16 attentions of a 3-pass step at the shipped 81 frames, 480 x 832: self-attention
+    over the 32,760 video tokens, cross-attention to the 512 text and 257 image tokens."""
+    import torch
+
+    shape = (3, 40, 32760, 128)
+    _attn_case(records, "flash_wan_self", shape, torch.bfloat16, gen, 128 ** -0.5, False, reps=reps)
+    _attn_case(records, "flash_wan_cross_text", shape, torch.bfloat16, gen, 128 ** -0.5, False, sk=512, reps=reps)
+    _attn_case(records, "flash_wan_cross_image", shape, torch.bfloat16, gen, 128 ** -0.5, False, sk=257, reps=reps)
+    torch.cuda.empty_cache()
 
 
 def _require_all_ok(records) -> None:
@@ -2055,6 +2092,15 @@ def phase_slice_wan() -> dict:
                              f"{t5_enc} UMT5 encodes, {clip_runs} CLIP runs; want 4 (2, 2), 2, 1")
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != {want}")
+    from alg_tpu_torch.ops.flash_attention import flash_attention
+
+    # of the tensor-core forwards, the DiT's three a block (head dim 128, no bias) on the Hopper kernel, UMT5's
+    # (a bias) on mma.sync
+    by_route = dict(flash_attention.launches_by_route)
+    if (by_route["wgmma"], by_route["tc"]) != (3 * tcfg.num_layers * dit_fwd, UMT5_XXL.num_layers * t5_enc):
+        raise AssertionError(f"[C2] forward launches by route {by_route}: want the DiT's "
+                             f"{3 * tcfg.num_layers * dit_fwd} on wgmma, UMT5's {UMT5_XXL.num_layers * t5_enc} on tc")
+    print(f"[C2] forward launches by route {by_route}")
     if video.shape != (1, 9, 480, 832, 3) or not np.isfinite(video).all():
         raise AssertionError(f"output {video.shape}, finite={bool(np.isfinite(video).all())}")
     print(f"[C2] output {video.shape} finite, mean {video.mean():.4f} std {video.std():.4f}: PASS", flush=True)

@@ -45,12 +45,14 @@ rows near both ends, the whole shipped [2, 48, 45106, 64] call) and a small
 either side of ``torch._int_mm``'s least 17, its accumulators bit-equal to
 the exact product and its backward against the CPU's, and a QLoRA step card
 against CPU; and the Hopper forward (``csrc/flash_attention_wgmma.cu``,
-bf16 at D = 64 without a bias) against the tensor-core arithmetic over its
-128-key tiles at ragged S (1, 193, 1,000, 4,276), Sq != Sk both ways,
-``kv_len`` at 0, 1 and either side of a key tile, causal with Sq < Sk and
-Sq > Sk, ``stable`` both ways and the LSE, bit-equal to the ``"tc"`` kernel
-without a running max, at the DiT's full lengths ([3, 48, 18002, 64] and
-[2, 48, 45106, 64]), and its entry point's refusals.
+bf16 at D = 64 and 128 without a bias) against the tensor-core arithmetic
+over its 128-key tiles at ragged S (1, 129, 193, 1,000, 4,276), Sq != Sk
+both ways, ``kv_len`` at 0, 1 and either side of a key tile, causal with
+Sq < Sk and Sq > Sk, ``stable`` both ways and the LSE, at D = 64 bit-equal
+to the ``"tc"`` kernel without a running max, at the DiTs' full lengths
+([3, 48, 18002, 64], [2, 48, 45106, 64]; Wan's [3, 40, 32760, 128] self-
+and cross-attention to 512 and 257 keys, HunyuanVideo's joint
+[1, 24, 28128, 128] with ``kv_len``), and its entry points' refusals.
 Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
@@ -969,7 +971,7 @@ TC_CASES = {
 @pytest.mark.parametrize("case", list(TC_CASES))
 def test_tensor_core_forward_matches_plain(cuda, case):
     """bf16 without a prolog launches a tensor-core kernel (``"wgmma"`` at
-    D = 64 without a bias, else ``"tc"``, counted under it): its output
+    D = 64 or 128 without a bias, else ``"tc"``, counted under it): its output
     within the bf16 attention tolerance of the plain version, its LSE within
     1e-4 (base-2 units) of the kernel's denominator with -inf on the same
     rows (``_assert_lse_close``), zero rows where no key is visible, and the
@@ -983,7 +985,7 @@ def test_tensor_core_forward_matches_plain(cuda, case):
         bias = _randn(gen, b if bias_kind == "per_batch" else 1, h, sq, sk, scale=2.0).to(cuda)
     lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
     scale = 1.0 / 8 if bias is not None else d ** -0.5
-    which = "wgmma" if d == 64 and bias is None else "tc"
+    which = "wgmma" if d in FA.WGMMA_HEAD_DIMS and bias is None else "tc"
     assert FA.route(q, bias=bias) == which
     counts = (FA.flash_attention.launches, FA.flash_attention.launches_by_route[which])
     out, lse = FA.flash_attention(q, k, v, scale, bias=bias, stable=stable, kv_len=lens, causal=causal,
@@ -1878,16 +1880,18 @@ def test_flash_kernel_gives_zeros_and_minus_inf_lse_on_a_chunk_past_kv_len(cuda)
                                    rtol=1e-4)
 
 
-# -- the Hopper forward: csrc/flash_attention_wgmma.cu (bf16, D = 64, no bias) ----------------------------------
+# -- the Hopper forward: csrc/flash_attention_wgmma.cu (bf16, D = 64 and 128, no bias) --------------------------
 
 WGMMA_CASES = {
-    # name: (b, h, sq, sk, kv_len, causal, stable); 192 query rows a block, 128 keys a tile
+    # name: (b, h, sq, sk, kv_len, causal, stable); 192 query rows a block at D = 64, 128 at D = 128; 128 keys a
+    # tile
     "s1000": (2, 3, 1000, 1000, None, False, False),
     "s1000-stable": (2, 3, 1000, 1000, None, False, True),
     "s4276": (1, 3, 4276, 4276, None, False, False),
     "s4276-stable": (1, 3, 4276, 4276, None, False, True),
     "one-row": (3, 2, 1, 1, None, False, True),
     "block-edges": (1, 2, 193, 257, None, False, False),
+    "block-edges-d128": (1, 2, 129, 385, None, False, True),
     "sq70-sk300": (2, 2, 70, 300, None, False, True),
     "sq300-sk70": (2, 2, 300, 70, None, False, False),
     "sq1000-sk4276": (1, 2, 1000, 4276, None, False, True),
@@ -1914,20 +1918,24 @@ def _tc_forward(q, k, v, scale, stable, kv_len=None, causal=False):
 
 
 @pytest.mark.parametrize("case", list(WGMMA_CASES))
-def test_wgmma_forward_matches_the_tensor_core_arithmetic(cuda, case):
-    """bf16 at D = 64 without a bias takes the Hopper kernel and no ``"tc"``
-    launch: its output within the bf16 attention tolerance of
-    ``tensor_core_attention_plain`` over its 128-key tiles, its LSE within
-    1e-4 of the kernel's denominator (``_assert_lse_close``) with -inf and
-    zero rows where no key is visible, the same output with and without the
-    LSE; without a running max, where the key tiles do not enter the
-    arithmetic, bit-equal to the ``"tc"`` kernel it replaces."""
+@pytest.mark.parametrize("d", [64, 128], ids=["d64", "d128"])
+def test_wgmma_forward_matches_the_tensor_core_arithmetic(cuda, case, d):
+    """bf16 at D = 64 and 128 without a bias takes the Hopper kernel and no
+    ``"tc"`` launch: its output within the bf16 attention tolerance of
+    ``tensor_core_attention_plain`` over its 128-key tiles (the denominator
+    Σ bf16(p) at D = 64, Σ p at 128), its LSE within 1e-4 of the kernel's
+    denominator (``_assert_lse_close``) with -inf and zero rows where no key
+    is visible, the same output with and without the LSE. Against the
+    ``"tc"`` kernel it replaces: at D = 64 without a running max, where the
+    key tiles do not enter the arithmetic, bit-equal; at D = 128, whose
+    fp32 row sums the two kernels take in other orders, within the bf16
+    tolerance."""
     b, h, sq, sk, kv_len, causal, stable = WGMMA_CASES[case]
     gen = torch.Generator().manual_seed(23)
-    q = _randn(gen, b, h, sq, 64).to(cuda, torch.bfloat16)
-    k, v = (_randn(gen, b, h, sk, 64).to(cuda, torch.bfloat16) for _ in range(2))
+    q = _randn(gen, b, h, sq, d).to(cuda, torch.bfloat16)
+    k, v = (_randn(gen, b, h, sk, d).to(cuda, torch.bfloat16) for _ in range(2))
     lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
-    scale = 64 ** -0.5
+    scale = d ** -0.5
     assert FA.route(q) == "wgmma" and FA.KEY_TILE["wgmma"] == 128
     counts = dict(FA.flash_attention.launches_by_route)
     out, lse = FA.flash_attention(q, k, v, scale, stable=stable, kv_len=lens, causal=causal, return_residuals=True)
@@ -1939,17 +1947,21 @@ def test_wgmma_forward_matches_the_tensor_core_arithmetic(cuda, case):
     _assert_close_flash(out, ref, torch.bfloat16)
     seen = _assert_lse_close(lse, q, k, scale, None, lens, causal, stable)
     assert not out[~seen].any()
-    if not stable:
-        assert torch.equal(out, _tc_forward(q, k, v, scale, stable, lens, causal))
+    tc = _tc_forward(q, k, v, scale, stable, lens, causal)
+    if d == 64 and not stable:
+        assert torch.equal(out, tc)
+    else:
+        _assert_close_flash(out, tc, torch.bfloat16)
 
 
-def _plain_heads(q, k, v, scale, stable, heads, rows=4096):
+def _plain_heads(q, k, v, scale, stable, heads, rows=4096, kv_len=None):
     """``tensor_core_attention_plain`` (128-key tiles) of the (batch, head) pairs ``heads``, over row chunks."""
     out = {}
     for bi, hi in heads:
         kk, vv = k[bi:bi + 1, hi:hi + 1], v[bi:bi + 1, hi:hi + 1]
+        lens = None if kv_len is None else kv_len[bi:bi + 1]
         out[bi, hi] = torch.cat([FA.tensor_core_attention_plain(q[bi:bi + 1, hi:hi + 1, i:i + rows], kk, vv, scale,
-                                                                stable=stable, key_tile=128)[0]
+                                                                kv_len=lens, stable=stable, key_tile=128)[0]
                                  for i in range(0, q.shape[2], rows)], dim=2)
     return out
 
@@ -1979,11 +1991,41 @@ def test_wgmma_forward_at_the_shipped_lengths(cuda, shape, stable):
         assert torch.equal(out, tc)
 
 
-def test_wgmma_entry_refuses_what_it_does_not_take(cuda):
-    """The Hopper entry point takes bf16 without a bias only: fp32, or a bias pointer, returns
-    cudaErrorInvalidValue and writes nothing."""
-    x = torch.full((1, 2, 40, 64), 7.0, device=cuda)
-    fn = FA._entry(64, "wgmma")
+@pytest.mark.parametrize("case", [
+    ((3, 40, 32760, 128), 32760, None),  # the Wan DiT's self-attention in a 3-pass step, 81 frames at 480 x 832
+    ((3, 40, 32760, 128), 512, None),  # its cross-attention to the 512 text tokens
+    ((3, 40, 32760, 128), 257, None),  # and to the 257 image tokens
+    ((1, 24, 28128, 128), 28128, [27904]),  # HunyuanVideo's joint [video; text] at 129 frames, its text padded
+], ids=["wan-self-b3", "wan-cross-text", "wan-cross-image", "hunyuan-joint-kvlen"])
+def test_wgmma_forward_at_the_shipped_d128_lengths(cuda, case):
+    """The D = 128 calls at their full lengths on the Hopper kernel, as the
+    DiTs make them (no running max): every row of three heads (the first,
+    one in the middle, the last) within the bf16 attention tolerance of
+    ``tensor_core_attention_plain`` (Σ p over 128-key tiles); the whole
+    output within the tolerance of the ``"tc"`` kernel it replaces."""
+    shape, sk, kv_len = case
+    b, h, s, d = shape
+    gen = torch.Generator(cuda).manual_seed(25)
+    q = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, h, sk, d), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    before = dict(FA.flash_attention.launches_by_route)
+    out = FA.flash_attention(q, k, v, d ** -0.5, stable=False, kv_len=lens)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    assert bool(torch.isfinite(out).all())
+    heads = [(0, 0), (b // 2, h // 2), (b - 1, h - 1)]
+    for (bi, hi), ref in _plain_heads(q, k, v, d ** -0.5, False, heads, kv_len=lens).items():
+        _assert_close_flash(out[bi:bi + 1, hi:hi + 1], ref, torch.bfloat16)
+    _assert_close_flash(out, _tc_forward(q, k, v, d ** -0.5, False, lens), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128], ids=["d64", "d128"])
+def test_wgmma_entry_refuses_what_it_does_not_take(cuda, d):
+    """The Hopper entry points (``_d64``, ``_d128``) take bf16 without a bias only: fp32, or a bias pointer,
+    returns cudaErrorInvalidValue and writes nothing."""
+    x = torch.full((1, 2, 40, d), 7.0, device=cuda)
+    fn = FA._entry(d, "wgmma")
     stream = torch.cuda.current_stream().cuda_stream
     fp32 = FA._build.DTYPE_CODE[torch.float32]
     assert fn(fp32, *([x.data_ptr()] * 3), None, 0, None, x.data_ptr(), None, 1, 2, 40, 40, 0.125, 0, 0, stream) == 1

@@ -397,7 +397,7 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
           for d in FA.HEAD_DIMS),
         *((f"flash_attention_int8_tc.ALG_INT8_HEAD_DIM_{d}", (f"-DALG_INT8_HEAD_DIM={d}",)) for d in I8.HEAD_DIMS),
         *((f"flash_attention_tc.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",)) for d in FA.HEAD_DIMS),
-        ("flash_attention_wgmma", ()),  # D = 64 only
+        ("flash_attention_wgmma", ()),  # one unit: D = 64 and 128 are template instantiations
         ("qk_prep", ()),
         *((f"qk_prolog.ALG_QK_HEAD_DIM_{d}", (f"-DALG_QK_HEAD_DIM={d}",)) for d in FA.HEAD_DIMS),
         ("rope", ())]

@@ -66,12 +66,13 @@ def test_forward_route(device, dtype, prolog, want):
 @pytest.mark.parametrize("head_dim", [64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_forward_kernel_route_table(dtype, head_dim, has_bias):
-    """``kernel_route`` on what a call can observe: bf16 at D = 64 without a
-    bias (the CogVideoX DiTs, CLIP-L vision, the D = 64 training and ring
-    calls) takes ``"wgmma"``; bf16 with a bias (T5, UMT5) or at D = 80 or 128
-    (Wan, HunyuanVideo, Llama, CLIP ViT-H) ``"tc"``; fp32 ``"cuda_core"``
-    whatever else it has. ``route`` agrees on a CUDA tensor with a bias."""
-    want = "cuda_core" if dtype == torch.float32 else "wgmma" if head_dim == 64 and not has_bias else "tc"
+    """``kernel_route`` on what a call can observe: bf16 at D = 64 or 128
+    without a bias (the CogVideoX DiTs, CLIP-L vision; the Wan DiT's self-
+    and cross-attention, the HunyuanVideo DiT and refiner, Llama; the
+    training and ring calls) takes ``"wgmma"``; bf16 with a bias (T5, UMT5)
+    or at D = 80 (CLIP ViT-H) ``"tc"``; fp32 ``"cuda_core"`` whatever else it
+    has. ``route`` agrees on a CUDA tensor with a bias."""
+    want = "cuda_core" if dtype == torch.float32 else "wgmma" if head_dim in (64, 128) and not has_bias else "tc"
     assert FA.kernel_route(dtype, head_dim, has_bias) == want
     bias = torch.zeros(1) if has_bias else None
     assert FA.route(_on("cuda", dtype, head_dim), bias=bias) == want
@@ -122,7 +123,7 @@ def test_routes_raise_for_other_devices_and_dtypes(route):
 
 def test_each_route_names_an_entry_point_of_the_sources():
     """Every C entry point the wrappers can reach is defined in a source, one per head dim; the Hopper
-    forward's (``"wgmma"``) at its one head dim, ``WGMMA_HEAD_DIM``."""
+    forward's (``"wgmma"``) at each of its head dims, ``WGMMA_HEAD_DIMS`` (64 and 128), and no other."""
     defined = "".join(p.read_text() for p in _build._sources()[0])
     forward = {key: name for key, name in FA._ENTRY_NAMES.items() if key != "wgmma"}
     for names, macro in ((forward, "ALG_FLASH_HEAD_DIM"), (FB._ENTRY_NAMES, "ALG_FLASH_HEAD_DIM"),
@@ -130,8 +131,10 @@ def test_each_route_names_an_entry_point_of_the_sources():
         for name in names.values():
             stem = name.format(d="")
             assert f"ALG_CAT({stem}, {macro})" in defined, stem
-    wgmma = FA._ENTRY_NAMES["wgmma"].format(d=FA.WGMMA_HEAD_DIM)
-    assert re.search(rf'extern "C" int {wgmma}\(', defined), wgmma
+    assert FA.WGMMA_HEAD_DIMS == (64, 128)
+    for d in FA.HEAD_DIMS:
+        wgmma = FA._ENTRY_NAMES["wgmma"].format(d=d)
+        assert bool(re.search(rf'extern "C" int {wgmma}\(', defined)) == (d in FA.WGMMA_HEAD_DIMS), wgmma
 
 
 def test_only_the_prolog_unit_includes_the_cuda_core_forward_body():
