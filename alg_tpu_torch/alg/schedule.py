@@ -150,6 +150,22 @@ def build_lp_plan(cfg: LPConfig, num_steps: int, height: int, width: int,
                   segments=_segments_from_mask(three_pass))
 
 
+def lp_config(args: dict) -> LPConfig:
+    """The ``LPConfig`` of a pipeline call's keyword arguments (its
+    ``locals()``), each field taken by its name."""
+    return LPConfig(**{f.name: args[f.name] for f in dataclasses.fields(LPConfig)})
+
+
+def request_plan(cfg: LPConfig, num_steps: int, latent_hw: tuple, pixel_hw: tuple, guided: bool = True,
+                 exp_shortcut: bool = False) -> LPPlan:
+    """A pipeline request's plan: ALG on only where ``guided`` (a family whose
+    ALG needs CFG passes whether it runs), the filter at the latent size or,
+    for pixel-space ALG, at the frame's."""
+    cfg = dataclasses.replace(cfg, use_low_pass_guidance=cfg.use_low_pass_guidance and guided)
+    h, w = latent_hw if cfg.lp_filter_in_latent else pixel_hw
+    return build_lp_plan(cfg, num_steps, h, w, exp_shortcut=exp_shortcut)
+
+
 def build_cache_schedule(num_steps: int, cache_interval: int, strengths=None) -> np.ndarray:
     """Compute-step mask ``[T]`` of the opt-in step cache (``cache_interval >
     1``): a full DiT forward on every ``cache_interval``-th step and the last

@@ -14,6 +14,8 @@ from typing import Callable, Optional
 
 import torch
 
+from alg_tpu_torch.utils.profiling import span
+
 
 def blend_v(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
     """Blend ``a``'s bottom rows into ``b``'s top rows (H = dim 2)."""
@@ -81,6 +83,17 @@ def tiled_decode(decode_fn: Callable[[torch.Tensor], torch.Tensor], z: torch.Ten
     rows = [[next(decoded) for _ in row] for row in coords]
     out = _assemble(rows, (tile_latent - stride_latent) * spatial_scale, stride_latent * spatial_scale)
     return out[:, :, : h * spatial_scale, : w * spatial_scale]
+
+
+def vae_decode(vae, z: torch.Tensor, tiling: Optional[bool] = None, mesh=None) -> torch.Tensor:
+    """``vae.decode`` of ``z`` [B, F', h, w, C], the ``vae.decode`` span: in
+    overlapping tiles spread over ``mesh``'s ranks (:func:`tiled_decode`)
+    or whole, as ``tiling`` says; with None, tiled once the latent exceeds
+    48 x 48."""
+    if tiling is None:
+        tiling = z.shape[2] * z.shape[3] > 48 * 48
+    with span("vae.decode"):
+        return tiled_decode(vae.decode, z, vae.cfg.spatial_scale, mesh=mesh) if tiling else vae.decode(z)
 
 
 def auto_tile_encode(num_frames: int, h_px: int, w_px: int, override: Optional[bool] = None) -> bool:

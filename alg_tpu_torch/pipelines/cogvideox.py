@@ -49,16 +49,16 @@ import numpy as np
 import torch
 
 from alg_tpu_torch.alg.matrices import apply_filter_matrices
-from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_cache_schedule, build_lp_plan
+from alg_tpu_torch.alg.schedule import LPPlan, lp_config, request_plan
 from alg_tpu_torch.core.rng import NoiseSource
 from alg_tpu_torch.io.runstate import as_checkpoint, run_fingerprint
 from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer, cogvideox_rope
 from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE
 from alg_tpu_torch.models.t5 import T5Encoder
-from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
+from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_encode, vae_decode
 from alg_tpu_torch.ops.attention import pipeline_mesh_scope
 from alg_tpu_torch.pipelines import processing
-from alg_tpu_torch.pipelines.denoise import denoise_loop
+from alg_tpu_torch.pipelines.denoise import Guidance, check_cache_interval, denoise_loop
 from alg_tpu_torch.schedulers.ddim_cogvideox import CogVideoXDDIMConfig, ddim_step, make_ddim_plan
 from alg_tpu_torch.schedulers.dpm_cogvideox import dpm_step, make_dpm_plan
 from alg_tpu_torch.utils import profiling
@@ -165,13 +165,8 @@ class CogVideoXPipeline:
         True or False forces overlapping tiles or one whole decode; None
         tiles once the latent exceeds 48 x 48. ``mesh`` (by default the
         pipeline's ``attn_mesh``) spreads the tiles over its ranks."""
-        mesh = self.attn_mesh if mesh is None else mesh
         z = (latents.float() / self.vae.cfg.scaling_factor).permute(0, 1, 3, 4, 2).to(self.vae_dtype)
-        if vae_tiling is None:
-            vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        with span("vae.decode"):
-            frames = (tiled_decode(self.vae.decode, z, self.vae.cfg.spatial_scale, mesh=mesh) if vae_tiling
-                      else self.vae.decode(z))
+        frames = vae_decode(self.vae, z, vae_tiling, self.attn_mesh if mesh is None else mesh)
         return frames.permute(0, 1, 4, 2, 3).float()
 
     # -- main entry ----------------------------------------------------------
@@ -244,27 +239,15 @@ class CogVideoXPipeline:
             raise ValueError(f"Unknown output_type {output_type!r}")
         if self.scheduler not in ("ddim", "dpm"):
             raise ValueError(f"Unknown scheduler {self.scheduler!r}")
-        cache_interval = int(cache_interval)
-        if cache_interval < 1:
-            raise ValueError(f"cache_interval must be >= 1, got {cache_interval}")
+        cache_interval = check_cache_interval(cache_interval)
         do_cfg = guidance_scale > 1.0
         noise = noise_source or NoiseSource(seed=seed)
-        alg_kw = dict(use_low_pass_guidance=use_low_pass_guidance, lp_filter_type=lp_filter_type,
-                      lp_filter_in_latent=lp_filter_in_latent, lp_blur_sigma=lp_blur_sigma,
-                      lp_blur_kernel_size=lp_blur_kernel_size, lp_resize_factor=lp_resize_factor,
-                      lp_strength_schedule_type=lp_strength_schedule_type,
-                      schedule_blur_kernel_size=schedule_blur_kernel_size,
-                      schedule_interval_start_time=schedule_interval_start_time,
-                      schedule_interval_end_time=schedule_interval_end_time,
-                      schedule_linear_start_weight=schedule_linear_start_weight,
-                      schedule_linear_end_weight=schedule_linear_end_weight,
-                      schedule_linear_end_time=schedule_linear_end_time,
-                      schedule_exp_decay_rate=schedule_exp_decay_rate)
+        lp_cfg = lp_config(locals())
         checkpoint = as_checkpoint(checkpoint, run_fingerprint(
             "cogvideox", prompt=prompt, negative_prompt=negative_prompt, seed=seed, height=height, width=width,
             num_frames=num_frames, num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
             use_dynamic_cfg=use_dynamic_cfg, eta=eta, timesteps=timesteps, scheduler=self.scheduler,
-            **({"cache_interval": cache_interval} if cache_interval != 1 else {}), alg=tuple(alg_kw.values())),
+            **({"cache_interval": cache_interval} if cache_interval != 1 else {}), alg=dataclasses.astuple(lp_cfg)),
             checkpoint_every)
 
         # prompt embeds, negative first in the CFG batch
@@ -310,9 +293,7 @@ class CogVideoXPipeline:
         else:
             sched_plan = make_ddim_plan(self.scheduler_cfg, num_inference_steps, timesteps, eta=eta)
         num_inference_steps = len(sched_plan.timesteps)
-        lp_cfg = LPConfig(**{**alg_kw, "use_low_pass_guidance": use_low_pass_guidance and do_cfg})
-        filter_h, filter_w = (h_lat, w_lat) if lp_filter_in_latent else (height, width)
-        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, filter_h, filter_w, exp_shortcut=True)
+        lp_plan = request_plan(lp_cfg, num_inference_steps, (h_lat, w_lat), (height, width), do_cfg, exp_shortcut=True)
 
         # pixel-space ALG: one posterior draw a step, drawn after the initial latents
         pixel_image = pixel_noise = None
@@ -375,47 +356,27 @@ class CogVideoXPipeline:
     def _sample(self, latents0, image_latents, prompt_embeds, negative_prompt_embeds, sched_plan, lp_plan: LPPlan,
                 g_table: np.ndarray, rope_cos, rope_sin, do_cfg: bool, step_noise=None, pixel_image=None,
                 pixel_noise=None, step_observer=None, checkpoint=None, cache_interval: int = 1,
-                stop_after: Optional[int] = None, ofs=None) -> torch.Tensor:
+                ofs=None) -> torch.Tensor:
         """The denoise loop. ``step_noise``/``pixel_noise``: CPU stacks ``[T,
         ...]`` of the scheduler's and the pixel posterior's draws; ``rope_cos``
         / ``rope_sin`` None for a DiT without RoPE; ``ofs`` the 1.5 DiT's
-        ofs value. ``stop_after``: return after that many steps (a warm-up
-        call)."""
+        ofs value."""
         alg = lp_plan.active
         use_dpm = self.scheduler == "dpm"
-        if do_cfg:
-            embeds2 = torch.cat([negative_prompt_embeds, prompt_embeds])
-            embeds3 = torch.cat([negative_prompt_embeds, negative_prompt_embeds, prompt_embeds]) if alg else None
-        else:
-            embeds2, embeds3 = prompt_embeds, None
-        if alg:
-            m_h = torch.from_numpy(lp_plan.m_h).to(self.device)
-            m_w = torch.from_numpy(lp_plan.m_w).to(self.device)
-        three = lp_plan.three_pass & do_cfg & alg
+        guide = Guidance(lp_plan, self.device, do_cfg, do_cfg and alg)
+        embeds = {n: guide.stack((negative_prompt_embeds, negative_prompt_embeds, prompt_embeds), n)
+                  for n in guide.counts}
         latent_frames = image_latents.shape[1]
 
         def predict(i, latents):
-            t, g = int(sched_plan.timesteps[i]), float(g_table[i])
-            cond = image_latents
+            t, g, n = int(sched_plan.timesteps[i]), float(g_table[i]), int(guide.passes[i])
+            cond = image_latents  # every ALG step filters, the 2-pass ones too
             if alg:
-                j = int(lp_plan.m_idx[i])
-                with span("alg.filter", strength=float(lp_plan.strengths[i])):
-                    if pixel_image is not None:
-                        cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], latent_frames)
-                    else:
-                        cond = apply_filter_matrices(image_latents, m_h[j], m_w[j])
-            if not do_cfg:
-                return self._dit(latents, cond, embeds2, t, rope_cos, rope_sin, ofs)
-            if three[i]:
-                pred = self._dit(torch.cat([latents] * 3), torch.cat([image_latents, cond, cond]), embeds3, t,
-                                 rope_cos, rope_sin, ofs)
-                with span("cfg.combine"):
-                    uncond_init, uncond, text = pred.chunk(3)
-                    return uncond_init + g * (text - uncond)
-            pred = self._dit(torch.cat([latents] * 2), torch.cat([cond, cond]), embeds2, t, rope_cos, rope_sin, ofs)
-            with span("cfg.combine"):
-                uncond, text = pred.chunk(2)
-                return uncond + g * (text - uncond)
+                cond = (guide.filter(i, apply_filter_matrices, image_latents) if pixel_image is None else
+                        guide.filter(i, self._pixel_condition, pixel_image, pixel_noise[i], latent_frames))
+            pred = self._dit(guide.stack((latents,) * 3, n), guide.stack((image_latents, cond, cond), n), embeds[n],
+                             t, rope_cos, rope_sin, ofs)
+            return guide.combine(pred, g, n)
 
         def update(i, carry, noise_pred):
             latents, old_pred = carry
@@ -424,10 +385,7 @@ class CogVideoXPipeline:
             eps = step_noise[i].to(self.device) if sched_plan.eta > 0.0 else None
             return ddim_step(sched_plan, i, noise_pred, latents, noise=eps), old_pred
 
-        compute = None
-        if cache_interval > 1:
-            compute = build_cache_schedule(len(sched_plan.timesteps), cache_interval,
-                                           lp_plan.strengths if alg else None)
-        return denoise_loop(self, len(sched_plan.timesteps), (latents0, torch.zeros_like(latents0)), predict, update,
-                            compute=compute, checkpoint=checkpoint, step_observer=step_observer,
-                            stop_after=stop_after)
+        num_steps = len(sched_plan.timesteps)
+        return denoise_loop(self, num_steps, (latents0, torch.zeros_like(latents0)), predict, update,
+                            compute=guide.compute(num_steps, cache_interval), checkpoint=checkpoint,
+                            step_observer=step_observer)

@@ -53,17 +53,17 @@ import numpy as np
 import torch
 
 from alg_tpu_torch.alg.matrices import apply_filter_matrices
-from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_cache_schedule, build_lp_plan
+from alg_tpu_torch.alg.schedule import LPPlan, lp_config, request_plan
 from alg_tpu_torch.core.rng import NoiseSource
 from alg_tpu_torch.io.runstate import as_checkpoint, run_fingerprint
 from alg_tpu_torch.models.clip import CLIPTextModel, clip_preprocess
 from alg_tpu_torch.models.hunyuan.transformer import HunyuanVideoTransformer, hunyuan_rope
 from alg_tpu_torch.models.hunyuan.vae import HunyuanVAE
 from alg_tpu_torch.models.llama import LlavaModel
-from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
+from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_encode, vae_decode
 from alg_tpu_torch.ops.attention import pipeline_mesh_scope
 from alg_tpu_torch.pipelines import processing
-from alg_tpu_torch.pipelines.denoise import denoise_loop
+from alg_tpu_torch.pipelines.denoise import Guidance, check_cache_interval, denoise_loop
 from alg_tpu_torch.schedulers.flow_match_euler import (FlowMatchEulerConfig, FlowMatchEulerPlan,
                                                        flow_match_euler_step, make_flow_match_euler_plan)
 from alg_tpu_torch.utils import profiling
@@ -280,27 +280,15 @@ class HunyuanVideoPipeline:
         w]``. ``checkpoint``, ``checkpoint_every``, ``cache_interval``: as
         in :meth:`CogVideoXPipeline.__call__`."""
         self.interrupt = False
-        cache_interval = int(cache_interval)
-        if cache_interval < 1:
-            raise ValueError(f"cache_interval must be >= 1, got {cache_interval}")
-        alg_kw = dict(use_low_pass_guidance=use_low_pass_guidance, lp_filter_type=lp_filter_type,
-                      lp_filter_in_latent=lp_filter_in_latent, lp_blur_sigma=lp_blur_sigma,
-                      lp_blur_kernel_size=lp_blur_kernel_size, lp_resize_factor=lp_resize_factor,
-                      lp_strength_schedule_type=lp_strength_schedule_type,
-                      schedule_blur_kernel_size=schedule_blur_kernel_size,
-                      schedule_interval_start_time=schedule_interval_start_time,
-                      schedule_interval_end_time=schedule_interval_end_time,
-                      schedule_linear_start_weight=schedule_linear_start_weight,
-                      schedule_linear_end_weight=schedule_linear_end_weight,
-                      schedule_linear_end_time=schedule_linear_end_time,
-                      schedule_exp_decay_rate=schedule_exp_decay_rate)
+        cache_interval = check_cache_interval(cache_interval)
+        lp_cfg = lp_config(locals())
         checkpoint = as_checkpoint(checkpoint, run_fingerprint(
             "hunyuan", prompt=prompt, prompt_2=prompt_2, negative_prompt=negative_prompt, seed=seed, height=height,
             width=width, num_frames=num_frames, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, true_cfg_scale=true_cfg_scale, i2v_stable=i2v_stable,
             sigmas=None if sigmas is None else tuple(sigmas), image_condition_type=image_condition_type,
             **({"cache_interval": cache_interval} if cache_interval != 1 else {}),
-            lp_on_noisy_latent=lp_on_noisy_latent, alg=tuple(alg_kw.values())), checkpoint_every)
+            lp_on_noisy_latent=lp_on_noisy_latent, alg=dataclasses.astuple(lp_cfg)), checkpoint_every)
         processing.validate_attention_kwargs(attention_kwargs)
         assert not enable_lp_img_embeds, (
             "Low-pass filter on image embeds is not supported in HunyuanVideo pipeline."
@@ -370,9 +358,8 @@ class HunyuanVideoPipeline:
         # plans
         sig = np.linspace(1.0, 0.0, num_inference_steps + 1)[:-1] if sigmas is None else np.asarray(sigmas)
         sched_plan = make_flow_match_euler_plan(self.scheduler_cfg, sigmas=sig)
-        lp_cfg = LPConfig(**alg_kw)  # the single-pass branch works without true CFG
-        filter_h, filter_w = (h_lat, w_lat) if lp_filter_in_latent else (height, width)
-        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, filter_h, filter_w, exp_shortcut=False)
+        # the single-pass branch works without true CFG
+        lp_plan = request_plan(lp_cfg, num_inference_steps, (h_lat, w_lat), (height, width))
         # pixel-space ALG encodes the preprocessed tensor (the mode: no draws)
         pixel_image = None
         if lp_plan.active and not lp_filter_in_latent:
@@ -433,28 +420,21 @@ class HunyuanVideoPipeline:
     def _sample(self, latents0, image_latents, prompt_embeds, pooled, prompt_mask, neg_embeds, neg_pooled,
                 neg_mask, sched_plan: FlowMatchEulerPlan, lp_plan: LPPlan, true_cfg_scale: float,
                 do_true_cfg: bool, guidance, lp_on_noisy_latent: bool, image_condition_type: str,
-                cond_mask, pixel_image=None, step_observer=None, checkpoint=None, cache_interval: int = 1,
-                stop_after: Optional[int] = None) -> torch.Tensor:
-        """The denoise loop. ``stop_after``: return after that many steps (a
-        warm-up call)."""
+                cond_mask, pixel_image=None, step_observer=None, checkpoint=None,
+                cache_interval: int = 1) -> torch.Tensor:
+        """The denoise loop."""
         alg = lp_plan.active
         latent_concat = image_condition_type == "latent_concat"
         batch = latents0.shape[0]
         f_lat, h_lat, w_lat = latents0.shape[2:]
         rope_cos, rope_sin = (torch.from_numpy(a).to(self.device)
                               for a in hunyuan_rope(self.transformer.cfg, f_lat, h_lat, w_lat))
-        if alg:
-            m_h = torch.from_numpy(lp_plan.m_h).to(self.device)
-            m_w = torch.from_numpy(lp_plan.m_w).to(self.device)
         il = image_latents
-
         # 3-pass steps only under true CFG with ALG, and never with lp_on_noisy_latent
-        three = lp_plan.three_pass & (do_true_cfg and alg and not lp_on_noisy_latent)
-        if do_true_cfg:
-            embeds2, mask2, pool2 = (torch.cat([n, p]) for n, p in
-                                     ((neg_embeds, prompt_embeds), (neg_mask, prompt_mask), (neg_pooled, pooled)))
-            embeds3, mask3, pool3 = (torch.cat([n, n, p]) for n, p in
-                                     ((neg_embeds, prompt_embeds), (neg_mask, prompt_mask), (neg_pooled, pooled)))
+        guide = Guidance(lp_plan, self.device, do_true_cfg, do_true_cfg and alg and not lp_on_noisy_latent)
+        text = {n: tuple(guide.stack((neg, neg, pos), n) for neg, pos in
+                         ((neg_embeds, prompt_embeds), (neg_mask, prompt_mask), (neg_pooled, pooled)))
+                for n in guide.counts}
 
         def assemble(lat_in, img_cond):
             """token_replace: the condition latent replaces frame 0.
@@ -463,34 +443,17 @@ class HunyuanVideoPipeline:
                 return torch.cat([lat_in, img_cond, cond_mask.repeat(lat_in.shape[0] // batch, 1, 1, 1, 1)], dim=1)
             return torch.cat([img_cond, lat_in[:, :, 1:]], dim=2)
 
-        def dit(lat_in, embeds, mask, pool, t):
-            return self._dit(lat_in, embeds, mask, pool, t, guidance, rope_cos, rope_sin)
-
-        def filtered(i):  # the filtered first-frame latent
-            if not alg:
-                return il
-            j = int(lp_plan.m_idx[i])
-            with span("alg.filter", strength=float(lp_plan.strengths[i])):
-                if pixel_image is not None:
-                    return self._pixel_condition(pixel_image, m_h[j], m_w[j], il.shape[2])
-                return apply_filter_matrices(il, m_h[j], m_w[j])
-
         def predict(i, latents):
-            t = float(sched_plan.timesteps[i])
-            if three[i]:
-                cond = filtered(i)
-                pred = dit(assemble(torch.cat([latents] * 3), torch.cat([il, cond, cond])), embeds3, mask3, pool3, t)
-                with span("cfg.combine"):
-                    uncond_init, uncond, text = pred.chunk(3)
-                    return uncond_init + true_cfg_scale * (text - uncond)
-            if do_true_cfg:
-                # 2-pass on the clean condition (strength 0, lp_on_noisy_latent, or no ALG)
-                pred = dit(assemble(torch.cat([latents] * 2), torch.cat([il, il])), embeds2, mask2, pool2, t)
-                with span("cfg.combine"):
-                    uncond, text = pred.chunk(2)
-                    return uncond + true_cfg_scale * (text - uncond)
-            # single pass: ALG replaces the condition
-            return dit(assemble(latents, filtered(i)), prompt_embeds, prompt_mask, pooled, t)
+            t, n = float(sched_plan.timesteps[i]), int(guide.passes[i])
+            cond = il
+            # 2-pass steps (strength 0, lp_on_noisy_latent, or no ALG) take the clean condition; a single
+            # pass's ALG replaces it
+            if alg and n != 2:
+                cond = (guide.filter(i, apply_filter_matrices, il) if pixel_image is None else
+                        guide.filter(i, self._pixel_condition, pixel_image, il.shape[2]))
+            pred = self._dit(assemble(guide.stack((latents,) * 3, n), guide.stack((il, cond, cond), n)), *text[n], t,
+                             guidance, rope_cos, rope_sin)
+            return guide.combine(pred, true_cfg_scale, n)
 
         def update(i, carry, noise_pred):
             (latents,) = carry
@@ -501,12 +464,10 @@ class HunyuanVideoPipeline:
                 latents = torch.cat([il, rest], dim=2)
             return (latents.float(),)
 
-        compute = None
-        if cache_interval > 1:
-            compute = build_cache_schedule(len(sched_plan.timesteps), cache_interval,
-                                           lp_plan.strengths if alg else None)
-        return denoise_loop(self, len(sched_plan.timesteps), (latents0,), predict, update, compute=compute,
-                            checkpoint=checkpoint, step_observer=step_observer, stop_after=stop_after)
+        num_steps = len(sched_plan.timesteps)
+        return denoise_loop(self, num_steps, (latents0,), predict, update,
+                            compute=guide.compute(num_steps, cache_interval), checkpoint=checkpoint,
+                            step_observer=step_observer)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None, mesh=None) -> torch.Tensor:
@@ -514,12 +475,6 @@ class HunyuanVideoPipeline:
         -> ``[B, C, F, H, W]`` fp32 in [-1, 1], through overlapping tiles
         once the latent exceeds 48 x 48, spread over the ranks of ``mesh``
         (by default the pipeline's ``attn_mesh``)."""
-        mesh = self.attn_mesh if mesh is None else mesh
-        vcfg = self.vae.cfg
-        z = (latents.float() / vcfg.scaling_factor).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
-        if vae_tiling is None:
-            vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        with span("vae.decode"):
-            frames = (tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling
-                      else self.vae.decode(z))
+        z = (latents.float() / self.vae.cfg.scaling_factor).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
+        frames = vae_decode(self.vae, z, vae_tiling, self.attn_mesh if mesh is None else mesh)
         return frames.permute(0, 4, 1, 2, 3).float()

@@ -56,17 +56,17 @@ import numpy as np
 import torch
 
 from alg_tpu_torch.alg.matrices import apply_filter_matrices
-from alg_tpu_torch.alg.schedule import LPConfig, LPPlan, build_cache_schedule, build_lp_plan
+from alg_tpu_torch.alg.schedule import LPPlan, lp_config, request_plan
 from alg_tpu_torch.core.rng import NoiseSource
 from alg_tpu_torch.io.runstate import as_checkpoint, run_fingerprint
 from alg_tpu_torch.models.clip import CLIPVisionModel, clip_preprocess
 from alg_tpu_torch.models.t5 import T5Encoder
-from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_decode, tiled_encode
+from alg_tpu_torch.models.vae_tiling import auto_tile_encode, tiled_encode, vae_decode
 from alg_tpu_torch.models.wan.transformer import WanTransformer, wan_rope
 from alg_tpu_torch.models.wan.vae import WanVAE
 from alg_tpu_torch.ops.attention import pipeline_mesh_scope
 from alg_tpu_torch.pipelines import processing
-from alg_tpu_torch.pipelines.denoise import denoise_loop
+from alg_tpu_torch.pipelines.denoise import Guidance, check_cache_interval, denoise_loop
 from alg_tpu_torch.schedulers.unipc import UniPCConfig, UniPCPlan, make_unipc_plan, unipc_init_state, unipc_step
 from alg_tpu_torch.utils import profiling
 from alg_tpu_torch.utils.profiling import span
@@ -198,25 +198,13 @@ class WanPipeline:
         w]``. ``checkpoint``, ``checkpoint_every``, ``cache_interval``: as
         in :meth:`CogVideoXPipeline.__call__`."""
         self.interrupt = False
-        cache_interval = int(cache_interval)
-        if cache_interval < 1:
-            raise ValueError(f"cache_interval must be >= 1, got {cache_interval}")
-        alg_kw = dict(use_low_pass_guidance=use_low_pass_guidance, lp_filter_type=lp_filter_type,
-                      lp_filter_in_latent=lp_filter_in_latent, lp_blur_sigma=lp_blur_sigma,
-                      lp_blur_kernel_size=lp_blur_kernel_size, lp_resize_factor=lp_resize_factor,
-                      lp_strength_schedule_type=lp_strength_schedule_type,
-                      schedule_blur_kernel_size=schedule_blur_kernel_size,
-                      schedule_interval_start_time=schedule_interval_start_time,
-                      schedule_interval_end_time=schedule_interval_end_time,
-                      schedule_linear_start_weight=schedule_linear_start_weight,
-                      schedule_linear_end_weight=schedule_linear_end_weight,
-                      schedule_linear_end_time=schedule_linear_end_time,
-                      schedule_exp_decay_rate=schedule_exp_decay_rate)
+        cache_interval = check_cache_interval(cache_interval)
+        lp_cfg = lp_config(locals())
         checkpoint = as_checkpoint(checkpoint, run_fingerprint(
             "wan", prompt=prompt, negative_prompt=negative_prompt, seed=seed, height=height, width=width,
             num_frames=num_frames, num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
             has_last_image=last_image is not None,
-            **({"cache_interval": cache_interval} if cache_interval != 1 else {}), alg=tuple(alg_kw.values())),
+            **({"cache_interval": cache_interval} if cache_interval != 1 else {}), alg=dataclasses.astuple(lp_cfg)),
             checkpoint_every)
         processing.validate_attention_kwargs(attention_kwargs)
         if height % 16 != 0 or width % 16 != 0:
@@ -273,10 +261,8 @@ class WanPipeline:
         condition = self._build_condition(np.asarray(image, np.float32), batch_size, num_frames, last_image)
 
         sched_plan = make_unipc_plan(self.scheduler_cfg, num_inference_steps)
-        lp_cfg = LPConfig(**{**alg_kw, "use_low_pass_guidance": use_low_pass_guidance and do_cfg})
-        filter_h, filter_w = (h_lat, w_lat) if lp_filter_in_latent else (height, width)
         # Wan has no 2-pass shortcut for the exponential schedule
-        lp_plan = build_lp_plan(lp_cfg, num_inference_steps, filter_h, filter_w, exp_shortcut=False)
+        lp_plan = request_plan(lp_cfg, num_inference_steps, (h_lat, w_lat), (height, width), do_cfg)
 
         # pixel-space ALG: one posterior draw a step, drawn after the initial latents
         pixel_image = pixel_noise = None
@@ -383,62 +369,35 @@ class WanPipeline:
 
     def _sample(self, latents0, condition, prompt_embeds, negative_prompt_embeds, image_embeds,
                 sched_plan: UniPCPlan, lp_plan: LPPlan, g: float, do_cfg: bool, num_frames: int, pixel_image=None,
-                pixel_noise=None, step_observer=None, checkpoint=None, cache_interval: int = 1,
-                stop_after: Optional[int] = None) -> torch.Tensor:
+                pixel_noise=None, step_observer=None, checkpoint=None, cache_interval: int = 1) -> torch.Tensor:
         """The denoise loop. ``pixel_noise``: the CPU stack ``[T, ...]`` of
-        the pixel posterior's draws. ``stop_after``: return after that many
-        steps (a warm-up call)."""
-        alg = lp_plan.active
+        the pixel posterior's draws."""
         f_lat, h_lat, w_lat = latents0.shape[2:]
         rope_cos, rope_sin = (torch.from_numpy(a).to(self.device)
                               for a in wan_rope(self.transformer.cfg, f_lat, h_lat, w_lat))
-        if do_cfg:
-            embeds2 = torch.cat([negative_prompt_embeds, prompt_embeds])
-            embeds3 = torch.cat([negative_prompt_embeds, negative_prompt_embeds, prompt_embeds]) if alg else None
-        else:
-            embeds2, embeds3 = prompt_embeds, None
-        if alg:
-            m_h = torch.from_numpy(lp_plan.m_h).to(self.device)
-            m_w = torch.from_numpy(lp_plan.m_w).to(self.device)
-        three = lp_plan.three_pass & do_cfg & alg
-
-        def img(n):
-            return None if image_embeds is None else torch.cat([image_embeds] * n)
+        guide = Guidance(lp_plan, self.device, do_cfg, do_cfg and lp_plan.active)
+        embeds = {n: guide.stack((negative_prompt_embeds, negative_prompt_embeds, prompt_embeds), n)
+                  for n in guide.counts}
 
         def predict(i, latents):
-            t = float(sched_plan.timesteps[i])
-            if not do_cfg:  # ALG needs CFG: a single pass on the clean condition
-                return self._dit(latents, condition, embeds2, image_embeds, t, rope_cos, rope_sin)
-            if three[i]:
-                j = int(lp_plan.m_idx[i])
-                with span("alg.filter", strength=float(lp_plan.strengths[i])):
-                    if pixel_image is not None:
-                        cond = self._pixel_condition(pixel_image, m_h[j], m_w[j], pixel_noise[i], num_frames,
-                                                     condition[:, :4])
-                    else:
-                        cond = apply_filter_matrices(condition, m_h[j], m_w[j])
-                pred = self._dit(torch.cat([latents] * 3), torch.cat([condition, cond, cond]), embeds3, img(3), t,
-                                 rope_cos, rope_sin)
-                with span("cfg.combine"):
-                    uncond_init, uncond, text = pred.chunk(3)
-                    return uncond_init + g * (text - uncond)
-            # strength-0 steps condition on the clean condition
-            pred = self._dit(torch.cat([latents] * 2), torch.cat([condition, condition]), embeds2, img(2), t,
-                             rope_cos, rope_sin)
-            with span("cfg.combine"):
-                uncond, text = pred.chunk(2)
-                return uncond + g * (text - uncond)
+            t, n = float(sched_plan.timesteps[i]), int(guide.passes[i])
+            cond = condition  # only 3-pass steps filter; the others take the clean condition
+            if n == 3:
+                cond = (guide.filter(i, apply_filter_matrices, condition) if pixel_image is None else
+                        guide.filter(i, self._pixel_condition, pixel_image, pixel_noise[i], num_frames,
+                                     condition[:, :4]))
+            pred = self._dit(guide.stack((latents,) * 3, n), guide.stack((condition, cond, cond), n), embeds[n],
+                             None if image_embeds is None else guide.stack((image_embeds,) * 3, n), t, rope_cos,
+                             rope_sin)
+            return guide.combine(pred, g, n)
 
         def update(i, carry, noise_pred):
             return unipc_step(sched_plan, i, noise_pred, *carry)
 
-        compute = None
-        if cache_interval > 1:
-            compute = build_cache_schedule(len(sched_plan.timesteps), cache_interval,
-                                           lp_plan.strengths if alg else None)
-        return denoise_loop(self, len(sched_plan.timesteps), (latents0, unipc_init_state(sched_plan, latents0)),
-                            predict, update, compute=compute, checkpoint=checkpoint, step_observer=step_observer,
-                            stop_after=stop_after)
+        num_steps = len(sched_plan.timesteps)
+        return denoise_loop(self, num_steps, (latents0, unipc_init_state(sched_plan, latents0)), predict, update,
+                            compute=guide.compute(num_steps, cache_interval), checkpoint=checkpoint,
+                            step_observer=step_observer)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor, vae_tiling: Optional[bool] = None, mesh=None) -> torch.Tensor:
@@ -447,14 +406,9 @@ class WanPipeline:
         overlapping tiles or one whole decode; None tiles once the latent
         exceeds 48 x 48. ``mesh`` (by default the pipeline's ``attn_mesh``)
         spreads the tiles over its ranks."""
-        mesh = self.attn_mesh if mesh is None else mesh
         vcfg = self.vae.cfg
         lm = torch.tensor(vcfg.latents_mean, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
         ls = torch.tensor(vcfg.latents_std, dtype=torch.float32, device=latents.device).view(1, -1, 1, 1, 1)
         z = (latents.float() * ls + lm).permute(0, 2, 3, 4, 1).to(self.vae_dtype)  # BFHWC
-        if vae_tiling is None:
-            vae_tiling = z.shape[2] * z.shape[3] > 48 * 48
-        with span("vae.decode"):
-            frames = (tiled_decode(self.vae.decode, z, vcfg.spatial_scale, mesh=mesh) if vae_tiling
-                      else self.vae.decode(z))
+        frames = vae_decode(self.vae, z, vae_tiling, self.attn_mesh if mesh is None else mesh)
         return frames.permute(0, 4, 1, 2, 3).float()
