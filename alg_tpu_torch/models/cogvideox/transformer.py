@@ -11,18 +11,21 @@ patches of ``patch_size_t`` frames through a linear over ``(pt, p, p, C)``,
 adds an ``ofs`` timestep embedding to the time embedding and positions its
 RoPE on the "slice" grid.
 
-Per block the DiT launches the two CUDA kernels of the port: the fused
-qk LayerNorm + RoPE (``ops/qk_prep``) on q and on k, and flash attention
-(``ops/flash_attention``) with ``stable=False``. A DiT without RoPE
-normalises q and k with a plain LayerNorm and launches flash attention
-alone, as ``alg_tpu`` does.
+Per block the DiT launches three CUDA kernels of the port: the AdaLN chain
+(``ops/ada_norm``) three times (norm1 into the joint stream; the attention's
+gated residual with norm2 into the MLP's joint input; the MLP's gated
+residual), the fused qk LayerNorm + RoPE (``ops/qk_prep``) on q and on k,
+and flash attention (``ops/flash_attention``) with ``stable=False``. A DiT
+without RoPE normalises q and k with a plain LayerNorm and launches flash
+attention alone, as ``alg_tpu`` does.
 
 Under a recording profiler (``utils/profiling.py``) the forward is spans
 ``dit.embed``, one ``dit.block`` a block (``block`` its index) and
 ``dit.final``; a block's stages are ``block.norm`` (each AdaLN-zero
-modulation), ``block.attention`` (the joint stream's concatenation, then
-``attention.qkv``, ``attention.kernel`` and ``attention.out``), ``block.gate``
-(each pair of gated residuals) and ``block.ff`` (concatenation and MLP).
+modulation with its norms; the second with the attention's gated
+residuals), ``block.attention`` (``attention.qkv``, ``attention.kernel`` and
+``attention.out``), ``block.ff`` (the MLP) and ``block.gate`` (the MLP's
+gated residuals).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch import nn
 
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
+from alg_tpu_torch.ops.ada_norm import ada_norm
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.qk_prep import qk_norm_rope
 from alg_tpu_torch.sharding.pipeline import run_blocks
@@ -116,18 +120,26 @@ def cogvideox_rope(cfg: CogVideoXTransformerConfig, height: int, width: int,
 
 class AdaNormZero(nn.Module):
     """CogVideoXLayerNormZero: ``linear(silu(temb))`` -> 6 modulation vectors
-    (shift, scale, gate for the video stream and for the text stream)."""
+    (shift, scale, gate for the video stream and for the text stream), then
+    both streams' LayerNorm, modulated, as one joint [text; video] stream."""
 
     def __init__(self, time_dim: int, dim: int, eps: float, device=None, dtype=None):
         super().__init__()
         self.linear = L.Linear(time_dim, 6 * dim, device=device, dtype=dtype)
         self.norm = L.LayerNorm(dim, eps, device=device, dtype=dtype)
 
-    def forward(self, hidden, encoder, temb):
-        shift, scale, gate, e_shift, e_scale, e_gate = self.linear(L.silu(temb)).chunk(6, dim=-1)
-        hn = self.norm(hidden) * (1 + scale[:, None]) + shift[:, None]
-        en = self.norm(encoder) * (1 + e_scale[:, None]) + e_shift[:, None]
-        return hn, en, gate[:, None], e_gate[:, None]
+    def forward(self, encoder, hidden, temb, o=None, gates=None):
+        """``(encoder, hidden, joint, (e_gate, gate))``: the text and video
+        residuals, after ``o``'s rows times ``gates`` are added when given (the
+        previous stage's gated residual, in the same launch); their modulated
+        norms as one ``[B, T + S, d]`` stream; this modulation's two gates
+        ``[B, 1, d]``."""
+        shift, scale, gate, e_shift, e_scale, e_gate = (
+            m[:, None] for m in self.linear(L.silu(temb)).chunk(6, dim=-1))
+        (encoder, hidden), joint = ada_norm(
+            (encoder, hidden), o, gates=gates, scales=(e_scale, scale), shifts=(e_shift, shift),
+            weight=self.norm.weight, bias=self.norm.bias, eps=self.norm.eps)
+        return encoder, hidden, joint, (e_gate, gate)
 
 
 class JointAttention(nn.Module):
@@ -175,21 +187,18 @@ class CogVideoXBlock(nn.Module):
         self.ff = L.MLP(cfg.inner_dim, 4 * cfg.inner_dim, **kw)
 
     def forward(self, hidden, encoder, temb, rope_cos, rope_sin):
-        text_len = encoder.shape[1]
         with span("dit.block", block=self.index):
             with span("block.norm"):
-                hn, en, gate, e_gate = self.norm1(hidden, encoder, temb)
+                encoder, hidden, joint, gates = self.norm1(encoder, hidden, temb)
             with span("block.attention"):
-                o = self.attn(torch.cat([en, hn], dim=1), rope_cos, rope_sin)
-            with span("block.gate"):
-                encoder = encoder + e_gate * o[:, :text_len]
-                hidden = hidden + gate * o[:, text_len:]
-            with span("block.norm"):
-                hn, en, gate, e_gate = self.norm2(hidden, encoder, temb)
+                o = self.attn(joint, rope_cos, rope_sin)
+            with span("block.norm"):  # the attention's gated residual and norm2, one launch
+                encoder, hidden, joint, gates = self.norm2(encoder, hidden, temb, o, gates)
             with span("block.ff"):
-                ff = self.ff(torch.cat([en, hn], dim=1))
+                ff = self.ff(joint)
             with span("block.gate"):
-                return hidden + gate * ff[:, text_len:], encoder + e_gate * ff[:, :text_len]
+                (encoder, hidden), _ = ada_norm((encoder, hidden), ff, gates=gates, norm=False)
+                return hidden, encoder
 
 
 class CogVideoXTransformer(nn.Module):

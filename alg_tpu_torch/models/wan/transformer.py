@@ -14,22 +14,25 @@ Block (diffusers ``WanTransformerBlock``):
   x += gate · selfattn(LN₀(x)·(1+scale)+shift), RMS-normed q/k, 3-D RoPE
   x += crossattn(LN(x) → text kv) + crossattn(same q → image kv)
   x += c_gate · ffn(LN₀(x)·(1+c_scale)+c_shift)
-LayerNorms compute in fp32. Per block the DiT launches the port's rope
-kernel (``ops/rope``) on q and on k of the self-attention and flash
-attention (``ops/flash_attention``, ``stable=False``) three times: self,
-text cross, image cross.
+LayerNorms compute in fp32. Per block the DiT launches the port's AdaLN
+chain (``ops/ada_norm``) four times (the modulated norm; the gated residual
+with ``norm2``; the cross-attention's residual with the modulated norm; the
+MLP's gated residual), its rope kernel (``ops/rope``) on q and on k of the
+self-attention and flash attention (``ops/flash_attention``,
+``stable=False``) three times: self, text cross, image cross.
 
 Under a recording profiler (``utils/profiling.py``) a forward is the spans
 ``dit.embed``, one ``dit.block`` a block (``block``: its place) and
 ``dit.final``, and a block's stages are spans named as the CogVideoX DiT
 names the same work: ``block.norm`` (the modulation added in fp32, the
-LayerNorms, scale and shift, and ``norm2``), ``block.attention`` (the
+LayerNorms, scale and shift, and ``norm2``, with the residual adds before
+``norm2`` and before the MLP's norm), ``block.attention`` (the
 self-attention: ``attention.qkv`` with the q/k RMSNorm and the RoPE
 launches, ``attention.kernel`` with its ``route``, ``attention.out``),
-``block.gate`` (the residual adds: two gated, the cross-attention's not) and
-``block.ff``; ``attention.cross`` holds the whole text-plus-image
-cross-attention (its q, both k/v projections and norms, both kernel
-launches, the sum and ``to_out``).
+``block.ff`` and ``block.gate`` (the MLP's gated residual);
+``attention.cross`` holds the whole text-plus-image cross-attention (its q,
+both k/v projections and norms, both kernel launches, the sum and
+``to_out``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from torch import nn
 
 from alg_tpu_torch.models import layers as L
 from alg_tpu_torch.models import rope as R
+from alg_tpu_torch.ops.ada_norm import ada_norm
 from alg_tpu_torch.ops.attention import attention
 from alg_tpu_torch.ops.rope import rope_interleaved
 from alg_tpu_torch.sharding.pipeline import run_blocks
@@ -165,23 +169,21 @@ class WanBlock(nn.Module):
                 # modulation added in fp32, then cast
                 mod = self.scale_shift_table.float()[None] + temb6.float()
                 shift, scale, gate, c_shift, c_scale, c_gate = (m.to(x.dtype) for m in mod.chunk(6, dim=1))
-                xn = L.layer_norm(x, None, None, self.eps) * (1 + scale) + shift
+                _, xn = ada_norm((x,), scales=(scale,), shifts=(shift,), eps=self.eps)
             with span("block.attention"):
                 o = self.attn1(xn, xn, rope_cos, rope_sin)
-            with span("block.gate"):
-                x = x + gate * o
-            with span("block.norm"):
-                xn = self.norm2(x)
+            with span("block.norm"):  # the gated residual and norm2, one launch
+                (x,), xn = ada_norm((x,), o, gates=(gate,), weight=self.norm2.weight, bias=self.norm2.bias,
+                                    eps=self.norm2.eps)
             with span("attention.cross"):
                 o = self.attn2(xn, text, extra_kv=img)
-            with span("block.gate"):
-                x = x + o
-            with span("block.norm"):
-                xn = L.layer_norm(x, None, None, self.eps) * (1 + c_scale) + c_shift
+            with span("block.norm"):  # the cross-attention's residual and the modulated norm, one launch
+                (x,), xn = ada_norm((x,), o, scales=(c_scale,), shifts=(c_shift,), eps=self.eps)
             with span("block.ff"):
                 o = self.ffn(xn)
             with span("block.gate"):
-                return x + c_gate * o
+                (x,), _ = ada_norm((x,), o, gates=(c_gate,), norm=False)
+                return x
 
 
 class _TextEmbedder(nn.Module):

@@ -66,12 +66,22 @@ Phases, each of which must pass:
       CogVideoX-1.5 shapes in bf16: qk_prep and the tensor-core forward at
       [2, 48, S, 64] for S = 8,386 (9 frames at 768x1360) and 45,106 (the
       model card's 81 frames), the LSE, dq and dkv at [1, 48, 45106, 64];
+      then the DiT blocks' AdaLN chain (``csrc/ada_norm.cu``) against its
+      plain composition at the three cells' shipped lengths
+      ([2, 18002, 3072] and [2, 45332, 3072], 226 text rows first, and
+      [3, 32760, 5120]), each variant a block launches, in bf16 and fp32:
+      the residuals bit for bit, the normed rows within a rounding at the
+      norm, one launch a call, the kernel's time (and its device time) beside
+      its bytes bound at 3.35 TB/s, the share of the bound, and the plain
+      version's time;
   C.  CogVideoX slice: the full-width CogVideoX-5b-I2V pipeline (42-layer DiT
       and 24-layer T5-XXL in bf16, VAE in fp32, random weights from a seed)
       driven once through ``CogVideoXPipeline.__call__`` with the shipped ALG
       config at 9 frames, 480x720, 4 steps (2 three-pass, 2 two-pass); checks
-      the output shape, finiteness and the exact kernel launch counts, and
-      prints the time of each stage; then the same call under
+      the output shape, finiteness and the exact kernel launch counts (the
+      AdaLN chain's 3 a block, 3 x 42 a DiT forward: norm1, the attention's
+      gated residual with norm2, the MLP's gated residual), and prints the
+      time of each stage; then the same call under
       ``set_attention_int8("qk")`` and ``("full")`` (42 int8 launches a DiT
       forward and no bf16 flash launch from the DiT), with each step's time
       beside the bf16 run's and the drift of the final latents against it;
@@ -92,7 +102,10 @@ Phases, each of which must pass:
       from a seed) driven once through ``WanPipeline.__call__`` with the
       shipped ALG settings at 9 frames, 480x832, 4 steps (2 three-pass, 2
       two-pass), the prompt through ``encode_prompt`` with a prefix mask and
-      the CLIP tower's penultimate output as ``image_embeds``; same checks,
+      the CLIP tower's penultimate output as ``image_embeds``; same checks
+      (the AdaLN chain's 4 launches a block, 4 x 40 a DiT forward: the
+      modulated norm, the gated residual with norm2, the cross-attention's
+      residual with the MLP's modulated norm, the MLP's gated residual),
       and the DiT's 120 flash launches a forward on the Hopper kernel, UMT5's
       (a bias) on mma.sync; then the same call under int8 "qk" (40 int8 and 80 bf16 flash launches
       a DiT forward: the two cross-attentions stay where they were); then
@@ -1532,6 +1545,7 @@ def phase_kernels() -> list:
     _cogvideox15_kernel_cases(records, gen)
     _int8_kernel_cases(records, gen)
     _prolog_kernel_cases(records, gen)
+    _ada_norm_cases(records, gen, dtypes=("bfloat16", "float32"))
     _require_all_ok(records)
     return records
 
@@ -1575,6 +1589,119 @@ def _cogvideox15_kernel_cases(records, gen) -> None:
     torch.cuda.empty_cache()
     _attn_bwd_case(records, "dit", (1, 48, COGVIDEOX15_S[81], 64), torch.bfloat16, gen, 64 ** -0.5, reps=1)
     torch.cuda.empty_cache()
+
+
+# The cells' AdaLN chain at their shipped joint lengths: (tag, B, rows a stream (text, then video), d, the
+# variants a block launches). Variants name the parts of a launch: "add" the residual add, "gate" the gated
+# add, "norm" the LayerNorm, "affine" its fp32 affine, "mod" the modulation.
+ADA_NORM_SHAPES = (
+    ("cogvideox-49f", 2, (226, 17776), 3072, ("norm_affine_mod", "gate_norm_affine_mod", "gate")),
+    ("cogvideox15-81f", 2, (226, 45106), 3072, ("norm_affine_mod", "gate_norm_affine_mod", "gate")),
+    ("wan-81f", 3, (32760,), 5120, ("norm_mod", "gate_norm_affine", "add_norm_mod", "gate")),
+)
+
+
+def _ada_norm_inputs(gen, b, rows, d, variant, dtype, dev="cuda"):
+    """``ada_norm``'s arguments for ``variant`` on the card, the vectors [B, 1, d] views of a [B, 6d] output."""
+    import torch
+
+    parts = set(variant.split("_"))
+    xs = tuple(torch.randn((b, r, d), generator=gen, device=dev).to(dtype) for r in rows)
+    mods = [(0.3 * torch.randn((b, 6 * d), generator=gen, device=dev)).to(dtype) for _ in rows]
+    vec = lambda k: tuple(m[:, None, k * d:(k + 1) * d] for m in mods)  # noqa: E731
+    affine = "affine" in parts
+    return xs, dict(o=torch.randn((b, sum(rows), d), generator=gen, device=dev).to(dtype) if parts & {"add", "gate"}
+                    else None, gates=vec(2) if "gate" in parts else None, scales=vec(1) if "mod" in parts else None,
+                    shifts=vec(0) if "mod" in parts else None,
+                    weight=(1 + 0.2 * torch.randn(d, generator=gen, device=dev)).to(dtype) if affine else None,
+                    bias=(0.2 * torch.randn(d, generator=gen, device=dev)).to(dtype) if affine else None, eps=1e-6,
+                    norm="norm" in parts)
+
+
+def _ada_norm_bytes(xs, kw) -> int:
+    """Bytes a launch must move: x read; o read and x' written with a residual add; y written with a norm; the
+    vectors and the fp32 affine once a batch element."""
+    elems = sum(x.numel() for x in xs)
+    add = kw["o"] is not None
+    vecs = sum(v.numel() for name in ("gates", "scales", "shifts") if kw[name] is not None for v in kw[name])
+    return xs[0].element_size() * (elems * (1 + 2 * add + kw["norm"]) + vecs) + 8 * xs[0].shape[2] * (
+        kw["weight"] is not None)
+
+
+def _ada_norm_ok(xs, kw, got, want, dtype) -> tuple:
+    """(largest difference of the normed rows, ok): the residuals bit for bit; the normed rows in fp32 within
+    1e-5 + 1e-5·|ref|, in bf16 within one rounding step at the norm, widened by 2^-19 of the magnitudes that meet
+    in its fp32 value (the row sums' order moves the statistics by a few fp32 ulps), carried through the
+    modulation's roundings (that times 1 + scale, a step of the product, a step of the result)."""
+    import torch
+
+    from alg_tpu_torch.models import layers as L
+
+    (res, y), (res_ref, y_ref) = got, want
+    ok = all(torch.equal(a, r) for a, r in zip(res, res_ref))
+    if y_ref is None:
+        return 0.0, ok and y is None
+    err = (y.float() - y_ref.float()).abs()
+    if dtype == torch.float32:
+        bound = 1e-5 + 1e-5 * y_ref.float().abs()
+    else:
+        def ulp(v):
+            return torch.exp2(torch.floor(torch.log2(v.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+        ln = torch.cat([L.layer_norm(x, kw["weight"], kw["bias"], kw["eps"]) for x in res_ref], dim=1)
+        mags = []
+        for x in res_ref:
+            xf = x.float()
+            mean = xf.mean(-1, keepdim=True)
+            mag = (xf.abs() + mean.abs()) * torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + kw["eps"])
+            if kw["weight"] is not None:
+                mag = mag * kw["weight"].float().abs() + kw["bias"].float().abs()
+            mags.append(mag)
+            del xf
+        bound = ulp(ln) + 2.0 ** -19 * torch.cat(mags, dim=1)
+        del mags
+        if kw["scales"] is not None:
+            s1 = torch.cat([(1 + sc).expand(x.shape) for sc, x in zip(kw["scales"], res_ref)], dim=1)
+            bound = bound * s1.float().abs() + ulp(ln * s1) + ulp(y_ref)
+        del ln
+    return err.max().item(), ok and bool((err <= bound).all())
+
+
+def _ada_norm_cases(records, gen, dtypes=("bfloat16",), reps=10) -> None:
+    """The AdaLN chain kernel against its plain composition at the cells' shipped lengths, each variant a block
+    launches: the kernel's time (CUDA events over one launch, and its device time by ``torch.profiler``), its
+    bytes bound at 3.35 TB/s, the share of the bound it reaches, and the plain version's time."""
+    import torch
+
+    from alg_tpu_torch.ops.ada_norm import ada_norm, ada_norm_plain
+
+    for dtype_name in dtypes:
+        dtype = getattr(torch, dtype_name)
+        for tag, b, rows, d, variants in ADA_NORM_SHAPES:
+            for variant in variants:
+                xs, kw = _ada_norm_inputs(gen, b, rows, d, variant, dtype)
+                before = ada_norm.launches
+                got = ada_norm(xs, **kw)
+                torch.cuda.synchronize()
+                launched = ada_norm.launches - before
+                err, ok = _ada_norm_ok(xs, kw, got, ada_norm_plain(xs, **kw), dtype)
+                del got
+                ms = _time_ms(lambda: ada_norm(xs, **kw), reps)
+                plain_ms = _time_ms(lambda: ada_norm_plain(xs, **kw), 3)
+                device_ms = _device_ms(lambda: ada_norm(xs, **kw), "ada_norm_kernel")
+                bound = _bound(0.0, _ada_norm_bytes(xs, kw), dtype_name)
+                shape = (b, sum(rows), d)
+                share = "not measured" if device_ms is None else f"{100 * bound[0] / device_ms:.1f}%"
+                print(f"[B] ada_norm {variant:<21} {dtype_name:<8} {str(shape):<18} {tag:<16} max|diff| {err:.3e} "
+                      f"(residuals bit for bit; normed rows within a rounding at the norm) launches {launched} "
+                      f"kernel {ms:.4f} ms (device {'not measured' if device_ms is None else f'{device_ms:.4f}'} "
+                      f"ms, {share} of the bound)  plain {plain_ms:.3f} ms  bound {bound[0]:.4f} ms ({bound[1]})  "
+                      f"{'PASS' if ok and launched == 1 else 'FAIL'}", flush=True)
+                records.append(dict(name=f"ada_norm {variant}", dtype=dtype_name, shape=list(shape), max_abs_err=err,
+                                    ok=ok and launched == 1, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                    bound_by=bound[1], library_ms=None, device_ms=device_ms))
+                del xs, kw
+                torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1850,6 +1977,7 @@ def phase_slice(path: str = "cogvideox") -> dict:
     from alg_tpu_torch.models.cogvideox.transformer import CogVideoXTransformer
     from alg_tpu_torch.models.cogvideox.vae import CogVideoXVAE
     from alg_tpu_torch.models.t5 import T5Encoder
+    from alg_tpu_torch.ops.ada_norm import ada_norm
     from alg_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 
     tag, config, height, width, card_frames, card_s = COG_SLICES[path]
@@ -1888,12 +2016,14 @@ def phase_slice(path: str = "cogvideox") -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    ada0 = ada_norm.launches
     t0 = time.perf_counter()
     video = pipe(image=image, prompt=PROMPT, height=height, width=width, num_frames=frames, output_type="np",
                  **_alg_kwargs())
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = _read_counts()
+    ada = ada_norm.launches - ada0
 
     for name, ms, dit_ms in timer.rows:
         print(f"[{tag}] {name:<36} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
@@ -1915,6 +2045,11 @@ def phase_slice(path: str = "cogvideox") -> dict:
                              f"{t5_enc} T5 encodes; want 4 (2, 2), 2")
     if counts != want:
         raise AssertionError(f"[{tag}] kernel launches {counts} != {want}")
+    # the AdaLN chain: three launches a block (norm1; the attention's gated residual with norm2; the MLP's gated
+    # residual)
+    print(f"[{tag}] ada_norm launches {ada} (want 3 x {tcfg.num_layers} blocks x {dit_fwd} DiT forwards)", flush=True)
+    if ada != 3 * tcfg.num_layers * dit_fwd:
+        raise AssertionError(f"[{tag}] ada_norm launches {ada} != {3 * tcfg.num_layers * dit_fwd}")
     from alg_tpu_torch.ops.flash_attention import flash_attention
 
     # of the tensor-core forwards, the DiT's (head dim 64, no bias) on the Hopper kernel, T5's (a bias) on mma.sync
@@ -2028,6 +2163,7 @@ def phase_slice_wan() -> dict:
     from alg_tpu_torch.models.t5 import UMT5_XXL, T5Encoder
     from alg_tpu_torch.models.wan.transformer import WanTransformer, WanTransformerConfig
     from alg_tpu_torch.models.wan.vae import WanVAE, WanVAEConfig
+    from alg_tpu_torch.ops.ada_norm import ada_norm
     from alg_tpu_torch.pipelines.wan import WanPipeline
 
     _set_tf32(False, True)  # PyTorch's defaults: fp32 matmuls in full fp32, cuDNN convs in TF32
@@ -2064,6 +2200,7 @@ def phase_slice_wan() -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    ada0 = ada_norm.launches
     t0 = time.perf_counter()
     with torch.no_grad():
         image_embeds = clip_tower(pixels)  # the penultimate layer's output, [1, 257, 1280]
@@ -2074,6 +2211,7 @@ def phase_slice_wan() -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = _read_counts()
+    ada = ada_norm.launches - ada0
 
     for name, ms, dit_ms in timer.rows:
         print(f"[C2] {name:<40} {ms:10.1f} ms" + ("" if dit_ms is None else f"  (DiT forward {dit_ms:.1f} ms)"))
@@ -2092,6 +2230,11 @@ def phase_slice_wan() -> dict:
                              f"{t5_enc} UMT5 encodes, {clip_runs} CLIP runs; want 4 (2, 2), 2, 1")
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != {want}")
+    # the AdaLN chain: four launches a block (the modulated norm; the gated residual with norm2; the
+    # cross-attention's residual with the MLP's modulated norm; the MLP's gated residual)
+    print(f"[C2] ada_norm launches {ada} (want 4 x {tcfg.num_layers} blocks x {dit_fwd} DiT forwards)", flush=True)
+    if ada != 4 * tcfg.num_layers * dit_fwd:
+        raise AssertionError(f"[C2] ada_norm launches {ada} != {4 * tcfg.num_layers * dit_fwd}")
     from alg_tpu_torch.ops.flash_attention import flash_attention
 
     # of the tensor-core forwards, the DiT's three a block (head dim 128, no bias) on the Hopper kernel, UMT5's

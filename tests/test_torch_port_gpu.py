@@ -52,8 +52,13 @@ Sq < Sk and Sq > Sk, ``stable`` both ways and the LSE, at D = 64 bit-equal
 to the ``"tc"`` kernel without a running max, at the DiTs' full lengths
 ([3, 48, 18002, 64], [2, 48, 45106, 64]; Wan's [3, 40, 32760, 128] self-
 and cross-attention to 512 and 257 keys, HunyuanVideo's joint
-[1, 24, 28128, 128] with ``kv_len``), and its entry points' refusals.
-Every test is marked
+[1, 24, 28128, 128] with ``kv_len``), and its entry points' refusals; and the
+DiT blocks' AdaLN chain (``csrc/ada_norm.cu``) in each combination of residual
+add, gate, norm, affine and modulation, one and two streams (a text stream of
+0 rows among them), d = 40, 3,072 and 5,120, the branch output a strided
+slice, against the plain composition (residuals bit for bit, normed rows
+within a rounding at the norm), at the three cells' shipped lengths, its
+gradients and its refusals. Every test is marked
 ``gpu`` and skips without a CUDA card. On a machine with one::
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py -q
@@ -383,12 +388,15 @@ def test_dit_forward_card_matches_cpu(cuda):
     x, text = _randn(gen, 2, 3, 8, 8, 8), _randn(gen, 2, 8, 64)
     ts = torch.tensor([999.0, 400.0])
     cos, sin = (torch.from_numpy(a) for a in cogvideox_rope(cfg, 64, 64, 3))
+    from alg_tpu_torch.ops.ada_norm import ada_norm
+
     with torch.no_grad():
         ref = dit(x, text, ts, cos, sin)
-        before = (QK.qk_norm_rope.launches, FA.flash_attention.launches)
+        before = (QK.qk_norm_rope.launches, FA.flash_attention.launches, ada_norm.launches)
         out = copy.deepcopy(dit).to(cuda)(*(a.to(cuda) for a in (x, text, ts, cos, sin)))
         torch.cuda.synchronize()
     assert (QK.qk_norm_rope.launches - before[0], FA.flash_attention.launches - before[1]) == (4, 2)
+    assert ada_norm.launches - before[2] == 3 * 2  # three a block: norm1, gate + norm2, gate
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)
 
 
@@ -2036,3 +2044,169 @@ def test_wgmma_entry_refuses_what_it_does_not_take(cuda, d):
               stream) == 1
     torch.cuda.synchronize()
     assert bool((x == 7.0).all()) and bool((y == 7.0).all())
+
+
+# -- the DiT blocks' AdaLN chain (csrc/ada_norm.cu) --------------------------------------------------------------
+
+# The variants, by the parts of the chain a launch does: "add" the residual add (x + o), "gate" the gated add
+# (x + g·o), "norm" the LayerNorm, "affine" its fp32 affine, "mod" the modulation. The blocks launch
+# norm_affine_mod (CogVideoX norm1), gate_norm_affine_mod (the attention's gated residual with norm2), norm_mod
+# (Wan), gate_norm_affine (Wan's gated residual with norm2), add_norm_mod (Wan's cross-attention residual with the
+# MLP's norm) and gate (both MLPs' gated residual); norm and add the two left over.
+ADA_VARIANTS = ["norm", "norm_affine", "norm_mod", "norm_affine_mod", "add_norm_mod", "gate_norm_affine",
+                "gate_norm_affine_mod", "gate", "add"]
+# rows a stream (CogVideoX: text, then video) and the width: the two widths of the main path, and a ragged
+# one whose last warp holds 5 active lanes
+ADA_SHAPES = {
+    "cog": dict(b=2, rows=(5, 37), d=3072),
+    "cog-no-text": dict(b=2, rows=(0, 29), d=3072),
+    "wan": dict(b=3, rows=(300,), d=5120),
+    "d40": dict(b=1, rows=(8,), d=40),
+    "d40-two-streams": dict(b=2, rows=(3, 5), d=40),
+}
+
+
+def _ada_inputs(gen, dev, dtype, variant, b, rows, d):
+    """Keyword arguments of ``ada_norm`` for ``variant``: o a column slice of a wider [B, ΣR, 3d] tensor (its
+    rows step over the other columns), each stream's vectors [B, 1, d] views of one [B, 6d] modulation output."""
+    parts = set(variant.split("_"))
+    xs = tuple((_randn(gen, b, r, d, scale=2.0) + 0.5).to(dev, dtype) for r in rows)
+    o = _randn(gen, b, sum(rows), 3 * d).to(dev, dtype)[:, :, d:2 * d]
+    mods = [(0.3 * _randn(gen, b, 6 * d)).to(dev, dtype) for _ in rows]
+    vec = lambda k: tuple(m[:, None, k * d:(k + 1) * d] for m in mods)  # noqa: E731
+    return dict(xs=xs, o=o if parts & {"add", "gate"} else None, gates=vec(2) if "gate" in parts else None,
+                scales=vec(1) if "mod" in parts else None, shifts=vec(0) if "mod" in parts else None,
+                weight=(1.0 + 0.2 * _randn(gen, d)).to(dev, dtype) if "affine" in parts else None,
+                bias=(0.2 * _randn(gen, d)).to(dev, dtype) if "affine" in parts else None, eps=1e-5,
+                norm="norm" in parts)
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _ada_norm_bound(kw, residuals, ref, dtype):
+    """How far the kernel's normed rows may lie from the plain ones. fp32: 1e-5 + 1e-5·|ref| (the row sums'
+    order). bf16: one rounding step at the norm's output, widened by 2^-19 of the magnitudes that meet in its
+    fp32 value (the row sums' order moves the mean and the variance by a few fp32 ulps, and under cancellation
+    in the affine that can be more than a step of a small result), carried through the modulation's two
+    roundings (that times 1 + scale, a step of the product, a step of the result)."""
+    if dtype == torch.float32:
+        return 1e-5 + 1e-5 * ref.float().abs()
+    from alg_tpu_torch.models import layers as Lm
+
+    ln = torch.cat([Lm.layer_norm(x, kw["weight"], kw["bias"], kw["eps"]) for x in residuals], dim=1)
+    mags = []
+    for x in residuals:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        mag = (xf.abs() + mean.abs()) * torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + kw["eps"])
+        if kw["weight"] is not None:
+            mag = mag * kw["weight"].float().abs() + kw["bias"].float().abs()
+        mags.append(mag)
+    at_norm = _bf16_ulp(ln) + 2.0 ** -19 * torch.cat(mags, dim=1)
+    if kw["scales"] is None:
+        return at_norm
+    s1 = torch.cat([(1 + s).expand(x.shape) for s, x in zip(kw["scales"], residuals)], dim=1)
+    return at_norm * s1.float().abs() + _bf16_ulp(ln * s1) + _bf16_ulp(ref)
+
+
+def _check_ada_norm(kw, got, want, dtype):
+    (res, y), (res_ref, y_ref) = got, want
+    for a, r in zip(res, res_ref):
+        assert a.shape == r.shape and torch.equal(a, r)  # the residual adds round as the plain ops do
+    if y_ref is None:
+        assert y is None
+        return
+    assert y.shape == y_ref.shape and y.dtype == y_ref.dtype
+    err = (y.float() - y_ref.float()).abs()
+    bound = _ada_norm_bound(kw, res_ref, y_ref, dtype)
+    assert bool((err <= bound).all()), f"max|diff| {err.max().item():.3e}, worst excess {(err - bound).max():.3e}"
+
+
+@pytest.mark.parametrize("shape", list(ADA_SHAPES))
+@pytest.mark.parametrize("variant", ADA_VARIANTS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_ada_norm_kernel_matches_plain(cuda, shape, variant, dtype):
+    """Each variant against the plain composition on the card: the new residuals bit for bit, the normed rows
+    within :func:`_ada_norm_bound`; one launch a call."""
+    from alg_tpu_torch.ops import ada_norm as AN
+
+    gen = torch.Generator().manual_seed(11)
+    kw = _ada_inputs(gen, cuda, dtype, variant, **ADA_SHAPES[shape])
+    xs = kw.pop("xs")
+    before = AN.ada_norm.launches
+    got = AN.ada_norm(xs, **kw)
+    torch.cuda.synchronize()
+    assert AN.ada_norm.launches == before + 1
+    _check_ada_norm(kw, got, AN.ada_norm_plain(xs, **kw), dtype)
+    if kw["o"] is None:
+        assert all(a is x for a, x in zip(got[0], xs))
+
+
+@pytest.mark.parametrize("shape", [(2, (226, 17776), 3072), (2, (226, 45106), 3072), (3, (32760,), 5120)],
+                         ids=["cogvideox-49f", "cogvideox15-81f", "wan-81f"])
+def test_ada_norm_kernel_at_the_shipped_lengths(cuda, shape):
+    """The fused gate + norm launch of each cell's blocks, bf16, at the shipped joint lengths (CogVideoX's with
+    norm2's affine and the modulation, Wan's with the affine alone)."""
+    from alg_tpu_torch.ops import ada_norm as AN
+
+    b, rows, d = shape
+    gen = torch.Generator(cuda).manual_seed(12)
+    variant = "gate_norm_affine_mod" if len(rows) == 2 else "gate_norm_affine"
+    parts = set(variant.split("_"))
+    xs = tuple(torch.randn((b, r, d), generator=gen, device=cuda).to(torch.bfloat16) for r in rows)
+    o = torch.randn((b, sum(rows), d), generator=gen, device=cuda).to(torch.bfloat16)
+    vec = lambda: tuple((0.3 * torch.randn((b, 1, d), generator=gen, device=cuda)).to(torch.bfloat16)  # noqa: E731
+                        for _ in rows)
+    kw = dict(o=o, gates=vec(), scales=vec() if "mod" in parts else None, eps=1e-6,
+              weight=(1 + 0.2 * torch.randn(d, generator=gen, device=cuda)).to(torch.bfloat16),
+              bias=(0.2 * torch.randn(d, generator=gen, device=cuda)).to(torch.bfloat16))
+    kw["shifts"] = vec() if "mod" in parts else None
+    _check_ada_norm(kw, AN.ada_norm(xs, **kw), AN.ada_norm_plain(xs, **kw), torch.bfloat16)
+
+
+def test_ada_norm_gradients_are_the_plain_composition(cuda):
+    """With inputs that require a gradient the forward is still one launch, and the gradients of every input,
+    both streams, are those of autograd through the plain composition (its own backward)."""
+    from alg_tpu_torch.ops import ada_norm as AN
+
+    gen = torch.Generator().manual_seed(13)
+    kw = _ada_inputs(gen, cuda, torch.float32, "gate_norm_affine_mod", b=2, rows=(3, 21), d=64)
+    xs = tuple(x.requires_grad_() for x in kw.pop("xs"))
+    for name in ("gates", "scales", "shifts"):
+        kw[name] = tuple(v.detach().clone().requires_grad_() for v in kw[name])
+    kw["o"] = kw["o"].detach().clone().requires_grad_()
+    kw["weight"].requires_grad_()
+    kw["bias"].requires_grad_()
+    leaves = [*xs, kw["o"], *kw["gates"], *kw["scales"], *kw["shifts"], kw["weight"], kw["bias"]]
+    before = AN.ada_norm.launches
+    (e, h), y = AN.ada_norm(xs, **kw)
+    assert AN.ada_norm.launches == before + 1 and y.grad_fn is not None
+    cots = [_randn(gen, *t.shape).to(cuda) for t in (e, h, y)]
+    got = torch.autograd.grad((e, h, y), leaves, cots)
+    (e_r, h_r), y_r = AN.ada_norm_plain(xs, **kw)
+    want = torch.autograd.grad((e_r, h_r, y_r), leaves, cots)
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
+
+
+def test_ada_norm_refuses_what_the_kernel_does_not_take(cuda):
+    """A width that is no multiple of 8 or above 5,120, half precision, misaligned rows, mixed dtypes: each
+    raises on the card, launches nothing and runs nothing in its place."""
+    from alg_tpu_torch.ops import ada_norm as AN
+
+    x = torch.zeros(1, 4, 64, device=cuda)
+    before = AN.ada_norm.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        AN.ada_norm((torch.zeros(1, 4, 36, device=cuda),))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        AN.ada_norm((torch.zeros(1, 4, 5128, device=cuda),))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        AN.ada_norm((x.half(),))
+    with pytest.raises(ValueError, match="unit stride"):
+        AN.ada_norm((torch.zeros(1, 4, 72, device=cuda)[:, :, 2:66],))
+    with pytest.raises(TypeError):
+        AN.ada_norm((x,), x.bfloat16())
+    assert AN.ada_norm.launches == before

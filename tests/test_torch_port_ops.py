@@ -384,7 +384,7 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
     assert _build.library_path().name.startswith("libalg_kernels_")
     from alg_tpu_torch.ops import flash_attention_int8 as I8
 
-    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "flash_attention_bwd.cu",
+    assert {p.name for p in _build._sources()[0]} == {"ada_norm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
                                                       "flash_attention_bwd_dq_tc.cu", "flash_attention_bwd_tc.cu",
                                                       "flash_attention_int8_tc.cu", "flash_attention_tc.cu",
                                                       "flash_attention_wgmma.cu", "qk_prep.cu", "qk_prolog.cu",
@@ -392,6 +392,7 @@ def test_build_module_imports_and_raises_without_nvcc(monkeypatch, tmp_path):
     assert {p.name for p in _build._sources()[1]} == {"common.cuh", "flash_simt.cuh", "mma.cuh"}
     # the flash sources declare their head dims in a ``// build-variants:`` line: one unit each
     assert [(u[0], u[2]) for u in _build.compile_units()] == [
+        ("ada_norm", ()),
         *((f"{src}.ALG_FLASH_HEAD_DIM_{d}", (f"-DALG_FLASH_HEAD_DIM={d}",))
           for src in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dq_tc", "flash_attention_bwd_tc")
           for d in FA.HEAD_DIMS),

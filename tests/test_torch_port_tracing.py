@@ -27,7 +27,8 @@ from torch_port_common import build_hunyuan_pair, build_wan_pair, one_thread  # 
 STEPS = 4
 ALG = dict(use_low_pass_guidance=True, lp_filter_type="down_up", lp_filter_in_latent=True, lp_resize_factor=0.25,
            lp_strength_schedule_type="interval", schedule_interval_start_time=0.0, schedule_interval_end_time=0.4)
-STAGES = ["block.norm", "block.attention", "block.gate", "block.norm", "block.ff", "block.gate"]
+# the attention's gated residuals run with norm2 in one launch, under its block.norm
+STAGES = ["block.norm", "block.attention", "block.norm", "block.ff", "block.gate"]
 
 
 @pytest.fixture(scope="module")

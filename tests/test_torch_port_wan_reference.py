@@ -174,8 +174,8 @@ def test_dit_forward_records_its_block_spans_under_the_profiler_and_nothing_with
     assert [r["attrs"]["block"] for r in top[1:3]] == [0, 1]
     for block in top[1:3]:
         assert [r["name"] for r in _children(recs, block)] == [
-            "block.norm", "block.attention", "block.gate", "block.norm", "attention.cross", "block.gate",
-            "block.norm", "block.ff", "block.gate"]
+            "block.norm", "block.attention", "block.norm", "attention.cross", "block.norm", "block.ff",
+            "block.gate"]  # the residual adds before norm2 and the MLP's norm run in the norms' launches
         (attention,) = _children(recs, block, "block.attention")
         stages = _children(recs, attention)
         assert [r["name"] for r in stages] == ["attention.qkv", "attention.kernel", "attention.out"]
